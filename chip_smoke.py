@@ -1,0 +1,537 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (image_restoration_agent_tpu_torch) on one
+NVIDIA card and check it.
+
+    python3 chip_smoke.py            # the whole smoke (one card)
+    python3 chip_smoke.py --quick    # build + kernel checks at a small shape
+
+Phases, each printing one JSON line:
+
+1. device: card name and count, ``nvidia-smi`` name and power limit;
+2. build: every CUDA source built by nvcc in parallel, with the
+   ``-Xptxas -v`` register and spill figures;
+3. kernels: each kernel wrapper against its plain PyTorch version on the
+   same inputs at the serving path's shapes (a 552x1920 band of SwinIR-M),
+   float32 exact (max-abs error <= 1e-4 * max|ref|) and bfloat16 fast
+   (RMS error against plain bf16 no larger than plain bf16's RMS error
+   against plain f32, the bf16-rounding control, and max-abs error no
+   larger than the control's plus one bf16 ulp at the output's largest
+   magnitude), timed with CUDA events, beside one library call where
+   PyTorch has one (``F.conv2d``, ``scaled_dot_product_attention``);
+4. golden: SwinIR-M x4 on the real-geometry synthetic golden in float32,
+   PSNR against the independent torch reference output >= recorded - 0.1;
+5. main_path: ``Engine(device="cuda")`` serving 1920x1080 x4 in band mode
+   in bf16 (one warm-up request, three timed), with the launch counts of
+   every kernel wrapper over the timed requests;
+6. fast_vs_exact: the bf16 fast band path against the f32 exact whole-image
+   path on a 480x270 probe, PSNR >= the plain bf16-vs-f32 control - 2 dB.
+
+Then the ``kernels`` line, the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
+that last line; so does a machine without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+import traceback
+
+import numpy as np
+
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # H100 SXM, dense
+PEAK_BYTES = 3.35e12
+SRC = "image_restoration_agent_tpu_torch/csrc/"
+TPU = "image_restoration_agent_tpu/ops/"
+REPLACES = {
+    "swin_block": TPU + "pallas_attention.py:1015",
+    "token_linear": TPU + "pallas_attention.py:1015",
+    "window_attention": TPU + "pallas_attention.py:1015",
+    "mlp_block": TPU + "pallas_attention.py:1457",
+    "conv3x3": TPU + "conv3x3.py:201",
+}
+SOURCE = {"swin_block": SRC + "swin_block.cu", "token_linear":
+          SRC + "swin_block.cu", "window_attention": SRC + "swin_block.cu",
+          "mlp_block": SRC + "swin_block.cu", "conv3x3": SRC + "conv3x3.cu"}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else \
+        "nvidia-smi gave no output"
+
+
+def cuda_ms(fn, reps: int, warm: int = 1) -> float:
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def bound(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_mem = nbytes / PEAK_BYTES
+    return (max(t_ops, t_mem) * 1e3,
+            "operations" if t_ops >= t_mem else "bytes")
+
+
+def range_psnr(a, ref) -> float:
+    """PSNR normalized by the reference's dynamic range."""
+    a = np.asarray(a, np.float64)
+    ref = np.asarray(ref, np.float64)
+    span = float(ref.max() - ref.min()) or 1.0
+    mse = float(np.mean((a - ref) ** 2))
+    return float(20 * np.log10(span) - 10 * np.log10(max(mse, 1e-20)))
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+
+
+def kernel_checks(shape, seed: int = 0) -> list[dict]:
+    import torch
+
+    from image_restoration_agent_tpu_torch.ops.conv3x3 import (
+        conv3x3, conv3x3_plain, conv3x3_weights)
+    from image_restoration_agent_tpu_torch.ops.swin_block import (
+        GATHER, mlp_block, mlp_block_plain, prepare_swin_params, swin_block,
+        swin_block_plain, token_linear, token_linear_plain, window_attention,
+        window_attention_plain)
+    from image_restoration_agent_tpu_torch.ops.window_attention import (
+        shift_attention_mask)
+
+    dev = torch.device("cuda")
+    b, h, w, c = shape
+    ws, heads, hid = 8, 6, 2 * c
+    n = ws * ws
+    t = b * h * w
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def randn(*s, scale=1.0):
+        return (torch.randn(*s, generator=gen) * scale).to(dev)
+
+    x32 = randn(b, h, w, c)
+    wts = dict(
+        norm1_w=1 + randn(c, scale=0.1), norm1_b=randn(c, scale=0.1),
+        qkv_w=randn(3 * c, c, scale=c ** -0.5), qkv_b=randn(3 * c,
+                                                            scale=0.1),
+        proj_w=randn(c, c, scale=c ** -0.5), proj_b=randn(c, scale=0.1),
+        rpb_table=randn((2 * ws - 1) ** 2, heads, scale=0.5),
+        norm2_w=1 + randn(c, scale=0.1), norm2_b=randn(c, scale=0.1),
+        fc1_w=randn(hid, c, scale=c ** -0.5), fc1_b=randn(hid, scale=0.1),
+        fc2_w=randn(c, hid, scale=hid ** -0.5), fc2_b=randn(c, scale=0.1))
+    bank = torch.from_numpy(shift_attention_mask(
+        2 * ws, 2 * ws, ws, ws // 2).reshape(2, 2, n, n)).to(dev)
+    x1_32 = randn(t, c)
+    conv_w = {cin_cout: randn(3, 3, cin_cout[0], cin_cout[1],
+                              scale=(9 * cin_cout[0]) ** -0.5)
+              for cin_cout in ((3, c), (c, c), (c, 64), (64, 256), (256, 12))}
+    conv_b = {k: randn(k[1], scale=0.1) for k in conv_w}
+    ln = (1 + randn(c, scale=0.1), randn(c, scale=0.1))
+    img32 = randn(b, h, w, 3)
+    res32 = randn(b, h, w, c)
+    # the x4 head's border ring: a 12-row strip after the first upsample
+    # stage (24 rows, twice the width, 64 channels) enters upsample_tail
+    ring32 = randn(b, 24, 2 * w, 64)
+    ring_mid32 = randn(b, 24, 2 * w, 256)
+    rows = []
+
+    for dtype, fast in ((torch.float32, False), (torch.bfloat16, True)):
+        dn = str(dtype).split(".")[-1]
+        es = 4 if dtype == torch.float32 else 2
+        p = prepare_swin_params(**wts, num_heads=heads, ws=ws, dtype=dtype)
+        p32 = prepare_swin_params(**wts, num_heads=heads, ws=ws,
+                                  dtype=torch.float32)
+        x = x32.to(dtype)
+        geom = (b, h, w, ws, -4)
+
+        cases = []
+        # the main path's three reads: a shift-0 block first (dc 0), a
+        # shifted block (dc -4, bank), a shift-0 block after it (dc +4)
+        for dc, bk in ((0, None), (-4, bank), (4, None)):
+            kw = dict(num_heads=heads, ws=ws, dc=dc, mask_bank=bk, fast=fast)
+            flops = (2 * t * c * 3 * c + 2 * t * c * c + 4 * t * c * hid
+                     + 4 * t * n * c)
+            nbytes = 2 * t * c * es + (4 * c * c + 2 * c * hid) * es
+            cases.append(dict(
+                name="swin_block", variant=f"dc={dc}"
+                + (",bank" if bk is not None else ""),
+                kernel=lambda x=x, kw=kw: swin_block(x, p, **kw),
+                plain=lambda x=x, kw=kw: swin_block_plain(x, p, **kw),
+                ref32=lambda kw=kw: swin_block_plain(x32, p32, **kw),
+                library=None, flops=flops, nbytes=nbytes, reps=3))
+        xt = x.reshape(t, c)
+        qkv = token_linear_plain(xt, p.wqkv, p.bqkv, ln=(p.ln1_w, p.ln1_b),
+                                 geom=geom, a_map=GATHER)
+        qkv32 = token_linear_plain(x32.reshape(t, c), p32.wqkv, p32.bqkv,
+                                   ln=(p32.ln1_w, p32.ln1_b), geom=geom,
+                                   a_map=GATHER)
+        tl_kw = dict(ln=(p.ln1_w, p.ln1_b), geom=geom, a_map=GATHER)
+        cases.append(dict(
+            name="token_linear", variant="ln1+gather->qkv",
+            kernel=lambda: token_linear(xt, p.wqkv, p.bqkv, **tl_kw),
+            plain=lambda: token_linear_plain(xt, p.wqkv, p.bqkv, **tl_kw),
+            ref32=lambda: token_linear_plain(
+                x32.reshape(t, c), p32.wqkv, p32.bqkv,
+                ln=(p32.ln1_w, p32.ln1_b), geom=geom, a_map=GATHER),
+            library=None, flops=2 * t * c * 3 * c,
+            nbytes=4 * t * c * es + 3 * c * c * es, reps=3))
+        wa_kw = dict(num_heads=heads, nwy=h // ws, nwx=w // ws, fast=fast)
+        # SDPA computes the same function in both modes: the fast form is
+        # the same softmax with the max subtraction replaced by a clamp, and
+        # q carries the scale (scale=1.0); its mask is rpb + the bank
+        qh, kh, vh = (qkv.reshape(-1, n, 3, heads, c // heads)
+                      .permute(2, 0, 3, 1, 4).contiguous())
+        mask = (p.rpb[None] + bank[
+            (torch.arange(h // ws, device=dev) == h // ws - 1).long()
+            [:, None], (torch.arange(w // ws, device=dev)
+                        == w // ws - 1).long()[None]]
+            .reshape(-1, n, n)[:, None]).repeat(b, 1, 1, 1).to(dtype)
+        lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, scale=1.0)
+        cases.append(dict(
+            name="window_attention", variant="bank",
+            kernel=lambda: window_attention(qkv, p.rpb, bank, **wa_kw),
+            plain=lambda: window_attention_plain(qkv, p.rpb, bank, **wa_kw),
+            ref32=lambda: window_attention_plain(qkv32, p32.rpb, bank,
+                                                 **wa_kw),
+            library=lib, flops=4 * t * n * c, nbytes=4 * t * c * es,
+            reps=3))
+        mlp_kw = dict(fast=fast, out_dtype=dtype, scatter=(b, h, w, ws))
+        mlp_kw32 = dict(mlp_kw, out_dtype=torch.float32)
+        cases.append(dict(
+            name="mlp_block", variant="x1 f32 in, scatter",
+            kernel=lambda: mlp_block(x1_32, *p.mlp, **mlp_kw),
+            plain=lambda: mlp_block_plain(x1_32, *p.mlp, **mlp_kw),
+            ref32=lambda: mlp_block_plain(x1_32, *p32.mlp, **mlp_kw32),
+            library=None, flops=4 * t * c * hid,
+            nbytes=t * c * (4 + es) + 2 * c * hid * es, reps=3))
+        res = res32.to(dtype)
+        for cname, inp32, (cin, cout), kw in (
+                ("conv_first", img32, (3, c), {}),
+                ("rstb_conv roll=+4 res", x32, (c, c),
+                 dict(roll=4, res=True)),
+                ("conv_after_body ln_pre res", x32, (c, c),
+                 dict(ln_pre=ln, res=True)),
+                ("conv_before_upsample lrelu", x32, (c, 64),
+                 dict(act="lrelu")),
+                ("head ring upsample conv", ring32, (64, 256), {}),
+                ("head ring conv_last (plane)", ring_mid32, (256, 12), {})):
+            inp = inp32.to(dtype)
+            px = inp.shape[0] * inp.shape[1] * inp.shape[2]
+            wk, bk_ = conv_w[(cin, cout)], conv_b[(cin, cout)]
+            # the kernel form, made once as the model keeps it
+            kf = conv3x3_weights(wk, bk_, dtype)
+            use_res = kw.pop("res", False)
+            kd = dict(kw, res=res if use_res else None)
+            k32 = dict(kw, res=res32 if use_res else None)
+            library = None
+            if not kw:  # plain conv + bias: one library call
+                xin = inp.permute(0, 3, 1, 2)
+                wl = wk.to(dtype).permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last)
+                library = lambda xin=xin, wl=wl, bk_=bk_: \
+                    torch.nn.functional.conv2d(xin, wl, bk_.to(dtype),
+                                               padding=1)
+            cases.append(dict(
+                name="conv3x3", variant=cname,
+                kernel=lambda inp=inp, kf=kf, kd=kd: conv3x3(inp, kf, **kd),
+                plain=lambda inp=inp, wk=wk, bk_=bk_, kd=kd: conv3x3_plain(
+                    inp, wk, bk_, **kd),
+                ref32=lambda inp32=inp32, wk=wk, bk_=bk_, k32=k32:
+                    conv3x3_plain(inp32, wk, bk_, **k32),
+                library=library, flops=2 * px * 9 * cin * cout,
+                nbytes=px * (cin + cout * (2 if use_res else 1)) * es
+                + 9 * cin * cout * es, reps=5))
+
+        for cs in cases:
+            got = cs["kernel"]()
+            torch.cuda.synchronize()
+            want = cs["plain"]().float()
+            d = (got.float() - want).abs()
+            err = float(d.max())
+            row = dict(name=cs["name"], variant=cs["variant"], dtype=dn,
+                       route="cuda", source=SOURCE[cs["name"]],
+                       replaces=REPLACES[cs["name"]], max_abs_err=err,
+                       rms_err=float(d.square().mean().sqrt()))
+            finite = bool(torch.isfinite(got.float()).all())
+            if dtype == torch.float32:
+                scale = float(want.abs().max())
+                row["tolerance"] = 1e-4 * scale
+                row["pass"] = err <= 1e-4 * scale and finite
+            else:
+                # Kernel and plain version round the same float32 values,
+                # but sum in another order, so a value on a rounding
+                # boundary lands one bf16 ulp apart. The error is therefore
+                # held in RMS to the control (plain bf16 vs plain f32 on the
+                # unrounded inputs), and its largest element to the
+                # control's largest plus one bf16 ulp at the output's
+                # largest magnitude.
+                dc_ = (want - cs["ref32"]().float()).abs()
+                ulp = 2.0 ** (math.floor(math.log2(
+                    float(want.abs().max()) or 1.0)) - 7)
+                row["control_max_abs"] = float(dc_.max())
+                row["control_rms"] = float(dc_.square().mean().sqrt())
+                row["tolerance"] = row["control_max_abs"] + ulp
+                row["pass"] = (row["rms_err"] <= row["control_rms"]
+                               and err <= row["tolerance"] and finite)
+                del dc_
+            del got, want, d
+            row["ms"] = cuda_ms(cs["kernel"], cs["reps"])
+            row["plain_ms"] = cuda_ms(cs["plain"], 2)
+            row["library_ms"] = (cuda_ms(cs["library"], cs["reps"])
+                                 if cs["library"] is not None else None)
+            row["bound_ms"], row["bound_by"] = bound(cs["flops"],
+                                                     cs["nbytes"], dn)
+            emit({"phase": "kernel", **row})
+            rows.append(row)
+            torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 4-6
+
+
+def golden_check() -> dict:
+    import torch
+
+    from image_restoration_agent_tpu_torch.core.tiling import tiled_apply
+    from image_restoration_agent_tpu_torch.models import build_model
+    from image_restoration_agent_tpu_torch.offline import (GOLDEN_ROOT,
+                                                           load_golden,
+                                                           psnr)
+
+    g = load_golden(GOLDEN_ROOT / "swinir_sr_x4_synth")
+    model = build_model("swinir_sr_x4", device="cuda")
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in g["state"].items()}, strict=True)
+    t0 = time.perf_counter()
+    out = tiled_apply(model, torch.from_numpy(g["input"]).cuda(), tile=None,
+                      scale=4, pad_multiple=8, pad_mode="extra",
+                      pad_kind="symmetric")
+    out = out.cpu().numpy()
+    secs = time.perf_counter() - t0
+    db = psnr(np.clip(out, 0, 1), g["expected"])
+    want = g["spec"]["psnr_db"] - 0.1
+    return {"phase": "golden", "model": "swinir_sr_x4", "dtype": "float32",
+            "input": list(g["input"].shape), "psnr_db": db, "want_db": want,
+            "seconds": secs, "pass": bool(db >= want)}
+
+
+def main_path(state, card: str, requests: int = 3) -> dict:
+    import torch
+
+    from image_restoration_agent_tpu_torch.engine import Engine
+    from image_restoration_agent_tpu_torch.ops.conv3x3 import conv3x3
+    from image_restoration_agent_tpu_torch.ops.swin_block import (
+        launch_counts, reset_launch_counts)
+
+    eng = Engine(device="cuda", param_dtype=torch.bfloat16, shape_bucket=8)
+    eng.set_weights("swinir_sr_x4", state)
+    img = np.random.default_rng(0).random((1080, 1920, 3), dtype=np.float32)
+    t0 = time.perf_counter()
+    warm = eng.restore_array(img, "swinir_sr_x4")
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    reset_launch_counts()
+    conv3x3.launches = 0
+    secs, results = [], []
+    for _ in range(requests):
+        t0 = time.perf_counter()
+        res = eng.restore_array(img, "swinir_sr_x4")
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        results.append(res)
+    counts = {**launch_counts(), "conv3x3": conv3x3.launches}
+    profile = profile_request(eng, img)
+
+    # per band: 36 blocks of 4 K1 + 1 K2; 9 body convs, and 4 K3 in the
+    # head's border ring (upsample_tail's two convs on the top and bottom
+    # strips, 24x3840; the 24-wide side strips take the library conv, as
+    # the TPU path took XLA there)
+    per_req = {"swin_block": 72, "mlp_block": 72, "token_linear": 288,
+               "window_attention": 72, "conv3x3": 18 + 8}
+    ok = all(r.image.shape == (4320, 7680, 3) and r.nonfinite == 0
+             for r in results + [warm])
+    ok = ok and all(counts[k] == v * requests for k, v in per_req.items())
+    best = min(secs)
+    return {"phase": "main_path", "model": "swinir_sr_x4", "dtype":
+            "bfloat16", "input": [1080, 1920, 3], "bands": "2 x 552x1920",
+            "output": list(results[-1].image.shape),
+            "warmup_seconds": warm_s, "seconds": secs,
+            "mp_per_s": 1920 * 1080 / 1e6 / best,
+            "launches": counts, "expected_per_request": per_req,
+            "profile": profile, "card": card, "pass": bool(ok)}
+
+
+def profile_request(eng, img, top: int = 12) -> dict:
+    """One more request under torch.profiler: device time by kernel name
+    and the device's busy share of the request's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.restore_array(img, "swinir_sr_x4")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def self_dev_us(e):
+        return (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0) or 0)
+
+    evs = sorted(prof.key_averages(), key=self_dev_us, reverse=True)
+    busy = sum(self_dev_us(e) for e in evs) / 1e3
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "device_busy_share": busy / (wall * 1e3),
+            "top": [{"name": e.key[:80], "calls": e.count,
+                     "device_ms": self_dev_us(e) / 1e3}
+                    for e in evs[:top] if self_dev_us(e) > 0]}
+
+
+def fast_vs_exact(state) -> dict:
+    import torch
+
+    from image_restoration_agent_tpu_torch.core.tiling import tiled_apply
+    from image_restoration_agent_tpu_torch.models import build_model
+    from image_restoration_agent_tpu_torch.ops.swin_block import (
+        pad_width_for_strips)
+
+    h, w = 270, 480
+    img = torch.from_numpy(np.random.default_rng(7).random(
+        (h, w, 3), dtype=np.float32))
+    ph, pw = -(-h // 8) * 8, pad_width_for_strips(w)
+    bh = -(-(ph + 16) // 2 // 8) * 8
+    band = dict(tile=(bh, pw), overlap=16, scale=4, batch=1, pad_to=(ph, pw))
+    whole = dict(tile=None, scale=4, pad_multiple=8, pad_mode="extra",
+                 pad_kind="symmetric")
+    sd = {k: torch.from_numpy(v) for k, v in state.items()}
+
+    def run(device, dtype, kw):
+        m = build_model("swinir_sr_x4", device=device, dtype=dtype)
+        m.load_state_dict(sd, strict=True)
+        out = tiled_apply(lambda b: m(b.to(dtype)).float(),
+                          img.to(device), **kw)
+        return out.cpu().numpy()
+
+    fast = run("cuda", torch.bfloat16, band)
+    exact = run("cuda", torch.float32, whole)
+    # the control: the plain versions (the CPU path) in bf16 vs f32
+    torch.set_num_threads(8)
+    ctrl16 = run("cpu", torch.bfloat16, band)
+    ctrl32 = run("cpu", torch.float32, whole)
+    db = range_psnr(fast, exact)
+    ctrl = range_psnr(ctrl16, ctrl32)
+    return {"phase": "fast_vs_exact", "probe": [h, w], "psnr_db": db,
+            "control_db": ctrl, "floor_db": ctrl - 2.0,
+            "exact_plain_vs_card_db": range_psnr(ctrl32, exact),
+            "pass": bool(db >= ctrl - 2.0)}
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--quick", action="store_true",
+                    help="build and check the kernels at a small shape only")
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "false)", file=sys.stderr)
+        return 2
+    from image_restoration_agent_tpu_torch.device import exact_f32
+    from image_restoration_agent_tpu_torch.ops import kernels
+    from image_restoration_agent_tpu_torch.ops.conv3x3 import conv3x3
+    from image_restoration_agent_tpu_torch.ops.swin_block import launch_counts
+
+    exact_f32()
+    t_start = time.perf_counter()
+    failures: list[str] = []
+    card = nvidia_smi_line()
+    kind = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "kind": kind,
+          "count": torch.cuda.device_count(), "nvidia_smi": card,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    t0 = time.perf_counter()
+    logs = kernels.build_all()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "ptxas": {name: [ln.strip() for ln in log.splitlines()
+                           if "registers" in ln or "spill" in ln]
+                    for name, log in logs.items()}})
+
+    shape = (1, 64, 128, 180) if args.quick else (1, 552, 1920, 180)
+    rows = []
+
+    def phase(name, fn, *a):
+        try:
+            out = fn(*a)
+        except Exception:
+            traceback.print_exc()
+            failures.append(f"{name}: raised")
+            return None
+        if isinstance(out, dict):
+            emit(out)
+            if not out.get("pass", True):
+                failures.append(f"{name}: check failed")
+        return out
+
+    rows = phase("kernels", kernel_checks, shape) or []
+    failures += [f"kernel {r['name']} {r['variant']} {r['dtype']}"
+                 for r in rows if not r["pass"]]
+    served = None
+    if not args.quick:
+        from image_restoration_agent_tpu_torch.offline import (GOLDEN_ROOT,
+                                                               load_golden)
+        state = load_golden(GOLDEN_ROOT / "swinir_sr_x4_synth")["state"]
+        phase("golden", golden_check)
+        served = phase("main_path", main_path, state, card)
+        phase("fast_vs_exact", fast_vs_exact, state)
+
+    launches = served["launches"] if served else \
+        {**launch_counts(), "conv3x3": conv3x3.launches}
+    emit({"kernels": [{
+        "name": f"{r['name']} [{r['variant']}, {r['dtype']}]",
+        "route": r["route"], "source": r["source"],
+        "replaces": r["replaces"], "launches": launches[r["name"]],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        for r in rows]})
+    print(card, flush=True)
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+          "failures": failures})
+    if failures or args.quick:
+        return 1 if failures else 0
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

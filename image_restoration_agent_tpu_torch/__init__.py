@@ -1,0 +1,19 @@
+"""PyTorch / CUDA port of the image-restoration framework for NVIDIA
+Hopper (H100), beside the JAX package ``image_restoration_agent_tpu``,
+which stays the reference it is held against.
+
+- ``core``    : pad -> tile -> forward -> overlap-blend -> crop, PNG codec.
+- ``ops``     : window attention, pixel shuffle, and the hand-written CUDA
+                kernels of the serving path (``csrc/``): the Swin block
+                (token_linear + window_attention) and the fused 3x3 conv.
+- ``models``  : SwinIR with reference (KAIR) parameter names.
+- ``engine``  : the serving runtime (band mode, shape buckets, weights).
+- ``convert`` : JAX parameter pytrees -> reference-named state dicts.
+- ``offline`` : the synthetic real-geometry goldens.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+on a CUDA tensor every kernel wrapper launches its kernel or raises, on a
+CPU tensor it runs its plain PyTorch version.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,116 @@
+"""Carry the JAX package's SwinIR parameters across to the port.
+
+:func:`from_jax` takes the JAX SwinIR parameter pytree (nested dicts of
+numpy arrays, with or without the top-level ``"params"``) and returns the
+port's state dict under the reference (KAIR) names. It is the inverse of
+``image_restoration_agent_tpu/convert/torch_import.py:swinir_rules``:
+
+- conv kernels (kh, kw, I, O) -> (O, I, kh, kw);
+- linear kernels (I, O) -> (O, I);
+- ``upsample{i}`` -> ``upsample.{2i}`` (the reference Upsample is a
+  Sequential of [conv, PixelShuffle] pairs), ``upsample_direct`` ->
+  ``upsample.0``, ``conv_up{i}`` -> ``conv_up{i+1}``.
+"""
+
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+
+def _conv(w):
+    return np.transpose(w, (3, 2, 0, 1))
+
+
+def _linear(w):
+    return np.transpose(w, (1, 0))
+
+
+def _same(w):
+    return w
+
+
+_BLOCK = r"layer(\d+)/block(\d+)"
+_REF_BLOCK = r"layers.\1.residual_group.blocks.\2"
+
+# (JAX path regex, reference-name template, transform)
+_RULES = [
+    (r"conv_first/Conv_0/kernel", "conv_first.weight", _conv),
+    (r"conv_first/Conv_0/bias", "conv_first.bias", _same),
+    (r"patch_embed_norm/scale", "patch_embed.norm.weight", _same),
+    (r"patch_embed_norm/bias", "patch_embed.norm.bias", _same),
+    (rf"{_BLOCK}/attn/norm_scale", rf"{_REF_BLOCK}.norm1.weight", _same),
+    (rf"{_BLOCK}/attn/norm_bias", rf"{_REF_BLOCK}.norm1.bias", _same),
+    (rf"{_BLOCK}/norm2_scale", rf"{_REF_BLOCK}.norm2.weight", _same),
+    (rf"{_BLOCK}/norm2_bias", rf"{_REF_BLOCK}.norm2.bias", _same),
+    (rf"{_BLOCK}/attn/relative_position_bias_table",
+     rf"{_REF_BLOCK}.attn.relative_position_bias_table", _same),
+    (rf"{_BLOCK}/attn/qkv_kernel", rf"{_REF_BLOCK}.attn.qkv.weight",
+     _linear),
+    (rf"{_BLOCK}/attn/qkv_bias_p", rf"{_REF_BLOCK}.attn.qkv.bias", _same),
+    (rf"{_BLOCK}/attn/proj_kernel", rf"{_REF_BLOCK}.attn.proj.weight",
+     _linear),
+    (rf"{_BLOCK}/attn/proj_bias_p", rf"{_REF_BLOCK}.attn.proj.bias", _same),
+    (rf"{_BLOCK}/fc1_kernel", rf"{_REF_BLOCK}.mlp.fc1.weight", _linear),
+    (rf"{_BLOCK}/fc1_bias", rf"{_REF_BLOCK}.mlp.fc1.bias", _same),
+    (rf"{_BLOCK}/fc2_kernel", rf"{_REF_BLOCK}.mlp.fc2.weight", _linear),
+    (rf"{_BLOCK}/fc2_bias", rf"{_REF_BLOCK}.mlp.fc2.bias", _same),
+    (r"layer(\d+)/conv/Conv_0/kernel", r"layers.\1.conv.weight", _conv),
+    (r"layer(\d+)/conv/Conv_0/bias", r"layers.\1.conv.bias", _same),
+    (r"norm/scale", "norm.weight", _same),
+    (r"norm/bias", "norm.bias", _same),
+    (r"conv_after_body/Conv_0/kernel", "conv_after_body.weight", _conv),
+    (r"conv_after_body/Conv_0/bias", "conv_after_body.bias", _same),
+    (r"conv_before_upsample/Conv_0/kernel", "conv_before_upsample.0.weight",
+     _conv),
+    (r"conv_before_upsample/Conv_0/bias", "conv_before_upsample.0.bias",
+     _same),
+    (r"conv_last/Conv_0/kernel", "conv_last.weight", _conv),
+    (r"conv_last/Conv_0/bias", "conv_last.bias", _same),
+    (r"upsample_direct/Conv_0/kernel", "upsample.0.weight", _conv),
+    (r"upsample_direct/Conv_0/bias", "upsample.0.bias", _same),
+    (r"conv_hr/Conv_0/kernel", "conv_hr.weight", _conv),
+    (r"conv_hr/Conv_0/bias", "conv_hr.bias", _same),
+]
+
+
+def _flatten(tree, prefix=""):
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict) or hasattr(v, "items"):
+            yield from _flatten(v, path)
+        else:
+            yield path, np.asarray(v)
+
+
+def _ref_name(path: str) -> tuple[str, object]:
+    m = re.fullmatch(r"upsample(\d+)/Conv_0/(kernel|bias)", path)
+    if m:
+        i, leaf = int(m.group(1)), m.group(2)
+        return (f"upsample.{2 * i}."
+                f"{'weight' if leaf == 'kernel' else 'bias'}",
+                _conv if leaf == "kernel" else _same)
+    m = re.fullmatch(r"conv_up(\d+)/Conv_0/(kernel|bias)", path)
+    if m:
+        i, leaf = int(m.group(1)), m.group(2)
+        return (f"conv_up{i + 1}.{'weight' if leaf == 'kernel' else 'bias'}",
+                _conv if leaf == "kernel" else _same)
+    for pattern, tpl, fn in _RULES:
+        m = re.fullmatch(pattern, path)
+        if m:
+            return m.expand(tpl), fn
+    raise KeyError(f"unmapped JAX parameter: {path}")
+
+
+def from_jax(params) -> dict[str, torch.Tensor]:
+    """The port's reference-named state dict from JAX SwinIR params."""
+    if "params" in params:
+        params = params["params"]
+    out = {}
+    for path, value in _flatten(params):
+        name, fn = _ref_name(path)
+        out[name] = torch.from_numpy(
+            np.ascontiguousarray(fn(value)).astype(np.float32))
+    return out

@@ -1,0 +1,73 @@
+// Shared helpers of the port's CUDA kernels: float32 / bfloat16 loads and
+// stores through one float interface, warp reductions, cp.async copies.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace irk {
+
+// dtype codes passed from Python (ops/swin_block.py: _DT)
+constexpr int kF32 = 0;
+constexpr int kBF16 = 1;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// element `i` of a float32 or bfloat16 buffer, selected at run time
+__device__ __forceinline__ float load_any(const void* p, long long i,
+                                          int dt) {
+  return dt == kBF16
+             ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+             : static_cast<const float*>(p)[i];
+}
+
+__device__ __forceinline__ void store_any(void* p, long long i, int dt,
+                                          float v) {
+  if (dt == kBF16)
+    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
+  else
+    static_cast<float*>(p)[i] = v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// one 16-byte global -> shared copy that bypasses registers (both
+// addresses 16-byte aligned); cp_async_commit closes the thread's group
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ int pmod(int a, int m) {
+  int r = a % m;
+  return r < 0 ? r + m : r;
+}
+
+}  // namespace irk

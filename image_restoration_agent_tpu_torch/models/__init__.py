@@ -1,0 +1,8 @@
+from .registry import (MODEL_REGISTRY, ModelSpec, build_model, get_spec,
+                       list_models, register_model)
+
+# model modules register themselves on import
+from . import swinir as _swinir  # noqa: F401
+
+__all__ = ["MODEL_REGISTRY", "ModelSpec", "register_model", "build_model",
+           "list_models", "get_spec"]

@@ -1,0 +1,344 @@
+"""SwinIR, channels-last (counterpart of
+``image_restoration_agent_tpu/models/swinir.py``; reference
+network_swinir.py).
+
+conv_first -> [RSTB x D] (each: [Swin block x d] + conv + residual) ->
+conv_after_body (fused LayerNorm) + residual -> task head. Module names
+are the reference (KAIR) state-dict names, so a reference state dict loads
+with ``load_state_dict(..., strict=True)`` (the ``relative_position_index``
+and ``attn_mask`` buffers of reference checkpoints are not parameters here;
+drop them first, as the JAX converter does).
+
+Every Swin block runs :func:`ops.swin_block.swin_block` with the cyclic
+shift folded into its reads: a block's output stays in the rolled frame
+(-shift), the next block reads with ``dc = -shift - in_frame``, and the
+RSTB's closing conv undoes the last frame with ``roll=-frame``. On the
+card that is the kernels; on the CPU, their plain versions. bfloat16
+inputs take the fast numerics, float32 the exact ones.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from ..device import exact_f32
+from ..ops.pixel_shuffle import pixel_shuffle
+from ..ops.swin_block import prepare_swin_params, swin_block
+from ..ops.window_attention import shift_attention_mask
+from .common import (Conv, cache_key, conv_plain, fused_pixelshuffle_head,
+                     head_weights, layer_norm_lanes, tail_weights,
+                     upsample_tail)
+from .registry import ModelSpec, register_model
+
+RGB_MEAN = (0.4488, 0.4371, 0.4040)  # DIV2K mean (network_swinir.py:716)
+
+
+class _WindowAttention(nn.Module):
+    def __init__(self, dim: int, ws: int, num_heads: int):
+        super().__init__()
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.proj = nn.Linear(dim, dim)
+        self.relative_position_bias_table = nn.Parameter(
+            torch.empty((2 * ws - 1) ** 2, num_heads))
+
+
+class _Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+
+class SwinBlock(nn.Module):
+    """One Swin transformer block (reference SwinTransformerBlock)."""
+
+    def __init__(self, dim: int, num_heads: int, window_size: int,
+                 shift_size: int, mlp_ratio: float = 2.0):
+        super().__init__()
+        self.num_heads = num_heads
+        self.window_size = window_size
+        self.shift_size = shift_size
+        self.norm1 = nn.LayerNorm(dim)
+        self.attn = _WindowAttention(dim, window_size, num_heads)
+        self.norm2 = nn.LayerNorm(dim)
+        self.mlp = _Mlp(dim, int(dim * mlp_ratio))
+        self._prepared: tuple | None = None
+        self._bank: tuple | None = None
+
+    def kernel_params(self, x: torch.Tensor):
+        """This block's weights in kernel form for ``x``'s dtype/device."""
+        tensors = list(self.parameters())
+        key = cache_key(x, tensors)
+        if self._prepared is None or self._prepared[0] != key:
+            p = prepare_swin_params(
+                norm1_w=self.norm1.weight, norm1_b=self.norm1.bias,
+                qkv_w=self.attn.qkv.weight, qkv_b=self.attn.qkv.bias,
+                proj_w=self.attn.proj.weight, proj_b=self.attn.proj.bias,
+                rpb_table=self.attn.relative_position_bias_table,
+                norm2_w=self.norm2.weight, norm2_b=self.norm2.bias,
+                fc1_w=self.mlp.fc1.weight, fc1_b=self.mlp.fc1.bias,
+                fc2_w=self.mlp.fc2.weight, fc2_b=self.mlp.fc2.bias,
+                num_heads=self.num_heads, ws=self.window_size,
+                dtype=x.dtype)
+            self._prepared = (key, p)
+        return self._prepared[1]
+
+    def _mask_bank(self, shift: int, device) -> torch.Tensor:
+        """The (2, 2, N, N) shift-mask bank, kept on the device."""
+        if self._bank is None or self._bank[0] != (shift, device):
+            ws = self.window_size
+            n = ws * ws
+            bank = shift_attention_mask(2 * ws, 2 * ws, ws, shift)
+            self._bank = ((shift, device), torch.from_numpy(
+                bank.reshape(2, 2, n, n)).to(device))
+        return self._bank[1]
+
+    def forward(self, x: torch.Tensor, in_frame: int = 0):
+        """Returns (y, out_frame); y stays in the rolled frame -shift."""
+        _, h, w, _ = x.shape
+        ws = self.window_size
+        # no shift when the canvas is not larger than one window
+        # (reference SwinTransformerBlock.__init__)
+        shift = 0 if min(h, w) <= ws else self.shift_size
+        bank = self._mask_bank(shift, x.device) if shift > 0 else None
+        y = swin_block(x, self.kernel_params(x), num_heads=self.num_heads,
+                       ws=ws, dc=-shift - in_frame, mask_bank=bank,
+                       fast=x.dtype == torch.bfloat16)
+        return y, -shift
+
+
+class _BasicLayer(nn.Module):
+    def __init__(self, dim, depth, num_heads, window_size, mlp_ratio):
+        super().__init__()
+        self.blocks = nn.ModuleList([
+            SwinBlock(dim, num_heads, window_size,
+                      0 if i % 2 == 0 else window_size // 2, mlp_ratio)
+            for i in range(depth)])
+
+
+class RSTB(nn.Module):
+    """Residual Swin transformer block: the blocks chain their frames and
+    the closing conv undoes the last one (fused roll) and adds the
+    residual."""
+
+    def __init__(self, dim, depth, num_heads, window_size, mlp_ratio=2.0):
+        super().__init__()
+        self.residual_group = _BasicLayer(dim, depth, num_heads,
+                                          window_size, mlp_ratio)
+        self.conv = Conv(dim, dim)
+
+    def forward(self, x):
+        res, frame = x, 0
+        for blk in self.residual_group.blocks:
+            x, frame = blk(x, frame)
+        return self.conv(x, res=res, roll=-frame)
+
+
+class _PatchEmbed(nn.Module):
+    def __init__(self, dim: int, patch_norm: bool):
+        super().__init__()
+        self.norm = nn.LayerNorm(dim) if patch_norm else None
+
+
+class _Shuffle(nn.Module):
+    def __init__(self, r: int):
+        super().__init__()
+        self.r = r
+
+    def forward(self, x):
+        return pixel_shuffle(x, self.r)
+
+
+class SwinIR(nn.Module):
+    """Args mirror the reference constructor (network_swinir.py:618-705).
+    Input and output are (B, H, W, C) with H and W multiples of the window.
+
+    ``packed_output`` (pixelshuffle head only) emits (B, H*s, W*s*3) with
+    RGB interleaved into the minor axis, byte-identical to the NHWC image.
+    """
+
+    def __init__(self, img_channels: int = 3, embed_dim: int = 96,
+                 depths: Sequence[int] = (6, 6, 6, 6),
+                 num_heads: Sequence[int] = (6, 6, 6, 6),
+                 window_size: int = 8, mlp_ratio: float = 2.0,
+                 upscale: int = 1, img_range: float = 1.0,
+                 upsampler: str = "", patch_norm: bool = True,
+                 num_feat: int = 64, packed_output: bool = False):
+        super().__init__()
+        if packed_output and upsampler != "pixelshuffle":
+            raise ValueError("packed_output supports the pixelshuffle head "
+                             "only")
+        self.img_channels = img_channels
+        self.img_range = img_range
+        self.upsampler = upsampler
+        self.upscale = upscale
+        self.packed_output = packed_output
+        self.conv_first = Conv(img_channels, embed_dim)
+        self.patch_embed = _PatchEmbed(embed_dim, patch_norm)
+        self.layers = nn.ModuleList([
+            RSTB(embed_dim, d, h, window_size, mlp_ratio)
+            for d, h in zip(depths, num_heads)])
+        self.norm = nn.LayerNorm(embed_dim)
+        self.conv_after_body = Conv(embed_dim, embed_dim)
+
+        if upsampler == "pixelshuffle":
+            self.conv_before_upsample = nn.Sequential(
+                Conv(embed_dim, num_feat, act="lrelu"))
+            s, self.rs = upscale, []
+            while s > 1:
+                self.rs.append(3 if s % 3 == 0 else 2)
+                s //= self.rs[-1]
+            mods = []
+            for r in self.rs:
+                mods += [Conv(num_feat, num_feat * r * r), _Shuffle(r)]
+            self.upsample = nn.Sequential(*mods)
+            self.conv_last = Conv(num_feat, img_channels)
+            self._head: tuple | None = None
+        elif upsampler == "pixelshuffledirect":
+            self.upsample = nn.Sequential(
+                Conv(embed_dim, img_channels * upscale ** 2,
+                     shuffle=upscale))
+        elif upsampler == "nearest+conv":
+            self.conv_before_upsample = nn.Sequential(
+                Conv(embed_dim, num_feat, act="lrelu"))
+            n_up = 0
+            while upscale >> (n_up + 1):
+                n_up += 1
+            for i in range(1, n_up + 1):
+                setattr(self, f"conv_up{i}", Conv(num_feat, num_feat,
+                                                  act="lrelu2"))
+            self.n_up = n_up
+            self.conv_hr = Conv(num_feat, num_feat, act="lrelu2")
+            self.conv_last = Conv(num_feat, img_channels)
+        else:
+            self.conv_last = Conv(embed_dim, img_channels)
+
+    def _pixelshuffle_head(self, y, packed: bool):
+        stages = [(self.upsample[2 * i].hwio(), self.upsample[2 * i].bias)
+                  for i in range(len(self.rs))]
+        wl, bl = self.conv_last.hwio(), self.conv_last.bias
+        rs = self.rs
+        if not rs:
+            return self.conv_last(y)
+
+        tensors = [p for st in stages for p in st] + [wl, bl]
+        key = cache_key(y, tensors)
+        if self._head is None or self._head[0] != key:
+            self._head = (key, head_weights(stages, wl, bl, rs),
+                          tail_weights(*stages[-1], wl, bl, rs[-1], y.dtype))
+
+        def seq_head(z):
+            for (w, b), r in zip(stages[:-1], rs[:-1]):
+                z = pixel_shuffle(conv_plain(z, w, b), r)
+            return upsample_tail(z, *stages[-1], wl, bl, rs[-1],
+                                 kernel_weights=self._head[2])
+
+        return fused_pixelshuffle_head(y, stages, wl, bl, rs, seq_head,
+                                       packed=packed,
+                                       composed=self._head[1])
+
+    @torch.no_grad()
+    def forward(self, x: torch.Tensor,
+                packed_output: bool | None = None) -> torch.Tensor:
+        """(B, H, W, C) -> (B, H*s, W*s, C); ``packed_output`` overrides
+        the constructor's choice for this call (the engine's band path
+        packs, its other paths do not)."""
+        packed = self.packed_output if packed_output is None \
+            else packed_output
+        if packed and self.upsampler != "pixelshuffle":
+            raise ValueError("packed_output supports the pixelshuffle head "
+                             "only")
+        if x.is_cuda and x.dtype == torch.float32:
+            exact_f32()
+        mean = torch.tensor(RGB_MEAN, dtype=x.dtype, device=x.device)
+        if self.img_channels == 3:
+            x = (x - mean) * self.img_range
+        feat = self.conv_first(x)
+        y = feat
+        if self.patch_embed.norm is not None:
+            y = layer_norm_lanes(y, self.patch_embed.norm.weight,
+                                 self.patch_embed.norm.bias)
+        for layer in self.layers:
+            y = layer(y)
+        y = self.conv_after_body(y, res=feat,
+                                 ln_pre=(self.norm.weight, self.norm.bias))
+
+        if self.upsampler == "pixelshuffle":
+            y = self.conv_before_upsample(y)
+            y = self._pixelshuffle_head(y, packed)
+        elif self.upsampler == "pixelshuffledirect":
+            y = self.upsample(y)
+        elif self.upsampler == "nearest+conv":
+            y = self.conv_before_upsample(y)
+            for i in range(1, self.n_up + 1):
+                y = y.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+                y = getattr(self, f"conv_up{i}")(y)
+            y = self.conv_hr(y)
+            y = self.conv_last(y)
+        else:  # denoising / JPEG artifact removal: global residual
+            y = self.conv_last(y) + x
+
+        if packed:
+            if self.img_channels == 3:
+                mean_row = mean.repeat(y.shape[2] // 3)
+                y = y / self.img_range + mean_row[None, None, :]
+            return y
+        if self.img_channels == 3:
+            y = y / self.img_range + mean
+        return y
+
+
+def _swinir(**kw) -> SwinIR:
+    return SwinIR(**kw)
+
+
+# Classical 4x SR ("SwinIR-M": embed 180, six 6-deep RSTBs, window 8).
+register_model(ModelSpec(
+    name="swinir_sr_x4", build=_swinir, subtasks=("super-resolution",),
+    scale=4, pad_multiple=8, pad_mode="extra", pad_kind="symmetric",
+    tile=None, tile_overlap=32, band_mode=True,
+    config=dict(embed_dim=180, depths=(6,) * 6, num_heads=(6,) * 6,
+                window_size=8, upscale=4, upsampler="pixelshuffle"),
+))
+
+# Lightweight 4x SR.
+register_model(ModelSpec(
+    name="swinir_lightweight_sr_x4", build=_swinir,
+    subtasks=("super-resolution",), scale=4,
+    pad_multiple=8, pad_mode="extra", pad_kind="symmetric",
+    tile=256, tile_overlap=32,
+    config=dict(embed_dim=60, depths=(6,) * 4, num_heads=(6,) * 4,
+                window_size=8, upscale=4, upsampler="pixelshuffledirect"),
+))
+
+# Color denoising (noise 15/50 share the arch; weights differ).
+for _sigma in (15, 50):
+    register_model(ModelSpec(
+        name=f"swinir_denoise_{_sigma}", build=_swinir,
+        subtasks=("denoising",),
+        pad_multiple=8, pad_mode="extra", pad_kind="symmetric", tile=None,
+        config=dict(embed_dim=180, depths=(6,) * 6, num_heads=(6,) * 6,
+                    window_size=8, upsampler=""),
+    ))
+
+# JPEG artifact removal (window 7; we serve color).
+register_model(ModelSpec(
+    name="swinir_jpeg_40", build=_swinir,
+    subtasks=("jpeg compression artifact removal",),
+    pad_multiple=7, pad_mode="extra", pad_kind="symmetric", tile=None,
+    config=dict(embed_dim=180, depths=(6,) * 6, num_heads=(6,) * 6,
+                window_size=7, upsampler="", img_range=255.0),
+))
+
+# Tiny CPU-testable config.
+register_model(ModelSpec(
+    name="swinir_tiny", build=_swinir, subtasks=("super-resolution",),
+    scale=4, pad_multiple=8, pad_mode="extra", pad_kind="symmetric",
+    tile=None,
+    config=dict(embed_dim=16, depths=(2, 2), num_heads=(2, 2),
+                window_size=8, upscale=4, upsampler="pixelshuffle",
+                num_feat=16),
+))

@@ -1,0 +1,23 @@
+from .pixel_shuffle import pixel_shuffle, pixel_unshuffle
+from .window_attention import (
+    window_partition,
+    window_reverse,
+    relative_position_index,
+    shift_attention_mask,
+    window_attention,
+)
+from .conv3x3 import (conv3x3, conv3x3_plain, conv_after_shuffle_weights,
+                      compose_conv_weights)
+from .swin_block import (swin_block, swin_block_plain, mlp_block,
+                         mlp_block_plain, prepare_swin_params,
+                         pad_width_for_strips, strip_chunk_width)
+
+__all__ = [
+    "pixel_shuffle", "pixel_unshuffle",
+    "window_partition", "window_reverse", "relative_position_index",
+    "shift_attention_mask", "window_attention",
+    "conv3x3", "conv3x3_plain", "conv_after_shuffle_weights",
+    "compose_conv_weights",
+    "swin_block", "swin_block_plain", "mlp_block", "mlp_block_plain",
+    "prepare_swin_params", "pad_width_for_strips", "strip_chunk_width",
+]

@@ -1,0 +1,107 @@
+"""Build and load the hand-written CUDA kernels under ``csrc/``.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
+with a plain C interface, loaded with ``ctypes`` (no PyTorch headers: a
+build takes seconds, not minutes). Builds happen at first use, on the
+machine with the card, into ``csrc/build/`` (listed in ``.gitignore``),
+keyed by a hash of the sources and flags so a changed source rebuilds.
+:func:`build_all` starts one ``nvcc`` per source at once and waits for all.
+
+Every kernel function returns ``cudaGetLastError()``; :func:`check` raises
+when it is not 0, so a refused launch (too many threads, too
+much shared memory) is never mistaken for a result.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = CSRC / "build"
+SOURCES = ("swin_block", "conv3x3")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-lineinfo"]
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not Path(path).exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
+                           "the machine with the card")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str) -> tuple[Path, subprocess.Popen] | None:
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return out, proc
+
+
+def _finish(name: str, out: Path, proc: subprocess.Popen) -> None:
+    log, _ = proc.communicate()
+    out.with_suffix(".log").write_text(log)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all() -> dict[str, str]:
+    """Build every kernel source in parallel (one nvcc each); return
+    {name: compiler log} (``-Xptxas -v`` register and spill figures)."""
+    with _lock:
+        started = {n: _start(n) for n in SOURCES}
+        for name, job in started.items():
+            if job is not None:
+                _finish(name, *job)
+    return {n: build_log(n) for n in SOURCES}
+
+
+def build_log(name: str) -> str:
+    log = _lib_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built if needed."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        if name not in _libs:
+            job = _start(name)
+            if job is not None:
+                _finish(name, *job)
+            _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+        return _libs[name]
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {what} failed to launch: "
+                           f"cudaError {err}")
