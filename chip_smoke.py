@@ -18,15 +18,30 @@ Phases, each printing one JSON line:
    larger than the control's plus one bf16 ulp at the output's largest
    magnitude), timed with CUDA events, beside one library call where
    PyTorch has one (``F.conv2d``, ``scaled_dot_product_attention``);
+   restormer_kernels: the same for K4 ``gdfn_block`` and K5 ``mdta_front``
+   (with its plain epilogue: the MDTA block) at the 1280x720 Restormer
+   request's block shapes (768x1280 C 48, 384x640 C 96, 192x320 C 192,
+   96x160 C 384, 768x1280 C 96; at 384x640 also without LN, BiasFree and
+   with biases), and K3 at the Restormer convs' shapes;
 4. golden: SwinIR-M x4 on the real-geometry synthetic golden in float32,
    PSNR against the independent torch reference output >= recorded - 0.1;
 5. main_path: ``Engine(device="cuda")`` serving 1920x1080 x4 in band mode
    in bf16 (one warm-up request, three timed), with the launch counts of
    every kernel wrapper over the timed requests;
 6. fast_vs_exact: the bf16 fast band path against the f32 exact whole-image
-   path on a 480x270 probe, PSNR >= the plain bf16-vs-f32 control - 2 dB.
+   path on a 480x270 probe, PSNR >= the plain bf16-vs-f32 control - 2 dB;
+7. restormer_golden: restormer_synth (320x320) in float32, PSNR >=
+   recorded - 0.1;
+8. restormer_path: ``Engine(device="cuda")`` serving 1280x720 with
+   Restormer in bf16 (whole image, 768x1280 canvas; one warm-up request,
+   three timed): 8 K3, 44 K4 and 44 K5 launches per request, and a
+   ``torch.profiler`` split of one more;
+9. restormer_fast_vs_exact: bf16 through the kernels against f32 exact on
+   a 128x1024 probe (every level on the fused route), PSNR >= the plain
+   bf16-vs-f32 control - 2 dB.
 
-Then the ``kernels`` line, the ``nvidia-smi`` line, and last
+Then the ``kernels`` line (each kernel's launches counted on the path
+that runs it), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
 that last line; so does a machine without a card.
 """
@@ -53,10 +68,27 @@ REPLACES = {
     "window_attention": TPU + "pallas_attention.py:1015",
     "mlp_block": TPU + "pallas_attention.py:1457",
     "conv3x3": TPU + "conv3x3.py:201",
+    "gdfn_block": TPU + "restormer_fused.py:260",
+    "mdta_front": TPU + "restormer_fused.py:398",
 }
 SOURCE = {"swin_block": SRC + "swin_block.cu", "token_linear":
           SRC + "swin_block.cu", "window_attention": SRC + "swin_block.cu",
-          "mlp_block": SRC + "swin_block.cu", "conv3x3": SRC + "conv3x3.cu"}
+          "mlp_block": SRC + "swin_block.cu", "conv3x3": SRC + "conv3x3.cu",
+          "gdfn_block": SRC + "restormer_fused.cu",
+          "mdta_front": SRC + "restormer_fused.cu"}
+# the 1280x720 Restormer request's block shapes (canvas 768x1280): the four
+# U-Net levels and the C 96 full-resolution decoder / refinement stage
+RESTORMER_SHAPES = (("level1", (1, 768, 1280, 48), 1),
+                    ("level2", (1, 384, 640, 96), 2),
+                    ("level3", (1, 192, 320, 192), 4),
+                    ("level4", (1, 96, 160, 384), 8),
+                    ("decoder1", (1, 768, 1280, 96), 1))
+# its 3x3 convs that are not at a SwinIR shape: (name, cin, cout, H, W)
+RESTORMER_CONVS = (("patch_embed", 3, 48, 768, 1280),
+                   ("down1_2", 48, 24, 768, 1280),
+                   ("up2_1", 96, 192, 384, 640),
+                   ("up4_3", 384, 768, 96, 160),
+                   ("output", 96, 3, 768, 1280))
 
 
 def emit(obj) -> None:
@@ -105,6 +137,58 @@ def range_psnr(a, ref) -> float:
 
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
+
+
+def check_case(cs: dict, dtype) -> dict:
+    """One kernel case against its plain version: the f32 rule or the bf16
+    rule of the module docstring, then CUDA-event times of the kernel, the
+    plain version and the library call, and the bound."""
+    import torch
+
+    dn = str(dtype).split(".")[-1]
+    got = cs["kernel"]()
+    torch.cuda.synchronize()
+    want = cs["plain"]().float()
+    d = (got.float() - want).abs()
+    err = float(d.max())
+    row = dict(name=cs["name"], variant=cs["variant"], dtype=dn,
+               path=cs.get("path", "swinir"), route="cuda",
+               source=SOURCE[cs["name"]], replaces=REPLACES[cs["name"]],
+               max_abs_err=err, rms_err=float(d.square().mean().sqrt()))
+    finite = bool(torch.isfinite(got.float()).all())
+    if dtype == torch.float32:
+        scale = float(want.abs().max())
+        row["tolerance"] = 1e-4 * scale
+        row["pass"] = err <= 1e-4 * scale and finite
+    else:
+        # Kernel and plain version round the same float32 values, but sum
+        # in another order, so a value on a rounding boundary lands one
+        # bf16 ulp apart. The error is therefore held in RMS to the control
+        # (plain bf16 vs plain f32 on the unrounded inputs), and its largest
+        # element to the control's largest plus one bf16 ulp at the
+        # output's largest magnitude.
+        dc_ = (want - cs["ref32"]().float()).abs()
+        ulp = 2.0 ** (math.floor(math.log2(
+            float(want.abs().max()) or 1.0)) - 7)
+        row["control_max_abs"] = float(dc_.max())
+        row["control_rms"] = float(dc_.square().mean().sqrt())
+        row["tolerance"] = row["control_max_abs"] + ulp
+        row["pass"] = (row["rms_err"] <= row["control_rms"]
+                       and err <= row["tolerance"] and finite)
+        del dc_
+    del got, want, d
+    for key, fn in cs.get("extra_ms", {}).items():
+        row[key] = cuda_ms(fn, cs["reps"])
+    row.update(cs.get("extra", {}))
+    row["pass"] = row["pass"] and row.get("repeatable", True)
+    row["ms"] = cuda_ms(cs["kernel"], cs["reps"])
+    row["plain_ms"] = cuda_ms(cs["plain"], 2)
+    row["library_ms"] = (cuda_ms(cs["library"], cs["reps"])
+                         if cs["library"] is not None else None)
+    row["bound_ms"], row["bound_by"] = bound(cs["flops"], cs["nbytes"], dn)
+    emit({"phase": "kernel", **row})
+    torch.cuda.empty_cache()
+    return row
 
 
 def kernel_checks(shape, seed: int = 0) -> list[dict]:
@@ -156,7 +240,6 @@ def kernel_checks(shape, seed: int = 0) -> list[dict]:
     rows = []
 
     for dtype, fast in ((torch.float32, False), (torch.bfloat16, True)):
-        dn = str(dtype).split(".")[-1]
         es = 4 if dtype == torch.float32 else 2
         p = prepare_swin_params(**wts, num_heads=heads, ws=ws, dtype=dtype)
         p32 = prepare_swin_params(**wts, num_heads=heads, ws=ws,
@@ -263,48 +346,120 @@ def kernel_checks(shape, seed: int = 0) -> list[dict]:
                 nbytes=px * (cin + cout * (2 if use_res else 1)) * es
                 + 9 * cin * cout * es, reps=5))
 
-        for cs in cases:
-            got = cs["kernel"]()
-            torch.cuda.synchronize()
-            want = cs["plain"]().float()
-            d = (got.float() - want).abs()
-            err = float(d.max())
-            row = dict(name=cs["name"], variant=cs["variant"], dtype=dn,
-                       route="cuda", source=SOURCE[cs["name"]],
-                       replaces=REPLACES[cs["name"]], max_abs_err=err,
-                       rms_err=float(d.square().mean().sqrt()))
-            finite = bool(torch.isfinite(got.float()).all())
-            if dtype == torch.float32:
-                scale = float(want.abs().max())
-                row["tolerance"] = 1e-4 * scale
-                row["pass"] = err <= 1e-4 * scale and finite
-            else:
-                # Kernel and plain version round the same float32 values,
-                # but sum in another order, so a value on a rounding
-                # boundary lands one bf16 ulp apart. The error is therefore
-                # held in RMS to the control (plain bf16 vs plain f32 on the
-                # unrounded inputs), and its largest element to the
-                # control's largest plus one bf16 ulp at the output's
-                # largest magnitude.
-                dc_ = (want - cs["ref32"]().float()).abs()
-                ulp = 2.0 ** (math.floor(math.log2(
-                    float(want.abs().max()) or 1.0)) - 7)
-                row["control_max_abs"] = float(dc_.max())
-                row["control_rms"] = float(dc_.square().mean().sqrt())
-                row["tolerance"] = row["control_max_abs"] + ulp
-                row["pass"] = (row["rms_err"] <= row["control_rms"]
-                               and err <= row["tolerance"] and finite)
-                del dc_
-            del got, want, d
-            row["ms"] = cuda_ms(cs["kernel"], cs["reps"])
-            row["plain_ms"] = cuda_ms(cs["plain"], 2)
-            row["library_ms"] = (cuda_ms(cs["library"], cs["reps"])
-                                 if cs["library"] is not None else None)
-            row["bound_ms"], row["bound_by"] = bound(cs["flops"],
-                                                     cs["nbytes"], dn)
-            emit({"phase": "kernel", **row})
-            rows.append(row)
-            torch.cuda.empty_cache()
+        rows += [check_case(cs, dtype) for cs in cases]
+    return rows
+
+
+def restormer_kernel_checks(quick: bool, seed: int = 3) -> list[dict]:
+    """K4 and K5 (and K3 at the Restormer convs' shapes) against their plain
+    versions at the 720p request's shapes (a 16x128 canvas with --quick).
+    The K5 rows hold the whole MDTA block (K5 and the plain epilogue, the
+    TPU kernel's function) to ``mdta_block_plain``; ``front_ms`` is K5
+    alone, and ``repeatable`` says two launches gave the same bits."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.ops.conv3x3 import (
+        conv3x3, conv3x3_plain, conv3x3_weights)
+    from image_restoration_agent_tpu_torch.ops.restormer_fused import (
+        gdfn_block, gdfn_block_plain, gdfn_weights, mdta_block,
+        mdta_block_plain, mdta_front, mdta_weights)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def randn(*s, scale=1.0):
+        return (torch.randn(*s, generator=gen) * scale).to(dev)
+
+    def weights(c, heads, ln_kind, bias):
+        hid = int(2.66 * c)
+        ln = {"none": None, "biasfree": (1 + randn(c, scale=0.1),),
+              "withbias": (1 + randn(c, scale=0.1), randn(c, scale=0.1))}
+        b = (lambda n: randn(n, scale=0.1)) if bias else (lambda n: None)
+        g = (ln[ln_kind], randn(c, 2 * hid, scale=c ** -0.5), b(2 * hid),
+             randn(9, 2 * hid, scale=1 / 3), b(2 * hid),
+             randn(hid, c, scale=hid ** -0.5), b(c))
+        m = (ln[ln_kind], randn(c, 3 * c, scale=c ** -0.5), b(3 * c),
+             randn(9, 3 * c, scale=1 / 3), b(3 * c),
+             randn(c, c, scale=c ** -0.5), b(c),
+             0.5 + torch.rand(heads, generator=gen).to(dev))
+        return hid, g, m
+
+    shapes = [(n, (1, 16, 128, s[3]), hd) for n, s, hd in RESTORMER_SHAPES] \
+        if quick else list(RESTORMER_SHAPES)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        es = 4 if dtype == torch.float32 else 2
+        fast = dtype == torch.bfloat16
+        cases = []
+        for i, (lvl, (b, h, w, c), heads) in enumerate(shapes):
+            p = b * h * w
+            ch = c // heads
+            x32 = randn(b, h, w, c)
+            x = x32.to(dtype)
+            # the main path's blocks (WithBias LN, no biases), and at
+            # level 2 the other forms the kernels take
+            kinds = [("withbias", False)]
+            if i == 1:
+                kinds += [("none", False), ("biasfree", True),
+                          ("withbias", True)]
+            for ln_kind, bias in kinds:
+                hid, g, m = weights(c, heads, ln_kind, bias)
+                var = f"{lvl} {h}x{w} C{c} ln={ln_kind}" + (
+                    " bias" if bias else "")
+                gk = gdfn_weights(*g, dtype)
+                cases.append(dict(
+                    name="gdfn_block", variant=var, path="restormer",
+                    kernel=lambda x=x, gk=gk: gdfn_block(x, gk, fast=fast),
+                    plain=lambda x=x, g=g: gdfn_block_plain(x, *g,
+                                                            fast=fast),
+                    ref32=lambda x32=x32, g=g: gdfn_block_plain(
+                        x32, *g, fast=fast),
+                    library=None, reps=5,
+                    flops=p * (6 * c * hid + 36 * hid),
+                    nbytes=2 * p * c * es + 3 * c * hid * es))
+                if ln_kind == "none":
+                    continue
+                mk = mdta_weights(*m[:7], m[7], heads, dtype)
+                g1 = mdta_front(x, mk)[1]
+                g2 = mdta_front(x, mk)[1]
+                cases.append(dict(
+                    name="mdta_front", variant=f"{var} heads={heads} "
+                    "(block)", path="restormer",
+                    kernel=lambda x=x, mk=mk: mdta_block(x, mk),
+                    plain=lambda x=x, m=m, hd=heads: mdta_block_plain(
+                        x, *m, hd),
+                    ref32=lambda x32=x32, m=m, hd=heads: mdta_block_plain(
+                        x32, *m, hd),
+                    extra_ms={"front_ms": lambda x=x, mk=mk: mdta_front(
+                        x, mk)},
+                    extra={"repeatable": bool(torch.equal(g1, g2))},
+                    library=None, reps=5,
+                    flops=p * (8 * c * c + 54 * c + 2 * c * ch),
+                    nbytes=2 * p * c * es + 4 * c * c * es))
+                del g1, g2
+        for cname, cin, cout, h, w in RESTORMER_CONVS:
+            if quick:
+                h, w = 16, 128
+            x32 = randn(1, h, w, cin)
+            x = x32.to(dtype)
+            wk = randn(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
+            kf = conv3x3_weights(wk, None, dtype)
+            wl = wk.to(dtype).permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            xin = x.permute(0, 3, 1, 2)
+            cases.append(dict(
+                name="conv3x3", variant=f"restormer {cname} {h}x{w}",
+                path="restormer",
+                kernel=lambda x=x, kf=kf: conv3x3(x, kf),
+                plain=lambda x=x, wk=wk: conv3x3_plain(x, wk),
+                ref32=lambda x32=x32, wk=wk: conv3x3_plain(x32, wk),
+                library=lambda xin=xin, wl=wl: torch.nn.functional.conv2d(
+                    xin, wl, padding=1),
+                flops=2 * h * w * 9 * cin * cout,
+                nbytes=h * w * (cin + cout) * es + 9 * cin * cout * es,
+                reps=5))
+        rows += [check_case(cs, dtype) for cs in cases]
+        del cases
     return rows
 
 
@@ -364,7 +519,7 @@ def main_path(state, card: str, requests: int = 3) -> dict:
         secs.append(time.perf_counter() - t0)
         results.append(res)
     counts = {**launch_counts(), "conv3x3": conv3x3.launches}
-    profile = profile_request(eng, img)
+    profile = profile_request(eng, img, "swinir_sr_x4")
 
     # per band: 36 blocks of 4 K1 + 1 K2; 9 body convs, and 4 K3 in the
     # head's border ring (upsample_tail's two convs on the top and bottom
@@ -385,7 +540,7 @@ def main_path(state, card: str, requests: int = 3) -> dict:
             "profile": profile, "card": card, "pass": bool(ok)}
 
 
-def profile_request(eng, img, top: int = 12) -> dict:
+def profile_request(eng, img, model: str, top: int = 12) -> dict:
     """One more request under torch.profiler: device time by kernel name
     and the device's busy share of the request's wall time."""
     import torch
@@ -394,7 +549,7 @@ def profile_request(eng, img, top: int = 12) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.restore_array(img, "swinir_sr_x4")
+        eng.restore_array(img, model)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -446,6 +601,126 @@ def fast_vs_exact(state) -> dict:
     ctrl = range_psnr(ctrl16, ctrl32)
     return {"phase": "fast_vs_exact", "probe": [h, w], "psnr_db": db,
             "control_db": ctrl, "floor_db": ctrl - 2.0,
+            "exact_plain_vs_card_db": range_psnr(ctrl32, exact),
+            "pass": bool(db >= ctrl - 2.0)}
+
+
+def restormer_golden() -> dict:
+    """restormer_synth (320x320, real geometry) in float32 on the card:
+    levels 1-2 take K5 + K4, levels 3-4 the unfused route."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.core.tiling import tiled_apply
+    from image_restoration_agent_tpu_torch.models import build_model
+    from image_restoration_agent_tpu_torch.offline import (GOLDEN_ROOT,
+                                                           load_golden,
+                                                           psnr)
+    from image_restoration_agent_tpu_torch.ops.restormer_fused import (
+        gdfn_block)
+
+    g = load_golden(GOLDEN_ROOT / "restormer_synth")
+    model = build_model("restormer", device="cuda")
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in g["state"].items()}, strict=True)
+    n0 = gdfn_block.launches
+    t0 = time.perf_counter()
+    out = tiled_apply(model, torch.from_numpy(g["input"]).cuda(), tile=None,
+                      pad_multiple=8, pad_kind="reflect").cpu().numpy()
+    secs = time.perf_counter() - t0
+    db = psnr(np.clip(out, 0, 1), g["expected"])
+    want = g["spec"]["psnr_db"] - 0.1
+    return {"phase": "restormer_golden", "model": "restormer",
+            "dtype": "float32", "input": list(g["input"].shape),
+            "fused_blocks": gdfn_block.launches - n0, "psnr_db": db,
+            "want_db": want, "seconds": secs, "pass": bool(db >= want)}
+
+
+def restormer_counts() -> dict:
+    from image_restoration_agent_tpu_torch.ops.conv3x3 import conv3x3
+    from image_restoration_agent_tpu_torch.ops.restormer_fused import (
+        gdfn_block, mdta_front)
+    return {"conv3x3": conv3x3.launches, "gdfn_block": gdfn_block.launches,
+            "mdta_front": mdta_front.launches}
+
+
+def restormer_path(state, card: str, requests: int = 3) -> dict:
+    """Engine(device="cuda") serving 1280x720 with Restormer in bf16: the
+    whole-image route on a 768x1280 canvas."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.engine import Engine
+    from image_restoration_agent_tpu_torch.ops.conv3x3 import conv3x3
+    from image_restoration_agent_tpu_torch.ops.restormer_fused import (
+        gdfn_block, mdta_front)
+    from image_restoration_agent_tpu_torch.ops.swin_block import (
+        launch_counts, reset_launch_counts)
+
+    eng = Engine(device="cuda", param_dtype=torch.bfloat16)
+    eng.set_weights("restormer", state)
+    img = np.random.default_rng(1).random((720, 1280, 3), dtype=np.float32)
+    t0 = time.perf_counter()
+    warm = eng.restore_array(img, "restormer")
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    reset_launch_counts()
+    conv3x3.launches = gdfn_block.launches = mdta_front.launches = 0
+    secs, results = [], []
+    for _ in range(requests):
+        t0 = time.perf_counter()
+        res = eng.restore_array(img, "restormer")
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        results.append(res)
+    counts = restormer_counts()
+    others = launch_counts()
+    profile = profile_request(eng, img, "restormer")
+    per_req = {"conv3x3": 8, "gdfn_block": 44, "mdta_front": 44}
+    ok = all(r.image.shape == (720, 1280, 3) and r.nonfinite == 0
+             for r in results + [warm])
+    ok = ok and all(counts[k] == v * requests for k, v in per_req.items())
+    ok = ok and not any(others.values())
+    best = min(secs)
+    return {"phase": "restormer_path", "model": "restormer", "dtype":
+            "bfloat16", "input": [720, 1280, 3], "canvas": [768, 1280],
+            "output": list(results[-1].image.shape),
+            "warmup_seconds": warm_s, "seconds": secs,
+            "mp_per_s": 1280 * 720 / 1e6 / best,
+            "launches": counts, "other_launches": others,
+            "expected_per_request": per_req, "profile": profile,
+            "card": card, "pass": bool(ok)}
+
+
+def restormer_fast_vs_exact(state) -> dict:
+    """bf16 through the kernels against f32 exact on the card, on a probe
+    whose every level takes the fused route (level 4 is 16x128)."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.core.tiling import tiled_apply
+    from image_restoration_agent_tpu_torch.models import build_model
+
+    h, w = 128, 1024
+    img = torch.from_numpy(np.random.default_rng(9).random(
+        (h, w, 3), dtype=np.float32))
+    sd = {k: torch.from_numpy(v) for k, v in state.items()}
+
+    def run(device, dtype):
+        m = build_model("restormer", device=device, dtype=dtype)
+        m.load_state_dict(sd, strict=True)
+        out = tiled_apply(lambda b: m(b.to(dtype)).float(), img.to(device),
+                          tile=None, pad_multiple=64, pad_kind="reflect")
+        return out.cpu().numpy()
+
+    fast = run("cuda", torch.bfloat16)
+    exact = run("cuda", torch.float32)
+    # the control: the plain versions (the CPU path) in bf16 vs f32
+    torch.set_num_threads(8)
+    ctrl16 = run("cpu", torch.bfloat16)
+    ctrl32 = run("cpu", torch.float32)
+    db = range_psnr(fast, exact)
+    ctrl = range_psnr(ctrl16, ctrl32)
+    return {"phase": "restormer_fast_vs_exact", "probe": [h, w],
+            "psnr_db": db, "control_db": ctrl, "floor_db": ctrl - 2.0,
             "exact_plain_vs_card_db": range_psnr(ctrl32, exact),
             "pass": bool(db >= ctrl - 2.0)}
 
@@ -502,9 +777,13 @@ def main() -> int:
         return out
 
     rows = phase("kernels", kernel_checks, shape) or []
+    rows += phase("restormer_kernels", restormer_kernel_checks,
+                  args.quick) or []
     failures += [f"kernel {r['name']} {r['variant']} {r['dtype']}"
                  for r in rows if not r["pass"]]
-    served = None
+    # each path's launch counts, read just after the path ran
+    launches = {"swinir": {**launch_counts(), "conv3x3": conv3x3.launches},
+                "restormer": restormer_counts()}
     if not args.quick:
         from image_restoration_agent_tpu_torch.offline import (GOLDEN_ROOT,
                                                                load_golden)
@@ -512,13 +791,18 @@ def main() -> int:
         phase("golden", golden_check)
         served = phase("main_path", main_path, state, card)
         phase("fast_vs_exact", fast_vs_exact, state)
+        state = load_golden(GOLDEN_ROOT / "restormer_synth")["state"]
+        phase("restormer_golden", restormer_golden)
+        served_r = phase("restormer_path", restormer_path, state, card)
+        phase("restormer_fast_vs_exact", restormer_fast_vs_exact, state)
+        launches = {"swinir": served["launches"] if served else {},
+                    "restormer": served_r["launches"] if served_r else {}}
 
-    launches = served["launches"] if served else \
-        {**launch_counts(), "conv3x3": conv3x3.launches}
     emit({"kernels": [{
         "name": f"{r['name']} [{r['variant']}, {r['dtype']}]",
         "route": r["route"], "source": r["source"],
-        "replaces": r["replaces"], "launches": launches[r["name"]],
+        "replaces": r["replaces"],
+        "launches": launches[r["path"]].get(r["name"], 0),
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}

@@ -3,10 +3,12 @@ Hopper (H100), beside the JAX package ``image_restoration_agent_tpu``,
 which stays the reference it is held against.
 
 - ``core``    : pad -> tile -> forward -> overlap-blend -> crop, PNG codec.
-- ``ops``     : window attention, pixel shuffle, and the hand-written CUDA
-                kernels of the serving path (``csrc/``): the Swin block
-                (token_linear + window_attention) and the fused 3x3 conv.
-- ``models``  : SwinIR with reference (KAIR) parameter names.
+- ``ops``     : window attention, pixel shuffle, LayerNorms, gates, MDTA,
+                and the hand-written CUDA kernels of the serving paths
+                (``csrc/``): the Swin block (token_linear +
+                window_attention), the fused 3x3 conv, and Restormer's
+                fused GDFN and MDTA blocks.
+- ``models``  : SwinIR and Restormer with reference parameter names.
 - ``engine``  : the serving runtime (band mode, shape buckets, weights).
 - ``convert`` : JAX parameter pytrees -> reference-named state dicts.
 - ``offline`` : the synthetic real-geometry goldens.

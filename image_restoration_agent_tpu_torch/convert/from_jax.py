@@ -1,15 +1,22 @@
-"""Carry the JAX package's SwinIR parameters across to the port.
+"""Carry the JAX package's SwinIR and Restormer parameters across to the
+port.
 
-:func:`from_jax` takes the JAX SwinIR parameter pytree (nested dicts of
-numpy arrays, with or without the top-level ``"params"``) and returns the
-port's state dict under the reference (KAIR) names. It is the inverse of
-``image_restoration_agent_tpu/convert/torch_import.py:swinir_rules``:
+:func:`from_jax` takes a JAX parameter pytree (nested dicts of numpy
+arrays, with or without the top-level ``"params"``) and returns the port's
+state dict under the reference names. The family is read from the tree's
+top-level keys (Restormer has ``encoder_level1_0``). It is the inverse of
+``image_restoration_agent_tpu/convert/torch_import.py``:
 
-- conv kernels (kh, kw, I, O) -> (O, I, kh, kw);
-- linear kernels (I, O) -> (O, I);
-- ``upsample{i}`` -> ``upsample.{2i}`` (the reference Upsample is a
-  Sequential of [conv, PixelShuffle] pairs), ``upsample_direct`` ->
-  ``upsample.0``, ``conv_up{i}`` -> ``conv_up{i+1}``.
+- ``swinir_rules`` (KAIR names): conv kernels (kh, kw, I, O) -> (O, I, kh,
+  kw); linear kernels (I, O) -> (O, I); ``upsample{i}`` ->
+  ``upsample.{2i}`` (the reference Upsample is a Sequential of [conv,
+  PixelShuffle] pairs), ``upsample_direct`` -> ``upsample.0``,
+  ``conv_up{i}`` -> ``conv_up{i+1}``;
+- ``restormer_rules`` (``restormer_arch.py`` names): conv kernels as above,
+  depthwise kernels (3, 3, 1, C) -> (C, 1, 3, 3), temperature (heads,) ->
+  (heads, 1, 1), ``encoder_level1_0`` -> ``encoder_level1.0``,
+  ``norm1/weight`` -> ``norm1.body.weight``, ``down1_2/conv`` ->
+  ``down1_2.body.0``, ``patch_embed`` -> ``patch_embed.proj``.
 """
 
 from __future__ import annotations
@@ -76,6 +83,44 @@ _RULES = [
 ]
 
 
+def _temperature(w):
+    return np.reshape(w, (-1, 1, 1))
+
+
+_STAGE = (r"(encoder_level[123]|latent|decoder_level[123]|refinement)"
+          r"_(\d+)")
+
+# (JAX path regex, reference-name template, transform); depthwise kernels
+# (3, 3, 1, C) take the conv transpose to (C, 1, 3, 3)
+_RESTORMER_RULES = [
+    (r"patch_embed/Conv_0/(kernel|bias)", r"patch_embed.proj.\1", None),
+    (r"(output|skip_conv)/Conv_0/(kernel|bias)", r"\1.\2", None),
+    (r"(reduce_chan_level[23])/Conv_0/(kernel|bias)", r"\1.\2", None),
+    (r"(down1_2|down2_3|down3_4|up4_3|up3_2|up2_1)/conv/Conv_0/(kernel)",
+     r"\1.body.0.\2", None),
+    (rf"{_STAGE}/norm([12])/(weight|bias)", r"\1.\2.norm\3.body.\4",
+     _same),
+    (rf"{_STAGE}/attn/temperature", r"\1.\2.attn.temperature",
+     _temperature),
+    (rf"{_STAGE}/(attn|ffn)/(\w+)/Conv_0/(kernel|bias)", r"\1.\2.\3.\4.\5",
+     None),
+]
+
+
+def _restormer_name(path: str) -> tuple[str, object]:
+    for pattern, tpl, fn in _RESTORMER_RULES:
+        m = re.fullmatch(pattern, path)
+        if m:
+            name = m.expand(tpl)
+            if fn is None:  # a conv leaf: kernel -> weight, bias unchanged
+                leaf = name.rsplit(".", 1)[1]
+                fn = _conv if leaf == "kernel" else _same
+                name = name[: -len(leaf)] + (
+                    "weight" if leaf == "kernel" else "bias")
+            return name, fn
+    raise KeyError(f"unmapped JAX parameter: {path}")
+
+
 def _flatten(tree, prefix=""):
     for k, v in tree.items():
         path = f"{prefix}/{k}" if prefix else str(k)
@@ -105,12 +150,14 @@ def _ref_name(path: str) -> tuple[str, object]:
 
 
 def from_jax(params) -> dict[str, torch.Tensor]:
-    """The port's reference-named state dict from JAX SwinIR params."""
+    """The port's reference-named state dict from JAX SwinIR or Restormer
+    params."""
     if "params" in params:
         params = params["params"]
+    rename = _restormer_name if "encoder_level1_0" in params else _ref_name
     out = {}
     for path, value in _flatten(params):
-        name, fn = _ref_name(path)
+        name, fn = rename(path)
         out[name] = torch.from_numpy(
             np.ascontiguousarray(fn(value)).astype(np.float32))
     return out

@@ -16,11 +16,13 @@ from torch import nn
 from ..device import exact_f32
 from ..ops.conv3x3 import (compose_conv_weights, conv3x3, conv3x3_fits,
                            conv3x3_weights, conv_after_shuffle_weights)
-from ..ops.layernorm import layer_norm_lanes
+from ..ops.layernorm import (layer_norm_bias_free, layer_norm_lanes,
+                             layer_norm_with_bias)
 from ..ops.pixel_shuffle import pixel_shuffle
 
-__all__ = ["Conv", "layer_norm_lanes", "conv_plain",
-           "fused_pixelshuffle_head", "upsample_tail"]
+__all__ = ["Conv", "Conv1x1", "DWConv", "RestormerLayerNorm",
+           "layer_norm_lanes", "conv_plain", "fused_pixelshuffle_head",
+           "upsample_tail"]
 
 
 def cache_key(x: torch.Tensor, params) -> tuple:
@@ -30,16 +32,16 @@ def cache_key(x: torch.Tensor, params) -> tuple:
 
 
 class Conv(nn.Module):
-    """3x3 SAME conv (stride 1) with bias and the fused epilogues of
-    :func:`ops.conv3x3.conv3x3`: ``act`` in {None, "lrelu", "lrelu2"},
-    ``shuffle`` r > 1 appends ``pixel_shuffle(y, r)``, and per call a
-    residual, a folded roll and an input LayerNorm."""
+    """3x3 SAME conv (stride 1) with an optional bias and the fused
+    epilogues of :func:`ops.conv3x3.conv3x3`: ``act`` in {None, "lrelu",
+    "lrelu2"}, ``shuffle`` r > 1 appends ``pixel_shuffle(y, r)``, and per
+    call a residual, a folded roll and an input LayerNorm."""
 
     def __init__(self, cin: int, cout: int, act: str | None = None,
-                 shuffle: int = 1):
+                 shuffle: int = 1, bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin, 3, 3))
-        self.bias = nn.Parameter(torch.empty(cout))
+        self.bias = nn.Parameter(torch.empty(cout)) if bias else None
         self.act = act
         self.shuffle = shuffle
         self._prepared: tuple | None = None
@@ -50,7 +52,8 @@ class Conv(nn.Module):
     def kernel_weights(self, x: torch.Tensor):
         """The kernel form of this conv's weights for ``x``'s dtype and
         device, made once and kept while the parameters are unchanged."""
-        key = cache_key(x, (self.weight, self.bias))
+        key = cache_key(x, [p for p in (self.weight, self.bias)
+                            if p is not None])
         if self._prepared is None or self._prepared[0] != key:
             self._prepared = (key, conv3x3_weights(self.hwio(), self.bias,
                                                    x.dtype))
@@ -62,6 +65,78 @@ class Conv(nn.Module):
         if self.shuffle > 1:
             y = pixel_shuffle(y, self.shuffle)
         return y
+
+
+class Conv1x1(nn.Module):
+    """1x1 conv on a channels-last tensor (a matmul over channels in
+    ``x``'s dtype), as the JAX package runs it through XLA; reference
+    ``Conv2d(cin, cout, 1)`` parameter layout."""
+
+    def __init__(self, cin: int, cout: int, bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin, 1, 1))
+        self.bias = nn.Parameter(torch.empty(cout)) if bias else None
+
+    def matrix(self) -> torch.Tensor:
+        """The (Cin, Cout) matrix."""
+        return self.weight[:, :, 0, 0].t()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.is_cuda and x.dtype == torch.float32:
+            exact_f32()
+        y = x @ self.matrix().to(x.dtype)
+        return y if self.bias is None else y + self.bias.to(y.dtype)
+
+
+class DWConv(nn.Module):
+    """Depthwise 3x3 SAME conv (groups == channels) through the library
+    conv, on a channels-last tensor; reference ``Conv2d(c, c, 3,
+    groups=c)`` layout (C, 1, 3, 3). Only the unfused Restormer route runs
+    it, as the JAX package runs it through XLA."""
+
+    def __init__(self, c: int, bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(c, 1, 3, 3))
+        self.bias = nn.Parameter(torch.empty(c)) if bias else None
+
+    def taps(self) -> torch.Tensor:
+        """(9, C): row ``3*dy + dx`` holds tap (dy, dx) of every channel."""
+        return self.weight.reshape(self.weight.shape[0], 9).t()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.is_cuda and x.dtype == torch.float32:
+            exact_f32()
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype), b,
+                     padding=1, groups=x.shape[-1])
+        return y.permute(0, 2, 3, 1)
+
+
+class _LNBody(nn.Module):
+    def __init__(self, c: int, bias_free: bool):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(c))
+        self.bias = None if bias_free else nn.Parameter(torch.empty(c))
+
+
+class RestormerLayerNorm(nn.Module):
+    """Restormer LayerNorm over channels (eps 1e-5), WithBias or BiasFree;
+    parameters under ``.body`` as in the reference (``norm1.body.weight``)."""
+
+    def __init__(self, c: int, bias_free: bool = False):
+        super().__init__()
+        self.body = _LNBody(c, bias_free)
+
+    def params(self) -> tuple:
+        """(scale,) BiasFree or (scale, bias): the fused kernels' ``ln``."""
+        b = self.body
+        return (b.weight,) if b.bias is None else (b.weight, b.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = self.body
+        if b.bias is None:
+            return layer_norm_bias_free(x, b.weight)
+        return layer_norm_with_bias(x, b.weight, b.bias)
 
 
 def conv_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor

@@ -60,13 +60,16 @@ def build_model(name: str, *, device: str | torch.device = "cuda",
 
 def init_weights(model: torch.nn.Module, seed: int) -> None:
     """Deterministic fan-in scaled weights from a ``torch.Generator``:
-    norm scales near 1, small biases and bias tables."""
+    norm scales and attention temperatures near 1, small biases and bias
+    tables."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
             n = torch.randn(p.shape, generator=gen, dtype=torch.float32)
             if "relative_position_bias_table" in name:
                 v = 0.02 * n
+            elif "temperature" in name:
+                v = 1.0 + 0.05 * n
             elif name.endswith("bias"):
                 v = 0.02 * n
             elif p.ndim == 1:

@@ -8,6 +8,10 @@ from .window_attention import (
 )
 from .conv3x3 import (conv3x3, conv3x3_plain, conv_after_shuffle_weights,
                       compose_conv_weights)
+from .restormer_fused import (gdfn_block, gdfn_block_plain, gdfn_weights,
+                              mdta_block, mdta_block_plain, mdta_front,
+                              mdta_front_plain, mdta_weights,
+                              restormer_fused_supported)
 from .swin_block import (swin_block, swin_block_plain, mlp_block,
                          mlp_block_plain, prepare_swin_params,
                          pad_width_for_strips, strip_chunk_width)
@@ -20,4 +24,7 @@ __all__ = [
     "compose_conv_weights",
     "swin_block", "swin_block_plain", "mlp_block", "mlp_block_plain",
     "prepare_swin_params", "pad_width_for_strips", "strip_chunk_width",
+    "gdfn_block", "gdfn_block_plain", "gdfn_weights", "mdta_block",
+    "mdta_block_plain", "mdta_front", "mdta_front_plain", "mdta_weights",
+    "restormer_fused_supported",
 ]

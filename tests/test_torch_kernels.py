@@ -9,6 +9,8 @@ import pytest
 import torch
 
 tconv = importlib.import_module("image_restoration_agent_tpu_torch.ops.conv3x3")
+trf = importlib.import_module(
+    "image_restoration_agent_tpu_torch.ops.restormer_fused")
 tsb = importlib.import_module("image_restoration_agent_tpu_torch.ops.swin_block")
 twa = importlib.import_module(
     "image_restoration_agent_tpu_torch.ops.window_attention")
@@ -131,6 +133,97 @@ def test_conv3x3_kernel_matches_plain_f32(cuda, case):
     assert torch.isfinite(got16).all() and rms <= ctrl, (rms, ctrl)
 
 
+def _restormer_weights(gen, c, heads, ln_kind, bias, dev):
+    hid = int(2.66 * c)
+    ln = {"none": None, "biasfree": (1 + _randn(gen, c, scale=0.1),),
+          "withbias": (1 + _randn(gen, c, scale=0.1),
+                       _randn(gen, c, scale=0.1))}[ln_kind]
+
+    def b(n):
+        return _randn(gen, n, scale=0.1) if bias else None
+
+    g = (ln, _randn(gen, c, 2 * hid, scale=c ** -0.5), b(2 * hid),
+         _randn(gen, 9, 2 * hid, scale=1 / 3), b(2 * hid),
+         _randn(gen, hid, c, scale=hid ** -0.5), b(c))
+    m = (ln, _randn(gen, c, 3 * c, scale=c ** -0.5), b(3 * c),
+         _randn(gen, 9, 3 * c, scale=1 / 3), b(3 * c),
+         _randn(gen, c, c, scale=c ** -0.5), b(c),
+         0.5 + torch.rand(heads, generator=gen))
+
+    def to(ws):
+        return tuple(None if w is None else
+                     tuple(t.to(dev) for t in w) if isinstance(w, tuple)
+                     else w.to(dev) for w in ws)
+    return to(g), to(m)
+
+
+# C 48 / 96 / 384 are Restormer's level widths; 24 a width whose hidden
+# channels (63) leave a ragged chunk; 19x36 and 8x20 ragged tiles
+_RESTORMER_CASES = [(48, 1, (24, 40)), (96, 2, (19, 36)),
+                    (384, 8, (8, 20)), (24, 2, (16, 128))]
+_RESTORMER_FORMS = [("withbias", False), ("none", False),
+                    ("biasfree", True), ("withbias", True)]
+
+
+def _close_or_within_rounding(got, want, ref32, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4 * float(
+            want.abs().max()), rtol=0)
+        return
+    got, want = got.float(), want.float()
+    rms = (got - want).square().mean().sqrt()
+    ctrl = (want - ref32.float()).square().mean().sqrt()
+    assert torch.isfinite(got).all() and rms <= ctrl, (rms, ctrl)
+
+
+@pytest.mark.parametrize("c,heads,hw", _RESTORMER_CASES)
+@pytest.mark.parametrize("ln_kind,bias", _RESTORMER_FORMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gdfn_kernel_matches_plain(cuda, c, heads, hw, ln_kind, bias,
+                                   dtype):
+    """K4 against gdfn_block_plain: f32 within 1e-4 x max|ref|; bf16 (tanh
+    GELU) within the bf16 rounding control in RMS."""
+    gen = torch.Generator().manual_seed(4)
+    x32 = _randn(gen, 2, *hw, c).to(cuda)
+    g, _ = _restormer_weights(gen, c, heads, ln_kind, bias, cuda)
+    fast = dtype == torch.bfloat16
+    x = x32.to(dtype)
+    n0 = trf.gdfn_block.launches
+    got = trf.gdfn_block(x, trf.gdfn_weights(*g, dtype), fast=fast)
+    assert trf.gdfn_block.launches == n0 + 1 and got.dtype == dtype
+    _close_or_within_rounding(got, trf.gdfn_block_plain(x, *g, fast=fast),
+                              trf.gdfn_block_plain(x32, *g, fast=fast),
+                              dtype)
+
+
+@pytest.mark.parametrize("c,heads,hw", _RESTORMER_CASES)
+@pytest.mark.parametrize("ln_kind,bias", _RESTORMER_FORMS[::2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mdta_kernel_matches_plain(cuda, c, heads, hw, ln_kind, bias,
+                                   dtype):
+    """K5's v, gram and sums of squares, and the whole MDTA block, against
+    the plain versions (rules as for K4); two launches give the same
+    bits."""
+    gen = torch.Generator().manual_seed(5)
+    x32 = _randn(gen, 2, *hw, c).to(cuda)
+    _, m = _restormer_weights(gen, c, heads, ln_kind, bias, cuda)
+    x = x32.to(dtype)
+    form = trf.mdta_weights(*m[:7], m[7], heads, dtype)
+    n0 = trf.mdta_front.launches
+    got = trf.mdta_front(x, form)
+    assert trf.mdta_front.launches == n0 + 1
+    assert all(torch.equal(a, b) for a, b in zip(got,
+                                                 trf.mdta_front(x, form)))
+    want = trf.mdta_front_plain(x, *m[:5], heads)
+    ref32 = trf.mdta_front_plain(x32, *m[:5], heads)
+    for a, b, r in zip(got, want, ref32):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        _close_or_within_rounding(a, b, r, dtype)
+    _close_or_within_rounding(trf.mdta_block(x, form),
+                              trf.mdta_block_plain(x, *m, heads),
+                              trf.mdta_block_plain(x32, *m, heads), dtype)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(1, 8, 8, 4, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
@@ -140,3 +233,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):  # N = 81 > 64
         tsb.window_attention(qkv, rpb, None, num_heads=2, nwy=1, nwx=2,
                              fast=False)
+    def gdfn(c, dtype):
+        g = (None, torch.zeros(c, 16), None, torch.zeros(9, 16), None,
+             torch.zeros(8, c), None)
+        return trf.gdfn_weights(*(None if t is None else t.to(cuda)
+                                  for t in g), dtype)
+
+    with pytest.raises(ValueError):  # C = 6 is not a multiple of 4
+        trf.gdfn_block(torch.zeros(1, 8, 8, 6, device=cuda),
+                       gdfn(6, torch.float32), fast=False)
+    with pytest.raises(ValueError):  # kernel form for another dtype
+        trf.gdfn_block(torch.zeros(1, 8, 8, 8, device=cuda),
+                       gdfn(8, torch.bfloat16), fast=False)
