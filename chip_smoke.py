@@ -22,7 +22,12 @@ Phases, each printing one JSON line:
    (with its plain epilogue: the MDTA block) at the 1280x720 Restormer
    request's block shapes (768x1280 C 48, 384x640 C 96, 192x320 C 192,
    96x160 C 384, 768x1280 C 96; at 384x640 also without LN, BiasFree and
-   with biases), and K3 at the Restormer convs' shapes;
+   with biases), and K3 at the Restormer convs' shapes; hat_kernels: the
+   same for K2 at N 256 (no mask, bank, full mask; SDPA beside it),
+   ``swin_attn_block`` (dc 0, -8), K6 ``roll2d`` (+-8; ``torch.roll``
+   beside it) and K3 at the CAB's shapes on one HAT tile batch
+   (5x256x256, C 180), and ``wmsa_block`` with the full mask at N 64 on the
+   1088x1928 denoise canvas and at N 256 on the HAT batch;
 4. golden: SwinIR-M x4 on the real-geometry synthetic golden in float32,
    PSNR against the independent torch reference output >= recorded - 0.1;
 5. main_path: ``Engine(device="cuda")`` serving 1920x1080 x4 in band mode
@@ -38,7 +43,23 @@ Phases, each printing one JSON line:
    ``torch.profiler`` split of one more;
 9. restormer_fast_vs_exact: bf16 through the kernels against f32 exact on
    a 128x1024 probe (every level on the fused route), PSNR >= the plain
-   bf16-vs-f32 control - 2 dB.
+   bf16-vs-f32 control - 2 dB;
+10. hat_exact: f32 ``hat_sr_x4`` (random weights from its seed) on the
+    card against the CPU plain f32 path on a 112x112 input (one 128x128
+    canvas), PSNR >= 60 dB;
+11. hat_path: ``Engine(device="cuda")`` serving 1920x1080 x4 with HAT in
+    bf16, tile mode (the 1104x1936 canvas, 45 tiles of 256, 9 batches of
+    5; one warm-up request, three timed): per forward 36
+    ``swin_attn_block``, 18 ``roll2d``, 36 ``mlp_block`` and 85 K3
+    launches, and a ``torch.profiler`` split of one more request;
+12. hat_fast_vs_exact: bf16 against f32 exact on the card on a 480x270
+    probe (6 tiles), PSNR >= the plain bf16-vs-f32 control (the CPU path,
+    on the probe canvas's top-left 128x128) - 2 dB;
+13. swinir_denoise_path: ``swinir_denoise_15`` serving 1920x1080 whole
+    image in bf16 (the 1088x1928 canvas, every block on the partition
+    route): 36 ``wmsa_block``, 36 ``mlp_block`` and 9 K3 launches per
+    request, and f32 on the card against the CPU plain f32 path on a
+    72x400 canvas of the same route, PSNR >= 60 dB.
 
 Then the ``kernels`` line (each kernel's launches counted on the path
 that runs it), the ``nvidia-smi`` line, and last
@@ -66,16 +87,25 @@ REPLACES = {
     "swin_block": TPU + "pallas_attention.py:1015",
     "token_linear": TPU + "pallas_attention.py:1015",
     "window_attention": TPU + "pallas_attention.py:1015",
+    "swin_attn_block": TPU + "pallas_attention.py:1015",
     "mlp_block": TPU + "pallas_attention.py:1457",
+    "wmsa_block": TPU + "pallas_attention.py:145",
+    "roll2d": TPU + "pallas_attention.py:1571",
     "conv3x3": TPU + "conv3x3.py:201",
     "gdfn_block": TPU + "restormer_fused.py:260",
     "mdta_front": TPU + "restormer_fused.py:398",
 }
 SOURCE = {"swin_block": SRC + "swin_block.cu", "token_linear":
           SRC + "swin_block.cu", "window_attention": SRC + "swin_block.cu",
+          "swin_attn_block": SRC + "swin_block.cu",
+          "wmsa_block": SRC + "swin_block.cu", "roll2d": SRC + "roll2d.cu",
           "mlp_block": SRC + "swin_block.cu", "conv3x3": SRC + "conv3x3.cu",
           "gdfn_block": SRC + "restormer_fused.cu",
           "mdta_front": SRC + "restormer_fused.cu"}
+# one batch of the HAT 2K request's tiles (5 of 45, 256x256, C 180, 6
+# heads, window 16) and the whole-image SwinIR-denoise canvas (1088x1928)
+HAT_BATCH = (5, 256, 256, 180)
+DENOISE_CANVAS = (1, 1088, 1928, 180)
 # the 1280x720 Restormer request's block shapes (canvas 768x1280): the four
 # U-Net levels and the C 96 full-resolution decoder / refinement stage
 RESTORMER_SHAPES = (("level1", (1, 768, 1280, 48), 1),
@@ -463,6 +493,185 @@ def restormer_kernel_checks(quick: bool, seed: int = 3) -> list[dict]:
     return rows
 
 
+def hat_kernel_checks(quick: bool, seed: int = 11) -> list[dict]:
+    """The slice-3 kernels against their plain versions: K2 at N 256 (no
+    mask, bank, full mask), ``swin_attn_block`` (dc 0, -8), K6 ``roll2d``
+    (+-8) and K3 at the CAB's shapes on one HAT tile batch (5x256x256, C
+    180, window 16), ``wmsa_block`` with the full mask at N 64 on the
+    1088x1928 denoise canvas and at N 256 on the HAT batch. ``--quick``
+    takes a 32x64 batch of one and a 24x40 canvas."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.ops.conv3x3 import (
+        conv3x3, conv3x3_plain, conv3x3_weights)
+    from image_restoration_agent_tpu_torch.ops.roll2d import (roll2d,
+                                                              roll2d_plain)
+    from image_restoration_agent_tpu_torch.ops.swin_block import (
+        GATHER, prepare_swin_params, swin_attn_block, swin_attn_block_plain,
+        token_linear_plain, window_attention, window_attention_plain,
+        wmsa_block, wmsa_block_plain)
+    from image_restoration_agent_tpu_torch.ops.window_attention import (
+        shift_attention_mask, window_partition)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def randn(*s, scale=1.0):
+        return (torch.randn(*s, generator=gen) * scale).to(dev)
+
+    def weights(c, heads, ws):
+        hid = 2 * c
+        return dict(
+            norm1_w=1 + randn(c, scale=0.1), norm1_b=randn(c, scale=0.1),
+            qkv_w=randn(3 * c, c, scale=c ** -0.5),
+            qkv_b=randn(3 * c, scale=0.1),
+            proj_w=randn(c, c, scale=c ** -0.5), proj_b=randn(c, scale=0.1),
+            rpb_table=randn((2 * ws - 1) ** 2, heads, scale=0.5),
+            norm2_w=1 + randn(c, scale=0.1), norm2_b=randn(c, scale=0.1),
+            fc1_w=randn(hid, c, scale=c ** -0.5),
+            fc1_b=randn(hid, scale=0.1),
+            fc2_w=randn(c, hid, scale=hid ** -0.5),
+            fc2_b=randn(c, scale=0.1))
+
+    def to_mask(m):
+        return torch.from_numpy(m).to(dev)
+
+    hb, hh, hw_, c = (1, 32, 64, 180) if quick else HAT_BATCH
+    db, dh, dw, _ = (1, 24, 40, 180) if quick else DENOISE_CANVAS
+    heads = 6
+    wts16, wts8 = weights(c, heads, 16), weights(c, heads, 8)
+    x16_32 = randn(hb, hh, hw_, c)
+    xd_32 = randn(db, dh, dw, c)
+    bank16 = to_mask(shift_attention_mask(32, 32, 16, 8).reshape(
+        2, 2, 256, 256))
+    mask16 = to_mask(shift_attention_mask(hh, hw_, 16, 8))
+    mask8 = to_mask(shift_attention_mask(dh, dw, 8, 4))
+    cab = [(c, c // 3), (c // 3, c)]
+    cab_w = {k: randn(3, 3, *k, scale=(9 * k[0]) ** -0.5) for k in cab}
+    cab_b = {k: randn(k[1], scale=0.1) for k in cab}
+    cab_in = {c: x16_32, c // 3: randn(hb, hh, hw_, c // 3)}
+    rows = []
+    for dtype, fast in ((torch.float32, False), (torch.bfloat16, True)):
+        es = 4 if dtype == torch.float32 else 2
+        p = prepare_swin_params(**wts16, num_heads=heads, ws=16, dtype=dtype)
+        p32 = prepare_swin_params(**wts16, num_heads=heads, ws=16,
+                                  dtype=torch.float32)
+        x = x16_32.to(dtype)
+        t, n = hb * hh * hw_, 256
+        cases = []
+        # K2 on the qkv of the unshifted block's gather
+        geom = (hb, hh, hw_, 16, 0)
+        qkv = token_linear_plain(x.reshape(t, c), p.wqkv, p.bqkv,
+                                 ln=(p.ln1_w, p.ln1_b), geom=geom,
+                                 a_map=GATHER)
+        qkv32 = token_linear_plain(x16_32.reshape(t, c), p32.wqkv, p32.bqkv,
+                                   ln=(p32.ln1_w, p32.ln1_b), geom=geom,
+                                   a_map=GATHER)
+        qh, kh, vh = (qkv.reshape(-1, n, 3, heads, c // heads)
+                      .permute(2, 0, 3, 1, 4).contiguous())
+        nwy, nwx = hh // 16, hw_ // 16
+        per_win = {
+            "none": None,
+            "bank": bank16[
+                (torch.arange(nwy, device=dev) == nwy - 1).long()[:, None],
+                (torch.arange(nwx, device=dev) == nwx - 1).long()[None]]
+            .reshape(-1, n, n),
+            "full mask": mask16}
+        for form, pw in per_win.items():
+            kw = dict(num_heads=heads, nwy=nwy, nwx=nwx, fast=fast,
+                      mask=mask16 if form == "full mask" else None)
+            bk = bank16 if form == "bank" else None
+            am = p.rpb[None] if pw is None else (
+                p.rpb[None] + pw[:, None]).repeat(hb, 1, 1, 1)
+            am = am.to(dtype)
+            mbytes = 0 if pw is None else (
+                bk.numel() if bk is not None else pw.numel()) * 4
+            cases.append(dict(
+                name="window_attention", variant=f"N256 {form}", path="hat",
+                kernel=lambda kw=kw, bk=bk: window_attention(qkv, p.rpb, bk,
+                                                             **kw),
+                plain=lambda kw=kw, bk=bk: window_attention_plain(
+                    qkv, p.rpb, bk, **kw),
+                ref32=lambda kw=kw, bk=bk: window_attention_plain(
+                    qkv32, p32.rpb, bk, **kw),
+                library=lambda am=am: torch.nn.functional
+                .scaled_dot_product_attention(qh, kh, vh, attn_mask=am,
+                                              scale=1.0),
+                flops=4 * t * n * c,
+                nbytes=4 * t * c * es + p.rpb.numel() * 4 + mbytes, reps=5))
+        blk_flops = 2 * t * c * 3 * c + 2 * t * c * c + 4 * t * n * c
+        blk_bytes = 2 * t * c * es + 4 * c * c * es + p.rpb.numel() * 4
+        for dc, bk in ((0, None), (-8, bank16)):
+            kw = dict(num_heads=heads, ws=16, dc=dc, mask_bank=bk,
+                      fast=fast)
+            cases.append(dict(
+                name="swin_attn_block", variant=f"N256 dc={dc}"
+                + (",bank" if bk is not None else ""), path="hat",
+                kernel=lambda kw=kw: swin_attn_block(x, p, **kw),
+                plain=lambda kw=kw: swin_attn_block_plain(x, p, **kw),
+                ref32=lambda kw=kw: swin_attn_block_plain(x16_32, p32, **kw),
+                library=None, flops=blk_flops,
+                nbytes=blk_bytes + (0 if bk is None else bk.numel() * 4),
+                reps=3))
+        for shift in (8, -8):
+            cases.append(dict(
+                name="roll2d", variant=f"shift={shift:+d}", path="hat",
+                kernel=lambda sh=shift: roll2d(x, sh, 16),
+                plain=lambda sh=shift: roll2d_plain(x, sh, 16),
+                ref32=lambda sh=shift: roll2d_plain(x16_32, sh, 16),
+                library=lambda sh=shift: torch.roll(x, (sh, sh), (1, 2)),
+                flops=0, nbytes=2 * t * c * es, reps=10))
+        # wmsa_block: N 256 on the HAT batch, N 64 on the denoise canvas
+        xw16 = window_partition(x, 16).reshape(-1, n, c)
+        xw16_32 = window_partition(x16_32, 16).reshape(-1, n, c)
+        p8 = prepare_swin_params(**wts8, num_heads=heads, ws=8, dtype=dtype)
+        p8_32 = prepare_swin_params(**wts8, num_heads=heads, ws=8,
+                                    dtype=torch.float32)
+        xw8 = window_partition(xd_32.to(dtype), 8).reshape(-1, 64, c)
+        xw8_32 = window_partition(xd_32, 8).reshape(-1, 64, c)
+        for var, pp, pp32, xw, xw32, mk in (
+                (f"N64 {dh}x{dw} full mask", p8, p8_32, xw8, xw8_32, mask8),
+                ("N256 full mask", p, p32, xw16, xw16_32, mask16)):
+            tt, nn_ = xw.shape[0] * xw.shape[1], xw.shape[1]
+            cases.append(dict(
+                name="wmsa_block", variant=var, path="denoise",
+                kernel=lambda pp=pp, xw=xw, mk=mk: wmsa_block(
+                    xw, pp, num_heads=heads, mask=mk),
+                plain=lambda pp=pp, xw=xw, mk=mk: wmsa_block_plain(
+                    xw, pp, num_heads=heads, mask=mk),
+                ref32=lambda pp32=pp32, xw32=xw32, mk=mk: wmsa_block_plain(
+                    xw32, pp32, num_heads=heads, mask=mk),
+                library=None,
+                flops=2 * tt * c * 3 * c + 2 * tt * c * c + 4 * tt * nn_ * c,
+                nbytes=2 * tt * c * es + 4 * c * c * es + pp.rpb.numel() * 4
+                + mk.numel() * 4, reps=3))
+        for cin, cout in cab:
+            inp32 = cab_in[cin]
+            inp = inp32.to(dtype)
+            wk, bk_ = cab_w[(cin, cout)], cab_b[(cin, cout)]
+            kf = conv3x3_weights(wk, bk_, dtype)
+            xin = inp.permute(0, 3, 1, 2)
+            wl = wk.to(dtype).permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            px = t
+            cases.append(dict(
+                name="conv3x3", variant=f"hat CAB {cin}->{cout} {hh}x{hw_}",
+                path="hat",
+                kernel=lambda inp=inp, kf=kf: conv3x3(inp, kf),
+                plain=lambda inp=inp, wk=wk, bk_=bk_: conv3x3_plain(inp, wk,
+                                                                    bk_),
+                ref32=lambda inp32=inp32, wk=wk, bk_=bk_: conv3x3_plain(
+                    inp32, wk, bk_),
+                library=lambda xin=xin, wl=wl, bk_=bk_: torch.nn.functional
+                .conv2d(xin, wl, bk_.to(dtype), padding=1),
+                flops=2 * px * 9 * cin * cout,
+                nbytes=px * (cin + cout) * es + 9 * cin * cout * es,
+                reps=5))
+        rows += [check_case(cs, dtype) for cs in cases]
+        del cases
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 4-6
 
@@ -494,33 +703,9 @@ def golden_check() -> dict:
 
 
 def main_path(state, card: str, requests: int = 3) -> dict:
-    import torch
-
-    from image_restoration_agent_tpu_torch.engine import Engine
-    from image_restoration_agent_tpu_torch.ops.conv3x3 import conv3x3
-    from image_restoration_agent_tpu_torch.ops.swin_block import (
-        launch_counts, reset_launch_counts)
-
-    eng = Engine(device="cuda", param_dtype=torch.bfloat16, shape_bucket=8)
-    eng.set_weights("swinir_sr_x4", state)
     img = np.random.default_rng(0).random((1080, 1920, 3), dtype=np.float32)
-    t0 = time.perf_counter()
-    warm = eng.restore_array(img, "swinir_sr_x4")
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-
-    reset_launch_counts()
-    conv3x3.launches = 0
-    secs, results = [], []
-    for _ in range(requests):
-        t0 = time.perf_counter()
-        res = eng.restore_array(img, "swinir_sr_x4")
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        results.append(res)
-    counts = {**launch_counts(), "conv3x3": conv3x3.launches}
-    profile = profile_request(eng, img, "swinir_sr_x4")
-
+    _, warm, warm_s, secs, results, counts, profile, _ = serve(
+        "swinir_sr_x4", state, img, requests)
     # per band: 36 blocks of 4 K1 + 1 K2; 9 body convs, and 4 K3 in the
     # head's border ring (upsample_tail's two convs on the top and bottom
     # strips, 24x3840; the 24-wide side strips take the library conv, as
@@ -635,47 +820,14 @@ def restormer_golden() -> dict:
             "want_db": want, "seconds": secs, "pass": bool(db >= want)}
 
 
-def restormer_counts() -> dict:
-    from image_restoration_agent_tpu_torch.ops.conv3x3 import conv3x3
-    from image_restoration_agent_tpu_torch.ops.restormer_fused import (
-        gdfn_block, mdta_front)
-    return {"conv3x3": conv3x3.launches, "gdfn_block": gdfn_block.launches,
-            "mdta_front": mdta_front.launches}
-
-
 def restormer_path(state, card: str, requests: int = 3) -> dict:
     """Engine(device="cuda") serving 1280x720 with Restormer in bf16: the
     whole-image route on a 768x1280 canvas."""
-    import torch
-
-    from image_restoration_agent_tpu_torch.engine import Engine
-    from image_restoration_agent_tpu_torch.ops.conv3x3 import conv3x3
-    from image_restoration_agent_tpu_torch.ops.restormer_fused import (
-        gdfn_block, mdta_front)
-    from image_restoration_agent_tpu_torch.ops.swin_block import (
-        launch_counts, reset_launch_counts)
-
-    eng = Engine(device="cuda", param_dtype=torch.bfloat16)
-    eng.set_weights("restormer", state)
     img = np.random.default_rng(1).random((720, 1280, 3), dtype=np.float32)
-    t0 = time.perf_counter()
-    warm = eng.restore_array(img, "restormer")
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-
-    reset_launch_counts()
-    conv3x3.launches = gdfn_block.launches = mdta_front.launches = 0
-    secs, results = [], []
-    for _ in range(requests):
-        t0 = time.perf_counter()
-        res = eng.restore_array(img, "restormer")
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        results.append(res)
-    counts = restormer_counts()
-    others = launch_counts()
-    profile = profile_request(eng, img, "restormer")
+    _, warm, warm_s, secs, results, counts, profile, _ = serve(
+        "restormer", state, img, requests, shape_bucket=128)
     per_req = {"conv3x3": 8, "gdfn_block": 44, "mdta_front": 44}
+    others = {k: v for k, v in counts.items() if k not in per_req}
     ok = all(r.image.shape == (720, 1280, 3) and r.nonfinite == 0
              for r in results + [warm])
     ok = ok and all(counts[k] == v * requests for k, v in per_req.items())
@@ -686,7 +838,8 @@ def restormer_path(state, card: str, requests: int = 3) -> dict:
             "output": list(results[-1].image.shape),
             "warmup_seconds": warm_s, "seconds": secs,
             "mp_per_s": 1280 * 720 / 1e6 / best,
-            "launches": counts, "other_launches": others,
+            "launches": {k: counts[k] for k in per_req},
+            "other_launches": others,
             "expected_per_request": per_req, "profile": profile,
             "card": card, "pass": bool(ok)}
 
@@ -726,6 +879,247 @@ def restormer_fast_vs_exact(state) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# slice 3: HAT x4 tile serving and SwinIR's partition route
+
+
+def model_state(name: str, seed: int = 0) -> dict:
+    """Random weights of a registered model from ``build_model``'s seed, as
+    the reference-named numpy state dict the engine loads."""
+    from image_restoration_agent_tpu_torch.models import build_model
+    m = build_model(name, device="cpu", seed=seed)
+    return {k: v.numpy() for k, v in m.state_dict().items()}
+
+
+def _other_wrappers() -> tuple:
+    """The kernel wrappers outside ``ops/swin_block.py``."""
+    from image_restoration_agent_tpu_torch.ops.conv3x3 import conv3x3
+    from image_restoration_agent_tpu_torch.ops.restormer_fused import (
+        gdfn_block, mdta_front)
+    from image_restoration_agent_tpu_torch.ops.roll2d import roll2d
+    return (roll2d, conv3x3, gdfn_block, mdta_front)
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count."""
+    from image_restoration_agent_tpu_torch.ops.swin_block import (
+        launch_counts as swin_counts)
+    return {**swin_counts(),
+            **{fn.__name__: fn.launches for fn in _other_wrappers()}}
+
+
+def reset_launch_counts() -> None:
+    from image_restoration_agent_tpu_torch.ops.swin_block import (
+        reset_launch_counts as reset_swin)
+    reset_swin()
+    for fn in _other_wrappers():
+        fn.launches = 0
+
+
+def serve(name: str, state: dict, img, requests: int,
+          shape_bucket: int = 8) -> tuple:
+    """``Engine(device="cuda")`` in bf16 serving ``img`` with ``name``: one
+    warm-up request, then ``requests`` timed ones with every launch count
+    set to 0 just before them and read just after, then one profiled
+    request."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.engine import Engine
+
+    eng = Engine(device="cuda", param_dtype=torch.bfloat16,
+                 shape_bucket=shape_bucket)
+    eng.set_weights(name, state)
+    t0 = time.perf_counter()
+    warm = eng.restore_array(img, name)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    reset_launch_counts()
+    secs, results = [], []
+    for _ in range(requests):
+        t0 = time.perf_counter()
+        results.append(eng.restore_array(img, name))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    profile = profile_request(eng, img, name)
+    key = next(k for k in eng._pipelines if k[0] == name)
+    return eng, warm, warm_s, secs, results, counts, profile, key
+
+
+def hat_path(state, card: str, requests: int = 3) -> dict:
+    """HAT x4 serving 1920x1080 in bf16, tile mode (tile 256, overlap 32,
+    'extra' pad to 16): the engine's shape bucket takes 1080 to 1088 and
+    the pad to 1104x1936, 45 tiles in 9 batches of 5."""
+    from image_restoration_agent_tpu_torch.core.pad import _pad_amount
+    from image_restoration_agent_tpu_torch.core.tiling import plan_tiles
+
+    img = np.random.default_rng(2).random((1080, 1920, 3), dtype=np.float32)
+    _, warm, warm_s, secs, results, counts, profile, key = serve(
+        "hat_sr_x4", state, img, requests)
+    hb, wb, batch = key[1], key[2], key[5]
+    canvas = [hb + _pad_amount(hb, 16, "extra"),
+              wb + _pad_amount(wb, 16, "extra")]
+    n_tiles = plan_tiles(*canvas, 256, 32).num_tiles
+    fwd = -(-n_tiles // batch)
+    # per forward: 36 HABs (each one swin_attn_block = 2 K1 + 1 K2, one
+    # mlp_block = 2 K1, two CAB K3), 18 shifted (roll2d); K3: conv_first,
+    # 72 CAB, 6 RHAG convs, conv_after_body, conv_before_upsample and 4 in
+    # the head's top and bottom ring strips
+    per_fwd = {"swin_attn_block": 36, "roll2d": 18, "mlp_block": 36,
+               "window_attention": 36, "token_linear": 144,
+               "conv3x3": 85, "wmsa_block": 0, "swin_block": 0}
+    per_req = {k: v * fwd for k, v in per_fwd.items()}
+    ok = all(r.image.shape == (4320, 7680, 3) and r.nonfinite == 0
+             for r in results + [warm])
+    ok = ok and all(counts[k] == v * requests for k, v in per_req.items())
+    best = min(secs)
+    return {"phase": "hat_path", "model": "hat_sr_x4", "dtype": "bfloat16",
+            "input": [1080, 1920, 3], "canvas": canvas, "tiles": n_tiles,
+            "batch": batch, "forwards": fwd,
+            "output": list(results[-1].image.shape),
+            "warmup_seconds": warm_s, "seconds": secs,
+            "mp_per_s": 1920 * 1080 / 1e6 / best, "launches": counts,
+            "expected_per_request": per_req, "profile": profile,
+            "card": card, "pass": bool(ok)}
+
+
+def hat_exact(state) -> dict:
+    """f32 hat_sr_x4 on the card against the port's CPU plain f32 path on a
+    112x112 input (one 128x128 canvas)."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.core.tiling import tiled_apply
+    from image_restoration_agent_tpu_torch.models import (build_model,
+                                                          get_spec)
+
+    spec = get_spec("hat_sr_x4")
+    img = torch.from_numpy(np.random.default_rng(5).random(
+        (112, 112, 3), dtype=np.float32))
+    sd = {k: torch.from_numpy(v) for k, v in state.items()}
+    kw = dict(tile=spec.tile, overlap=spec.tile_overlap, scale=4,
+              pad_multiple=spec.pad_multiple, pad_mode=spec.pad_mode,
+              pad_kind=spec.pad_kind)
+
+    def run(device):
+        m = build_model("hat_sr_x4", device=device)
+        m.load_state_dict(sd, strict=True)
+        return tiled_apply(m, img.to(device), **kw).cpu().numpy()
+
+    t0 = time.perf_counter()
+    card = run("cuda")
+    secs = time.perf_counter() - t0
+    torch.set_num_threads(8)
+    cpu = run("cpu")
+    db = range_psnr(card, cpu)
+    return {"phase": "hat_exact", "model": "hat_sr_x4", "dtype": "float32",
+            "input": [112, 112, 3], "canvas": [128, 128],
+            "output": list(card.shape), "psnr_db": db, "floor_db": 60.0,
+            "max_abs_err": float(np.abs(card - cpu).max()),
+            "seconds": secs, "pass": bool(db >= 60.0
+                                          and np.isfinite(card).all())}
+
+
+def hat_fast_vs_exact(state) -> dict:
+    """bf16 fast against f32 exact on the card on a 480x270 probe (a
+    272x496 canvas, 6 tiles, one batch). The control (plain bf16 against
+    plain f32, the CPU path) is taken on the probe canvas's top-left
+    128x128 as one forward, where the card's fast-vs-exact PSNR is also
+    reported: the whole probe takes minutes on the CPU, a 256 tile two."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.core.pad import pad_to_multiple
+    from image_restoration_agent_tpu_torch.core.tiling import tiled_apply
+    from image_restoration_agent_tpu_torch.models import build_model
+
+    h, w = 270, 480
+    img = torch.from_numpy(np.random.default_rng(8).random(
+        (h, w, 3), dtype=np.float32))
+    kw = dict(tile=256, overlap=32, scale=4, batch=6, pad_multiple=16,
+              pad_mode="extra", pad_kind="symmetric")
+    crop = pad_to_multiple(img, 16, "extra", "symmetric")[0][:128, :128]
+    sd = {k: torch.from_numpy(v) for k, v in state.items()}
+
+    def model(device, dtype):
+        m = build_model("hat_sr_x4", device=device, dtype=dtype)
+        m.load_state_dict(sd, strict=True)
+        return lambda b: m(b.to(dtype)).float()
+
+    def probe(device, dtype):
+        return tiled_apply(model(device, dtype), img.to(device),
+                           **kw).cpu().numpy()
+
+    def on_crop(device, dtype):
+        return model(device, dtype)(crop[None].to(device))[0].cpu().numpy()
+
+    fast, exact = probe("cuda", torch.bfloat16), probe("cuda", torch.float32)
+    fast_c = on_crop("cuda", torch.bfloat16)
+    exact_c = on_crop("cuda", torch.float32)
+    torch.set_num_threads(8)
+    t0 = time.perf_counter()
+    ctrl16 = on_crop("cpu", torch.bfloat16)
+    ctrl32 = on_crop("cpu", torch.float32)
+    ctrl_s = time.perf_counter() - t0
+    db = range_psnr(fast, exact)
+    ctrl = range_psnr(ctrl16, ctrl32)
+    return {"phase": "hat_fast_vs_exact", "probe": [h, w], "tiles": 6,
+            "psnr_db": db, "crop_psnr_db": range_psnr(fast_c, exact_c),
+            "control_db": ctrl, "floor_db": ctrl - 2.0,
+            "exact_plain_vs_card_crop_db": range_psnr(ctrl32, exact_c),
+            "control_seconds": ctrl_s, "pass": bool(db >= ctrl - 2.0)}
+
+
+def swinir_denoise_path(state, card: str, requests: int = 3) -> dict:
+    """swinir_denoise_15 serving 1920x1080 whole-image in bf16: the
+    1088x1928 canvas has no strip chunk width, so all 36 blocks take the
+    partition route (wmsa_block + mlp_block). Also f32 on the card against
+    the CPU plain f32 path at 64x392 (a 72x400 canvas, the same route)."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.core.pad import _pad_amount
+    from image_restoration_agent_tpu_torch.core.tiling import tiled_apply
+    from image_restoration_agent_tpu_torch.models import build_model
+    from image_restoration_agent_tpu_torch.models.swinir import strip_route
+
+    img = np.random.default_rng(3).random((1080, 1920, 3), dtype=np.float32)
+    eng, warm, warm_s, secs, results, counts, profile, key = serve(
+        "swinir_denoise_15", state, img, requests)
+    canvas = [key[1] + _pad_amount(key[1], 8, "extra"),
+              key[2] + _pad_amount(key[2], 8, "extra")]
+    del eng
+    per_req = {"wmsa_block": 36, "mlp_block": 36, "window_attention": 36,
+               "token_linear": 144, "conv3x3": 9, "swin_block": 0,
+               "swin_attn_block": 0, "roll2d": 0}
+    ok = all(r.image.shape == (1080, 1920, 3) and r.nonfinite == 0
+             for r in results + [warm])
+    ok = ok and all(counts[k] == v * requests for k, v in per_req.items())
+    ok = ok and not strip_route(1, *canvas, 8)
+
+    small = torch.from_numpy(np.random.default_rng(4).random(
+        (64, 392, 3), dtype=np.float32))
+    sd = {k: torch.from_numpy(v) for k, v in state.items()}
+    kw = dict(tile=None, pad_multiple=8, pad_mode="extra",
+              pad_kind="symmetric")
+
+    def run(device):
+        m = build_model("swinir_denoise_15", device=device)
+        m.load_state_dict(sd, strict=True)
+        return tiled_apply(m, small.to(device), **kw).cpu().numpy()
+
+    card32 = run("cuda")
+    torch.set_num_threads(8)
+    db = range_psnr(card32, run("cpu"))
+    ok = ok and db >= 60.0 and not strip_route(1, 72, 400, 8)
+    best = min(secs)
+    return {"phase": "swinir_denoise_path", "model": "swinir_denoise_15",
+            "dtype": "bfloat16", "input": [1080, 1920, 3], "canvas": canvas,
+            "route": "partition", "output": list(results[-1].image.shape),
+            "warmup_seconds": warm_s, "seconds": secs,
+            "mp_per_s": 1920 * 1080 / 1e6 / best, "launches": counts,
+            "expected_per_request": per_req, "profile": profile,
+            "f32_card_vs_cpu_72x400_db": db, "f32_floor_db": 60.0,
+            "card": card, "pass": bool(ok)}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -741,8 +1135,6 @@ def main() -> int:
         return 2
     from image_restoration_agent_tpu_torch.device import exact_f32
     from image_restoration_agent_tpu_torch.ops import kernels
-    from image_restoration_agent_tpu_torch.ops.conv3x3 import conv3x3
-    from image_restoration_agent_tpu_torch.ops.swin_block import launch_counts
 
     exact_f32()
     t_start = time.perf_counter()
@@ -779,11 +1171,13 @@ def main() -> int:
     rows = phase("kernels", kernel_checks, shape) or []
     rows += phase("restormer_kernels", restormer_kernel_checks,
                   args.quick) or []
+    rows += phase("hat_kernels", hat_kernel_checks, args.quick) or []
     failures += [f"kernel {r['name']} {r['variant']} {r['dtype']}"
                  for r in rows if not r["pass"]]
-    # each path's launch counts, read just after the path ran
-    launches = {"swinir": {**launch_counts(), "conv3x3": conv3x3.launches},
-                "restormer": restormer_counts()}
+    # each path's launch counts, read just after the path ran (with
+    # --quick, the kernel checks' own)
+    counts = launch_counts()
+    launches = {p: counts for p in ("swinir", "restormer", "hat", "denoise")}
     if not args.quick:
         from image_restoration_agent_tpu_torch.offline import (GOLDEN_ROOT,
                                                                load_golden)
@@ -795,8 +1189,18 @@ def main() -> int:
         phase("restormer_golden", restormer_golden)
         served_r = phase("restormer_path", restormer_path, state, card)
         phase("restormer_fast_vs_exact", restormer_fast_vs_exact, state)
+        torch.cuda.empty_cache()
+        state = model_state("hat_sr_x4")
+        phase("hat_exact", hat_exact, state)
+        served_h = phase("hat_path", hat_path, state, card)
+        phase("hat_fast_vs_exact", hat_fast_vs_exact, state)
+        torch.cuda.empty_cache()
+        served_d = phase("swinir_denoise_path", swinir_denoise_path,
+                         model_state("swinir_denoise_15"), card)
         launches = {"swinir": served["launches"] if served else {},
-                    "restormer": served_r["launches"] if served_r else {}}
+                    "restormer": served_r["launches"] if served_r else {},
+                    "hat": served_h["launches"] if served_h else {},
+                    "denoise": served_d["launches"] if served_d else {}}
 
     emit({"kernels": [{
         "name": f"{r['name']} [{r['variant']}, {r['dtype']}]",

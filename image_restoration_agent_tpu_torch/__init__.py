@@ -6,9 +6,11 @@ which stays the reference it is held against.
 - ``ops``     : window attention, pixel shuffle, LayerNorms, gates, MDTA,
                 and the hand-written CUDA kernels of the serving paths
                 (``csrc/``): the Swin block (token_linear +
-                window_attention), the fused 3x3 conv, and Restormer's
-                fused GDFN and MDTA blocks.
-- ``models``  : SwinIR and Restormer with reference parameter names.
+                window_attention, also HAT's half block and the
+                partition route's wmsa_block), the Swin shift (roll2d),
+                the fused 3x3 conv, and Restormer's fused GDFN and MDTA
+                blocks.
+- ``models``  : SwinIR, HAT and Restormer with reference parameter names.
 - ``engine``  : the serving runtime (band mode, shape buckets, weights).
 - ``convert`` : JAX parameter pytrees -> reference-named state dicts.
 - ``offline`` : the synthetic real-geometry goldens.

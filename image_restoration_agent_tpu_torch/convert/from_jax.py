@@ -16,7 +16,16 @@ top-level keys (Restormer has ``encoder_level1_0``). It is the inverse of
   depthwise kernels (3, 3, 1, C) -> (C, 1, 3, 3), temperature (heads,) ->
   (heads, 1, 1), ``encoder_level1_0`` -> ``encoder_level1.0``,
   ``norm1/weight`` -> ``norm1.body.weight``, ``down1_2/conv`` ->
-  ``down1_2.body.0``, ``patch_embed`` -> ``patch_embed.proj``.
+  ``down1_2.body.0``, ``patch_embed`` -> ``patch_embed.proj``;
+- ``hat_rules`` (``hat_arch.py`` names, detected by the ``hab0`` blocks):
+  the top-level and RHAG convs as SwinIR's, ``layer{i}/hab{j}`` ->
+  ``layers.{i}.residual_group.blocks.{j}`` (``conv_block/c1``, ``c2``,
+  ``ca1``, ``ca2`` -> ``conv_block.cab.0``, ``.2``, ``.3.attention.1``,
+  ``.3.attention.3``) and ``layer{i}/ocab`` -> ``...overlap_attn``. The
+  JAX HAB holds two copies of the reference ``norm1`` (its attention
+  layer's ``norm_scale`` / ``norm_bias`` and the CAB branch's
+  ``norm1``); both map to the one ``norm1``, and a tree whose copies
+  differ is refused.
 """
 
 from __future__ import annotations
@@ -107,6 +116,54 @@ _RESTORMER_RULES = [
 ]
 
 
+_HAB = r"layer(\d+)/hab(\d+)"
+_REF_HAB = r"layers.\1.residual_group.blocks.\2"
+_OCAB = r"layer(\d+)/ocab"
+_REF_OCAB = r"layers.\1.residual_group.overlap_attn"
+_CAB = {"c1": "cab.0", "c2": "cab.2", "ca1": "cab.3.attention.1",
+        "ca2": "cab.3.attention.3"}
+
+# (JAX path regex, reference-name template, transform), before _RULES
+_HAT_RULES = [
+    (rf"{_HAB}/(?:attn/norm_scale|norm1/scale)", rf"{_REF_HAB}.norm1.weight",
+     _same),
+    (rf"{_HAB}/(?:attn/norm_bias|norm1/bias)", rf"{_REF_HAB}.norm1.bias",
+     _same),
+    (rf"{_HAB}/attn/relative_position_bias_table",
+     rf"{_REF_HAB}.attn.relative_position_bias_table", _same),
+    (rf"{_HAB}/attn/(qkv|proj)_kernel", rf"{_REF_HAB}.attn.\3.weight",
+     _linear),
+    (rf"{_HAB}/attn/(qkv|proj)_bias_p", rf"{_REF_HAB}.attn.\3.bias", _same),
+    (rf"{_HAB}/norm2/scale", rf"{_REF_HAB}.norm2.weight", _same),
+    (rf"{_HAB}/norm2/bias", rf"{_REF_HAB}.norm2.bias", _same),
+    (rf"{_HAB}/(fc[12])/kernel", rf"{_REF_HAB}.mlp.\3.weight", _linear),
+    (rf"{_HAB}/(fc[12])/bias", rf"{_REF_HAB}.mlp.\3.bias", _same),
+    (rf"{_OCAB}/relative_position_bias_table",
+     rf"{_REF_OCAB}.relative_position_bias_table", _same),
+    (rf"{_OCAB}/(norm[12])/scale", rf"{_REF_OCAB}.\2.weight", _same),
+    (rf"{_OCAB}/(norm[12])/bias", rf"{_REF_OCAB}.\2.bias", _same),
+    (rf"{_OCAB}/(qkv|proj)/kernel", rf"{_REF_OCAB}.\2.weight", _linear),
+    (rf"{_OCAB}/(qkv|proj)/bias", rf"{_REF_OCAB}.\2.bias", _same),
+    (rf"{_OCAB}/(fc[12])/kernel", rf"{_REF_OCAB}.mlp.\2.weight", _linear),
+    (rf"{_OCAB}/(fc[12])/bias", rf"{_REF_OCAB}.mlp.\2.bias", _same),
+]
+
+
+def _hat_name(path: str) -> tuple[str, object]:
+    m = re.fullmatch(rf"{_HAB}/conv_block/(c1|c2|ca1|ca2)/Conv_0/"
+                     r"(kernel|bias)", path)
+    if m:
+        i, j, conv, leaf = m.groups()
+        return (f"layers.{i}.residual_group.blocks.{j}.conv_block."
+                f"{_CAB[conv]}.{'weight' if leaf == 'kernel' else 'bias'}",
+                _conv if leaf == "kernel" else _same)
+    for pattern, tpl, fn in _HAT_RULES:
+        m = re.fullmatch(pattern, path)
+        if m:
+            return m.expand(tpl), fn
+    return _ref_name(path)
+
+
 def _restormer_name(path: str) -> tuple[str, object]:
     for pattern, tpl, fn in _RESTORMER_RULES:
         m = re.fullmatch(pattern, path)
@@ -150,14 +207,22 @@ def _ref_name(path: str) -> tuple[str, object]:
 
 
 def from_jax(params) -> dict[str, torch.Tensor]:
-    """The port's reference-named state dict from JAX SwinIR or Restormer
-    params."""
+    """The port's reference-named state dict from JAX SwinIR, HAT or
+    Restormer params."""
     if "params" in params:
         params = params["params"]
-    rename = _restormer_name if "encoder_level1_0" in params else _ref_name
+    rename = _ref_name
+    if "encoder_level1_0" in params:
+        rename = _restormer_name
+    elif "hab0" in params.get("layer0", {}):
+        rename = _hat_name
     out = {}
     for path, value in _flatten(params):
         name, fn = rename(path)
-        out[name] = torch.from_numpy(
+        t = torch.from_numpy(
             np.ascontiguousarray(fn(value)).astype(np.float32))
+        if name in out and not torch.equal(out[name], t):
+            raise ValueError(f"{path}: the JAX tree's two copies of {name} "
+                             "differ; the reference has one")
+        out[name] = t
     return out

@@ -14,10 +14,13 @@
 //   - epilogue: bias, optional erf/tanh GELU, optional residual read
 //     through its own row map, store through map o (scatter to the output
 //     frame) in float32 or bfloat16.
-// K2 window_attention: q, k, v, the N x N logits and p in shared memory
-//   (N = ws^2 <= 64, head width <= 64); float32: one block per (window,
-//   head), FP32 FMA; bfloat16: one block per window, heads in turn, QK^T
-//   and PV as WMMA fragments.
+// K2 window_attention: q, k, v, the logits and p in shared memory (N =
+//   ws^2 <= 256, head width <= 64), the mask an edge bank or a full
+//   (nW, N, N) mask; float32: one block per (window, head) at N <= 64,
+//   per (window, head, 64-query chunk) above, FP32 FMA; bfloat16: at
+//   N <= 64 one block per window, heads in turn, at 64 < N <= 256 one
+//   block per (window, head, 64-query chunk), QK^T and PV as WMMA
+//   fragments.
 //
 // Plain C interface for ctypes; each entry returns cudaGetLastError().
 
@@ -371,13 +374,64 @@ size_t mma_smem_bytes(int K) {
          BM * CLD * 4 + 2 * BM * sizeof(long long);
 }
 
+constexpr int QCF = 64;     // float32: query rows per block
+constexpr int MAXN = 256;   // tokens per window
+constexpr int MAXJ = MAXN / 32;
+
+// The additive mask of window `win`, or nullptr:
+//   - full-mask mode (the TPU's wmsa kernels): mask[win % nmask];
+//   - bank mode (the strip kernel): bank[is_last_window_row,
+//     is_last_window_col] by the window's place in the output frame.
+__device__ __forceinline__ const float* window_mask(
+    const float* bank, const float* mask, int nmask, long long win, int n,
+    int nwy, int nwx) {
+  const long long nn = static_cast<long long>(n) * n;
+  if (mask != nullptr) return mask + (win % nmask) * nn;
+  if (bank == nullptr) return nullptr;
+  const int wx = static_cast<int>(win % nwx);
+  const int wy = static_cast<int>((win / nwx) % nwy);
+  return bank + ((wy == nwy - 1) * 2 + (wx == nwx - 1)) * nn;
+}
+
+// Softmax of one row held by a warp: v[j] is column lane + 32 j, -inf past
+// the row's end. Fast: base-2 logits, clamp instead of max subtraction,
+// reciprocal normalization; exact: max-subtracted, divided.
+__device__ __forceinline__ void row_softmax(float (&v)[MAXJ], bool fast) {
+  float s = 0.f;
+  if (fast) {
+#pragma unroll
+    for (int j = 0; j < MAXJ; ++j) {
+      v[j] = exp2f(fminf(v[j], 86.56f));
+      s += v[j];
+    }
+    const float inv = 1.f / warp_sum(s);
+#pragma unroll
+    for (int j = 0; j < MAXJ; ++j) v[j] *= inv;
+  } else {
+    float m = v[0];
+#pragma unroll
+    for (int j = 1; j < MAXJ; ++j) m = fmaxf(m, v[j]);
+    m = warp_max(m);
+#pragma unroll
+    for (int j = 0; j < MAXJ; ++j) {
+      v[j] = expf(v[j] - m);
+      s += v[j];
+    }
+    const float sum = warp_sum(s);
+#pragma unroll
+    for (int j = 0; j < MAXJ; ++j) v[j] /= sum;
+  }
+}
+
 constexpr int AT = 128;
 
-// float32: one block per (window, head), FP32 FMA
+// float32, N <= 64: one block per (window, head), FP32 FMA; q, k, v, the
+// logits and p in shared memory
 __global__ void __launch_bounds__(AT) window_attention_kernel(
     const float* __restrict__ qkv, const float* __restrict__ rpb,
-    const float* __restrict__ bank, float* __restrict__ out, int n, int C,
-    int heads, int nwy, int nwx, int fast) {
+    const float* __restrict__ bank, const float* __restrict__ mask,
+    int nmask, float* __restrict__ out, int n, int C, int heads, int nwy,
+    int nwx, int fast) {
   extern __shared__ float sm[];
   const int hd = C / heads;
   const int ld = hd + 1, lds = n + 1;
@@ -401,13 +455,7 @@ __global__ void __launch_bounds__(AT) window_attention_kernel(
   }
   __syncthreads();
 
-  // the shift-mask bank is picked by the window's place in the output frame
-  const int wx = static_cast<int>(win % nwx);
-  const int wy = static_cast<int>((win / nwx) % nwy);
-  const float* bk =
-      bank != nullptr
-          ? bank + ((wy == nwy - 1) * 2 + (wx == nwx - 1)) * n * n
-          : nullptr;
+  const float* bk = window_mask(bank, mask, nmask, win, n, nwy, nwx);
   const float* rb = rpb + static_cast<long long>(h) * n * n;
   const float lscale = fast ? 1.4426950408889634f : 1.f;
   for (int e = tid; e < n * n; e += AT) {
@@ -453,6 +501,80 @@ __global__ void __launch_bounds__(AT) window_attention_kernel(
   }
 }
 
+// float32, 64 < N <= 256: one block per (window, head, 64-query chunk),
+// FP32 FMA; the chunk's q, the window's k and v and the chunk's logits in
+// shared memory (137 KB at N 256, head width 30: one block an SM, so it
+// takes 256 threads)
+constexpr int CAT = 256;
+
+__global__ void __launch_bounds__(CAT) window_attention_chunk_kernel(
+    const float* __restrict__ qkv, const float* __restrict__ rpb,
+    const float* __restrict__ bank, const float* __restrict__ mask,
+    int nmask, float* __restrict__ out, int n, int C, int heads, int nwy,
+    int nwx, int fast) {
+  extern __shared__ float sm[];
+  const int hd = C / heads;
+  const int ld = hd + 1, lds = n + 1;
+  const int q0 = blockIdx.z * QCF;
+  const int nq = min(QCF, n - q0);
+  float* Q = sm;
+  float* Kt = Q + min(n, QCF) * ld;
+  float* V = Kt + n * ld;
+  float* S = V + n * ld;
+
+  const long long win = blockIdx.x;
+  const int h = blockIdx.y;
+  const int tid = threadIdx.x;
+  const long long base = win * n;
+  const int c3 = 3 * C;
+
+  for (int e = tid; e < n * hd; e += CAT) {
+    const int i = e / hd, d = e % hd;
+    const float* row = qkv + (base + i) * c3 + h * hd + d;
+    if (i >= q0 && i < q0 + nq) Q[(i - q0) * ld + d] = row[0];
+    Kt[i * ld + d] = row[C];
+    V[i * ld + d] = row[2 * C];
+  }
+  __syncthreads();
+
+  const float* bk = window_mask(bank, mask, nmask, win, n, nwy, nwx);
+  const float* rb = rpb + static_cast<long long>(h) * n * n;
+  const float lscale = fast ? 1.4426950408889634f : 1.f;
+  for (int e = tid; e < nq * n; e += CAT) {
+    const int i = e / n, j = e % n;
+    float s = 0.f;
+    for (int d = 0; d < hd; ++d) s = fmaf(Q[i * ld + d], Kt[j * ld + d], s);
+    float bias = rb[(q0 + i) * n + j];
+    if (bk != nullptr) bias += bk[(q0 + i) * n + j];
+    S[i * lds + j] = (s + bias) * lscale;
+  }
+  __syncthreads();
+
+  const int warp = tid / 32, lane = tid % 32;
+  for (int i = warp; i < nq; i += CAT / 32) {
+    float v[MAXJ];
+#pragma unroll
+    for (int j = 0; j < MAXJ; ++j) {
+      const int c = lane + 32 * j;
+      v[j] = c < n ? S[i * lds + c] : -INFINITY;
+    }
+    row_softmax(v, fast);
+#pragma unroll
+    for (int j = 0; j < MAXJ; ++j) {
+      const int c = lane + 32 * j;
+      if (c < n) S[i * lds + c] = v[j];
+    }
+  }
+  __syncthreads();
+
+  for (int e = tid; e < nq * hd; e += CAT) {
+    const int i = e / hd, d = e % hd;
+    float o = 0.f;
+    for (int j = 0; j < n; ++j) o = fmaf(S[i * lds + j], V[j * ld + d], o);
+    out[(base + q0 + i) * C + h * hd + d] = o;
+  }
+}
+
 // bf16: one block per window, every head in turn, on the tensor cores.
 // The head's q, k, v are copied into zero-padded (64 x hdp) tiles (hdp =
 // head width rounded up to 16; rows past N are zero), S = q k^T and
@@ -464,8 +586,9 @@ constexpr int WN = 64;  // padded window length
 
 __global__ void __launch_bounds__(WAT) window_attention_mma_kernel(
     const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ rpb,
-    const float* __restrict__ bank, __nv_bfloat16* __restrict__ out, int n,
-    int C, int heads, int nwy, int nwx, int fast) {
+    const float* __restrict__ bank, const float* __restrict__ mask,
+    int nmask, __nv_bfloat16* __restrict__ out, int n, int C, int heads,
+    int nwy, int nwx, int fast) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int hd = C / heads;
   const int hdp = (hd + 15) / 16 * 16;
@@ -482,12 +605,7 @@ __global__ void __launch_bounds__(WAT) window_attention_mma_kernel(
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const long long base = win * n;
   const int c3 = 3 * C;
-  const int wx = static_cast<int>(win % nwx);
-  const int wy = static_cast<int>((win / nwx) % nwy);
-  const float* bk =
-      bank != nullptr
-          ? bank + ((wy == nwy - 1) * 2 + (wx == nwx - 1)) * n * n
-          : nullptr;
+  const float* bk = window_mask(bank, mask, nmask, win, n, nwy, nwx);
   const float lscale = fast ? 1.4426950408889634f : 1.f;
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
 
@@ -600,6 +718,183 @@ size_t attention_mma_smem(int C, int heads) {
          static_cast<size_t>(WN * (WN + 8)) * 2;
 }
 
+// bf16, 64 < N <= 256 (HAT's window 16: N 256, head width 30 padded to
+// 32). One (window, head)'s float32 logits at N 256 are 256 KB, more than
+// a block's 227 KB, so a block takes one (window, head, 64-query chunk):
+//   - shared memory: the chunk's q (64 x hdp), the window's k and v
+//     (Np x hdp, Np = N rounded up to 64, rows past N zero), and the
+//     chunk's 64 x Np float32 logits (64 KB at N 256); p is written as
+//     bf16 over each row's own logits (a warp reads its whole row into
+//     registers first), and the PV output over the bytes past p. 110 KB
+//     at N 256: two blocks per SM;
+//   - QK^T and PV as WMMA bf16 fragments, float32 accumulators; the
+//     softmax in float32 between them, one warp per row, 8 columns a lane;
+//   - q, k and v are staged with 4-byte cp.async copies, all in flight at
+//     once (an element-wise copy loop left the block waiting on each load);
+//   - the bias: rpb (heads, N, N) and the bank (2, 2, N, N) or the full
+//     mask (nW, N, N) are read as given, from L2 (1.5 MB and 1 MB at HAT's
+//     shape), 128 KB per block, each warp fetching its next softmax row's
+//     into registers while it works on the current one (the first during
+//     staging and QK^T); rebuilding rpb from the (31^2, heads) table in
+//     the block would remove half of that traffic and is later work.
+constexpr int WQC = 64;
+
+__global__ void __launch_bounds__(WAT, 2) window_attention_wide_kernel(
+    const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ rpb,
+    const float* __restrict__ bank, const float* __restrict__ mask,
+    int nmask, __nv_bfloat16* __restrict__ out, int n, int C, int heads,
+    int nwy, int nwx, int fast) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int hd = C / heads;
+  const int hdp = (hd + 15) / 16 * 16;
+  const int qld = hdp + 8;             // bf16 pitch of q, k, v
+  const int np = (n + 63) / 64 * 64;   // keys, padded
+  const int sld = np + 4;              // float pitch of the logits
+  const int pld = 2 * sld;             // bf16 pitch of p (in place)
+  const int ooff = np / 2;             // float column of the PV output
+  float* Ss = reinterpret_cast<float*>(smem);
+  __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(Ss + WQC * sld);
+  __nv_bfloat16* Ks = Qs + WQC * qld;
+  __nv_bfloat16* Vs = Ks + np * qld;
+
+  // one linear grid, the query chunk fastest, then the head: the blocks
+  // that read one window's qkv rows run back to back and find them in L2
+  const int nq = (n + WQC - 1) / WQC;
+  const long long blk = blockIdx.x;
+  const int q0 = static_cast<int>(blk % nq) * WQC;
+  const int h = static_cast<int>((blk / nq) % heads);
+  const long long win = blk / (static_cast<long long>(nq) * heads);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const long long base = win * n;
+  const int c3 = 3 * C;
+  const float* bk = window_mask(bank, mask, nmask, win, n, nwy, nwx);
+  const float* rb = rpb + static_cast<long long>(h) * n * n;
+
+  // the bias of the warp's first softmax row, in flight during staging and
+  // QK^T (each warp keeps the next row's in registers: see below)
+  float nr[MAXJ], nm[MAXJ];
+  auto fetch_bias = [&](int i) {
+    const int qi = q0 + i;
+#pragma unroll
+    for (int j = 0; j < MAXJ; ++j) {
+      const int c = lane + 32 * j;
+      const bool in = i < WQC && qi < n && c < n;
+      nr[j] = in ? rb[qi * n + c] : 0.f;
+      nm[j] = in && bk != nullptr ? bk[qi * n + c] : 0.f;
+    }
+  };
+  fetch_bias(warp);
+
+  // 4-byte cp.async copies of bf16 pairs, every copy in flight at once
+  // (the wrapper requires an even head width and a 4-byte aligned qkv, so
+  // row starts and head offsets are 4-byte aligned), the zero padding
+  // stored directly
+  const int hp2 = hdp / 2;
+  for (int e = tid; e < np * hp2; e += WAT) {
+    const int i = e / hp2, d = 2 * (e % hp2);
+    __nv_bfloat16* kd = Ks + i * qld + d;
+    __nv_bfloat16* vd = Vs + i * qld + d;
+    if (i < n && d < hd) {
+      const __nv_bfloat16* row = qkv + (base + i) * c3 + h * hd + d;
+      cp_async4(kd, row + C);
+      cp_async4(vd, row + 2 * C);
+    } else {
+      *reinterpret_cast<unsigned*>(kd) = 0u;
+      *reinterpret_cast<unsigned*>(vd) = 0u;
+    }
+  }
+  for (int e = tid; e < WQC * hp2; e += WAT) {
+    const int i = e / hp2, d = 2 * (e % hp2);
+    __nv_bfloat16* qd = Qs + i * qld + d;
+    if (q0 + i < n && d < hd)
+      cp_async4(qd, qkv + (base + q0 + i) * c3 + h * hd + d);
+    else
+      *reinterpret_cast<unsigned*>(qd) = 0u;
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // S = q k^T: 4 x (Np / 16) fragments
+  const int nfj = np / 16;
+  for (int f = warp; f < 4 * nfj; f += WAT / 32) {
+    const int fi = f / nfj, fj = f % nfj;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    wmma::fill_fragment(acc, 0.f);
+    for (int kk = 0; kk < hdp; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major>
+          af;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                     wmma::col_major>
+          bf;
+      wmma::load_matrix_sync(af, Qs + fi * 16 * qld + kk, qld);
+      wmma::load_matrix_sync(bf, Ks + fj * 16 * qld + kk, qld);
+      wmma::mma_sync(acc, af, bf, acc);
+    }
+    wmma::store_matrix_sync(Ss + fi * 16 * sld + fj * 16, acc, sld,
+                            wmma::mem_row_major);
+  }
+  __syncthreads();
+
+  const float lscale = fast ? 1.4426950408889634f : 1.f;
+  for (int i = warp; i < WQC; i += WAT / 32) {
+    const int qi = q0 + i;  // uniform across the warp
+    float v[MAXJ];
+#pragma unroll
+    for (int j = 0; j < MAXJ; ++j) {
+      const int c = lane + 32 * j;
+      v[j] = qi < n && c < n ? (Ss[i * sld + c] + (nr[j] + nm[j])) * lscale
+                             : -INFINITY;
+    }
+    fetch_bias(i + WAT / 32);  // the next row's, in flight meanwhile
+    if (qi < n) row_softmax(v, fast);
+    __syncwarp();  // every lane holds its logits before p overwrites them
+#pragma unroll
+    for (int j = 0; j < MAXJ; ++j) {
+      const int c = lane + 32 * j;
+      if (c < np) Ps[i * pld + c] = __float2bfloat16_rn(qi < n ? v[j] : 0.f);
+    }
+  }
+  __syncthreads();
+
+  // O = p v: 4 x (hdp / 16) fragments, stored past p in each row
+  const int nfo = 4 * (hdp / 16);
+  for (int f = warp; f < nfo; f += WAT / 32) {
+    const int fi = f % 4, fj = f / 4;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    wmma::fill_fragment(acc, 0.f);
+    for (int kk = 0; kk < np; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major>
+          af;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major>
+          bf;
+      wmma::load_matrix_sync(af, Ps + fi * 16 * pld + kk, pld);
+      wmma::load_matrix_sync(bf, Vs + kk * qld + fj * 16, qld);
+      wmma::mma_sync(acc, af, bf, acc);
+    }
+    wmma::store_matrix_sync(Ss + fi * 16 * sld + ooff + fj * 16, acc, sld,
+                            wmma::mem_row_major);
+  }
+  __syncthreads();
+  for (int e = tid; e < WQC * hd; e += WAT) {
+    const int i = e / hd, d = e % hd;
+    if (q0 + i < n)
+      out[(base + q0 + i) * C + h * hd + d] =
+          __float2bfloat16_rn(Ss[i * sld + ooff + d]);
+  }
+}
+
+size_t attention_wide_smem(int n, int C, int heads) {
+  const int hdp = (C / heads + 15) / 16 * 16;
+  const int np = (n + 63) / 64 * 64;
+  return static_cast<size_t>(WQC * (np + 4)) * 4 +
+         static_cast<size_t>((WQC + 2 * np) * (hdp + 8)) * 2;
+}
+
 }  // namespace
 
 // ldw: row pitch of the weight. For bf16 the wrapper passes the weight
@@ -638,35 +933,65 @@ extern "C" int token_linear(const void* A, int a_dt, const void* Wt,
   return static_cast<int>(cudaGetLastError());
 }
 
+// mask: nullptr or the (nmask, N, N) full mask (window w takes mask[w %
+// nmask]); bank: nullptr or the (2, 2, N, N) edge bank. N <= 256 and head
+// width <= 64; in bf16 at N > 64 an even head width and a 4-byte aligned
+// qkv (the wrapper checks).
 extern "C" int window_attention(const void* qkv, int dt, const void* rpb,
-                                const void* bank, void* out, int nwin, int n,
-                                int C, int heads, int nwy, int nwx, int fast,
+                                const void* bank, const void* mask,
+                                int nmask, void* out, int nwin, int n, int C,
+                                int heads, int nwy, int nwx, int fast,
                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n > MAXN) return cudaErrorInvalidValue;
+  const float* rp = static_cast<const float*>(rpb);
+  const float* bp = static_cast<const float*>(bank);
+  const float* mp = static_cast<const float*>(mask);
+  const unsigned nq = static_cast<unsigned>((n + WQC - 1) / WQC);
   if (dt == kBF16) {
-    const size_t smem = attention_mma_smem(C, heads);
-    const cudaError_t e = cudaFuncSetAttribute(
-        window_attention_mma_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    window_attention_mma_kernel<<<nwin, WAT, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(qkv),
-        static_cast<const float*>(rpb), static_cast<const float*>(bank),
-        static_cast<__nv_bfloat16*>(out), n, C, heads, nwy, nwx, fast);
+    const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(qkv);
+    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+    if (n <= WN) {
+      const size_t smem = attention_mma_smem(C, heads);
+      const cudaError_t e = cudaFuncSetAttribute(
+          window_attention_mma_kernel,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+      window_attention_mma_kernel<<<nwin, WAT, smem, s>>>(
+          q, rp, bp, mp, nmask, o, n, C, heads, nwy, nwx, fast);
+    } else {
+      const size_t smem = attention_wide_smem(n, C, heads);
+      const cudaError_t e = cudaFuncSetAttribute(
+          window_attention_wide_kernel,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+      const unsigned blocks = static_cast<unsigned>(nwin) * heads * nq;
+      window_attention_wide_kernel<<<blocks, WAT, smem, s>>>(
+          q, rp, bp, mp, nmask, o, n, C, heads, nwy, nwx, fast);
+    }
     return static_cast<int>(cudaGetLastError());
   }
   const int hd = C / heads;
-  const size_t smem =
-      static_cast<size_t>(3 * n * (hd + 1) + n * (n + 1)) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        window_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  window_attention_kernel<<<dim3(nwin, heads), AT, smem, s>>>(
-      static_cast<const float*>(qkv), static_cast<const float*>(rpb),
-      static_cast<const float*>(bank), static_cast<float*>(out), n, C, heads,
-      nwy, nwx, fast);
-  return static_cast<int>(cudaGetLastError());
+  const int rows = n < QCF ? n : QCF;
+  const size_t smem = static_cast<size_t>((rows + 2 * n) * (hd + 1) +
+                                          rows * (n + 1)) *
+                      sizeof(float);
+  const dim3 grid(nwin, heads, (n + QCF - 1) / QCF);
+  const float* q = static_cast<const float*>(qkv);
+  float* o = static_cast<float*>(out);
+  auto launch = [&](auto kernel, int threads) {
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    kernel<<<grid, threads, smem, s>>>(q, rp, bp, mp, nmask, o, n, C, heads,
+                                       nwy, nwx, fast);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (n <= 64) return launch(window_attention_kernel, AT);
+  return launch(window_attention_chunk_kernel, CAT);
 }

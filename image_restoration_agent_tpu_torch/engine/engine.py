@@ -31,7 +31,9 @@ from ..models.registry import MODEL_REGISTRY, get_spec
 from ..ops.swin_block import pad_width_for_strips
 from .weights import WeightStore
 
-_BUFFERS = ("relative_position_index", "attn_mask")  # reference buffers
+# reference buffers, not parameters (SwinIR's, HAT's)
+_BUFFERS = ("relative_position_index", "attn_mask",
+            "relative_position_index_SA", "relative_position_index_OCA")
 
 
 @dataclasses.dataclass

@@ -9,16 +9,26 @@ with ``load_state_dict(..., strict=True)`` (the ``relative_position_index``
 and ``attn_mask`` buffers of reference checkpoints are not parameters here;
 drop them first, as the JAX converter does).
 
-Every Swin block runs :func:`ops.swin_block.swin_block` with the cyclic
-shift folded into its reads: a block's output stays in the rolled frame
-(-shift), the next block reads with ``dc = -shift - in_frame``, and the
-RSTB's closing conv undoes the last frame with ``roll=-frame``. On the
-card that is the kernels; on the CPU, their plain versions. bfloat16
-inputs take the fast numerics, float32 the exact ones.
+A Swin block takes one of two routes, by the JAX package's rule on the
+TPU (:func:`strip_route`, ``models/swinir.py:175-186`` there):
+
+- the strip route, :func:`ops.swin_block.swin_block` with the cyclic shift
+  folded into its reads: a block's output stays in the rolled frame
+  (-shift), the next block reads with ``dc = -shift - in_frame``, and the
+  RSTB's closing conv undoes the last frame with ``roll=-frame``. bfloat16
+  inputs take the fast numerics, float32 the exact ones;
+- the partition route (:func:`partition_attention`, then ``mlp_block``
+  with erf-GELU), exact numerics in both dtypes, frames always 0: where
+  the canvas is wider than 384 with no strip chunk width (whole-image
+  denoising at 1088x1928), and for an odd window (``swinir_jpeg_40``,
+  window 7), which the JAX package sends to XLA with the same math.
+
+On the card that is the kernels; on the CPU, their plain versions.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -26,14 +36,53 @@ from torch import nn
 
 from ..device import exact_f32
 from ..ops.pixel_shuffle import pixel_shuffle
-from ..ops.swin_block import prepare_swin_params, swin_block
-from ..ops.window_attention import shift_attention_mask
+from ..ops.swin_block import (mlp_block, prepare_swin_params,
+                              strip_chunk_width, swin_block, wmsa_block)
+from ..ops.window_attention import (shift_attention_mask, window_partition,
+                                    window_reverse)
 from .common import (Conv, cache_key, conv_plain, fused_pixelshuffle_head,
                      head_weights, layer_norm_lanes, tail_weights,
                      upsample_tail)
 from .registry import ModelSpec, register_model
 
 RGB_MEAN = (0.4488, 0.4371, 0.4040)  # DIV2K mean (network_swinir.py:716)
+
+
+def strip_route(b: int, h: int, w: int, ws: int) -> bool:
+    """The JAX package's route rule on the TPU (``pallas_block``): a block
+    of a (b, h, w) canvas takes the strip kernel when the window is even,
+    the token count a multiple of 8 (``_pallas_supported``), h and w are
+    multiples of the window and the width is at most 384 or has a strip
+    chunk width; else the partition route. HAT's HAB takes the same rule
+    (``models/hat.py:108-111`` there)."""
+    return (ws % 2 == 0 and (b * h * w) % 8 == 0 and h % ws == 0
+            and w % ws == 0
+            and (w <= 384 or strip_chunk_width(w, ws) is not None))
+
+
+@functools.lru_cache(maxsize=4)
+def full_shift_mask(h: int, w: int, ws: int, shift: int,
+                    device: torch.device) -> torch.Tensor | None:
+    """The (nW, N, N) float32 shift mask of an (h, w) canvas on ``device``
+    (None without a shift), made once per shape and shared by the blocks
+    (537 MB at 1088x1928, window 8)."""
+    m = shift_attention_mask(h, w, ws, shift)
+    return None if m is None else torch.from_numpy(m).to(device)
+
+
+def partition_attention(x: torch.Tensor, p, *, num_heads: int, ws: int,
+                        shift: int) -> torch.Tensor:
+    """The attention half on the partition route (the JAX package's
+    ``models/swinir.py:217-229``): roll by -shift, window partition,
+    :func:`ops.swin_block.wmsa_block` with the full shift mask, window
+    reverse, roll back. Output in frame 0, in ``x``'s dtype."""
+    _, h, w, c = x.shape
+    y = torch.roll(x, (-shift, -shift), dims=(1, 2)) if shift else x
+    yw = window_partition(y, ws).reshape(-1, ws * ws, c)
+    yw = wmsa_block(yw, p, num_heads=num_heads,
+                    mask=full_shift_mask(h, w, ws, shift, x.device))
+    y = window_reverse(yw.reshape(-1, ws, ws, c), ws, h, w)
+    return torch.roll(y, (shift, shift), dims=(1, 2)) if shift else y
 
 
 class _WindowAttention(nn.Module):
@@ -96,18 +145,33 @@ class SwinBlock(nn.Module):
                 bank.reshape(2, 2, n, n)).to(device))
         return self._bank[1]
 
+    def strip(self, x: torch.Tensor) -> bool:
+        """True if this block takes the strip route for ``x``, False for
+        the partition route (:func:`strip_route`)."""
+        b, h, w, _ = x.shape
+        return strip_route(b, h, w, self.window_size)
+
     def forward(self, x: torch.Tensor, in_frame: int = 0):
-        """Returns (y, out_frame); y stays in the rolled frame -shift."""
-        _, h, w, _ = x.shape
+        """Returns (y, out_frame): on the strip route y stays in the rolled
+        frame -shift; on the partition route frames are 0."""
+        b, h, w, c = x.shape
         ws = self.window_size
         # no shift when the canvas is not larger than one window
         # (reference SwinTransformerBlock.__init__)
         shift = 0 if min(h, w) <= ws else self.shift_size
-        bank = self._mask_bank(shift, x.device) if shift > 0 else None
-        y = swin_block(x, self.kernel_params(x), num_heads=self.num_heads,
-                       ws=ws, dc=-shift - in_frame, mask_bank=bank,
-                       fast=x.dtype == torch.bfloat16)
-        return y, -shift
+        p = self.kernel_params(x)
+        if self.strip(x):
+            bank = self._mask_bank(shift, x.device) if shift > 0 else None
+            y = swin_block(x, p, num_heads=self.num_heads, ws=ws,
+                           dc=-shift - in_frame, mask_bank=bank,
+                           fast=x.dtype == torch.bfloat16)
+            return y, -shift
+        if in_frame:
+            raise ValueError("frames only flow on the strip route")
+        y = partition_attention(x, p, num_heads=self.num_heads, ws=ws,
+                                shift=shift)
+        y = mlp_block(y.reshape(-1, c), *p.mlp, out_dtype=x.dtype)
+        return y.reshape(b, h, w, c), 0
 
 
 class _BasicLayer(nn.Module):
@@ -152,7 +216,54 @@ class _Shuffle(nn.Module):
         return pixel_shuffle(x, self.r)
 
 
-class SwinIR(nn.Module):
+class PixelShuffleHead:
+    """The pixel-shuffle SR head of SwinIR and HAT (a mixin of their
+    modules): ``conv_before_upsample`` (LeakyReLU), ``upsample`` ([conv,
+    shuffle] per factor), ``conv_last``, run as one composed conv plus a
+    depth-to-space with the border ring recomputed
+    (:func:`models.common.fused_pixelshuffle_head`)."""
+
+    def init_pixelshuffle_head(self, embed_dim: int, num_feat: int,
+                               upscale: int, img_channels: int) -> None:
+        self.conv_before_upsample = nn.Sequential(
+            Conv(embed_dim, num_feat, act="lrelu"))
+        s, self.rs = upscale, []
+        while s > 1:
+            self.rs.append(3 if s % 3 == 0 else 2)
+            s //= self.rs[-1]
+        mods = []
+        for r in self.rs:
+            mods += [Conv(num_feat, num_feat * r * r), _Shuffle(r)]
+        self.upsample = nn.Sequential(*mods)
+        self.conv_last = Conv(num_feat, img_channels)
+        self._head: tuple | None = None
+
+    def _pixelshuffle_head(self, y, packed: bool):
+        stages = [(self.upsample[2 * i].hwio(), self.upsample[2 * i].bias)
+                  for i in range(len(self.rs))]
+        wl, bl = self.conv_last.hwio(), self.conv_last.bias
+        rs = self.rs
+        if not rs:
+            return self.conv_last(y)
+
+        tensors = [p for st in stages for p in st] + [wl, bl]
+        key = cache_key(y, tensors)
+        if self._head is None or self._head[0] != key:
+            self._head = (key, head_weights(stages, wl, bl, rs),
+                          tail_weights(*stages[-1], wl, bl, rs[-1], y.dtype))
+
+        def seq_head(z):
+            for (w, b), r in zip(stages[:-1], rs[:-1]):
+                z = pixel_shuffle(conv_plain(z, w, b), r)
+            return upsample_tail(z, *stages[-1], wl, bl, rs[-1],
+                                 kernel_weights=self._head[2])
+
+        return fused_pixelshuffle_head(y, stages, wl, bl, rs, seq_head,
+                                       packed=packed,
+                                       composed=self._head[1])
+
+
+class SwinIR(PixelShuffleHead, nn.Module):
     """Args mirror the reference constructor (network_swinir.py:618-705).
     Input and output are (B, H, W, C) with H and W multiples of the window.
 
@@ -185,18 +296,8 @@ class SwinIR(nn.Module):
         self.conv_after_body = Conv(embed_dim, embed_dim)
 
         if upsampler == "pixelshuffle":
-            self.conv_before_upsample = nn.Sequential(
-                Conv(embed_dim, num_feat, act="lrelu"))
-            s, self.rs = upscale, []
-            while s > 1:
-                self.rs.append(3 if s % 3 == 0 else 2)
-                s //= self.rs[-1]
-            mods = []
-            for r in self.rs:
-                mods += [Conv(num_feat, num_feat * r * r), _Shuffle(r)]
-            self.upsample = nn.Sequential(*mods)
-            self.conv_last = Conv(num_feat, img_channels)
-            self._head: tuple | None = None
+            self.init_pixelshuffle_head(embed_dim, num_feat, upscale,
+                                        img_channels)
         elif upsampler == "pixelshuffledirect":
             self.upsample = nn.Sequential(
                 Conv(embed_dim, img_channels * upscale ** 2,
@@ -215,30 +316,6 @@ class SwinIR(nn.Module):
             self.conv_last = Conv(num_feat, img_channels)
         else:
             self.conv_last = Conv(embed_dim, img_channels)
-
-    def _pixelshuffle_head(self, y, packed: bool):
-        stages = [(self.upsample[2 * i].hwio(), self.upsample[2 * i].bias)
-                  for i in range(len(self.rs))]
-        wl, bl = self.conv_last.hwio(), self.conv_last.bias
-        rs = self.rs
-        if not rs:
-            return self.conv_last(y)
-
-        tensors = [p for st in stages for p in st] + [wl, bl]
-        key = cache_key(y, tensors)
-        if self._head is None or self._head[0] != key:
-            self._head = (key, head_weights(stages, wl, bl, rs),
-                          tail_weights(*stages[-1], wl, bl, rs[-1], y.dtype))
-
-        def seq_head(z):
-            for (w, b), r in zip(stages[:-1], rs[:-1]):
-                z = pixel_shuffle(conv_plain(z, w, b), r)
-            return upsample_tail(z, *stages[-1], wl, bl, rs[-1],
-                                 kernel_weights=self._head[2])
-
-        return fused_pixelshuffle_head(y, stages, wl, bl, rs, seq_head,
-                                       packed=packed,
-                                       composed=self._head[1])
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor,

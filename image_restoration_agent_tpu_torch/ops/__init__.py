@@ -12,9 +12,12 @@ from .restormer_fused import (gdfn_block, gdfn_block_plain, gdfn_weights,
                               mdta_block, mdta_block_plain, mdta_front,
                               mdta_front_plain, mdta_weights,
                               restormer_fused_supported)
+from .roll2d import roll2d, roll2d_plain
 from .swin_block import (swin_block, swin_block_plain, mlp_block,
                          mlp_block_plain, prepare_swin_params,
-                         pad_width_for_strips, strip_chunk_width)
+                         pad_width_for_strips, strip_chunk_width,
+                         swin_attn_block, swin_attn_block_plain, wmsa_block,
+                         wmsa_block_plain)
 
 __all__ = [
     "pixel_shuffle", "pixel_unshuffle",
@@ -24,6 +27,8 @@ __all__ = [
     "compose_conv_weights",
     "swin_block", "swin_block_plain", "mlp_block", "mlp_block_plain",
     "prepare_swin_params", "pad_width_for_strips", "strip_chunk_width",
+    "swin_attn_block", "swin_attn_block_plain", "wmsa_block",
+    "wmsa_block_plain", "roll2d", "roll2d_plain",
     "gdfn_block", "gdfn_block_plain", "gdfn_weights", "mdta_block",
     "mdta_block_plain", "mdta_front", "mdta_front_plain", "mdta_weights",
     "restormer_fused_supported",

@@ -5,8 +5,11 @@ Replaces ``image_restoration_agent_tpu/ops/pallas_attention.py``:
 
 - ``swin_strip_pallas`` (the strip kernel: bodies ``_strip_kernel_paired``
   and ``_fastmath_block_core``; ``_strip_kernel`` in its stacked form) by
-  :func:`swin_block`;
-- ``mlp_block_pallas`` by :func:`mlp_block`.
+  :func:`swin_block`, and with ``mlp=None`` (HAT's call) by
+  :func:`swin_attn_block`;
+- ``mlp_block_pallas`` by :func:`mlp_block`;
+- ``wmsa_block_pallas`` (the partition route over ``(nWB, N, C)``
+  windows with the full ``(nW, N, N)`` mask) by :func:`wmsa_block`.
 
 Semantics (the JAX kernel's): the block reads ``roll(x, (dc, dc))``, runs
 LN1 -> qkv -> per-head window attention with the relative-position bias
@@ -43,11 +46,16 @@ The CUDA path is two hand-written kernels in ``csrc/swin_block.cu``:
   block's weights are prepared) through two buffers with ``cp.async``; the products are WMMA 16x16x16
   bf16 fragments with float32 accumulators. In f32 it runs 64x64 tiles on
   FP32 FMA (no TF32).
-- K2 ``window_attention``: N = ws^2 <= 64 tokens per window; q, k, v, the
-  logits and ``p`` live in shared memory. In bf16 one block handles a
-  window's heads in turn with QK^T and PV on the tensor cores and the
-  softmax in float32 between them; in f32 one block per (window, head) on
-  FP32 FMA.
+- K2 ``window_attention``: N = ws^2 <= 256 tokens per window; q, k, v, the
+  logits and ``p`` live in shared memory. In bf16 at N <= 64 one block
+  handles a window's heads in turn with QK^T and PV on the tensor cores
+  and the softmax in float32 between them; at 64 < N <= 256 (HAT's window
+  16) one block per (window, head, 64-query chunk), its 64 x N float32
+  logits in shared memory and ``p`` written over them in bf16. In f32 one
+  block per (window, head) on FP32 FMA, per (window, head, 64-query chunk)
+  at N > 64. The mask is the
+  strip kernel's (2, 2, N, N) edge bank or the wmsa kernels' full
+  (nW, N, N) mask.
 
 One block is five launches: K1 (LN1 + gather -> qkv), K2, K1 (proj +
 gathered residual), then ``mlp_block``'s two K1 (LN2 -> fc1 + GELU; fc2 +
@@ -75,7 +83,8 @@ import torch.nn.functional as F
 
 from . import kernels
 from .layernorm import layer_norm_lanes
-from .window_attention import relative_position_bias, window_partition
+from .window_attention import (relative_position_bias, window_partition,
+                               window_reverse)
 
 LOG2E = 1.4426950408889634
 EXP2_CLAMP = 86.56  # 60 * log2(e): the TPU kernel's clamp
@@ -345,10 +354,11 @@ def _softmax(s: torch.Tensor, fast: bool) -> torch.Tensor:
     return torch.softmax(s, dim=-1)
 
 
-def window_attention_plain(qkv, rpb, bank, *, num_heads, nwy, nwx, fast):
+def window_attention_plain(qkv, rpb, bank, *, num_heads, nwy, nwx, fast,
+                           mask=None):
     """Plain version of K2 on window-order rows: ``(T, 3C) -> (T, C)`` with
-    q pre-scaled, logits ``q.k + rpb (+ bank)`` (times log2 e in fast mode),
-    ``p`` cast to the qkv dtype before AV."""
+    q pre-scaled, logits ``q.k + rpb (+ bank or mask)`` (times log2 e in
+    fast mode), ``p`` cast to the qkv dtype before AV."""
     t, c3 = qkv.shape
     c = c3 // 3
     n = rpb.shape[-1]
@@ -360,6 +370,10 @@ def window_attention_plain(qkv, rpb, bank, *, num_heads, nwy, nwx, fast):
         s = s.reshape(-1, nwy * nwx, num_heads, n, n) \
             + _bank_per_window(bank, nwy, nwx)[None, :, None]
         s = s.reshape(-1, num_heads, n, n)
+    elif mask is not None:
+        s = s.reshape(-1, mask.shape[0], num_heads, n, n) \
+            + mask[None, :, None]
+        s = s.reshape(-1, num_heads, n, n)
     if fast:
         s = s * LOG2E
     p = _softmax(s, fast).to(qkv.dtype).float()
@@ -367,7 +381,14 @@ def window_attention_plain(qkv, rpb, bank, *, num_heads, nwy, nwx, fast):
     return o.permute(0, 2, 1, 3).reshape(t, c).to(qkv.dtype)
 
 
-def _window_attention_cuda(qkv, rpb, bank, num_heads, nwy, nwx, fast):
+def _check_f32(t, shape, what):
+    if t is not None and (t.dtype != torch.float32 or t.shape != shape
+                          or not t.is_contiguous()):
+        raise ValueError(f"{what} must be contiguous float32 {shape}")
+
+
+def _window_attention_cuda(qkv, rpb, bank, num_heads, nwy, nwx, fast,
+                           mask):
     t, c3 = qkv.shape
     c = c3 // 3
     n = rpb.shape[-1]
@@ -375,46 +396,55 @@ def _window_attention_cuda(qkv, rpb, bank, num_heads, nwy, nwx, fast):
     if qkv.dtype not in _DT or not qkv.is_contiguous():
         raise ValueError("window_attention takes contiguous float32 or "
                          "bfloat16 qkv")
-    if n > 64 or hd > 64 or c % num_heads or t % n or (t // n) % (nwy * nwx):
+    nw = mask.shape[0] if mask is not None else nwy * nwx
+    if n > 256 or hd > 64 or c % num_heads or t % n or (t // n) % nw:
         raise ValueError(f"window_attention: N={n}, head width {hd}, "
                          f"{t} rows do not fit the kernel")
-    if rpb.dtype != torch.float32 or rpb.shape != (num_heads, n, n) \
-            or not rpb.is_contiguous():
-        raise ValueError("rpb must be contiguous float32 (heads, N, N)")
-    if bank is not None and (bank.dtype != torch.float32
-                             or bank.shape != (2, 2, n, n)
-                             or not bank.is_contiguous()):
-        raise ValueError("bank must be contiguous float32 (2, 2, N, N)")
+    if qkv.dtype == torch.bfloat16 and n > 64 and (hd % 2
+                                                   or qkv.data_ptr() % 4):
+        raise ValueError("bf16 window_attention at N > 64 copies bf16 "
+                         "pairs: it needs an even head width and a 4-byte "
+                         "aligned qkv")
+    if bank is not None and mask is not None:
+        raise ValueError("window_attention takes a bank or a mask, not both")
+    _check_f32(rpb, (num_heads, n, n), "rpb")
+    _check_f32(bank, (2, 2, n, n), "bank")
+    _check_f32(mask, (nw, n, n), "mask")
     out = torch.empty((t, c), dtype=qkv.dtype, device=qkv.device)
     fn = kernels.load("swin_block").window_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p] \
-        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    err = fn(_ptr(qkv), _DT[qkv.dtype], _ptr(rpb), _ptr(bank), _ptr(out),
-             t // n, n, c, num_heads, nwy, nwx, int(fast),
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 \
+        + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
+    err = fn(_ptr(qkv), _DT[qkv.dtype], _ptr(rpb), _ptr(bank), _ptr(mask),
+             nw, _ptr(out), t // n, n, c, num_heads, nwy, nwx, int(fast),
              torch.cuda.current_stream(qkv.device).cuda_stream)
     kernels.check(err, "window_attention")
     window_attention.launches += 1
     return out
 
 
-def window_attention(qkv, rpb, bank, *, num_heads, nwy, nwx, fast):
+def window_attention(qkv, rpb, bank, *, num_heads, nwy, nwx, fast,
+                     mask=None):
     """K2: attention of every (window, head) over window-order rows.
 
     Args:
-        qkv: (T, 3C) rows in window order (q | k | v), q pre-scaled.
+        qkv: (T, 3C) rows in window order (q | k | v), q pre-scaled; N =
+            rpb's last dim, N <= 256 and head width <= 64 on the card.
         rpb: (heads, N, N) float32 relative-position bias.
         bank: None or the (2, 2, N, N) float32 shift-mask bank, picked per
             window by [is_last_window_row, is_last_window_col].
-        nwy, nwx: windows per image column / row.
+        nwy, nwx: windows per image column / row (bank mode).
         fast: base-2 clamp softmax with reciprocal normalization.
+        mask: None or the full (nW, N, N) float32 mask (the TPU wmsa
+            kernels' contract): window ``w`` adds ``mask[w % nW]``. Not
+            with ``bank``.
     """
     if qkv.is_cuda:
         return _window_attention_cuda(qkv, rpb, bank, num_heads, nwy, nwx,
-                                      fast)
+                                      fast, mask)
     return window_attention_plain(qkv, rpb, bank, num_heads=num_heads,
-                                  nwy=nwy, nwx=nwx, fast=fast)
+                                  nwy=nwy, nwx=nwx, fast=fast, mask=mask)
 
 
 window_attention.launches = 0
@@ -554,13 +584,116 @@ def swin_block(x, p: SwinBlockParams, *, num_heads: int, ws: int,
 swin_block.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# swin_attn_block (HAT's half block) and wmsa_block (the partition route)
+
+
+def swin_attn_block_plain(x, p: SwinBlockParams, *, num_heads: int, ws: int,
+                          dc: int = 0, mask_bank=None, fast: bool = False):
+    """Plain PyTorch version of :func:`swin_attn_block`."""
+    _check_block(x, ws, dc)
+    b, h, w, c = x.shape
+    dt = p.wqkv.dtype
+    fast = fast and _paired(w, ws, num_heads)
+    xr = torch.roll(x, (dc, dc), dims=(1, 2)) if dc else x
+    xw = window_partition(xr, ws).reshape(-1, c).float()
+    y = layer_norm_lanes(xw, p.ln1_w, p.ln1_b).to(dt).float()
+    qkv = (y @ _dense(p.wqkv, c, 3 * c) + p.bqkv).to(dt)
+    a = window_attention_plain(qkv, p.rpb, mask_bank, num_heads=num_heads,
+                               nwy=h // ws, nwx=w // ws, fast=fast)
+    x1 = (a.float() @ _dense(p.wproj, c, c) + p.bproj + xw).to(x.dtype)
+    return window_reverse(x1.reshape(-1, ws, ws, c), ws, h, w)
+
+
+def swin_attn_block(x, p: SwinBlockParams, *, num_heads: int, ws: int,
+                    dc: int = 0, mask_bank=None, fast: bool = False):
+    """The attention half of a Swin block over ``x`` (B, H, W, C) read
+    through ``roll(x, (dc, dc))``: ``xr + proj(attn(LN1(xr)))`` in the
+    rolled frame, in ``x``'s dtype. The TPU's ``swin_strip_pallas`` with
+    ``mlp=None``, HAT's call: numerics as :func:`swin_block`'s (``fast``
+    where the windows per row and the heads are even), ``p``'s MLP
+    weights unused.
+
+    A CUDA tensor runs three launches (K1 LN1 + gather -> qkv, K2, K1 proj
+    + gathered residual scattered to the rolled frame) or raises; a CPU
+    tensor runs :func:`swin_attn_block_plain`.
+    """
+    if not x.is_cuda:
+        return swin_attn_block_plain(x, p, num_heads=num_heads, ws=ws, dc=dc,
+                                     mask_bank=mask_bank, fast=fast)
+    _check_block(x, ws, dc)
+    b, h, w, c = x.shape
+    fast = fast and _paired(w, ws, num_heads)
+    geom = (b, h, w, ws, dc)
+    xt = x.contiguous().reshape(-1, c)
+    qkv = token_linear(xt, p.wqkv, p.bqkv, ln=(p.ln1_w, p.ln1_b), geom=geom,
+                       a_map=GATHER)
+    a = window_attention(qkv, p.rpb, mask_bank, num_heads=num_heads,
+                         nwy=h // ws, nwx=w // ws, fast=fast)
+    out = token_linear(a, p.wproj, p.bproj, res=xt, geom=geom, r_map=GATHER,
+                       o_map=SCATTER, out_dtype=x.dtype)
+    swin_attn_block.launches += 1
+    return out.reshape(b, h, w, c)
+
+
+swin_attn_block.launches = 0
+
+
+def wmsa_block_plain(xw, p: SwinBlockParams, *, num_heads: int, mask=None):
+    """Plain PyTorch version of :func:`wmsa_block`."""
+    nwb, n, c = xw.shape
+    dt = p.wqkv.dtype
+    xf = xw.reshape(-1, c).float()
+    y = layer_norm_lanes(xf, p.ln1_w, p.ln1_b).to(dt).float()
+    qkv = (y @ _dense(p.wqkv, c, 3 * c) + p.bqkv).to(dt)
+    a = window_attention_plain(qkv, p.rpb, None, num_heads=num_heads,
+                               nwy=1, nwx=1, fast=False, mask=mask)
+    out = a.float() @ _dense(p.wproj, c, c) + p.bproj + xf
+    return out.to(xw.dtype).reshape(nwb, n, c)
+
+
+def wmsa_block(xw, p: SwinBlockParams, *, num_heads: int, mask=None):
+    """``xw + proj(attn(LN1(xw)))`` over partitioned windows: the TPU's
+    ``wmsa_block_pallas``.
+
+    Args:
+        xw: (nWB, N, C) windows (N <= 256 on the card), in the dtype ``p``
+            was prepared for.
+        p: :class:`SwinBlockParams` (its MLP weights unused).
+        mask: None or the (nW, N, N) float32 shift mask; window ``w`` adds
+            ``mask[w % nW]``.
+
+    Exact softmax in both dtypes. Cast points are the TPU kernel's: the LN
+    output, qkv and the attention output in ``xw``'s dtype, proj +
+    residual in float32 and one cast (the attention scale is folded into
+    the q weights). A CUDA tensor runs three launches (K1 LN1 -> qkv, K2
+    in full-mask mode, K1 proj + residual) or raises; a CPU tensor runs
+    :func:`wmsa_block_plain`.
+    """
+    if not xw.is_cuda:
+        return wmsa_block_plain(xw, p, num_heads=num_heads, mask=mask)
+    nwb, n, c = xw.shape
+    xt = xw.contiguous().reshape(-1, c)
+    qkv = token_linear(xt, p.wqkv, p.bqkv, ln=(p.ln1_w, p.ln1_b))
+    a = window_attention(qkv, p.rpb, None, num_heads=num_heads, nwy=1,
+                         nwx=1, fast=False, mask=mask)
+    out = token_linear(a, p.wproj, p.bproj, res=xt, out_dtype=xw.dtype)
+    wmsa_block.launches += 1
+    return out.reshape(nwb, n, c)
+
+
+wmsa_block.launches = 0
+
+_COUNTED = (swin_block, swin_attn_block, wmsa_block, mlp_block, token_linear,
+            window_attention)
+
+
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    for fn in (swin_block, mlp_block, token_linear, window_attention):
+    for fn in _COUNTED:
         fn.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {fn.__name__: fn.launches
-            for fn in (swin_block, mlp_block, token_linear, window_attention)}
+    return {fn.__name__: fn.launches for fn in _COUNTED}
 

@@ -11,6 +11,7 @@ import torch
 tconv = importlib.import_module("image_restoration_agent_tpu_torch.ops.conv3x3")
 trf = importlib.import_module(
     "image_restoration_agent_tpu_torch.ops.restormer_fused")
+troll = importlib.import_module("image_restoration_agent_tpu_torch.ops.roll2d")
 tsb = importlib.import_module("image_restoration_agent_tpu_torch.ops.swin_block")
 twa = importlib.import_module(
     "image_restoration_agent_tpu_torch.ops.window_attention")
@@ -228,11 +229,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(1, 8, 8, 4, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         tconv.conv3x3(x, torch.zeros(3, 3, 4, 4, device=cuda))
-    qkv = torch.zeros(81 * 2, 3 * 8, device=cuda)
-    rpb = torch.zeros(2, 81, 81, device=cuda)
-    with pytest.raises(ValueError):  # N = 81 > 64
+    qkv = torch.zeros(289 * 2, 3 * 8, device=cuda)
+    rpb = torch.zeros(2, 289, 289, device=cuda)
+    with pytest.raises(ValueError):  # N = 289 > 256
         tsb.window_attention(qkv, rpb, None, num_heads=2, nwy=1, nwx=2,
                              fast=False)
+    qkv = torch.zeros(100 * 2, 3 * 9, device=cuda, dtype=torch.bfloat16)
+    rpb = torch.zeros(3, 100, 100, device=cuda)
+    with pytest.raises(ValueError):  # bf16 at N 100 with head width 3
+        tsb.window_attention(qkv, rpb, None, num_heads=3, nwy=1, nwx=2,
+                             fast=True)
+    with pytest.raises(ValueError):  # shift 3 is not +-ws/2
+        troll.roll2d(torch.zeros(1, 16, 16, 4, device=cuda), 3, ws=8)
     def gdfn(c, dtype):
         g = (None, torch.zeros(c, 16), None, torch.zeros(9, 16), None,
              torch.zeros(8, c), None)
@@ -245,3 +253,115 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):  # kernel form for another dtype
         trf.gdfn_block(torch.zeros(1, 8, 8, 8, device=cuda),
                        gdfn(8, torch.bfloat16), fast=False)
+
+
+def _mask_kw(kind, ws, h, w, dev):
+    """The K2 mask forms: none, the (2, 2, N, N) bank, the full (nW, N, N)
+    shift mask."""
+    n, s = ws * ws, ws // 2
+    if kind == "bank":
+        return dict(bank=torch.from_numpy(twa.shift_attention_mask(
+            2 * ws, 2 * ws, ws, s).reshape(2, 2, n, n)).to(dev), mask=None)
+    if kind == "mask":
+        return dict(bank=None, mask=torch.from_numpy(
+            twa.shift_attention_mask(h, w, ws, s)).to(dev))
+    return dict(bank=None, mask=None)
+
+
+# N 256 (HAT's window 16) at head widths 30 and 24, N 100 (a ragged query
+# chunk and padded keys), N 64 (the single-block kernel's full-mask mode)
+@pytest.mark.parametrize("ws,c,heads", [(16, 180, 6), (16, 48, 2),
+                                        (10, 40, 2), (8, 180, 6)])
+@pytest.mark.parametrize("kind", ["none", "bank", "mask"])
+@pytest.mark.parametrize("dtype,fast", [(torch.float32, False),
+                                        (torch.bfloat16, False),
+                                        (torch.bfloat16, True)])
+def test_window_attention_wide_and_mask_modes(cuda, ws, c, heads, kind,
+                                              dtype, fast):
+    """K2 against window_attention_plain: f32 within 1e-4 x max|ref|; bf16
+    within the rounding control in RMS."""
+    gen = torch.Generator().manual_seed(6)
+    n, h, w = ws * ws, 2 * ws, 4 * ws
+    t = 2 * h * w
+    qkv32 = _randn(gen, t, 3 * c).to(cuda)
+    rpb = _randn(gen, heads, n, n, scale=0.5).to(cuda)
+    kw = dict(num_heads=heads, nwy=h // ws, nwx=w // ws, fast=fast,
+              **_mask_kw(kind, ws, h, w, cuda))
+    bank = kw.pop("bank")
+    qkv = qkv32.to(dtype)
+    n0 = tsb.window_attention.launches
+    got = tsb.window_attention(qkv, rpb, bank, **kw)
+    assert tsb.window_attention.launches == n0 + 1 and got.dtype == dtype
+    _close_or_within_rounding(
+        got, tsb.window_attention_plain(qkv, rpb, bank, **kw),
+        tsb.window_attention_plain(qkv32, rpb, bank, **kw), dtype)
+
+
+@pytest.mark.parametrize("shape,ws", [((2, 32, 48, 180), 16),
+                                      ((1, 16, 24, 3), 8),
+                                      ((3, 8, 40, 5), 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roll2d_kernel_equals_torch_roll(cuda, shape, ws, dtype):
+    """K6 against torch.roll, bit for bit, both signs (16-, 8-, 4- and
+    2-byte units)."""
+    gen = torch.Generator().manual_seed(7)
+    x = _randn(gen, *shape).to(cuda, dtype)
+    for shift in (ws // 2, -(ws // 2)):
+        n0 = troll.roll2d.launches
+        got = troll.roll2d(x, shift, ws=ws)
+        assert troll.roll2d.launches == n0 + 1
+        assert torch.equal(got, torch.roll(x, (shift, shift), dims=(1, 2)))
+
+
+@pytest.mark.parametrize("ws,c,heads,hw", [(16, 180, 6, (32, 64)),
+                                           (16, 48, 2, (32, 48)),
+                                           (8, 180, 6, (24, 40))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swin_attn_block_kernel_matches_plain(cuda, ws, c, heads, hw,
+                                              dtype):
+    """HAT's half block (K1, K2, K1 scattered to the rolled frame) at dc 0
+    and -ws/2 with the bank, against swin_attn_block_plain."""
+    gen = torch.Generator().manual_seed(8)
+    x32 = _randn(gen, 2, *hw, c).to(cuda)
+    state = gen.get_state()
+    p = _block(gen, c, heads, ws, dtype, cuda)
+    gen.set_state(state)
+    p32 = _block(gen, c, heads, ws, torch.float32, cuda)
+    n, s = ws * ws, ws // 2
+    bank = torch.from_numpy(twa.shift_attention_mask(2 * ws, 2 * ws, ws, s)
+                            .reshape(2, 2, n, n)).to(cuda)
+    x = x32.to(dtype)
+    for dc, bk in ((0, None), (-s, bank)):
+        kw = dict(num_heads=heads, ws=ws, dc=dc, mask_bank=bk,
+                  fast=dtype == torch.bfloat16)
+        n0 = tsb.swin_attn_block.launches
+        got = tsb.swin_attn_block(x, p, **kw)
+        assert tsb.swin_attn_block.launches == n0 + 1
+        assert got.shape == x.shape and got.dtype == dtype
+        _close_or_within_rounding(got, tsb.swin_attn_block_plain(x, p, **kw),
+                                  tsb.swin_attn_block_plain(x32, p32, **kw),
+                                  dtype)
+
+
+@pytest.mark.parametrize("ws,c,heads", [(8, 180, 6), (16, 48, 2)])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wmsa_block_kernel_matches_plain(cuda, ws, c, heads, masked, dtype):
+    """The partition route's block (K1, K2 full-mask mode, K1) against
+    wmsa_block_plain, windows of a 3x5-window canvas, batch 2."""
+    gen = torch.Generator().manual_seed(9)
+    n, h, w = ws * ws, 3 * ws, 5 * ws
+    x32 = _randn(gen, 2 * (h // ws) * (w // ws), n, c).to(cuda)
+    state = gen.get_state()
+    p = _block(gen, c, heads, ws, dtype, cuda)
+    gen.set_state(state)
+    p32 = _block(gen, c, heads, ws, torch.float32, cuda)
+    mask = torch.from_numpy(twa.shift_attention_mask(
+        h, w, ws, ws // 2)).to(cuda) if masked else None
+    x = x32.to(dtype)
+    n0 = tsb.wmsa_block.launches
+    got = tsb.wmsa_block(x, p, num_heads=heads, mask=mask)
+    assert tsb.wmsa_block.launches == n0 + 1 and got.dtype == dtype
+    _close_or_within_rounding(
+        got, tsb.wmsa_block_plain(x, p, num_heads=heads, mask=mask),
+        tsb.wmsa_block_plain(x32, p32, num_heads=heads, mask=mask), dtype)

@@ -240,3 +240,144 @@ def test_golden_swinir_sr_x4_f32_cpu():
                       pad_kind="symmetric")
     db = psnr(np.clip(out.numpy(), 0, 1), g["expected"])
     assert db >= g["spec"]["psnr_db"] - 0.1, db
+
+
+# (B, H, W, window): whole-image denoising at 1088x1928 (8 x 241, no strip
+# chunk width), a 464-wide canvas (456-463 px padded), window 7
+# (swinir_jpeg_40), the band canvases, HAT's tile, small canvases
+_ROUTE_SHAPES = [(1, 1088, 1928, 8), (1, 64, 464, 8), (1, 70, 70, 7),
+                 (1, 1080, 1928, 8), (1, 552, 1920, 8), (1, 280, 496, 8),
+                 (1, 136, 136, 8), (5, 256, 256, 16), (1, 32, 464, 16),
+                 (1, 16, 392, 8), (2, 16, 24, 8), (1, 21, 28, 7)]
+
+
+@pytest.mark.parametrize("b,h,w,ws", _ROUTE_SHAPES)
+def test_swinir_route_rule_matches_jax(b, h, w, ws):
+    """The port's route predicate (SwinBlock.strip, strip_route) is the JAX
+    package's rule on the TPU (models/swinir.py: _pallas_supported, the
+    multiple-of-window test and the strip chunk width)."""
+    from image_restoration_agent_tpu.models import swinir as jsw
+    from image_restoration_agent_tpu.ops import pallas_attention as jpa
+    from image_restoration_agent_tpu_torch.models.swinir import (SwinBlock,
+                                                                 strip_route)
+    want = (jsw._pallas_supported(ws, b * h * w) and h % ws == 0
+            and w % ws == 0
+            and (w <= 384 or jpa.strip_chunk_width(w, ws) is not None))
+    assert strip_route(b, h, w, ws) == want
+    blk = SwinBlock(8, 2, ws, ws // 2)
+    assert blk.strip(torch.zeros(b, h, w, 1, device="meta")) == want
+    assert strip_route(1, 1088, 1928, 8) is False
+
+
+def _jax_swinir(cfg, x, params, dtype, interpret):
+    """The JAX SwinIR on its TPU route ("pallas_block", the Pallas kernels
+    in interpret mode) or its XLA route."""
+    import functools
+
+    from image_restoration_agent_tpu.models import swinir as jsw
+    from image_restoration_agent_tpu.models.swinir import SwinIR as JSwinIR
+    from image_restoration_agent_tpu.ops import pallas_attention as jpa
+    names = ("swin_strip_pallas", "wmsa_block_pallas", "mlp_block_pallas")
+    orig = [getattr(jsw, n) for n in names]
+    try:
+        if interpret:
+            for n in names:
+                setattr(jsw, n, functools.partial(getattr(jpa, n),
+                                                  interpret=True))
+        m_j = JSwinIR(**cfg, attention_impl="pallas_block" if interpret
+                      else "xla")
+        p = jax.tree.map(lambda a: jnp.asarray(a).astype(dtype), params)
+        out = m_j.apply(p, jnp.asarray(x).astype(dtype))
+    finally:
+        for n, f in zip(names, orig):
+            setattr(jsw, n, f)
+    return np.asarray(out.astype(jnp.float32))
+
+
+_TINY = dict(embed_dim=16, depths=(2,), num_heads=(2,), upsampler="",
+             img_range=1.0)
+
+
+@pytest.mark.parametrize("ws,hw", [(8, (16, 392)), (7, (14, 21))],
+                         ids=["wide-no-chunk", "window7"])
+def test_swinir_partition_route_matches_jax_f32(ws, hw):
+    """A canvas that takes the partition route (wider than 384 with no
+    strip chunk width; window 7) through wmsa_block + mlp_block (erf-GELU),
+    frames 0, against the JAX package's route for it (wmsa_block_pallas +
+    mlp_block_pallas in interpret mode at window 8, XLA at window 7), f32
+    within 1e-4 x max|ref|."""
+    cfg = dict(_TINY, window_size=ws)
+    x = np.random.default_rng(10).random((1, *hw, 3), dtype=np.float32)
+    from image_restoration_agent_tpu.models.swinir import SwinIR as JSwinIR
+    params = JSwinIR(**cfg, attention_impl="xla").init(
+        jax.random.PRNGKey(4), jnp.asarray(x))
+    params = jax.tree.map(
+        lambda a: a + 0.05 * np.random.default_rng(11).standard_normal(
+            a.shape).astype(np.float32), jax.tree.map(np.asarray, params))
+    m_t = SwinIR(**cfg)
+    m_t.load_state_dict(from_jax(params), strict=True)
+    assert not m_t.layers[0].residual_group.blocks[1].strip(
+        torch.zeros(1, *hw, 16))
+    want = _jax_swinir(cfg, x, params, jnp.float32, interpret=ws == 8)
+    got = m_t(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-4 * float(np.abs(want).max()))
+
+
+def test_swinir_tiny_bf16_partition_route_matches_jax():
+    """bf16 swinir_tiny on a partition-route canvas (16x392) against the
+    JAX bf16 model on its TPU route (wmsa_block_pallas + mlp_block_pallas
+    in interpret mode): exact softmax and erf-GELU in both, where slice 1
+    took the fast numerics. Held as Restormer's bf16 model: 1.25x the JAX
+    bf16 model's RMS error against f32, 1.5x in RMS distance to it, 2x its
+    largest error."""
+    params = jbuild("swinir_tiny", attention_impl="xla").init(
+        jax.random.PRNGKey(5), jnp.zeros((1, 16, 24, 3)))
+    params = jax.tree.map(
+        lambda a: a + 0.05 * np.random.default_rng(12).standard_normal(
+            a.shape).astype(np.float32), jax.tree.map(np.asarray, params))
+    cfg = dict(MODEL_REGISTRY["swinir_tiny"].config)
+    x = np.random.default_rng(13).random((1, 16, 392, 3), dtype=np.float32)
+    want = _jax_swinir(cfg, x, params, jnp.bfloat16, interpret=True)
+    ref32 = _jax_swinir(cfg, x, params, jnp.float32, interpret=False)
+    m16 = build_model("swinir_tiny", device="cpu", dtype=torch.bfloat16)
+    m16.load_state_dict(from_jax(params), strict=True)
+    got = m16(torch.from_numpy(x).bfloat16()).float().numpy()
+
+    def rms(a):
+        return float(np.sqrt(np.mean(a ** 2)))
+
+    ctrl = want - ref32
+    assert rms(got - ref32) <= 1.25 * rms(ctrl)
+    assert rms(got - want) <= 1.5 * rms(ctrl)
+    assert np.abs(got - want).max() <= 2 * np.abs(ctrl).max()
+
+
+def test_slice1_route_fault_is_repaired(monkeypatch):
+    """The fault this repairs: slice 1 ran every SwinIR block as the strip
+    form, whose bf16 numerics are the fast ones (clamp-exp2 softmax,
+    tanh-GELU), where the JAX package takes the partition route and exact
+    numerics (a 456-463 px denoise input pads to 464 wide: no strip chunk
+    width). Here those numerics are forced in f32 on the old route, at
+    16x464: the old form misses the JAX route by more than 1e-4 x
+    max|ref|, the repaired one stays within it."""
+    import image_restoration_agent_tpu_torch.models.swinir as tsw
+    from image_restoration_agent_tpu.models.swinir import SwinIR as JSwinIR
+    cfg = dict(_TINY, window_size=8)
+    x = np.random.default_rng(14).random((1, 16, 464, 3), dtype=np.float32)
+    params = JSwinIR(**cfg, attention_impl="xla").init(
+        jax.random.PRNGKey(6), jnp.asarray(x))
+    params = jax.tree.map(
+        lambda a: a + 0.05 * np.random.default_rng(15).standard_normal(
+            a.shape).astype(np.float32), jax.tree.map(np.asarray, params))
+    want = _jax_swinir(cfg, x, params, jnp.float32, interpret=False)
+    m_t = SwinIR(**cfg)
+    m_t.load_state_dict(from_jax(params), strict=True)
+    new = np.abs(m_t(torch.from_numpy(x)).numpy() - want).max()
+    fast_block = tsw.swin_block
+    monkeypatch.setattr(tsw.SwinBlock, "strip", lambda self, x: True)
+    monkeypatch.setattr(tsw, "swin_block", lambda *a, **k: fast_block(
+        *a, **{**k, "fast": True}))
+    old = np.abs(m_t(torch.from_numpy(x)).numpy() - want).max()
+    tol = 1e-4 * float(np.abs(want).max())
+    assert new <= tol < old, (new, tol, old)
