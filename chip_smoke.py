@@ -59,7 +59,25 @@ Phases, each printing one JSON line:
     image in bf16 (the 1088x1928 canvas, every block on the partition
     route): 36 ``wmsa_block``, 36 ``mlp_block`` and 9 K3 launches per
     request, and f32 on the card against the CPU plain f32 path on a
-    72x400 canvas of the same route, PSNR >= 60 dB.
+    72x400 canvas of the same route, PSNR >= 60 dB;
+14. dehazeformer_kernels: ``wmsa`` (K2 with the logit scale) against
+    ``wmsa_plain`` at the six window batches of the DehazeFormer-b 1080p
+    request (level 0 C 24, 2 heads: 32400 and 32776 windows; level 1 C 48,
+    4 heads: 8160 and 8228; level 2 C 96, 6 heads: 2040 and 2135) and one
+    small case with a full (nW, N, N) mask, in f32 and bf16, SDPA beside it;
+15. dehazeformer_reflect_pad: the model's reflect pad (a gather) against
+    ``F.pad(mode="reflect")`` at the request's two padded shapes, equal
+    values, both timed;
+16. dehazeformer_path: ``Engine(device="cuda")`` serving 1920x1080 with
+    ``dehazeformer_b`` in bf16 (whole image, one 1080x1920 canvas; one
+    warm-up request, three timed; random weights from its seed with the
+    reference's initialisation): 24 ``wmsa`` launches per request and no
+    other kernel, and a ``torch.profiler`` split of one more;
+17. dehazeformer_exact: f32 on the card against the CPU plain f32 path on
+    a whole 270x480 image, PSNR >= 60 dB, with the output's largest
+    magnitude;
+18. dehazeformer_bf16_vs_f32: bf16 against f32 on the card on the same
+    image, PSNR >= the plain bf16-vs-f32 control (the CPU path) - 2 dB.
 
 Then the ``kernels`` line (each kernel's launches counted on the path
 that runs it), the ``nvidia-smi`` line, and last
@@ -94,6 +112,7 @@ REPLACES = {
     "conv3x3": TPU + "conv3x3.py:201",
     "gdfn_block": TPU + "restormer_fused.py:260",
     "mdta_front": TPU + "restormer_fused.py:398",
+    "wmsa": TPU + "pallas_attention.py:1496",
 }
 SOURCE = {"swin_block": SRC + "swin_block.cu", "token_linear":
           SRC + "swin_block.cu", "window_attention": SRC + "swin_block.cu",
@@ -101,11 +120,16 @@ SOURCE = {"swin_block": SRC + "swin_block.cu", "token_linear":
           "wmsa_block": SRC + "swin_block.cu", "roll2d": SRC + "roll2d.cu",
           "mlp_block": SRC + "swin_block.cu", "conv3x3": SRC + "conv3x3.cu",
           "gdfn_block": SRC + "restormer_fused.cu",
-          "mdta_front": SRC + "restormer_fused.cu"}
+          "mdta_front": SRC + "restormer_fused.cu",
+          "wmsa": SRC + "swin_block.cu"}
 # one batch of the HAT 2K request's tiles (5 of 45, 256x256, C 180, 6
 # heads, window 16) and the whole-image SwinIR-denoise canvas (1088x1928)
 HAT_BATCH = (5, 256, 256, 180)
 DENOISE_CANVAS = (1, 1088, 1928, 180)
+# the DehazeFormer-b 1080p request's window attention calls: (level, C,
+# heads, windows unshifted, windows shifted) on the 1080x1920 canvas
+DEHAZE_LEVELS = ((0, 24, 2, 32400, 32776), (1, 48, 4, 8160, 8228),
+                 (2, 96, 6, 2040, 2135))
 # the 1280x720 Restormer request's block shapes (canvas 768x1280): the four
 # U-Net levels and the C 96 full-resolution decoder / refinement stage
 RESTORMER_SHAPES = (("level1", (1, 768, 1280, 48), 1),
@@ -726,9 +750,12 @@ def main_path(state, card: str, requests: int = 3) -> dict:
 
 
 def profile_request(eng, img, model: str, top: int = 12) -> dict:
-    """One more request under torch.profiler: device time by kernel name
-    and the device's busy share of the request's wall time."""
+    """One more request under torch.profiler: device time by kernel, the
+    library ops that launched the most of it, and the device's busy share
+    of the request's wall time. Only the device's own rows (kernels,
+    copies) are summed: an op's self device time repeats its kernels'."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -742,13 +769,19 @@ def profile_request(eng, img, model: str, top: int = 12) -> dict:
         return (getattr(e, "self_device_time_total", None)
                 or getattr(e, "self_cuda_time_total", 0) or 0)
 
+    def rows(evs):
+        return [{"name": e.key[:80], "calls": e.count,
+                 "device_ms": self_dev_us(e) / 1e3}
+                for e in evs[:top] if self_dev_us(e) > 0]
+
     evs = sorted(prof.key_averages(), key=self_dev_us, reverse=True)
-    busy = sum(self_dev_us(e) for e in evs) / 1e3
+    dev = [e for e in evs if e.device_type != DeviceType.CPU]
+    ops = [e for e in evs if e.device_type == DeviceType.CPU]
+    busy = sum(self_dev_us(e) for e in dev) / 1e3
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
             "device_busy_share": busy / (wall * 1e3),
-            "top": [{"name": e.key[:80], "calls": e.count,
-                     "device_ms": self_dev_us(e) / 1e3}
-                    for e in evs[:top] if self_dev_us(e) > 0]}
+            "device_kernels": len(dev), "top": rows(dev),
+            "top_ops": rows(ops)}
 
 
 def fast_vs_exact(state) -> dict:
@@ -884,10 +917,56 @@ def restormer_fast_vs_exact(state) -> dict:
 
 def model_state(name: str, seed: int = 0) -> dict:
     """Random weights of a registered model from ``build_model``'s seed, as
-    the reference-named numpy state dict the engine loads."""
+    the reference-named numpy state dict the engine loads; DehazeFormer
+    takes its reference's own initialisation on top."""
     from image_restoration_agent_tpu_torch.models import build_model
     m = build_model(name, device="cpu", seed=seed)
+    if name.startswith("dehazeformer"):
+        dehazeformer_reference_init(m, seed)
     return {k: v.numpy() for k, v in m.state_dict().items()}
+
+
+def dehazeformer_reference_init(m, seed: int) -> None:
+    """The initialisation of the reference's ``dehazeformer.py``, with
+    which the activations of the random network stay near 1: RLN weight 1,
+    bias 0, ``meta1`` weight N(0, 0.02) and bias 1, ``meta2`` weight N(0,
+    0.02) and bias 0; the attention's and MLP's convs Glorot-normal times
+    ``(8 * sum(depths))**-0.25`` (QK without the gain), biases 0. The other
+    convs keep ``build_model``'s fan-in weights."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.models import dehazeformer as df
+
+    gen = torch.Generator().manual_seed(seed + 1)
+    depth = sum(len(getattr(m, f"layer{i}").blocks) for i in range(1, 6))
+    gain = (8 * depth) ** -0.25
+
+    def normal(p, std):
+        p.copy_((torch.randn(p.shape, generator=gen) * std).clamp(-2, 2))
+
+    def glorot(conv, g):
+        w = conv.weight
+        rf = w[0, 0].numel()
+        normal(w, g * (2.0 / (w.shape[1] * rf + w.shape[0] * rf)) ** 0.5)
+        conv.bias.zero_()
+
+    with torch.no_grad():
+        for mod in m.modules():
+            if isinstance(mod, df.RLN):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+                normal(mod.meta1.weight, 0.02)
+                mod.meta1.bias.fill_(1.0)
+                normal(mod.meta2.weight, 0.02)
+                mod.meta2.bias.zero_()
+            elif isinstance(mod, df.Attention):
+                for conv in (mod.V, mod.proj, mod.conv):
+                    glorot(conv, gain)
+                if mod.use_attn:
+                    glorot(mod.QK, 1.0)
+            elif isinstance(mod, df.Mlp):
+                glorot(mod.mlp[0], gain)
+                glorot(mod.mlp[2], gain)
 
 
 def _other_wrappers() -> tuple:
@@ -916,7 +995,7 @@ def reset_launch_counts() -> None:
 
 
 def serve(name: str, state: dict, img, requests: int,
-          shape_bucket: int = 8) -> tuple:
+          shape_bucket: int = 8, top: int = 12) -> tuple:
     """``Engine(device="cuda")`` in bf16 serving ``img`` with ``name``: one
     warm-up request, then ``requests`` timed ones with every launch count
     set to 0 just before them and read just after, then one profiled
@@ -940,7 +1019,7 @@ def serve(name: str, state: dict, img, requests: int,
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     counts = launch_counts()
-    profile = profile_request(eng, img, name)
+    profile = profile_request(eng, img, name, top)
     key = next(k for k in eng._pipelines if k[0] == name)
     return eng, warm, warm_s, secs, results, counts, profile, key
 
@@ -1120,6 +1199,204 @@ def swinir_denoise_path(state, card: str, requests: int = 3) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# slice 4: DehazeFormer-b 1080p whole-image serving
+
+
+def dehazeformer_kernel_checks(quick: bool, seed: int = 13) -> list[dict]:
+    """``wmsa`` against ``wmsa_plain`` at the request's six window batches
+    (64 and 65 windows with --quick) and a small full-mask case. SDPA
+    beside it takes the same q, k, v made head-major once before timing
+    (the layout copies are not in its time), ``attn_mask`` the bias (plus
+    the mask) in the working type, ``scale`` head_dim**-0.5."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.ops.swin_block import (
+        wmsa, wmsa_plain)
+    from image_restoration_agent_tpu_torch.ops.window_attention import (
+        shift_attention_mask)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def randn(*s, scale=1.0):
+        return (torch.randn(*s, generator=gen) * scale).to(dev)
+
+    n = 64
+    cases32 = []
+    for lvl, c, heads, nw0, nw1 in DEHAZE_LEVELS:
+        rpb = randn(heads, n, n, scale=0.5)
+        for shifted, nwb in ((False, nw0), (True, nw1)):
+            nwb = 64 + shifted if quick else nwb
+            cases32.append((f"L{lvl} C{c} heads {heads} nWB {nwb}"
+                            + (" shifted" if shifted else ""),
+                            randn(nwb, n, 3 * c), rpb, heads, None))
+    # the TPU contract's full mask: the windows of two 24x40 canvases
+    mask = torch.from_numpy(shift_attention_mask(24, 40, 8, 4)).to(dev)
+    cases32.append(("C24 heads 2 nWB 30 full mask", randn(30, n, 72),
+                    randn(2, n, n, scale=0.5), 2, mask))
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        es = 4 if dtype == torch.float32 else 2
+        cases = []
+        for var, q32, rpb, heads, mk in cases32:
+            nwb, _, c3 = q32.shape
+            c, hd = c3 // 3, c3 // 3 // heads
+            qkv = q32.to(dtype)
+            qh, kh, vh = (qkv.reshape(nwb, n, 3, heads, hd)
+                          .permute(2, 0, 3, 1, 4).contiguous())
+            am = rpb[None] if mk is None else (
+                rpb[None] + mk[:, None]).repeat(nwb // mk.shape[0], 1, 1, 1)
+            am = am.to(dtype)
+            cases.append(dict(
+                name="wmsa", variant=var, path="dehaze",
+                kernel=lambda qkv=qkv, rpb=rpb, mk=mk, h=heads: wmsa(
+                    qkv, rpb, mk, num_heads=h),
+                plain=lambda qkv=qkv, rpb=rpb, mk=mk, h=heads: wmsa_plain(
+                    qkv, rpb, mk, num_heads=h),
+                ref32=lambda q32=q32, rpb=rpb, mk=mk, h=heads: wmsa_plain(
+                    q32, rpb, mk, num_heads=h),
+                library=lambda qh=qh, kh=kh, vh=vh, am=am, hd=hd: torch.nn
+                .functional.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=am, scale=hd ** -0.5),
+                extra={"library_call": "scaled_dot_product_attention on "
+                       "head-major q, k, v made before timing (layout "
+                       "copies not timed)"},
+                flops=4 * nwb * n * n * c,
+                nbytes=nwb * n * 4 * c * es + rpb.numel() * 4
+                + (0 if mk is None else mk.numel() * 4), reps=10))
+        rows += [check_case(cs, dtype) for cs in cases]
+        del cases
+    return rows
+
+
+def dehazeformer_reflect_pad(quick: bool) -> dict:
+    """The port's reflect pad (one gather, ``models/dehazeformer.py``)
+    against ``F.pad(mode="reflect")`` on the request's two padded shapes:
+    the 5x5 depthwise conv's pad of 2 on the level-0 activation (64 of the
+    request's 88 pads) and a shifted level-0 block's pad of 4 on its qkv;
+    bf16, CUDA events. ``F.pad`` takes the NCHW view and returns NCHW, the
+    layout ``F.conv2d`` is then given; the gather keeps channels-last.
+    Both must give the same values."""
+    import torch
+    import torch.nn.functional as F
+
+    from image_restoration_agent_tpu_torch.models.dehazeformer import (
+        reflect_pad)
+
+    h, w = (64, 128) if quick else (1080, 1920)
+    gen = torch.Generator(device="cpu").manual_seed(17)
+    out = {"phase": "dehazeformer_reflect_pad", "dtype": "bfloat16",
+           "cases": []}
+    ok = True
+    for c, p in ((24, 2), (72, 4)):
+        x = torch.randn(1, h, w, c, generator=gen).to("cuda", torch.bfloat16)
+        same = torch.equal(
+            reflect_pad(x, p, p, p, p),
+            F.pad(x.permute(0, 3, 1, 2), (p,) * 4,
+                  mode="reflect").permute(0, 2, 3, 1))
+        ok = ok and same
+        out["cases"].append({
+            "shape": [1, h, w, c], "pad": p, "equal": same,
+            "gather_ms": cuda_ms(lambda: reflect_pad(x, p, p, p, p), 10),
+            "f_pad_ms": cuda_ms(lambda: F.pad(x.permute(0, 3, 1, 2),
+                                              (p,) * 4, mode="reflect"), 10),
+            "bound_ms": bound(0, 2 * (h + 2 * p) * (w + 2 * p) * c * 2,
+                              "bfloat16")[0]})
+    out["pass"] = bool(ok)
+    return out
+
+
+def dehazeformer_path(state, card: str, requests: int = 3) -> dict:
+    """dehazeformer_b serving 1920x1080 in bf16, whole image (tile None):
+    ``Engine(shape_bucket=8)`` keeps one 1080x1920 canvas (a multiple of
+    the reflect pad's 4); each of the 24 attention blocks (4 + 8 + 12)
+    launches K2 once through ``wmsa``; every other op is a library call."""
+    img = np.random.default_rng(6).random((1080, 1920, 3), dtype=np.float32)
+    _, warm, warm_s, secs, results, counts, profile, key = serve(
+        "dehazeformer_b", state, img, requests, top=30)
+    per_req = {"wmsa": 24, "window_attention": 24}
+    others = {k: v for k, v in counts.items() if k not in per_req}
+    ok = all(r.image.shape == (1080, 1920, 3) and r.nonfinite == 0
+             for r in results + [warm])
+    ok = ok and all(counts[k] == v * requests for k, v in per_req.items())
+    ok = ok and not any(others.values()) and key[1:3] == (1080, 1920)
+    best = min(secs)
+    return {"phase": "dehazeformer_path", "model": "dehazeformer_b",
+            "dtype": "bfloat16", "input": [1080, 1920, 3],
+            "canvas": list(key[1:3]), "output": list(results[-1].image.shape),
+            "warmup_seconds": warm_s, "seconds": secs,
+            "mp_per_s": 1920 * 1080 / 1e6 / best,
+            "launches": {k: counts[k] for k in per_req},
+            "launches_per_request": {k: counts[k] / requests
+                                     for k in per_req},
+            "other_launches": others, "expected_per_request": per_req,
+            "profile": profile, "card": card, "pass": bool(ok)}
+
+
+_DEHAZE_PROBE: dict = {}
+
+
+def _dehaze_probe(state, device: str, dtype_name: str) -> np.ndarray:
+    """dehazeformer_b on a whole 270x480 image (a 272x480 canvas) on
+    ``device`` in ``dtype_name``; each setting runs once and is kept."""
+    key = (device, dtype_name)
+    if key not in _DEHAZE_PROBE:
+        import torch
+
+        from image_restoration_agent_tpu_torch.core.tiling import tiled_apply
+        from image_restoration_agent_tpu_torch.models import build_model
+
+        dtype = getattr(torch, dtype_name)
+        img = torch.from_numpy(np.random.default_rng(10).random(
+            (270, 480, 3), dtype=np.float32))
+        m = build_model("dehazeformer_b", device=device, dtype=dtype)
+        m.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()},
+                          strict=True)
+        with torch.no_grad():
+            out = tiled_apply(lambda b: m(b.to(dtype)).float(),
+                              img.to(device), tile=None, pad_multiple=4,
+                              pad_kind="reflect")
+        _DEHAZE_PROBE[key] = out.cpu().numpy()
+    return _DEHAZE_PROBE[key]
+
+
+def dehazeformer_exact(state) -> dict:
+    """f32 on the card against the port's CPU plain f32 path, whole
+    270x480 image."""
+    import torch
+
+    card = _dehaze_probe(state, "cuda", "float32")
+    torch.set_num_threads(8)
+    cpu = _dehaze_probe(state, "cpu", "float32")
+    db = range_psnr(card, cpu)
+    return {"phase": "dehazeformer_exact", "model": "dehazeformer_b",
+            "dtype": "float32", "input": [270, 480, 3],
+            "output": list(card.shape), "psnr_db": db, "floor_db": 60.0,
+            "max_abs_err": float(np.abs(card - cpu).max()),
+            "output_max_abs": float(np.abs(cpu).max()),
+            "pass": bool(db >= 60.0 and np.isfinite(card).all())}
+
+
+def dehazeformer_bf16_vs_f32(state) -> dict:
+    """bf16 against f32 on the card on the 270x480 image, beside the
+    control: the plain versions (the CPU path) in bf16 against f32."""
+    import torch
+
+    fast = _dehaze_probe(state, "cuda", "bfloat16")
+    exact = _dehaze_probe(state, "cuda", "float32")
+    torch.set_num_threads(8)
+    ctrl16 = _dehaze_probe(state, "cpu", "bfloat16")
+    ctrl32 = _dehaze_probe(state, "cpu", "float32")
+    db = range_psnr(fast, exact)
+    ctrl = range_psnr(ctrl16, ctrl32)
+    return {"phase": "dehazeformer_bf16_vs_f32", "probe": [270, 480],
+            "psnr_db": db, "control_db": ctrl, "floor_db": ctrl - 2.0,
+            "bf16_card_vs_cpu_db": range_psnr(fast, ctrl16),
+            "output_max_abs": float(np.abs(exact).max()),
+            "pass": bool(db >= ctrl - 2.0 and np.isfinite(fast).all())}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1156,28 +1433,36 @@ def main() -> int:
     rows = []
 
     def phase(name, fn, *a):
+        t0 = time.perf_counter()
         try:
             out = fn(*a)
         except Exception:
             traceback.print_exc()
             failures.append(f"{name}: raised")
             return None
+        secs = time.perf_counter() - t0
         if isinstance(out, dict):
-            emit(out)
+            emit({**out, "phase_seconds": secs})
             if not out.get("pass", True):
                 failures.append(f"{name}: check failed")
+        else:
+            emit({"phase": name, "phase_seconds": secs})
         return out
 
     rows = phase("kernels", kernel_checks, shape) or []
     rows += phase("restormer_kernels", restormer_kernel_checks,
                   args.quick) or []
     rows += phase("hat_kernels", hat_kernel_checks, args.quick) or []
+    rows += phase("dehazeformer_kernels", dehazeformer_kernel_checks,
+                  args.quick) or []
+    phase("dehazeformer_reflect_pad", dehazeformer_reflect_pad, args.quick)
     failures += [f"kernel {r['name']} {r['variant']} {r['dtype']}"
                  for r in rows if not r["pass"]]
     # each path's launch counts, read just after the path ran (with
     # --quick, the kernel checks' own)
     counts = launch_counts()
-    launches = {p: counts for p in ("swinir", "restormer", "hat", "denoise")}
+    launches = {p: counts for p in ("swinir", "restormer", "hat", "denoise",
+                                    "dehaze")}
     if not args.quick:
         from image_restoration_agent_tpu_torch.offline import (GOLDEN_ROOT,
                                                                load_golden)
@@ -1197,10 +1482,16 @@ def main() -> int:
         torch.cuda.empty_cache()
         served_d = phase("swinir_denoise_path", swinir_denoise_path,
                          model_state("swinir_denoise_15"), card)
+        torch.cuda.empty_cache()
+        state = model_state("dehazeformer_b")
+        served_z = phase("dehazeformer_path", dehazeformer_path, state, card)
+        phase("dehazeformer_exact", dehazeformer_exact, state)
+        phase("dehazeformer_bf16_vs_f32", dehazeformer_bf16_vs_f32, state)
         launches = {"swinir": served["launches"] if served else {},
                     "restormer": served_r["launches"] if served_r else {},
                     "hat": served_h["launches"] if served_h else {},
-                    "denoise": served_d["launches"] if served_d else {}}
+                    "denoise": served_d["launches"] if served_d else {},
+                    "dehaze": served_z["launches"] if served_z else {}}
 
     emit({"kernels": [{
         "name": f"{r['name']} [{r['variant']}, {r['dtype']}]",

@@ -1,5 +1,5 @@
-"""Carry the JAX package's SwinIR and Restormer parameters across to the
-port.
+"""Carry the JAX package's SwinIR, HAT, Restormer and DehazeFormer
+parameters across to the port.
 
 :func:`from_jax` takes a JAX parameter pytree (nested dicts of numpy
 arrays, with or without the top-level ``"params"``) and returns the port's
@@ -25,7 +25,18 @@ top-level keys (Restormer has ``encoder_level1_0``). It is the inverse of
   JAX HAB holds two copies of the reference ``norm1`` (its attention
   layer's ``norm_scale`` / ``norm_bias`` and the CAB branch's
   ``norm1``); both map to the one ``norm1``, and a tree whose copies
-  differ is refused.
+  differ is refused;
+- ``dehazeformer_rules`` (reference ``dehazeformer.py`` names, detected by
+  ``patch_unembed``): ``layer{i}_blk{j}`` -> ``layer{i+1}.blocks.{j}``;
+  conv kernels as above (the depthwise (5, 5, 1, C) -> (C, 1, 5, 5) by the
+  same transpose); the bias MLP's ``meta_fc1`` / ``meta_fc2`` ->
+  ``attn.attn.meta.0`` / ``.2`` (linear); ``mlp_fc1`` / ``mlp_fc2`` ->
+  ``mlp.mlp.0`` / ``.2``; RLN ``norm1/weight`` (C,) -> ``norm1.weight`` (1,
+  C, 1, 1); ``fusion{k}/mlp1`` / ``mlp2`` -> ``fusion{k}.mlp.0`` / ``.2``;
+  the ``patch_split`` / ``patch_unembed`` convs -> ``.proj.0``. The JAX
+  tree has ``norm1`` only in attention blocks and no ``norm2``, as the
+  port's modules; the reference's ``relative_positions`` buffers are
+  recomputed, not carried.
 """
 
 from __future__ import annotations
@@ -149,6 +160,53 @@ _HAT_RULES = [
 ]
 
 
+def _rln(w):
+    return np.reshape(w, (1, -1, 1, 1))
+
+
+# (JAX path regex, reference-name template): a ".kernel" leaf is a conv
+# kernel unless the rule says linear
+_DF_RULES = [
+    (r"patch_embed/Conv_0/(kernel|bias)", r"patch_embed.proj.\1"),
+    (r"patch_unembed/Conv_0/(kernel|bias)", r"patch_unembed.proj.0.\1"),
+    (r"(patch_merge[12])/Conv_0/(kernel|bias)", r"\1.proj.\2"),
+    (r"(patch_split[12])/Conv_0/(kernel|bias)", r"\1.proj.0.\2"),
+    (r"(skip[12])/Conv_0/(kernel|bias)", r"\1.\2"),
+    (r"(fusion[12])/mlp1/Conv_0/kernel", r"\1.mlp.0.kernel"),
+    (r"(fusion[12])/mlp2/Conv_0/kernel", r"\1.mlp.2.kernel"),
+]
+# inside layer{i}_blk{j}/, mapped under layer{i+1}.blocks.{j}.
+_DF_BLOCK_RULES = [
+    (r"attn/(conv|V|QK|proj)/Conv_0/(kernel|bias)", r"attn.\1.\2"),
+    (r"attn/attn/meta_fc1/(kernel|bias)", r"attn.attn.meta.0.\1"),
+    (r"attn/attn/meta_fc2/(kernel|bias)", r"attn.attn.meta.2.\1"),
+    (r"norm1/(weight|bias)", r"norm1.\1"),
+    (r"norm1/(meta[12])/Conv_0/(kernel|bias)", r"norm1.\1.\2"),
+    (r"mlp_fc1/Conv_0/(kernel|bias)", r"mlp.mlp.0.\1"),
+    (r"mlp_fc2/Conv_0/(kernel|bias)", r"mlp.mlp.2.\1"),
+]
+
+
+def _dehazeformer_name(path: str) -> tuple[str, object]:
+    m = re.fullmatch(r"layer(\d+)_blk(\d+)/(.+)", path)
+    rules, prefix = _DF_RULES, ""
+    if m:
+        rules = _DF_BLOCK_RULES
+        prefix = f"layer{int(m.group(1)) + 1}.blocks.{m.group(2)}."
+        path = m.group(3)
+    for pattern, tpl in rules:
+        mm = re.fullmatch(pattern, path)
+        if not mm:
+            continue
+        name = prefix + mm.expand(tpl)
+        if name.endswith(".kernel"):
+            return name[:-len("kernel")] + "weight", (
+                _linear if ".meta." in name else _conv)
+        return name, _rln if name.endswith(("norm1.weight", "norm1.bias")) \
+            else _same
+    raise KeyError(f"unmapped JAX parameter: {prefix}{path}")
+
+
 def _hat_name(path: str) -> tuple[str, object]:
     m = re.fullmatch(rf"{_HAB}/conv_block/(c1|c2|ca1|ca2)/Conv_0/"
                      r"(kernel|bias)", path)
@@ -207,8 +265,8 @@ def _ref_name(path: str) -> tuple[str, object]:
 
 
 def from_jax(params) -> dict[str, torch.Tensor]:
-    """The port's reference-named state dict from JAX SwinIR, HAT or
-    Restormer params."""
+    """The port's reference-named state dict from JAX SwinIR, HAT,
+    Restormer or DehazeFormer params."""
     if "params" in params:
         params = params["params"]
     rename = _ref_name
@@ -216,6 +274,8 @@ def from_jax(params) -> dict[str, torch.Tensor]:
         rename = _restormer_name
     elif "hab0" in params.get("layer0", {}):
         rename = _hat_name
+    elif "patch_unembed" in params:
+        rename = _dehazeformer_name
     out = {}
     for path, value in _flatten(params):
         name, fn = rename(path)

@@ -1,7 +1,8 @@
 // The Swin block's two kernels (replacing the TPU strip kernel
-// image_restoration_agent_tpu/ops/pallas_attention.py:swin_strip_pallas and
-// mlp_block_pallas). See ops/swin_block.py for the block they make, what
-// bounds them on the H100, and what is left for later work.
+// image_restoration_agent_tpu/ops/pallas_attention.py:swin_strip_pallas,
+// mlp_block_pallas, wmsa_block_pallas and, K2 alone, wmsa_pallas). See
+// ops/swin_block.py for the blocks they make, what bounds them on the
+// H100, and what is left for later work.
 //
 // K1 token_linear: out[o(t), :] = epi(pro(A[g(t), :]) @ W + bias)
 //   - float32: one 64x64 output tile per block, K staged 32 at a time in
@@ -20,7 +21,10 @@
 //   per (window, head, 64-query chunk) above, FP32 FMA; bfloat16: at
 //   N <= 64 one block per window, heads in turn, at 64 < N <= 256 one
 //   block per (window, head, 64-query chunk), QK^T and PV as WMMA
-//   fragments.
+//   fragments. The logits are (q.k) * scale + bias: scale 1 for the Swin
+//   block's callers (q pre-scaled in the weights), head_dim**-0.5 for the
+//   TPU's wmsa_pallas contract (q unscaled, the product scaled in float32;
+//   ops/swin_block.py:wmsa).
 //
 // Plain C interface for ctypes; each entry returns cudaGetLastError().
 
@@ -431,7 +435,7 @@ __global__ void __launch_bounds__(AT) window_attention_kernel(
     const float* __restrict__ qkv, const float* __restrict__ rpb,
     const float* __restrict__ bank, const float* __restrict__ mask,
     int nmask, float* __restrict__ out, int n, int C, int heads, int nwy,
-    int nwx, int fast) {
+    int nwx, int fast, float scale) {
   extern __shared__ float sm[];
   const int hd = C / heads;
   const int ld = hd + 1, lds = n + 1;
@@ -464,7 +468,7 @@ __global__ void __launch_bounds__(AT) window_attention_kernel(
     for (int d = 0; d < hd; ++d) s = fmaf(Q[i * ld + d], Kt[j * ld + d], s);
     float bias = rb[i * n + j];
     if (bk != nullptr) bias += bk[i * n + j];
-    S[i * lds + j] = (s + bias) * lscale;
+    S[i * lds + j] = (s * scale + bias) * lscale;
   }
   __syncthreads();
 
@@ -511,7 +515,7 @@ __global__ void __launch_bounds__(CAT) window_attention_chunk_kernel(
     const float* __restrict__ qkv, const float* __restrict__ rpb,
     const float* __restrict__ bank, const float* __restrict__ mask,
     int nmask, float* __restrict__ out, int n, int C, int heads, int nwy,
-    int nwx, int fast) {
+    int nwx, int fast, float scale) {
   extern __shared__ float sm[];
   const int hd = C / heads;
   const int ld = hd + 1, lds = n + 1;
@@ -546,7 +550,7 @@ __global__ void __launch_bounds__(CAT) window_attention_chunk_kernel(
     for (int d = 0; d < hd; ++d) s = fmaf(Q[i * ld + d], Kt[j * ld + d], s);
     float bias = rb[(q0 + i) * n + j];
     if (bk != nullptr) bias += bk[(q0 + i) * n + j];
-    S[i * lds + j] = (s + bias) * lscale;
+    S[i * lds + j] = (s * scale + bias) * lscale;
   }
   __syncthreads();
 
@@ -588,7 +592,7 @@ __global__ void __launch_bounds__(WAT) window_attention_mma_kernel(
     const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ rpb,
     const float* __restrict__ bank, const float* __restrict__ mask,
     int nmask, __nv_bfloat16* __restrict__ out, int n, int C, int heads,
-    int nwy, int nwx, int fast) {
+    int nwy, int nwx, int fast, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int hd = C / heads;
   const int hdp = (hd + 15) / 16 * 16;
@@ -655,12 +659,12 @@ __global__ void __launch_bounds__(WAT) window_attention_mma_kernel(
         if (in0) {
           const float b = rb[i * n + lane] +
                           (bk != nullptr ? bk[i * n + lane] : 0.f);
-          v0 = (Ss[i * sld + lane] + b) * lscale;
+          v0 = (Ss[i * sld + lane] * scale + b) * lscale;
         }
         if (in1) {
           const float b = rb[i * n + lane + 32] +
                           (bk != nullptr ? bk[i * n + lane + 32] : 0.f);
-          v1 = (Ss[i * sld + lane + 32] + b) * lscale;
+          v1 = (Ss[i * sld + lane + 32] * scale + b) * lscale;
         }
         if (fast) {
           e0 = in0 ? exp2f(fminf(v0, 86.56f)) : 0.f;
@@ -743,7 +747,7 @@ __global__ void __launch_bounds__(WAT, 2) window_attention_wide_kernel(
     const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ rpb,
     const float* __restrict__ bank, const float* __restrict__ mask,
     int nmask, __nv_bfloat16* __restrict__ out, int n, int C, int heads,
-    int nwy, int nwx, int fast) {
+    int nwy, int nwx, int fast, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int hd = C / heads;
   const int hdp = (hd + 15) / 16 * 16;
@@ -845,8 +849,9 @@ __global__ void __launch_bounds__(WAT, 2) window_attention_wide_kernel(
 #pragma unroll
     for (int j = 0; j < MAXJ; ++j) {
       const int c = lane + 32 * j;
-      v[j] = qi < n && c < n ? (Ss[i * sld + c] + (nr[j] + nm[j])) * lscale
-                             : -INFINITY;
+      v[j] = qi < n && c < n
+                 ? (Ss[i * sld + c] * scale + (nr[j] + nm[j])) * lscale
+                 : -INFINITY;
     }
     fetch_bias(i + WAT / 32);  // the next row's, in flight meanwhile
     if (qi < n) row_softmax(v, fast);
@@ -936,12 +941,13 @@ extern "C" int token_linear(const void* A, int a_dt, const void* Wt,
 // mask: nullptr or the (nmask, N, N) full mask (window w takes mask[w %
 // nmask]); bank: nullptr or the (2, 2, N, N) edge bank. N <= 256 and head
 // width <= 64; in bf16 at N > 64 an even head width and a 4-byte aligned
-// qkv (the wrapper checks).
+// qkv (the wrapper checks). scale multiplies the float32 q.k product
+// before the bias is added (1 where q is pre-scaled; x * 1.0f is exact).
 extern "C" int window_attention(const void* qkv, int dt, const void* rpb,
                                 const void* bank, const void* mask,
                                 int nmask, void* out, int nwin, int n, int C,
                                 int heads, int nwy, int nwx, int fast,
-                                void* stream) {
+                                float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n > MAXN) return cudaErrorInvalidValue;
   const float* rp = static_cast<const float*>(rpb);
@@ -959,7 +965,7 @@ extern "C" int window_attention(const void* qkv, int dt, const void* rpb,
           static_cast<int>(smem));
       if (e != cudaSuccess) return static_cast<int>(e);
       window_attention_mma_kernel<<<nwin, WAT, smem, s>>>(
-          q, rp, bp, mp, nmask, o, n, C, heads, nwy, nwx, fast);
+          q, rp, bp, mp, nmask, o, n, C, heads, nwy, nwx, fast, scale);
     } else {
       const size_t smem = attention_wide_smem(n, C, heads);
       const cudaError_t e = cudaFuncSetAttribute(
@@ -969,7 +975,7 @@ extern "C" int window_attention(const void* qkv, int dt, const void* rpb,
       if (e != cudaSuccess) return static_cast<int>(e);
       const unsigned blocks = static_cast<unsigned>(nwin) * heads * nq;
       window_attention_wide_kernel<<<blocks, WAT, smem, s>>>(
-          q, rp, bp, mp, nmask, o, n, C, heads, nwy, nwx, fast);
+          q, rp, bp, mp, nmask, o, n, C, heads, nwy, nwx, fast, scale);
     }
     return static_cast<int>(cudaGetLastError());
   }
@@ -989,7 +995,7 @@ extern "C" int window_attention(const void* qkv, int dt, const void* rpb,
       if (e != cudaSuccess) return static_cast<int>(e);
     }
     kernel<<<grid, threads, smem, s>>>(q, rp, bp, mp, nmask, o, n, C, heads,
-                                       nwy, nwx, fast);
+                                       nwy, nwx, fast, scale);
     return static_cast<int>(cudaGetLastError());
   };
   if (n <= 64) return launch(window_attention_kernel, AT);

@@ -31,9 +31,10 @@ from ..models.registry import MODEL_REGISTRY, get_spec
 from ..ops.swin_block import pad_width_for_strips
 from .weights import WeightStore
 
-# reference buffers, not parameters (SwinIR's, HAT's)
+# reference buffers, not parameters (SwinIR's, HAT's, DehazeFormer's)
 _BUFFERS = ("relative_position_index", "attn_mask",
-            "relative_position_index_SA", "relative_position_index_OCA")
+            "relative_position_index_SA", "relative_position_index_OCA",
+            "relative_positions")
 
 
 @dataclasses.dataclass

@@ -9,7 +9,10 @@ Replaces ``image_restoration_agent_tpu/ops/pallas_attention.py``:
   :func:`swin_attn_block`;
 - ``mlp_block_pallas`` by :func:`mlp_block`;
 - ``wmsa_block_pallas`` (the partition route over ``(nWB, N, C)``
-  windows with the full ``(nW, N, N)`` mask) by :func:`wmsa_block`.
+  windows with the full ``(nW, N, N)`` mask) by :func:`wmsa_block`;
+- ``wmsa_pallas`` (the window-MHSA core from packed ``(nWB, N, 3C)`` qkv,
+  q unscaled and the float32 product scaled by ``head_dim**-0.5``:
+  DehazeFormer's call) by :func:`wmsa`, K2 in its logit-scale mode.
 
 Semantics (the JAX kernel's): the block reads ``roll(x, (dc, dc))``, runs
 LN1 -> qkv -> per-head window attention with the relative-position bias
@@ -47,8 +50,9 @@ The CUDA path is two hand-written kernels in ``csrc/swin_block.cu``:
   bf16 fragments with float32 accumulators. In f32 it runs 64x64 tiles on
   FP32 FMA (no TF32).
 - K2 ``window_attention``: N = ws^2 <= 256 tokens per window; q, k, v, the
-  logits and ``p`` live in shared memory. In bf16 at N <= 64 one block
-  handles a window's heads in turn with QK^T and PV on the tensor cores
+  logits and ``p`` live in shared memory; the logits are ``(q.k) * scale
+  + bias``, ``scale`` 1 where q is pre-scaled. In bf16 at N <= 64 one
+  block handles a window's heads in turn with QK^T and PV on the tensor cores
   and the softmax in float32 between them; at 64 < N <= 256 (HAT's window
   16) one block per (window, head, 64-query chunk), its 64 x N float32
   logits in shared memory and ``p`` written over them in bf16. In f32 one
@@ -60,6 +64,14 @@ The CUDA path is two hand-written kernels in ``csrc/swin_block.cu``:
 One block is five launches: K1 (LN1 + gather -> qkv), K2, K1 (proj +
 gathered residual), then ``mlp_block``'s two K1 (LN2 -> fc1 + GELU; fc2 +
 residual + scatter).
+
+:func:`wmsa` is K2 alone, DehazeFormer's call: N 64, head widths 12 and
+16 (the bf16 kernel pads both to 16). At the 1080p request's level 0
+(32776 windows, C 24) it reads and writes 0.40 GB in bf16, so memory bounds
+it (0.12 ms on the H100); the bf16 kernel copies q, k and v into shared
+memory element by element, one block per window and the heads in turn.
+Wider copies must keep to the rows' alignment: a 12-wide bf16 head starts
+every 24 bytes of a 144-byte row.
 
 What bounds it on the H100: one block at the serving shape (552x1920,
 C 180, 6 heads) is 6.0e11 FLOP against 0.76 GB of bf16 input and output,
@@ -355,17 +367,18 @@ def _softmax(s: torch.Tensor, fast: bool) -> torch.Tensor:
 
 
 def window_attention_plain(qkv, rpb, bank, *, num_heads, nwy, nwx, fast,
-                           mask=None):
-    """Plain version of K2 on window-order rows: ``(T, 3C) -> (T, C)`` with
-    q pre-scaled, logits ``q.k + rpb (+ bank or mask)`` (times log2 e in
-    fast mode), ``p`` cast to the qkv dtype before AV."""
+                           mask=None, scale: float = 1.0):
+    """Plain version of K2 on window-order rows: ``(T, 3C) -> (T, C)``,
+    logits ``(q.k) * scale + rpb (+ bank or mask)`` in float32 (times log2 e
+    in fast mode; ``scale`` 1 where q is pre-scaled), ``p`` cast to the qkv
+    dtype before AV."""
     t, c3 = qkv.shape
     c = c3 // 3
     n = rpb.shape[-1]
     hd = c // num_heads
     q, k, v = (qkv.reshape(-1, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
                .float())
-    s = q @ k.transpose(-1, -2) + rpb[None]
+    s = (q @ k.transpose(-1, -2)) * scale + rpb[None]
     if bank is not None:
         s = s.reshape(-1, nwy * nwx, num_heads, n, n) \
             + _bank_per_window(bank, nwy, nwx)[None, :, None]
@@ -388,7 +401,7 @@ def _check_f32(t, shape, what):
 
 
 def _window_attention_cuda(qkv, rpb, bank, num_heads, nwy, nwx, fast,
-                           mask):
+                           mask, scale):
     t, c3 = qkv.shape
     c = c3 // 3
     n = rpb.shape[-1]
@@ -415,22 +428,22 @@ def _window_attention_cuda(qkv, rpb, bank, num_heads, nwy, nwx, fast,
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 \
         + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 7 \
-        + [ctypes.c_void_p]
+        + [ctypes.c_float, ctypes.c_void_p]
     err = fn(_ptr(qkv), _DT[qkv.dtype], _ptr(rpb), _ptr(bank), _ptr(mask),
              nw, _ptr(out), t // n, n, c, num_heads, nwy, nwx, int(fast),
-             torch.cuda.current_stream(qkv.device).cuda_stream)
+             float(scale), torch.cuda.current_stream(qkv.device).cuda_stream)
     kernels.check(err, "window_attention")
     window_attention.launches += 1
     return out
 
 
 def window_attention(qkv, rpb, bank, *, num_heads, nwy, nwx, fast,
-                     mask=None):
+                     mask=None, scale: float = 1.0):
     """K2: attention of every (window, head) over window-order rows.
 
     Args:
-        qkv: (T, 3C) rows in window order (q | k | v), q pre-scaled; N =
-            rpb's last dim, N <= 256 and head width <= 64 on the card.
+        qkv: (T, 3C) rows in window order (q | k | v); N = rpb's last dim,
+            N <= 256 and head width <= 64 on the card.
         rpb: (heads, N, N) float32 relative-position bias.
         bank: None or the (2, 2, N, N) float32 shift-mask bank, picked per
             window by [is_last_window_row, is_last_window_col].
@@ -439,12 +452,16 @@ def window_attention(qkv, rpb, bank, *, num_heads, nwy, nwx, fast,
         mask: None or the full (nW, N, N) float32 mask (the TPU wmsa
             kernels' contract): window ``w`` adds ``mask[w % nW]``. Not
             with ``bank``.
+        scale: float32 factor on the q.k product before the bias: 1.0 for
+            the Swin block's callers, whose q weights carry the attention
+            scale; ``head_dim**-0.5`` for :func:`wmsa` (q unscaled).
     """
     if qkv.is_cuda:
         return _window_attention_cuda(qkv, rpb, bank, num_heads, nwy, nwx,
-                                      fast, mask)
+                                      fast, mask, scale)
     return window_attention_plain(qkv, rpb, bank, num_heads=num_heads,
-                                  nwy=nwy, nwx=nwx, fast=fast, mask=mask)
+                                  nwy=nwy, nwx=nwx, fast=fast, mask=mask,
+                                  scale=scale)
 
 
 window_attention.launches = 0
@@ -684,8 +701,53 @@ def wmsa_block(xw, p: SwinBlockParams, *, num_heads: int, mask=None):
 
 wmsa_block.launches = 0
 
-_COUNTED = (swin_block, swin_attn_block, wmsa_block, mlp_block, token_linear,
-            window_attention)
+
+# ---------------------------------------------------------------------------
+# wmsa (the window-MHSA core; DehazeFormer's call)
+
+
+def _wmsa(attention, qkv, rpb, mask, num_heads):
+    """``attention`` (K2 or its plain version) in full-mask mode over the
+    windows' rows, with the logit scale head_dim**-0.5."""
+    nwb, n, c3 = qkv.shape
+    out = attention(qkv.reshape(-1, c3), rpb, None, num_heads=num_heads,
+                    nwy=1, nwx=1, fast=False, mask=mask,
+                    scale=(c3 // 3 // num_heads) ** -0.5)
+    return out.reshape(nwb, n, c3 // 3)
+
+
+def wmsa_plain(qkv, rpb, mask=None, *, num_heads: int):
+    """Plain PyTorch version of :func:`wmsa`."""
+    return _wmsa(window_attention_plain, qkv, rpb, mask, num_heads)
+
+
+def wmsa(qkv, rpb, mask=None, *, num_heads: int):
+    """Window MHSA from packed projections: the TPU's ``wmsa_pallas``.
+
+    Args:
+        qkv: (nWB, N, 3C) packed [q | k | v], q unscaled, float32 or
+            bfloat16 (N <= 256 and head width <= 64 on the card).
+        rpb: (heads, N, N) float32 relative-position bias.
+        mask: None or the (nW, N, N) float32 additive mask; window ``w``
+            adds ``mask[w % nW]``.
+
+    Returns (nWB, N, C) in ``qkv``'s dtype. Per (window, head) the logits
+    are ``(q.k) * head_dim**-0.5`` in float32 plus the bias, the softmax is
+    exact, ``p`` is cast to the qkv dtype before ``p.v`` (float32 sums).
+    A CUDA tensor launches K2 with that logit scale (one launch) or raises;
+    a CPU tensor runs :func:`wmsa_plain`.
+    """
+    if not qkv.is_cuda:
+        return wmsa_plain(qkv, rpb, mask, num_heads=num_heads)
+    out = _wmsa(window_attention, qkv, rpb, mask, num_heads)
+    wmsa.launches += 1
+    return out
+
+
+wmsa.launches = 0
+
+_COUNTED = (swin_block, swin_attn_block, wmsa_block, wmsa, mlp_block,
+            token_linear, window_attention)
 
 
 def reset_launch_counts() -> None:

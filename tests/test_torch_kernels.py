@@ -365,3 +365,30 @@ def test_wmsa_block_kernel_matches_plain(cuda, ws, c, heads, masked, dtype):
     _close_or_within_rounding(
         got, tsb.wmsa_block_plain(x, p, num_heads=heads, mask=mask),
         tsb.wmsa_block_plain(x32, p32, num_heads=heads, mask=mask), dtype)
+
+
+# DehazeFormer's head widths (12 at C 24 / 48, 16 at C 96) at N 64, and a
+# 6-wide head of 2 (C 12); windows of a 3x5-window canvas, batch 2
+@pytest.mark.parametrize("c,heads", [(24, 2), (48, 4), (96, 6), (12, 2)])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wmsa_kernel_matches_plain(cuda, c, heads, masked, dtype):
+    """wmsa (K2 with the logit scale head_dim**-0.5, q unscaled) against
+    wmsa_plain: f32 within 1e-4 x max|ref|; bf16 within the rounding
+    control in RMS."""
+    gen = torch.Generator().manual_seed(10)
+    h, w = 24, 40
+    nwb = 2 * (h // 8) * (w // 8)
+    qkv32 = _randn(gen, nwb, 64, 3 * c, scale=1.5).to(cuda)
+    rpb = _randn(gen, heads, 64, 64, scale=0.5).to(cuda)
+    mask = torch.from_numpy(twa.shift_attention_mask(h, w, 8, 4)).to(
+        cuda) if masked else None
+    qkv = qkv32.to(dtype)
+    n0, k0 = tsb.wmsa.launches, tsb.window_attention.launches
+    got = tsb.wmsa(qkv, rpb, mask, num_heads=heads)
+    assert tsb.wmsa.launches == n0 + 1
+    assert tsb.window_attention.launches == k0 + 1
+    assert got.shape == (nwb, 64, c) and got.dtype == dtype
+    _close_or_within_rounding(
+        got, tsb.wmsa_plain(qkv, rpb, mask, num_heads=heads),
+        tsb.wmsa_plain(qkv32, rpb, mask, num_heads=heads), dtype)
