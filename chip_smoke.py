@@ -77,7 +77,27 @@ Phases, each printing one JSON line:
     a whole 270x480 image, PSNR >= 60 dB, with the output's largest
     magnitude;
 18. dehazeformer_bf16_vs_f32: bf16 against f32 on the card on the same
-    image, PSNR >= the plain bf16-vs-f32 control (the CPU path) - 2 dB.
+    image, PSNR >= the plain bf16-vs-f32 control (the CPU path) - 2 dB;
+19. lab_kernels (with the kernel checks, also under ``--quick`` at small
+    shapes): K7 ``conv3x3_pair`` at the x4 head's second stage of one band
+    (1104x3840, 64 -> 256 -> 12) and its ring strip (24x3840; also with
+    LeakyReLU), K8 ``swin_pair_block`` at the 552x1920 band (``dc1`` 0
+    and +4) and ``lab_strip`` at kernel_lab's (4, 256, 256, 180), each
+    against its plain version under the f32 and bf16 rules, beside the
+    sequence it replaces (``two_k3_ms``, ``two_swin_block_ms``,
+    ``swin_attn_block_ms``);
+20. lab_r5: the 12-block RSTB frame chain at the band in bf16, 6
+    ``swin_pair_block`` against 12 ``swin_block`` (ms per block); the pair
+    chain's difference from the sequential chain held to the rounding
+    control (the plain bf16 chain against the plain f32 chain: RMS no
+    larger, largest element no larger than the control's plus one ulp);
+21. head_pair: the head's tail as two K3 launches and as one
+    ``conv3x3_pair`` at both shapes (times);
+22. lab_strip: every ``lab_strip`` mode at kernel_lab's shape, 30 chained
+    calls each (times).
+Phases 20-22 are the lab path: each counts its kernel's launches over one
+call (6 ``swin_pair_block`` per chain, 1 ``conv3x3_pair`` per tail, 1
+``lab_strip`` per call), with every count set to 0 just before.
 
 Then the ``kernels`` line (each kernel's launches counted on the path
 that runs it), the ``nvidia-smi`` line, and last
@@ -113,6 +133,9 @@ REPLACES = {
     "gdfn_block": TPU + "restormer_fused.py:260",
     "mdta_front": TPU + "restormer_fused.py:398",
     "wmsa": TPU + "pallas_attention.py:1496",
+    "conv3x3_pair": TPU + "conv3x3.py:500",
+    "swin_pair_block": TPU + "pallas_attention.py:1868",
+    "lab_strip": "scripts/kernel_lab.py:229",
 }
 SOURCE = {"swin_block": SRC + "swin_block.cu", "token_linear":
           SRC + "swin_block.cu", "window_attention": SRC + "swin_block.cu",
@@ -121,7 +144,12 @@ SOURCE = {"swin_block": SRC + "swin_block.cu", "token_linear":
           "mlp_block": SRC + "swin_block.cu", "conv3x3": SRC + "conv3x3.cu",
           "gdfn_block": SRC + "restormer_fused.cu",
           "mdta_front": SRC + "restormer_fused.cu",
-          "wmsa": SRC + "swin_block.cu"}
+          "wmsa": SRC + "swin_block.cu",
+          "conv3x3_pair": SRC + "conv3x3_pair.cu",
+          "swin_pair_block": SRC + "swin_pair.cu",
+          "lab_strip": SRC + "swin_block.cu"}
+# the lab kernels' rows time the launch sequence each one replaces
+REPLACED_MS = ("two_k3_ms", "two_swin_block_ms", "swin_attn_block_ms")
 # one batch of the HAT 2K request's tiles (5 of 45, 256x256, C 180, 6
 # heads, window 16) and the whole-image SwinIR-denoise canvas (1088x1928)
 HAT_BATCH = (5, 256, 256, 180)
@@ -971,11 +999,13 @@ def dehazeformer_reference_init(m, seed: int) -> None:
 
 def _other_wrappers() -> tuple:
     """The kernel wrappers outside ``ops/swin_block.py``."""
-    from image_restoration_agent_tpu_torch.ops.conv3x3 import conv3x3
+    from image_restoration_agent_tpu_torch.lab.kernel_lab import lab_strip
+    from image_restoration_agent_tpu_torch.ops.conv3x3 import (conv3x3,
+                                                               conv3x3_pair)
     from image_restoration_agent_tpu_torch.ops.restormer_fused import (
         gdfn_block, mdta_front)
     from image_restoration_agent_tpu_torch.ops.roll2d import roll2d
-    return (roll2d, conv3x3, gdfn_block, mdta_front)
+    return (roll2d, conv3x3, gdfn_block, mdta_front, conv3x3_pair, lab_strip)
 
 
 def launch_counts() -> dict:
@@ -1397,6 +1427,267 @@ def dehazeformer_bf16_vs_f32(state) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# slice 5: the lab path (K7 conv3x3_pair, K8 swin_pair_block, lab_strip)
+
+# the x4 head's second stage at one band, and its ring strip
+HEAD_SHAPES = ((1, 1104, 3840, 64), (1, 24, 3840, 64))
+LAB_STRIP_SHAPE = (4, 256, 256, 180)
+
+
+def lab_kernel_checks(quick: bool, seed: int = 19) -> list[dict]:
+    """K7 ``conv3x3_pair`` (the head's two shapes with no activation, the
+    ring strip with LeakyReLU), K8 ``swin_pair_block`` (the band, ``dc1``
+    0 and +4) and ``lab_strip`` (kernel_lab's shape, ``stacked``) against
+    their plain versions, each beside the sequence it replaces:
+    ``two_k3_ms``, ``two_swin_block_ms``, ``swin_attn_block_ms``. No single
+    PyTorch call computes these functions (no library column). ``--quick``
+    takes 16-row heads, a 64x128 band and a 1x64x128 strip."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.lab.kernel_lab import (
+        lab_strip, lab_strip_plain)
+    from image_restoration_agent_tpu_torch.ops.conv3x3 import (
+        conv3x3, conv3x3_pair, conv3x3_pair_plain, conv3x3_pair_weights,
+        conv3x3_weights)
+    from image_restoration_agent_tpu_torch.ops.swin_block import (
+        kernel_params, prepare_swin_params, swin_attn_block, swin_block,
+        swin_pair_block, swin_pair_block_plain)
+    from image_restoration_agent_tpu_torch.ops.window_attention import (
+        shift_attention_mask)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def randn(*s, scale=1.0):
+        return (torch.randn(*s, generator=gen) * scale).to(dev)
+
+    heads_shapes = [(1, 16, 256, 64), (1, 24, 256, 64)] if quick \
+        else list(HEAD_SHAPES)
+    band = (1, 64, 128, 180) if quick else (1, 552, 1920, 180)
+    strip = (1, 64, 128, 180) if quick else LAB_STRIP_SHAPE
+    cin, cmid, cout = 64, 256, 12
+    w1 = randn(3, 3, cin, cmid, scale=(9 * cin) ** -0.5)
+    b1 = randn(cmid, scale=0.1)
+    w2 = randn(3, 3, cmid, cout, scale=(9 * cmid) ** -0.5)
+    b2 = randn(cout, scale=0.1)
+    head_in = {s: randn(*s) for s in heads_shapes}
+    ws, heads, c = 8, 6, 180
+    n, hid = ws * ws, 2 * c
+
+    def block_wts():
+        return dict(
+            norm1_w=1 + randn(c, scale=0.1), norm1_b=randn(c, scale=0.1),
+            qkv_w=randn(3 * c, c, scale=c ** -0.5),
+            qkv_b=randn(3 * c, scale=0.1),
+            proj_w=randn(c, c, scale=c ** -0.5), proj_b=randn(c, scale=0.1),
+            rpb_table=randn((2 * ws - 1) ** 2, heads, scale=0.5),
+            norm2_w=1 + randn(c, scale=0.1), norm2_b=randn(c, scale=0.1),
+            fc1_w=randn(hid, c, scale=c ** -0.5),
+            fc1_b=randn(hid, scale=0.1),
+            fc2_w=randn(c, hid, scale=hid ** -0.5),
+            fc2_b=randn(c, scale=0.1))
+
+    wa, wb = block_wts(), block_wts()
+    bank = torch.from_numpy(shift_attention_mask(
+        2 * ws, 2 * ws, ws, ws // 2).reshape(2, 2, n, n)).to(dev)
+    xband32 = randn(*band)
+    # lab_strip: the JAX lab's weight layout, q unscaled, fan-in scaled
+    lab_w = (1 + randn(c, scale=0.1), randn(c, scale=0.1),
+             randn(c, 3 * c, scale=c ** -0.5), randn(3 * c, scale=0.1),
+             randn(c, c, scale=c ** -0.5), randn(c, scale=0.1),
+             randn(heads, n, n, scale=0.5))
+    xstrip32 = randn(*strip)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        es = 4 if dtype == torch.float32 else 2
+        reps = 2 if dtype == torch.float32 else 5
+        cases = []
+        kp = conv3x3_pair_weights(w1, b1, w2, b2, dtype)
+        k1 = conv3x3_weights(w1, b1, dtype)
+        k2 = conv3x3_weights(w2, b2, dtype)
+        head_cases = [(s, None) for s in heads_shapes] + [
+            (heads_shapes[1], "lrelu")]
+        for shape, act in head_cases:
+            x32 = head_in[shape]
+            x = x32.to(dtype)
+            px = shape[0] * shape[1] * shape[2]
+            cases.append(dict(
+                name="conv3x3_pair", path="lab",
+                variant=f"{shape[1]}x{shape[2]} {cin}->{cmid}->{cout}"
+                + (" lrelu" if act else ""),
+                kernel=lambda x=x, a=act: conv3x3_pair(x, kp, act_mid=a),
+                plain=lambda x=x, a=act: conv3x3_pair_plain(
+                    x, w1, b1, w2, b2, act_mid=a),
+                ref32=lambda x32=x32, a=act: conv3x3_pair_plain(
+                    x32, w1, b1, w2, b2, act_mid=a),
+                extra_ms={"two_k3_ms": lambda x=x, a=act: conv3x3(
+                    conv3x3(x, k1, act=a), k2)},
+                library=None, reps=reps,
+                flops=2 * px * 9 * (cin * cmid + cmid * cout),
+                nbytes=px * (cin + cout) * es
+                + 9 * (cin * cmid + cmid * cout) * es))
+        pa = prepare_swin_params(**wa, num_heads=heads, ws=ws, dtype=dtype)
+        pb = prepare_swin_params(**wb, num_heads=heads, ws=ws, dtype=dtype)
+        pa32 = prepare_swin_params(**wa, num_heads=heads, ws=ws,
+                                   dtype=torch.float32)
+        pb32 = prepare_swin_params(**wb, num_heads=heads, ws=ws,
+                                   dtype=torch.float32)
+        x = xband32.to(dtype)
+        t = band[0] * band[1] * band[2]
+        blk_flops = (2 * t * c * 3 * c + 2 * t * c * c + 4 * t * c * hid
+                     + 4 * t * n * c)
+        wbytes = (4 * c * c + 2 * c * hid) * es + heads * n * n * 4
+        for dc1 in (0, ws // 2):
+            kw = dict(num_heads=heads, ws=ws, dc1=dc1)
+            cases.append(dict(
+                name="swin_pair_block", path="lab",
+                variant=f"{band[1]}x{band[2]} dc1={dc1:+d}",
+                kernel=lambda kw=kw: swin_pair_block(x, pa, pb, bank, **kw),
+                plain=lambda kw=kw: swin_pair_block_plain(x, pa, pb, bank,
+                                                          **kw),
+                ref32=lambda kw=kw: swin_pair_block_plain(
+                    xband32, pa32, pb32, bank, **kw),
+                extra_ms={"two_swin_block_ms": lambda d=dc1: swin_block(
+                    swin_block(x, pa, num_heads=heads, ws=ws, dc=d,
+                               fast=True), pb, num_heads=heads, ws=ws,
+                    dc=-ws // 2, mask_bank=bank, fast=True)},
+                library=None, reps=reps, flops=2 * blk_flops,
+                nbytes=2 * t * c * es + 2 * wbytes + bank.numel() * 4))
+        # swin_attn_block beside lab_strip: the same weights in kernel form
+        # (the scale folded into q), MLP weights unused
+        ps = kernel_params(*lab_w, torch.ones(c, device=dev),
+                           torch.zeros(c, device=dev),
+                           torch.zeros(c, 1, device=dev),
+                           torch.zeros(1, device=dev),
+                           torch.zeros(1, c, device=dev),
+                           torch.zeros(c, device=dev), num_heads=heads,
+                           dtype=dtype)
+        xs = xstrip32.to(dtype)
+        ts = strip[0] * strip[1] * strip[2]
+        lw = tuple(lab_w)
+        cases.append(dict(
+            name="lab_strip", path="lab",
+            variant=f"{strip[0]}x{strip[1]}x{strip[2]} stacked",
+            kernel=lambda: lab_strip(xs, *lw),
+            plain=lambda: lab_strip_plain(xs, *lw),
+            ref32=lambda: lab_strip_plain(xstrip32, *lw),
+            extra_ms={"swin_attn_block_ms": lambda: swin_attn_block(
+                xs, ps, num_heads=heads, ws=ws, dc=0, fast=False)},
+            library=None, reps=5,
+            flops=2 * ts * c * 3 * c + 4 * ts * n * c + 2 * ts * c * c,
+            nbytes=2 * ts * c * es + 4 * c * c * es + heads * n * n * 4))
+        rows += [check_case(cs, dtype) for cs in cases]
+        del cases
+    return rows
+
+
+def _lab_launches(fn, expect: dict) -> tuple[dict, bool]:
+    """Every launch count set to 0, ``fn`` run once, the counts read: the
+    wrappers that ``expect`` names must show their counts."""
+    import torch
+    reset_launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    return counts, all(counts[k] == v for k, v in expect.items())
+
+
+def lab_r5_phase(quick: bool) -> dict:
+    """The 12-block RSTB frame chain at the band in bf16 (4 blocks on a
+    64x128 band with --quick): the pair chain (6 ``swin_pair_block``)
+    against the sequential chain (12 ``swin_block``), held to the rounding
+    control (the plain bf16 chain against the plain f32 chain): RMS no
+    larger, the largest element no larger than the control's plus one bf16
+    ulp."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.lab import lab_r5, time_ms
+    from image_restoration_agent_tpu_torch.ops.swin_block import (
+        swin_block_plain)
+
+    dev = torch.device("cuda")
+    shape = (1, 64, 128, 180) if quick else lab_r5.BAND
+    nblk = 4 if quick else lab_r5.NBLK
+    x = lab_r5.band_input(shape, torch.bfloat16, dev)
+    blks = lab_r5.make_blocks(nblk, torch.bfloat16, dev)
+    bank = lab_r5.mask_bank(lab_r5.WS, dev)
+    with torch.no_grad():
+        counts, ok = _lab_launches(
+            lambda: lab_r5.chain_pair(x, blks, bank),
+            {"swin_pair_block": nblk // 2, "swin_block": 0})
+        pair = lab_r5.chain_pair(x, blks, bank).float()
+        seq = lab_r5.chain_seq(x, blks, bank).float()
+        ctrl16 = lab_r5.chain_seq(x, blks, bank,
+                                  block=swin_block_plain).float()
+        blks32 = lab_r5.make_blocks(nblk, torch.float32, dev)
+        ctrl32 = lab_r5.chain_seq(x.float(), blks32, bank,
+                                  block=swin_block_plain)
+        seq_ms = time_ms(lambda: lab_r5.chain_seq(x, blks, bank), 3, dev)
+        pair_ms = time_ms(lambda: lab_r5.chain_pair(x, blks, bank), 3, dev)
+    d, dc_ = pair - seq, ctrl16 - ctrl32
+    ulp = 2.0 ** (math.floor(math.log2(float(seq.abs().max()) or 1.0)) - 7)
+    rms, crms = float(d.square().mean().sqrt()), float(
+        dc_.square().mean().sqrt())
+    mx, cmx = float(d.abs().max()), float(dc_.abs().max())
+    ok = ok and bool(torch.isfinite(pair).all()) and rms <= crms \
+        and mx <= cmx + ulp
+    return {"phase": "lab_r5", "shape": list(shape), "blocks": nblk,
+            "dtype": "bfloat16", "seq_frames_ms_per_block": seq_ms / nblk,
+            "pair_ms_per_block": pair_ms / nblk, "rms_diff": rms,
+            "max_abs_diff": mx, "control_rms": crms,
+            "control_max_abs": cmx, "tolerance": cmx + ulp,
+            "launches": {k: counts[k] for k in ("swin_pair_block",
+                                                "swin_block")},
+            "pass": ok}
+
+
+def head_pair_phase(quick: bool) -> dict:
+    """The head's tail as two K3 launches and as one ``conv3x3_pair``, at
+    the band's second stage and its ring strip (times)."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.lab import head_pair
+    from image_restoration_agent_tpu_torch.ops.conv3x3 import conv3x3_pair
+
+    dev = torch.device("cuda")
+    shapes = ((1, 16, 256, 64), (1, 24, 256, 64)) if quick \
+        else head_pair.SHAPES
+    _, kp = head_pair.forms(*head_pair.head_weights(dev), torch.bfloat16)
+    x = torch.randn(*shapes[1], device=dev, dtype=torch.bfloat16)
+    with torch.no_grad():
+        counts, ok = _lab_launches(lambda: conv3x3_pair(x, kp),
+                                   {"conv3x3_pair": 1, "conv3x3": 0})
+    rows = head_pair.run("cuda", shapes)
+    return {"phase": "head_pair", "rows": rows,
+            "launches": {k: counts[k] for k in ("conv3x3_pair", "conv3x3")},
+            "pass": ok}
+
+
+def lab_strip_phase(quick: bool) -> dict:
+    """``lab_strip`` in every mode at kernel_lab's shape in bf16, each
+    timed over 30 chained calls (3 with --quick on 1x64x128)."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.lab import kernel_lab
+
+    dev = torch.device("cuda")
+    shape = (1, 64, 128, 180) if quick else kernel_lab.SHAPE
+    x = torch.randn(*shape, device=dev, dtype=torch.bfloat16)
+    wts = kernel_lab.lab_weights(dev)
+    with torch.no_grad():
+        counts, ok = _lab_launches(
+            lambda: kernel_lab.lab_strip(x, *wts),
+            {"lab_strip": 1, "token_linear": 2, "window_attention": 1})
+    r = kernel_lab.run("cuda", shape, iters=3 if quick else 30)
+    ok = ok and all(r[f"{m}_max_abs_diff"] == 0.0
+                    for m in kernel_lab.MODES[1:])
+    return {"phase": "lab_strip", **r,
+            "launches": {k: counts[k] for k in ("lab_strip", "token_linear",
+                                                "window_attention")},
+            "pass": ok}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1456,6 +1747,7 @@ def main() -> int:
     rows += phase("dehazeformer_kernels", dehazeformer_kernel_checks,
                   args.quick) or []
     phase("dehazeformer_reflect_pad", dehazeformer_reflect_pad, args.quick)
+    rows += phase("lab_kernels", lab_kernel_checks, args.quick) or []
     failures += [f"kernel {r['name']} {r['variant']} {r['dtype']}"
                  for r in rows if not r["pass"]]
     # each path's launch counts, read just after the path ran (with
@@ -1463,6 +1755,14 @@ def main() -> int:
     counts = launch_counts()
     launches = {p: counts for p in ("swinir", "restormer", "hat", "denoise",
                                     "dehaze")}
+    # the lab path: one pair chain, one head tail, one lab_strip call, each
+    # counted alone
+    launches["lab"] = {}
+    for name, fn in (("lab_r5", lab_r5_phase), ("head_pair", head_pair_phase),
+                     ("lab_strip", lab_strip_phase)):
+        launches["lab"].update((phase(name, fn, args.quick) or {})
+                               .get("launches", {}))
+    torch.cuda.empty_cache()
     if not args.quick:
         from image_restoration_agent_tpu_torch.offline import (GOLDEN_ROOT,
                                                                load_golden)
@@ -1487,11 +1787,12 @@ def main() -> int:
         served_z = phase("dehazeformer_path", dehazeformer_path, state, card)
         phase("dehazeformer_exact", dehazeformer_exact, state)
         phase("dehazeformer_bf16_vs_f32", dehazeformer_bf16_vs_f32, state)
-        launches = {"swinir": served["launches"] if served else {},
-                    "restormer": served_r["launches"] if served_r else {},
-                    "hat": served_h["launches"] if served_h else {},
-                    "denoise": served_d["launches"] if served_d else {},
-                    "dehaze": served_z["launches"] if served_z else {}}
+        launches.update({
+            "swinir": served["launches"] if served else {},
+            "restormer": served_r["launches"] if served_r else {},
+            "hat": served_h["launches"] if served_h else {},
+            "denoise": served_d["launches"] if served_d else {},
+            "dehaze": served_z["launches"] if served_z else {}})
 
     emit({"kernels": [{
         "name": f"{r['name']} [{r['variant']}, {r['dtype']}]",
@@ -1500,7 +1801,8 @@ def main() -> int:
         "launches": launches[r["path"]].get(r["name"], 0),
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        **{k: r[k] for k in REPLACED_MS if k in r}}
         for r in rows]})
     print(card, flush=True)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,

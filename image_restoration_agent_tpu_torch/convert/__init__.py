@@ -1,3 +1,3 @@
-from .from_jax import from_jax
+from .from_jax import from_jax, strip_block_params
 
-__all__ = ["from_jax"]
+__all__ = ["from_jax", "strip_block_params"]

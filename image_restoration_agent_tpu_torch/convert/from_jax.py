@@ -46,6 +46,8 @@ import re
 import numpy as np
 import torch
 
+from ..ops.swin_block import SwinBlockParams, kernel_params
+
 
 def _conv(w):
     return np.transpose(w, (3, 2, 0, 1))
@@ -286,3 +288,17 @@ def from_jax(params) -> dict[str, torch.Tensor]:
                              "differ; the reference has one")
         out[name] = t
     return out
+
+
+def strip_block_params(blk, *, num_heads: int,
+                       dtype: torch.dtype) -> SwinBlockParams:
+    """The port's kernel form (:class:`SwinBlockParams`) of one block given
+    as the JAX strip / pair kernels' 13-tuple ``(ln_scale, ln_bias, wqkv
+    (C, 3C), bqkv, wproj (C, C), bproj, rpb (heads, N, N), ln2w, ln2b, w1
+    (C, hidden), b1, w2 (hidden, C), b2)`` of arrays (matrices applied as
+    ``x @ w``); the attention scale is folded into q as
+    :func:`prepare_swin_params` folds it."""
+    if len(blk) != 13:
+        raise ValueError(f"a strip block is a 13-tuple, not {len(blk)}")
+    ts = [torch.from_numpy(np.asarray(a, np.float32)) for a in blk]
+    return kernel_params(*ts, num_heads=num_heads, dtype=dtype)

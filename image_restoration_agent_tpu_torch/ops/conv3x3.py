@@ -24,6 +24,14 @@ TPU row-strip MXU kernel). The CUDA kernel is ``csrc/conv3x3.cu`` (K3):
   in float32 before the single cast on store. What it does not do yet:
   ``wgmma``, TMA, a pipelined halo, reuse of the halo across the output
   channel chunks (it is staged once per 64 output channels).
+
+:func:`conv3x3_pair` replaces ``conv3x3_pair_pallas`` (two chained SAME
+convs, the intermediate ``u`` kept on chip) with K7,
+``csrc/conv3x3_pair.cu``: a block stages one input tile with a 2-pixel
+halo, computes ``u`` chunk by chunk on the tile plus a 1-pixel ring into
+shared memory, and sums each chunk's conv2 into float32 accumulators; see
+the source for what bounds it. No served path runs it: the x4 head keeps
+the JAX package's two-conv form (``lab/head_pair.py`` runs both).
 """
 
 from __future__ import annotations
@@ -188,6 +196,132 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor | Conv3x3Weights,
 
 
 conv3x3.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# conv3x3_pair: two chained SAME convs in one launch (K7)
+
+# the card's tile: 8 x 30 outputs, u on 10 x 32, input on 12 x 34
+PAIR_MAX_CIN = 64
+PAIR_MAX_COUT = 32
+
+
+def _check_pair(x, w1, w2, act_mid):
+    _, h, wd, cin = x.shape
+    if not conv3x3_fits(h, wd):
+        raise ValueError(f"conv3x3_pair needs H % 8 == 0, W % 8 == 0 and "
+                         f"W >= 128 (got {h}x{wd})")
+    if act_mid not in (None, "lrelu"):
+        raise ValueError(f"conv3x3_pair: act_mid must be None or 'lrelu', "
+                         f"not {act_mid!r}")
+    if w1.shape[:3] != (3, 3, cin) or w2.shape[:3] != (3, 3, w1.shape[3]):
+        raise ValueError(f"conv3x3_pair: weights {tuple(w1.shape)}, "
+                         f"{tuple(w2.shape)} do not chain from Cin {cin}")
+
+
+def conv3x3_pair_plain(x, w1, b1, w2, b2, *, act_mid=None):
+    """Plain PyTorch version of :func:`conv3x3_pair`: two
+    :func:`conv3x3_plain` calls, so ``u`` is cast to ``x.dtype`` between
+    them, as the TPU kernel casts it."""
+    _check_pair(x, w1, w2, act_mid)
+    u = conv3x3_plain(x, w1, b1, act=act_mid)
+    return conv3x3_plain(u, w2, b2)
+
+
+class Conv3x3PairWeights(NamedTuple):
+    """K7's weight form: both HWIO weights in the compute dtype, in
+    bfloat16 zero-padded (Cin to 16, Cmid to 32, Cout to 16) for aligned
+    16-byte copies and tensor-core fragments; the biases float32, padded
+    with zeros to the padded widths."""
+
+    w1: torch.Tensor
+    b1: torch.Tensor
+    w2: torch.Tensor
+    b2: torch.Tensor
+    cin: int
+    cmid: int
+    cout: int
+
+
+def conv3x3_pair_weights(w1, b1, w2, b2, dtype) -> Conv3x3PairWeights:
+    cin, cmid, cout = w1.shape[2], w1.shape[3], w2.shape[3]
+    pi, pm, po = (-cin % 16, -cmid % 32, -cout % 16) \
+        if dtype == torch.bfloat16 else (0, 0, 0)
+    k1 = F.pad(w1.detach().to(dtype), (0, pm, 0, pi)).contiguous()
+    k2 = F.pad(w2.detach().to(dtype), (0, po, 0, pm)).contiguous()
+    return Conv3x3PairWeights(
+        k1, F.pad(b1.detach().float(), (0, pm)).contiguous(), k2,
+        F.pad(b2.detach().float(), (0, po)).contiguous(), cin, cmid, cout)
+
+
+def _conv3x3_pair_cuda(x, k: Conv3x3PairWeights, act_mid):
+    bsz, h, wd, cin = x.shape
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"conv3x3_pair kernel takes float32 or bfloat16, "
+                        f"not {x.dtype}")
+    if cin > PAIR_MAX_CIN or k.cout > PAIR_MAX_COUT:
+        raise ValueError(f"conv3x3_pair on the card holds the whole input "
+                         f"tile in shared memory: Cin <= {PAIR_MAX_CIN} and "
+                         f"Cout <= {PAIR_MAX_COUT} (got {cin}, {k.cout})")
+    for t in (k.w1, k.b1, k.w2, k.b2):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError("conv3x3_pair operands on different devices")
+    if k.w1.dtype != x.dtype or k.w2.dtype != x.dtype:
+        raise ValueError("conv3x3_pair weights are not the kernel form for "
+                         f"{x.dtype}")
+    x = x.contiguous()
+    out = torch.empty((bsz, h, wd, k.cout), dtype=x.dtype, device=x.device)
+    fn = kernels.load("conv3x3_pair").conv3x3_pair
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 \
+        + [ctypes.c_void_p]
+    err = fn(x.data_ptr(), k.w1.data_ptr(), k.b1.data_ptr(), k.w2.data_ptr(),
+             k.b2.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
+             bsz, h, wd, cin, k.w1.shape[2], k.cmid, k.w1.shape[3], k.cout,
+             k.w2.shape[3], _ACTS[act_mid],
+             torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(err, "conv3x3_pair")
+    conv3x3_pair.launches += 1
+    return out
+
+
+def conv3x3_pair(x, w1, b1=None, w2=None, b2=None, *, act_mid=None):
+    """``conv3x3(act_mid(conv3x3(x, w1) + b1), w2) + b2``, both SAME with
+    zero padding: the TPU's ``conv3x3_pair_pallas``.
+
+    Args:
+        x: (B, H, W, Cin), float32 or bfloat16, H and W multiples of 8,
+            W >= 128 (the TPU kernel's shape rule; ValueError otherwise).
+        w1, b1: (3, 3, Cin, Cmid) and (Cmid,); w2, b2: (3, 3, Cmid, Cout)
+            and (Cout,). Or ``w1`` is their :func:`conv3x3_pair_weights`
+            form for ``x.dtype`` and the rest are None.
+        act_mid: None or "lrelu" (slope 0.01), applied to ``u``.
+
+    Cast points are the TPU kernel's: conv1 sums in float32, then ``+ b1``
+    and the activation, then ``u`` is cast to ``x.dtype``; conv2 sums in
+    float32, then ``+ b2`` and one cast. The padding around ``u`` is zero
+    at every width (where the JAX kernel's 960-column chunk split pads W,
+    its padded column of ``u`` is ``act(b1 + conv1 of the edge)``, and the
+    last output column differs).
+
+    A CUDA tensor runs one K7 launch (``csrc/conv3x3_pair.cu``; Cin <= 64,
+    Cout <= 32) or raises; a CPU tensor runs :func:`conv3x3_pair_plain`.
+    """
+    if isinstance(w1, Conv3x3PairWeights):
+        k = w1
+        w1, b1 = k.w1[:, :, :k.cin, :k.cmid], k.b1[:k.cmid]
+        w2, b2 = k.w2[:, :, :k.cmid, :k.cout], k.b2[:k.cout]
+    else:
+        k = None
+    _check_pair(x, w1, w2, act_mid)
+    if not x.is_cuda:
+        return conv3x3_pair_plain(x, w1, b1, w2, b2, act_mid=act_mid)
+    if k is None:
+        k = conv3x3_pair_weights(w1, b1, w2, b2, x.dtype)
+    return _conv3x3_pair_cuda(x, k, act_mid)
+
+
+conv3x3_pair.launches = 0
 
 
 def conv_after_shuffle_weights(w: torch.Tensor, r: int) -> torch.Tensor:

@@ -24,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("swin_block", "conv3x3", "restormer_fused", "roll2d")
+SOURCES = ("swin_block", "conv3x3", "restormer_fused", "roll2d",
+           "conv3x3_pair", "swin_pair")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo"]

@@ -38,7 +38,8 @@ is folded into the q weights on every path (the stacked TPU body scaled the
 logits instead), and in fast mode log2(e) multiplies the float32 logits
 rather than being folded into the bf16 q weights as on the TPU.
 
-The CUDA path is two hand-written kernels in ``csrc/swin_block.cu``:
+The block's CUDA path is two hand-written kernels in
+``csrc/swin_block.cu``:
 
 - K1 ``token_linear``: a GEMM over tokens with a fused prologue (LayerNorm
   with float32 two-pass statistics; a gather that reads token ``t`` of
@@ -80,6 +81,13 @@ FP32 pipes in f32). This form still writes the qkv, attention, x1 and
 hidden intermediates to device memory (about 7 GB of traffic per block in
 bf16) and uses WMMA rather than ``wgmma``; keeping the block on chip is
 later work.
+
+:func:`swin_pair_block` replaces ``swin_pair_strip_pallas`` (an RSTB's
+unshifted + shifted block pair in one launch, block A's output kept on
+chip) with K8, ``csrc/swin_pair.cu``: one thread block per output window
+of block B, which recomputes block A's k and v on the four A windows that
+B's window overlaps (about 35% more FLOP than the pair's own work). No
+served path runs it (``lab/lab_r5.py`` does).
 
 ``pad_width_for_strips`` and ``strip_chunk_width`` are kept only so that
 the port pads the band canvas exactly as the JAX engine does.
@@ -175,25 +183,36 @@ def prepare_swin_params(*, norm1_w, norm1_b, qkv_w, qkv_b, proj_w, proj_b,
     """Kernel-form weights from reference-layout (torch ``nn.Linear``)
     tensors. The attention scale ``hd**-0.5`` is folded into the q columns
     of the qkv weight and bias, as the TPU kernel folds it."""
-    c = qkv_w.shape[1]
+    return kernel_params(
+        norm1_w, norm1_b, qkv_w.detach().t(), qkv_b, proj_w.detach().t(),
+        proj_b, relative_position_bias(rpb_table.detach().float(), ws),
+        norm2_w, norm2_b, fc1_w.detach().t(), fc1_b, fc2_w.detach().t(),
+        fc2_b, num_heads=num_heads, dtype=dtype)
+
+
+def kernel_params(ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, rpb, ln2_w, ln2_b,
+                  w1, b1, w2, b2, *, num_heads: int,
+                  dtype: torch.dtype) -> SwinBlockParams:
+    """Kernel-form weights from the TPU strip kernels' layout: matrices
+    (K, N) applied as ``x @ w``, the (heads, N, N) relative-position bias;
+    the attention scale folded into the q columns."""
+    c = wqkv.shape[0]
     scale = (c // num_heads) ** -0.5
-    wqkv = qkv_w.detach().float().t().clone()
-    bqkv = qkv_b.detach().float().clone()
+    wqkv = wqkv.detach().float().clone()
+    bqkv = bqkv.detach().float().clone()
     wqkv[:, :c] *= scale
     bqkv[:c] *= scale
 
     def mat(w):
-        return kernel_matrix(w.detach().float().t(), dtype)
+        return kernel_matrix(w.detach().float(), dtype)
 
     def vec(v):
         return v.detach().float().contiguous()
 
     return SwinBlockParams(
-        vec(norm1_w), vec(norm1_b), kernel_matrix(wqkv, dtype),
-        bqkv.contiguous(), mat(proj_w), vec(proj_b),
-        relative_position_bias(rpb_table.detach().float(), ws).contiguous(),
-        vec(norm2_w), vec(norm2_b), mat(fc1_w), vec(fc1_b), mat(fc2_w),
-        vec(fc2_b))
+        vec(ln1_w), vec(ln1_b), kernel_matrix(wqkv, dtype),
+        bqkv.contiguous(), mat(wproj), vec(bproj), vec(rpb), vec(ln2_w),
+        vec(ln2_b), mat(w1), vec(b1), mat(w2), vec(b2))
 
 
 def _paired(w: int, ws: int, num_heads: int) -> bool:
@@ -746,8 +765,134 @@ def wmsa(qkv, rpb, mask=None, *, num_heads: int):
 
 wmsa.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# swin_pair_block (an RSTB's unshifted + shifted pair in one launch; K8)
+
+
+def _check_pair(x, num_heads, ws, dc1):
+    _, h, w, c = x.shape
+    if h % ws or w % ws:
+        raise ValueError(f"canvas {h}x{w} is not a multiple of window {ws}")
+    if (w // ws) % 2 or num_heads % 2:
+        raise ValueError(f"swin_pair_block needs an even window count per "
+                         f"row and an even head count (got {w // ws} "
+                         f"windows, {num_heads} heads)")
+    if dc1 not in (0, ws // 2):
+        raise ValueError(f"dc1 must be 0 or +ws//2 = {ws // 2}, not {dc1}")
+
+
+def swin_pair_block_plain(x, pa: SwinBlockParams, pb: SwinBlockParams,
+                          mask_bank, *, num_heads: int, ws: int, dc1: int):
+    """Plain PyTorch version of :func:`swin_pair_block`: the two
+    :func:`swin_block_plain` calls."""
+    _check_pair(x, num_heads, ws, dc1)
+    y = swin_block_plain(x, pa, num_heads=num_heads, ws=ws, dc=dc1,
+                         fast=True)
+    return swin_block_plain(y, pb, num_heads=num_heads, ws=ws, dc=-ws // 2,
+                            mask_bank=mask_bank, fast=True)
+
+
+def _pair_form(p: SwinBlockParams, c: int, num_heads: int):
+    """K8's pointers for one block, and its widths: the qkv weight and
+    bias head-major (per head [q | k | v], each zero-padded to ``hdp``
+    columns: 16 in bfloat16, the head width in float32) and proj's rows to
+    match, so every head's slices are aligned fragments; the MLP weights
+    in their K1 form, fc2's rows padded to fc1's padded width."""
+    dt = p.wqkv.dtype
+    bf = dt == torch.bfloat16
+    hd = c // num_heads
+    hdp = -(-hd // 16) * 16 if bf else hd
+    kp = p.wqkv.shape[0]
+    cn = -(-c // 16) * 16 if bf else c
+    wq = _dense(p.wqkv, c, 3 * c).reshape(c, 3, num_heads, hd)
+    wqkv = wq.new_zeros(kp, num_heads, 3, hdp)
+    wqkv[:c, ..., :hd] = wq.permute(0, 2, 1, 3)
+    bqkv = p.bqkv.new_zeros(num_heads, 3, hdp)
+    bqkv[..., :hd] = p.bqkv.reshape(3, num_heads, hd).permute(1, 0, 2)
+    wproj = wq.new_zeros(num_heads, hdp, cn)
+    wproj[:, :hd, :c] = _dense(p.wproj, c, c).reshape(num_heads, hd, c)
+    w2 = p.w2
+    if w2.shape[0] < p.w1.shape[1]:
+        w2 = F.pad(w2, (0, 0, 0, p.w1.shape[1] - w2.shape[0]))
+    tensors = (p.ln1_w, p.ln1_b, wqkv.reshape(kp, -1).to(dt).contiguous(),
+               bqkv.reshape(-1).contiguous(),
+               wproj.reshape(num_heads * hdp, cn).to(dt).contiguous(),
+               p.bproj, p.rpb, p.ln2_w, p.ln2_b, p.w1, p.b1,
+               w2.contiguous(), p.b2)
+    dims = dict(hdp=hdp, kp=kp, hid=p.b1.shape[0], hidp=p.w1.shape[1],
+                ldqkv=num_heads * 3 * hdp, ldproj=cn, ldw1=p.w1.shape[1],
+                ldw2=w2.shape[1], cn=cn)
+    return tensors, dims
+
+
+def _swin_pair_cuda(x, pa, pb, mask_bank, num_heads, ws, dc1):
+    b, h, w, c = x.shape
+    if ws % 2 or ws * ws > 64:
+        raise ValueError(f"swin_pair_block on the card takes an even window "
+                         f"of at most 64 tokens (ws {ws})")
+    if x.dtype not in _DT or any(p.wqkv.dtype != x.dtype for p in (pa, pb)):
+        raise ValueError("swin_pair_block takes float32 or bfloat16 x with "
+                         "weights prepared for its dtype")
+    if c % num_heads:
+        raise ValueError(f"C {c} is not a multiple of the heads")
+    _check_f32(mask_bank, (2, 2, ws * ws, ws * ws), "mask_bank")
+    ta, da = _pair_form(pa, c, num_heads)
+    tb, db = _pair_form(pb, c, num_heads)
+    if da != db:
+        raise ValueError("the pair's blocks differ in their widths")
+    for t in ta + tb:
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError("swin_pair_block operands on different devices")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    ptrs = ctypes.c_void_p * 13
+    fn = kernels.load("swin_pair").swin_pair
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ptrs,
+                   ptrs, ctypes.c_void_p] + [ctypes.c_int] * 16 \
+        + [ctypes.c_void_p]
+    err = fn(x.data_ptr(), out.data_ptr(), _DT[x.dtype],
+             ptrs(*(t.data_ptr() for t in ta)),
+             ptrs(*(t.data_ptr() for t in tb)), _ptr(mask_bank), b, h, w, c,
+             num_heads, da["hdp"], da["kp"], da["hid"], da["hidp"],
+             da["ldqkv"], da["ldproj"], da["ldw1"], da["ldw2"], da["cn"], ws,
+             dc1, torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(err, "swin_pair_block")
+    swin_pair_block.launches += 1
+    return out
+
+
+def swin_pair_block(x, pa: SwinBlockParams, pb: SwinBlockParams, mask_bank,
+                    *, num_heads: int, ws: int, dc1: int):
+    """An RSTB's pair of Swin blocks in one launch: the TPU's
+    ``swin_pair_strip_pallas``.
+
+    By definition ``swin_block(swin_block(x, pa, dc=dc1, fast=True), pb,
+    dc=-ws//2, mask_bank=mask_bank, fast=True)``: block A unshifted, read
+    through ``roll(x, dc1)`` (``dc1`` 0 for an RSTB's first pair, +ws//2
+    for a pair whose input sits in frame -ws//2), block B shifted with the
+    (2, 2, N, N) float32 ``mask_bank``; the output is in frame -ws//2.
+    Fast numerics only, as on the TPU; float32 or bfloat16 (the serving
+    form). ValueError for an odd window count per row, an odd head count,
+    ``dc1`` not 0 or +ws//2, or H, W not multiples of ``ws``.
+
+    A CUDA tensor runs one K8 launch (``csrc/swin_pair.cu``; N <= 64, ws
+    even) or raises; a CPU tensor runs :func:`swin_pair_block_plain`. The
+    kernel takes the weights head-major (:func:`_pair_form`, a few small
+    copies per call).
+    """
+    _check_pair(x, num_heads, ws, dc1)
+    if not x.is_cuda:
+        return swin_pair_block_plain(x, pa, pb, mask_bank,
+                                     num_heads=num_heads, ws=ws, dc1=dc1)
+    return _swin_pair_cuda(x, pa, pb, mask_bank, num_heads, ws, dc1)
+
+
+swin_pair_block.launches = 0
+
 _COUNTED = (swin_block, swin_attn_block, wmsa_block, wmsa, mlp_block,
-            token_linear, window_attention)
+            token_linear, window_attention, swin_pair_block)
 
 
 def reset_launch_counts() -> None:

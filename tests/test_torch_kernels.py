@@ -392,3 +392,89 @@ def test_wmsa_kernel_matches_plain(cuda, c, heads, masked, dtype):
     _close_or_within_rounding(
         got, tsb.wmsa_plain(qkv, rpb, mask, num_heads=heads),
         tsb.wmsa_plain(qkv32, rpb, mask, num_heads=heads), dtype)
+
+
+# K7: the head's 64 -> 256 -> 12 at a width the 30-column tile divides and
+# at ragged ones, a narrow Cin that takes the element-wise staging, and the
+# LeakyReLU between the convs
+@pytest.mark.parametrize("hw,cin,cmid,cout", [
+    ((16, 240), 64, 256, 12), ((8, 136), 64, 256, 12), ((24, 128), 5, 7, 4),
+    ((16, 200), 32, 48, 32)])
+@pytest.mark.parametrize("act", [None, "lrelu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_pair_kernel_matches_plain(cuda, hw, cin, cmid, cout, act,
+                                           dtype):
+    """K7 against conv3x3_pair_plain: one launch; f32 within 1e-4 x
+    max|ref|, bf16 within the rounding control in RMS."""
+    gen = torch.Generator().manual_seed(11)
+    x32 = _randn(gen, 2, *hw, cin).to(cuda)
+    w1 = _randn(gen, 3, 3, cin, cmid, scale=(9 * cin) ** -0.5).to(cuda)
+    b1 = _randn(gen, cmid, scale=0.1).to(cuda)
+    w2 = _randn(gen, 3, 3, cmid, cout, scale=(9 * cmid) ** -0.5).to(cuda)
+    b2 = _randn(gen, cout, scale=0.1).to(cuda)
+    x = x32.to(dtype)
+    n0 = tconv.conv3x3_pair.launches
+    got = tconv.conv3x3_pair(x, w1, b1, w2, b2, act_mid=act)
+    assert tconv.conv3x3_pair.launches == n0 + 1
+    assert got.shape == (2, *hw, cout) and got.dtype == dtype
+    _close_or_within_rounding(
+        got, tconv.conv3x3_pair_plain(x, w1, b1, w2, b2, act_mid=act),
+        tconv.conv3x3_pair_plain(x32, w1, b1, w2, b2, act_mid=act), dtype)
+
+
+# K8: SwinIR-M's width (C 180, 6 heads) and a narrow one (C 48, 2 heads,
+# head width 24 padded to 32), 2 and 4 windows per row (the wrap to
+# window 0), several windows per column, batch 2
+@pytest.mark.parametrize("c,heads,hw", [(180, 6, (24, 32)),
+                                        (48, 2, (16, 16)),
+                                        (48, 2, (32, 32))])
+@pytest.mark.parametrize("dc1", [0, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swin_pair_block_kernel_matches_plain(cuda, c, heads, hw, dc1,
+                                              dtype):
+    """K8 against swin_pair_block_plain (two fast swin_block_plain): one
+    launch, no swin_block launch; f32 within 1e-4 x max|ref|, bf16 within
+    the rounding control in RMS."""
+    gen = torch.Generator().manual_seed(12)
+    x32 = _randn(gen, 2, *hw, c).to(cuda)
+    state = gen.get_state()
+    pa, pb = (_block(gen, c, heads, 8, dtype, cuda) for _ in range(2))
+    gen.set_state(state)
+    pa32, pb32 = (_block(gen, c, heads, 8, torch.float32, cuda)
+                  for _ in range(2))
+    bank = torch.from_numpy(twa.shift_attention_mask(16, 16, 8, 4)
+                            .reshape(2, 2, 64, 64)).to(cuda)
+    kw = dict(num_heads=heads, ws=8, dc1=dc1)
+    x = x32.to(dtype)
+    n0, s0 = tsb.swin_pair_block.launches, tsb.swin_block.launches
+    got = tsb.swin_pair_block(x, pa, pb, bank, **kw)
+    assert tsb.swin_pair_block.launches == n0 + 1
+    assert tsb.swin_block.launches == s0
+    assert got.shape == x.shape and got.dtype == dtype
+    _close_or_within_rounding(
+        got, tsb.swin_pair_block_plain(x, pa, pb, bank, **kw),
+        tsb.swin_pair_block_plain(x32, pa32, pb32, bank, **kw), dtype)
+
+
+@pytest.mark.parametrize("mode", ["stacked", "paired_perhead", "noattn",
+                                  "base_noproj"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lab_strip_kernel_matches_plain(cuda, mode, dtype):
+    """lab_strip (K1, K2 exact with the logit scale, K1; the probes drop
+    K2 or the proj launch) against lab_strip_plain, batch 2, C 180."""
+    kl = importlib.import_module(
+        "image_restoration_agent_tpu_torch.lab.kernel_lab")
+    gen = torch.Generator().manual_seed(13)
+    c, heads = 180, 6
+    x32 = _randn(gen, 2, 16, 32, c).to(cuda)
+    wl = (1 + _randn(gen, c, scale=0.1), _randn(gen, c, scale=0.1),
+          _randn(gen, c, 3 * c, scale=c ** -0.5),
+          _randn(gen, 3 * c, scale=0.1), _randn(gen, c, c, scale=c ** -0.5),
+          _randn(gen, c, scale=0.1), _randn(gen, heads, 64, 64, scale=0.5))
+    wl = tuple(t.to(cuda) for t in wl)
+    x = x32.to(dtype)
+    n0 = kl.lab_strip.launches
+    got = kl.lab_strip(x, *wl, mode=mode)
+    assert kl.lab_strip.launches == n0 + 1 and got.dtype == dtype
+    _close_or_within_rounding(got, kl.lab_strip_plain(x, *wl, mode=mode),
+                              kl.lab_strip_plain(x32, *wl, mode=mode), dtype)
