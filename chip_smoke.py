@@ -17,7 +17,8 @@ Phases, each printing one JSON line:
    against plain f32, the bf16-rounding control, and max-abs error no
    larger than the control's plus one bf16 ulp at the output's largest
    magnitude), timed with CUDA events, beside one library call where
-   PyTorch has one (``F.conv2d``, ``scaled_dot_product_attention``);
+   PyTorch has one (``F.conv2d``, ``scaled_dot_product_attention``, and
+   ``F.linear`` beside K1 in its plain-GEMM mode at the band's qkv shape);
    restormer_kernels: the same for K4 ``gdfn_block`` and K5 ``mdta_front``
    (with its plain epilogue: the MDTA block) at the 1280x720 Restormer
    request's block shapes (768x1280 C 48, 384x640 C 96, 192x320 C 192,
@@ -279,9 +280,9 @@ def kernel_checks(shape, seed: int = 0) -> list[dict]:
     from image_restoration_agent_tpu_torch.ops.conv3x3 import (
         conv3x3, conv3x3_plain, conv3x3_weights)
     from image_restoration_agent_tpu_torch.ops.swin_block import (
-        GATHER, mlp_block, mlp_block_plain, prepare_swin_params, swin_block,
-        swin_block_plain, token_linear, token_linear_plain, window_attention,
-        window_attention_plain)
+        GATHER, _dense, mlp_block, mlp_block_plain, prepare_swin_params,
+        swin_block, swin_block_plain, token_linear, token_linear_plain,
+        window_attention, window_attention_plain)
     from image_restoration_agent_tpu_torch.ops.window_attention import (
         shift_attention_mask)
 
@@ -360,6 +361,20 @@ def kernel_checks(shape, seed: int = 0) -> list[dict]:
                 ln=(p32.ln1_w, p32.ln1_b), geom=geom, a_map=GATHER),
             library=None, flops=2 * t * c * 3 * c,
             nbytes=4 * t * c * es + 3 * c * c * es, reps=3))
+        # row 1a's yardstick: K1 in its plain-GEMM mode (identity maps, no
+        # LayerNorm, bias only) beside F.linear on the same operands
+        wl = _dense(p.wqkv, c, 3 * c).to(dtype).t().contiguous()
+        bl = p.bqkv.to(dtype)
+        cases.append(dict(
+            name="token_linear", variant="plain GEMM qkv",
+            kernel=lambda: token_linear(xt, p.wqkv, p.bqkv),
+            plain=lambda: token_linear_plain(xt, p.wqkv, p.bqkv),
+            ref32=lambda: token_linear_plain(x32.reshape(t, c), p32.wqkv,
+                                             p32.bqkv),
+            library=lambda wl=wl, bl=bl: torch.nn.functional.linear(
+                xt, wl, bl),
+            flops=2 * t * c * 3 * c, nbytes=4 * t * c * es + 3 * c * c * es,
+            reps=3))
         wa_kw = dict(num_heads=heads, nwy=h // ws, nwx=w // ws, fast=fast)
         # SDPA computes the same function in both modes: the fast form is
         # the same softmax with the max subtraction replaced by a clamp, and

@@ -62,6 +62,15 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
                "l"(gmem));
 }
 
+// 8 bytes global -> shared (both addresses 8-byte aligned), zero-filled
+// when `bytes` is 0
+__device__ __forceinline__ void cp_async8z(void* smem, const void* gmem,
+                                           int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(bytes));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

@@ -6,9 +6,9 @@
 //
 // K1 token_linear: out[o(t), :] = epi(pro(A[g(t), :]) @ W + bias)
 //   - float32: one 64x64 output tile per block, K staged 32 at a time in
-//     shared memory, 4x4 outputs per thread with FP32 FMA; bfloat16: a
-//     block stages its 64 rows once and loops over every 64-column tile,
-//     WMMA 16x16x16 fragments on the tensor cores, float32 accumulators;
+//     shared memory, 4x4 outputs per thread with FP32 FMA; bfloat16:
+//     wgmma on the Hopper tensor cores (sm90_gemm.cuh), persistent
+//     warp-specialised blocks, see the note above token_linear_mma_kernel;
 //   - prologue: optional LayerNorm of each row (float32 two-pass
 //     statistics, eps 1e-5), the operand rounded to the weight dtype;
 //     optional gather g of window-order token t from the rolled canvas;
@@ -31,6 +31,7 @@
 #include <mma.h>
 
 #include "common.cuh"
+#include "sm90_gemm.cuh"
 
 using namespace irk;
 using namespace nvcuda;
@@ -63,6 +64,26 @@ __device__ __forceinline__ long long map_row(long long t, int mode,
   const long long rest = win / nwx;
   const int wy = static_cast<int>(rest % nwy);
   const long long b = rest / nwy;
+  int i = wy * g.ws + iy, j = wx * g.ws + ix;
+  if (mode == 1) {
+    i = pmod(i - g.dc, g.H);
+    j = pmod(j - g.dc, g.W);
+  }
+  return (b * g.H + i) * g.W + j;
+}
+
+// map_row in 32-bit arithmetic, for row counts below 2^31
+__device__ __forceinline__ int map_row32(int t, int mode, const Geom& g) {
+  if (mode == 0) return t;
+  const int n = g.ws * g.ws;
+  const int win = t / n;
+  const int r = t - win * n;
+  const int iy = r / g.ws, ix = r - iy * g.ws;
+  const int nwx = g.W / g.ws, nwy = g.H / g.ws;
+  const int wx = win % nwx;
+  const int rest = win / nwx;
+  const int wy = rest % nwy;
+  const int b = rest / nwy;
   int i = wy * g.ws + iy, j = wx * g.ws + ix;
   if (mode == 1) {
     i = pmod(i - g.dc, g.H);
@@ -192,21 +213,70 @@ __global__ void __launch_bounds__(NT) token_linear_kernel(
   }
 }
 
-// bf16: the products on the tensor cores (WMMA 16x16x16 bf16 fragments,
-// float32 accumulators). A block owns 64 rows and loops over every 64-column
-// tile of the output:
-//   - the rows are read once, a warp per row held in registers (K % 4 == 0,
-//     K <= MAXK), normalized and written to shared memory as a bf16 panel
-//     that serves every column tile;
-//   - the weight, zero-padded once (kernel_matrix) to (Kpad, ldw) with Kpad
-//     a multiple of 32 and ldw of 64, streams through two shared-memory
-//     buffers of BK rows with 16-byte cp.async copies (one per thread),
-//     the next chunk in flight while the current one multiplies;
-//   - 8 warps tile each 64x64 output 4 (rows) x 2 (32 columns); the
-//     accumulators go through shared memory so the epilogue stores rows.
+// bf16 on Hopper: wgmma (sm90_gemm.cuh), persistent and warp-specialised.
+//   - Block: four warpgroups, two producer-consumer pairs that take the
+//     odd and the even tiles; about one block per SM (the launch plan's
+//     grid), each with a fixed slice of NS
+//     output columns (NS <= 192, an instantiated width: qkv 540 as 3 x 184,
+//     fc1 360 as 2 x 184, proj 180 as 184), walking 64-row tiles t0, t0 +
+//     step, ...
+//   - The slice's weight stays in shared memory for the whole walk: one
+//     1-D bulk copy of its kernel_matrix form (no-swizzle K-major core
+//     matrices, K padded to 64 like A) at the start, counted on an
+//     mbarrier. So
+//     the weight is read once per block, not once per 64 rows. Where K x
+//     NS and at least two A stages do not fit in 227 KB, the plan takes
+//     narrower slices (fc2 at K 360: 2 x 96).
+//   - A producer warpgroup gathers each tile's rows through the row map
+//     (map_row32) into a ring of S stages (S even) in the
+//     128-byte-swizzled K-major layout (K padded to 64, the pad zeroed
+//     once), with the tile's output and residual row indices beside it:
+//     bf16 rows by 8-byte cp.async a few tiles ahead, then normalized in
+//     place where LayerNorm applies; float32 rows through registers. The
+//     LayerNorm's float32 two-pass statistics are taken in registers, RP
+//     rows a warp at a time, its scale and shift read from shared memory.
+//     fence.proxy.async and an mbarrier arrive publish the stage
+//     (full[s]).
+//   - Consumer warpgroup c takes the tiles of parity c: wgmma m64nNSk16
+//     with A and B both by descriptor, one instruction per k16 step, then
+//     frees the stage (empty[s]) and runs the epilogue from its
+//     accumulator registers while the other consumer multiplies: bias,
+//     erf/tanh GELU, the residual read through r_map, one 4- or 8-byte
+//     store of two columns through o_map.
+constexpr int L_NT = 512;  // two producer + two consumer warpgroups
+constexpr int L_TM = 64;   // rows per tile (one m64 accumulator)
 constexpr int MAXK = 512;
-constexpr int BLD = BN + 8;  // bf16 pitch: 16-byte rows, aligned fragments
-constexpr int CLD = BN + 4;  // float pitch of the accumulator tile
+// registers a thread after setmaxnreg, within the 512 x 128 the block was
+// launched with (setmaxnreg.inc waits for registers the CTA does not
+// have): 256 x 88 + 256 x 168 = 65536; a producer holds 32 floats of rows,
+// a consumer an m64n184 accumulator (92)
+constexpr int L_PRODUCER_REGS = 88;
+constexpr int L_CONSUMER_REGS = 168;
+static_assert(256 * L_PRODUCER_REGS + 256 * L_CONSUMER_REGS <= L_NT * 128,
+              "register budget");
+
+// shared memory of token_linear_mma_kernel: barriers (256 bytes) and the
+// stages' row maps, the weight slice, the A stages; each 1024-aligned
+__host__ __device__ constexpr size_t l_round(size_t v) {
+  return (v + 1023) / 1024 * 1024;
+}
+// barriers, the stages' row maps, the slice's bias, the LayerNorm
+// scale and shift
+__host__ __device__ constexpr size_t l_head_bytes(int stages, int K,
+                                                  int ns) {
+  return l_round(256 + static_cast<size_t>(stages) * 3 * L_TM * 4 + 4 * ns +
+                 8 * ((K + 63) / 64 * 64));
+}
+__host__ __device__ constexpr size_t l_w_bytes(int K, int ns) {
+  return static_cast<size_t>((K + 63) / 64 * 64) * ns * 2;
+}
+__host__ __device__ constexpr size_t l_a_bytes(int K) {
+  return static_cast<size_t>(L_TM) * ((K + 63) / 64 * 64) * 2;
+}
+constexpr size_t l_smem_bytes(int K, int ns, int stages) {
+  return l_head_bytes(stages, K, ns) + l_round(l_w_bytes(K, ns)) +
+         static_cast<size_t>(stages) * l_a_bytes(K);
+}
 
 // 4 consecutive elements of a float32 or bfloat16 row (8/16-byte aligned)
 __device__ __forceinline__ float4 load4(const void* p, long long i, int dt) {
@@ -223,159 +293,468 @@ __device__ __forceinline__ float4 load4(const void* p, long long i, int dt) {
   return *reinterpret_cast<const float4*>(static_cast<const float*>(p) + i);
 }
 
-__global__ void __launch_bounds__(NT) token_linear_mma_kernel(
-    const void* __restrict__ A, int a_dt,
-    const __nv_bfloat16* __restrict__ Wp, int ldw,
-    const float* __restrict__ bias, const void* __restrict__ R, int r_dt,
-    void* __restrict__ O, int o_dt, const float* __restrict__ ln_g,
-    const float* __restrict__ ln_b, long long M, int K, int N, int gelu,
-    Geom g, int a_map, int r_map, int o_map) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int kpad = (K + BK - 1) / BK * BK;
-  const int kp = kpad + 8;  // panel pitch
-  __nv_bfloat16* Ap = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = Ap + BM * kp;                  // [2][BK][BLD]
-  float* Cs = reinterpret_cast<float*>(Bs + 2 * BK * BLD);
-  long long* orow = reinterpret_cast<long long*>(Cs + BM * CLD);
-  long long* rrow = orow + BM;
+__device__ __forceinline__ float gelu_f(float v, int gelu) {
+  if (gelu == 1) return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+  if (gelu == 2)
+    return 0.5f * v *
+           (1.f + tanhf(0.7978845608f * (v + 0.044715f * v * v * v)));
+  return v;
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const long long m0 = static_cast<long long>(blockIdx.x) * BM;
-  for (int r = tid; r < BM; r += NT) {
-    const long long t = m0 + r;
-    const bool in = t < M;
-    orow[r] = in ? map_row(t, o_map, g) : -1;
-    rrow[r] = in && R != nullptr ? map_row(t, r_map, g) : -1;
+// barrier among the `count` threads (whole warps) that name barrier `id`
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// NR rows held by a warp (row r0 + q * rstep in v[q]; lane: k = 4 (lane +
+// 32 j) .. + 3), the rows with on[q]: the optional LayerNorm (float32
+// two-pass statistics, eps 1e-5, the rows' shuffles interleaved), rounded
+// to bf16 and stored into an A stage
+template <int KJ, int NR>
+__device__ __forceinline__ void ln_store_rows(
+    float4 (&v)[NR][KJ], const bool (&on)[NR], unsigned char* as, int r0,
+    int rstep, int K, int k4, const float* __restrict__ ln_g,
+    const float* __restrict__ ln_b, int lane) {
+  float mu[NR], rs[NR];
+#pragma unroll
+  for (int q = 0; q < NR; ++q) {
+    mu[q] = 0.f;
+    rs[q] = 1.f;
   }
-
-  // the A panel: one warp per row, the row in registers (K/4 float4s)
-  const int k4 = K / 4;
-  for (int r = warp; r < BM; r += NT / 32) {
-    const long long t = m0 + r;
-    const long long row = t < M ? map_row(t, a_map, g) : -1;
-    float4 v[MAXK / 128];
+  if (ln_g != nullptr) {
 #pragma unroll
-    for (int j = 0; j < MAXK / 128; ++j) {
-      const int c = lane + 32 * j;
-      v[j] = (row >= 0 && c < k4) ? load4(A, row * K + 4 * c, a_dt)
-                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int q = 0; q < NR; ++q) {
+      mu[q] = 0.f;
+#pragma unroll
+      for (int j = 0; j < KJ; ++j)
+        mu[q] += v[q][j].x + v[q][j].y + v[q][j].z + v[q][j].w;
     }
-    float mu = 0.f, rs = 1.f;
-    if (ln_g != nullptr && row >= 0) {  // uniform across the warp
-      float s = 0.f;
 #pragma unroll
-      for (int j = 0; j < MAXK / 128; ++j) s += v[j].x + v[j].y + v[j].z + v[j].w;
-      mu = warp_sum(s) / K;
-      float q = 0.f;
+    for (int o = 16; o > 0; o >>= 1)
 #pragma unroll
-      for (int j = 0; j < MAXK / 128; ++j) {
+      for (int q = 0; q < NR; ++q)
+        mu[q] += __shfl_xor_sync(0xffffffffu, mu[q], o);
+#pragma unroll
+    for (int q = 0; q < NR; ++q) {
+      mu[q] /= K;
+      rs[q] = 0.f;
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
         if (lane + 32 * j >= k4) continue;
-        const float a = v[j].x - mu, b = v[j].y - mu, c = v[j].z - mu,
-                    d = v[j].w - mu;
-        q += a * a + b * b + c * c + d * d;
+        const float a = v[q][j].x - mu[q], b = v[q][j].y - mu[q],
+                    c = v[q][j].z - mu[q], d = v[q][j].w - mu[q];
+        rs[q] += a * a + b * b + c * c + d * d;
       }
-      rs = rsqrtf(warp_sum(q) / K + 1e-5f);
     }
 #pragma unroll
-    for (int j = 0; j < MAXK / 128; ++j) {
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+      for (int q = 0; q < NR; ++q)
+        rs[q] += __shfl_xor_sync(0xffffffffu, rs[q], o);
+#pragma unroll
+    for (int q = 0; q < NR; ++q) rs[q] = rsqrtf(rs[q] / K + 1e-5f);
+  }
+#pragma unroll
+  for (int q = 0; q < NR; ++q) {
+    if (!on[q]) continue;
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) {
       const int c = lane + 32 * j;
       if (c >= k4) continue;
-      float e[4] = {v[j].x, v[j].y, v[j].z, v[j].w};
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        if (row < 0) {
-          e[q] = 0.f;
-        } else if (ln_g != nullptr) {
-          e[q] = (e[q] - mu) * rs * ln_g[4 * c + q] + ln_b[4 * c + q];
-        }
+      float e[4] = {v[q][j].x, v[q][j].y, v[q][j].z, v[q][j].w};
+      if (ln_g != nullptr) {  // 16-byte aligned shared-memory copies
+        const float4 gg = *reinterpret_cast<const float4*>(ln_g + 4 * c);
+        const float4 bb = *reinterpret_cast<const float4*>(ln_b + 4 * c);
+        e[0] = (e[0] - mu[q]) * rs[q] * gg.x + bb.x;
+        e[1] = (e[1] - mu[q]) * rs[q] * gg.y + bb.y;
+        e[2] = (e[2] - mu[q]) * rs[q] * gg.z + bb.z;
+        e[3] = (e[3] - mu[q]) * rs[q] * gg.w + bb.w;
       }
       __nv_bfloat162 lo = __floats2bfloat162_rn(e[0], e[1]);
       __nv_bfloat162 hi = __floats2bfloat162_rn(e[2], e[3]);
-      uint2 packed;
-      packed.x = *reinterpret_cast<unsigned*>(&lo);
-      packed.y = *reinterpret_cast<unsigned*>(&hi);
-      *reinterpret_cast<uint2*>(Ap + r * kp + 4 * c) = packed;
+      *reinterpret_cast<uint2*>(
+          as + sw128_offset(r0 + q * rstep, 4 * c, L_TM)) =
+          make_uint2(*reinterpret_cast<uint32_t*>(&lo),
+                     *reinterpret_cast<uint32_t*>(&hi));
     }
-    for (int k = K + lane; k < kpad; k += 32)
-      Ap[r * kp + k] = __float2bfloat16_rn(0.f);
-  }
-
-  const int ksteps = kpad / BK, ntiles = (N + BN - 1) / BN;
-  const int total = ksteps * ntiles;
-  // one 16-byte copy per thread: BK rows x 8 chunks of 8 bf16
-  const int bk_row = tid / 8, bk_ch = tid % 8;
-  auto load_b = [&](int st) {
-    const int nt = st / ksteps, ks = st % ksteps;
-    cp_async16(Bs + ((st & 1) * BK + bk_row) * BLD + bk_ch * 8,
-               Wp + static_cast<long long>(ks * BK + bk_row) * ldw +
-                   nt * BN + bk_ch * 8);
-    cp_async_commit();
-  };
-
-  const int wm = warp % 4, wn = warp / 4;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-  load_b(0);
-  for (int st = 0; st < total; ++st) {
-    if (st + 1 < total) {
-      load_b(st + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // chunk st (and, at st 0, the panel) visible
-    const int ks = st % ksteps;
-    const __nv_bfloat16* bt = Bs + (st & 1) * BK * BLD;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          af;
-      wmma::load_matrix_sync(af, Ap + wm * 16 * kp + ks * BK + kk, kp);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major>
-            bf;
-        wmma::load_matrix_sync(bf, bt + kk * BLD + wn * 32 + j * 16, BLD);
-        wmma::mma_sync(acc[j], af, bf, acc[j]);
-      }
-    }
-    if (ks == ksteps - 1) {  // the column tile is complete: epilogue
-      const int n0 = (st / ksteps) * BN;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::store_matrix_sync(Cs + wm * 16 * CLD + wn * 32 + j * 16,
-                                acc[j], CLD, wmma::mem_row_major);
-        wmma::fill_fragment(acc[j], 0.f);
-      }
-      __syncthreads();
-      for (int e = tid; e < BM * BN; e += NT) {
-        const int r = e / BN, cc = e % BN;
-        const int c = n0 + cc;
-        const long long o = orow[r];
-        if (o < 0 || c >= N) continue;
-        float v = Cs[r * CLD + cc] + bias[c];
-        if (gelu == 1) {
-          v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-        } else if (gelu == 2) {
-          v = 0.5f * v *
-              (1.f + tanhf(0.7978845608f * (v + 0.044715f * v * v * v)));
-        }
-        if (R != nullptr) v += load_any(R, rrow[r] * N + c, r_dt);
-        store_any(O, o * N + c, o_dt, v);
-      }
-    }
-    __syncthreads();  // buffers (and Cs) free for the next step
   }
 }
 
-size_t mma_smem_bytes(int K) {
-  const int kpad = (K + BK - 1) / BK * BK;
-  return static_cast<size_t>(BM) * (kpad + 8) * 2 + 2 * BK * BLD * 2 +
-         BM * CLD * 4 + 2 * BM * sizeof(long long);
+// Columns col .. col + 3 of one output row (b: their bias): bias, GELU,
+// the residual, the store; one vector access each where N % 4 == 0 and
+// all four lie inside N (rows 8- or 16-byte aligned then), else one
+// element at a time.
+__device__ __forceinline__ void epilogue4(float (&v)[4], const float* b,
+                                          int col, int N, bool vec, int gelu,
+                                          const void* R, int r_dt,
+                                          long long rb, void* O, int o_dt,
+                                          long long ob) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = gelu_f(v[i] + b[i], gelu);
+  if (vec && col + 3 < N) {
+    if (R != nullptr) {
+      const float4 r = load4(R, rb + col, r_dt);
+      v[0] += r.x;
+      v[1] += r.y;
+      v[2] += r.z;
+      v[3] += r.w;
+    }
+    if (o_dt == kBF16) {
+      __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+      __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+      *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(O) + ob + col) =
+          make_uint2(*reinterpret_cast<uint32_t*>(&lo),
+                     *reinterpret_cast<uint32_t*>(&hi));
+    } else {
+      *reinterpret_cast<float4*>(static_cast<float*>(O) + ob + col) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (col + i >= N) continue;
+    if (R != nullptr) v[i] += load_any(R, rb + col + i, r_dt);
+    store_any(O, ob + col + i, o_dt, v[i]);
+  }
+}
+
+// KJ: float4 groups a lane holds of one row (K <= 128 KJ); RP rows a warp
+// normalizes at once (RP / 2 loaded at once on the float32 path)
+template <int NS, int KJ>
+__global__ void __launch_bounds__(L_NT, 1) token_linear_mma_kernel(
+    const void* __restrict__ A, int a_dt,
+    const __nv_bfloat16* __restrict__ Wp, const float* __restrict__ bias,
+    const void* __restrict__ R, int r_dt, void* __restrict__ O, int o_dt,
+    const float* __restrict__ ln_g, const float* __restrict__ ln_b,
+    long long M, int K, int N, int gelu, Geom g, int a_map, int r_map,
+    int o_map, int nslices, int S) {
+  constexpr int RP = 8 / KJ;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* wbar = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* full = wbar + 1;
+  uint64_t* empty = full + S;
+  int* rows_s = reinterpret_cast<int*>(smem + 256);  // [S][3][L_TM]
+  float* bias_s = reinterpret_cast<float*>(rows_s + S * 3 * L_TM);  // [NS]
+  float* lng_s = bias_s + NS;  // [kpa] each, 0 past K
+  float* lnb_s = lng_s + (K + 63) / 64 * 64;
+  unsigned char* Ws = smem + l_head_bytes(S, K, NS);
+  const uint32_t wbytes = static_cast<uint32_t>(l_w_bytes(K, NS));
+  unsigned char* As = Ws + l_round(wbytes);
+  const int abytes = static_cast<int>(l_a_bytes(K));
+  const int kpa = (K + 63) / 64 * 64, kblocks = kpa / 64, k4 = K / 4;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // warpgroups 0 and 1 produce, 2 and 3 consume; pair p (producer p,
+  // consumer p) takes the block's tiles of parity p, and with an even
+  // stage count the stages of parity p, so the pairs never wait on each
+  // other
+  const int wgi = warp / 4;
+  const int sl = static_cast<int>(blockIdx.x % nslices);
+  const long long mtiles = (M + L_TM - 1) / L_TM;
+  const long long t0 = blockIdx.x / nslices, tstep = gridDim.x / nslices;
+
+  if (tid == 0) {
+    mbar_init(wbar, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 128);
+      mbar_init(&empty[s], 128);
+    }
+    fence_barrier_init();
+  }
+  for (int e = tid; e < NS; e += L_NT)
+    bias_s[e] = sl * NS + e < N ? bias[sl * NS + e] : 0.f;
+  if (ln_g != nullptr)
+    for (int e = tid; e < kpa; e += L_NT) {
+      lng_s[e] = e < K ? ln_g[e] : 0.f;
+      lnb_s[e] = e < K ? ln_b[e] : 0.f;
+    }
+  const float* lg = ln_g != nullptr ? lng_s : nullptr;
+  // the A stages' pad columns [K, kpa), zero for good (8-byte groups)
+  const int per = (kpa - K) / 4;
+  for (int e = tid; e < S * L_TM * per; e += L_NT) {
+    const int s = e / (L_TM * per), r = (e / per) % L_TM;
+    *reinterpret_cast<uint2*>(As + s * abytes +
+                              sw128_offset(r, K + 4 * (e % per), L_TM)) =
+        make_uint2(0u, 0u);
+  }
+  fence_proxy_async();
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect_tx(wbar, wbytes);
+    bulk_g2s(Ws, Wp + static_cast<long long>(sl) * (wbytes / 2), wbytes,
+             wbar);
+  }
+
+  if (wgi < 2) {  // producers
+    setmaxnreg_dec<L_PRODUCER_REGS>();
+    const int pp = wgi, ptid = tid - 128 * pp, pw = warp % 4;
+    const long long ntiles = t0 < mtiles ? (mtiles - t0 + tstep - 1) / tstep
+                                         : 0;
+    const int nown = ntiles > pp ? static_cast<int>((ntiles - pp + 1) / 2) : 0;
+    // stage the k-th own tile's row maps: source rows (the producer's),
+    // output and residual rows (the consumer's, published with the stage)
+    auto maps = [&](int k) {
+      const int it = 2 * k + pp, st = it % S;
+      if (it >= S) mbar_wait(&empty[st], ((it / S) - 1) & 1);
+      {  // threads 0-63 the source rows, 64-127 the output and residual
+        const int r = ptid % L_TM;
+        const long long t = (t0 + it * tstep) * L_TM + r;
+        int* rw = rows_s + st * 3 * L_TM;
+        const bool in = t < M;
+        const int t32 = static_cast<int>(t);
+        if (ptid < L_TM) {
+          rw[r] = in ? map_row32(t32, a_map, g) : -1;
+        } else {
+          rw[L_TM + r] = in ? map_row32(t32, o_map, g) : -1;
+          rw[2 * L_TM + r] = in && R != nullptr ? map_row32(t32, r_map, g)
+                                                : 0;
+        }
+      }
+      named_sync(1 + pp, 128);
+    };
+    if (a_dt == kBF16) {
+      // bf16 rows: 8-byte cp.async straight into the stage (rows past M
+      // zero-filled), LA own tiles in flight ahead of the one being
+      // published; with ln_g the landed rows are normalized in place
+      const int LA = S / 2 - 1 < 2 ? S / 2 - 1 : 2;
+      const __nv_bfloat16* a16 = static_cast<const __nv_bfloat16*>(A);
+      auto issue = [&](int k) {
+        maps(k);
+        const int st = (2 * k + pp) % S;
+        unsigned char* as = As + st * abytes;
+        const int* src = rows_s + st * 3 * L_TM;
+        for (int r = pw; r < L_TM; r += 4) {
+          const int s = src[r];
+          for (int c = lane; c < k4; c += 32)
+            cp_async8z(as + sw128_offset(r, 4 * c, L_TM),
+                       s >= 0 ? a16 + static_cast<long long>(s) * K + 4 * c
+                              : a16,
+                       s >= 0 ? 8 : 0);
+        }
+      };
+      for (int i = 0; i < LA; ++i) {  // LA groups, empty past the last tile
+        if (i < nown) issue(i);
+        cp_async_commit();
+      }
+      for (int k = 0; k < nown; ++k) {
+        if (k + LA < nown) issue(k + LA);
+        cp_async_commit();
+        if (LA == 2)
+          cp_async_wait<2>();
+        else if (LA == 1)
+          cp_async_wait<1>();
+        else
+          cp_async_wait<0>();
+        // this thread's copies of the tile landed; it normalizes (with
+        // ln_g) exactly the pieces it copied, and its arrival publishes
+        const int st = (2 * k + pp) % S;
+        unsigned char* as = As + st * abytes;
+        if (lg != nullptr) {  // RP rows a warp at a time, 4 apart
+          const int* src = rows_s + st * 3 * L_TM;
+          for (int r0 = pw; r0 < L_TM; r0 += 4 * RP) {
+            float4 v[RP][KJ];
+            bool on[RP];
+#pragma unroll
+            for (int q = 0; q < RP; ++q) {
+              on[q] = src[r0 + 4 * q] >= 0;
+#pragma unroll
+              for (int j = 0; j < KJ; ++j) {
+                const int c = lane + 32 * j;
+                v[q][j] = make_float4(0.f, 0.f, 0.f, 0.f);
+                if (c < k4) {
+                  const uint2 raw = *reinterpret_cast<const uint2*>(
+                      as + sw128_offset(r0 + 4 * q, 4 * c, L_TM));
+                  const float2 lo = __bfloat1622float2(
+                      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+                  const float2 hi = __bfloat1622float2(
+                      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+                  v[q][j] = make_float4(lo.x, lo.y, hi.x, hi.y);
+                }
+              }
+            }
+            ln_store_rows<KJ, RP>(v, on, as, r0, 4, K, k4, lg, lnb_s, lane);
+          }
+        }
+        fence_proxy_async();
+        mbar_arrive(&full[st]);
+      }
+    } else {
+      // float32 rows through registers, converted (and normalized) into
+      // the stage, RP / 2 rows a warp at a time, the next group's loads
+      // issued before the current one is processed
+      constexpr int RF = RP / 2;
+      constexpr int NG = L_TM / (4 * RF);  // row groups a warp per tile
+      for (int k = 0; k < nown; ++k) {
+        maps(k);
+        const int st = (2 * k + pp) % S;
+        unsigned char* as = As + st * abytes;
+        const int* src = rows_s + st * 3 * L_TM;
+        float4 v[2][RF][KJ];
+        auto load = [&](float4 (&u)[RF][KJ], int r0) {
+#pragma unroll
+          for (int q = 0; q < RF; ++q)
+#pragma unroll
+            for (int j = 0; j < KJ; ++j) {
+              const int c = lane + 32 * j, s = src[r0 + q];
+              u[q][j] = s >= 0 && c < k4
+                            ? load4(A, static_cast<long long>(s) * K + 4 * c,
+                                    a_dt)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+            }
+        };
+        load(v[0], pw * RF);
+#pragma unroll
+        for (int i = 0; i < NG; ++i) {
+          const int r0 = (4 * i + pw) * RF;
+          if (i + 1 < NG) load(v[(i + 1) & 1], r0 + 4 * RF);
+          bool on[RF];
+#pragma unroll
+          for (int q = 0; q < RF; ++q) on[q] = src[r0 + q] >= 0;
+          ln_store_rows<KJ, RF>(v[i & 1], on, as, r0, 1, K, k4, lg, lnb_s,
+                                lane);
+        }
+        fence_proxy_async();
+        mbar_arrive(&full[st]);
+      }
+    }
+    return;
+  }
+
+  // consumers
+  setmaxnreg_inc<L_CONSUMER_REGS>();
+  const int ci = wgi - 2, wq = warp % 4;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int n0 = sl * NS;
+  mbar_wait(wbar, 0);
+  float acc[NS / 2];
+  int it = 0;
+  for (long long tile = t0; tile < mtiles; tile += tstep, ++it) {
+    if ((it & 1) != ci) continue;
+    const int st = it % S;
+    mbar_wait(&full[st], (it / S) & 1);
+    const unsigned char* as = As + st * abytes;
+    wgmma_fence();
+    for (int kb = 0; kb < kblocks; ++kb) {  // 64 k a block, 4 k16 steps
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wgmma_ss<NS>(acc, a_desc_sw128(as + kb * (L_TM * 128) + j * 32),
+                     b_desc(Ws + (4 * kb + j) * NS * 32, NS * 16),
+                     kb > 0 || j > 0);
+    }
+    wgmma_commit();
+    const int* rw = rows_s + st * 3 * L_TM + L_TM;
+    const int r0 = wq * 16 + gq;
+    const int orow[2] = {rw[r0], rw[r0 + 8]};
+    const int rrow[2] = {rw[L_TM + r0], rw[L_TM + r0 + 8]};
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&empty[st]);
+    // Lanes t and t ^ 1 of a quad swap halves of column groups j and j + 1,
+    // so each holds 4 consecutive columns: one 8-byte (bf16) or 16-byte
+    // (f32) store, residual load and bias read instead of two.
+    const bool odd = tq & 1;
+    const bool vec = (N & 3) == 0;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (orow[half] < 0) continue;
+      const long long ob = static_cast<long long>(orow[half]) * N;
+      const long long rb = static_cast<long long>(rrow[half]) * N;
+#pragma unroll
+      for (int j = 0; j + 1 < NS / 8; j += 2) {
+        const float x0 = acc[4 * j + 2 * half], x1 = acc[4 * j + 2 * half + 1];
+        const float y0 = acc[4 * j + 4 + 2 * half],
+                    y1 = acc[4 * j + 5 + 2 * half];
+        const float s0 = __shfl_xor_sync(0xffffffffu, odd ? x0 : y0, 1);
+        const float s1 = __shfl_xor_sync(0xffffffffu, odd ? x1 : y1, 1);
+        float v[4] = {odd ? s0 : x0, odd ? s1 : x1, odd ? y0 : s0,
+                      odd ? y1 : s1};
+        const int cl = odd ? 8 * (j + 1) + 2 * (tq - 1) : 8 * j + 2 * tq;
+        epilogue4(v, bias_s + cl, n0 + cl, N, vec, gelu, R, r_dt, rb, O,
+                  o_dt, ob);
+      }
+      if constexpr ((NS / 8) % 2 == 1) {  // the last group alone
+        constexpr int j = NS / 8 - 1;
+        const int cl = 8 * j + 2 * tq;
+        const int col = n0 + cl;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          if (col + i >= N) continue;
+          float v = gelu_f(acc[4 * j + 2 * half + i] + bias_s[cl + i], gelu);
+          if (R != nullptr) v += load_any(R, rb + col + i, r_dt);
+          store_any(O, ob + col + i, o_dt, v);
+        }
+      }
+    }
+  }
+}
+
+// The GEMM core's own check (tests/test_torch_kernels.py): one warpgroup
+// computes D (64 x NS, float32) = A (64 x K, bf16 row-major, K <= 64 a
+// multiple of 16) x B (the first NS columns of a kernel_matrix form),
+// with A staged in the 128-byte-swizzled layout and read by descriptor
+// (rs 0) or by ldmatrix into registers (rs 1), B by bulk copy.
+template <int NS>
+__global__ void __launch_bounds__(128) gemm_tile_kernel(
+    const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ Bp,
+    float* __restrict__ D, int K, int rs) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  unsigned char* As = smem + 1024;
+  unsigned char* Bs = As + 64 * 64 * 2;
+  const int tid = threadIdx.x, wq = tid / 32, lane = tid % 32;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    fence_barrier_init();
+  }
+  for (int e = tid; e < 64 * 64; e += 128) {
+    const int r = e / 64, k = e % 64;
+    *reinterpret_cast<__nv_bfloat16*>(As + sw128_offset(r, k, 64)) =
+        k < K ? A[r * K + k] : __float2bfloat16_rn(0.f);
+  }
+  fence_proxy_async();
+  __syncthreads();
+  const uint32_t bbytes = static_cast<uint32_t>(K) * NS * 2;
+  if (tid == 0) {
+    mbar_arrive_expect_tx(bar, bbytes);
+    bulk_g2s(Bs, Bp, bbytes, bar);
+  }
+  mbar_wait(bar, 0);
+  float acc[NS / 2];
+  uint32_t a[4][4];
+  if (rs) {
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      if (ks < K / 16)
+        ldmatrix_x4(a[ks], As + sw128_offset(wq * 16 + frag_row(lane),
+                                             ks * 16 + 8 * frag_khalf(lane),
+                                             64));
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      if (ks < K / 16)
+        wgmma_rs<NS>(acc, a[ks], b_desc(Bs + ks * NS * 32, NS * 16), ks > 0);
+  } else {
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      if (ks < K / 16)
+        wgmma_ss<NS>(acc, a_desc_sw128(As + ks * 32),
+                     b_desc(Bs + ks * NS * 32, NS * 16), ks > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+  fence_regs(a);
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NS / 8; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = wq * 16 + gq + 8 * half, c = 8 * j + 2 * tq;
+      D[r * NS + c] = acc[4 * j + 2 * half];
+      D[r * NS + c + 1] = acc[4 * j + 2 * half + 1];
+    }
 }
 
 constexpr int QCF = 64;     // float32: query rows per block
@@ -902,40 +1281,88 @@ size_t attention_wide_smem(int n, int C, int heads) {
 
 }  // namespace
 
-// ldw: row pitch of the weight. For bf16 the wrapper passes the weight
-// zero-padded to (Kpad, ldw), Kpad = K rounded up to 32, ldw to 64, and
-// requires K % 4 == 0 and K <= 512 (the register-held A rows).
+// bf16: Wt is the packed form of ops/swin_block.py:kernel_matrix for a
+// slice width `ns` (an instantiated width); `stages`, `smem` and `grid` are
+// the wrapper's launch plan (token_linear_plan): the ring depth (even),
+// the shared memory bytes (which must cover what the kernel lays out) and
+// the number of persistent blocks (a multiple of the slice count). K % 4
+// == 0, K <= 512, rows with 16-byte aligned starts, M and every mapped
+// row < 2^31.
+// float32: Wt is (K, N) row-major and the plan arguments are unused.
 extern "C" int token_linear(const void* A, int a_dt, const void* Wt,
-                            int w_dt, int ldw, const void* bias,
+                            int w_dt, int ns, const void* bias,
                             const void* R, int r_dt, void* O, int o_dt,
                             const void* ln_g, const void* ln_b, long long M,
                             int K, int N, int gelu, int B, int H, int W,
                             int ws, int dc, int a_map, int r_map, int o_map,
-                            void* stream) {
+                            int stages, int smem, int grid, void* stream) {
   const Geom g{B, H, W, ws, dc};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* lg = static_cast<const float*>(ln_g);
   const float* lb = static_cast<const float*>(ln_b);
   const float* bf = static_cast<const float*>(bias);
   if (w_dt == kBF16) {
-    if (K % 4 != 0 || K > MAXK || ldw % BN != 0) return cudaErrorInvalidValue;
-    const size_t smem = mma_smem_bytes(K);
-    const cudaError_t e = cudaFuncSetAttribute(
-        token_linear_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const dim3 grid(static_cast<unsigned>((M + BM - 1) / BM));
-    token_linear_mma_kernel<<<grid, NT, smem, s>>>(
-        A, a_dt, static_cast<const __nv_bfloat16*>(Wt), ldw, bf, R, r_dt, O,
-        o_dt, lg, lb, M, K, N, gelu, g, a_map, r_map, o_map);
-  } else {
-    const long long tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
-    const dim3 grid(static_cast<unsigned>(tiles));
-    token_linear_kernel<<<grid, NT, 0, s>>>(
-        A, a_dt, static_cast<const float*>(Wt), bf, R, r_dt, O, o_dt, lg,
-        lb, M, K, N, gelu, g, a_map, r_map, o_map);
+    const int nslices = (N + ns - 1) / ns;
+    if (K % 4 != 0 || K > MAXK || stages < 2 || stages > 8 || stages % 2 ||
+        grid % nslices != 0 ||
+        static_cast<size_t>(smem) < l_smem_bytes(K, ns, stages))
+      return cudaErrorInvalidValue;
+    auto launch = [&](auto kernel) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      kernel<<<grid, L_NT, smem, s>>>(
+          A, a_dt, static_cast<const __nv_bfloat16*>(Wt), bf, R, r_dt, O,
+          o_dt, lg, lb, M, K, N, gelu, g, a_map, r_map, o_map, nslices,
+          stages);
+      return static_cast<int>(cudaGetLastError());
+    };
+    const bool narrow = K <= 256;
+    switch (ns) {
+#define IRK_CASE(n)                                      \
+  case n:                                                \
+    return narrow ? launch(token_linear_mma_kernel<n, 2>) \
+                  : launch(token_linear_mma_kernel<n, 4>);
+      IRK_GEMM_WIDTHS_192(IRK_CASE)
+#undef IRK_CASE
+      default:
+        return cudaErrorInvalidValue;
+    }
   }
+  const long long tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  const dim3 grid32(static_cast<unsigned>(tiles));
+  token_linear_kernel<<<grid32, NT, 0, s>>>(
+      A, a_dt, static_cast<const float*>(Wt), bf, R, r_dt, O, o_dt, lg, lb,
+      M, K, N, gelu, g, a_map, r_map, o_map);
   return static_cast<int>(cudaGetLastError());
+}
+
+// D = A x B for one 64-row tile through the GEMM core (gemm_tile_kernel):
+// A (64, K) bf16, K in {16, 32, 48, 64}; Bp the kernel_matrix form of a
+// (K, ns) weight; rs 1 takes A from registers, 0 by descriptor.
+extern "C" int gemm_tile(const void* A, const void* Bp, void* D, int K,
+                         int ns, int rs, void* stream) {
+  if (K % 16 != 0 || K < 16 || K > 64) return cudaErrorInvalidValue;
+  const int smem = 1024 + 64 * 64 * 2 + 64 * ns * 2;
+  auto launch = [&](auto kernel) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<1, 128, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const __nv_bfloat16*>(A),
+        static_cast<const __nv_bfloat16*>(Bp), static_cast<float*>(D), K,
+        rs);
+    return static_cast<int>(cudaGetLastError());
+  };
+  switch (ns) {
+#define IRK_CASE(n) \
+  case n:           \
+    return launch(gemm_tile_kernel<n>);
+    IRK_GEMM_WIDTHS(IRK_CASE)
+#undef IRK_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // mask: nullptr or the (nmask, N, N) full mask (window w takes mask[w %

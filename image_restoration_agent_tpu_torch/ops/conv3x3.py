@@ -8,22 +8,23 @@ TPU row-strip MXU kernel). The CUDA kernel is ``csrc/conv3x3.cu`` (K3):
   the conv is 6.1e11 FLOP against 0.76 GB of bf16 input and output, about
   800 FLOP per byte, so the tensor-core rate bounds it (0.62 ms in bf16);
   the f32 exact path is bound by the 67 TFLOP/s FP32 rate (9.2 ms).
-- Design: an implicit GEMM with no im2col in device memory. A block owns
-  64 output pixels of one row and 64 output channels; it stages a 3-row,
-  66-column halo of the input in shared memory, a chunk of input channels
-  at a time, with the folded roll resolved in the load addresses (modular
-  indices) and SAME zero padding applied at the edges of the rolled
-  canvas. With ``ln_pre`` the block first computes each halo pixel's
-  LayerNorm statistics, normalizes while staging, and zero-pads the LN
-  *output* (LN(0) = bias is not what the reference pads with). In bf16 the
-  9 taps run as WMMA 16x16x16 fragments on the tensor cores (float32
-  accumulators), with the weight slab copied by 16-byte ``cp.async`` from
-  the zero-padded kernel form (:func:`conv3x3_weights`, made once per
-  weight by its owner); in f32 they run on FP32 FMA (4x4
-  outputs per thread, no TF32). Bias, activation and residual are applied
-  in float32 before the single cast on store. What it does not do yet:
-  ``wgmma``, TMA, a pipelined halo, reuse of the halo across the output
-  channel chunks (it is staged once per 64 output channels).
+- Design: an implicit GEMM with no im2col in device memory; the folded
+  roll is resolved in the load addresses (modular indices) and SAME zero
+  padding applied at the edges of the rolled canvas; with ``ln_pre`` each
+  halo pixel's LayerNorm statistics come first, the input is normalized
+  while it is staged, and the zero padding applies to the LN *output*
+  (LN(0) = bias is not what the reference pads with). Bias, activation and
+  residual are applied in float32 before the single cast on store.
+- bf16 (the serving mode): ``wgmma`` on the tensor cores
+  (``csrc/sm90_gemm.cuh``). A block owns 2 output rows x 64 pixels x one
+  slice of at most 256 output channels (two warpgroups, one m64 row
+  each); the (2+2) x 66 halo is staged once for every output channel, 16
+  input channels a stage, through a 2-4 stage ring whose weight half
+  arrives by one bulk copy per stage from the packed form
+  (:func:`conv3x3_weights`), and the epilogue runs from the accumulator
+  registers. :func:`conv3x3_plan` is the launch plan.
+- f32 (the exact mode): a block owns 64 pixels of one row and 64 output
+  channels, 4x4 outputs per thread on FP32 FMA (no TF32).
 
 :func:`conv3x3_pair` replaces ``conv3x3_pair_pallas`` (two chained SAME
 convs, the intermediate ``u`` kept on chip) with K7,
@@ -80,9 +81,13 @@ def conv3x3_plain(x: torch.Tensor, w: torch.Tensor,
 
 class Conv3x3Weights(NamedTuple):
     """K3's weight form, made once per weight (:func:`conv3x3_weights`):
-    HWIO in the compute dtype, contiguous, and in bfloat16 zero-padded to
-    Cin/32 x Cout/64 for aligned 16-byte copies; the bias in float32.
-    ``cin`` and ``cout`` are the true channel counts."""
+    in float32 the HWIO weight, contiguous; in bfloat16 the packed order
+    the tensor-core kernel copies one stage at a time, (slices, Cin/16, 9
+    taps, 2, NS/8, 8, 8): for each output-channel slice of NS columns and
+    each 16-channel chunk of the input, the 9 taps' 16 x NS blocks as 8 x 8
+    core matrices (8 output channels x 8 input channels, input channels
+    fastest), zero-padded. The bias in float32. ``cin`` and ``cout`` are
+    the true channel counts."""
 
     w: torch.Tensor
     b: torch.Tensor | None
@@ -91,7 +96,14 @@ class Conv3x3Weights(NamedTuple):
 
     @property
     def hwio(self) -> torch.Tensor:
-        return self.w[:, :, :self.cin, :self.cout]
+        """The (3, 3, Cin, Cout) weight this form holds."""
+        w = self.w
+        if w.dim() == 4:
+            return w[:, :, :self.cin, :self.cout]
+        ns_, nc = w.shape[0], w.shape[1]
+        ns = w.shape[4] * 8
+        w = w.permute(2, 1, 3, 6, 0, 4, 5).reshape(3, 3, nc * 16, ns_ * ns)
+        return w[:, :, :self.cin, :self.cout]
 
 
 def conv3x3_weights(w: torch.Tensor, b: torch.Tensor | None,
@@ -100,9 +112,40 @@ def conv3x3_weights(w: torch.Tensor, b: torch.Tensor | None,
     cin, cout = w.shape[2], w.shape[3]
     wk = w.detach().to(dtype)
     if dtype == torch.bfloat16:
-        wk = F.pad(wk, (0, -cout % 64, 0, -cin % 32))
+        nsl, ns = kernels.gemm_slices(cout)
+        nc = -(-cin // 16)
+        wk = F.pad(wk, (0, nsl * ns - cout, 0, nc * 16 - cin))
+        # (tap, chunk, k half, k, slice, n group, n) -> (slice, chunk, tap,
+        # k half, n group, n, k)
+        wk = wk.reshape(9, nc, 2, 8, nsl, ns // 8, 8).permute(
+            4, 1, 0, 2, 5, 6, 3)
     bk = None if b is None else b.detach().float().contiguous()
     return Conv3x3Weights(wk.contiguous(), bk, cin, cout)
+
+
+# conv3x3_mma_kernel's tile and shared memory (csrc/conv3x3.cu: M_TH, TP,
+# M_KC, M_FIXED, M_HALO_BYTES)
+CONV_ROWS, CONV_PIXELS, CONV_KC = 2, 64, 16
+_CONV_FIXED = 128 + 16 * (CONV_ROWS + 2) * (CONV_PIXELS + 2)
+_CONV_HALO = (CONV_ROWS + 2) * (CONV_PIXELS + 2) * CONV_KC * 2
+
+
+def conv3x3_smem(ns: int, stages: int) -> int:
+    return _CONV_FIXED + stages * (_CONV_HALO + 9 * ns * CONV_KC * 2)
+
+
+def conv3x3_plan(b: int, h: int, w: int, cin: int,
+                 cout: int) -> kernels.LaunchPlan:
+    """The bf16 K3 launch for a (b, h, w, cin) -> cout conv: one block per
+    (2 rows, 64 pixels, output-channel slice), the deepest ring of 2-4
+    stages that fits (each stage a 16-channel chunk: 9 x 16 x NS weights
+    and the 4 x 66-pixel halo)."""
+    nsl, ns = kernels.gemm_slices(cout)
+    stages = max(s for s in (2, 3, 4)
+                 if s == 2 or conv3x3_smem(ns, s) <= kernels.SMEM_LIMIT)
+    grid = b * -(-h // CONV_ROWS) * -(-w // CONV_PIXELS) * nsl
+    return kernels.LaunchPlan(grid, 256, nsl, ns, stages,
+                              conv3x3_smem(ns, stages))
 
 
 def conv3x3_fits(h: int, w: int) -> bool:
@@ -119,9 +162,14 @@ def _conv3x3_cuda(x, k: Conv3x3Weights, act, res, roll, ln_pre):
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"conv3x3 kernel takes float32 or bfloat16, "
                         f"not {x.dtype}")
-    pad = (-cin % 32, -cout % 64) if x.dtype == torch.bfloat16 else (0, 0)
+    plan = None
+    if x.dtype == torch.bfloat16:
+        plan = conv3x3_plan(bsz, h, wd, cin, cout)
+        want = (plan.slices, -(-cin // 16), 9, 2, plan.ns // 8, 8, 8)
+    else:
+        want = (3, 3, cin, cout)
     if k.cin != cin or k.w.dtype != x.dtype or not k.w.is_contiguous() \
-            or k.w.shape != (3, 3, cin + pad[0], cout + pad[1]):
+            or k.w.shape != want:
         raise ValueError(f"weight {tuple(k.w.shape)} {k.w.dtype} is not the "
                          f"kernel form for input {tuple(x.shape)} {x.dtype}")
     if k.b is not None and (k.b.dtype != torch.float32
@@ -142,17 +190,21 @@ def _conv3x3_cuda(x, k: Conv3x3Weights, act, res, roll, ln_pre):
             raise ValueError("conv3x3 operands on different devices")
     out = torch.empty((bsz, h, wd, cout), dtype=x.dtype, device=x.device)
     lib = kernels.load("conv3x3")
-    fn = lib.conv3x3_f32 if x.dtype == torch.float32 else lib.conv3x3_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
-        + [ctypes.c_void_p]
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = fn(ptr(x), ptr(wk), ptr(bk), ptr(res), ptr(lg), ptr(lb), ptr(out),
-             bsz, h, wd, cin, cout, int(roll), _ACTS[act],
-             torch.cuda.current_stream(x.device).cuda_stream)
+    args = [ptr(x), ptr(wk), ptr(bk), ptr(res), ptr(lg), ptr(lb), ptr(out),
+            bsz, h, wd, cin, cout, int(roll), _ACTS[act]]
+    if plan is None:
+        fn = lib.conv3x3_f32
+    else:
+        fn = lib.conv3x3_bf16
+        args += [plan.ns, plan.stages, plan.smem]
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 \
+        + [ctypes.c_int] * (len(args) - 7) + [ctypes.c_void_p]
+    err = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(err, "conv3x3")
     conv3x3.launches += 1
     return out

@@ -21,6 +21,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -29,6 +30,42 @@ SOURCES = ("swin_block", "conv3x3", "restormer_fused", "roll2d",
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo"]
+
+# the N widths K1's and K3's bf16 kernels are instantiated for
+# (csrc/sm90_gemm.cuh: IRK_GEMM_WIDTHS); a slice runs at the first >= it
+GEMM_WIDTHS = (8, 16, 24, 32, 48, 64, 96, 128, 184, 192, 256)
+# shared memory one block may use on the H100 (227 KB)
+SMEM_LIMIT = 232448
+
+
+class LaunchPlan(NamedTuple):
+    """How a bf16 K1 or K3 launch covers its output: ``grid`` blocks of
+    ``threads``; the output columns as ``slices`` slices of ``ns`` (an
+    instantiated wgmma width); a ring of ``stages`` shared-memory stages;
+    ``smem`` bytes of shared memory a block."""
+
+    grid: int
+    threads: int
+    slices: int
+    ns: int
+    stages: int
+    smem: int
+
+
+def gemm_width(n: int) -> int:
+    """The instantiated wgmma width a slice of ``n`` columns runs at."""
+    for w in GEMM_WIDTHS:
+        if w >= n:
+            return w
+    raise ValueError(f"no wgmma width holds {n} columns (at most 256)")
+
+
+def gemm_slices(n: int) -> tuple[int, int]:
+    """(slices, width): ``n`` columns as the fewest equal slices of at
+    most 256 columns, each at its instantiated width."""
+    k = -(-n // 256)
+    return k, gemm_width(-(-n // k))
+
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -100,6 +137,12 @@ def load(name: str) -> ctypes.CDLL:
                 _finish(name, *job)
             _libs[name] = ctypes.CDLL(str(_lib_path(name)))
         return _libs[name]
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the card holding ``device``."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(err: int, what: str) -> None:

@@ -45,11 +45,14 @@ The block's CUDA path is two hand-written kernels in
   with float32 two-pass statistics; a gather that reads token ``t`` of
   window order from ``x[(i - dc) mod H, (j - dc) mod W]``) and a fused
   epilogue (bias, erf- or tanh-GELU, residual, and a scatter from window
-  order to the output frame). In bf16 a block reads its 64 rows once into
-  a shared-memory panel and streams the weight (zero-padded once, when the
-  block's weights are prepared) through two buffers with ``cp.async``; the products are WMMA 16x16x16
-  bf16 fragments with float32 accumulators. In f32 it runs 64x64 tiles on
-  FP32 FMA (no TF32).
+  order to the output frame). In bf16 it runs on ``wgmma``
+  (``csrc/sm90_gemm.cuh``): persistent blocks, each holding one slice of
+  at most 192 output columns of the weight in shared memory for its whole
+  walk (bulk-copied once from the packed form of :func:`kernel_matrix`);
+  a producer warpgroup gathers and normalizes 64-row tiles into a ring of
+  stages while two consumer warpgroups multiply and run the epilogue from
+  their accumulator registers (:func:`token_linear_plan` is the launch
+  plan). In f32 it runs 64x64 tiles on FP32 FMA (no TF32).
 - K2 ``window_attention``: N = ws^2 <= 256 tokens per window; q, k, v, the
   logits and ``p`` live in shared memory; the logits are ``(q.k) * scale
   + bias``, ``scale`` 1 where q is pre-scaled. In bf16 at N <= 64 one
@@ -79,8 +82,7 @@ C 180, 6 heads) is 6.0e11 FLOP against 0.76 GB of bf16 input and output,
 so the tensor-core rate bounds it (about 0.6 ms in bf16; 8.9 ms on the
 FP32 pipes in f32). This form still writes the qkv, attention, x1 and
 hidden intermediates to device memory (about 7 GB of traffic per block in
-bf16) and uses WMMA rather than ``wgmma``; keeping the block on chip is
-later work.
+bf16); keeping the block on chip is later work.
 
 :func:`swin_pair_block` replaces ``swin_pair_strip_pallas`` (an RSTB's
 unshifted + shifted block pair in one launch, block A's output kept on
@@ -136,10 +138,10 @@ def pad_width_for_strips(w: int, ws: int = 8) -> int:
 
 
 class SwinBlockParams(NamedTuple):
-    """One block's weights in kernel form: matrices (K, N) row-major in
-    the compute dtype with the logit scale folded into the q columns (in
-    bfloat16 zero-padded to K/32 x N/64, see :func:`kernel_matrix`);
-    vectors and the (heads, N, N) relative-position bias in float32."""
+    """One block's weights in kernel form: matrices (K, N) in the compute
+    dtype with the logit scale folded into the q columns (row-major in
+    float32, packed in bfloat16, see :func:`kernel_matrix`); vectors and
+    the (heads, N, N) relative-position bias in float32."""
 
     ln1_w: torch.Tensor
     ln1_b: torch.Tensor
@@ -161,18 +163,35 @@ class SwinBlockParams(NamedTuple):
 
 
 def kernel_matrix(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """K1's weight form of a (K, N) matrix: contiguous in ``dtype``, and in
-    bfloat16 zero-padded to K/32 x N/64, so the tensor-core path streams it
-    in aligned 16-byte copies. The true K and N are the rows of the operand
-    and the length of the bias."""
+    """K1's weight form of a (K, N) matrix, contiguous in ``dtype``: in
+    float32 the matrix itself; in bfloat16 the order the tensor-core kernel
+    bulk-copies into shared memory, (slices, K/8, NS/8, 8, 8): N cut into
+    :func:`token_linear_slices` slices of NS columns, each slice's K x NS
+    block as 8 x 8 core matrices (8 columns x 8 k, k fastest), K padded to
+    64 (the A operand's 128-byte swizzle blocks), zero-padded. The true K
+    and N are the rows of the operand and the length of the bias
+    (:func:`_dense` recovers the matrix)."""
     w = w.to(dtype)
     if dtype == torch.bfloat16:
-        w = F.pad(w, (0, -w.shape[1] % 64, 0, -w.shape[0] % 32))
+        nsl, ns, _ = token_linear_slices(*w.shape)
+        w = _core_matrices(w, nsl, ns)
     return w.contiguous()
+
+
+def _core_matrices(w: torch.Tensor, nsl: int, ns: int) -> torch.Tensor:
+    """(K, N) -> (nsl, K/8, ns/8, 8, 8), K zero-padded to 64 and N to
+    nsl * ns: the packed order of :func:`kernel_matrix`."""
+    k, n = w.shape
+    kp = -(-k // 64) * 64
+    w = F.pad(w, (0, nsl * ns - n, 0, kp - k))
+    return w.reshape(kp // 8, 8, nsl, ns // 8, 8).permute(2, 0, 3, 4, 1)
 
 
 def _dense(w: torch.Tensor, k: int, n: int) -> torch.Tensor:
     """The true (K, N) matrix of a kernel-form weight, in float32."""
+    if w.dim() == 5:
+        nsl, kg, ng = w.shape[:3]
+        w = w.permute(1, 4, 0, 2, 3).reshape(kg * 8, nsl * ng * 8)
     return w[:k, :n].float()
 
 
@@ -280,13 +299,71 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+# token_linear_mma_kernel's tile and shared memory (csrc/swin_block.cu:
+# L_TM, l_smem_bytes): four warpgroups, 64-row tiles, an even ring of 2-8
+LINEAR_ROWS, LINEAR_MAX_STAGES = 64, 8
+# the widest slice: 512 threads leave 128 registers a thread at launch, too
+# few for an m64n256 accumulator
+LINEAR_MAX_N = 192
+
+
+def _round1k(v: int) -> int:
+    return -(-v // 1024) * 1024
+
+
+def token_linear_smem(k: int, ns: int, stages: int) -> int:
+    kp = -(-k // 64) * 64
+    head = _round1k(256 + stages * 3 * LINEAR_ROWS * 4 + 4 * ns + 8 * kp)
+    return head + _round1k(kp * ns * 2) + stages * LINEAR_ROWS * kp * 2
+
+
+def token_linear_slices(k: int, n: int) -> tuple[int, int, int]:
+    """(slices, NS, stages) of the bf16 K1 for a (K, N) weight: the fewest
+    slices of at most 192 columns whose NS-column weight block stays in
+    shared memory beside a ring of at least two 64-row A stages (qkv 540
+    as 3 x 184, fc1 360 as 2 x 184, proj 180 as 184; fc2 at K 360 as
+    2 x 96), with the deepest even ring that fits (its two
+    producer-consumer pairs take alternate stages). A K the kernel does
+    not take (K % 4 or K > 512) gets the slices and no stages."""
+    nsl = -(-n // LINEAR_MAX_N)
+    if k % 4 or k > 512:
+        return nsl, kernels.gemm_width(-(-n // nsl)), 0
+    while True:
+        ns = kernels.gemm_width(-(-n // nsl))
+        fits = [s for s in range(2, LINEAR_MAX_STAGES + 1, 2)
+                if token_linear_smem(k, ns, s) <= kernels.SMEM_LIMIT]
+        if fits:
+            return nsl, ns, max(fits)
+        nsl += 1
+
+
+def token_linear_plan(m: int, k: int, n: int, sms: int) -> kernels.LaunchPlan:
+    """The bf16 K1 launch: persistent blocks, ``sms // slices`` a slice
+    (no more than the 64-row tiles), each walking tiles b, b + step, ...
+    of its slice; 512 threads (two producer and two consumer
+    warpgroups)."""
+    nsl, ns, stages = token_linear_slices(k, n)
+    per = max(1, min(-(-m // LINEAR_ROWS), sms // nsl))
+    return kernels.LaunchPlan(nsl * per, 512, nsl, ns, stages,
+                              token_linear_smem(k, ns, stages))
+
+
 def _token_linear_cuda(a, w, b, ln, gelu, res, geom, a_map, r_map, o_map,
                        out_dtype):
     m, k = a.shape
     n = b.shape[0]
-    want = (k, n)
+    plan = None
     if w.dtype == torch.bfloat16:
-        want = (k + -k % 32, n + -n % 64)
+        # the tensor-core path reads each row in 8- or 16-byte pieces
+        # (K % 4, K <= 512, 16-byte aligned rows) and holds row indices
+        # in 32 bits
+        if k % 4 or k > 512 or a.data_ptr() % 16 or m >= 2 ** 31:
+            raise ValueError(f"bf16 token_linear needs K % 4 == 0, K <= 512, "
+                             f"16-byte aligned rows and M < 2^31 (K={k})")
+        plan = token_linear_plan(m, k, n, kernels.sm_count(a.device))
+        want = (plan.slices, -(-k // 64) * 8, plan.ns // 8, 8, 8)
+    else:
+        want = (k, n)
     if w.shape != want:
         raise ValueError(f"weight {tuple(w.shape)} is not the kernel form "
                          f"{want} (kernel_matrix) for K={k}, N={n}")
@@ -308,13 +385,6 @@ def _token_linear_cuda(a, w, b, ln, gelu, res, geom, a_map, r_map, o_map,
         if bb * hh * ww != m or hh % ws or ww % ws:
             raise ValueError(f"row maps need geom (B, H, W, ws, dc) with "
                              f"B*H*W == {m} rows and H, W multiples of ws")
-    if w.dtype == torch.bfloat16:
-        # the tensor-core path holds each row in registers (K % 4, K <= 512,
-        # 16-byte aligned rows) and streams the padded weight in 16-byte
-        # copies
-        if k % 4 or k > 512 or a.data_ptr() % 16:
-            raise ValueError(f"bf16 token_linear needs K % 4 == 0, K <= 512 "
-                             f"and 16-byte aligned rows (K={k})")
     g = geom or (1, 1, 1, 1, 0)
     out = torch.empty((m, n), dtype=out_dtype or w.dtype, device=a.device)
     fn = kernels.load("swin_block").token_linear
@@ -324,12 +394,14 @@ def _token_linear_cuda(a, w, b, ln, gelu, res, geom, a_map, r_map, o_map,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+                   ctypes.c_int] + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     lg, lb = ln if ln is not None else (None, None)
-    err = fn(_ptr(a), _DT[a.dtype], _ptr(w), _DT[w.dtype], w.shape[1],
+    ns, stages, smem, grid = (plan.ns, plan.stages, plan.smem, plan.grid) \
+        if plan is not None else (0, 0, 0, 0)
+    err = fn(_ptr(a), _DT[a.dtype], _ptr(w), _DT[w.dtype], ns,
              _ptr(b), _ptr(res), _DT[res.dtype] if res is not None else 0,
              _ptr(out), _DT[out.dtype], _ptr(lg), _ptr(lb), m, k, n,
-             _GELU[gelu], *g, a_map, r_map, o_map,
+             _GELU[gelu], *g, a_map, r_map, o_map, stages, smem, grid,
              torch.cuda.current_stream(a.device).cuda_stream)
     kernels.check(err, "token_linear")
     token_linear.launches += 1
@@ -365,6 +437,41 @@ def token_linear(a, w, b, *, ln=None, gelu=None, res=None, geom=None,
 
 
 token_linear.launches = 0
+
+
+def gemm_tile_plain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`gemm_tile`: ``a @ w`` in float32."""
+    return a.float() @ w.float()
+
+
+def gemm_tile(a: torch.Tensor, w: torch.Tensor, *,
+              a_in_registers: bool) -> torch.Tensor:
+    """One 64-row tile through the Hopper GEMM core (``csrc/sm90_gemm.cuh``,
+    one warpgroup), the core's own check: ``a`` (64, K) bf16 with K in
+    16..64 a multiple of 16, ``w`` a (K, N) bf16 weight with N one
+    instantiated width, packed here as one :func:`kernel_matrix` slice;
+    returns the (64, N) float32 product, A read by descriptor or, with
+    ``a_in_registers``, by ldmatrix into registers (K3's form). A CPU
+    tensor takes :func:`gemm_tile_plain`."""
+    if not a.is_cuda:
+        return gemm_tile_plain(a, w)
+    k, n = w.shape
+    if a.shape != (64, k) or k % 16 or not 16 <= k <= 64 \
+            or n not in kernels.GEMM_WIDTHS or a.dtype != torch.bfloat16 \
+            or w.dtype != torch.bfloat16:
+        raise ValueError("gemm_tile takes a (64, K) and a (K, N) bf16 "
+                         "tile, K in 16..64, N an instantiated width")
+    a, w = a.contiguous(), _core_matrices(w, 1, n).contiguous()
+    out = torch.empty((64, n), dtype=torch.float32, device=a.device)
+    fn = kernels.load("swin_block").gemm_tile
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    err = fn(a.data_ptr(), w.data_ptr(), out.data_ptr(), k, n,
+             int(a_in_registers),
+             torch.cuda.current_stream(a.device).cuda_stream)
+    kernels.check(err, "gemm_tile")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -798,12 +905,13 @@ def _pair_form(p: SwinBlockParams, c: int, num_heads: int):
     bias head-major (per head [q | k | v], each zero-padded to ``hdp``
     columns: 16 in bfloat16, the head width in float32) and proj's rows to
     match, so every head's slices are aligned fragments; the MLP weights
-    in their K1 form, fc2's rows padded to fc1's padded width."""
+    row-major, in bfloat16 zero-padded (K to 32, N to 64) for aligned
+    16-byte copies, fc2's rows to fc1's padded width."""
     dt = p.wqkv.dtype
     bf = dt == torch.bfloat16
     hd = c // num_heads
     hdp = -(-hd // 16) * 16 if bf else hd
-    kp = p.wqkv.shape[0]
+    kp = -(-c // 32) * 32 if bf else c
     cn = -(-c // 16) * 16 if bf else c
     wq = _dense(p.wqkv, c, 3 * c).reshape(c, 3, num_heads, hd)
     wqkv = wq.new_zeros(kp, num_heads, 3, hdp)
@@ -812,16 +920,17 @@ def _pair_form(p: SwinBlockParams, c: int, num_heads: int):
     bqkv[..., :hd] = p.bqkv.reshape(3, num_heads, hd).permute(1, 0, 2)
     wproj = wq.new_zeros(num_heads, hdp, cn)
     wproj[:, :hd, :c] = _dense(p.wproj, c, c).reshape(num_heads, hd, c)
-    w2 = p.w2
-    if w2.shape[0] < p.w1.shape[1]:
-        w2 = F.pad(w2, (0, 0, 0, p.w1.shape[1] - w2.shape[0]))
+    hid = p.b1.shape[0]
+    hidp = -(-hid // 64) * 64 if bf else hid
+    w1 = F.pad(_dense(p.w1, c, hid), (0, hidp - hid, 0, kp - c))
+    w2 = F.pad(_dense(p.w2, hid, c), (0, -c % 64 if bf else 0, 0, hidp - hid))
     tensors = (p.ln1_w, p.ln1_b, wqkv.reshape(kp, -1).to(dt).contiguous(),
                bqkv.reshape(-1).contiguous(),
                wproj.reshape(num_heads * hdp, cn).to(dt).contiguous(),
-               p.bproj, p.rpb, p.ln2_w, p.ln2_b, p.w1, p.b1,
-               w2.contiguous(), p.b2)
-    dims = dict(hdp=hdp, kp=kp, hid=p.b1.shape[0], hidp=p.w1.shape[1],
-                ldqkv=num_heads * 3 * hdp, ldproj=cn, ldw1=p.w1.shape[1],
+               p.bproj, p.rpb, p.ln2_w, p.ln2_b, w1.to(dt).contiguous(),
+               p.b1, w2.to(dt).contiguous(), p.b2)
+    dims = dict(hdp=hdp, kp=kp, hid=hid, hidp=hidp,
+                ldqkv=num_heads * 3 * hdp, ldproj=cn, ldw1=hidp,
                 ldw2=w2.shape[1], cn=cn)
     return tensors, dims
 

@@ -4,6 +4,7 @@ fixture, never at import). On the card:
 ``python -m pytest -m gpu tests/test_torch_kernels.py``."""
 
 import importlib
+import math
 
 import pytest
 import torch
@@ -12,6 +13,7 @@ tconv = importlib.import_module("image_restoration_agent_tpu_torch.ops.conv3x3")
 trf = importlib.import_module(
     "image_restoration_agent_tpu_torch.ops.restormer_fused")
 troll = importlib.import_module("image_restoration_agent_tpu_torch.ops.roll2d")
+tkern = importlib.import_module("image_restoration_agent_tpu_torch.ops.kernels")
 tsb = importlib.import_module("image_restoration_agent_tpu_torch.ops.swin_block")
 twa = importlib.import_module(
     "image_restoration_agent_tpu_torch.ops.window_attention")
@@ -103,11 +105,15 @@ def test_swin_block_kernel_bf16_within_rounding(cuda, ws, c, heads, hw,
     assert torch.isfinite(got).all() and rms <= ctrl, (rms, ctrl)
 
 
+# H 19 is not a multiple of the bf16 kernel's two rows a block; Cout 3 and
+# 12 pad to the 8- and 16-column wgmma widths, 768 splits into 3 x 256
 @pytest.mark.parametrize("case", [
     dict(cin=3, cout=180), dict(cin=180, cout=180, roll=4, res=True),
     dict(cin=180, cout=180, ln=True, res=True),
     dict(cin=180, cout=64, act="lrelu"), dict(cin=20, cout=70, roll=-7),
-    dict(cin=16, cout=16, act="lrelu2", roll=13)])
+    dict(cin=16, cout=16, act="lrelu2", roll=13), dict(cin=3, cout=3),
+    dict(cin=64, cout=12), dict(cin=384, cout=768),
+    dict(cin=180, cout=60, ln=True, roll=-5, act="lrelu")])
 def test_conv3x3_kernel_matches_plain_f32(cuda, case):
     gen = torch.Generator().manual_seed(1)
     cin, cout = case["cin"], case["cout"]
@@ -132,6 +138,81 @@ def test_conv3x3_kernel_matches_plain_f32(cuda, case):
     rms = (got16 - want16).square().mean().sqrt()
     ctrl = (want16 - want).square().mean().sqrt()
     assert torch.isfinite(got16).all() and rms <= ctrl, (rms, ctrl)
+
+
+@pytest.mark.parametrize("n", tkern.GEMM_WIDTHS)
+@pytest.mark.parametrize("k", [16, 64])
+@pytest.mark.parametrize("a_in_registers", [False, True])
+def test_gemm_tile_matches_matmul(cuda, n, k, a_in_registers):
+    """One 64 x N x K tile through the Hopper GEMM core (wgmma, B by
+    descriptor from the packed weight form, A by descriptor in the
+    128-byte swizzle or from registers) against torch.matmul on the same
+    bf16 values: float32 sums of exact products, so only the order of the
+    sums differs."""
+    gen = torch.Generator().manual_seed(n + k)
+    a = _randn(gen, 64, k).to(torch.bfloat16)
+    w = _randn(gen, k, n).to(torch.bfloat16)
+    want = a.float() @ w.float()
+    got = tsb.gemm_tile(a.to(cuda), w.to(cuda),
+                        a_in_registers=a_in_registers)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-5)
+
+
+# the band's four K1 shapes (qkv 180 -> 540 gathered, proj 180 -> 180 with
+# a gathered residual, fc1 180 -> 360 + GELU from float32 rows, fc2
+# 360 -> 180 + residual scattered), a ragged M (240 and 1000 rows: not a
+# multiple of 64) and every map mode
+_TL_CASES = {
+    "qkv": dict(k=180, n=540, ln=True, a_map=1),
+    "proj": dict(k=180, n=180, res=True, r_map=1, out=torch.float32),
+    "fc1_erf": dict(k=180, n=360, ln=True, gelu="erf", a32=True),
+    "fc1_tanh": dict(k=180, n=360, ln=True, gelu="tanh", a32=True),
+    "fc2": dict(k=360, n=180, res32=True, o_map=2),
+    "ragged": dict(k=36, n=24, ln=True, gelu="tanh", m=1000),
+    "ragged_maps": dict(k=48, n=144, ln=True, a_map=1, res=True, r_map=1,
+                        o_map=2, ws=4)}
+
+
+@pytest.mark.parametrize("name", sorted(_TL_CASES))
+def test_token_linear_bf16_within_rounding(cuda, name):
+    """bf16 K1 (wgmma) against its plain bf16 version, held to the bf16
+    rounding control (plain bf16 against plain f32): RMS no larger, the
+    largest error no larger than the control's plus one bf16 ulp at the
+    output's largest magnitude."""
+    case = _TL_CASES[name]
+    gen = torch.Generator().manual_seed(7)
+    k, n, ws = case["k"], case["n"], case.get("ws", 8)
+    geom = (2, 3 * ws, 5 * ws, ws, -(ws // 2))
+    m = case.get("m", geom[0] * geom[1] * geom[2])
+    a32 = _randn(gen, m, k)
+    w = _randn(gen, k, n, scale=k ** -0.5)
+    b = _randn(gen, n, scale=0.1).to(cuda)
+    ln = (1 + _randn(gen, k, scale=0.1).to(cuda),
+          _randn(gen, k, scale=0.1).to(cuda)) if case.get("ln") else None
+    res32 = _randn(gen, m, n).to(cuda)
+    kw = dict(ln=ln, gelu=case.get("gelu"), a_map=case.get("a_map", 0),
+              r_map=case.get("r_map", 0), o_map=case.get("o_map", 0),
+              geom=None if m != geom[0] * geom[1] * geom[2] else geom,
+              out_dtype=case.get("out", torch.bfloat16))
+    a = a32.to(cuda) if case.get("a32") else a32.to(torch.bfloat16).to(cuda)
+    res = None
+    if case.get("res"):
+        res = res32.to(torch.bfloat16)
+    elif case.get("res32"):
+        res = res32
+    w16 = tsb.kernel_matrix(w, torch.bfloat16).to(cuda)
+    w32 = tsb.kernel_matrix(w, torch.float32).to(cuda)
+    n0 = tsb.token_linear.launches
+    got = tsb.token_linear(a, w16, b, res=res, **kw).float()
+    assert tsb.token_linear.launches == n0 + 1
+    want = tsb.token_linear_plain(a, w16, b, res=res, **kw).float()
+    ref = tsb.token_linear_plain(a.float(), w32, b, res=None if res is None
+                                 else res.float(), **kw).float()
+    d, dc = (got - want).abs(), (want - ref).abs()
+    ulp = 2.0 ** (math.floor(math.log2(float(want.abs().max()))) - 7)
+    assert torch.isfinite(got).all()
+    assert d.square().mean().sqrt() <= dc.square().mean().sqrt(), name
+    assert d.max() <= dc.max() + ulp, name
 
 
 def _restormer_weights(gen, c, heads, ln_kind, bias, dev):

@@ -270,11 +270,11 @@ def test_pair_form_is_the_block_head_major():
         hd, hdp = C // HEADS, d["hdp"]
         assert hdp == (16 if dtype == torch.bfloat16 else hd)
         wq = ts[2].float().reshape(-1, HEADS, 3, hdp)
-        dense = p.wqkv[:C, :3 * C].float().reshape(C, 3, HEADS, hd)
+        dense = tsb._dense(p.wqkv, C, 3 * C).reshape(C, 3, HEADS, hd)
         assert torch.equal(wq[:C, ..., :hd], dense.permute(0, 2, 1, 3))
         assert not wq[:, ..., hd:].any() and not wq[C:].any()
         wp = ts[4].float().reshape(HEADS, hdp, -1)
-        assert torch.equal(wp[:, :hd, :C], p.wproj[:C, :C].float()
+        assert torch.equal(wp[:, :hd, :C], tsb._dense(p.wproj, C, C)
                            .reshape(HEADS, hd, C))
         assert ts[11].shape[0] == ts[9].shape[1]
 

@@ -143,15 +143,16 @@ def test_conv3x3_plain_matches_jax_conv(name):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv3x3_kernel_form_equals_raw_weights(dtype):
-    """conv3x3 on the kernel form (made once: padded in bf16, f32 bias) ==
+    """conv3x3 on the kernel form (made once: packed in bf16, f32 bias) ==
     conv3x3 on the raw HWIO weights and bias."""
     rng = np.random.default_rng(8)
     x = _t(rng.standard_normal((1, 8, 12, 6)).astype(np.float32)).to(dtype)
     wk = _t((rng.standard_normal((3, 3, 6, 5)) / 4).astype(np.float32))
     b = _t(rng.standard_normal(5).astype(np.float32)).to(dtype)
     k = tconv.conv3x3_weights(wk, b, dtype)
-    pad = (32, 64) if dtype == torch.bfloat16 else (6, 5)
-    assert k.w.shape == (3, 3, *pad) and k.w.dtype == dtype
+    # bf16: (slices, Cin/16, taps, k halves, Cout/8, 8, 8), Cout 5 -> 8
+    form = (1, 1, 9, 2, 1, 8, 8) if dtype == torch.bfloat16 else (3, 3, 6, 5)
+    assert k.w.shape == form and k.w.dtype == dtype
     assert k.b.dtype == torch.float32 and (k.cin, k.cout) == (6, 5)
     torch.testing.assert_close(tconv.conv3x3(x, k, act="lrelu", roll=-4),
                                tconv.conv3x3(x, wk, b, act="lrelu", roll=-4),
