@@ -9,9 +9,11 @@ Phases, each printing one JSON line:
 
 1. device: card name and count, ``nvidia-smi`` name and power limit;
 2. build: every CUDA source built by nvcc in parallel, with the
-   ``-Xptxas -v`` register and spill figures;
+   ``-Xptxas -v`` register and spill figures, one line per kernel;
 3. kernels: each kernel wrapper against its plain PyTorch version on the
-   same inputs at the serving path's shapes (a 552x1920 band of SwinIR-M),
+   same inputs at the serving path's shapes (a 552x1920 band of SwinIR-M;
+   K2 there in table mode as the band serves it, and at window 7, N 49,
+   on a 546x1918 canvas of the same width),
    float32 exact (max-abs error <= 1e-4 * max|ref|) and bfloat16 fast
    (RMS error against plain bf16 no larger than plain bf16's RMS error
    against plain f32, the bf16-rounding control, and max-abs error no
@@ -24,7 +26,8 @@ Phases, each printing one JSON line:
    request's block shapes (768x1280 C 48, 384x640 C 96, 192x320 C 192,
    96x160 C 384, 768x1280 C 96; at 384x640 also without LN, BiasFree and
    with biases), and K3 at the Restormer convs' shapes; hat_kernels: the
-   same for K2 at N 256 (no mask, bank, full mask; SDPA beside it),
+   same for K2 at N 256 in table mode (no mask, bank, full mask; SDPA
+   beside it),
    ``swin_attn_block`` (dc 0, -8), K6 ``roll2d`` (+-8; ``torch.roll``
    beside it) and K3 at the CAB's shapes on one HAT tile batch
    (5x256x256, C 180), and ``wmsa_block`` with the full mask at N 64 on the
@@ -111,6 +114,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -185,6 +189,40 @@ def nvidia_smi_line() -> str:
         timeout=60)
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else \
         "nvidia-smi gave no output"
+
+
+def _kernel_name(mangled: str) -> str:
+    """The kernel's own name in an Itanium-mangled symbol (the
+    length-prefixed identifier ending in ``kernel``), with its integer
+    template arguments: ``window_attention_mma_kernel<256,2>``."""
+    for i in range(len(mangled)):
+        for j in range(i + 1, min(i + 4, len(mangled))):
+            if not mangled[i:j].isdigit():
+                break
+            name = mangled[j:j + int(mangled[i:j])]
+            if name.endswith("kernel") and name[:1].isalpha():
+                m = re.match(r"I((?:L[ij]\d+E)+)E",
+                             mangled[j + len(name):])
+                args = re.findall(r"L[ij](\d+)E", m.group(1)) if m else []
+                return name + (f"<{','.join(args)}>" if args else "")
+    return mangled
+
+
+def ptxas_lines(log: str) -> list[str]:
+    """One line per kernel from nvcc's ``-Xptxas -v`` log: the kernel (its
+    template arguments in angle brackets), registers, and the spill and
+    stack figures."""
+    out, name, spill = [], None, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = _kernel_name(ln.split("'")[1])
+        elif "spill" in ln:
+            spill = ln.split(":", 1)[-1].strip() if ":" in ln else ln.strip()
+        elif "registers" in ln and name is not None:
+            regs = ln.split("Used", 1)[-1].strip()
+            out.append(f"{name}: {regs}; {spill}")
+            name, spill = None, ""
+    return out
 
 
 def cuda_ms(fn, reps: int, warm: int = 1) -> float:
@@ -321,6 +359,31 @@ def kernel_checks(shape, seed: int = 0) -> list[dict]:
     ring32 = randn(b, 24, 2 * w, 64)
     ring_mid32 = randn(b, 24, 2 * w, 256)
     rows = []
+    # window 7: a (b, h7, w7_) canvas of about the band's tokens, the
+    # block's weights at window 7 (its own bias table)
+    h7, w7_ = (h // 7) * 7, (w // 7) * 7
+    wts7 = dict(wts, rpb_table=randn(13 ** 2, heads, scale=0.5))
+    x7_32 = randn(b * h7 * w7_, c)
+    bank7 = torch.from_numpy(shift_attention_mask(14, 14, 7, 3).reshape(
+        2, 2, 49, 49)).to(dev)
+    p7, w7 = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        p7[dtype] = prepare_swin_params(**wts7, num_heads=heads, ws=7,
+                                        dtype=dtype)
+        pp = p7[dtype]
+        q7_32 = token_linear_plain(x7_32, p7[torch.float32].wqkv,
+                                   p7[torch.float32].bqkv,
+                                   ln=(pp.ln1_w, pp.ln1_b))
+        q7 = token_linear_plain(x7_32.to(dtype), pp.wqkv, pp.bqkv,
+                                ln=(pp.ln1_w, pp.ln1_b))
+        kw7 = dict(num_heads=heads, nwy=h7 // 7, nwx=w7_ // 7,
+                   fast=dtype == torch.bfloat16)
+        mask7 = (pp.rpb[None] + bank7[
+            (torch.arange(h7 // 7, device=dev) == h7 // 7 - 1).long()
+            [:, None], (torch.arange(w7_ // 7, device=dev)
+                        == w7_ // 7 - 1).long()[None]]
+            .reshape(-1, 49, 49)[:, None]).repeat(b, 1, 1, 1).to(dtype)
+        w7[dtype] = (q7, q7_32, pp.rpb, bank7, kw7, mask7)
 
     for dtype, fast in ((torch.float32, False), (torch.bfloat16, True)):
         es = 4 if dtype == torch.float32 else 2
@@ -389,12 +452,28 @@ def kernel_checks(shape, seed: int = 0) -> list[dict]:
         lib = lambda: torch.nn.functional.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=mask, scale=1.0)
         cases.append(dict(
-            name="window_attention", variant="bank",
-            kernel=lambda: window_attention(qkv, p.rpb, bank, **wa_kw),
+            name="window_attention", variant="N64 bank",
+            kernel=lambda: window_attention(qkv, p.rpb, bank, **wa_kw,
+                                            table=p.rpb_table),
             plain=lambda: window_attention_plain(qkv, p.rpb, bank, **wa_kw),
             ref32=lambda: window_attention_plain(qkv32, p32.rpb, bank,
                                                  **wa_kw),
             library=lib, flops=4 * t * n * c, nbytes=4 * t * c * es,
+            reps=3))
+        # window 7 (N 49: swinir_jpeg_40's geometry, keys padded to 64) on
+        # a canvas of as many tokens, qkv from K1's plain version
+        q7, q7_32, rpb7, bank7, kw7, mask7 = w7[dtype]
+        qh7, kh7, vh7 = (q7.reshape(-1, 49, 3, heads, c // heads)
+                         .permute(2, 0, 3, 1, 4).contiguous())
+        cases.append(dict(
+            name="window_attention", variant=f"N49 bank {h7}x{w7_}",
+            kernel=lambda: window_attention(q7, rpb7, bank7, **kw7,
+                                            table=p7[dtype].rpb_table),
+            plain=lambda: window_attention_plain(q7, rpb7, bank7, **kw7),
+            ref32=lambda: window_attention_plain(q7_32, rpb7, bank7, **kw7),
+            library=lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh7, kh7, vh7, attn_mask=mask7, scale=1.0),
+            flops=4 * q7.shape[0] * 49 * c, nbytes=4 * q7.shape[0] * c * es,
             reps=3))
         mlp_kw = dict(fast=fast, out_dtype=dtype, scatter=(b, h, w, ws))
         mlp_kw32 = dict(mlp_kw, out_dtype=torch.float32)
@@ -655,8 +734,8 @@ def hat_kernel_checks(quick: bool, seed: int = 11) -> list[dict]:
                 bk.numel() if bk is not None else pw.numel()) * 4
             cases.append(dict(
                 name="window_attention", variant=f"N256 {form}", path="hat",
-                kernel=lambda kw=kw, bk=bk: window_attention(qkv, p.rpb, bk,
-                                                             **kw),
+                kernel=lambda kw=kw, bk=bk: window_attention(
+                    qkv, p.rpb, bk, **kw, table=p.rpb_table),
                 plain=lambda kw=kw, bk=bk: window_attention_plain(
                     qkv, p.rpb, bk, **kw),
                 ref32=lambda kw=kw, bk=bk: window_attention_plain(
@@ -1731,9 +1810,7 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = kernels.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": {name: [ln.strip() for ln in log.splitlines()
-                           if "registers" in ln or "spill" in ln]
-                    for name, log in logs.items()}})
+          "ptxas": {name: ptxas_lines(log) for name, log in logs.items()}})
 
     shape = (1, 64, 128, 180) if args.quick else (1, 552, 1920, 180)
     rows = []

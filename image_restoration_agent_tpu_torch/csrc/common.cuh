@@ -81,6 +81,48 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// one global -> shared copy of `w` bytes (16, 8 or 4; both addresses
+// w-byte aligned; w uniform across the warp)
+__device__ __forceinline__ void cp_async_w(void* smem, const void* gmem,
+                                           int w) {
+  if (w == 16)
+    cp_async16(smem, gmem);
+  else if (w == 8)
+    cp_async8z(smem, gmem, 8);
+  else
+    cp_async4(smem, gmem);
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync m16n8k16, bf16 x bf16 -> f32: d += a b for one warp. With g =
+// lane / 4 and t = lane % 4, A (16 x 16, row-major) is a0 = (row g, k 2t
+// and 2t+1), a1 = (g+8, 2t), a2 = (g, 2t+8), a3 = (g+8, 2t+8); B (16 x 8)
+// is b0 = (k 2t and 2t+1, column g), b1 = (k 2t+8 and 2t+9, column g); D
+// is d0, d1 = (row g, columns 2t, 2t+1), d2, d3 = (row g+8, the same). The
+// lower k (or column) sits in the low 16 bits of each register.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to bf16, `lo` in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// two bf16 values, `lo` in the low half
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
+                                              __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
 __device__ __forceinline__ int pmod(int a, int m) {
   int r = a % m;
   return r < 0 ? r + m : r;

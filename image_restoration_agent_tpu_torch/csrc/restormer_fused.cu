@@ -5,16 +5,16 @@
 // H100 and what is left for later.
 //
 // A block owns a TH x TW tile of output pixels. It stages LN(x) (or x) over
-// the tile and its 1-pixel halo in shared memory once, channel-major and
-// rounded to the input dtype. The hidden channels then go in chunks of HC:
-// the weights are chunk-interleaved once per weight (ops/restormer_fused.py
-// gdfn_weights / mdta_weights), so one product gives a chunk of every group
-// (x1 and x2, or q, k and v) over the halo; its halo pixels outside the
-// canvas are zeroed (the depthwise conv's SAME padding of the 1x1 output),
-// the nine depthwise taps run from shared memory, and then
+// the tile and its 1-pixel halo in shared memory once, rounded to the input
+// dtype. The hidden channels then go in chunks of HC: the weights are
+// chunk-interleaved once per weight (ops/restormer_fused.py gdfn_weights /
+// mdta_weights), so one product gives a chunk of every group (x1 and x2,
+// or q, k and v) over the halo; its halo pixels outside the canvas are
+// zeroed (the depthwise conv's SAME padding of the 1x1 output), the nine
+// depthwise taps run from shared memory, and then
 // - K4: the GELU gate (rounded to the input dtype) and a partial
-//   project_out into a float32 accumulator in shared memory; the epilogue
-//   adds the bias and the residual in float32 and casts once;
+//   project_out; the epilogue adds the bias and the residual in float32 and
+//   casts once;
 // - K5: v is written; q and k (rounded) are kept for the tile, their float32
 //   sums of squares are summed per channel in a fixed order, and after the
 //   last chunk the tile's per-head gram q^T k is added to the block's.
@@ -22,11 +22,17 @@
 // partial; a second kernel sums the partials in block order (no atomics:
 // the same bits every run).
 //
-// Products run on FP32 FMA in both dtypes, 4x4 outputs per thread.
+// K4 in bfloat16 (gdfn_mma_kernel) runs both 1x1 products on the tensor
+// cores (mma.sync m16n8k16) with project_out's accumulators in registers
+// across the chunks, on a tile chosen per C (ops/restormer_fused.py:
+// gdfn_plan). K4 in float32 and K5 in both dtypes run their products on
+// FP32 FMA, 4x4 outputs per thread, with channel-major staging and a float32
+// project_out tile in shared memory (gdfn_kernel, mdta_front_kernel).
 //
 // Plain C interface for ctypes; each entry returns cudaGetLastError().
 
 #include "common.cuh"
+#include "sm90_gemm.cuh"
 
 using namespace irk;
 
@@ -322,6 +328,356 @@ __global__ void __launch_bounds__(NT) gdfn_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// K4, bfloat16: both 1x1 products on the tensor cores (mma.sync m16n8k16,
+// float32 accumulators), the depthwise 3x3 and the GELU gate on FP32 FMA.
+//
+// A block of NTH = 32 * NW threads owns a TH x TW output tile (tp = TH TW
+// pixels, hp = (TH+2)(TW+2) halo pixels):
+//   - xs [hpr][ldx] bf16: LN(x) over the halo, pixel-major (hpr = hp
+//     rounded up to 16 rows, ldx = C rounded up to 16, + 8 so that
+//     ldmatrix rows hit every bank once), 0 outside the canvas, past C and
+//     past hp: x's rows arrive by cp.async, all in flight at once, and are
+//     normalized in place (a warp per pixel reading device memory three
+//     times in turn was a third of the kernel's time at C 48);
+//   - per hidden chunk of HC: project_in as (m16 tile, half) tasks over the
+//     warps, A by ldmatrix from xs, B (the chunk's x1 or x2 columns) as
+//     mma fragments read from the packed weight form in device memory
+//     (ops/restormer_fused.py:_frag_pack: 256 contiguous bytes a warp, one
+//     8-byte load a lane; L1 keeps a chunk's weights for every task);
+//     bias, ring pixels outside the canvas zeroed, rounded to bf16 into us
+//     [hp][2 HC + 8];
+//   - the nine taps and the gate, a lane per pair of hidden channels of
+//     x1 or x2, 2 x 4 pixels a step (float32 sums in the TPU kernel's
+//     order), the gate rounded to bf16 into gs [tp][HC + 8];
+//   - project_out: warp w owns rows 16 (MT wm .. MT wm + MT - 1) and
+//     columns 8 (NTW wn .. NTW wn + NTW - 1) of the (tp, C) output (wm = w
+//     % WM, wn = w / WM, WM WN = NW), A by ldmatrix from gs, B fragments
+//     from the packed w_out; its accumulators stay in registers across
+//     every chunk (MT NTW 4 = 48 floats a thread);
+//   - the epilogue adds b_out and the residual in float32 and stores bf16
+//     pairs.
+// Two barriers a chunk: project_in writes us after the previous chunk's
+// taps read it; the taps write gs after the previous project_out read it.
+// tanh(u) = 1 - 2 / (e^2u + 1) in float32: within ~1e-7 of tanhf over
+// the whole range (+-1 where e^2u overflows or vanishes) at a quarter of
+// its instructions; the gate it feeds is rounded to bf16
+__device__ __forceinline__ float tanh_f32(float u) {
+  return 1.f - __fdividef(2.f, __expf(2.f * u) + 1.f);
+}
+
+template <int MT, int NTW>
+__global__ void __launch_bounds__(512, 1) gdfn_mma_kernel(
+    const __nv_bfloat16* __restrict__ x, const float* __restrict__ ln_w,
+    const float* __restrict__ ln_b, const uint2* __restrict__ w_in,
+    const float* __restrict__ b_in, const float* __restrict__ w_dw,
+    const float* __restrict__ b_dw, const uint2* __restrict__ w_out,
+    const float* __restrict__ b_out, __nv_bfloat16* __restrict__ out,
+    int H, int W, int C, int NCH, int ln_mode, int fast, int TH, int TW,
+    int WN) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  using bf = __nv_bfloat16;
+  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int ntx = (W + TW - 1) / TW, nty = (H + TH - 1) / TH;
+  const int tx = blockIdx.x % ntx, ty = (blockIdx.x / ntx) % nty;
+  const Tile t(TH, TW, H, W, blockIdx.x / (ntx * nty), ty * TH, tx * TW);
+  const int c16 = (C + 15) & ~15, ldx = c16 + 8, hpr = (t.hp + 15) & ~15;
+  constexpr int LDU = 2 * HC + 8, LDG = HC + 8;
+  bf* xs = reinterpret_cast<bf*>(smem);
+  bf* us = xs + hpr * ldx;
+  bf* gs = us + t.hp * LDU;
+
+  // the halo's rows of x into xs (16- or 8-byte cp.async, all in flight
+  // at once), zero outside the canvas and past C; then LN in place, LP
+  // lanes a pixel (32 / LP pixels a warp), four channels a lane
+  {
+    const int w = (static_cast<int>(reinterpret_cast<uintptr_t>(x)) |
+                   (2 * C)) & 15 ? 8 : 16;
+    const int segs = 2 * C / w, we = w / 2;
+    for (int e = threadIdx.x; e < hpr * segs; e += blockDim.x) {
+      const int m = e / segs, sg = e - m * segs;
+      if (t.halo_in(m))
+        cp_async_w(xs + m * ldx + sg * we, x + t.halo_src(m) * C + sg * we,
+                   w);
+    }
+    cp_async_commit();
+    for (int e = threadIdx.x; e < hpr * (c16 / 4); e += blockDim.x) {
+      const int m = e / (c16 / 4), c = 4 * (e - m * (c16 / 4));
+      if (!t.halo_in(m) || c >= C)
+        *reinterpret_cast<uint2*>(xs + m * ldx + c) = make_uint2(0u, 0u);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  if (ln_mode != 0) {
+    const int lp = C <= 64 ? 16 : 32, ppw = 32 / lp, sub = lane % lp;
+    // this lane's channels 4 sub + 4 lp k (k < 3: C <= 384)
+    float lw[3][4], lb[3][4];
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int c = 4 * sub + 4 * lp * k + q;
+        lw[k][q] = c < C ? ln_w[c] : 0.f;
+        lb[k][q] = c < C && ln_mode == 2 ? ln_b[c] : 0.f;
+      }
+    for (int m0 = warp * ppw; m0 < hpr; m0 += nw * ppw) {
+      const int m = m0 + lane / lp;
+      const bool ok = m < hpr && t.halo_in(m);
+      bf* row = xs + (ok ? m : 0) * ldx;
+      float s = 0.f;
+      for (int c = 4 * sub; c < C; c += 4 * lp) {
+        const float4 v = ld4(row + c);
+        s += (v.x + v.y) + (v.z + v.w);
+      }
+      for (int o = 1; o < lp; o <<= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, o);
+      const float mu = s / C;
+      float v2 = 0.f;
+      for (int c = 4 * sub; c < C; c += 4 * lp) {
+        const float4 v = ld4(row + c);
+        const float d0 = v.x - mu, d1 = v.y - mu, d2 = v.z - mu,
+                    d3 = v.w - mu;
+        v2 += (d0 * d0 + d1 * d1) + (d2 * d2 + d3 * d3);
+      }
+      for (int o = 1; o < lp; o <<= 1)
+        v2 += __shfl_xor_sync(0xffffffffu, v2, o);
+      const float rs = rsqrtf(v2 / C + 1e-5f);
+      if (!ok) continue;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const int c = 4 * sub + 4 * lp * k;
+        if (c >= C) break;
+        const float4 v = ld4(row + c);
+        const float vv[4] = {v.x, v.y, v.z, v.w};
+        float y[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          y[q] = ln_mode == 2 ? (vv[q] - mu) * rs * lw[k][q] + lb[k][q]
+                              : vv[q] * rs * lw[k][q];
+        *reinterpret_cast<uint2*>(row + c) =
+            make_uint2(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]));
+      }
+    }
+  }
+
+  const int wm = warp % (nw / WN), wn = warp / (nw / WN);
+  const int ks_in = c16 / 16, nto = NTW * WN;
+  float acc[MT][NTW][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+  const int fr = frag_row(lane), fk = 8 * frag_khalf(lane);
+  const int qs = TW / 4, segs2 = TH / 2 * qs;
+
+  for (int ci = 0; ci < NCH; ++ci) {
+    __syncthreads();  // xs staged / the previous chunk's taps read us
+    // project_in over the halo: (m16 tile, x1 or x2 half) tasks; bias,
+    // ring zeroed, rounded to bf16 into us
+    const uint2* wc = w_in + static_cast<long long>(ci) * ks_in * 8 * 32;
+    auto store_u = [&](int mt, int half, const float (&d)[4][4]) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = half * HC + 8 * j + 2 * t4;
+        const float2 bi = b_in != nullptr
+                              ? *reinterpret_cast<const float2*>(
+                                    b_in + ci * 2 * HC + col)
+                              : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int m = 16 * mt + g + 8 * r;
+          if (m >= t.hp) continue;
+          const bool in = t.halo_in(m);
+          *reinterpret_cast<uint32_t*>(us + m * LDU + col) =
+              in ? pack_bf16(d[j][2 * r] + bi.x, d[j][2 * r + 1] + bi.y)
+                 : 0u;
+        }
+      }
+    };
+    if (ks_in <= 4) {
+      // C <= 64: warp w keeps half w % 2's B fragments of every k step in
+      // registers for all its m16 tiles
+      const int half = warp & 1;
+      uint2 bc[4][4];
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          bc[ks][j] = ks < ks_in
+                          ? __ldg(wc + (ks * 8 + half * 4 + j) * 32 + lane)
+                          : make_uint2(0u, 0u);
+      for (int mt = warp >> 1; mt < hpr / 16; mt += nw >> 1) {
+        float d[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.f;
+        const bf* arow = xs + (16 * mt + fr) * ldx + fk;
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          if (ks >= ks_in) break;
+          uint32_t a[4];
+          ldmatrix_x4(a, arow + 16 * ks);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            mma_bf16(d[j], a, bc[ks][j].x, bc[ks][j].y);
+        }
+        store_u(mt, half, d);
+      }
+    } else {
+      for (int task = warp; task < (hpr / 16) * 2; task += nw) {
+        const int mt = task >> 1, half = task & 1;
+        float d[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.f;
+        const bf* arow = xs + (16 * mt + fr) * ldx + fk;
+        for (int ks = 0; ks < ks_in; ++ks) {
+          uint32_t a[4];
+          ldmatrix_x4(a, arow + 16 * ks);
+          const uint2* wb = wc + (ks * 8 + half * 4) * 32 + lane;
+          uint2 bv[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) bv[j] = __ldg(wb + 32 * j);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_bf16(d[j], a, bv[j].x, bv[j].y);
+        }
+        store_u(mt, half, d);
+      }
+    }
+    __syncthreads();
+    // the nine taps and the gate: lane l takes hidden channels 2 (l % 16)
+    // and + 1 of x1 (l < 16) or x2 (l >= 16) as bf16 pairs, two rows of
+    // four pixels a step (four halo rows read once for both); the two
+    // halves swap one row's sums, and each computes the gate of one row
+    {
+      const int half = lane >> 4, cp = 2 * (lane & 15);
+      const int col = ci * 2 * HC + half * HC + cp;
+      float wa[9], wb[9];
+      load_taps(w_dw, NCH * 2 * HC, col, wa);
+      load_taps(w_dw, NCH * 2 * HC, col + 1, wb);
+      const float ca = b_dw ? b_dw[col] : 0.f;
+      const float cb = b_dw ? b_dw[col + 1] : 0.f;
+      for (int s = warp; s < segs2; s += nw) {
+        const int r = 2 * (s / qs), q = (s % qs) * 4;
+        float2 d[2][4];
+#pragma unroll
+        for (int o = 0; o < 2; ++o)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) d[o][i] = make_float2(0.f, 0.f);
+        // halo rows r .. r + 3 feed output rows r (taps dy) and r + 1
+        // (taps dy - 1), each summed in the order dy, dx
+#pragma unroll
+        for (int dy = 0; dy < 4; ++dy) {
+          const bf* row = us + ((r + dy) * t.hw2 + q) * LDU + half * HC + cp;
+          float2 av[6];
+#pragma unroll
+          for (int k = 0; k < 6; ++k)
+            av[k] = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(row + k * LDU));
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              if (dy < 3) {
+                d[0][i].x = fmaf(av[i + dx].x, wa[dy * 3 + dx], d[0][i].x);
+                d[0][i].y = fmaf(av[i + dx].y, wb[dy * 3 + dx], d[0][i].y);
+              }
+              if (dy > 0) {
+                d[1][i].x =
+                    fmaf(av[i + dx].x, wa[(dy - 1) * 3 + dx], d[1][i].x);
+                d[1][i].y =
+                    fmaf(av[i + dx].y, wb[(dy - 1) * 3 + dx], d[1][i].y);
+              }
+            }
+        }
+#pragma unroll
+        for (int o = 0; o < 2; ++o)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            d[o][i].x += ca;
+            d[o][i].y += cb;
+          }
+        // half 0 gates row r (it sends x1 of row r + 1), half 1 gates row
+        // r + 1 (it sends x2 of row r)
+        float2 got[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 snd = half ? d[0][i] : d[1][i];
+          got[i].x = __shfl_xor_sync(0xffffffffu, snd.x, 16);
+          got[i].y = __shfl_xor_sync(0xffffffffu, snd.y, 16);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 x1 = half ? got[i] : d[0][i];
+          const float2 x2 = half ? d[1][i] : got[i];
+          float gv[2];
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            const float v = k ? x1.y : x1.x;
+            const float ge =
+                fast ? 0.5f * v *
+                           (1.f + tanh_f32(0.7978845608028654f *
+                                           (v + 0.044715f * v * v * v)))
+                     : 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+            gv[k] = ge * (k ? x2.y : x2.x);
+          }
+          *reinterpret_cast<uint32_t*>(
+              gs + ((r + half) * TW + q + i) * LDG + cp) =
+              pack_bf16(gv[0], gv[1]);
+        }
+      }
+    }
+    __syncthreads();
+    // project_out, accumulated in registers
+    const uint2* wo = w_out + static_cast<long long>(ci) * 2 * nto * 32;
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        ldmatrix_x4(a[i], gs + (16 * (MT * wm + i) + fr) * LDG + 16 * ks + fk);
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) {
+        const uint2 b = __ldg(wo + (ks * nto + NTW * wn + j) * 32 + lane);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) mma_bf16(acc[i][j], a[i], b.x, b.y);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < NTW; ++j) {
+    const int col = 8 * (NTW * wn + j) + 2 * t4;
+    if (col >= C) continue;
+    const float2 bo = b_out != nullptr
+                          ? *reinterpret_cast<const float2*>(b_out + col)
+                          : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int p = 16 * (MT * wm + i) + g + 8 * r;
+        if (p >= t.tp || !t.out_in(p)) continue;
+        const long long o = t.out_pix(p) * C + col;
+        const float2 xr = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(x + o));
+        *reinterpret_cast<uint32_t*>(out + o) =
+            pack_bf16((acc[i][j][2 * r] + bo.x) + xr.x,
+                      (acc[i][j][2 * r + 1] + bo.y) + xr.y);
+      }
+  }
+}
+
+size_t gdfn_mma_smem(int C, int TH, int TW) {
+  const size_t hp = static_cast<size_t>(TH + 2) * (TW + 2);
+  const size_t hpr = (hp + 15) / 16 * 16, c16 = (C + 15) / 16 * 16;
+  return 2 * (hpr * (c16 + 8) + hp * (2 * HC + 8) +
+              static_cast<size_t>(TH) * TW * (HC + 8));
+}
+
+// ---------------------------------------------------------------------------
 // K5: MDTA's front: v, and per block the per-head gram and sums of squares
 
 template <typename T>
@@ -574,16 +930,46 @@ extern "C" int gdfn_block_f32(const void* x, const void* ln_w,
                             TW, smem, stream);
 }
 
+// K4 in bf16: w_in and w_out are the packed fragment forms
+// (ops/restormer_fused.py:gdfn_weights); the plan (gdfn_plan) is a TH x TW
+// tile, `threads` threads, MT m16 tiles and NTW n8 tiles of project_out a
+// warp, WN warps across the output columns and `smem` bytes.
 extern "C" int gdfn_block_bf16(const void* x, const void* ln_w,
                                const void* ln_b, const void* w_in,
                                const void* b_in, const void* w_dw,
                                const void* b_dw, const void* w_out,
                                const void* b_out, void* out, int B, int H,
                                int W, int C, int NCH, int ln_mode, int fast,
-                               int TH, int TW, int smem, void* stream) {
-  return launch_gdfn<__nv_bfloat16>(x, ln_w, ln_b, w_in, b_in, w_dw, b_dw,
-                                    w_out, b_out, out, B, H, W, C, NCH,
-                                    ln_mode, fast, TH, TW, smem, stream);
+                               int TH, int TW, int threads, int mt, int wn,
+                               int smem, void* stream) {
+  const int nw = threads / 32;
+  const int ntw = mt == 2 ? 6 : 12;
+  if (TW % 4 || TH % 2 || C % 4 || threads % 32 || threads > 512 ||
+      nw % wn ||
+      (mt != 1 && mt != 2) || TH * TW != 16 * mt * (nw / wn) ||
+      8 * ntw * wn < C ||
+      static_cast<size_t>(smem) != gdfn_mma_smem(C, TH, TW) ||
+      static_cast<size_t>(smem) > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long nblk = static_cast<long long>(B) * ((H + TH - 1) / TH) *
+                         ((W + TW - 1) / TW);
+  auto launch = [&](auto kernel) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<static_cast<unsigned>(nblk), threads, smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const __nv_bfloat16*>(x),
+        static_cast<const float*>(ln_w), static_cast<const float*>(ln_b),
+        static_cast<const uint2*>(w_in), static_cast<const float*>(b_in),
+        static_cast<const float*>(w_dw), static_cast<const float*>(b_dw),
+        static_cast<const uint2*>(w_out), static_cast<const float*>(b_out),
+        static_cast<__nv_bfloat16*>(out), H, W, C, NCH, ln_mode, fast, TH,
+        TW, wn);
+    return static_cast<int>(cudaGetLastError());
+  };
+  return mt == 2 ? launch(gdfn_mma_kernel<2, 6>)
+                 : launch(gdfn_mma_kernel<1, 12>);
 }
 
 extern "C" int mdta_front_f32(const void* x, const void* ln_w,

@@ -34,12 +34,24 @@ The CUDA kernels are ``csrc/restormer_fused.cu``:
   tile plus its 1-pixel halo in shared memory once. The depthwise conv
   splits the hidden channels into independent chunks of :data:`CHUNK`, so
   per chunk the block runs the 1x1 over the halo, the ring zeroing, the
-  nine taps and (GDFN) the gate and a partial ``project_out`` into a
-  float32 accumulator in shared memory, or (MDTA) stores q and k of the
-  tile and writes v. Nothing of width ``2*hid`` or ``3*C`` reaches device
-  memory. The weights are split and zero-padded once per weight
-  (:func:`gdfn_weights`, :func:`mdta_weights`): chunk ``i`` of every group
-  sits side by side, so one product covers x1 and x2 (or q, k and v).
+  nine taps and (GDFN) the gate and a partial ``project_out``, or (MDTA)
+  stores q and k of the tile and writes v. Nothing of width ``2*hid`` or
+  ``3*C`` reaches device memory. The weights are split and zero-padded
+  once per weight (:func:`gdfn_weights`, :func:`mdta_weights`): chunk
+  ``i`` of every group sits side by side, so one product covers x1 and x2
+  (or q, k and v).
+- K4 in bf16 runs both 1x1 products on the tensor cores (``mma.sync``
+  m16n8k16, float32 accumulators): A by ``ldmatrix`` from the staged halo
+  or gate tile, B as fragments read from a packed form made once per
+  weight (:func:`frag_pack`), and ``project_out``'s accumulators stay in
+  registers across all chunks (48 floats a thread). The tile is chosen
+  per C (:func:`gdfn_plan`): 16x32 up to C 48 (halo 1.20x the outputs),
+  16x16 at C 96 (1.27x), 8x16 at C 192 (1.41x), 8x8 at C 384 (1.56x), so
+  that the (pixels x C) accumulator fits the block's registers. The
+  depthwise taps and the GELU gate stay float32 FMA from shared memory.
+- K4 in f32 and K5 in both dtypes run their products on FP32 FMA (4x4
+  outputs per thread) with a float32 ``project_out`` tile in shared
+  memory.
 - MDTA's cross-block sums: each block takes a fixed run of tiles of one
   sample and keeps its gram and sums of squares in shared memory; a second
   launch sums the per-block partials in block order. No atomics, so the
@@ -48,9 +60,6 @@ The CUDA kernels are ``csrc/restormer_fused.cu``:
   C_h): the epilogue reads nothing else, and the TPU kernel's full (C, C)
   gram (its cross-head blocks discarded) does not fit shared memory at
   C 384.
-- Products run on FP32 FMA in both dtypes (4x4 outputs per thread); what
-  it does not do yet: tensor cores (WMMA or ``wgmma``), TMA, a pipelined
-  halo.
 """
 
 from __future__ import annotations
@@ -226,6 +235,55 @@ def _check_on(x: torch.Tensor, tensors, dtype, what: str) -> None:
 # K4: GDFN
 
 
+class GdfnPlan(NamedTuple):
+    """K4's bf16 launch plan for one C: a ``th`` x ``tw`` output tile per
+    block of ``threads`` threads; project_out's (th*tw, C) output as warp
+    tiles of ``mt`` m16 rows x ``ntw`` n8 columns, ``wn`` warps across the
+    ``cols`` = 8*ntw*wn >= C columns; ``smem`` bytes of shared memory
+    (``csrc/restormer_fused.cu``: gdfn_mma_smem)."""
+
+    th: int
+    tw: int
+    threads: int
+    mt: int
+    ntw: int
+    wn: int
+    cols: int
+    smem: int
+
+
+# (largest C, th, tw, threads, mt, ntw, wn): each keeps project_out's
+# accumulators at 48 floats a thread (th*tw*cols = 48 * threads)
+_GDFN_PLANS = ((48, 16, 32, 512, 2, 6, 1), (96, 16, 16, 512, 2, 6, 2),
+               (192, 8, 16, 512, 1, 12, 2), (384, 8, 8, 512, 1, 12, 4))
+
+
+def gdfn_plan(c: int) -> GdfnPlan:
+    """The bf16 K4 plan for C (the first of :data:`_GDFN_PLANS` whose
+    columns hold C)."""
+    for cmax, th, tw, threads, mt, ntw, wn in _GDFN_PLANS:
+        if c <= cmax:
+            hp = (th + 2) * (tw + 2)
+            smem = 2 * ((-(-hp // 16) * 16) * (-(-c // 16) * 16 + 8)
+                        + hp * (2 * CHUNK + 8) + th * tw * (CHUNK + 8))
+            return GdfnPlan(th, tw, threads, mt, ntw, wn, 8 * ntw * wn, smem)
+    raise ValueError(f"gdfn_block's bf16 kernel takes C <= 384, not {c}")
+
+
+def frag_pack(w: torch.Tensor, kp: int, np_: int | None = None
+              ) -> torch.Tensor:
+    """(K, N) -> the mma.sync m16n8k16 B fragments of ``csrc/common.cuh``
+    (mma_bf16), (kp/16, np_/8, 32, 4): K zero-padded to ``kp`` and N to
+    ``np_`` (multiples of 16 and 8), each 16 x 8 block as 32 lanes of 4
+    values, lane 4g + t holding B[2t, g], B[2t+1, g], B[2t+8, g], B[2t+9, g]
+    (one 8-byte load a lane, 256 contiguous bytes a warp)."""
+    k, n = w.shape
+    np_ = n if np_ is None else np_
+    w = F.pad(w, (0, np_ - n, 0, kp - k))
+    w = w.reshape(kp // 16, 2, 4, 2, np_ // 8, 8)
+    return w.permute(0, 4, 5, 2, 1, 3).reshape(kp // 16, np_ // 8, 32, 4)
+
+
 class GdfnWeights(NamedTuple):
     """One GDFN's weights: ``params`` as given (the plain version's
     operands) and their kernel form for ``dtype``, made once per weight by
@@ -233,7 +291,11 @@ class GdfnWeights(NamedTuple):
     depthwise weights and biases chunk-interleaved (x1 and x2 chunk ``i``
     side by side, the ragged hidden width zero-padded to a multiple of
     :data:`CHUNK`), w_out zero-padded to (nch*CHUNK, C rounded up to 4);
-    LN, depthwise weights and every bias in float32."""
+    LN, depthwise weights and every bias in float32. In bf16 also the
+    tensor-core kernel's forms: ``w_in_f`` (nch, C16/16, 8, 32, 4), chunk
+    ``i``'s 64 interleaved columns as :func:`frag_pack` fragments (C16 = C
+    rounded up to 16), and ``w_out_f`` (nch, 2, NP/8, 32, 4), chunk ``i``'s
+    32 rows of w_out over the plan's NP >= C columns; None in f32."""
 
     params: tuple
     dtype: torch.dtype
@@ -247,6 +309,8 @@ class GdfnWeights(NamedTuple):
     b_dw: torch.Tensor | None
     w_out: torch.Tensor
     b_out: torch.Tensor | None
+    w_in_f: torch.Tensor | None = None
+    w_out_f: torch.Tensor | None = None
 
 
 def gdfn_weights(ln, w_in, b_in, w_dw, b_dw, w_out, b_out,
@@ -258,16 +322,27 @@ def gdfn_weights(ln, w_in, b_in, w_dw, b_dw, w_out, b_out,
     nch = -(-hid // CHUNK)
     wo = w_out.detach().to(dtype)
     wo = F.pad(wo, (0, -c % 4, 0, nch * CHUNK - hid)).contiguous()
+    wi = _interleave(w_in.detach().to(dtype), 2)
+    w_in_f = w_out_f = None
+    if dtype == torch.bfloat16:
+        plan = gdfn_plan(c)
+        c16 = -(-c // 16) * 16
+        w_in_f = torch.stack([frag_pack(wi[:, 2 * CHUNK * i:
+                                           2 * CHUNK * (i + 1)], c16)
+                              for i in range(nch)]).contiguous()
+        w_out_f = torch.stack([frag_pack(wo[CHUNK * i:CHUNK * (i + 1), :c],
+                                         CHUNK, plan.cols)
+                               for i in range(nch)]).contiguous()
     return GdfnWeights(
         params=(ln, w_in, b_in, w_dw, b_dw, w_out, b_out), dtype=dtype,
         c=c, nch=nch,
         ln_w=None if ln is None else _f32(ln[0]),
         ln_b=None if _ln_mode(ln) != 2 else _f32(ln[1]),
-        w_in=_interleave(w_in.detach().to(dtype), 2),
+        w_in=wi,
         b_in=None if b_in is None else _interleave(_f32(b_in), 2),
         w_dw=_interleave(_f32(w_dw), 2),
         b_dw=None if b_dw is None else _interleave(_f32(b_dw), 2),
-        w_out=wo, b_out=_f32(b_out))
+        w_out=wo, b_out=_f32(b_out), w_in_f=w_in_f, w_out_f=w_out_f)
 
 
 def gdfn_block_plain(x, ln, w_in, b_in, w_dw, b_dw, w_out, b_out, *,
@@ -298,19 +373,31 @@ def _gdfn_cuda(x: torch.Tensor, k: GdfnWeights, fast: bool) -> torch.Tensor:
     x = _check_x(x, k.c, "gdfn_block")
     _check_on(x, (k.w_in, k.w_dw, k.w_out, k.ln_w), k.dtype, "gdfn_block")
     bsz, h, w, c = x.shape
-    th, tw, smem = _plan(0, x.dtype, c, 1)
     out = torch.empty_like(x)
     lib = kernels.load("restormer_fused")
-    fn = lib.gdfn_block_f32 if x.dtype == torch.float32 \
-        else lib.gdfn_block_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 \
-        + [ctypes.c_void_p]
-    err = fn(_ptr(x), _ptr(k.ln_w), _ptr(k.ln_b), _ptr(k.w_in), _ptr(k.b_in),
-             _ptr(k.w_dw), _ptr(k.b_dw), _ptr(k.w_out), _ptr(k.b_out),
-             _ptr(out), bsz, h, w, c, k.nch, _ln_mode(k.params[0]),
-             int(fast), th, tw, smem,
-             torch.cuda.current_stream(x.device).cuda_stream)
+    if x.dtype == torch.float32:
+        th, tw, smem = _plan(0, x.dtype, c, 1)
+        fn = lib.gdfn_block_f32
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 \
+            + [ctypes.c_void_p]
+        err = fn(_ptr(x), _ptr(k.ln_w), _ptr(k.ln_b), _ptr(k.w_in),
+                 _ptr(k.b_in), _ptr(k.w_dw), _ptr(k.b_dw), _ptr(k.w_out),
+                 _ptr(k.b_out), _ptr(out), bsz, h, w, c, k.nch,
+                 _ln_mode(k.params[0]), int(fast), th, tw, smem,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    else:
+        p = gdfn_plan(c)
+        fn = lib.gdfn_block_bf16
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 13 \
+            + [ctypes.c_void_p]
+        err = fn(_ptr(x), _ptr(k.ln_w), _ptr(k.ln_b), _ptr(k.w_in_f),
+                 _ptr(k.b_in), _ptr(k.w_dw), _ptr(k.b_dw), _ptr(k.w_out_f),
+                 _ptr(k.b_out), _ptr(out), bsz, h, w, c, k.nch,
+                 _ln_mode(k.params[0]), int(fast), p.th, p.tw, p.threads,
+                 p.mt, p.wn, p.smem,
+                 torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(err, "gdfn_block")
     gdfn_block.launches += 1
     return out

@@ -53,29 +53,29 @@ The block's CUDA path is two hand-written kernels in
   stages while two consumer warpgroups multiply and run the epilogue from
   their accumulator registers (:func:`token_linear_plan` is the launch
   plan). In f32 it runs 64x64 tiles on FP32 FMA (no TF32).
-- K2 ``window_attention``: N = ws^2 <= 256 tokens per window; q, k, v, the
-  logits and ``p`` live in shared memory; the logits are ``(q.k) * scale
-  + bias``, ``scale`` 1 where q is pre-scaled. In bf16 at N <= 64 one
-  block handles a window's heads in turn with QK^T and PV on the tensor cores
-  and the softmax in float32 between them; at 64 < N <= 256 (HAT's window
-  16) one block per (window, head, 64-query chunk), its 64 x N float32
-  logits in shared memory and ``p`` written over them in bf16. In f32 one
-  block per (window, head) on FP32 FMA, per (window, head, 64-query chunk)
-  at N > 64. The mask is the
-  strip kernel's (2, 2, N, N) edge bank or the wmsa kernels' full
-  (nW, N, N) mask.
+- K2 ``window_attention``: N = ws^2 <= 256 tokens per window, logits
+  ``(q.k) * scale + bias`` (``scale`` 1 where q is pre-scaled). In bf16 the
+  products run on ``mma.sync`` with each warp's 16 x N logits, softmax
+  and ``p`` in registers (``p`` normalized in float32, then rounded to bf16
+  as PV's A fragments); at N <= 64 one block per window stages every
+  head's q, k, v from the window's contiguous rows at once, at N > 64 one
+  block per (window, head), a warp pair splitting each row block's keys.
+  In f32 one block per (window, head), both products tiled in registers
+  on FP32 FMA. The bias is the dense (heads, N, N) ``rpb``, or rebuilt in
+  shared memory from the ((2ws-1)^2, heads) table where the block has one
+  (:attr:`SwinBlockParams.rpb_table`); the mask is the strip kernel's
+  (2, 2, N, N) edge bank or the wmsa kernels' full (nW, N, N) mask, read
+  as a bit form where it holds one value (:func:`mask_bits`), its
+  all-zero bank entries skipped (:func:`bank_zero_flags`).
 
 One block is five launches: K1 (LN1 + gather -> qkv), K2, K1 (proj +
 gathered residual), then ``mlp_block``'s two K1 (LN2 -> fc1 + GELU; fc2 +
 residual + scatter).
 
 :func:`wmsa` is K2 alone, DehazeFormer's call: N 64, head widths 12 and
-16 (the bf16 kernel pads both to 16). At the 1080p request's level 0
-(32776 windows, C 24) it reads and writes 0.40 GB in bf16, so memory bounds
-it (0.12 ms on the H100); the bf16 kernel copies q, k and v into shared
-memory element by element, one block per window and the heads in turn.
-Wider copies must keep to the rows' alignment: a 12-wide bf16 head starts
-every 24 bytes of a 144-byte row.
+16 (the bf16 kernel pads both to 16 in its fragments). At the 1080p
+request's level 0 (32776 windows, C 24) it reads and writes 0.40 GB in
+bf16, so memory bounds it (0.12 ms on the H100).
 
 What bounds it on the H100: one block at the serving shape (552x1920,
 C 180, 6 heads) is 6.0e11 FLOP against 0.76 GB of bf16 input and output,
@@ -141,7 +141,10 @@ class SwinBlockParams(NamedTuple):
     """One block's weights in kernel form: matrices (K, N) in the compute
     dtype with the logit scale folded into the q columns (row-major in
     float32, packed in bfloat16, see :func:`kernel_matrix`); vectors and
-    the (heads, N, N) relative-position bias in float32."""
+    the (heads, N, N) relative-position bias in float32. ``rpb_table`` is
+    the ((2ws-1)^2, heads) float32 table ``rpb`` was made from, where the
+    caller has it: K2 then rebuilds the bias in shared memory from it
+    (:func:`window_attention`'s ``table``)."""
 
     ln1_w: torch.Tensor
     ln1_b: torch.Tensor
@@ -156,6 +159,7 @@ class SwinBlockParams(NamedTuple):
     b1: torch.Tensor
     w2: torch.Tensor
     b2: torch.Tensor
+    rpb_table: torch.Tensor | None = None
 
     @property
     def mlp(self) -> tuple[torch.Tensor, ...]:
@@ -202,11 +206,13 @@ def prepare_swin_params(*, norm1_w, norm1_b, qkv_w, qkv_b, proj_w, proj_b,
     """Kernel-form weights from reference-layout (torch ``nn.Linear``)
     tensors. The attention scale ``hd**-0.5`` is folded into the q columns
     of the qkv weight and bias, as the TPU kernel folds it."""
+    table = rpb_table.detach().float()
     return kernel_params(
         norm1_w, norm1_b, qkv_w.detach().t(), qkv_b, proj_w.detach().t(),
-        proj_b, relative_position_bias(rpb_table.detach().float(), ws),
-        norm2_w, norm2_b, fc1_w.detach().t(), fc1_b, fc2_w.detach().t(),
-        fc2_b, num_heads=num_heads, dtype=dtype)
+        proj_b, relative_position_bias(table, ws), norm2_w, norm2_b,
+        fc1_w.detach().t(), fc1_b, fc2_w.detach().t(), fc2_b,
+        num_heads=num_heads, dtype=dtype)._replace(
+            rpb_table=table.contiguous())
 
 
 def kernel_params(ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, rpb, ln2_w, ln2_b,
@@ -526,8 +532,54 @@ def _check_f32(t, shape, what):
         raise ValueError(f"{what} must be contiguous float32 {shape}")
 
 
+def _cached(t: torch.Tensor, key: str, make):
+    """``make(t)``, computed once per tensor and kept on it, keyed by its
+    version (an in-place edit recomputes it)."""
+    hit = getattr(t, key, None)
+    if hit is not None and hit[0] == t._version:
+        return hit[1]
+    val = make(t)
+    setattr(t, key, (t._version, val))
+    return val
+
+
+def bank_zero_flags(bank: torch.Tensor) -> int:
+    """Bit k set where entry k = 2 * is_last_row + is_last_col of the
+    (2, 2, N, N) bank is all zero: K2 adds nothing for those windows (for
+    a shift mask, every window off the last row and column)."""
+    def make(b):
+        zero = (b.reshape(4, -1) == 0).all(dim=1).tolist()
+        return sum(1 << k for k, z in enumerate(zero) if z)
+    return _cached(bank, "_irk_zero_flags", make)
+
+
+def mask_bits(m: torch.Tensor):
+    """The bit form K2 reads of a (..., N, N) mask (the (nW, N, N) full
+    mask, or the (2, 2, N, N) bank as E = 4 entries) whose entries are 0
+    or one value v (a shift mask: 0 and -100): (bits, v), bits (E, N,
+    Np / 32) int32 with bit j % 32 of word j // 32 of row i set where the
+    entry is v (Np = N padded to 64, 128 or 256, the padding 0); None for
+    any other mask (the kernel then reads it as float32). 32x fewer bytes
+    than the float32 mask; computed once per mask."""
+    def make(t):
+        n = t.shape[-1]
+        t = t.reshape(-1, n, n)
+        e = t.shape[0]
+        nz = t != 0
+        vals = t[nz]
+        v = float(vals[0]) if vals.numel() else 0.0
+        if vals.numel() and not bool((vals == v).all()):
+            return None
+        np_ = 64 if n <= 64 else 128 if n <= 128 else 256
+        b = F.pad(nz, (0, np_ - n)).reshape(e, n, np_ // 32, 32).long()
+        w = (b << torch.arange(32, device=t.device)).sum(-1)
+        w = torch.where(w >= 2 ** 31, w - 2 ** 32, w)
+        return w.to(torch.int32).contiguous(), v
+    return _cached(m, "_irk_bits", make)
+
+
 def _window_attention_cuda(qkv, rpb, bank, num_heads, nwy, nwx, fast,
-                           mask, scale):
+                           mask, scale, table):
     t, c3 = qkv.shape
     c = c3 // 3
     n = rpb.shape[-1]
@@ -539,37 +591,47 @@ def _window_attention_cuda(qkv, rpb, bank, num_heads, nwy, nwx, fast,
     if n > 256 or hd > 64 or c % num_heads or t % n or (t // n) % nw:
         raise ValueError(f"window_attention: N={n}, head width {hd}, "
                          f"{t} rows do not fit the kernel")
-    if qkv.dtype == torch.bfloat16 and n > 64 and (hd % 2
-                                                   or qkv.data_ptr() % 4):
-        raise ValueError("bf16 window_attention at N > 64 copies bf16 "
-                         "pairs: it needs an even head width and a 4-byte "
-                         "aligned qkv")
+    if qkv.dtype == torch.bfloat16 and (hd % 2 or qkv.data_ptr() % 4):
+        raise ValueError("bf16 window_attention reads bf16 pairs: it needs "
+                         "an even head width and a 4-byte aligned qkv")
     if bank is not None and mask is not None:
         raise ValueError("window_attention takes a bank or a mask, not both")
+    ws = round(n ** 0.5)
+    if table is not None:
+        _check_f32(table, ((2 * ws - 1) ** 2, num_heads), "table")
+        if ws * ws != n:
+            raise ValueError(f"a bias table needs a square window, N={n}")
     _check_f32(rpb, (num_heads, n, n), "rpb")
     _check_f32(bank, (2, 2, n, n), "bank")
     _check_f32(mask, (nw, n, n), "mask")
     out = torch.empty((t, c), dtype=qkv.dtype, device=qkv.device)
     fn = kernels.load("swin_block").window_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 \
-        + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 7 \
-        + [ctypes.c_float, ctypes.c_void_p]
-    err = fn(_ptr(qkv), _DT[qkv.dtype], _ptr(rpb), _ptr(bank), _ptr(mask),
-             nw, _ptr(out), t // n, n, c, num_heads, nwy, nwx, int(fast),
-             float(scale), torch.cuda.current_stream(qkv.device).cuda_stream)
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2 \
+        + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+           ctypes.c_int, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p] \
+        + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    dense = bank if bank is not None else mask
+    bits = None if dense is None else mask_bits(dense)
+    err = fn(_ptr(qkv), _DT[qkv.dtype],
+             None if table is not None else _ptr(rpb), _ptr(table), ws,
+             _ptr(bank), 0 if bank is None else bank_zero_flags(bank),
+             _ptr(mask), nw, None if bits is None else _ptr(bits[0]),
+             0.0 if bits is None else bits[1], _ptr(out), t // n, n, c,
+             num_heads, nwy, nwx, int(fast), float(scale),
+             torch.cuda.current_stream(qkv.device).cuda_stream)
     kernels.check(err, "window_attention")
     window_attention.launches += 1
     return out
 
 
 def window_attention(qkv, rpb, bank, *, num_heads, nwy, nwx, fast,
-                     mask=None, scale: float = 1.0):
+                     mask=None, scale: float = 1.0, table=None):
     """K2: attention of every (window, head) over window-order rows.
 
     Args:
         qkv: (T, 3C) rows in window order (q | k | v); N = rpb's last dim,
-            N <= 256 and head width <= 64 on the card.
+            N <= 256 and head width <= 64 on the card (even in bf16).
         rpb: (heads, N, N) float32 relative-position bias.
         bank: None or the (2, 2, N, N) float32 shift-mask bank, picked per
             window by [is_last_window_row, is_last_window_col].
@@ -581,10 +643,24 @@ def window_attention(qkv, rpb, bank, *, num_heads, nwy, nwx, fast,
         scale: float32 factor on the q.k product before the bias: 1.0 for
             the Swin block's callers, whose q weights carry the attention
             scale; ``head_dim**-0.5`` for :func:`wmsa` (q unscaled).
+        table: None, or the ((2ws-1)^2, heads) float32 table ``rpb`` was
+            made from by the relative-position index (``ops/window_attention
+            .py:relative_position_bias``): the kernel then stages the table
+            and rebuilds ``rpb`` from it (``csrc/swin_block.cu``: bias_row)
+            instead of reading the dense form. The same values, so the plain
+            version ignores it.
+
+    On a CUDA tensor one launch of ``csrc/swin_block.cu``'s K2 (design
+    there): in bf16 ``mma.sync`` tensor-core products with each warp's 16
+    x N logits, softmax and ``p`` in registers, one block per window at N
+    <= 64 (every head from one staging of the window's rows) or per
+    (window, head) above; in f32 FP32-FMA products tiled in registers, one
+    block per (window, head). Bank entries that are all zero are skipped
+    (:func:`bank_zero_flags`).
     """
     if qkv.is_cuda:
         return _window_attention_cuda(qkv, rpb, bank, num_heads, nwy, nwx,
-                                      fast, mask, scale)
+                                      fast, mask, scale, table)
     return window_attention_plain(qkv, rpb, bank, num_heads=num_heads,
                                   nwy=nwy, nwx=nwx, fast=fast, mask=mask,
                                   scale=scale)
@@ -693,7 +769,8 @@ def swin_block_composed(x, p: SwinBlockParams, *, num_heads: int, ws: int,
     qkv = token_linear(xt, p.wqkv, p.bqkv, ln=(p.ln1_w, p.ln1_b), geom=geom,
                        a_map=GATHER)
     a = window_attention(qkv, p.rpb, mask_bank, num_heads=num_heads,
-                         nwy=h // ws, nwx=w // ws, fast=fast)
+                         nwy=h // ws, nwx=w // ws, fast=fast,
+                         table=p.rpb_table)
     x1 = token_linear(a, p.wproj, p.bproj, res=xt, geom=geom, r_map=GATHER,
                       out_dtype=torch.float32 if paired else x.dtype)
     return mlp_block(x1, *p.mlp, fast=fast, out_dtype=x.dtype, scatter=geom)
@@ -772,7 +849,8 @@ def swin_attn_block(x, p: SwinBlockParams, *, num_heads: int, ws: int,
     qkv = token_linear(xt, p.wqkv, p.bqkv, ln=(p.ln1_w, p.ln1_b), geom=geom,
                        a_map=GATHER)
     a = window_attention(qkv, p.rpb, mask_bank, num_heads=num_heads,
-                         nwy=h // ws, nwx=w // ws, fast=fast)
+                         nwy=h // ws, nwx=w // ws, fast=fast,
+                         table=p.rpb_table)
     out = token_linear(a, p.wproj, p.bproj, res=xt, geom=geom, r_map=GATHER,
                        o_map=SCATTER, out_dtype=x.dtype)
     swin_attn_block.launches += 1
@@ -819,7 +897,7 @@ def wmsa_block(xw, p: SwinBlockParams, *, num_heads: int, mask=None):
     xt = xw.contiguous().reshape(-1, c)
     qkv = token_linear(xt, p.wqkv, p.bqkv, ln=(p.ln1_w, p.ln1_b))
     a = window_attention(qkv, p.rpb, None, num_heads=num_heads, nwy=1,
-                         nwx=1, fast=False, mask=mask)
+                         nwx=1, fast=False, mask=mask, table=p.rpb_table)
     out = token_linear(a, p.wproj, p.bproj, res=xt, out_dtype=xw.dtype)
     wmsa_block.launches += 1
     return out.reshape(nwb, n, c)

@@ -1,8 +1,9 @@
-"""The bf16 weight forms and launch plans of K1 (token_linear) and K3
-(conv3x3), on the CPU: the packed forms hold exactly the weights they were
-made from, zero elsewhere; the plain paths give the same result on the
-packed form as on the raw weights; and every served shape's launch plan
-fits in a block's shared memory and covers each output element once."""
+"""The bf16 weight forms and launch plans of K1 (token_linear), K3
+(conv3x3) and K4 (gdfn_block), on the CPU: the packed forms hold exactly
+the weights they were made from, zero elsewhere; the plain paths give the
+same result on the packed form as on the raw weights; and every served
+shape's launch plan fits in a block's shared memory and covers each output
+element once."""
 
 import importlib
 
@@ -14,6 +15,8 @@ import chip_smoke
 
 tconv = importlib.import_module("image_restoration_agent_tpu_torch.ops.conv3x3")
 tkern = importlib.import_module("image_restoration_agent_tpu_torch.ops.kernels")
+trf = importlib.import_module(
+    "image_restoration_agent_tpu_torch.ops.restormer_fused")
 tsb = importlib.import_module("image_restoration_agent_tpu_torch.ops.swin_block")
 
 torch.set_num_threads(1)
@@ -150,3 +153,122 @@ def test_served_slices_are_the_designed_ones():
         [(3, 184), (1, 184), (2, 184), (2, 96)]
     assert [tkern.gemm_slices(c) for c in (3, 12, 24, 48, 60, 180, 768)] \
         == [(1, 8), (1, 16), (1, 24), (1, 48), (1, 64), (1, 184), (3, 256)]
+
+
+# K4's widths: Restormer's levels (hidden int(2.66 C): 127, 255, 510, 1021,
+# every one a ragged last chunk of 32) and the card tests' C 24
+K4_WIDTHS = ((48, 127), (96, 255), (192, 510), (384, 1021), (24, 63))
+
+
+def _gdfn_params(rng, c, hid, bias):
+    b = (lambda n: _rand(rng, n)) if bias else (lambda n: None)
+    return ((1 + _rand(rng, c) / 10, _rand(rng, c) / 10),
+            _rand(rng, c, 2 * hid) / c ** 0.5, b(2 * hid),
+            _rand(rng, 9, 2 * hid) / 3, b(2 * hid),
+            _rand(rng, hid, c) / hid ** 0.5, b(c))
+
+
+def _frag_unpack(f):
+    """The (kp, np) matrix of a restormer_fused.frag_pack form."""
+    ks, nt = f.shape[:2]
+    w = f.reshape(ks, nt, 8, 4, 2, 2).permute(0, 4, 3, 5, 1, 2)
+    return w.reshape(16 * ks, 8 * nt)
+
+
+def _gdfn_unpacked(k, c, hid):
+    """(w_in (C, 2 hid), w_out (hid, C)) read back from the packed forms,
+    with the padding they carry: (w_in rows C16, columns nch*32 a group;
+    w_out rows nch*32, the plan's columns)."""
+    w_in = torch.cat([_frag_unpack(f) for f in k.w_in_f], dim=1)
+    w_out = torch.cat([_frag_unpack(f) for f in k.w_out_f], dim=0)
+    nch = k.nch
+    # chunk i's 64 columns are x1 chunk i, then x2 chunk i
+    grp = w_in.reshape(w_in.shape[0], nch, 2, 32).permute(0, 2, 1, 3)
+    return grp.reshape(w_in.shape[0], 2, nch * 32), w_out
+
+
+@pytest.mark.parametrize("c,hid", K4_WIDTHS)
+def test_gdfn_forms_hold_the_weights(c, hid):
+    rng = np.random.default_rng(c)
+    g = _gdfn_params(rng, c, hid, bias=True)
+    k = trf.gdfn_weights(*g, torch.bfloat16)
+    plan = trf.gdfn_plan(c)
+    nch, c16 = -(-hid // 32), -(-c // 16) * 16
+    assert k.nch == nch
+    assert k.w_in_f.shape == (nch, c16 // 16, 8, 32, 4)
+    assert k.w_out_f.shape == (nch, 2, plan.cols // 8, 32, 4)
+    for f in (k.w_in_f, k.w_out_f):
+        assert f.is_contiguous() and f.dtype == torch.bfloat16
+    w_in, w_out = _gdfn_unpacked(k, c, hid)
+    wi = g[1].to(torch.bfloat16)
+    assert torch.equal(w_in[:c, 0, :hid], wi[:, :hid])
+    assert torch.equal(w_in[:c, 1, :hid], wi[:, hid:])
+    assert torch.equal(w_out[:hid, :c], g[5].to(torch.bfloat16))
+    # zero everywhere else: no nonzero beyond the weights' own
+    assert (w_in != 0).sum() == (wi != 0).sum()
+    assert (w_out != 0).sum() == (g[5].to(torch.bfloat16) != 0).sum()
+    # f32 keeps no packed form
+    k32 = trf.gdfn_weights(*g, torch.float32)
+    assert k32.w_in_f is None and k32.w_out_f is None
+
+
+@pytest.mark.parametrize("c,hid", [(48, 127), (24, 63)])
+@pytest.mark.parametrize("fast", [False, True])
+def test_gdfn_plain_on_the_packed_forms_equals_the_raw_weights(c, hid,
+                                                               fast):
+    rng = np.random.default_rng(c + 1)
+    g = _gdfn_params(rng, c, hid, bias=True)
+    k = trf.gdfn_weights(*g, torch.bfloat16)
+    w_in, w_out = _gdfn_unpacked(k, c, hid)
+    packed = list(g)
+    packed[1] = torch.cat([w_in[:c, 0, :hid], w_in[:c, 1, :hid]], dim=1)
+    packed[5] = w_out[:hid, :c]
+    x = _rand(rng, 1, 8, 16, c).to(torch.bfloat16)
+    assert torch.equal(trf.gdfn_block_plain(x, *packed, fast=fast),
+                       trf.gdfn_block_plain(x, *g, fast=fast))
+
+
+@pytest.mark.parametrize("shape", [s for _, s, _ in chip_smoke.RESTORMER_SHAPES]
+                         + [(2, 24, 40, 48), (2, 19, 36, 96), (2, 8, 20, 384),
+                            (2, 16, 128, 24)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_gdfn_plan_fits_and_covers(shape):
+    """K4's bf16 plan: shared memory within a block's 227 KB; the tiles
+    cover the canvas once; project_out's warp tiles (warp w: m16 rows
+    mt (w % WM) .., n8 columns ntw (w // WM) ..) cover the tile's pixels
+    x the plan's columns once, with 48 accumulators a thread."""
+    b, h, w, c = shape
+    p = trf.gdfn_plan(c)
+    assert p.smem <= tkern.SMEM_LIMIT and p.threads <= 512
+    hp = (p.th + 2) * (p.tw + 2)
+    assert p.smem == 2 * (-(-hp // 16) * 16 * (-(-c // 16) * 16 + 8)
+                          + hp * (2 * trf.CHUNK + 8)
+                          + p.th * p.tw * (trf.CHUNK + 8))
+    assert p.tw % 4 == 0 and p.mt * p.ntw * 4 == 48
+    assert c <= p.cols == 8 * p.ntw * p.wn
+    nw = p.threads // 32
+    wm = nw // p.wn
+    assert nw % p.wn == 0
+    seen = np.zeros((p.th * p.tw, p.cols // 8), np.int64)
+    for warp in range(nw):
+        for i in range(p.mt):
+            r0 = 16 * (p.mt * (warp % wm) + i)
+            n0 = p.ntw * (warp // wm)
+            seen[r0:r0 + 16, n0:n0 + p.ntw] += 1
+    assert (seen == 1).all()
+    cover = np.zeros((h, w), np.int64)
+    for ty in range(-(-h // p.th)):
+        for tx in range(-(-w // p.tw)):
+            cover[ty * p.th:(ty + 1) * p.th, tx * p.tw:(tx + 1) * p.tw] += 1
+    assert (cover == 1).all()
+
+
+def test_gdfn_plans_are_the_designed_ones():
+    """16x32 tiles up to C 48 (halo 1.20x the outputs), 16x16 at C 96,
+    8x16 at C 192, 8x8 at C 384; C above 384 is refused."""
+    assert [(p.th, p.tw, p.threads) for p in map(
+        trf.gdfn_plan, (24, 48, 96, 192, 384))] == \
+        [(16, 32, 512), (16, 32, 512), (16, 16, 512), (8, 16, 512),
+         (8, 8, 512)]
+    with pytest.raises(ValueError):
+        trf.gdfn_plan(392)

@@ -338,40 +338,52 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 def _mask_kw(kind, ws, h, w, dev):
     """The K2 mask forms: none, the (2, 2, N, N) bank, the full (nW, N, N)
-    shift mask."""
+    shift mask (both read as their bit form), and a full mask of many
+    values (read as float32)."""
     n, s = ws * ws, ws // 2
     if kind == "bank":
         return dict(bank=torch.from_numpy(twa.shift_attention_mask(
             2 * ws, 2 * ws, ws, s).reshape(2, 2, n, n)).to(dev), mask=None)
-    if kind == "mask":
-        return dict(bank=None, mask=torch.from_numpy(
-            twa.shift_attention_mask(h, w, ws, s)).to(dev))
+    if kind in ("mask", "values"):
+        m = torch.from_numpy(twa.shift_attention_mask(h, w, ws, s))
+        if kind == "values":
+            m = m * (1 + torch.rand(m.shape, generator=torch.Generator()
+                                    .manual_seed(ws)))
+            assert tsb.mask_bits(m) is None
+        return dict(bank=None, mask=m.to(dev))
     return dict(bank=None, mask=None)
 
 
 # N 256 (HAT's window 16) at head widths 30 and 24, N 100 (a ragged query
-# chunk and padded keys), N 64 (the single-block kernel's full-mask mode)
+# block and padded keys), N 64 (one block per window, every head), N 49
+# (window 7: SwinIR's JPEG geometry, padded keys and query rows) and
+# DehazeFormer's head width 12 at N 64; the bias dense or as the table
+# the kernel rebuilds it from
 @pytest.mark.parametrize("ws,c,heads", [(16, 180, 6), (16, 48, 2),
-                                        (10, 40, 2), (8, 180, 6)])
-@pytest.mark.parametrize("kind", ["none", "bank", "mask"])
+                                        (10, 40, 2), (8, 180, 6),
+                                        (7, 180, 6), (8, 48, 4)])
+@pytest.mark.parametrize("kind", ["none", "bank", "mask", "values"])
 @pytest.mark.parametrize("dtype,fast", [(torch.float32, False),
                                         (torch.bfloat16, False),
                                         (torch.bfloat16, True)])
+@pytest.mark.parametrize("bias", ["dense", "table"])
 def test_window_attention_wide_and_mask_modes(cuda, ws, c, heads, kind,
-                                              dtype, fast):
+                                              dtype, fast, bias):
     """K2 against window_attention_plain: f32 within 1e-4 x max|ref|; bf16
     within the rounding control in RMS."""
     gen = torch.Generator().manual_seed(6)
     n, h, w = ws * ws, 2 * ws, 4 * ws
     t = 2 * h * w
     qkv32 = _randn(gen, t, 3 * c).to(cuda)
-    rpb = _randn(gen, heads, n, n, scale=0.5).to(cuda)
+    table = _randn(gen, (2 * ws - 1) ** 2, heads, scale=0.5).to(cuda)
+    rpb = twa.relative_position_bias(table, ws).contiguous()
     kw = dict(num_heads=heads, nwy=h // ws, nwx=w // ws, fast=fast,
               **_mask_kw(kind, ws, h, w, cuda))
     bank = kw.pop("bank")
     qkv = qkv32.to(dtype)
     n0 = tsb.window_attention.launches
-    got = tsb.window_attention(qkv, rpb, bank, **kw)
+    got = tsb.window_attention(qkv, rpb, bank, **kw,
+                               table=table if bias == "table" else None)
     assert tsb.window_attention.launches == n0 + 1 and got.dtype == dtype
     _close_or_within_rounding(
         got, tsb.window_attention_plain(qkv, rpb, bank, **kw),

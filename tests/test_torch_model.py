@@ -353,6 +353,42 @@ def test_swinir_tiny_bf16_partition_route_matches_jax():
     assert np.abs(got - want).max() <= 2 * np.abs(ctrl).max()
 
 
+def test_swinir_window7_bf16_partition_route_matches_jax():
+    """bf16 SwinIR at swinir_jpeg_40's geometry (window 7, embed 180, 6
+    heads, img_range 255), cut to one RSTB of two blocks, on a 14x21
+    canvas (2x3 windows of 49 tokens: the partition route, one unshifted
+    and one shifted block) against the JAX bf16 model on its TPU route
+    (XLA at an odd window), held to the bounds of
+    test_swinir_tiny_bf16_partition_route_matches_jax: 1.25x the JAX bf16
+    model's RMS error against f32, 1.5x in RMS distance to it, 2x its
+    largest error."""
+    from image_restoration_agent_tpu.models.swinir import SwinIR as JSwinIR
+    cfg = dict(MODEL_REGISTRY["swinir_jpeg_40"].config, depths=(2,),
+               num_heads=(6,))
+    x = np.random.default_rng(16).random((1, 14, 21, 3), dtype=np.float32)
+    params = JSwinIR(**cfg, attention_impl="xla").init(
+        jax.random.PRNGKey(8), jnp.asarray(x))
+    params = jax.tree.map(
+        lambda a: a + 0.05 * np.random.default_rng(17).standard_normal(
+            a.shape).astype(np.float32), jax.tree.map(np.asarray, params))
+    want = _jax_swinir(cfg, x, params, jnp.bfloat16, interpret=True)
+    ref32 = _jax_swinir(cfg, x, params, jnp.float32, interpret=False)
+    m16 = build_model("swinir_jpeg_40", device="cpu", dtype=torch.bfloat16,
+                      depths=(2,), num_heads=(6,))
+    m16.load_state_dict(from_jax(params), strict=True)
+    assert not m16.layers[0].residual_group.blocks[1].strip(
+        torch.zeros(1, 14, 21, 180))
+    got = m16(torch.from_numpy(x).bfloat16()).float().numpy()
+
+    def rms(a):
+        return float(np.sqrt(np.mean(a ** 2)))
+
+    ctrl = want - ref32
+    assert rms(got - ref32) <= 1.25 * rms(ctrl)
+    assert rms(got - want) <= 1.5 * rms(ctrl)
+    assert np.abs(got - want).max() <= 2 * np.abs(ctrl).max()
+
+
 def test_slice1_route_fault_is_repaired(monkeypatch):
     """The fault this repairs: slice 1 ran every SwinIR block as the strip
     form, whose bf16 numerics are the fast ones (clamp-exp2 softmax,
