@@ -531,14 +531,34 @@ def restormer_kernel_checks(quick: bool, seed: int = 3) -> list[dict]:
     versions at the 720p request's shapes (a 16x128 canvas with --quick).
     The K5 rows hold the whole MDTA block (K5 and the plain epilogue, the
     TPU kernel's function) to ``mdta_block_plain``; ``front_ms`` is K5
-    alone, and ``repeatable`` says two launches gave the same bits."""
+    alone, and ``repeatable`` says two launches gave the same bits;
+    ``plan`` is K5's launch plan at the shape (tile, threads, shared bytes,
+    and in bf16 the gram tiles and slices) and ``ptxas`` its kernel's
+    registers and spills from the build log."""
     import torch
 
+    from image_restoration_agent_tpu_torch.ops import kernels
     from image_restoration_agent_tpu_torch.ops.conv3x3 import (
         conv3x3, conv3x3_plain, conv3x3_weights)
     from image_restoration_agent_tpu_torch.ops.restormer_fused import (
-        gdfn_block, gdfn_block_plain, gdfn_weights, mdta_block,
-        mdta_block_plain, mdta_front, mdta_weights)
+        _plan, gdfn_block, gdfn_block_plain, gdfn_weights, mdta_block,
+        mdta_block_plain, mdta_front, mdta_plan, mdta_weights)
+
+    ptxas = ptxas_lines(kernels.build_log("restormer_fused"))
+
+    def k5_plan(dtype, c, heads):
+        if dtype == torch.float32:
+            th, tw, smem = _plan(1, dtype, c, heads)
+            plan, kern = dict(tile=[th, tw], threads=256, smem=smem), \
+                "mdta_front_kernel"
+        else:
+            p = mdta_plan(c, heads)
+            plan, kern = dict(tile=[p.th, p.tw], threads=p.threads,
+                              smem=p.smem, gram_tiles=p.tiles,
+                              gram_tile_mma=[p.mw, p.nw8], slices=p.slices), \
+                f"mdta_mma_kernel<{p.mw},{p.nw8},{p.threads}>"
+        return {"plan": plan, "ptxas": [ln for ln in ptxas
+                                        if ln.split(":")[0] == kern]}
 
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(seed)
@@ -608,7 +628,8 @@ def restormer_kernel_checks(quick: bool, seed: int = 3) -> list[dict]:
                         x32, *m, hd),
                     extra_ms={"front_ms": lambda x=x, mk=mk: mdta_front(
                         x, mk)},
-                    extra={"repeatable": bool(torch.equal(g1, g2))},
+                    extra={"repeatable": bool(torch.equal(g1, g2)),
+                           **k5_plan(dtype, c, heads)},
                     library=None, reps=5,
                     flops=p * (8 * c * c + 54 * c + 2 * c * ch),
                     nbytes=2 * p * c * es + 4 * c * c * es))

@@ -172,6 +172,29 @@ __device__ __forceinline__ int frag_row(int lane) {
 }
 __device__ __forceinline__ int frag_khalf(int lane) { return lane >> 4; }
 
+// four 8x8 bf16 matrices, transposed: for V (keys x d, row-major) lane l
+// gives the row of key (l & 7) + 8 ((l >> 3) & 1) at column 8 (l >> 4):
+// r[0], r[1] are the B fragment of the first 8 columns, r[2], r[3] of the
+// next 8
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row)));
+}
+
+// two 8x8 bf16 matrices, transposed (lanes 0-15 give the row addresses, as
+// for the first two of ldmatrix_x4_trans): one B fragment of 8 columns
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(row)));
+}
+
 // warp-specialised register budgets: the producer warpgroup gives
 // registers back, the consumers take them (all threads of a warpgroup)
 template <int N>

@@ -952,19 +952,6 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// four 8x8 bf16 matrices, transposed: for V (keys x d, row-major) lane l
-// gives the row of key (l & 7) + 8 ((l >> 3) & 1) at column 8 (l >> 4):
-// r[0], r[1] are the B fragment of the first 8 columns, r[2], r[3] of the
-// next 8
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* row) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(row)));
-}
-
 // q's A fragments of rows r0 + g and r0 + g + 8, masked past column hd
 template <int KD>
 __device__ __forceinline__ void q_frags(uint32_t (&qa)[KD][4],

@@ -49,17 +49,29 @@ The CUDA kernels are ``csrc/restormer_fused.cu``:
   16x16 at C 96 (1.27x), 8x16 at C 192 (1.41x), 8x8 at C 384 (1.56x), so
   that the (pixels x C) accumulator fits the block's registers. The
   depthwise taps and the GELU gate stay float32 FMA from shared memory.
-- K4 in f32 and K5 in both dtypes run their products on FP32 FMA (4x4
-  outputs per thread) with a float32 ``project_out`` tile in shared
-  memory.
+- K5 in bf16 shares K4's staging, 1x1 and tap code: the qkv 1x1 on the
+  tensor cores from a packed form (``w_qkv_f``, chunk ``i``'s 96
+  interleaved q/k/v columns), the taps in float32, v stored in bf16, q and
+  k rounded to bf16 into pixel-major tiles, and the per-head gram q_h^T k_h
+  on ``mma.sync`` with A and B by ``ldmatrix.trans`` from those tiles. The
+  gram's accumulators stay in registers across the block's whole run of
+  tiles: warp ``w`` owns a gram tile of (m16, n8) mma tiles of one head,
+  the smallest of 1x2, 1x3, 3x2 and 3x3 whose tiles the warps hold, so no
+  warp takes two (8 to 36 floats a thread: they stay live through every
+  phase, and 36 at every shape made the taps spill); 384-thread blocks
+  (168 registers) for the first three, 512 for 3x3 (C 384, 8 heads). A
+  ragged head width is padded to 16 (the padded rows and columns are
+  dropped). The tile is chosen per (C, heads) (:func:`mdta_plan`): 16x16 up
+  to C 48, 12x16 at C 96, 8x16 at C 192, 8x8 at C 384, the largest whose
+  shared memory fits now that the gram has left it.
+- K4 and K5 in f32 run their products on FP32 FMA (4x4 outputs per
+  thread) with a float32 ``project_out`` tile or gram in shared memory.
 - MDTA's cross-block sums: each block takes a fixed run of tiles of one
-  sample and keeps its gram and sums of squares in shared memory; a second
-  launch sums the per-block partials in block order. No atomics, so the
-  result is the same bit for bit from run to run on one card and shape.
-  The gram is kept only for the per-head diagonal blocks (B, heads, C_h,
-  C_h): the epilogue reads nothing else, and the TPU kernel's full (C, C)
-  gram (its cross-head blocks discarded) does not fit shared memory at
-  C 384.
+  sample and keeps its sums; a second launch sums the per-block partials
+  in block order. No atomics, so the result is the same bit for bit from
+  run to run on one card and shape. The gram is kept only for the
+  per-head diagonal blocks (B, heads, C_h, C_h): the epilogue reads
+  nothing else.
 """
 
 from __future__ import annotations
@@ -426,7 +438,10 @@ class MdtaWeights(NamedTuple):
     w_qkv in ``dtype`` and the depthwise weights and biases in float32,
     chunk-interleaved (q, k and v chunk ``i`` side by side, each zero-padded
     to a multiple of :data:`CHUNK` channels); the epilogue's temperature,
-    projection (C_in, C_out) and bias in float32."""
+    projection (C_in, C_out) and bias in float32. In bf16 also the
+    tensor-core kernel's ``w_qkv_f`` (nch, C16/16, 12, 32, 4): chunk ``i``'s
+    96 interleaved columns as :func:`frag_pack` fragments (C16 = C rounded
+    up to 16); None in f32."""
 
     params: tuple
     dtype: torch.dtype
@@ -442,6 +457,7 @@ class MdtaWeights(NamedTuple):
     temperature: torch.Tensor
     w_proj: torch.Tensor
     b_proj: torch.Tensor | None
+    w_qkv_f: torch.Tensor | None = None
 
 
 def mdta_weights(ln, w_qkv, b_qkv, w_dw, b_dw, w_proj, b_proj, temperature,
@@ -449,17 +465,25 @@ def mdta_weights(ln, w_qkv, b_qkv, w_dw, b_dw, w_proj, b_proj, temperature,
     """The kernel form of one MDTA (see :func:`mdta_block_plain` for the
     layouts)."""
     c = w_qkv.shape[0]
+    nch = -(-c // CHUNK)
+    wq = _interleave(w_qkv.detach().to(dtype), 3)
+    w_qkv_f = None
+    if dtype == torch.bfloat16:
+        c16 = -(-c // 16) * 16
+        w_qkv_f = torch.stack([frag_pack(wq[:, 3 * CHUNK * i:
+                                            3 * CHUNK * (i + 1)], c16)
+                               for i in range(nch)]).contiguous()
     return MdtaWeights(
         params=(ln, w_qkv, b_qkv, w_dw, b_dw), dtype=dtype, c=c,
-        nch=-(-c // CHUNK), num_heads=num_heads,
+        nch=nch, num_heads=num_heads,
         ln_w=None if ln is None else _f32(ln[0]),
         ln_b=None if _ln_mode(ln) != 2 else _f32(ln[1]),
-        w_qkv=_interleave(w_qkv.detach().to(dtype), 3),
+        w_qkv=wq,
         b_qkv=None if b_qkv is None else _interleave(_f32(b_qkv), 3),
         w_dw=_interleave(_f32(w_dw), 3),
         b_dw=None if b_dw is None else _interleave(_f32(b_dw), 3),
         temperature=_f32(temperature).reshape(num_heads),
-        w_proj=_f32(w_proj), b_proj=_f32(b_proj))
+        w_proj=_f32(w_proj), b_proj=_f32(b_proj), w_qkv_f=w_qkv_f)
 
 
 def mdta_front_plain(x, ln, w_qkv, b_qkv, w_dw, b_dw, num_heads: int):
@@ -489,6 +513,86 @@ def mdta_front_plain(x, ln, w_qkv, b_qkv, w_dw, b_dw, num_heads: int):
     return v.to(dt), gram, ssq
 
 
+class MdtaPlan(NamedTuple):
+    """K5's bf16 launch plan for one (C, heads): a ``th`` x ``tw`` output
+    tile per block of ``threads`` threads; the per-head gram as ``tiles``
+    gram tiles of ``mw`` x ``nw8`` (m16, n8) mma tiles of one head, a warp
+    each; where the gram tiles outnumber the warps, ``slices`` blocks share
+    a run of tiles, each holding a slice of the gram tiles; ``smem`` bytes
+    of shared memory (``csrc/restormer_fused.cu``: mdta_mma_smem)."""
+
+    th: int
+    tw: int
+    threads: int
+    mw: int
+    nw8: int
+    tiles: int
+    slices: int
+    smem: int
+
+
+# output tiles, largest first: the plan takes the first whose shared
+# memory fits (halo 1.27x the outputs at 16x16, 1.31x at 12x16)
+_MDTA_TILES = ((16, 16), (12, 16), (8, 16), (8, 8), (4, 8), (4, 4))
+# the gram tiles (m16 x n8 mma tiles) and block sizes the kernel is
+# instantiated for (csrc/restormer_fused.cu: IRK_GRAM_SHAPES), fewest
+# accumulators first: 384 threads keep 168 registers a thread (no spills),
+# 3x3 tiles need 512 threads' 16 warps at C 384 with 8 heads
+GRAM_SHAPES = ((1, 2, 384), (1, 3, 384), (3, 2, 384), (3, 3, 512))
+
+
+def mdta_ldq(c: int, heads: int) -> int:
+    """Row stride of K5's q and k tiles: every head at its width rounded
+    up to 16 columns, + 8."""
+    return heads * (-(-(c // heads) // 16) * 16) + 8
+
+
+def mdta_smem(c: int, heads: int, th: int, tw: int, nw: int) -> int:
+    """Shared bytes of K5's bf16 kernel (``mdta_mma_smem``)."""
+    cq = -(-c // CHUNK) * CHUNK
+    hp = (th + 2) * (tw + 2)
+    return 4 * (2 * cq + nw * 2 * CHUNK + 2 * c) + 2 * (
+        -(-hp // 16) * 16 * (-(-c // 16) * 16 + 8) + hp * (3 * CHUNK + 8)
+        + 2 * th * tw * mdta_ldq(c, heads))
+
+
+def gram_shape(c: int, heads: int) -> tuple[int, int, int, int]:
+    """(mw, nw8, threads, gram tiles): the first of :data:`GRAM_SHAPES`
+    whose gram tiles the block's warps hold, else the largest."""
+    mh = -(-(c // heads) // 16)
+    for mw, nw8, threads in GRAM_SHAPES:
+        tiles = heads * -(-mh // mw) * -(-2 * mh // nw8)
+        if tiles <= threads // 32:
+            break
+    return mw, nw8, threads, tiles
+
+
+def mdta_plan(c: int, heads: int) -> MdtaPlan:
+    """The bf16 K5 plan for (C, heads): the gram tile of
+    :func:`gram_shape`; the largest of :data:`_MDTA_TILES` whose shared
+    memory fits."""
+    if c % 4 or c % heads or (c // heads) % 4:
+        raise ValueError(f"mdta_front's bf16 kernel takes C and C/heads "
+                         f"multiples of 4, not {c}/{heads}")
+    mw, nw8, threads, tiles = gram_shape(c, heads)
+    nw = threads // 32
+    for th, tw in _MDTA_TILES:
+        smem = mdta_smem(c, heads, th, tw, nw)
+        if smem <= kernels.SMEM_LIMIT:
+            return MdtaPlan(th, tw, threads, mw, nw8, tiles,
+                            -(-tiles // nw), smem)
+    raise ValueError(f"no tile of mdta_front's bf16 kernel fits shared "
+                     f"memory at C={c}, heads={heads}")
+
+
+def mdta_blocks(bsz: int, ntiles: int, slices: int, sms: int) -> int:
+    """K5's bf16 blocks a sample (times ``slices``): one block an SM
+    (its shared memory), each a run of ``ceil(ntiles / nb)`` or one fewer
+    tiles, the fewest blocks that keep the longest run."""
+    nb = max(1, min(ntiles, sms // (bsz * slices)))
+    return -(-ntiles // -(-ntiles // nb))
+
+
 def _mdta_cuda(x: torch.Tensor, k: MdtaWeights):
     x = _check_x(x, k.c, "mdta_front")
     _check_on(x, (k.w_qkv, k.w_dw, k.ln_w), k.dtype, "mdta_front")
@@ -498,29 +602,43 @@ def _mdta_cuda(x: torch.Tensor, k: MdtaWeights):
     if c % heads or ch % 4:
         raise ValueError(f"mdta_front kernel takes C/heads a multiple of 4, "
                          f"not {c}/{heads}")
-    th, tw, smem = _plan(1, x.dtype, c, heads)
-    ntiles = -(-h // th) * -(-w // tw)
-    props = torch.cuda.get_device_properties(x.device)
-    per_sm = max(1, min(8, (228 * 1024) // (smem + 1024)))
-    nb = max(1, min(ntiles, props.multi_processor_count * per_sm // bsz))
     cq = k.nch * CHUNK
     v = torch.empty_like(x)
-    part = torch.empty((bsz * nb, heads * ch * ch + 2 * cq),
-                       dtype=torch.float32, device=x.device)
     gram = torch.empty((bsz, heads, ch, ch), dtype=torch.float32,
                        device=x.device)
     ssq = torch.empty((bsz, 2, c), dtype=torch.float32, device=x.device)
     lib = kernels.load("restormer_fused")
-    fn = lib.mdta_front_f32 if x.dtype == torch.float32 \
-        else lib.mdta_front_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 \
-        + [ctypes.c_void_p]
-    err = fn(_ptr(x), _ptr(k.ln_w), _ptr(k.ln_b), _ptr(k.w_qkv),
-             _ptr(k.b_qkv), _ptr(k.w_dw), _ptr(k.b_dw), _ptr(v), _ptr(part),
-             _ptr(gram), _ptr(ssq), bsz, h, w, c, k.nch, heads,
-             _ln_mode(k.params[0]), th, tw, smem, nb,
-             torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if x.dtype == torch.float32:
+        th, tw, smem = _plan(1, x.dtype, c, heads)
+        ntiles = -(-h // th) * -(-w // tw)
+        per_sm = max(1, min(8, (228 * 1024) // (smem + 1024)))
+        nb = max(1, min(ntiles, kernels.sm_count(x.device) * per_sm // bsz))
+        part = torch.empty((bsz * nb, heads * ch * ch + 2 * cq),
+                           dtype=torch.float32, device=x.device)
+        fn = lib.mdta_front_f32
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 \
+            + [ctypes.c_void_p]
+        err = fn(_ptr(x), _ptr(k.ln_w), _ptr(k.ln_b), _ptr(k.w_qkv),
+                 _ptr(k.b_qkv), _ptr(k.w_dw), _ptr(k.b_dw), _ptr(v),
+                 _ptr(part), _ptr(gram), _ptr(ssq), bsz, h, w, c, k.nch,
+                 heads, _ln_mode(k.params[0]), th, tw, smem, nb, stream)
+    else:
+        p = mdta_plan(c, heads)
+        ntiles = -(-h // p.th) * -(-w // p.tw)
+        nb = mdta_blocks(bsz, ntiles, p.slices, kernels.sm_count(x.device))
+        part = torch.empty((bsz * nb, heads * ch * ch + 2 * cq),
+                           dtype=torch.float32, device=x.device)
+        fn = lib.mdta_front_bf16
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 15 \
+            + [ctypes.c_void_p]
+        err = fn(_ptr(x), _ptr(k.ln_w), _ptr(k.ln_b), _ptr(k.w_qkv_f),
+                 _ptr(k.b_qkv), _ptr(k.w_dw), _ptr(k.b_dw), _ptr(v),
+                 _ptr(part), _ptr(gram), _ptr(ssq), bsz, h, w, c, k.nch,
+                 heads, _ln_mode(k.params[0]), p.th, p.tw, p.threads, p.mw,
+                 p.nw8, p.slices, p.smem, nb, stream)
     kernels.check(err, "mdta_front")
     mdta_front.launches += 1
     return v, gram, ssq
@@ -536,6 +654,45 @@ def mdta_front(x: torch.Tensor, w: MdtaWeights):
 
 
 mdta_front.launches = 0
+
+
+def gram_tile_plain(q: torch.Tensor, k: torch.Tensor, heads: int
+                    ) -> torch.Tensor:
+    """Plain version of :func:`gram_tile`: the per-head q_h^T k_h of (P, C)
+    q and k, float32 sums, (heads, C/heads, C/heads)."""
+    p, c = q.shape
+    ch = c // heads
+    return torch.einsum("phc,phd->hcd", q.float().reshape(p, heads, ch),
+                        k.float().reshape(p, heads, ch))
+
+
+def gram_tile(q: torch.Tensor, k: torch.Tensor, heads: int) -> torch.Tensor:
+    """K5's gram step alone (``csrc/restormer_fused.cu``: gram_tile_kernel,
+    A = q_h^T and B = k_h by ldmatrix.trans, at the gram tile
+    :func:`gram_shape` gives K5 for (C, heads)), the step's own check: q
+    and k (P, C) bf16, P a multiple of 16; returns the per-head gram
+    (heads, C/heads, C/heads) float32. A CPU tensor takes
+    :func:`gram_tile_plain`."""
+    if not q.is_cuda:
+        return gram_tile_plain(q, k, heads)
+    p, c = q.shape
+    if k.shape != q.shape or p % 16 or p < 16 or c % heads \
+            or (c // heads) % 4 or q.dtype != torch.bfloat16 \
+            or k.dtype != torch.bfloat16:
+        raise ValueError("gram_tile takes (P, C) bf16 q and k, P a multiple "
+                         "of 16, C/heads a multiple of 4")
+    ch = c // heads
+    q, k = q.contiguous(), k.contiguous()
+    out = torch.empty((heads, ch, ch), dtype=torch.float32, device=q.device)
+    mw, nw8, _, _ = gram_shape(c, heads)
+    fn = kernels.load("restormer_fused").mdta_gram_tile
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    err = fn(q.data_ptr(), k.data_ptr(), out.data_ptr(), p, c, heads, mw,
+             nw8, torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check(err, "gram_tile")
+    return out
 
 
 def mdta_epilogue(x, v, gram, ssq, temperature, w_proj, b_proj,

@@ -1,9 +1,10 @@
 """The bf16 weight forms and launch plans of K1 (token_linear), K3
-(conv3x3) and K4 (gdfn_block), on the CPU: the packed forms hold exactly
+(conv3x3), K4 (gdfn_block) and K5 (mdta_front), on the CPU: the packed
+forms hold exactly
 the weights they were made from, zero elsewhere; the plain paths give the
 same result on the packed form as on the raw weights; and every served
 shape's launch plan fits in a block's shared memory and covers each output
-element once."""
+element once (K5: each output pixel and each per-head gram element)."""
 
 import importlib
 
@@ -272,3 +273,144 @@ def test_gdfn_plans_are_the_designed_ones():
          (8, 8, 512)]
     with pytest.raises(ValueError):
         trf.gdfn_plan(392)
+
+
+# K5's (C, heads): Restormer's four levels and its C 96 decoder / refinement
+# stage (one head), and the card tests' C 24 with 2 heads (head width 12,
+# padded to 16)
+K5_WIDTHS = ((48, 1), (96, 2), (192, 4), (384, 8), (96, 1), (24, 2))
+
+
+def _mdta_params(rng, c, heads, bias):
+    b = (lambda n: _rand(rng, n)) if bias else (lambda n: None)
+    return ((1 + _rand(rng, c) / 10, _rand(rng, c) / 10),
+            _rand(rng, c, 3 * c) / c ** 0.5, b(3 * c),
+            _rand(rng, 9, 3 * c) / 3, b(3 * c))
+
+
+def _mdta_unpacked(k, c):
+    """(C, 3C) w_qkv read back from the packed w_qkv_f: chunk i's 96
+    columns are q, k and v chunk i; (the whole unpacked form, with its
+    padding: rows C16, each group nch*32 columns)."""
+    w = torch.cat([_frag_unpack(f) for f in k.w_qkv_f], dim=1)
+    grp = w.reshape(w.shape[0], k.nch, 3, 32).permute(0, 2, 1, 3)
+    grp = grp.reshape(w.shape[0], 3, k.nch * 32)
+    return torch.cat([grp[:c, g, :c] for g in range(3)], dim=1), w
+
+
+@pytest.mark.parametrize("c,heads", K5_WIDTHS)
+def test_mdta_form_holds_the_weights(c, heads):
+    rng = np.random.default_rng(c + heads)
+    m = _mdta_params(rng, c, heads, bias=True)
+    k = trf.mdta_weights(*m, _rand(rng, c, c), None, torch.ones(heads),
+                         heads, torch.bfloat16)
+    nch, c16 = -(-c // 32), -(-c // 16) * 16
+    assert k.nch == nch
+    assert k.w_qkv_f.shape == (nch, c16 // 16, 12, 32, 4)
+    assert k.w_qkv_f.is_contiguous() and k.w_qkv_f.dtype == torch.bfloat16
+    wq, whole = _mdta_unpacked(k, c)
+    w16 = m[1].to(torch.bfloat16)
+    assert torch.equal(wq, w16)
+    # zero everywhere else: no nonzero beyond the weight's own
+    assert (whole != 0).sum() == (w16 != 0).sum()
+    k32 = trf.mdta_weights(*m, _rand(rng, c, c), None, torch.ones(heads),
+                           heads, torch.float32)
+    assert k32.w_qkv_f is None
+
+
+@pytest.mark.parametrize("c,heads", K5_WIDTHS)
+def test_mdta_plain_on_the_packed_form_equals_the_raw_weights(c, heads):
+    rng = np.random.default_rng(c * 7 + heads)
+    m = _mdta_params(rng, c, heads, bias=True)
+    k = trf.mdta_weights(*m, _rand(rng, c, c), None, torch.ones(heads),
+                         heads, torch.bfloat16)
+    packed = list(m)
+    packed[1] = _mdta_unpacked(k, c)[0]
+    x = _rand(rng, 1, 6, 8, c).to(torch.bfloat16)
+    for a, b in zip(trf.mdta_front_plain(x, *packed, heads),
+                    trf.mdta_front_plain(x, *m, heads)):
+        assert torch.equal(a, b)
+
+
+def _gram_tile_of(wi, ch, mw, nw8):
+    """csrc/restormer_fused.cu gram_tile_of: (head, first m16 tile, first
+    n8 tile, m16 tiles, n8 tiles) of gram tile wi."""
+    mh = -(-ch // 16)
+    nm, nn = -(-mh // mw), -(-2 * mh // nw8)
+    h, r = divmod(wi, nm * nn)
+    mi0, nj0 = (r // nn) * mw, (r % nn) * nw8
+    return h, mi0, nj0, min(mw, mh - mi0), min(nw8, 2 * mh - nj0)
+
+
+# the five request shapes, the card tests' (2, 16, 128) C 24 canvas, and
+# widths no served model has (ragged head widths, a gram whose tiles
+# outnumber the warps): every shape the kernel takes gets a plan
+K5_PLAN_SHAPES = [(s, hd) for _, s, hd in chip_smoke.RESTORMER_SHAPES] + [
+    ((2, 16, 128, 24), 2), ((2, 19, 36, 96), 1), ((1, 20, 44, 100), 1),
+    ((1, 12, 40, 512), 8), ((1, 8, 24, 384), 1), ((2, 8, 16, 8), 2)]
+
+
+@pytest.mark.parametrize("shape,heads", K5_PLAN_SHAPES,
+                         ids=lambda v: "x".join(map(str, v))
+                         if isinstance(v, tuple) else str(v))
+def test_mdta_plan_fits_and_covers(shape, heads):
+    """K5's bf16 plan: shared memory within a block's 227 KB; the blocks'
+    runs of tiles cover the canvas once; the warps' gram tiles (slice gsl's
+    warp w holds tile gsl*nw + w) cover every per-head gram element once,
+    and every slice holds some."""
+    b, h, w, c = shape
+    p = trf.mdta_plan(c, heads)
+    assert p.smem <= tkern.SMEM_LIMIT
+    assert p.tw % 4 == 0 and p.th % 2 == 0 and (p.th * p.tw) % 16 == 0
+    nw, ch = p.threads // 32, c // heads
+    assert p.smem == trf.mdta_smem(c, heads, p.th, p.tw, nw)
+    assert (p.mw, p.nw8, p.threads) in trf.GRAM_SHAPES
+    # output pixels: block ib takes tiles ntiles*ib//nb .. ntiles*(ib+1)//nb
+    ntx, nty = -(-w // p.tw), -(-h // p.th)
+    nb = trf.mdta_blocks(b, ntx * nty, p.slices, 132)
+    assert 1 <= nb * b * p.slices <= 132 or nb == 1
+    cover = np.zeros((h, w), np.int64)
+    for ib in range(nb):
+        for tile in range(ntx * nty * ib // nb, ntx * nty * (ib + 1) // nb):
+            ty, tx = divmod(tile, ntx)
+            cover[ty * p.th:(ty + 1) * p.th, tx * p.tw:(tx + 1) * p.tw] += 1
+    assert (cover == 1).all()
+    assert p.slices == -(-p.tiles // nw) and (p.slices - 1) * nw < p.tiles
+    gram = np.zeros((heads, -(-ch // 16) * 16, -(-ch // 16) * 16), np.int64)
+    for wi in range(p.slices * nw):
+        if wi >= p.tiles:
+            continue
+        hh, mi0, nj0, mw, nwe = _gram_tile_of(wi, ch, p.mw, p.nw8)
+        assert 1 <= mw <= p.mw and 1 <= nwe <= p.nw8
+        gram[hh, 16 * mi0:16 * (mi0 + mw), 8 * nj0:8 * (nj0 + nwe)] += 1
+    assert (gram == 1).all()
+
+
+def test_mdta_plans_are_the_designed_ones():
+    """16x16 tiles up to C 48, 12x16 at C 96, 8x16 at C 192, 8x8 at C 384
+    (the largest that fits); the fewest accumulators whose gram tiles the
+    warps hold: 1x2 mma tiles at level 1 (9 gram tiles), 1x3 at level 2
+    (12), 3x2 at level 3 and decoder1 (12), all in 384-thread blocks; 3x3
+    at level 4 (16) in 512; width 12 pads to one 1x2 tile a head. A head
+    of width 128 (18 3x3 tiles) takes two slices."""
+    got = [(p.th, p.tw, p.threads, p.mw, p.nw8, p.tiles, p.slices)
+           for p in (trf.mdta_plan(c, hd) for c, hd in K5_WIDTHS)]
+    assert got == [(16, 16, 384, 1, 2, 9, 1), (12, 16, 384, 1, 3, 12, 1),
+                   (8, 16, 384, 3, 2, 12, 1), (8, 8, 512, 3, 3, 16, 1),
+                   (12, 16, 384, 3, 2, 12, 1), (16, 16, 384, 1, 2, 2, 1)]
+    p = trf.mdta_plan(128, 1)
+    assert (p.mw, p.nw8, p.threads, p.tiles, p.slices) == (3, 3, 512, 18, 2)
+    with pytest.raises(ValueError):
+        trf.mdta_plan(96, 5)
+
+
+def test_gram_tile_plain_is_the_per_head_gram():
+    """gram_tile's plain version (what it computes on a CPU tensor) is q_h^T
+    k_h of each head's columns."""
+    rng = np.random.default_rng(12)
+    q = _rand(rng, 48, 24).to(torch.bfloat16)
+    k = _rand(rng, 48, 24).to(torch.bfloat16)
+    want = torch.einsum("pc,pd->cd", q[:, 12:].float(), k[:, 12:].float())
+    got = trf.gram_tile(q, k, 2)
+    assert got.shape == (2, 12, 12)
+    assert torch.allclose(got[1], want, atol=1e-5, rtol=1e-5)

@@ -239,10 +239,13 @@ def _restormer_weights(gen, c, heads, ln_kind, bias, dev):
     return to(g), to(m)
 
 
-# C 48 / 96 / 384 are Restormer's level widths; 24 a width whose hidden
-# channels (63) leave a ragged chunk; 19x36 and 8x20 ragged tiles
+# C 48 / 96 / 192 / 384 are Restormer's level widths, C 96 with one head
+# its decoder / refinement stage (head width 96); 24 a width whose hidden
+# channels (63) leave a ragged chunk and whose head width (12) pads to 16;
+# 19x36, 12x40 and 8x20 ragged tiles
 _RESTORMER_CASES = [(48, 1, (24, 40)), (96, 2, (19, 36)),
-                    (384, 8, (8, 20)), (24, 2, (16, 128))]
+                    (384, 8, (8, 20)), (24, 2, (16, 128)),
+                    (96, 1, (19, 36)), (192, 4, (12, 40))]
 _RESTORMER_FORMS = [("withbias", False), ("none", False),
                     ("biasfree", True), ("withbias", True)]
 
@@ -278,7 +281,10 @@ def test_gdfn_kernel_matches_plain(cuda, c, heads, hw, ln_kind, bias,
                               dtype)
 
 
-@pytest.mark.parametrize("c,heads,hw", _RESTORMER_CASES)
+# K5 alone: a head width of 128, whose 3x3 gram tiles outnumber the warps
+# (two gram slices), and a ragged head width of 100 (padded to 112)
+@pytest.mark.parametrize("c,heads,hw", _RESTORMER_CASES
+                         + [(128, 1, (12, 40)), (100, 1, (10, 24))])
 @pytest.mark.parametrize("ln_kind,bias", _RESTORMER_FORMS[::2])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mdta_kernel_matches_plain(cuda, c, heads, hw, ln_kind, bias,
@@ -304,6 +310,26 @@ def test_mdta_kernel_matches_plain(cuda, c, heads, hw, ln_kind, bias,
     _close_or_within_rounding(trf.mdta_block(x, form),
                               trf.mdta_block_plain(x, *m, heads),
                               trf.mdta_block_plain(x32, *m, heads), dtype)
+
+
+@pytest.mark.parametrize("p,c,heads", [(64, 48, 1), (128, 96, 1),
+                                        (64, 96, 2), (32, 384, 8),
+                                        (48, 24, 2), (16, 100, 1)])
+def test_gram_tile_matches_matmul(cuda, p, c, heads):
+    """K5's gram step alone (A = q_h^T and B = k_h by ldmatrix.trans from
+    pixel-major tiles, at the gram tile K5 takes for (C, heads): 1x2, 3x2,
+    1x3 and 3x3 mma tiles a warp across the cases; ragged head widths
+    padded to 16) against torch.matmul on the same bf16 values: float32
+    sums of exact products, so only the order of the sums differs."""
+    gen = torch.Generator().manual_seed(p + c + heads)
+    q = _randn(gen, p, c).to(torch.bfloat16)
+    k = _randn(gen, p, c).to(torch.bfloat16)
+    ch = c // heads
+    want = torch.stack([q[:, h * ch:(h + 1) * ch].float().t()
+                        @ k[:, h * ch:(h + 1) * ch].float()
+                        for h in range(heads)])
+    got = trf.gram_tile(q.to(cuda), k.to(cuda), heads)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-5)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
