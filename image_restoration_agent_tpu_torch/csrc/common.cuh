@@ -123,6 +123,24 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
          (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
 }
 
+// A pointer the compiler cannot see through (one register move it may not
+// delete or hoist): loads of a kernel's weight vectors (biases, LayerNorm
+// parameters) through it are the same values every iteration of a
+// persistent loop, and the compiler would otherwise hoist them out of the
+// loop into registers (hundreds a thread) and spill the accumulators around
+// wgmma. The loads themselves stay ordinary, so they can be batched.
+template <typename T>
+__device__ __forceinline__ T* opaque(T* p) {
+  T* q;
+  asm volatile("mov.b64 %0, %1;\n" : "=l"(q) : "l"(p));
+  return q;
+}
+
+// two floats (8-byte aligned) through the read-only cache
+__device__ __forceinline__ float2 ldg2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+
 __device__ __forceinline__ int pmod(int a, int m) {
   int r = a % m;
   return r < 0 ? r + m : r;

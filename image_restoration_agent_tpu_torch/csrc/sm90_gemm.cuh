@@ -25,6 +25,8 @@
 //     and no per-launch encoding. A tensor map could not describe the
 //     activations anyway: C 180 rows are 360 bytes apart, and TMA strides
 //     are multiples of 16 bytes.
+//   - StageRing (K7, K8): a ring of weight stages fed by bulk copies from a
+//     table of stage addresses, released per warp on mbarriers.
 //   - mbarrier init / arrive / arrive.expect_tx / try_wait.parity, and the
 //     fences that order them against the async proxy (fence.mbarrier_init,
 //     fence.proxy.async: generic stores read by wgmma through a descriptor
@@ -773,6 +775,65 @@ __device__ __forceinline__ void wgmma_ss<256>(float* d, uint64_t a, uint64_t b,
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(a), "l"(b), "r"(acc));
+}
+
+// ---------------------------------------------------------------------------
+// A weight ring (K7 and K8): S stages of SLOT bytes in shared memory, each
+// filled by one 1-D bulk copy counted on its `full` mbarrier. Stage j of a
+// block's walk is entry j % nseq of a table of the walk's repeating stage
+// sequence (address | bytes / 16 << 48, seq_entry); every warp releases a
+// stage on its `empty` mbarrier (initialised with the warp count) once its
+// products are done, and thread 0, on releasing stage j + 1, issues stage
+// j + S into stage j's slot, so copies run S - 1 to S stages ahead of the
+// products, across the phases between passes.
+template <int S, int SLOT>
+struct StageRing {
+  unsigned char* slots;
+  uint64_t* full;
+  uint64_t* empty;
+  const unsigned long long* seq;
+  int nseq;
+  uint32_t it;     // stages consumed so far
+  uint32_t total;  // stages of the block's walk
+
+  __device__ __forceinline__ void issue(uint32_t j) {
+    if (j >= total) return;
+    const int slot = j % S;
+    if (j >= S) mbar_wait(&empty[slot], ((j / S) - 1) & 1);
+    const unsigned long long e = seq[j % nseq];
+    const uint32_t bytes = static_cast<uint32_t>(e >> 48) * 16;
+    mbar_arrive_expect_tx(&full[slot], bytes);
+    bulk_g2s(slots + slot * SLOT,
+             reinterpret_cast<const void*>(e & 0xFFFFFFFFFFFFull), bytes,
+             &full[slot]);
+  }
+  // the next stage's slot, once its bytes have landed
+  __device__ __forceinline__ const unsigned char* wait() {
+    const int slot = it % S;
+    mbar_wait(&full[slot], (it / S) & 1);
+    return slots + slot * SLOT;
+  }
+  // after wgmma_wait: this warp is done with the stage; thread 0 refills
+  // the previous stage's slot (whose other warps are most likely done with
+  // it by now, so the wait rarely blocks)
+  __device__ __forceinline__ void release() {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[it % S]);
+    if (threadIdx.x == 0 && it > 0) issue(it - 1 + S);
+    ++it;
+  }
+  __device__ __forceinline__ void start() {
+    if (threadIdx.x == 0)
+      for (int j = 0; j < S; ++j) issue(j);
+  }
+};
+
+// the sequence entry of a stage of `bytes` (a multiple of 16, < 2^20) at
+// `src` (a device address below 2^48)
+__device__ __forceinline__ unsigned long long seq_entry(const void* src,
+                                                       uint32_t bytes) {
+  return reinterpret_cast<unsigned long long>(src) |
+         (static_cast<unsigned long long>(bytes / 16) << 48);
 }
 
 }  // namespace irk

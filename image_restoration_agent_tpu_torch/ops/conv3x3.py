@@ -30,9 +30,13 @@ TPU row-strip MXU kernel). The CUDA kernel is ``csrc/conv3x3.cu`` (K3):
 convs, the intermediate ``u`` kept on chip) with K7,
 ``csrc/conv3x3_pair.cu``: a block stages one input tile with a 2-pixel
 halo, computes ``u`` chunk by chunk on the tile plus a 1-pixel ring into
-shared memory, and sums each chunk's conv2 into float32 accumulators; see
-the source for what bounds it. No served path runs it: the x4 head keeps
-the JAX package's two-conv form (``lab/head_pair.py`` runs both).
+shared memory, and sums each chunk's conv2 into float32 accumulators. In
+bf16 both convs run on ``wgmma`` (persistent blocks, 6 x 62 output tiles,
+the halo and ``u`` read in place by descriptor at every tap, the weights
+streamed through shared memory by bulk copies from the packed form of
+:func:`conv3x3_pair_weights`); see the source for what bounds it. No served
+path runs it: the x4 head keeps the JAX package's two-conv form
+(``lab/head_pair.py`` runs both).
 """
 
 from __future__ import annotations
@@ -97,12 +101,7 @@ class Conv3x3Weights(NamedTuple):
     @property
     def hwio(self) -> torch.Tensor:
         """The (3, 3, Cin, Cout) weight this form holds."""
-        w = self.w
-        if w.dim() == 4:
-            return w[:, :, :self.cin, :self.cout]
-        ns_, nc = w.shape[0], w.shape[1]
-        ns = w.shape[4] * 8
-        w = w.permute(2, 1, 3, 6, 0, 4, 5).reshape(3, 3, nc * 16, ns_ * ns)
+        w = self.w if self.w.dim() == 4 else _unpack_taps(self.w)
         return w[:, :, :self.cin, :self.cout]
 
 
@@ -112,15 +111,27 @@ def conv3x3_weights(w: torch.Tensor, b: torch.Tensor | None,
     cin, cout = w.shape[2], w.shape[3]
     wk = w.detach().to(dtype)
     if dtype == torch.bfloat16:
-        nsl, ns = kernels.gemm_slices(cout)
-        nc = -(-cin // 16)
-        wk = F.pad(wk, (0, nsl * ns - cout, 0, nc * 16 - cin))
-        # (tap, chunk, k half, k, slice, n group, n) -> (slice, chunk, tap,
-        # k half, n group, n, k)
-        wk = wk.reshape(9, nc, 2, 8, nsl, ns // 8, 8).permute(
-            4, 1, 0, 2, 5, 6, 3)
+        wk = _pack_taps(wk, *kernels.gemm_slices(cout))
     bk = None if b is None else b.detach().float().contiguous()
     return Conv3x3Weights(wk.contiguous(), bk, cin, cout)
+
+
+def _pack_taps(w: torch.Tensor, nsl: int, ns: int) -> torch.Tensor:
+    """(3, 3, Cin, Cout) -> K3's packed order (nsl, Cin/16, 9, 2, ns/8, 8,
+    8), Cin zero-padded to 16 and Cout to nsl * ns."""
+    cin, cout = w.shape[2], w.shape[3]
+    nc = -(-cin // 16)
+    w = F.pad(w, (0, nsl * ns - cout, 0, nc * 16 - cin))
+    # (tap, chunk, k half, k, slice, n group, n) -> (slice, chunk, tap,
+    # k half, n group, n, k)
+    return w.reshape(9, nc, 2, 8, nsl, ns // 8, 8).permute(
+        4, 1, 0, 2, 5, 6, 3)
+
+
+def _unpack_taps(w: torch.Tensor) -> torch.Tensor:
+    """The padded (3, 3, Cin, Cout) weight of a :func:`_pack_taps` form."""
+    nsl, nc, ns = w.shape[0], w.shape[1], w.shape[4] * 8
+    return w.permute(2, 1, 3, 6, 0, 4, 5).reshape(3, 3, nc * 16, nsl * ns)
 
 
 # conv3x3_mma_kernel's tile and shared memory (csrc/conv3x3.cu: M_TH, TP,
@@ -253,9 +264,13 @@ conv3x3.launches = 0
 # ---------------------------------------------------------------------------
 # conv3x3_pair: two chained SAME convs in one launch (K7)
 
-# the card's tile: 8 x 30 outputs, u on 10 x 32, input on 12 x 34
+# the card's limits (the whole input tile in shared memory) and K7's bf16
+# tile: 6 x 62 outputs, u on 8 x 64, the input on 10 x 66
 PAIR_MAX_CIN = 64
 PAIR_MAX_COUT = 32
+PAIR_ROWS, PAIR_COLS = 6, 62
+# its stage table holds 64 stages a tile (Q_MAXSEQ): 10 chunks of u
+PAIR_MAX_CMID_BF16 = 640
 
 
 def _check_pair(x, w1, w2, act_mid):
@@ -281,10 +296,12 @@ def conv3x3_pair_plain(x, w1, b1, w2, b2, *, act_mid=None):
 
 
 class Conv3x3PairWeights(NamedTuple):
-    """K7's weight form: both HWIO weights in the compute dtype, in
-    bfloat16 zero-padded (Cin to 16, Cmid to 32, Cout to 16) for aligned
-    16-byte copies and tensor-core fragments; the biases float32, padded
-    with zeros to the padded widths."""
+    """K7's weight form (:func:`conv3x3_pair_weights`), made once per
+    weight. In float32 both HWIO weights as they are; in bfloat16 both in
+    K3's packed order (:func:`_pack_taps`): ``w1`` (Cmid/64, Cin/16, 9, 2,
+    8, 8, 8), Cin padded to 16 and Cmid to 64, the kernel's 64-channel
+    chunks of u as slices; ``w2`` (1, Cmid/16, 9, 2, Cout/8, 8, 8), Cout
+    padded to 8. The biases float32, zero-padded to the padded widths."""
 
     w1: torch.Tensor
     b1: torch.Tensor
@@ -294,16 +311,33 @@ class Conv3x3PairWeights(NamedTuple):
     cmid: int
     cout: int
 
+    @property
+    def hwio(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+        """(w1, b1, w2, b2) as the (3, 3, Cin, Cmid) and (3, 3, Cmid,
+        Cout) weights and their biases this form holds."""
+        w1, w2 = (w if w.dim() == 4 else _unpack_taps(w)
+                  for w in (self.w1, self.w2))
+        return (w1[:, :, :self.cin, :self.cmid], self.b1[:self.cmid],
+                w2[:, :, :self.cmid, :self.cout], self.b2[:self.cout])
+
+
+# K7's bf16 chunk of Cmid (csrc/conv3x3_pair.cu: Q_MC)
+PAIR_CHUNK = 64
+
 
 def conv3x3_pair_weights(w1, b1, w2, b2, dtype) -> Conv3x3PairWeights:
     cin, cmid, cout = w1.shape[2], w1.shape[3], w2.shape[3]
-    pi, pm, po = (-cin % 16, -cmid % 32, -cout % 16) \
-        if dtype == torch.bfloat16 else (0, 0, 0)
-    k1 = F.pad(w1.detach().to(dtype), (0, pm, 0, pi)).contiguous()
-    k2 = F.pad(w2.detach().to(dtype), (0, po, 0, pm)).contiguous()
+    k1, k2 = w1.detach().to(dtype), w2.detach().to(dtype)
+    pm = po = 0
+    if dtype == torch.bfloat16:
+        pm, po = -cmid % PAIR_CHUNK, -cout % 8
+        k1 = _pack_taps(k1, (cmid + pm) // PAIR_CHUNK, PAIR_CHUNK)
+        k2 = _pack_taps(F.pad(k2, (0, 0, 0, pm)), 1, cout + po)
     return Conv3x3PairWeights(
-        k1, F.pad(b1.detach().float(), (0, pm)).contiguous(), k2,
-        F.pad(b2.detach().float(), (0, po)).contiguous(), cin, cmid, cout)
+        k1.contiguous(), F.pad(b1.detach().float(), (0, pm)).contiguous(),
+        k2.contiguous(), F.pad(b2.detach().float(), (0, po)).contiguous(),
+        cin, cmid, cout)
 
 
 def _conv3x3_pair_cuda(x, k: Conv3x3PairWeights, act_mid):
@@ -321,19 +355,66 @@ def _conv3x3_pair_cuda(x, k: Conv3x3PairWeights, act_mid):
     if k.w1.dtype != x.dtype or k.w2.dtype != x.dtype:
         raise ValueError("conv3x3_pair weights are not the kernel form for "
                          f"{x.dtype}")
+    if x.dtype == torch.bfloat16 and k.cmid > PAIR_MAX_CMID_BF16:
+        raise ValueError(f"bf16 conv3x3_pair on the card streams at most "
+                         f"{PAIR_MAX_CMID_BF16} channels of u a tile "
+                         f"(got Cmid {k.cmid})")
     x = x.contiguous()
     out = torch.empty((bsz, h, wd, k.cout), dtype=x.dtype, device=x.device)
-    fn = kernels.load("conv3x3_pair").conv3x3_pair
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 \
-        + [ctypes.c_void_p]
-    err = fn(x.data_ptr(), k.w1.data_ptr(), k.b1.data_ptr(), k.w2.data_ptr(),
-             k.b2.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
-             bsz, h, wd, cin, k.w1.shape[2], k.cmid, k.w1.shape[3], k.cout,
-             k.w2.shape[3], _ACTS[act_mid],
-             torch.cuda.current_stream(x.device).cuda_stream)
+    lib = kernels.load("conv3x3_pair")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if x.dtype == torch.bfloat16:
+        cinp, cmidp = k.w1.shape[1] * 16, k.w1.shape[0] * PAIR_CHUNK
+        coutp = k.w2.shape[4] * 8
+        tiles = bsz * -(-h // PAIR_ROWS) * -(-wd // PAIR_COLS)
+        fn = lib.conv3x3_pair_bf16
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 \
+            + [ctypes.c_void_p]
+        err = fn(x.data_ptr(), k.w1.data_ptr(), k.b1.data_ptr(),
+                 k.w2.data_ptr(), k.b2.data_ptr(), out.data_ptr(), bsz, h, wd,
+                 cin, cinp, cmidp, k.cout, coutp, _ACTS[act_mid],
+                 min(tiles, kernels.sm_count(x.device)), stream)
+    else:
+        fn = lib.conv3x3_pair
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+            + [ctypes.c_void_p]
+        err = fn(x.data_ptr(), k.w1.data_ptr(), k.b1.data_ptr(),
+                 k.w2.data_ptr(), k.b2.data_ptr(), out.data_ptr(), bsz, h, wd,
+                 cin, k.cmid, k.cout, _ACTS[act_mid], stream)
     kernels.check(err, "conv3x3_pair")
     conv3x3_pair.launches += 1
+    return out
+
+
+def pair_conv_tile_plain(a: torch.Tensor, w: torch.Tensor,
+                         dx: int) -> torch.Tensor:
+    """Plain version of :func:`pair_conv_tile`."""
+    return a.float()[dx:dx + 64] @ w.float()
+
+
+def pair_conv_tile(a: torch.Tensor, w: torch.Tensor, dx: int) -> torch.Tensor:
+    """K7's product form, its own check: ``a`` (66, K) bf16 pixels x
+    channels (K 16..64 a multiple of 16), staged as K7 stages its halo and
+    read by a no-swizzle descriptor from pixel ``dx`` (0-2) on; ``w`` (K,
+    N) bf16 (N 16 or 64), packed as one :func:`kernel_matrix` slice; returns
+    ``a[dx:dx + 64] @ w`` in float32 (one warpgroup, one wgmma a k16 step).
+    A CPU tensor takes :func:`pair_conv_tile_plain`."""
+    if not a.is_cuda:
+        return pair_conv_tile_plain(a, w, dx)
+    from .swin_block import _core_matrices
+    k, n = w.shape
+    a = a.contiguous()
+    wp = _core_matrices(w.to(torch.bfloat16), 1, n).contiguous()
+    out = torch.empty((64, n), dtype=torch.float32, device=a.device)
+    fn = kernels.load("conv3x3_pair").pair_conv_tile
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    err = fn(a.data_ptr(), wp.data_ptr(), out.data_ptr(), k, n, dx,
+             torch.cuda.current_stream(a.device).cuda_stream)
+    kernels.check(err, "pair_conv_tile")
     return out
 
 
@@ -361,8 +442,7 @@ def conv3x3_pair(x, w1, b1=None, w2=None, b2=None, *, act_mid=None):
     """
     if isinstance(w1, Conv3x3PairWeights):
         k = w1
-        w1, b1 = k.w1[:, :, :k.cin, :k.cmid], k.b1[:k.cmid]
-        w2, b2 = k.w2[:, :, :k.cmid, :k.cout], k.b2[:k.cout]
+        w1, b1, w2, b2 = k.hwio
     else:
         k = None
     _check_pair(x, w1, w2, act_mid)

@@ -86,10 +86,14 @@ bf16); keeping the block on chip is later work.
 
 :func:`swin_pair_block` replaces ``swin_pair_strip_pallas`` (an RSTB's
 unshifted + shifted block pair in one launch, block A's output kept on
-chip) with K8, ``csrc/swin_pair.cu``: one thread block per output window
-of block B, which recomputes block A's k and v on the four A windows that
-B's window overlaps (about 35% more FLOP than the pair's own work). No
-served path runs it (``lab/lab_r5.py`` does).
+chip) with K8, ``csrc/swin_pair.cu``: per output window of block B, block
+A's k and v on the four A windows that B's window overlaps (about 35% more
+FLOP than the pair's own work), A's q, proj and MLP on B's 64 tokens at
+once, then block B. In bf16 every product is a 64-row ``wgmma`` with the
+weights streamed through shared memory by bulk copies from the packed
+form of :func:`swin_pair_weights` (persistent blocks, the ring refilled
+by thread 0); the attention runs on ``mma.sync``. No served path runs it
+(``lab/lab_r5.py`` does).
 
 ``pad_width_for_strips`` and ``strip_chunk_width`` are kept only so that
 the port pads the band canvas exactly as the JAX engine does.
@@ -978,39 +982,176 @@ def swin_pair_block_plain(x, pa: SwinBlockParams, pb: SwinBlockParams,
                             mask_bank=mask_bank, fast=True)
 
 
-def _pair_form(p: SwinBlockParams, c: int, num_heads: int):
-    """K8's pointers for one block, and its widths: the qkv weight and
-    bias head-major (per head [q | k | v], each zero-padded to ``hdp``
-    columns: 16 in bfloat16, the head width in float32) and proj's rows to
-    match, so every head's slices are aligned fragments; the MLP weights
-    row-major, in bfloat16 zero-padded (K to 32, N to 64) for aligned
-    16-byte copies, fc2's rows to fc1's padded width."""
-    dt = p.wqkv.dtype
-    bf = dt == torch.bfloat16
+def _pair_form(p: SwinBlockParams, num_heads: int):
+    """K8's float32 pointers for one block, and its widths: the qkv weight
+    and bias head-major (per head [q | k | v] columns) and proj's rows to
+    match; the MLP weights row-major."""
+    c = p.ln1_w.shape[0]
     hd = c // num_heads
-    hdp = -(-hd // 16) * 16 if bf else hd
-    kp = -(-c // 32) * 32 if bf else c
-    cn = -(-c // 16) * 16 if bf else c
     wq = _dense(p.wqkv, c, 3 * c).reshape(c, 3, num_heads, hd)
-    wqkv = wq.new_zeros(kp, num_heads, 3, hdp)
-    wqkv[:c, ..., :hd] = wq.permute(0, 2, 1, 3)
-    bqkv = p.bqkv.new_zeros(num_heads, 3, hdp)
-    bqkv[..., :hd] = p.bqkv.reshape(3, num_heads, hd).permute(1, 0, 2)
-    wproj = wq.new_zeros(num_heads, hdp, cn)
-    wproj[:, :hd, :c] = _dense(p.wproj, c, c).reshape(num_heads, hd, c)
     hid = p.b1.shape[0]
-    hidp = -(-hid // 64) * 64 if bf else hid
-    w1 = F.pad(_dense(p.w1, c, hid), (0, hidp - hid, 0, kp - c))
-    w2 = F.pad(_dense(p.w2, hid, c), (0, -c % 64 if bf else 0, 0, hidp - hid))
-    tensors = (p.ln1_w, p.ln1_b, wqkv.reshape(kp, -1).to(dt).contiguous(),
-               bqkv.reshape(-1).contiguous(),
-               wproj.reshape(num_heads * hdp, cn).to(dt).contiguous(),
-               p.bproj, p.rpb, p.ln2_w, p.ln2_b, w1.to(dt).contiguous(),
-               p.b1, w2.to(dt).contiguous(), p.b2)
-    dims = dict(hdp=hdp, kp=kp, hid=hid, hidp=hidp,
-                ldqkv=num_heads * 3 * hdp, ldproj=cn, ldw1=hidp,
-                ldw2=w2.shape[1], cn=cn)
+    tensors = (p.ln1_w, p.ln1_b,
+               wq.permute(0, 2, 1, 3).reshape(c, -1).contiguous(),
+               p.bqkv.reshape(3, num_heads, hd).permute(1, 0, 2)
+               .reshape(-1).contiguous(),
+               _dense(p.wproj, c, c).contiguous(), p.bproj, p.rpb, p.ln2_w,
+               p.ln2_b, _dense(p.w1, c, hid).contiguous(), p.b1,
+               _dense(p.w2, hid, c).contiguous(), p.b2)
+    dims = dict(hdp=hd, kp=c, hid=hid, hidp=hid, ldqkv=3 * c, ldproj=c,
+                ldw1=hid, ldw2=c, cn=c)
     return tensors, dims
+
+
+# The bf16 kernel's instantiations (csrc/swin_pair.cu: IRK_PAIR_SHAPES):
+# (NQW, NCW, NHW, KD), one warpgroup's width of the q, k and v passes, of
+# proj and fc2, of each half of fc1, and the padded head width / 16. They
+# hold C 180 with 6 heads (SwinIR-M, HAT), C 48 with 2 heads, C 60 with 6
+# heads.
+PAIR_SHAPES = ((96, 96, 96, 2), (32, 24, 32, 2), (48, 32, 32, 1))
+# the hidden width nh is 2 w for the first w here with 2 w >= hid: nh / 4
+# (a warpgroup's slice of one fc1 half) is then an instantiated width, and
+# nh a multiple of 64 (fc2's K, read in stages of at most 64 k rows)
+_PAIR_HIDDEN_WIDTHS = (32, 64, 96, 128, 192)
+
+
+def pair_dims(c: int, num_heads: int, hid: int) -> dict:
+    """The padded widths of K8's bf16 form: the head width ``hdp`` (to 16),
+    ``kp`` (C to 64: the LN rows), ``nq`` (heads x hdp: q; k and v are
+    2 nq) and ``kq`` (nq to 64: the attention output, proj's K), ``nc``
+    (proj and fc2's columns, twice an instantiated width >= C / 2), ``nh``
+    (fc1's columns and fc2's K, twice a width of
+    ``_PAIR_HIDDEN_WIDTHS`` >= hid / 2)."""
+    hdp = -(-(c // num_heads) // 16) * 16
+    nq = num_heads * hdp
+    nhw = next((w for w in _PAIR_HIDDEN_WIDTHS if 2 * w >= hid), None)
+    if nhw is None:
+        raise ValueError(f"swin_pair_block: hidden width {hid} is wider "
+                         f"than bf16 K8 takes (384)")
+    return dict(hdp=hdp, kp=-(-c // 64) * 64, nq=nq, kq=-(-nq // 64) * 64,
+                nc=2 * kernels.gemm_width(-(-c // 2)), nh=2 * nhw)
+
+
+class SwinPairForm(NamedTuple):
+    """K8's bf16 form of one block (:func:`swin_pair_weights`), made once
+    per weight. Five product passes, each a (K, N) weight zero-padded to
+    the widths of :func:`pair_dims` and packed as K1's core matrices
+    (:func:`_core_matrices`): ``wq`` (kp, nq) head-major (per head ``hdp``
+    columns), ``wkv`` (kp, 2 nq) as two slices, k of every head then v,
+    ``wproj`` (kq, nc) with its rows head-major to match, ``w1`` (kp, nh)
+    as two slices of nh / 2 columns, ``w2`` (nh, nc). A slice is one pass
+    of the kernel. The biases float32 padded to the passes'
+    columns, ``ln1`` and ``ln2`` the (2, C) LayerNorm scale and shift, and
+    the (heads, N, N) relative-position bias ``rpb``. The q columns carry
+    the attention scale, as in :class:`SwinBlockParams`."""
+
+    wq: torch.Tensor
+    wkv: torch.Tensor
+    wproj: torch.Tensor
+    w1: torch.Tensor
+    w2: torch.Tensor
+    bq: torch.Tensor
+    bkv: torch.Tensor
+    bproj: torch.Tensor
+    b1: torch.Tensor
+    b2: torch.Tensor
+    ln1: torch.Tensor
+    ln2: torch.Tensor
+    rpb: torch.Tensor
+    c: int
+    heads: int
+    hid: int
+
+    @property
+    def dims(self) -> dict:
+        return pair_dims(self.c, self.heads, self.hid)
+
+    def unpack(self) -> dict:
+        """The block's (K, N) float32 matrices and biases this form holds
+        (``wqkv`` (C, 3C) with [q | k | v] columns, ``bqkv``, ``wproj``,
+        ``bproj``, ``w1``, ``b1``, ``w2``, ``b2``), and ``pads``: every
+        padded entry of the form, which must be zero."""
+        d = self.dims
+        c, h, hdp = self.c, self.heads, d["hdp"]
+        hd, hid = c // h, self.hid
+        wq = _dense(self.wq, d["kp"], d["nq"]).reshape(-1, h, hdp)
+        wkv = _dense(self.wkv, d["kp"], 2 * d["nq"]).reshape(-1, 2, h, hdp)
+        wkv = wkv.transpose(1, 2)
+        wp = _dense(self.wproj, d["kq"], d["nc"])
+        w1 = _dense(self.w1, d["kp"], d["nh"])
+        w2 = _dense(self.w2, d["nh"], d["nc"])
+        bkv = self.bkv.reshape(2, h, hdp).transpose(0, 1)
+        qkv = torch.cat([wq[:c, :, None, :hd], wkv[:c, :, :, :hd]], dim=2)
+        bqkv = torch.cat([self.bq.reshape(h, 1, hdp), bkv], dim=1)[..., :hd]
+        wpr = wp[:h * hdp].reshape(h, hdp, -1)
+        pads = torch.cat([
+            wq[c:].flatten(), wq[..., hd:].flatten(), wkv[c:].flatten(),
+            wkv[..., hd:].flatten(), wpr[:, hd:].flatten(),
+            wp[h * hdp:].flatten(), wp[:, c:].flatten(), w1[c:].flatten(),
+            w1[:, hid:].flatten(), w2[hid:].flatten(), w2[:, c:].flatten(),
+            self.bq.reshape(h, hdp)[:, hd:].flatten(),
+            bkv[..., hd:].flatten(), self.bproj[c:], self.b1[hid:],
+            self.b2[c:]])
+        return dict(
+            wqkv=qkv.permute(0, 2, 1, 3).reshape(c, 3 * c),
+            bqkv=bqkv.permute(1, 0, 2).reshape(3 * c),
+            wproj=wpr[:, :hd, :c].reshape(c, c), bproj=self.bproj[:c],
+            w1=w1[:c, :hid], b1=self.b1[:hid], w2=w2[:hid, :c],
+            b2=self.b2[:c], pads=pads)
+
+
+def swin_pair_weights(p: SwinBlockParams, num_heads: int) -> SwinPairForm:
+    """K8's bf16 form of one block's weights (:class:`SwinPairForm`), from
+    its :class:`SwinBlockParams` in bfloat16 (exact: the same values,
+    moved and zero-padded)."""
+    c = p.ln1_w.shape[0]
+    hid = p.b1.shape[0]
+    h, hd = num_heads, c // num_heads
+    d = pair_dims(c, h, hid)
+    hdp = d["hdp"]
+    dt = torch.bfloat16
+
+    def pack(w, k, n, slices=1):
+        w = F.pad(w, (0, n - w.shape[1], 0, k - w.shape[0]))
+        return _core_matrices(w.to(dt), slices, n // slices).contiguous()
+
+    wqkv = _dense(p.wqkv, c, 3 * c).reshape(c, 3, h, hd)
+    wqkv = F.pad(wqkv, (0, hdp - hd)).permute(0, 2, 1, 3)  # (c, h, 3, hdp)
+    bqkv = F.pad(p.bqkv.float().reshape(3, h, hd), (0, hdp - hd))
+    bqkv = bqkv.permute(1, 0, 2)  # (h, 3, hdp)
+    wproj = F.pad(_dense(p.wproj, c, c).reshape(h, hd, c),
+                  (0, 0, 0, hdp - hd)).reshape(h * hdp, c)
+
+    def vec(v, n):
+        return F.pad(v.float(), (0, n - v.shape[0])).contiguous()
+
+    return SwinPairForm(
+        wq=pack(wqkv[:, :, 0].reshape(c, -1), d["kp"], d["nq"]),
+        wkv=pack(wqkv[:, :, 1:].transpose(1, 2).reshape(c, -1), d["kp"],
+                 2 * d["nq"], 2),
+        wproj=pack(wproj, d["kq"], d["nc"]),
+        w1=pack(_dense(p.w1, c, hid), d["kp"], d["nh"], 2),
+        w2=pack(_dense(p.w2, hid, c), d["nh"], d["nc"]),
+        bq=bqkv[:, 0].reshape(-1).contiguous(),
+        bkv=bqkv[:, 1:].transpose(0, 1).reshape(-1).contiguous(),
+        bproj=vec(p.bproj, d["nc"]), b1=vec(p.b1, d["nh"]),
+        b2=vec(p.b2, d["nc"]),
+        ln1=torch.stack([p.ln1_w, p.ln1_b]).float().contiguous(),
+        ln2=torch.stack([p.ln2_w, p.ln2_b]).float().contiguous(),
+        rpb=p.rpb.float().contiguous(), c=c, heads=h, hid=hid)
+
+
+def _pair_cached(p: SwinBlockParams, num_heads: int, make):
+    """``make(p, num_heads)``, made once per block and kept on its qkv
+    weight, keyed by every tensor of the block and its version (an
+    in-place edit remakes it)."""
+    key = (num_heads, make.__name__) + tuple(
+        (t.data_ptr(), t._version) for t in p[:13])
+    hit = getattr(p.wqkv, "_irk_pair", None)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    val = make(p, num_heads)
+    p.wqkv._irk_pair = (key, val)
+    return val
 
 
 def _swin_pair_cuda(x, pa, pb, mask_bank, num_heads, ws, dc1):
@@ -1024,29 +1165,88 @@ def _swin_pair_cuda(x, pa, pb, mask_bank, num_heads, ws, dc1):
     if c % num_heads:
         raise ValueError(f"C {c} is not a multiple of the heads")
     _check_f32(mask_bank, (2, 2, ws * ws, ws * ws), "mask_bank")
-    ta, da = _pair_form(pa, c, num_heads)
-    tb, db = _pair_form(pb, c, num_heads)
-    if da != db:
-        raise ValueError("the pair's blocks differ in their widths")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    lib = kernels.load("swin_pair")
+    ptrs = ctypes.c_void_p * 13
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if x.dtype == torch.bfloat16:
+        fa, fb = (_pair_cached(p, num_heads, swin_pair_weights)
+                  for p in (pa, pb))
+        d = fa.dims
+        shape = (d["nq"] // 2, d["nc"] // 2, d["nh"] // 4, d["hdp"] // 16)
+        if fb.dims != d or c > 256 or shape not in PAIR_SHAPES:
+            raise ValueError(
+                f"bf16 swin_pair_block is built for (C, heads) (180, 6), "
+                f"(48, 2), (60, 6) (csrc/swin_pair.cu: IRK_PAIR_SHAPES), "
+                f"not ({c}, {num_heads}) with hidden {fa.hid}, {fb.hid}")
+        ta, tb = fa[:13], fb[:13]
+    else:
+        (ta, da), (tb, db) = (_pair_cached(p, num_heads, _pair_form)
+                              for p in (pa, pb))
+        if da != db:
+            raise ValueError("the pair's blocks differ in their widths")
     for t in ta + tb:
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("swin_pair_block operands on different devices")
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    ptrs = ctypes.c_void_p * 13
-    fn = kernels.load("swin_pair").swin_pair
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ptrs,
-                   ptrs, ctypes.c_void_p] + [ctypes.c_int] * 16 \
-        + [ctypes.c_void_p]
-    err = fn(x.data_ptr(), out.data_ptr(), _DT[x.dtype],
-             ptrs(*(t.data_ptr() for t in ta)),
-             ptrs(*(t.data_ptr() for t in tb)), _ptr(mask_bank), b, h, w, c,
-             num_heads, da["hdp"], da["kp"], da["hid"], da["hidp"],
-             da["ldqkv"], da["ldproj"], da["ldw1"], da["ldw2"], da["cn"], ws,
-             dc1, torch.cuda.current_stream(x.device).cuda_stream)
+    if x.dtype == torch.bfloat16:
+        nwin = b * (h // ws) * (w // ws)
+        fn = lib.swin_pair_bf16
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ptrs, ptrs,
+                       ctypes.c_void_p] + [ctypes.c_int] * 15 \
+            + [ctypes.c_void_p]
+        err = fn(x.data_ptr(), out.data_ptr(),
+                 ptrs(*(t.data_ptr() for t in ta)),
+                 ptrs(*(t.data_ptr() for t in tb)), _ptr(mask_bank),
+                 bank_zero_flags(mask_bank) if mask_bank is not None else 0,
+                 b, h, w, c, num_heads, d["hdp"], ws, dc1, d["kp"], d["kq"],
+                 d["nq"], d["nc"], d["nh"],
+                 min(nwin, kernels.sm_count(x.device)), stream)
+    else:
+        fn = lib.swin_pair
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ptrs, ptrs,
+                       ctypes.c_void_p] + [ctypes.c_int] * 16 \
+            + [ctypes.c_void_p]
+        err = fn(x.data_ptr(), out.data_ptr(),
+                 ptrs(*(t.data_ptr() for t in ta)),
+                 ptrs(*(t.data_ptr() for t in tb)), _ptr(mask_bank), b, h, w,
+                 c, num_heads, da["hdp"], da["kp"], da["hid"], da["hidp"],
+                 da["ldqkv"], da["ldproj"], da["ldw1"], da["ldw2"], da["cn"],
+                 ws, dc1, stream)
     kernels.check(err, "swin_pair_block")
     swin_pair_block.launches += 1
+    return out
+
+
+def pair_gemm_tile_plain(a: torch.Tensor, w: torch.Tensor, n0: int,
+                         nw: int) -> torch.Tensor:
+    """Plain version of :func:`pair_gemm_tile`."""
+    return a.float() @ w.float()[:, n0:n0 + nw]
+
+
+def pair_gemm_tile(a: torch.Tensor, w: torch.Tensor, n0: int,
+                   nw: int) -> torch.Tensor:
+    """One K8 product pass of one warpgroup, the pass form's own check:
+    ``a`` (64, K) bf16, ``w`` a (K, N) bf16 weight packed here as a pass of
+    :class:`SwinPairForm` (K a multiple of the stage's 64 k rows, 32 where
+    N > 192, at most 256), streamed through K8's ring; returns the (64, nw)
+    float32 product with columns [n0, n0 + nw) of ``w`` (nw one of the
+    kernel's widths). A CPU tensor takes :func:`pair_gemm_tile_plain`."""
+    if not a.is_cuda:
+        return pair_gemm_tile_plain(a, w, n0, nw)
+    k, n = w.shape
+    a = a.contiguous()
+    wp = _core_matrices(w.to(torch.bfloat16), 1, n).contiguous()
+    out = torch.empty((64, nw), dtype=torch.float32, device=a.device)
+    fn = kernels.load("swin_pair").pair_gemm_tile
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    err = fn(a.data_ptr(), wp.data_ptr(), out.data_ptr(), k, n, n0, nw,
+             torch.cuda.current_stream(a.device).cuda_stream)
+    kernels.check(err, "pair_gemm_tile")
     return out
 
 
@@ -1065,9 +1265,10 @@ def swin_pair_block(x, pa: SwinBlockParams, pb: SwinBlockParams, mask_bank,
     ``dc1`` not 0 or +ws//2, or H, W not multiples of ``ws``.
 
     A CUDA tensor runs one K8 launch (``csrc/swin_pair.cu``; N <= 64, ws
-    even) or raises; a CPU tensor runs :func:`swin_pair_block_plain`. The
-    kernel takes the weights head-major (:func:`_pair_form`, a few small
-    copies per call).
+    even; in bf16 the (C, heads) of ``PAIR_SHAPES``) or raises; a CPU
+    tensor runs :func:`swin_pair_block_plain`. The kernel's weight forms
+    (:func:`swin_pair_weights` in bf16, :func:`_pair_form` in f32) are made
+    at a block's first launch and kept on its qkv weight.
     """
     _check_pair(x, num_heads, ws, dc1)
     if not x.is_cuda:

@@ -1,6 +1,6 @@
 """The bf16 weight forms and launch plans of K1 (token_linear), K3
-(conv3x3), K4 (gdfn_block) and K5 (mdta_front), on the CPU: the packed
-forms hold exactly
+(conv3x3), K4 (gdfn_block), K5 (mdta_front), K7 (conv3x3_pair) and K8
+(swin_pair_block), on the CPU: the packed forms hold exactly
 the weights they were made from, zero elsewhere; the plain paths give the
 same result on the packed form as on the raw weights; and every served
 shape's launch plan fits in a block's shared memory and covers each output
@@ -414,3 +414,93 @@ def test_gram_tile_plain_is_the_per_head_gram():
     got = trf.gram_tile(q, k, 2)
     assert got.shape == (2, 12, 12)
     assert torch.allclose(got[1], want, atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K7 (conv3x3_pair) and K8 (swin_pair_block): the bf16 packed forms
+
+
+@pytest.mark.parametrize("cin,cmid,cout", [(64, 256, 12), (64, 256, 3),
+                                           (64, 256, 32), (5, 7, 4),
+                                           (32, 48, 32), (16, 130, 20)])
+def test_conv3x3_pair_form_unpacks_to_the_weights(cin, cmid, cout):
+    """K7's bf16 form: w1 as K3's packed order in 64-column slices (Cmid
+    to 64, Cin to 16), w2 in one slice of Cout padded to 8 (Cmid to 64);
+    unpacked it is exactly the raw weights and biases, and every padded
+    entry is zero."""
+    rng = np.random.default_rng(cin + cmid + cout)
+    w1, b1 = _rand(rng, 3, 3, cin, cmid), _rand(rng, cmid)
+    w2, b2 = _rand(rng, 3, 3, cmid, cout), _rand(rng, cout)
+    k = tconv.conv3x3_pair_weights(w1, b1, w2, b2, torch.bfloat16)
+    cmp, cip, cop = -(-cmid // 64) * 64, -(-cin // 16) * 16, -(-cout // 8) * 8
+    assert k.w1.shape == (cmp // 64, cip // 16, 9, 2, 8, 8, 8)
+    assert k.w2.shape == (1, cmp // 16, 9, 2, cop // 8, 8, 8)
+    assert k.w1.is_contiguous() and k.w2.is_contiguous()
+    a1, c1, a2, c2 = k.hwio
+    assert torch.equal(a1, w1.to(torch.bfloat16))
+    assert torch.equal(a2, w2.to(torch.bfloat16))
+    assert torch.equal(c1, b1) and torch.equal(c2, b2)
+    full1, full2 = tconv._unpack_taps(k.w1), tconv._unpack_taps(k.w2)
+    assert full1.shape == (3, 3, cip, cmp) and full2.shape == (3, 3, cmp, cop)
+    assert full1[:, :, cin:].abs().sum() == 0
+    assert full1[..., cmid:].abs().sum() == 0
+    assert full2[:, :, cmid:].abs().sum() == 0
+    assert full2[..., cout:].abs().sum() == 0
+    assert k.b1[cmid:].abs().sum() == 0 and k.b2[cout:].abs().sum() == 0
+
+
+@pytest.mark.parametrize("c,heads", [(180, 6), (48, 2), (60, 6)])
+def test_swin_pair_form_unpacks_to_the_weights(c, heads):
+    """K8's bf16 form (swin_pair_weights): its five passes unpack exactly
+    to the block's kernel-form matrices and biases (the attention scale
+    already in q), every padded entry is zero, and its widths are one of
+    the kernel's instantiations."""
+    rng = np.random.default_rng(c + heads)
+    hid, ws = 2 * c, 8
+    w = dict(norm1_w=_rand(rng, c), norm1_b=_rand(rng, c),
+             qkv_w=_rand(rng, 3 * c, c), qkv_b=_rand(rng, 3 * c),
+             proj_w=_rand(rng, c, c), proj_b=_rand(rng, c),
+             rpb_table=_rand(rng, (2 * ws - 1) ** 2, heads),
+             norm2_w=_rand(rng, c), norm2_b=_rand(rng, c),
+             fc1_w=_rand(rng, hid, c), fc1_b=_rand(rng, hid),
+             fc2_w=_rand(rng, c, hid), fc2_b=_rand(rng, c))
+    p = tsb.prepare_swin_params(**w, num_heads=heads, ws=ws,
+                                dtype=torch.bfloat16)
+    f = tsb.swin_pair_weights(p, heads)
+    d = f.dims
+    assert (d["nq"] // 2, d["nc"] // 2, d["nh"] // 4,
+            d["hdp"] // 16) in tsb.PAIR_SHAPES
+    assert f.wkv.shape[0] == 2 and f.w1.shape[0] == 2
+    u = f.unpack()
+    assert torch.equal(u["wqkv"], tsb._dense(p.wqkv, c, 3 * c))
+    assert torch.equal(u["bqkv"], p.bqkv)
+    assert torch.equal(u["wproj"], tsb._dense(p.wproj, c, c))
+    assert torch.equal(u["bproj"], p.bproj)
+    assert torch.equal(u["w1"], tsb._dense(p.w1, c, hid))
+    assert torch.equal(u["b1"], p.b1)
+    assert torch.equal(u["w2"], tsb._dense(p.w2, hid, c))
+    assert torch.equal(u["b2"], p.b2)
+    assert u["pads"].abs().sum() == 0
+    assert torch.equal(f.ln1, torch.stack([p.ln1_w, p.ln1_b]))
+    assert torch.equal(f.rpb, p.rpb)
+
+
+def test_swin_pair_form_is_made_once_per_weight():
+    """The form is kept on the block's qkv weight and remade after an
+    in-place edit of any of its tensors."""
+    rng = np.random.default_rng(3)
+    c, heads, ws = 48, 2, 8
+    w = dict(norm1_w=_rand(rng, c), norm1_b=_rand(rng, c),
+             qkv_w=_rand(rng, 3 * c, c), qkv_b=_rand(rng, 3 * c),
+             proj_w=_rand(rng, c, c), proj_b=_rand(rng, c),
+             rpb_table=_rand(rng, (2 * ws - 1) ** 2, heads),
+             norm2_w=_rand(rng, c), norm2_b=_rand(rng, c),
+             fc1_w=_rand(rng, 2 * c, c), fc1_b=_rand(rng, 2 * c),
+             fc2_w=_rand(rng, c, 2 * c), fc2_b=_rand(rng, c))
+    p = tsb.prepare_swin_params(**w, num_heads=heads, ws=ws,
+                                dtype=torch.bfloat16)
+    f = tsb._pair_cached(p, heads, tsb.swin_pair_weights)
+    assert tsb._pair_cached(p, heads, tsb.swin_pair_weights) is f
+    p.b2.add_(1.0)
+    g = tsb._pair_cached(p, heads, tsb.swin_pair_weights)
+    assert g is not f and torch.equal(g.b2[:c], p.b2)

@@ -575,6 +575,100 @@ def test_swin_pair_block_kernel_matches_plain(cuda, c, heads, hw, dc1,
         tsb.swin_pair_block_plain(x32, pa32, pb32, bank, **kw), dtype)
 
 
+# K7's product form (csrc/conv3x3_pair.cu): A read in place by a
+# no-swizzle descriptor from pixel dx of the staged halo, B a packed stage
+@pytest.mark.parametrize("k", [16, 64])
+@pytest.mark.parametrize("n", [16, 64])
+@pytest.mark.parametrize("dx", [0, 1, 2])
+def test_pair_conv_tile_matches_matmul(cuda, k, n, dx):
+    """One 64-pixel K7 tile against torch.matmul on the same bf16 values:
+    a wrong descriptor gives plausible garbage, not a fault."""
+    gen = torch.Generator().manual_seed(k + n + dx)
+    a = _randn(gen, 66, k).to(torch.bfloat16)
+    w = _randn(gen, k, n).to(torch.bfloat16)
+    want = a.float()[dx:dx + 64] @ w.float()
+    got = tconv.pair_conv_tile(a.to(cuda), w.to(cuda), dx)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-5)
+
+
+# K7 in bf16 at the head's widths (64 -> 256) on widths the 62-column tile
+# does not divide (968, 136) and 16 rows (not a multiple of its 6), Cout 3,
+# 12 (the tail) and 32, with and without the LeakyReLU
+@pytest.mark.parametrize("w", [968, 136])
+@pytest.mark.parametrize("cout", [3, 12, 32])
+@pytest.mark.parametrize("act", [None, "lrelu"])
+def test_conv3x3_pair_bf16_ragged_tiles(cuda, w, cout, act):
+    """K7 bf16 against conv3x3_pair_plain within the rounding control
+    (RMS), batch 2, repeatable bits."""
+    gen = torch.Generator().manual_seed(w + cout)
+    cin, cmid = 64, 256
+    x32 = _randn(gen, 2, 16, w, cin).to(cuda)
+    w1 = _randn(gen, 3, 3, cin, cmid, scale=(9 * cin) ** -0.5).to(cuda)
+    b1 = _randn(gen, cmid, scale=0.1).to(cuda)
+    w2 = _randn(gen, 3, 3, cmid, cout, scale=(9 * cmid) ** -0.5).to(cuda)
+    b2 = _randn(gen, cout, scale=0.1).to(cuda)
+    x = x32.to(torch.bfloat16)
+    k = tconv.conv3x3_pair_weights(w1, b1, w2, b2, torch.bfloat16)
+    got = tconv.conv3x3_pair(x, k, act_mid=act)
+    assert torch.equal(got, tconv.conv3x3_pair(x, k, act_mid=act))
+    _close_or_within_rounding(
+        got, tconv.conv3x3_pair_plain(x, w1, b1, w2, b2, act_mid=act),
+        tconv.conv3x3_pair_plain(x32, w1, b1, w2, b2, act_mid=act),
+        torch.bfloat16)
+
+
+# K8's product pass (csrc/swin_pair.cu: pass): one warpgroup's column
+# slice of a packed K x N weight streamed through the ring, at the band's
+# passes (q 192, kv 384 split in two, proj / fc2 192, fc1 384, fc2's K 384
+# is two 192-row tiles) and the narrow instantiations' widths
+@pytest.mark.parametrize("k,n,n0,nw", [
+    (192, 192, 0, 96), (192, 192, 96, 96), (192, 384, 192, 192),
+    (192, 384, 0, 192), (64, 48, 24, 24), (128, 64, 32, 32),
+    (256, 128, 64, 64), (64, 96, 48, 48)])
+def test_pair_gemm_tile_matches_matmul(cuda, k, n, n0, nw):
+    """One 64-row K8 pass against torch.matmul on the same bf16 values: a
+    wrong descriptor, column offset or stage stride gives plausible
+    garbage, not a fault."""
+    gen = torch.Generator().manual_seed(k + n + n0)
+    a = _randn(gen, 64, k).to(torch.bfloat16)
+    w = _randn(gen, k, n).to(torch.bfloat16)
+    want = a.float() @ w.float()[:, n0:n0 + nw]
+    got = tsb.pair_gemm_tile(a.to(cuda), w.to(cuda), n0, nw)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-5)
+
+
+# K8 in bf16 at both widths' instantiations and the lightweight one (C 60,
+# head width 10), with and without the bank, batch 2, the last window row
+# and column wrapping to the first; f32 keeps the parent's kernel
+@pytest.mark.parametrize("c,heads,hw", [(180, 6, (16, 32)),
+                                        (60, 6, (24, 16)),
+                                        (48, 2, (16, 48))])
+@pytest.mark.parametrize("dc1", [0, 4])
+@pytest.mark.parametrize("banked", [True, False])
+def test_swin_pair_block_bf16_forms(cuda, c, heads, hw, dc1, banked):
+    """K8 bf16 against swin_pair_block_plain within the rounding control
+    (RMS), and repeatable bits: one launch each."""
+    gen = torch.Generator().manual_seed(14)
+    x32 = _randn(gen, 2, *hw, c).to(cuda)
+    state = gen.get_state()
+    pa, pb = (_block(gen, c, heads, 8, torch.bfloat16, cuda)
+              for _ in range(2))
+    gen.set_state(state)
+    pa32, pb32 = (_block(gen, c, heads, 8, torch.float32, cuda)
+                  for _ in range(2))
+    bank = torch.from_numpy(twa.shift_attention_mask(16, 16, 8, 4)
+                            .reshape(2, 2, 64, 64)).to(cuda) \
+        if banked else None
+    kw = dict(num_heads=heads, ws=8, dc1=dc1)
+    x = x32.to(torch.bfloat16)
+    got = tsb.swin_pair_block(x, pa, pb, bank, **kw)
+    assert torch.equal(got, tsb.swin_pair_block(x, pa, pb, bank, **kw))
+    _close_or_within_rounding(
+        got, tsb.swin_pair_block_plain(x, pa, pb, bank, **kw),
+        tsb.swin_pair_block_plain(x32, pa32, pb32, bank, **kw),
+        torch.bfloat16)
+
+
 @pytest.mark.parametrize("mode", ["stacked", "paired_perhead", "noattn",
                                   "base_noproj"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -150,14 +150,15 @@ def test_conv3x3_pair_shape_rule_raises(shape, act):
 
 
 def test_conv3x3_pair_kernel_form_equals_raw_weights():
-    """conv3x3_pair on its kernel form (bf16: padded to 16 / 32 / 16, f32
-    biases) == conv3x3_pair on the raw weights, in both dtypes."""
+    """conv3x3_pair on its kernel form (bf16: K3's packed order, Cin
+    padded to 16, Cmid to 64, Cout to 8; f32 biases) == conv3x3_pair on the
+    raw weights, in both dtypes."""
     x, w1, b1, w2, b2 = _pair_inputs(3, 128)
     for dtype in (torch.float32, torch.bfloat16):
         k = tconv.conv3x3_pair_weights(_t(w1), _t(b1), _t(w2), _t(b2), dtype)
         if dtype == torch.bfloat16:
-            assert k.w1.shape == (3, 3, 16, 32) and k.w2.shape == (3, 3, 32,
-                                                                   16)
+            assert k.w1.shape == (1, 1, 9, 2, 8, 8, 8) \
+                and k.w2.shape == (1, 4, 9, 2, 1, 8, 8)
         xx = _t(x).to(dtype)
         assert torch.equal(tconv.conv3x3_pair(xx, k, act_mid="lrelu"),
                            tconv.conv3x3_pair(xx, _t(w1), _t(b1), _t(w2),
@@ -260,23 +261,38 @@ def test_swin_pair_block_is_two_swin_blocks_and_checks_its_input():
 
 
 def test_pair_form_is_the_block_head_major():
-    """K8's head-major weight form holds the block's values: per head, its
-    q, k, v columns (zero-padded to 16 in bf16) and proj's rows."""
+    """K8's head-major weight forms hold the block's values, per head: the
+    f32 form's [q | k | v] columns and proj's rows; the bf16 form's
+    (swin_pair_weights) q of each head, then k and v of every head, each
+    zero-padded to 16 columns, and proj's rows to match."""
     rng = np.random.default_rng(6)
     wts = _block_weights(rng)
-    for dtype in (torch.float32, torch.bfloat16):
-        p = _port_params(wts, dtype)
-        ts, d = tsb._pair_form(p, C, HEADS)
-        hd, hdp = C // HEADS, d["hdp"]
-        assert hdp == (16 if dtype == torch.bfloat16 else hd)
-        wq = ts[2].float().reshape(-1, HEADS, 3, hdp)
-        dense = tsb._dense(p.wqkv, C, 3 * C).reshape(C, 3, HEADS, hd)
-        assert torch.equal(wq[:C, ..., :hd], dense.permute(0, 2, 1, 3))
-        assert not wq[:, ..., hd:].any() and not wq[C:].any()
-        wp = ts[4].float().reshape(HEADS, hdp, -1)
-        assert torch.equal(wp[:, :hd, :C], tsb._dense(p.wproj, C, C)
-                           .reshape(HEADS, hd, C))
-        assert ts[11].shape[0] == ts[9].shape[1]
+    hd = C // HEADS
+    p = _port_params(wts, torch.float32)
+    ts, d = tsb._pair_form(p, HEADS)
+    assert d["hdp"] == hd
+    dense = tsb._dense(p.wqkv, C, 3 * C).reshape(C, 3, HEADS, hd)
+    assert torch.equal(ts[2].reshape(C, HEADS, 3, hd),
+                       dense.permute(0, 2, 1, 3))
+    assert torch.equal(ts[4], tsb._dense(p.wproj, C, C))
+    assert ts[11].shape[0] == ts[9].shape[1]
+    p = _port_params(wts, torch.bfloat16)
+    f = tsb.swin_pair_weights(p, HEADS)
+    d = f.dims
+    hdp = d["hdp"]
+    assert hdp == 16
+    dense = tsb._dense(p.wqkv, C, 3 * C).reshape(C, 3, HEADS, hd)
+    wq = tsb._dense(f.wq, d["kp"], d["nq"]).reshape(-1, HEADS, hdp)
+    assert torch.equal(wq[:C, :, :hd], dense[:, 0])
+    assert not wq[:, :, hd:].any() and not wq[C:].any()
+    wkv = tsb._dense(f.wkv, d["kp"], 2 * d["nq"]).reshape(-1, 2, HEADS, hdp)
+    assert torch.equal(wkv[:C, ..., :hd], dense[:, 1:])
+    assert not wkv[..., hd:].any() and not wkv[C:].any()
+    wp = tsb._dense(f.wproj, d["kq"], d["nc"])[:HEADS * hdp]
+    wp = wp.reshape(HEADS, hdp, -1)
+    assert torch.equal(wp[:, :hd, :C], tsb._dense(p.wproj, C, C)
+                       .reshape(HEADS, hd, C))
+    assert not wp[:, hd:].any()
 
 
 # ---------------------------------------------------------------------------
