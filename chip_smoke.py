@@ -98,7 +98,42 @@ Phases, each printing one JSON line:
 21. head_pair: the head's tail as two K3 launches and as one
     ``conv3x3_pair`` at both shapes (times);
 22. lab_strip: every ``lab_strip`` mode at kernel_lab's shape, 30 chained
-    calls each (times).
+    calls each (times);
+23. agent_kernels (with the kernel checks, also under ``--quick`` at
+    16x128): K3, K4 and K5 against their plain versions at every call
+    form the slice's served paths give them, traced by running each model
+    on the meta device at the canvas the engine gives it
+    (``agent_kernel_shapes``): NAFNet and FBCNN at 256 px (nafnet_path,
+    fbcnn_path), and Restormer, NAFNet and FBCNN at the agent input's
+    canvas (agent_path; Restormer's fused blocks take K4 and K5 there);
+24. nafnet_golden and fbcnn_golden: the synthetic goldens' weights written
+    as ``.npz`` (``materialize_synthetic_weights``) and served in f32 by
+    ``Engine(weight_dir=..., device="cuda", allow_random_init=False)`` on
+    each golden's input: PSNR of the uint8 result >= recorded - 0.1 dB, K3
+    launches counted and no other kernel;
+25. nafnet_path (BASELINE #1) and fbcnn_path: ``nafnet`` and
+    ``fbcnn_blind`` serving a 256x256 request in bf16 (one warm-up, 20
+    and 10 timed, the traced launches per request; best and median
+    seconds, MP/s over input pixels, a ``torch.profiler`` split of one
+    more), bf16 against f32 on the card beside the plain control - 2 dB;
+    every kernel call form of one more request must be one agent_kernels
+    checked;
+26. classifier: the v4 degradation classifier in f32 on the card against
+    the port's CPU path on the agent's input and 4 seeded images (logits
+    within 1e-4 x max|ref|, equal argmaxes), ms per ``evaluate`` and the
+    smallest top-2 logit margin;
+27. agent_golden: the recipe of tests/test_agent_goldens.py on the card in
+    f32 (nafnet_synth + fbcnn_synth weights, the nafnet golden input
+    edge-padded by 64 plus seeded noise, rng_seed 0, no rollback): the
+    trace equals tests/data/agent_golden_trace.json;
+28. agent_path (BASELINE #5 on full-width models): the same input and
+    agent in bf16 with Restormer, NAFNet and FBCNN toolboxes
+    (``AGENT_TOOLBOXES``): one warm-up run, 5 timed (p50, min, max), the
+    K3, K4 and K5 launches over them (none may be 0), and one more run
+    split into classifier, PNG I/O and engine host seconds under
+    ``torch.profiler``; whether ``cv2`` (the brightening tools) imports.
+    Every kernel call form of the warm-up run must be one agent_kernels
+    checked.
 Phases 20-22 are the lab path: each counts its kernel's launches over one
 call (6 ``swin_pair_block`` per chain, 1 ``conv3x3_pair`` per tail, 1
 ``lab_strip`` per call), with every count set to 0 just before.
@@ -112,6 +147,8 @@ that last line; so does a machine without a card.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import math
 import re
@@ -119,6 +156,7 @@ import subprocess
 import sys
 import time
 import traceback
+from pathlib import Path
 
 import numpy as np
 
@@ -526,45 +564,82 @@ def kernel_checks(shape, seed: int = 0) -> list[dict]:
     return rows
 
 
-def restormer_kernel_checks(quick: bool, seed: int = 3) -> list[dict]:
-    """K4 and K5 (and K3 at the Restormer convs' shapes) against their plain
-    versions at the 720p request's shapes (a 16x128 canvas with --quick).
-    The K5 rows hold the whole MDTA block (K5 and the plain epilogue, the
-    TPU kernel's function) to ``mdta_block_plain``; ``front_ms`` is K5
-    alone, and ``repeatable`` says two launches gave the same bits;
-    ``plan`` is K5's launch plan at the shape (tile, threads, shared bytes,
-    and in bf16 the gram tiles and slices) and ``ptxas`` its kernel's
-    registers and spills from the build log."""
+def conv_case(randn, dtype, path: str, variant: str, cin: int, cout: int,
+              h: int, w: int, *, bias: bool, res: bool = False,
+              act: str | None = None, roll: int = 0, reps: int = 5) -> dict:
+    """One K3 case on a (1, h, w, cin) input: the kernel against
+    ``conv3x3_plain`` with the epilogues the caller's conv uses (a bias, a
+    residual, an activation, a folded roll), ``F.conv2d`` beside it where
+    one library call computes the same function (no epilogue but the
+    bias)."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.ops.conv3x3 import (
+        conv3x3, conv3x3_plain, conv3x3_weights)
+
+    es = 4 if dtype == torch.float32 else 2
+    x32 = randn(1, h, w, cin)
+    x = x32.to(dtype)
+    wk = randn(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
+    b = randn(cout, scale=0.1) if bias else None
+    r32 = randn(1, h, w, cout) if res else None
+    r = r32.to(dtype) if res else None
+    kf = conv3x3_weights(wk, b, dtype)
+    kw = dict(act=act, roll=roll)
+    library = None
+    if not (res or act or roll):
+        xin = x.permute(0, 3, 1, 2)
+        wl = wk.to(dtype).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        bl = b.to(dtype) if bias else None
+        library = lambda: torch.nn.functional.conv2d(xin, wl, bl, padding=1)
+    return dict(
+        name="conv3x3", variant=variant, path=path,
+        kernel=lambda: conv3x3(x, kf, res=r, **kw),
+        plain=lambda: conv3x3_plain(x, wk, b, res=r, **kw),
+        ref32=lambda: conv3x3_plain(x32, wk, b, res=r32, **kw),
+        library=library, flops=2 * h * w * 9 * cin * cout,
+        nbytes=h * w * (cin + cout * (2 if res else 1)) * es
+        + 9 * cin * cout * es, reps=reps)
+
+
+def _k5_plan(dtype, c: int, heads: int, ptxas: list[str]) -> dict:
+    """K5's launch plan at a shape (tile, threads, shared bytes, and in bf16
+    the gram tiles and slices) and its kernel's ptxas lines."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.ops.restormer_fused import (
+        _plan, mdta_plan)
+
+    if dtype == torch.float32:
+        th, tw, smem = _plan(1, dtype, c, heads)
+        plan, kern = dict(tile=[th, tw], threads=256, smem=smem), \
+            "mdta_front_kernel"
+    else:
+        p = mdta_plan(c, heads)
+        plan, kern = dict(tile=[p.th, p.tw], threads=p.threads,
+                          smem=p.smem, gram_tiles=p.tiles,
+                          gram_tile_mma=[p.mw, p.nw8], slices=p.slices), \
+            f"mdta_mma_kernel<{p.mw},{p.nw8},{p.threads}>"
+    return {"plan": plan, "ptxas": [ln for ln in ptxas
+                                    if ln.split(":")[0] == kern]}
+
+
+def restormer_block_cases(shapes, dtype, randn, gen, path: str,
+                          forms_at: int | None = None) -> list[dict]:
+    """K4 (``gdfn_block``) and K5 (``mdta_front``, held as the whole MDTA
+    block) cases at Restormer block shapes ``(name, (b, h, w, c), heads)``:
+    the served blocks' form (WithBias LN, no biases), and at index
+    ``forms_at`` the other forms the kernels take."""
     import torch
 
     from image_restoration_agent_tpu_torch.ops import kernels
-    from image_restoration_agent_tpu_torch.ops.conv3x3 import (
-        conv3x3, conv3x3_plain, conv3x3_weights)
     from image_restoration_agent_tpu_torch.ops.restormer_fused import (
-        _plan, gdfn_block, gdfn_block_plain, gdfn_weights, mdta_block,
-        mdta_block_plain, mdta_front, mdta_plan, mdta_weights)
+        gdfn_block, gdfn_block_plain, gdfn_weights, mdta_block,
+        mdta_block_plain, mdta_front, mdta_weights)
 
     ptxas = ptxas_lines(kernels.build_log("restormer_fused"))
-
-    def k5_plan(dtype, c, heads):
-        if dtype == torch.float32:
-            th, tw, smem = _plan(1, dtype, c, heads)
-            plan, kern = dict(tile=[th, tw], threads=256, smem=smem), \
-                "mdta_front_kernel"
-        else:
-            p = mdta_plan(c, heads)
-            plan, kern = dict(tile=[p.th, p.tw], threads=p.threads,
-                              smem=p.smem, gram_tiles=p.tiles,
-                              gram_tile_mma=[p.mw, p.nw8], slices=p.slices), \
-                f"mdta_mma_kernel<{p.mw},{p.nw8},{p.threads}>"
-        return {"plan": plan, "ptxas": [ln for ln in ptxas
-                                        if ln.split(":")[0] == kern]}
-
     dev = torch.device("cuda")
-    gen = torch.Generator(device="cpu").manual_seed(seed)
-
-    def randn(*s, scale=1.0):
-        return (torch.randn(*s, generator=gen) * scale).to(dev)
 
     def weights(c, heads, ln_kind, bias):
         hid = int(2.66 * c)
@@ -580,81 +655,84 @@ def restormer_kernel_checks(quick: bool, seed: int = 3) -> list[dict]:
              0.5 + torch.rand(heads, generator=gen).to(dev))
         return hid, g, m
 
+    es = 4 if dtype == torch.float32 else 2
+    fast = dtype == torch.bfloat16
+    cases = []
+    for i, (lvl, (b, h, w, c), heads) in enumerate(shapes):
+        p = b * h * w
+        ch = c // heads
+        x32 = randn(b, h, w, c)
+        x = x32.to(dtype)
+        kinds = [("withbias", False)]
+        if i == forms_at:
+            kinds += [("none", False), ("biasfree", True),
+                      ("withbias", True)]
+        for ln_kind, bias in kinds:
+            hid, g, m = weights(c, heads, ln_kind, bias)
+            var = f"{lvl} {h}x{w} C{c} ln={ln_kind}" + (
+                " bias" if bias else "")
+            gk = gdfn_weights(*g, dtype)
+            cases.append(dict(
+                name="gdfn_block", variant=var, path=path,
+                kernel=lambda x=x, gk=gk: gdfn_block(x, gk, fast=fast),
+                plain=lambda x=x, g=g: gdfn_block_plain(x, *g, fast=fast),
+                ref32=lambda x32=x32, g=g: gdfn_block_plain(
+                    x32, *g, fast=fast),
+                library=None, reps=5,
+                flops=p * (6 * c * hid + 36 * hid),
+                nbytes=2 * p * c * es + 3 * c * hid * es))
+            if ln_kind == "none":
+                continue
+            mk = mdta_weights(*m[:7], m[7], heads, dtype)
+            g1 = mdta_front(x, mk)[1]
+            g2 = mdta_front(x, mk)[1]
+            cases.append(dict(
+                name="mdta_front", variant=f"{var} heads={heads} (block)",
+                path=path,
+                kernel=lambda x=x, mk=mk: mdta_block(x, mk),
+                plain=lambda x=x, m=m, hd=heads: mdta_block_plain(x, *m, hd),
+                ref32=lambda x32=x32, m=m, hd=heads: mdta_block_plain(
+                    x32, *m, hd),
+                extra_ms={"front_ms": lambda x=x, mk=mk: mdta_front(x, mk)},
+                extra={"repeatable": bool(torch.equal(g1, g2)),
+                       **_k5_plan(dtype, c, heads, ptxas)},
+                library=None, reps=5,
+                flops=p * (8 * c * c + 54 * c + 2 * c * ch),
+                nbytes=2 * p * c * es + 4 * c * c * es))
+            del g1, g2
+    return cases
+
+
+def restormer_kernel_checks(quick: bool, seed: int = 3) -> list[dict]:
+    """K4 and K5 (and K3 at the Restormer convs' shapes) against their plain
+    versions at the 720p request's shapes (a 16x128 canvas with --quick).
+    The K5 rows hold the whole MDTA block (K5 and the plain epilogue, the
+    TPU kernel's function) to ``mdta_block_plain``; ``front_ms`` is K5
+    alone, and ``repeatable`` says two launches gave the same bits;
+    ``plan`` is K5's launch plan at the shape (tile, threads, shared bytes,
+    and in bf16 the gram tiles and slices) and ``ptxas`` its kernel's
+    registers and spills from the build log."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def randn(*s, scale=1.0):
+        return (torch.randn(*s, generator=gen) * scale).to(dev)
+
     shapes = [(n, (1, 16, 128, s[3]), hd) for n, s, hd in RESTORMER_SHAPES] \
         if quick else list(RESTORMER_SHAPES)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        es = 4 if dtype == torch.float32 else 2
-        fast = dtype == torch.bfloat16
-        cases = []
-        for i, (lvl, (b, h, w, c), heads) in enumerate(shapes):
-            p = b * h * w
-            ch = c // heads
-            x32 = randn(b, h, w, c)
-            x = x32.to(dtype)
-            # the main path's blocks (WithBias LN, no biases), and at
-            # level 2 the other forms the kernels take
-            kinds = [("withbias", False)]
-            if i == 1:
-                kinds += [("none", False), ("biasfree", True),
-                          ("withbias", True)]
-            for ln_kind, bias in kinds:
-                hid, g, m = weights(c, heads, ln_kind, bias)
-                var = f"{lvl} {h}x{w} C{c} ln={ln_kind}" + (
-                    " bias" if bias else "")
-                gk = gdfn_weights(*g, dtype)
-                cases.append(dict(
-                    name="gdfn_block", variant=var, path="restormer",
-                    kernel=lambda x=x, gk=gk: gdfn_block(x, gk, fast=fast),
-                    plain=lambda x=x, g=g: gdfn_block_plain(x, *g,
-                                                            fast=fast),
-                    ref32=lambda x32=x32, g=g: gdfn_block_plain(
-                        x32, *g, fast=fast),
-                    library=None, reps=5,
-                    flops=p * (6 * c * hid + 36 * hid),
-                    nbytes=2 * p * c * es + 3 * c * hid * es))
-                if ln_kind == "none":
-                    continue
-                mk = mdta_weights(*m[:7], m[7], heads, dtype)
-                g1 = mdta_front(x, mk)[1]
-                g2 = mdta_front(x, mk)[1]
-                cases.append(dict(
-                    name="mdta_front", variant=f"{var} heads={heads} "
-                    "(block)", path="restormer",
-                    kernel=lambda x=x, mk=mk: mdta_block(x, mk),
-                    plain=lambda x=x, m=m, hd=heads: mdta_block_plain(
-                        x, *m, hd),
-                    ref32=lambda x32=x32, m=m, hd=heads: mdta_block_plain(
-                        x32, *m, hd),
-                    extra_ms={"front_ms": lambda x=x, mk=mk: mdta_front(
-                        x, mk)},
-                    extra={"repeatable": bool(torch.equal(g1, g2)),
-                           **k5_plan(dtype, c, heads)},
-                    library=None, reps=5,
-                    flops=p * (8 * c * c + 54 * c + 2 * c * ch),
-                    nbytes=2 * p * c * es + 4 * c * c * es))
-                del g1, g2
+        # the main path's blocks, and at level 2 the other forms
+        cases = restormer_block_cases(shapes, dtype, randn, gen, "restormer",
+                                      forms_at=1)
         for cname, cin, cout, h, w in RESTORMER_CONVS:
             if quick:
                 h, w = 16, 128
-            x32 = randn(1, h, w, cin)
-            x = x32.to(dtype)
-            wk = randn(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
-            kf = conv3x3_weights(wk, None, dtype)
-            wl = wk.to(dtype).permute(3, 2, 0, 1).contiguous(
-                memory_format=torch.channels_last)
-            xin = x.permute(0, 3, 1, 2)
-            cases.append(dict(
-                name="conv3x3", variant=f"restormer {cname} {h}x{w}",
-                path="restormer",
-                kernel=lambda x=x, kf=kf: conv3x3(x, kf),
-                plain=lambda x=x, wk=wk: conv3x3_plain(x, wk),
-                ref32=lambda x32=x32, wk=wk: conv3x3_plain(x32, wk),
-                library=lambda xin=xin, wl=wl: torch.nn.functional.conv2d(
-                    xin, wl, padding=1),
-                flops=2 * h * w * 9 * cin * cout,
-                nbytes=h * w * (cin + cout) * es + 9 * cin * cout * es,
-                reps=5))
+            cases.append(conv_case(randn, dtype, "restormer",
+                                   f"restormer {cname} {h}x{w}", cin, cout,
+                                   h, w, bias=False))
         rows += [check_case(cs, dtype) for cs in cases]
         del cases
     return rows
@@ -1805,6 +1883,564 @@ def lab_strip_phase(quick: bool) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# slice 10: the agent chain (NAFNet, FBCNN, the v4 classifier, IRAgent)
+
+# the toolboxes of tests/test_agent_goldens.py, and agent_path's full-width
+# ones
+GOLDEN_TOOLBOXES = {
+    "denoising": [("nafnet", "nafnet")],
+    "motion deblurring": [("nafnet", "nafnet")],
+    "defocus deblurring": [("nafnet", "nafnet")],
+    "deraining": [("nafnet", "nafnet")],
+    "dehazing": [("nafnet", "nafnet")],
+    "super-resolution": [],
+    "jpeg compression artifact removal": [("fbcnn_blind", "fbcnn_blind")],
+}
+AGENT_TOOLBOXES = {
+    "motion deblurring": [("restormer", "restormer")],
+    "deraining": [("restormer", "restormer"), ("nafnet", "nafnet")],
+    "denoising": [("nafnet", "nafnet"), ("restormer", "restormer")],
+    "dehazing": [("nafnet", "nafnet")],
+    "defocus deblurring": [("restormer", "restormer")],
+    "jpeg compression artifact removal": [("fbcnn_blind", "fbcnn_blind")],
+    "super-resolution": [],
+}
+TRACE = (Path(__file__).resolve().parent / "tests" / "data"
+         / "agent_golden_trace.json")
+
+
+@contextlib.contextmanager
+def kernel_calls(model):
+    """Record the K3, K4 and K5 calls ``model``'s forward makes inside the
+    block: ``(forms, counts)``, ``forms`` mapping each call form (the
+    input's shape and what else decides the kernel's work) to the first
+    module that made it, ``counts`` the calls of each kernel. A Restormer
+    block is counted only where it takes the fused route."""
+    from image_restoration_agent_tpu_torch.models.common import Conv
+    from image_restoration_agent_tpu_torch.models.restormer import (
+        TransformerBlock)
+
+    forms: dict = {}
+    counts = {"conv3x3": 0, "gdfn_block": 0, "mdta_front": 0}
+
+    def conv(name, mod, args, kw):
+        arg = lambda i, k, d: args[i] if len(args) > i else kw.get(k, d)
+        if arg(3, "ln_pre", None) is not None:
+            raise NotImplementedError(f"{name}: no case for ln_pre")
+        cout, cin = mod.weight.shape[:2]
+        forms.setdefault(("conv3x3", tuple(args[0].shape), cin, cout,
+                          mod.bias is not None,
+                          arg(1, "res", None) is not None, mod.act,
+                          arg(2, "roll", 0)), name)
+        counts["conv3x3"] += 1
+
+    def block(name, mod, args, kw):
+        x = args[0]
+        if mod.fused(x):
+            forms.setdefault(("block", tuple(x.shape), mod.attn.num_heads,
+                              mod.ffn.hidden), name)
+            counts["gdfn_block"] += 1
+            counts["mdta_front"] += 1
+
+    hooks = [mod.register_forward_pre_hook(
+        (lambda m, a, kw, n=name, f=fn: f(n, m, a, kw)), with_kwargs=True)
+        for name, mod in model.named_modules()
+        for cls, fn in ((Conv, conv), (TransformerBlock, block))
+        if isinstance(mod, cls)]
+    try:
+        yield forms, counts
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def traced_calls(name: str, h: int, w: int) -> tuple:
+    """``kernel_calls`` of model ``name`` (its registered configuration)
+    on one (1, h, w, 3) input, run on the meta device: shapes only."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.models import get_spec
+
+    spec = get_spec(name)
+    with torch.device("meta"):
+        model = spec.build(**spec.config).eval()
+    with kernel_calls(model) as (forms, counts), torch.no_grad():
+        model(torch.empty(1, h, w, 3, device="meta"))
+    return forms, counts
+
+
+def served_canvas(name: str, h: int, w: int, bucket: int = 128) -> tuple:
+    """The canvas ``Engine(shape_bucket=bucket)`` gives model ``name`` for
+    an h x w request in whole-image mode: the shape bucket at the model's
+    pad multiple, then its whole-image pad multiple."""
+    from image_restoration_agent_tpu_torch.engine.engine import _bucket
+    from image_restoration_agent_tpu_torch.models import get_spec
+
+    spec = get_spec(name)
+    if spec.tile is not None or spec.band_mode or (
+            spec.max_size is not None and max(h, w) > spec.max_size):
+        raise ValueError(f"{name} is not served whole-image at {h}x{w}")
+    m = max(spec.pad_multiple, spec.whole_pad_multiple)
+    return tuple(-(-_bucket(n, bucket, spec.pad_multiple) // m) * m
+                 for n in (h, w))
+
+
+def agent_models() -> list[str]:
+    return sorted({m for box in AGENT_TOOLBOXES.values() for _, m in box})
+
+
+def agent_input_hw() -> tuple:
+    """The agent input's size: the nafnet golden's, edge-padded by 64."""
+    from image_restoration_agent_tpu_torch.core.io import load_image
+    from image_restoration_agent_tpu_torch.offline import GOLDEN_ROOT
+
+    h, w = load_image(GOLDEN_ROOT / "nafnet_synth" / "input.png").shape[:2]
+    return h + 64, w + 64
+
+
+@functools.lru_cache(maxsize=None)
+def agent_kernel_shapes() -> dict:
+    """path -> (call forms, launches per request or run): the K3, K4 and
+    K5 calls of the slice's served paths, traced on the meta device at the
+    canvas each model is served on: ``nafnet`` and ``fbcnn`` a 256 px
+    request, ``agent`` every toolbox model of ``AGENT_TOOLBOXES`` at the
+    agent input's canvas (the launches there depend on the plan, so they
+    are not a per-run count)."""
+    out = {}
+    for path, model in (("nafnet", "nafnet"), ("fbcnn", "fbcnn_blind")):
+        out[path] = traced_calls(model, *served_canvas(model, 256, 256))
+    forms = {}
+    for model in agent_models():
+        f, _ = traced_calls(model, *served_canvas(model, *agent_input_hw()))
+        for key, name in f.items():
+            forms.setdefault(key, f"{model} {name}")
+    out["agent"] = (forms, None)
+    return out
+
+
+def unchecked_forms(path: str, seen: dict) -> list[str]:
+    """The call forms ``seen`` on a path's real run that agent_kernels did
+    not check (it must be none)."""
+    checked = agent_kernel_shapes()[path][0]
+    return [f"{name}: {key}" for key, name in seen.items()
+            if key not in checked]
+
+
+def agent_kernel_checks(quick: bool, seed: int = 23) -> list[dict]:
+    """K3, K4 and K5 against their plain versions at every call form of
+    ``agent_kernel_shapes`` (at 16x128 with --quick), f32 and bf16; K3's
+    rows with ``F.conv2d`` beside them where the conv has no epilogue but
+    its bias."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def randn(*s, scale=1.0):
+        return (torch.randn(*s, generator=gen) * scale).to(dev)
+
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        cases = []
+        for path, (forms, _) in agent_kernel_shapes().items():
+            blocks = []
+            for key, name in forms.items():
+                shape = (1, 16, 128, key[1][3]) if quick else key[1]
+                if key[0] == "block":
+                    _, _, heads, hidden = key
+                    if hidden != int(2.66 * shape[3]):
+                        raise ValueError(f"{name}: hidden {hidden}")
+                    blocks.append((f"{path} {name}", shape, heads))
+                    continue
+                _, _, cin, cout, bias, res, act, roll = key
+                h, w = shape[1:3]
+                cases.append(conv_case(
+                    randn, dtype, path, f"{path} {name} {h}x{w} {cin}->"
+                    f"{cout}" + (" res" if res else ""), cin, cout, h, w,
+                    bias=bias, res=res, act=act, roll=roll, reps=10))
+            cases += restormer_block_cases(blocks, dtype, randn, gen, path)
+        rows += [check_case(cs, dtype) for cs in cases]
+        del cases
+    return rows
+
+
+def agent_input(root) -> tuple:
+    """The agent golden test's input (tests/test_agent_goldens.py): the
+    nafnet golden fixture edge-padded by 64, plus N(0, 25/255) noise from
+    ``default_rng(42)``; (float image, its PNG path under ``root``)."""
+    from image_restoration_agent_tpu_torch.core.io import (load_image,
+                                                           save_image,
+                                                           to_float)
+    from image_restoration_agent_tpu_torch.offline import GOLDEN_ROOT
+
+    clean = to_float(load_image(GOLDEN_ROOT / "nafnet_synth" / "input.png"))
+    clean = np.pad(clean, ((0, 64), (0, 64), (0, 0)), mode="edge")
+    rng = np.random.default_rng(42)
+    noisy = np.clip(clean + rng.normal(0.0, 25.0 / 255.0, clean.shape),
+                    0.0, 1.0).astype(np.float32)
+    path = root / "case" / "noisy.png"
+    save_image(noisy, path)
+    return to_float(load_image(path)), path
+
+
+def synth_golden(wdir, golden: str, model: str) -> dict:
+    """``golden``'s weights (materialized as ``<model>.npz``) served in f32
+    by ``Engine(weight_dir=..., device="cuda", allow_random_init=False)``
+    on the golden's input: PSNR of the uint8 result against the
+    independent torch reference >= recorded - 0.1 dB; K3 launches counted
+    over the request (and no other kernel)."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.engine import Engine
+    from image_restoration_agent_tpu_torch.offline import (GOLDEN_ROOT,
+                                                           load_golden,
+                                                           psnr)
+
+    g = load_golden(GOLDEN_ROOT / golden)
+    eng = Engine(weight_dir=wdir, device="cuda", allow_random_init=False)
+    eng.store.get(model)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = eng.restore_array(g["input"], model)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    others = {k: v for k, v in counts.items() if k != "conv3x3" and v}
+    db = psnr(res.image.astype(np.float32) / 255.0, g["expected"])
+    want = g["spec"]["psnr_db"] - 0.1
+    return {"phase": f"{golden.split('_')[0]}_golden", "model": model,
+            "dtype": "float32", "input": list(g["input"].shape),
+            "output": list(res.image.shape), "psnr_db": db, "want_db": want,
+            "random_init": res.random_init, "seconds": secs,
+            "launches": {"conv3x3": counts["conv3x3"]},
+            "other_launches": others,
+            "pass": bool(db >= want and counts["conv3x3"] > 0
+                         and not others and not res.random_init
+                         and res.nonfinite == 0)}
+
+
+def _probe(name: str, state, img, device: str,
+           dtype_name: str) -> np.ndarray:
+    import torch
+
+    from image_restoration_agent_tpu_torch.models import build_model
+
+    dtype = getattr(torch, dtype_name)
+    m = build_model(name, device=device, dtype=dtype)
+    m.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()},
+                      strict=True)
+    with torch.no_grad():
+        out = m(torch.from_numpy(img)[None].to(device, dtype)).float()
+    return out[0].cpu().numpy()
+
+
+def served_path(phase: str, path: str, name: str, state, card: str,
+                requests: int) -> dict:
+    """``name`` serving one 256x256 request in bf16 through
+    ``Engine(device="cuda")``: one warm-up request, ``requests`` timed ones
+    (the traced launches each), a ``torch.profiler`` split of one more, and
+    one more with its kernel call forms recorded, all of which
+    agent_kernels must have checked; bf16 against f32 on the card on the
+    same image, beside the plain bf16-vs-f32 control (the CPU path)."""
+    import torch
+
+    img = np.random.default_rng(0).random((256, 256, 3), dtype=np.float32)
+    eng, warm, warm_s, secs, results, counts, profile, _ = serve(
+        name, state, img, requests, shape_bucket=128)
+    per_req = {k: v for k, v in agent_kernel_shapes()[path][1].items() if v}
+    with kernel_calls(eng.store.get(name)) as (seen, _):
+        eng.restore_array(img, name)
+    unchecked = unchecked_forms(path, seen)
+    launches = {k: counts[k] for k in per_req}
+    others = {k: v for k, v in counts.items() if k not in per_req and v}
+    ok = all(r.image.shape == (256, 256, 3) and r.nonfinite == 0
+             for r in results + [warm])
+    ok = ok and launches == {k: v * requests for k, v in per_req.items()} \
+        and not others and not unchecked
+    fast = _probe(name, state, img, "cuda", "bfloat16")
+    exact = _probe(name, state, img, "cuda", "float32")
+    torch.set_num_threads(8)
+    ctrl16 = _probe(name, state, img, "cpu", "bfloat16")
+    ctrl32 = _probe(name, state, img, "cpu", "float32")
+    db = range_psnr(fast, exact)
+    ctrl = range_psnr(ctrl16, ctrl32)
+    best = min(secs)
+    return {"phase": phase, "model": name, "dtype": "bfloat16",
+            "input": [256, 256, 3], "warmup_seconds": warm_s,
+            "seconds_best": best, "seconds_median": float(np.median(secs)),
+            "seconds": secs, "mp_per_s": 256 * 256 / 1e6 / best,
+            "launches": launches, "expected_per_request": per_req,
+            "other_launches": others, "call_forms": len(seen),
+            "unchecked_forms": unchecked,
+            "bf16_vs_f32_db": db, "control_db": ctrl,
+            "floor_db": ctrl - 2.0,
+            "exact_plain_vs_card_db": range_psnr(ctrl32, exact),
+            "profile": profile, "card": card,
+            "pass": bool(ok and db >= ctrl - 2.0)}
+
+
+def nafnet_path(state, card: str, requests: int = 20) -> dict:
+    """BASELINE #1: ``nafnet`` (nafnet_synth weights), a 256x256 request
+    in bf16 (``served_path``)."""
+    return served_path("nafnet_path", "nafnet", "nafnet", state, card,
+                       requests)
+
+
+def fbcnn_path(state, card: str, requests: int = 10) -> dict:
+    """``fbcnn_blind`` (fbcnn_synth weights), a 256x256 request in bf16
+    (``served_path``): FBCNN's bf16 serving path, which the agent's pinned
+    plan does not reach."""
+    return served_path("fbcnn_path", "fbcnn", "fbcnn_blind", state, card,
+                       requests)
+
+
+def classifier_check(agent_img) -> dict:
+    """The v4 classifier in f32 on the card against the port's CPU path,
+    on the agent's input and 4 seeded images: logits within 1e-4 x
+    max|ref|, every argmax equal; ms per ``evaluate`` (cache cleared) and
+    the smallest top-2 logit margin seen."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.iqa.classifier import (
+        SeverityEvaluator)
+
+    card = SeverityEvaluator.default(device="cuda")
+    torch.set_num_threads(8)
+    cpu = SeverityEvaluator.default(device="cpu")
+    rng = np.random.default_rng(31)
+    yy, xx = np.mgrid[0:240, 0:320] / 320.0
+    imgs = [agent_img, rng.random((300, 400, 3), dtype=np.float32),
+            np.clip(np.stack([yy, xx, yy * xx], -1)
+                    + 0.03 * rng.standard_normal((240, 320, 3)), 0, 1),
+            np.kron(rng.random((32, 32, 3)), np.ones((8, 8, 1))),
+            0.2 * rng.random((512, 512, 3), dtype=np.float32)]
+    rows, ok, margin = [], True, float("inf")
+    for img in imgs:
+        img = np.ascontiguousarray(img, np.float32)
+        a, b = card.logits(img), cpu.logits(img)
+        err = float(np.abs(a - b).max())
+        same = bool((a.argmax(-1) == b.argmax(-1)).all())
+        top2 = np.sort(b, axis=-1)[:, -2:]
+        margin = min(margin, float((top2[:, 1] - top2[:, 0]).min()))
+        ok = ok and same and err <= 1e-4 * float(np.abs(b).max())
+        rows.append({"shape": list(img.shape), "max_abs_err": err,
+                     "ref_max_abs": float(np.abs(b).max()),
+                     "same_argmax": same,
+                     "severities": [s for _, s in card.evaluate(img)]})
+
+    def evaluate():
+        card._logit_cache.clear()
+        card.evaluate(agent_img)
+
+    evaluate()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        evaluate()
+    ms = (time.perf_counter() - t0) / 20 * 1e3
+    return {"phase": "classifier", "weights": "degradation_classifier_v4",
+            "dtype": "float32", "images": rows, "evaluate_ms": ms,
+            "min_top2_margin": margin, "pass": bool(ok)}
+
+
+def _trace(summary: dict) -> dict:
+    return {"plan_initial": summary["plan"]["initial"],
+            "execution_subtasks": summary["execution_path"]["subtasks"],
+            "execution_tools": summary["execution_path"]["tools"],
+            "n_invocations": summary["n_invocations"]}
+
+
+def _run_agent(eng, toolboxes, inp, out) -> tuple[float, dict]:
+    import torch
+
+    from image_restoration_agent_tpu_torch.agent import (
+        IRAgent, build_default_executor)
+
+    ex = build_default_executor(engine=eng, toolboxes=toolboxes)
+    t0 = time.perf_counter()
+    agent = IRAgent(inp, out, executor=ex, rng_seed=0, with_rollback=False,
+                    silent=True, device="cuda")
+    result = agent.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if result is None or not result.exists():
+        raise RuntimeError("the agent wrote no result")
+    return secs, json.loads(agent.summary_path.read_text())
+
+
+def agent_golden(wdir, inp, root) -> dict:
+    """The recipe of tests/test_agent_goldens.py on the card in f32: its
+    trace equals tests/data/agent_golden_trace.json."""
+    from image_restoration_agent_tpu_torch.engine import Engine
+
+    eng = Engine(weight_dir=wdir, device="cuda", allow_random_init=False)
+    reset_launch_counts()
+    secs, summary = _run_agent(eng, GOLDEN_TOOLBOXES, inp, root / "golden")
+    counts = launch_counts()
+    with open(TRACE) as f:
+        want = json.load(f)
+    got = _trace(summary)
+    return {"phase": "agent_golden", "dtype": "float32", "trace": got,
+            "want": want, "seconds": secs,
+            "launches": {k: v for k, v in counts.items() if v},
+            "random_init_models": sorted(eng.random_init_models),
+            "pass": bool(got == want and not eng.random_init_models
+                         and counts["conv3x3"] > 0)}
+
+
+def _wrap_seconds(owner, name: str, acc: dict, key: str):
+    """Replace ``owner.name`` by a wrapper that adds its host seconds to
+    ``acc[key]``; returns the original."""
+    fn = getattr(owner, name)
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            acc[key] += time.perf_counter() - t0
+
+    setattr(owner, name, timed)
+    return fn
+
+
+def agent_split(eng, toolboxes, inp, out) -> dict:
+    """One more agent run under torch.profiler, with the host seconds in
+    the classifier (resize + forward + copy back), in PNG decode/encode and
+    in the engine's requests counted by wrappers."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from image_restoration_agent_tpu_torch.agent import (evaluators,
+                                                         executor, iragent)
+    from image_restoration_agent_tpu_torch.engine import Engine
+    from image_restoration_agent_tpu_torch.iqa.classifier import (
+        SeverityEvaluator)
+
+    acc = {"classifier_s": 0.0, "png_io_s": 0.0, "engine_s": 0.0}
+    wrapped = [(SeverityEvaluator, "logits", "classifier_s"),
+               (Engine, "restore_array", "engine_s")] + [
+        (mod, fn, "png_io_s") for mod, fns in (
+            (executor, ("load_image", "save_image")),
+            (evaluators, ("load_image",)), (iragent, ("load_image",)))
+        for fn in fns]
+    saved = [(o, n, _wrap_seconds(o, n, acc, k)) for o, n, k in wrapped]
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            secs, _ = _run_agent(eng, toolboxes, inp, out)
+    finally:
+        for o, n, fn in saved:
+            setattr(o, n, fn)
+
+    def self_dev_us(e):
+        return (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0) or 0)
+
+    evs = sorted(prof.key_averages(), key=self_dev_us, reverse=True)
+    dev = [e for e in evs if e.device_type != DeviceType.CPU]
+    busy = sum(self_dev_us(e) for e in dev) / 1e3
+    return {"wall_s": secs, **acc,
+            "classifier_share": acc["classifier_s"] / secs,
+            "png_io_share": acc["png_io_s"] / secs,
+            "engine_share": acc["engine_s"] / secs,
+            "device_busy_ms": busy, "device_busy_share": busy / (secs * 1e3),
+            "top": [{"name": e.key[:80], "calls": e.count,
+                     "device_ms": self_dev_us(e) / 1e3} for e in dev[:10]]}
+
+
+def _cv2_version() -> str | None:
+    """OpenCV's version where it imports (the brightening tools need it),
+    else None."""
+    try:
+        import cv2
+    except ImportError:
+        return None
+    return cv2.__version__
+
+
+def agent_path(wdir, inp, shape, root, card: str, runs: int = 5) -> dict:
+    """BASELINE #5 on full-width models: the golden recipe's input and
+    agent settings in bf16 with ``AGENT_TOOLBOXES`` (Restormer, NAFNet,
+    FBCNN; synthetic weights): one warm-up run, ``runs`` timed ones with the
+    launch counts set to 0 just before them and read just after, then one
+    run split by ``agent_split``. The plan starts with motion deblurring,
+    so Restormer runs: K4 and K5 must launch. The warm-up run records
+    every kernel call form, all of which agent_kernels must have
+    checked."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.engine import Engine
+
+    eng = Engine(weight_dir=wdir, device="cuda", param_dtype=torch.bfloat16,
+                 allow_random_init=False)
+    seen: dict = {}
+    with contextlib.ExitStack() as stack:
+        for model in agent_models():
+            forms, _ = stack.enter_context(kernel_calls(eng.store.get(model)))
+            seen[model] = forms
+        warm_s, warm = _run_agent(eng, AGENT_TOOLBOXES, inp, root / "warm")
+    seen = {key: f"{model} {name}" for model, forms in seen.items()
+            for key, name in forms.items()}
+    unchecked = unchecked_forms("agent", seen)
+    reset_launch_counts()
+    timed = [_run_agent(eng, AGENT_TOOLBOXES, inp, root / f"run{i}")
+             for i in range(runs)]
+    counts = launch_counts()
+    secs = [t for t, _ in timed]
+    traces = [_trace(s) for _, s in timed]
+    split = agent_split(eng, AGENT_TOOLBOXES, inp, root / "split")
+    per_kernel = {k: counts[k] for k in ("conv3x3", "gdfn_block",
+                                         "mdta_front")}
+    ok = (all(t == _trace(warm) for t in traces)
+          and all(v > 0 for v in per_kernel.values())
+          and not eng.random_init_models and not unchecked)
+    return {"phase": "agent_path", "dtype": "bfloat16",
+            "input": list(shape), "warmup_seconds": warm_s, "seconds": secs,
+            "p50_s": float(np.median(secs)), "min_s": min(secs),
+            "max_s": max(secs), "trace": traces[0],
+            "launches": per_kernel,
+            "other_launches": {k: v for k, v in counts.items()
+                               if k not in per_kernel and v},
+            "call_forms": len(seen), "unchecked_forms": unchecked,
+            "split": split,
+            "cv2": _cv2_version(),
+            "card": card, "pass": bool(ok)}
+
+
+def agent_phases(phase, card: str) -> dict:
+    """Slice 10's phases in order, on the synthetic goldens' weights
+    written to a temporary directory; returns the served paths' results
+    (``nafnet``, ``fbcnn``, ``agent``) for their launch counts."""
+    import tempfile
+
+    from image_restoration_agent_tpu_torch.offline import (
+        GOLDEN_ROOT, load_golden, materialize_synthetic_weights)
+
+    served = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
+        root = Path(td)
+        wdir = root / "weights"
+        materialize_synthetic_weights(
+            wdir, ["nafnet_synth", "fbcnn_synth", "restormer_synth"])
+        phase("nafnet_golden", synth_golden, wdir, "nafnet_synth", "nafnet")
+        phase("fbcnn_golden", synth_golden, wdir, "fbcnn_synth",
+              "fbcnn_blind")
+        served["nafnet"] = phase(
+            "nafnet_path", nafnet_path,
+            load_golden(GOLDEN_ROOT / "nafnet_synth")["state"], card)
+        served["fbcnn"] = phase(
+            "fbcnn_path", fbcnn_path,
+            load_golden(GOLDEN_ROOT / "fbcnn_synth")["state"], card)
+        img, inp = agent_input(root)
+        phase("classifier", classifier_check, img)
+        phase("agent_golden", agent_golden, wdir, inp, root)
+        served["agent"] = phase("agent_path", agent_path, wdir, inp,
+                                img.shape, root, card)
+    return served
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -1861,13 +2497,14 @@ def main() -> int:
                   args.quick) or []
     phase("dehazeformer_reflect_pad", dehazeformer_reflect_pad, args.quick)
     rows += phase("lab_kernels", lab_kernel_checks, args.quick) or []
+    rows += phase("agent_kernels", agent_kernel_checks, args.quick) or []
     failures += [f"kernel {r['name']} {r['variant']} {r['dtype']}"
                  for r in rows if not r["pass"]]
     # each path's launch counts, read just after the path ran (with
     # --quick, the kernel checks' own)
     counts = launch_counts()
     launches = {p: counts for p in ("swinir", "restormer", "hat", "denoise",
-                                    "dehaze")}
+                                    "dehaze", "nafnet", "fbcnn", "agent")}
     # the lab path: one pair chain, one head tail, one lab_strip call, each
     # counted alone
     launches["lab"] = {}
@@ -1900,6 +2537,9 @@ def main() -> int:
         served_z = phase("dehazeformer_path", dehazeformer_path, state, card)
         phase("dehazeformer_exact", dehazeformer_exact, state)
         phase("dehazeformer_bf16_vs_f32", dehazeformer_bf16_vs_f32, state)
+        torch.cuda.empty_cache()
+        launches.update({p: r["launches"] if r else {}
+                         for p, r in agent_phases(phase, card).items()})
         launches.update({
             "swinir": served["launches"] if served else {},
             "restormer": served_r["launches"] if served_r else {},

@@ -36,7 +36,24 @@ top-level keys (Restormer has ``encoder_level1_0``). It is the inverse of
   the ``patch_split`` / ``patch_unembed`` convs -> ``.proj.0``. The JAX
   tree has ``norm1`` only in attention blocks and no ``norm2``, as the
   port's modules; the reference's ``relative_positions`` buffers are
-  recomputed, not carried.
+  recomputed, not carried;
+- ``nafnet_rules`` (``NAFNet_arch.py`` names, detected by ``intro``):
+  ``enc{i}_blk{j}`` / ``dec{i}_blk{j}`` / ``mid_blk{i}`` ->
+  ``encoders.i.j`` / ``decoders.i.j`` / ``middle_blks.i``, ``sca_conv`` ->
+  ``sca.1``, ``down{i}`` -> ``downs.i``, ``up{i}`` -> ``ups.i.0``; ``beta``
+  and ``gamma`` (C,) -> (1, C, 1, 1);
+- ``fbcnn_rules_for`` (``network_fbcnn.py`` names, detected by
+  ``qf_embed``; the pinned-QF models' tree sits under ``inner``):
+  ``down{l}_res{i}`` -> ``m_down{l+1}.{i}.res``, ``down{l}_stride`` ->
+  ``m_down{l+1}.{nb}``, ``up{l}_t`` -> ``m_up{l+1}.0``, ``up{l}_qf{i}`` ->
+  ``m_up{l+1}.{i+1}.res``, ``qf_pred_mlp/fc{k}`` -> ``qf_pred.{nb+2+2k}``,
+  ``qf_embed/fc{k}`` -> ``qf_embed.{2k}``, ``c1`` / ``c2`` -> ``res.0`` /
+  ``res.2``. The transposed conv's Flax kernel (2, 2, I, O), applied with
+  ``transpose_kernel=False``, is torch's (I, O, 2, 2) with both taps
+  flipped;
+- the degradation classifier (``iqa/classifier.py``, detected by
+  ``feat_fc``): the Flax names kept, ``kernel`` -> ``weight`` (conv and
+  linear transposes), GroupNorm ``scale`` -> ``weight``.
 """
 
 from __future__ import annotations
@@ -266,11 +283,109 @@ def _ref_name(path: str) -> tuple[str, object]:
     raise KeyError(f"unmapped JAX parameter: {path}")
 
 
+def _conv_leaf(name: str) -> tuple[str, object]:
+    """``<module>.kernel`` -> (``<module>.weight``, the conv transpose);
+    ``<module>.bias`` unchanged."""
+    if name.endswith(".kernel"):
+        return name[:-len("kernel")] + "weight", _conv
+    return name, _same
+
+
+def _beta_gamma(w):
+    return np.reshape(w, (1, -1, 1, 1))
+
+
+
+
+def _nafnet_name(path: str) -> tuple[str, object]:
+    m = re.fullmatch(r"(intro|ending)/Conv_0/(kernel|bias)", path)
+    if m:
+        return _conv_leaf(f"{m.group(1)}.{m.group(2)}")
+    m = re.fullmatch(r"down(\d+)/Conv_0/(kernel|bias)", path)
+    if m:
+        return _conv_leaf(f"downs.{m.group(1)}.{m.group(2)}")
+    m = re.fullmatch(r"up(\d+)/Conv_0/kernel", path)
+    if m:
+        return f"ups.{m.group(1)}.0.weight", _conv
+    m = re.fullmatch(r"(?:(enc|dec)(\d+)_blk(\d+)|mid_blk(\d+))/(.+)", path)
+    if not m:
+        raise KeyError(f"unmapped JAX parameter: {path}")
+    kind, lvl, j, mid, rest = m.groups()
+    prefix = (f"middle_blks.{mid}." if mid is not None else
+              f"{'encoders' if kind == 'enc' else 'decoders'}.{lvl}.{j}.")
+    if rest in ("beta", "gamma"):
+        return prefix + rest, _beta_gamma
+    mm = re.fullmatch(r"(norm[12])/(weight|bias)", rest)
+    if mm:
+        return prefix + f"{mm.group(1)}.{mm.group(2)}", _same
+    mm = re.fullmatch(r"(conv[1-5]|sca_conv)/Conv_0/(kernel|bias)", rest)
+    if mm:
+        conv = "sca.1" if mm.group(1) == "sca_conv" else mm.group(1)
+        return _conv_leaf(prefix + f"{conv}.{mm.group(2)}")
+    raise KeyError(f"unmapped JAX parameter: {path}")
+
+
+def _conv_t(w):
+    return np.transpose(w, (2, 3, 0, 1))[:, :, ::-1, ::-1]
+
+
+def _fbcnn_namer(nb: int):
+    def name(path: str) -> tuple[str, object]:
+        m = re.fullmatch(r"(head|tail)/Conv_0/(kernel|bias)", path)
+        if m:
+            return _conv_leaf(f"m_{m.group(1)}.{m.group(2)}")
+        m = re.fullmatch(r"down(\d)_stride/Conv_0/(kernel|bias)", path)
+        if m:
+            return _conv_leaf(f"m_down{int(m.group(1)) + 1}.{nb}."
+                              f"{m.group(2)}")
+        m = re.fullmatch(r"up(\d)_t/(kernel|bias)", path)
+        if m:
+            return (f"m_up{int(m.group(1)) + 1}.0."
+                    f"{'weight' if m.group(2) == 'kernel' else 'bias'}",
+                    _conv_t if m.group(2) == "kernel" else _same)
+        m = re.fullmatch(r"(?:(down|up)(\d)_(?:res|qf)|(body_enc|body_dec|"
+                         r"qf_pred_res))(\d+)/(c[12])/Conv_0/(kernel|bias)",
+                         path)
+        if m:
+            side, lvl, trunk, i, conv, leaf = m.groups()
+            i = int(i)
+            if trunk is not None:
+                owner = {"body_enc": "m_body_encoder", "body_dec":
+                         "m_body_decoder", "qf_pred_res": "qf_pred"}[trunk]
+            else:  # m_up's index 0 is the transposed conv
+                owner, i = f"m_{side}{int(lvl) + 1}", i + (side == "up")
+            return _conv_leaf(f"{owner}.{i}.res.{'0' if conv == 'c1' else '2'}"
+                              f".{leaf}")
+        m = re.fullmatch(r"(qf_pred_mlp|qf_embed|to_gamma_\d|to_beta_\d)/"
+                         r"fc(\d)/(kernel|bias)", path)
+        if m:
+            mlp, k, leaf = m.group(1), int(m.group(2)), m.group(3)
+            idx = {"qf_pred_mlp": nb + 2 + 2 * k, "qf_embed": 2 * k}.get(mlp, k)
+            owner = "qf_pred" if mlp == "qf_pred_mlp" else mlp
+            return (f"{owner}.{idx}.{'weight' if leaf == 'kernel' else 'bias'}",
+                    _linear if leaf == "kernel" else _same)
+        raise KeyError(f"unmapped JAX parameter: {path}")
+    return name
+
+
+def _classifier_name(path: str) -> tuple[str, object]:
+    module, leaf = path.split("/")
+    if leaf == "scale":
+        return f"{module}.weight", _same
+    if leaf == "kernel":
+        return f"{module}.weight", _conv if module.startswith("conv") \
+            else _linear
+    return f"{module}.{leaf}", _same
+
+
 def from_jax(params) -> dict[str, torch.Tensor]:
     """The port's reference-named state dict from JAX SwinIR, HAT,
-    Restormer or DehazeFormer params."""
+    Restormer, DehazeFormer, NAFNet, FBCNN or degradation-classifier
+    params."""
     if "params" in params:
         params = params["params"]
+    if "inner" in params:  # FBCNN with a pinned quality factor
+        params = params["inner"]
     rename = _ref_name
     if "encoder_level1_0" in params:
         rename = _restormer_name
@@ -278,6 +393,12 @@ def from_jax(params) -> dict[str, torch.Tensor]:
         rename = _hat_name
     elif "patch_unembed" in params:
         rename = _dehazeformer_name
+    elif "intro" in params:
+        rename = _nafnet_name
+    elif "qf_embed" in params:
+        rename = _fbcnn_namer(sum(k.startswith("down0_res") for k in params))
+    elif "feat_fc" in params:
+        rename = _classifier_name
     out = {}
     for path, value in _flatten(params):
         name, fn = rename(path)
@@ -302,3 +423,25 @@ def strip_block_params(blk, *, num_heads: int,
         raise ValueError(f"a strip block is a 13-tuple, not {len(blk)}")
     ts = [torch.from_numpy(np.asarray(a, np.float32)) for a in blk]
     return kernel_params(*ts, num_heads=num_heads, dtype=dtype)
+
+
+def write_flat_npz(params, path) -> None:
+    """Write a JAX parameter tree given as numpy (nested dicts, e.g. an
+    orbax restore) as one ``.npz`` with its paths joined by dots
+    (``conv0.kernel``), values unchanged."""
+    if "params" in params:
+        params = params["params"]
+    np.savez(path, **{p.replace("/", "."): v for p, v in _flatten(params)})
+
+
+def read_flat_npz(path) -> dict:
+    """The nested parameter tree of a :func:`write_flat_npz` file."""
+    tree: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            *parents, leaf = key.split(".")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = z[key]
+    return tree

@@ -1,0 +1,98 @@
+"""Separable bicubic resize as two dense matmuls (counterpart of
+``image_restoration_agent_tpu/core/resize.py``).
+
+Two conventions:
+
+- MATLAB ``imresize`` (cubic a=-0.5, antialiasing on downscale, reflected
+  borders): the degradation classifier's 224 px input
+  (``iqa/classifier.py:prepare_input``).
+- torch ``F.interpolate(mode="bicubic", align_corners=False)`` (cubic
+  a=-0.75, no antialias, clamped borders): NAFNet's input upscale.
+
+The interpolation weights depend only on the shapes, so they are built
+once in numpy (float64, normalised per row, then float32) and the resize
+is ``W_h @ img @ W_w^T`` in float32 (no TF32 on the card).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..device import exact_f32
+
+
+def _cubic(x: np.ndarray, a: float) -> np.ndarray:
+    ax = np.abs(x)
+    ax2, ax3 = ax * ax, ax * ax * ax
+    f = ((a + 2) * ax3 - (a + 3) * ax2 + 1) * (ax <= 1)
+    f = f + (a * ax3 - 5 * a * ax2 + 8 * a * ax - 4 * a) * ((1 < ax) & (ax <= 2))
+    return f
+
+
+@functools.lru_cache(maxsize=256)
+def _resize_matrix(in_size: int, out_size: int, a: float, antialias: bool,
+                   matlab: bool) -> np.ndarray:
+    """Dense (out_size, in_size) row-stochastic interpolation matrix."""
+    scale = out_size / in_size
+    kernel_width = 4.0
+    if antialias and scale < 1.0:
+        kernel_width /= scale
+    # output sample centres in input coordinates (the same formula for
+    # MATLAB and torch's align_corners=False)
+    u = (np.arange(out_size, dtype=np.float64) + 0.5) / scale - 0.5
+    left = np.floor(u - kernel_width / 2).astype(np.int64)
+    p = int(np.ceil(kernel_width)) + 2
+    idx = left[:, None] + np.arange(p)[None, :]  # (out, p)
+    dist = u[:, None] - idx
+    if antialias and scale < 1.0:
+        w = scale * _cubic(dist * scale, a)
+    else:
+        w = _cubic(dist, a)
+    if matlab:  # MATLAB reflects taps that fall off the edge
+        n = in_size
+        aux = np.concatenate([np.arange(n), np.arange(n - 1, -1, -1)])
+        idx_c = aux[np.mod(idx, 2 * n)]
+    else:  # torch clamps them
+        idx_c = np.clip(idx, 0, in_size - 1)
+    mat = np.zeros((out_size, in_size), dtype=np.float64)
+    for r in range(out_size):
+        np.add.at(mat[r], idx_c[r], w[r])
+    mat /= mat.sum(axis=1, keepdims=True)
+    return mat.astype(np.float32)
+
+
+def _apply_separable(img: torch.Tensor, mh: np.ndarray,
+                     mw: np.ndarray) -> torch.Tensor:
+    if img.is_cuda:
+        exact_f32()
+    x = img.float()
+    mh_t = torch.from_numpy(mh).to(x.device)
+    mw_t = torch.from_numpy(mw).to(x.device)
+    out = torch.einsum("oh,...hwc->...owc", mh_t, x)
+    return torch.einsum("pw,...hwc->...hpc", mw_t, out).to(img.dtype)
+
+
+def resize_matlab(img: torch.Tensor, scale: float | None = None,
+                  out_shape: tuple[int, int] | None = None) -> torch.Tensor:
+    """MATLAB-imresize-compatible bicubic resize of ``(..., H, W, C)``."""
+    h, w = img.shape[-3], img.shape[-2]
+    if out_shape is None:
+        if scale is None:
+            raise ValueError("give scale or out_shape")
+        out_shape = (int(np.ceil(h * scale)), int(np.ceil(w * scale)))
+    mh = _resize_matrix(h, out_shape[0], -0.5, True, True)
+    mw = _resize_matrix(w, out_shape[1], -0.5, True, True)
+    return _apply_separable(img, mh, mw)
+
+
+def resize_bicubic_torch(img: torch.Tensor, scale: float) -> torch.Tensor:
+    """``F.interpolate(bicubic, align_corners=False)``-compatible resize of
+    ``(..., H, W, C)``."""
+    h, w = img.shape[-3], img.shape[-2]
+    out_shape = (int(h * scale), int(w * scale))
+    mh = _resize_matrix(h, out_shape[0], -0.75, False, False)
+    mw = _resize_matrix(w, out_shape[1], -0.75, False, False)
+    return _apply_separable(img, mh, mw)

@@ -3,7 +3,9 @@ from .registry import (MODEL_REGISTRY, ModelSpec, build_model, get_spec,
 
 # model modules register themselves on import
 from . import dehazeformer as _dehazeformer  # noqa: F401
+from . import fbcnn as _fbcnn  # noqa: F401
 from . import hat as _hat  # noqa: F401
+from . import nafnet as _nafnet  # noqa: F401
 from . import restormer as _restormer  # noqa: F401
 from . import swinir as _swinir  # noqa: F401
 

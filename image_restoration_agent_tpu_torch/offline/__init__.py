@@ -1,5 +1,7 @@
 from .synthetic_goldens import (GOLDEN_ROOT, build_state, fill_tensor,
-                                load_golden, psnr)
+                                list_synthetic_goldens, load_golden,
+                                materialize_synthetic_weights, psnr)
 
-__all__ = ["GOLDEN_ROOT", "build_state", "fill_tensor", "load_golden",
-           "psnr"]
+__all__ = ["GOLDEN_ROOT", "build_state", "fill_tensor",
+           "list_synthetic_goldens", "load_golden",
+           "materialize_synthetic_weights", "psnr"]

@@ -5,7 +5,10 @@ A golden directory holds ``spec.json`` (registry model, seed, gain, the
 reference-named state-dict ``[key, shape]`` list, recorded PSNR),
 ``input.png`` and ``expected.npz`` (an independent torch reference's output
 at real width). The weights are regenerated in pure numpy from
-``(seed, name)``, so no checkpoint download is needed.
+``(seed, name)``, so no checkpoint download is needed;
+:func:`materialize_synthetic_weights` writes them as ``<model>.npz`` files
+that ``Engine(weight_dir=...)`` serves (the JAX package writes orbax
+directories for its engine instead).
 """
 
 from __future__ import annotations
@@ -73,3 +76,30 @@ def psnr(a: np.ndarray, b: np.ndarray) -> float:
     mse = float(np.mean((np.asarray(a, np.float64)
                          - np.asarray(b, np.float64)) ** 2))
     return float("inf") if mse == 0 else -10.0 * np.log10(mse)
+
+
+def list_synthetic_goldens(root: Path | None = None) -> list[Path]:
+    root = Path(root) if root else GOLDEN_ROOT
+    if not root.exists():
+        return []
+    return sorted(d for d in root.iterdir() if (d / "spec.json").exists())
+
+
+def materialize_synthetic_weights(weight_root: str | Path,
+                                  names: list[str] | None = None
+                                  ) -> dict[str, Path]:
+    """Write each committed synthetic golden's weights (or those of the
+    goldens in ``names``) as ``weight_root/<model>.npz``: a deterministic
+    real-geometry model zoo for ``Engine(weight_dir=weight_root,
+    allow_random_init=False)``. Returns {model name: written file}."""
+    weight_root = Path(weight_root)
+    weight_root.mkdir(parents=True, exist_ok=True)
+    out: dict[str, Path] = {}
+    for d in list_synthetic_goldens():
+        if names and d.name not in names:
+            continue
+        spec = json.loads((d / "spec.json").read_text())
+        path = weight_root / f"{spec['model']}.npz"
+        np.savez(path, **build_state(spec))
+        out[spec["model"]] = path
+    return out

@@ -36,7 +36,14 @@ K3_SHAPES = sorted(
     | {(*_DENOISE, ci, co) for ci, co in ((3, 180), (180, 180), (180, 3))}
     | {(1, h, w, ci, co) for _, ci, co, h, w in chip_smoke.RESTORMER_CONVS}
     | {(1, 384, 640, 96, 48), (1, 192, 320, 192, 96),
-       (1, 192, 320, 192, 384)})
+       (1, 192, 320, 192, 384)}
+    | {(*key[1][:3], key[2], key[3])
+       for forms, _ in chip_smoke.agent_kernel_shapes().values()
+       for key in forms if key[0] == "conv3x3"})
+# the Restormer block shapes of the agent's canvas: ((B, H, W, C), heads)
+AGENT_BLOCKS = sorted({(key[1], key[2]) for forms, _ in
+                       chip_smoke.agent_kernel_shapes().values()
+                       for key in forms if key[0] == "block"})
 
 # every K1 weight on the served paths: (K, N) of qkv, proj, fc1, fc2 at
 # C 180, over the band's, a HAT batch's and the denoise canvas's tokens
@@ -230,6 +237,7 @@ def test_gdfn_plain_on_the_packed_forms_equals_the_raw_weights(c, hid,
 
 
 @pytest.mark.parametrize("shape", [s for _, s, _ in chip_smoke.RESTORMER_SHAPES]
+                         + [s for s, _ in AGENT_BLOCKS]
                          + [(2, 24, 40, 48), (2, 19, 36, 96), (2, 8, 20, 384),
                             (2, 16, 128, 24)],
                          ids=lambda s: "x".join(map(str, s)))
@@ -342,10 +350,11 @@ def _gram_tile_of(wi, ch, mw, nw8):
     return h, mi0, nj0, min(mw, mh - mi0), min(nw8, 2 * mh - nj0)
 
 
-# the five request shapes, the card tests' (2, 16, 128) C 24 canvas, and
-# widths no served model has (ragged head widths, a gram whose tiles
-# outnumber the warps): every shape the kernel takes gets a plan
-K5_PLAN_SHAPES = [(s, hd) for _, s, hd in chip_smoke.RESTORMER_SHAPES] + [
+# the five request shapes, the agent canvas's, the card tests' (2, 16, 128)
+# C 24 canvas, and widths no served model has (ragged head widths, a gram
+# whose tiles outnumber the warps): every shape the kernel takes gets a plan
+K5_PLAN_SHAPES = [(s, hd) for _, s, hd in chip_smoke.RESTORMER_SHAPES] \
+    + AGENT_BLOCKS + [
     ((2, 16, 128, 24), 2), ((2, 19, 36, 96), 1), ((1, 20, 44, 100), 1),
     ((1, 12, 40, 512), 8), ((1, 8, 24, 384), 1), ((2, 8, 16, 8), 2)]
 

@@ -140,6 +140,39 @@ def test_conv3x3_kernel_matches_plain_f32(cuda, case):
     assert torch.isfinite(got16).all() and rms <= ctrl, (rms, ctrl)
 
 
+# the shapes NAFNet and FBCNN give K3 (H, W, Cin, Cout, residual):
+# NAFNet's intro at 256, and its ending with the input added at the
+# agent's 384 canvas; FBCNN's head, a 256-channel ResBlock conv at 1/4,
+# its 512-channel one at 1/8 of a 256 px input (32 wide) and of the 384
+# canvas (48 wide), and its tail
+@pytest.mark.parametrize("shape", [(256, 256, 3, 32, False),
+                                   (384, 384, 32, 3, True),
+                                   (256, 256, 3, 64, False),
+                                   (64, 64, 256, 256, True),
+                                   (32, 32, 512, 512, True),
+                                   (48, 48, 512, 512, True),
+                                   (256, 256, 64, 3, False)])
+def test_conv3x3_kernel_at_agent_shapes(cuda, shape):
+    h, w, cin, cout, with_res = shape
+    gen = torch.Generator().manual_seed(2)
+    x = _randn(gen, 1, h, w, cin).to(cuda)
+    wk = _randn(gen, 3, 3, cin, cout, scale=(9 * cin) ** -0.5).to(cuda)
+    b = _randn(gen, cout, scale=0.1).to(cuda)
+    res = _randn(gen, 1, h, w, cout).to(cuda) if with_res else None
+    n0 = tconv.conv3x3.launches
+    got = tconv.conv3x3(x, wk, b, res=res)
+    assert tconv.conv3x3.launches == n0 + 1
+    want = tconv.conv3x3_plain(x, wk, b, res=res)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    res16 = None if res is None else res.to(torch.bfloat16)
+    got16 = tconv.conv3x3(x.to(torch.bfloat16), wk, b, res=res16).float()
+    want16 = tconv.conv3x3_plain(x.to(torch.bfloat16), wk, b,
+                                 res=res16).float()
+    rms = (got16 - want16).square().mean().sqrt()
+    ctrl = (want16 - want).square().mean().sqrt()
+    assert torch.isfinite(got16).all() and rms <= ctrl, (rms, ctrl)
+
+
 @pytest.mark.parametrize("n", tkern.GEMM_WIDTHS)
 @pytest.mark.parametrize("k", [16, 64])
 @pytest.mark.parametrize("a_in_registers", [False, True])
