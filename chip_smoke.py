@@ -133,7 +133,32 @@ Phases, each printing one JSON line:
     split into classifier, PNG I/O and engine host seconds under
     ``torch.profiler``; whether ``cv2`` (the brightening tools) imports.
     Every kernel call form of the warm-up run must be one agent_kernels
-    checked.
+    checked;
+29. zoo_kernels (with the kernel checks, also under ``--quick`` at small
+    shapes): K3, K4, K5 and the Swin partition route's ``wmsa_block`` and
+    ``mlp_block`` against their plain versions at every call form of the
+    slice-11 paths, traced on the meta device at the input shapes the
+    engine gives each model (``served_canvas``): X-Restormer's 256 px tile
+    batches of 8 (K4 and K5 at B 8), MPRNet's quadrant (4B) and half (2B)
+    batches, MAXIM, DRBNet and IFAN, and every model of the default
+    toolboxes on the agent golden input's plan at its canvas (SwinIR-
+    denoise on the partition route);
+30. one request phase per new model (``xrestormer_path``, ``mprnet_path``,
+    ``maxim_s2_path``, ``maxim_s3_path``, ``drbnet_path``, ``ifan_path``):
+    ``Engine(device="cuda")`` in bf16, random weights from the model's
+    seed (``zoo_state``: torch's own initialisation), one warm-up request
+    and three timed (best, median, MP/s) at 1280x720 (X-Restormer through
+    its 256 px tiles; the others whole) or DPDD's 1680x1120 (DRBNet,
+    IFAN), each kernel's launches against the traced count per request, a
+    ``torch.profiler`` split of one more, every call form of one more
+    checked by zoo_kernels; on a small probe f32 on the card against the
+    CPU path (>= 60 dB) and bf16 against f32 (>= the CPU control - 2 dB);
+31. default_agent_path: ``IRAgent`` on the agent golden input with the
+    unmodified ``build_default_executor(engine)`` in bf16 (Restormer on
+    its golden's weights, the other tools random and nearly the identity):
+    the plan's 14 tool calls with no KeyError, the per-tool invocations,
+    one warm-up run whose every kernel call form zoo_kernels checked, then
+    three timed (p50, min, max) and one split as agent_path's.
 Phases 20-22 are the lab path: each counts its kernel's launches over one
 call (6 ``swin_pair_block`` per chain, 1 ``conv3x3_pair`` per tail, 1
 ``lab_strip`` per call), with every count set to 0 just before.
@@ -566,40 +591,44 @@ def kernel_checks(shape, seed: int = 0) -> list[dict]:
 
 def conv_case(randn, dtype, path: str, variant: str, cin: int, cout: int,
               h: int, w: int, *, bias: bool, res: bool = False,
-              act: str | None = None, roll: int = 0, reps: int = 5) -> dict:
-    """One K3 case on a (1, h, w, cin) input: the kernel against
+              act: str | None = None, roll: int = 0, reps: int = 5,
+              b: int = 1, ln: bool = False) -> dict:
+    """One K3 case on a (b, h, w, cin) input: the kernel against
     ``conv3x3_plain`` with the epilogues the caller's conv uses (a bias, a
-    residual, an activation, a folded roll), ``F.conv2d`` beside it where
-    one library call computes the same function (no epilogue but the
-    bias)."""
+    residual, an activation, a folded roll, an input LayerNorm),
+    ``F.conv2d`` beside it where one library call computes the same
+    function (no epilogue but the bias)."""
     import torch
 
     from image_restoration_agent_tpu_torch.ops.conv3x3 import (
         conv3x3, conv3x3_plain, conv3x3_weights)
 
     es = 4 if dtype == torch.float32 else 2
-    x32 = randn(1, h, w, cin)
+    x32 = randn(b, h, w, cin)
     x = x32.to(dtype)
     wk = randn(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
-    b = randn(cout, scale=0.1) if bias else None
-    r32 = randn(1, h, w, cout) if res else None
+    bv = randn(cout, scale=0.1) if bias else None
+    r32 = randn(b, h, w, cout) if res else None
     r = r32.to(dtype) if res else None
-    kf = conv3x3_weights(wk, b, dtype)
-    kw = dict(act=act, roll=roll)
+    kf = conv3x3_weights(wk, bv, dtype)
+    kw = dict(act=act, roll=roll, ln_pre=(1 + randn(cin, scale=0.1),
+                                          randn(cin, scale=0.1))
+              if ln else None)
     library = None
-    if not (res or act or roll):
+    if not (res or act or roll or ln):
         xin = x.permute(0, 3, 1, 2)
         wl = wk.to(dtype).permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
-        bl = b.to(dtype) if bias else None
+        bl = bv.to(dtype) if bias else None
         library = lambda: torch.nn.functional.conv2d(xin, wl, bl, padding=1)
+    px = b * h * w
     return dict(
         name="conv3x3", variant=variant, path=path,
         kernel=lambda: conv3x3(x, kf, res=r, **kw),
-        plain=lambda: conv3x3_plain(x, wk, b, res=r, **kw),
-        ref32=lambda: conv3x3_plain(x32, wk, b, res=r32, **kw),
-        library=library, flops=2 * h * w * 9 * cin * cout,
-        nbytes=h * w * (cin + cout * (2 if res else 1)) * es
+        plain=lambda: conv3x3_plain(x, wk, bv, res=r, **kw),
+        ref32=lambda: conv3x3_plain(x32, wk, bv, res=r32, **kw),
+        library=library, flops=2 * px * 9 * cin * cout,
+        nbytes=px * (cin + cout * (2 if res else 1)) * es
         + 9 * cin * cout * es, reps=reps)
 
 
@@ -669,7 +698,8 @@ def restormer_block_cases(shapes, dtype, randn, gen, path: str,
                       ("withbias", True)]
         for ln_kind, bias in kinds:
             hid, g, m = weights(c, heads, ln_kind, bias)
-            var = f"{lvl} {h}x{w} C{c} ln={ln_kind}" + (
+            size = f"{h}x{w}" if b == 1 else f"{b}x{h}x{w}"
+            var = f"{lvl} {size} C{c} ln={ln_kind}" + (
                 " bias" if bias else "")
             gk = gdfn_weights(*g, dtype)
             cases.append(dict(
@@ -1912,41 +1942,62 @@ TRACE = (Path(__file__).resolve().parent / "tests" / "data"
 
 @contextlib.contextmanager
 def kernel_calls(model):
-    """Record the K3, K4 and K5 calls ``model``'s forward makes inside the
-    block: ``(forms, counts)``, ``forms`` mapping each call form (the
-    input's shape and what else decides the kernel's work) to the first
-    module that made it, ``counts`` the calls of each kernel. A Restormer
-    block is counted only where it takes the fused route."""
+    """Record the kernel calls ``model``'s forward makes inside the block:
+    ``(forms, counts)``, ``forms`` mapping each call form (the input's
+    shape and what else decides the kernel's work) to the first module
+    that made it, ``counts`` the calls of each kernel wrapper the modules
+    call. K3 from every ``Conv``; K4 and K5 from a Restormer or X-Restormer
+    block where it takes the fused route (X-Restormer's runs K4 twice);
+    from a Swin block on the partition route one ``wmsa_block`` and one
+    ``mlp_block`` (the strip route has no case here and raises)."""
     from image_restoration_agent_tpu_torch.models.common import Conv
     from image_restoration_agent_tpu_torch.models.restormer import (
         TransformerBlock)
+    from image_restoration_agent_tpu_torch.models.swinir import SwinBlock
+    from image_restoration_agent_tpu_torch.models.xrestormer import (
+        XTransformerBlock)
 
     forms: dict = {}
-    counts = {"conv3x3": 0, "gdfn_block": 0, "mdta_front": 0}
+    counts = {"conv3x3": 0, "gdfn_block": 0, "mdta_front": 0,
+              "wmsa_block": 0, "mlp_block": 0}
 
     def conv(name, mod, args, kw):
         arg = lambda i, k, d: args[i] if len(args) > i else kw.get(k, d)
-        if arg(3, "ln_pre", None) is not None:
-            raise NotImplementedError(f"{name}: no case for ln_pre")
         cout, cin = mod.weight.shape[:2]
         forms.setdefault(("conv3x3", tuple(args[0].shape), cin, cout,
                           mod.bias is not None,
                           arg(1, "res", None) is not None, mod.act,
-                          arg(2, "roll", 0)), name)
+                          arg(2, "roll", 0),
+                          arg(3, "ln_pre", None) is not None), name)
         counts["conv3x3"] += 1
 
     def block(name, mod, args, kw):
         x = args[0]
         if mod.fused(x):
-            forms.setdefault(("block", tuple(x.shape), mod.attn.num_heads,
-                              mod.ffn.hidden), name)
-            counts["gdfn_block"] += 1
+            xblock = isinstance(mod, XTransformerBlock)
+            attn, ffn = ((mod.channel_attn, mod.channel_ffn) if xblock
+                         else (mod.attn, mod.ffn))
+            forms.setdefault(("block", tuple(x.shape), attn.num_heads,
+                              ffn.hidden), name)
+            counts["gdfn_block"] += 2 if xblock else 1
             counts["mdta_front"] += 1
+
+    def swin(name, mod, args, kw):
+        x = args[0]
+        if mod.strip(x):
+            raise NotImplementedError(f"{name}: no case for the strip route")
+        ws = mod.window_size
+        shift = 0 if min(x.shape[1:3]) <= ws else mod.shift_size
+        forms.setdefault(("swin_partition", tuple(x.shape), mod.num_heads,
+                          ws, shift, mod.mlp.fc1.out_features), name)
+        counts["wmsa_block"] += 1
+        counts["mlp_block"] += 1
 
     hooks = [mod.register_forward_pre_hook(
         (lambda m, a, kw, n=name, f=fn: f(n, m, a, kw)), with_kwargs=True)
         for name, mod in model.named_modules()
-        for cls, fn in ((Conv, conv), (TransformerBlock, block))
+        for cls, fn in ((Conv, conv), (TransformerBlock, block),
+                        (XTransformerBlock, block), (SwinBlock, swin))
         if isinstance(mod, cls)]
     try:
         yield forms, counts
@@ -1955,9 +2006,11 @@ def kernel_calls(model):
             h.remove()
 
 
-def traced_calls(name: str, h: int, w: int) -> tuple:
+def traced_calls(name: str, inputs) -> tuple:
     """``kernel_calls`` of model ``name`` (its registered configuration)
-    on one (1, h, w, 3) input, run on the meta device: shapes only."""
+    over its forwards on ``inputs``, a list of (b, h, w) input shapes, run
+    on the meta device: shapes only. The counts are summed over the
+    forwards."""
     import torch
 
     from image_restoration_agent_tpu_torch.models import get_spec
@@ -1966,24 +2019,36 @@ def traced_calls(name: str, h: int, w: int) -> tuple:
     with torch.device("meta"):
         model = spec.build(**spec.config).eval()
     with kernel_calls(model) as (forms, counts), torch.no_grad():
-        model(torch.empty(1, h, w, 3, device="meta"))
+        for b, h, w in inputs:
+            model(torch.empty(b, h, w, 3, device="meta"))
     return forms, counts
 
 
+@functools.lru_cache(maxsize=None)
 def served_canvas(name: str, h: int, w: int, bucket: int = 128) -> tuple:
-    """The canvas ``Engine(shape_bucket=bucket)`` gives model ``name`` for
-    an h x w request in whole-image mode: the shape bucket at the model's
-    pad multiple, then its whole-image pad multiple."""
-    from image_restoration_agent_tpu_torch.engine.engine import _bucket
+    """The input shapes ``(b, h, w)``, one per forward, that
+    ``Engine(shape_bucket=bucket)`` gives model ``name`` for an h x w
+    request: the engine's own route (shape bucket, whole image or tile
+    grid and tile batch, the model's pad), run on the CPU with a stand-in
+    model that records its input and returns zeros."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.engine import Engine
     from image_restoration_agent_tpu_torch.models import get_spec
 
-    spec = get_spec(name)
-    if spec.tile is not None or spec.band_mode or (
-            spec.max_size is not None and max(h, w) > spec.max_size):
-        raise ValueError(f"{name} is not served whole-image at {h}x{w}")
-    m = max(spec.pad_multiple, spec.whole_pad_multiple)
-    return tuple(-(-_bucket(n, bucket, spec.pad_multiple) // m) * m
-                 for n in (h, w))
+    seen = []
+    scale = get_spec(name).scale
+
+    class Probe(torch.nn.Module):
+        def forward(self, x, **kw):
+            b, hh, ww, c = x.shape
+            seen.append((b, hh, ww))
+            return x.new_zeros(b, hh * scale, ww * scale, c)
+
+    eng = Engine(device="cpu", shape_bucket=bucket, hbm_budget_bytes=1 << 30)
+    eng.store.get = lambda model_name: Probe()
+    eng.restore_array(np.zeros((h, w, 3), np.float32), name)
+    return tuple(seen)
 
 
 def agent_models() -> list[str]:
@@ -1999,32 +2064,125 @@ def agent_input_hw() -> tuple:
     return h + 64, w + 64
 
 
-@functools.lru_cache(maxsize=None)
-def agent_kernel_shapes() -> dict:
-    """path -> (call forms, launches per request or run): the K3, K4 and
-    K5 calls of the slice's served paths, traced on the meta device at the
-    canvas each model is served on: ``nafnet`` and ``fbcnn`` a 256 px
-    request, ``agent`` every toolbox model of ``AGENT_TOOLBOXES`` at the
-    agent input's canvas (the launches there depend on the plan, so they
-    are not a per-run count)."""
-    out = {}
-    for path, model in (("nafnet", "nafnet"), ("fbcnn", "fbcnn_blind")):
-        out[path] = traced_calls(model, *served_canvas(model, 256, 256))
+def models_forms(models, h: int, w: int) -> dict:
+    """The union of the call forms of ``models`` served an h x w request,
+    each named by its first model and module."""
     forms = {}
-    for model in agent_models():
-        f, _ = traced_calls(model, *served_canvas(model, *agent_input_hw()))
+    for model in models:
+        f, _ = traced_calls(model, served_canvas(model, h, w))
         for key, name in f.items():
             forms.setdefault(key, f"{model} {name}")
-    out["agent"] = (forms, None)
+    return forms
+
+
+@functools.lru_cache(maxsize=None)
+def agent_kernel_shapes() -> dict:
+    """path -> (call forms, launches per request or run): the kernel calls
+    of the slice's served paths, traced on the meta device at the canvas
+    each model is served on: ``nafnet`` and ``fbcnn`` a 256 px request,
+    ``agent`` every toolbox model of ``AGENT_TOOLBOXES`` at the agent
+    input's canvas (the launches there depend on the plan, so they are not
+    a per-run count)."""
+    out = {}
+    for path, model in (("nafnet", "nafnet"), ("fbcnn", "fbcnn_blind")):
+        out[path] = traced_calls(model, served_canvas(model, 256, 256))
+    out["agent"] = (models_forms(agent_models(), *agent_input_hw()), None)
     return out
 
 
-def unchecked_forms(path: str, seen: dict) -> list[str]:
-    """The call forms ``seen`` on a path's real run that agent_kernels did
-    not check (it must be none)."""
-    checked = agent_kernel_shapes()[path][0]
+def unchecked_forms(path: str, seen: dict, shapes=None) -> list[str]:
+    """The call forms ``seen`` on a path's real run that were not checked
+    (it must be none): ``shapes`` (``agent_kernel_shapes()`` by default)
+    maps the path to its checked forms."""
+    checked = (shapes or agent_kernel_shapes())[path][0]
     return [f"{name}: {key}" for key, name in seen.items()
             if key not in checked]
+
+
+def swin_partition_cases(key, name: str, path: str, dtype, randn,
+                         quick: bool) -> list[dict]:
+    """``wmsa_block`` (with the full shift mask where the block shifts)
+    and ``mlp_block`` (erf GELU, tokens in and out in the block's dtype) at
+    one partition-route Swin block's form: what ``SwinBlock.forward``
+    launches there."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.ops.swin_block import (
+        mlp_block, mlp_block_plain, prepare_swin_params, wmsa_block,
+        wmsa_block_plain)
+    from image_restoration_agent_tpu_torch.ops.window_attention import (
+        shift_attention_mask, window_partition)
+
+    _, shape, heads, ws, shift, hid = key
+    b, h, w, c = (1, 2 * ws, 4 * ws, shape[3]) if quick else shape
+    wts = dict(
+        norm1_w=1 + randn(c, scale=0.1), norm1_b=randn(c, scale=0.1),
+        qkv_w=randn(3 * c, c, scale=c ** -0.5), qkv_b=randn(3 * c, scale=0.1),
+        proj_w=randn(c, c, scale=c ** -0.5), proj_b=randn(c, scale=0.1),
+        rpb_table=randn((2 * ws - 1) ** 2, heads, scale=0.5),
+        norm2_w=1 + randn(c, scale=0.1), norm2_b=randn(c, scale=0.1),
+        fc1_w=randn(hid, c, scale=c ** -0.5), fc1_b=randn(hid, scale=0.1),
+        fc2_w=randn(c, hid, scale=hid ** -0.5), fc2_b=randn(c, scale=0.1))
+    p = prepare_swin_params(**wts, num_heads=heads, ws=ws, dtype=dtype)
+    p32 = prepare_swin_params(**wts, num_heads=heads, ws=ws,
+                              dtype=torch.float32)
+    m = shift_attention_mask(h, w, ws, shift)
+    mk = None if m is None else torch.from_numpy(m).to("cuda")
+    x32 = randn(b, h, w, c)
+    xw32 = window_partition(x32, ws).reshape(-1, ws * ws, c)
+    xw = xw32.to(dtype)
+    t, n = xw.shape[0] * xw.shape[1], ws * ws
+    es = 4 if dtype == torch.float32 else 2
+    var = f"{path} {name} {h}x{w} C{c} shift={shift}"
+    mbytes = 0 if mk is None else mk.numel() * 4
+    tok32 = randn(t, c)
+    tok = tok32.to(dtype)
+    return [dict(
+        name="wmsa_block", variant=var, path=path,
+        kernel=lambda: wmsa_block(xw, p, num_heads=heads, mask=mk),
+        plain=lambda: wmsa_block_plain(xw, p, num_heads=heads, mask=mk),
+        ref32=lambda: wmsa_block_plain(xw32, p32, num_heads=heads, mask=mk),
+        library=None, reps=3,
+        flops=2 * t * c * 3 * c + 2 * t * c * c + 4 * t * n * c,
+        nbytes=2 * t * c * es + 4 * c * c * es + p.rpb.numel() * 4
+        + mbytes), dict(
+        name="mlp_block", variant=var, path=path,
+        kernel=lambda: mlp_block(tok, *p.mlp, out_dtype=dtype),
+        plain=lambda: mlp_block_plain(tok, *p.mlp, out_dtype=dtype),
+        ref32=lambda: mlp_block_plain(tok32, *p32.mlp,
+                                      out_dtype=torch.float32),
+        library=None, reps=3, flops=4 * t * c * hid,
+        nbytes=2 * t * c * es + 2 * c * hid * es)]
+
+
+def form_cases(path: str, forms: dict, dtype, randn, gen, quick: bool,
+               reps: int = 10) -> list[dict]:
+    """The check cases of one path's call forms (at 16x128, or a two by
+    four window canvas, with --quick): K3 through ``conv_case``, K4 and K5
+    through ``restormer_block_cases`` at the block's batch, the Swin
+    partition route through ``swin_partition_cases``."""
+    cases, blocks = [], []
+    for key, name in forms.items():
+        if key[0] == "swin_partition":
+            cases += swin_partition_cases(key, name, path, dtype, randn,
+                                          quick)
+            continue
+        shape = (1, 16, 128, key[1][3]) if quick else key[1]
+        if key[0] == "block":
+            _, _, heads, hidden = key
+            if hidden != int(2.66 * shape[3]):
+                raise ValueError(f"{name}: hidden {hidden}")
+            blocks.append((f"{path} {name}", shape, heads))
+            continue
+        _, _, cin, cout, bias, res, act, roll, ln = key
+        b, h, w = shape[:3]
+        size = f"{h}x{w}" if b == 1 else f"{b}x{h}x{w}"
+        cases.append(conv_case(
+            randn, dtype, path, f"{path} {name} {size} {cin}->{cout}"
+            + (" res" if res else "") + (" ln_pre" if ln else ""), cin,
+            cout, h, w, bias=bias, res=res, act=act, roll=roll, ln=ln,
+            reps=reps, b=b))
+    return cases + restormer_block_cases(blocks, dtype, randn, gen, path)
 
 
 def agent_kernel_checks(quick: bool, seed: int = 23) -> list[dict]:
@@ -2044,22 +2202,7 @@ def agent_kernel_checks(quick: bool, seed: int = 23) -> list[dict]:
     for dtype in (torch.float32, torch.bfloat16):
         cases = []
         for path, (forms, _) in agent_kernel_shapes().items():
-            blocks = []
-            for key, name in forms.items():
-                shape = (1, 16, 128, key[1][3]) if quick else key[1]
-                if key[0] == "block":
-                    _, _, heads, hidden = key
-                    if hidden != int(2.66 * shape[3]):
-                        raise ValueError(f"{name}: hidden {hidden}")
-                    blocks.append((f"{path} {name}", shape, heads))
-                    continue
-                _, _, cin, cout, bias, res, act, roll = key
-                h, w = shape[1:3]
-                cases.append(conv_case(
-                    randn, dtype, path, f"{path} {name} {h}x{w} {cin}->"
-                    f"{cout}" + (" res" if res else ""), cin, cout, h, w,
-                    bias=bias, res=res, act=act, roll=roll, reps=10))
-            cases += restormer_block_cases(blocks, dtype, randn, gen, path)
+            cases += form_cases(path, forms, dtype, randn, gen, quick)
         rows += [check_case(cs, dtype) for cs in cases]
         del cases
     return rows
@@ -2250,13 +2393,16 @@ def _trace(summary: dict) -> dict:
             "n_invocations": summary["n_invocations"]}
 
 
-def _run_agent(eng, toolboxes, inp, out) -> tuple[float, dict]:
+def _run_agent(eng, toolboxes, inp, out, ex=None) -> tuple[float, dict]:
+    """One IRAgent run (bf16 or f32 as ``eng`` serves, rng_seed 0, no
+    rollback) on ``build_default_executor(engine=eng, toolboxes=...)``, or
+    on the executor ``ex``; (seconds, summary)."""
     import torch
 
     from image_restoration_agent_tpu_torch.agent import (
         IRAgent, build_default_executor)
 
-    ex = build_default_executor(engine=eng, toolboxes=toolboxes)
+    ex = ex or build_default_executor(engine=eng, toolboxes=toolboxes)
     t0 = time.perf_counter()
     agent = IRAgent(inp, out, executor=ex, rng_seed=0, with_rollback=False,
                     silent=True, device="cuda")
@@ -2441,6 +2587,290 @@ def agent_phases(phase, card: str) -> dict:
     return served
 
 
+# ---------------------------------------------------------------------------
+# slice 11: the zoo behind the default toolboxes (X-Restormer, MPRNet,
+# MAXIM-S2/S3, DRBNet, IFAN) and the agent on the unmodified default
+# executor
+
+# each new model's request, (model, h, w): GoPro's 1280x720 deblurring
+# frame (Restormer's request) and DPDD's 1680x1120 defocus frame
+ZOO_REQUESTS = (("xrestormer", 720, 1280), ("mprnet", 720, 1280),
+                ("maxim_s2", 720, 1280), ("maxim_s3", 720, 1280),
+                ("drbnet", 1120, 1680), ("ifan", 1120, 1680))
+# the agent golden input's plan, and the f32 / bf16 probe sizes (X-Restormer
+# at 64x128, where its level-1 blocks take the fused route)
+DEFAULT_PLAN = ["motion deblurring", "deraining", "denoising"]
+ZOO_PROBES = {"xrestormer": (64, 128)}
+
+
+# the conv that closes each default-agent model's global residual
+LAST_CONV = {"xrestormer": "output", "mprnet": "tail",
+             "maxim_s2": "stage1_output_conv_0",
+             "maxim_s3": "stage2_output_conv_0",
+             "swinir_denoise_15": "conv_last", "swinir_denoise_50": "conv_last"}
+
+
+def torch_default_init(m, seed: int) -> None:
+    """torch's own initialisation of the reference's layers, from
+    ``seed``: conv, transposed-conv and linear weights and biases
+    U(+-1/sqrt(fan_in)) (``Conv2d`` / ``Linear.reset_parameters``; fan_in
+    from dim 1 as torch counts it), norm scales 1 and shifts 0, PReLU
+    slopes 0.25, attention temperatures 1, X-Restormer's rel-pos tables
+    N(0, dim_head**-0.5), Swin bias tables N(0, 0.02). The registry's
+    fan-in normal weights make MPRNet's and MAXIM's random outputs grow to
+    1e3-1e5 through their stages, too ill-conditioned to compare f32
+    rounding orders; with these they stay near the image's range."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def fill(p, kind, scale=1.0):
+        r = (torch.rand(p.shape, generator=gen) * 2 - 1 if kind == "u"
+             else torch.randn(p.shape, generator=gen))
+        p.copy_(r * scale)
+
+    with torch.no_grad():
+        for mod in m.modules():
+            for name, p in mod.named_parameters(recurse=False):
+                w = mod._parameters.get("weight")
+                if name in ("weight", "bias") and w is not None \
+                        and w.ndim >= 2:
+                    fill(p, "u", (w.shape[1] * w[0, 0].numel()) ** -0.5)
+                elif name == "weight":
+                    p.fill_(0.25 if type(mod).__name__ == "PReLU" else 1.0)
+                elif name == "bias":
+                    p.zero_()
+                elif name == "temperature":
+                    p.fill_(1.0)
+                elif name in ("rel_height", "rel_width"):
+                    fill(p, "n", p.shape[1] ** -0.5)
+                elif name == "relative_position_bias_table":
+                    fill(p, "n", 0.02)
+                else:
+                    raise ValueError(f"no initialisation for {name}")
+
+
+def zoo_state(name: str, seed: int = 0, residual: float = 1.0) -> dict:
+    """Random weights of ``name`` from ``seed`` with
+    :func:`torch_default_init`, as the numpy state dict the engine loads;
+    ``residual`` scales the conv that closes the global residual
+    (``LAST_CONV``), 1e-3 making the untrained model nearly the identity."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.models import build_model
+    m = build_model(name, device="cpu", seed=seed)
+    torch_default_init(m, seed)
+    if residual != 1.0:
+        with torch.no_grad():
+            for p in getattr(m, LAST_CONV[name]).parameters():
+                p.mul_(residual)
+    return {k: v.numpy() for k, v in m.state_dict().items()}
+
+
+def default_agent_models() -> list[str]:
+    """The models of the unmodified DEFAULT_TOOLBOXES' boxes on the agent
+    golden input's plan."""
+    from image_restoration_agent_tpu_torch.agent.executor import (
+        DEFAULT_TOOLBOXES)
+    return sorted({m for box in DEFAULT_PLAN
+                   for _, m in DEFAULT_TOOLBOXES[box]})
+
+
+@functools.lru_cache(maxsize=None)
+def zoo_kernel_shapes() -> dict:
+    """path -> (call forms, launches per request or None): each new
+    model at its request (``ZOO_REQUESTS``; the launches summed over the
+    request's forwards), and ``default_agent``: every model of the default
+    toolboxes on the plan at the agent input's canvas (SwinIR-denoise's
+    blocks on the partition route there)."""
+    out = {name: traced_calls(name, served_canvas(name, h, w))
+           for name, h, w in ZOO_REQUESTS}
+    out["default_agent"] = (models_forms(default_agent_models(),
+                                         *agent_input_hw()), None)
+    return out
+
+
+def zoo_kernel_checks(quick: bool, seed: int = 29) -> list[dict]:
+    """K3, K4, K5 and the Swin partition route's ``wmsa_block`` and
+    ``mlp_block`` against their plain versions at every call form of
+    ``zoo_kernel_shapes`` (small shapes with --quick), f32 and bf16."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def randn(*s, scale=1.0):
+        return (torch.randn(*s, generator=gen) * scale).to(dev)
+
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for path, (forms, _) in zoo_kernel_shapes().items():
+            cases = form_cases(path, forms, dtype, randn, gen, quick, reps=3)
+            rows += [check_case(cs, dtype) for cs in cases]
+            del cases
+    return rows
+
+
+def zoo_path(name: str, h: int, w: int, card: str,
+             requests: int = 3) -> dict:
+    """``name`` (random weights from its seed) serving one h x w request
+    in bf16 through ``Engine(device="cuda")``: one warm-up request,
+    ``requests`` timed ones (each kernel's launches over them against the
+    traced launches per request), a ``torch.profiler`` split of one more,
+    and one more with its kernel call forms recorded, all of which
+    zoo_kernels must have checked. On a small probe: f32 on the card
+    against the port's CPU path (PSNR >= 60 dB), bf16 against f32 on the
+    card (>= the CPU path's bf16-vs-f32 control - 2 dB)."""
+    import torch
+
+    state = zoo_state(name)
+    img = np.random.default_rng(5).random((h, w, 3), dtype=np.float32)
+    eng, warm, warm_s, secs, results, counts, profile, key = serve(
+        name, state, img, requests, shape_bucket=128)
+    shapes = zoo_kernel_shapes()
+    per_req = {k: v for k, v in shapes[name][1].items() if v}
+    with kernel_calls(eng.store.get(name)) as (seen, _):
+        eng.restore_array(img, name)
+    unchecked = unchecked_forms(name, seen, shapes)
+    del eng
+    launches = {k: counts[k] for k in per_req}
+    others = {k: v for k, v in counts.items() if k not in per_req and v}
+    ok = all(r.image.shape == (h, w, 3) and r.nonfinite == 0
+             for r in results + [warm])
+    ok = ok and launches == {k: v * requests for k, v in per_req.items()} \
+        and per_req.get("conv3x3", 0) > 0 and not others and not unchecked
+    if name == "xrestormer":  # its level-1 and decoder blocks are fused
+        ok = ok and per_req.get("gdfn_block", 0) > 0 \
+            and per_req.get("mdta_front", 0) > 0
+    probe = np.random.default_rng(6).random((*ZOO_PROBES.get(name, (64, 64)),
+                                             3), dtype=np.float32)
+    card32 = _probe(name, state, probe, "cuda", "float32")
+    card16 = _probe(name, state, probe, "cuda", "bfloat16")
+    torch.set_num_threads(8)
+    cpu32 = _probe(name, state, probe, "cpu", "float32")
+    cpu16 = _probe(name, state, probe, "cpu", "bfloat16")
+    exact = range_psnr(card32, cpu32)
+    db = range_psnr(card16, card32)
+    ctrl = range_psnr(cpu16, cpu32)
+    best = min(secs)
+    return {"phase": f"{name}_path", "model": name, "dtype": "bfloat16",
+            "input": [h, w, 3], "forwards": [list(s) for s in
+                                             served_canvas(name, h, w)],
+            "pipeline": list(key[1:6]), "warmup_seconds": warm_s,
+            "seconds_best": best, "seconds_median": float(np.median(secs)),
+            "seconds": secs, "mp_per_s": h * w / 1e6 / best,
+            "launches": launches, "expected_per_request": per_req,
+            "other_launches": others, "call_forms": len(seen),
+            "unchecked_forms": unchecked, "profile": profile,
+            "probe": list(probe.shape), "f32_card_vs_cpu_db": exact,
+            "f32_floor_db": 60.0, "bf16_vs_f32_db": db, "control_db": ctrl,
+            "floor_db": ctrl - 2.0,
+            "output_max_abs": float(np.abs(cpu32).max()), "card": card,
+            "pass": bool(ok and exact >= 60.0 and db >= ctrl - 2.0)}
+
+
+def default_agent_path(wdir, inp, shape, root, card: str,
+                       runs: int = 3) -> dict:
+    """IRAgent on the agent golden input with ``build_default_executor(
+    engine)`` exactly as shipped (DEFAULT_TOOLBOXES), in bf16, rng_seed 0,
+    no rollback, the MockLLM and the v4 classifier; Restormer on its
+    synthetic golden's weights, every other model random from its seed
+    (``zoo_state``) with its global residual's closing conv scaled by
+    1e-3, so that each untrained tool returns nearly its input: a tool
+    whose output the reflection judges "very low" ends its box early, and
+    the residual scale keeps every output as degraded as the input, so the
+    plan [motion deblurring, deraining, denoising] tries every tool of its
+    boxes (14 calls) with no KeyError. One warm-up run with every kernel
+    call form recorded (all of them checked by zoo_kernels), then ``runs``
+    timed ones (p50, min, max) with the launch counts over them, and one
+    more split by ``agent_split``."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.agent import (
+        build_default_executor)
+    from image_restoration_agent_tpu_torch.agent.executor import (
+        DEFAULT_TOOLBOXES)
+    from image_restoration_agent_tpu_torch.engine import Engine
+
+    eng = Engine(weight_dir=wdir, device="cuda", param_dtype=torch.bfloat16,
+                 allow_random_init=False)
+    for model in default_agent_models():
+        if model != "restormer":
+            eng.set_weights(model, zoo_state(model, residual=1e-3))
+    seen: dict = {}
+    ex = build_default_executor(engine=eng)
+    with contextlib.ExitStack() as stack:
+        for model in default_agent_models():
+            forms, _ = stack.enter_context(kernel_calls(eng.store.get(model)))
+            seen[model] = forms
+        warm_s, warm = _run_agent(eng, None, inp, root / "dwarm", ex)
+    invocations = {f"{sub}/{t.tool_name}": t.invocations
+                   for sub, tools in ex.toolbox_router.items()
+                   for t in tools if t.invocations}
+    seen = {key: f"{model} {name}" for model, forms in seen.items()
+            for key, name in forms.items()}
+    unchecked = unchecked_forms("default_agent", seen, zoo_kernel_shapes())
+    reset_launch_counts()
+    timed = [_run_agent(eng, None, inp, root / f"drun{i}")
+             for i in range(runs)]
+    counts = launch_counts()
+    secs = [t for t, _ in timed]
+    traces = [_trace(s) for _, s in timed]
+    split = agent_split(eng, None, inp, root / "dsplit")
+    want_calls = sum(len(DEFAULT_TOOLBOXES[b]) for b in DEFAULT_PLAN)
+    kinds = {key[0] for key in seen}
+    used = {"conv3x3"} | ({"gdfn_block", "mdta_front"} if "block" in kinds
+                          else set()) | ({"wmsa_block", "mlp_block"}
+                                         if "swin_partition" in kinds
+                                         else set())
+    per_kernel = {k: counts[k] for k in sorted(used)}
+    ok = (_trace(warm)["plan_initial"] == DEFAULT_PLAN
+          and warm["n_invocations"] == want_calls
+          and sum(invocations.values()) == want_calls
+          and all(t == _trace(warm) for t in traces)
+          and all(v > 0 for v in per_kernel.values())
+          and used >= {"conv3x3", "gdfn_block", "mdta_front", "wmsa_block",
+                       "mlp_block"}
+          and not eng.random_init_models and not unchecked)
+    return {"phase": "default_agent_path", "dtype": "bfloat16",
+            "input": list(shape), "toolboxes": "DEFAULT_TOOLBOXES",
+            "warmup_seconds": warm_s, "seconds": secs,
+            "p50_s": float(np.median(secs)), "min_s": min(secs),
+            "max_s": max(secs), "trace": _trace(warm),
+            "tool_calls": warm["n_invocations"], "want_calls": want_calls,
+            "invocations": invocations, "launches": per_kernel,
+            "other_launches": {k: v for k, v in counts.items()
+                               if k not in per_kernel and v},
+            "random_init_models": sorted(eng.random_init_models),
+            "call_forms": len(seen), "unchecked_forms": unchecked,
+            "split": split, "card": card, "pass": bool(ok)}
+
+
+def zoo_phases(phase, card: str) -> dict:
+    """Slice 11's served phases in order; returns each path's result
+    (``<model>`` and ``default_agent``) for its launch counts."""
+    import tempfile
+
+    import torch
+
+    from image_restoration_agent_tpu_torch.offline import (
+        materialize_synthetic_weights)
+
+    served = {}
+    for name, h, w in ZOO_REQUESTS:
+        served[name] = phase(f"{name}_path", zoo_path, name, h, w, card)
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
+        root = Path(td)
+        wdir = root / "weights"
+        materialize_synthetic_weights(wdir, ["restormer_synth"])
+        img, inp = agent_input(root)
+        served["default_agent"] = phase(
+            "default_agent_path", default_agent_path, wdir, inp, img.shape,
+            root, card)
+    return served
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -2498,13 +2928,16 @@ def main() -> int:
     phase("dehazeformer_reflect_pad", dehazeformer_reflect_pad, args.quick)
     rows += phase("lab_kernels", lab_kernel_checks, args.quick) or []
     rows += phase("agent_kernels", agent_kernel_checks, args.quick) or []
+    rows += phase("zoo_kernels", zoo_kernel_checks, args.quick) or []
     failures += [f"kernel {r['name']} {r['variant']} {r['dtype']}"
                  for r in rows if not r["pass"]]
     # each path's launch counts, read just after the path ran (with
     # --quick, the kernel checks' own)
     counts = launch_counts()
     launches = {p: counts for p in ("swinir", "restormer", "hat", "denoise",
-                                    "dehaze", "nafnet", "fbcnn", "agent")}
+                                    "dehaze", "nafnet", "fbcnn", "agent",
+                                    "default_agent",
+                                    *(n for n, _, _ in ZOO_REQUESTS))}
     # the lab path: one pair chain, one head tail, one lab_strip call, each
     # counted alone
     launches["lab"] = {}
@@ -2540,6 +2973,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         launches.update({p: r["launches"] if r else {}
                          for p, r in agent_phases(phase, card).items()})
+        torch.cuda.empty_cache()
+        launches.update({p: r["launches"] if r else {}
+                         for p, r in zoo_phases(phase, card).items()})
         launches.update({
             "swinir": served["launches"] if served else {},
             "restormer": served_r["launches"] if served_r else {},

@@ -1,11 +1,16 @@
-"""Carry the JAX package's SwinIR, HAT, Restormer and DehazeFormer
-parameters across to the port.
+"""Carry the JAX package's parameters across to the port.
 
 :func:`from_jax` takes a JAX parameter pytree (nested dicts of numpy
 arrays, with or without the top-level ``"params"``) and returns the port's
 state dict under the reference names. The family is read from the tree's
-top-level keys (Restormer has ``encoder_level1_0``). It is the inverse of
-``image_restoration_agent_tpu/convert/torch_import.py``:
+top-level keys: X-Restormer by the ``spatial_attn`` of
+``encoder_level1_0`` (checked first: its other top-level names are
+Restormer's), Restormer by ``encoder_level1_0``, HAT by ``layer0/hab0``,
+DehazeFormer by ``patch_unembed``, NAFNet by ``intro``, FBCNN by
+``qf_embed``, the classifier by ``feat_fc``, MPRNet by ``stage1_encoder``,
+MAXIM by ``stage0_input_conv_0``, IFAN by ``dme_in``, DRBNet by
+``conv4_4_pre`` (IFAN has no ``conv4_4_pre``), SwinIR otherwise. It is
+the inverse of ``image_restoration_agent_tpu/convert/torch_import.py``:
 
 - ``swinir_rules`` (KAIR names): conv kernels (kh, kw, I, O) -> (O, I, kh,
   kw); linear kernels (I, O) -> (O, I); ``upsample{i}`` ->
@@ -53,7 +58,35 @@ top-level keys (Restormer has ``encoder_level1_0``). It is the inverse of
   flipped;
 - the degradation classifier (``iqa/classifier.py``, detected by
   ``feat_fc``): the Flax names kept, ``kernel`` -> ``weight`` (conv and
-  linear transposes), GroupNorm ``scale`` -> ``weight``.
+  linear transposes), GroupNorm ``scale`` -> ``weight``;
+- ``xrestormer_rules`` (``xrestormer_arch.py`` names): Restormer's
+  top-level rules; per block ``norm1``..``norm4`` -> ``.body``,
+  ``channel_attn`` / ``channel_ffn`` / ``spatial_ffn`` convs as Restormer's,
+  ``spatial_attn/{qkv,project_out}``, ``spatial_attn/rel_height`` ->
+  ``spatial_attn.rel_pos_emb.rel_height`` (and ``rel_width``);
+- ``mprnet_rules`` (``MPRNet.py`` names): a CAB's ``c1`` / ``act`` / ``c2``
+  / ``ca/du1`` / ``ca/du2`` -> ``body.0`` / ``body.1`` (the PReLU slope, ()
+  -> (1,)) / ``body.2`` / ``CA.conv_du.0`` / ``CA.conv_du.2``;
+  ``enc{l}_cab{i}`` -> ``encoder_level{l+1}.{i}``, ``dec{l}_cab{i}`` ->
+  ``decoder_level{l+1}.{i}``, ``down0`` / ``down1`` -> ``down12`` /
+  ``down23.down.1``, ``up*/conv`` -> ``up*.up.1`` (``up_enc2a`` / ``b`` ->
+  ``up_enc2.0`` / ``.1``), ``orb{n}_cab{i}`` / ``orb{n}_conv`` ->
+  ``orb{n}.body.{i}`` / ``.body.{num_cab}``, ``shallow_feat{k}_conv`` /
+  ``_cab`` -> ``shallow_feat{k}.0`` / ``.1``;
+- ``drbnet_rules`` (``DRBNet.py`` names): encoder convs ``conv{i}_{j}`` ->
+  ``.0``, ``conv4_4_pre`` / ``_post`` / ``_r{1,2}`` -> ``conv4_4.0`` /
+  ``.3`` / ``.{1,2}.stem.0``, ``up{s}_kernel`` / ``up{s}_res`` (s = 8, 4,
+  2, 1) -> ``upconv{3,2,1,0}_kernel`` / ``_res`` (the kernel head's 1x1 a
+  bare conv), ``upconv{l}_u/t`` -> ``upconv{l}_u.0`` (the transposed
+  conv's flip), ``upconv{l}_r{k}`` -> ``upconv{l}_{k}.stem.0``;
+- ``ifan_rules`` (``IFAN.py`` names): ``dme_*``, ``conv4_4_*``, ``F_*``,
+  ``conv_res_*`` -> the members of the ``DME``, ``conv4_4``, ``F`` and
+  ``conv_res`` Sequentials, ``stem{i}_{a,b}`` -> ``stem.{i}.{0,2}``;
+- MAXIM (Flax upstream, no torch reference): the JAX package's module
+  names kept with ``/Conv_0`` dropped, ``kernel`` -> ``weight`` (Dense
+  (I, O) -> (O, I), Conv (kh, kw, I, O) -> (O, I, kh, kw), the
+  ``y_up`` / ``dec{i}_up`` ConvTranspose with its flip), LayerNorm
+  ``scale`` -> ``weight``.
 """
 
 from __future__ import annotations
@@ -283,11 +316,11 @@ def _ref_name(path: str) -> tuple[str, object]:
     raise KeyError(f"unmapped JAX parameter: {path}")
 
 
-def _conv_leaf(name: str) -> tuple[str, object]:
-    """``<module>.kernel`` -> (``<module>.weight``, the conv transpose);
-    ``<module>.bias`` unchanged."""
+def _conv_leaf(name: str, kernel_fn=_conv) -> tuple[str, object]:
+    """``<module>.kernel`` -> (``<module>.weight``, ``kernel_fn``, the conv
+    transpose by default); ``<module>.bias`` unchanged."""
     if name.endswith(".kernel"):
-        return name[:-len("kernel")] + "weight", _conv
+        return name[:-len("kernel")] + "weight", kernel_fn
     return name, _same
 
 
@@ -368,6 +401,180 @@ def _fbcnn_namer(nb: int):
     return name
 
 
+_XSTAGE = (r"(encoder_level[123]|latent|decoder_level[123]|refinement)"
+           r"_(\d+)")
+
+
+def _xrestormer_name(path: str) -> tuple[str, object]:
+    m = re.fullmatch(rf"{_XSTAGE}/(.+)", path)
+    if not m:
+        return _restormer_name(path)  # the top-level convs are Restormer's
+    blk, rest = f"{m.group(1)}.{m.group(2)}", m.group(3)
+    mm = re.fullmatch(r"(norm[1-4])/(weight|bias)", rest)
+    if mm:
+        return f"{blk}.{mm.group(1)}.body.{mm.group(2)}", _same
+    if rest == "channel_attn/temperature":
+        return f"{blk}.channel_attn.temperature", _temperature
+    mm = re.fullmatch(r"spatial_attn/(rel_height|rel_width)", rest)
+    if mm:
+        return f"{blk}.spatial_attn.rel_pos_emb.{mm.group(1)}", _same
+    mm = re.fullmatch(r"(channel_attn|channel_ffn|spatial_ffn|spatial_attn)"
+                      r"/(\w+)/Conv_0/(kernel|bias)", rest)
+    if mm:
+        return _conv_leaf(f"{blk}.{mm.group(1)}.{mm.group(2)}."
+                          f"{mm.group(3)}")
+    raise KeyError(f"unmapped JAX parameter: {path}")
+
+
+def _prelu(w):
+    return np.reshape(w, (1,))
+
+
+def _mprnet_cab(prefix: str, rest: str, path: str) -> tuple[str, object]:
+    """One CAB's leaves (``c1``, ``act``, ``c2``, ``ca/du1``, ``ca/du2``)
+    under the reference ``<prefix>.body.{0,1,2}`` / ``.CA.conv_du.{0,2}``."""
+    if rest == "act/alpha":
+        return f"{prefix}.body.1.weight", _prelu
+    mm = re.fullmatch(r"(c1|c2|ca/du1|ca/du2)/Conv_0/kernel", rest)
+    if not mm:
+        raise KeyError(f"unmapped JAX parameter: {path}")
+    ref = {"c1": "body.0", "c2": "body.2", "ca/du1": "CA.conv_du.0",
+           "ca/du2": "CA.conv_du.2"}[mm.group(1)]
+    return f"{prefix}.{ref}.weight", _conv
+
+
+def _mprnet_namer(num_cab: int):
+    def name(path: str) -> tuple[str, object]:
+        m = re.fullmatch(r"shallow_feat(\d)_(conv|cab)/(.+)", path)
+        if m:
+            if m.group(2) == "conv":
+                return f"shallow_feat{m.group(1)}.0.weight", _conv
+            return _mprnet_cab(f"shallow_feat{m.group(1)}.1", m.group(3),
+                               path)
+        m = re.fullmatch(r"(stage[12]_encoder)/enc(\d)_cab(\d+)/(.+)", path)
+        if m:
+            return _mprnet_cab(f"{m.group(1)}.encoder_level"
+                               f"{int(m.group(2)) + 1}.{m.group(3)}",
+                               m.group(4), path)
+        m = re.fullmatch(r"(stage[12]_decoder)/dec(\d)_cab(\d+)/(.+)", path)
+        if m:
+            return _mprnet_cab(f"{m.group(1)}.decoder_level"
+                               f"{int(m.group(2)) + 1}.{m.group(3)}",
+                               m.group(4), path)
+        m = re.fullmatch(r"(stage[12]_decoder/skip_attn\d)/(.+)", path)
+        if m:
+            return _mprnet_cab(m.group(1).replace("/", "."), m.group(2),
+                               path)
+        m = re.fullmatch(r"stage3_orsnet/orb(\d)_cab(\d+)/(.+)", path)
+        if m:
+            return _mprnet_cab(f"stage3_orsnet.orb{m.group(1)}.body."
+                               f"{m.group(2)}", m.group(3), path)
+        m = re.fullmatch(r"stage3_orsnet/orb(\d)_conv/Conv_0/kernel", path)
+        if m:
+            return (f"stage3_orsnet.orb{m.group(1)}.body.{num_cab}.weight",
+                    _conv)
+        m = re.fullmatch(r"(stage[12]_encoder)/csff_(enc|dec)(\d)/Conv_0/"
+                         r"kernel", path)
+        if m:
+            return (f"{m.group(1)}.csff_{m.group(2)}{int(m.group(3)) + 1}"
+                    ".weight", _conv)
+        m = re.fullmatch(r"(stage[12]_encoder)/down([01])/conv/Conv_0/kernel",
+                         path)
+        if m:
+            down = ("down12", "down23")[int(m.group(2))]
+            return f"{m.group(1)}.{down}.down.1.weight", _conv
+        m = re.fullmatch(r"(stage[12]_decoder|stage3_orsnet)/"
+                         r"(up21|up32|up_enc1|up_dec1|up_enc2a|up_enc2b|"
+                         r"up_dec2a|up_dec2b)/conv/Conv_0/kernel", path)
+        if m:
+            up = m.group(2)
+            if up[-1] in "ab":
+                up = f"{up[:-1]}.{'01'[up[-1] == 'b']}"
+            return f"{m.group(1)}.{up}.up.1.weight", _conv
+        m = re.fullmatch(r"(sam12/conv\d|sam23/conv\d|concat12|concat23|tail|"
+                         r"stage3_orsnet/conv_(?:enc|dec)\d)/Conv_0/kernel",
+                         path)
+        if m:
+            return f"{m.group(1).replace('/', '.')}.weight", _conv
+        raise KeyError(f"unmapped JAX parameter: {path}")
+    return name
+
+
+_DRB_SCALE = {"8": "3", "4": "2", "2": "1", "1": "0"}
+
+
+def _drbnet_name(path: str) -> tuple[str, object]:
+    m = re.fullmatch(r"(conv\d_\d)/Conv_0/(kernel|bias)", path)
+    if m:
+        return _conv_leaf(f"{m.group(1)}.0.{m.group(2)}")
+    m = re.fullmatch(r"conv4_4_(pre|post)/c0/Conv_0/(kernel|bias)", path)
+    if m:
+        return _conv_leaf(f"conv4_4.{'0' if m.group(1) == 'pre' else '3'}"
+                          f".0.{m.group(2)}")
+    m = re.fullmatch(r"(conv4_4|upconv\d)_r([12])/c([12])/Conv_0/"
+                     r"(kernel|bias)", path)
+    if m:
+        owner = (f"conv4_4.{m.group(2)}" if m.group(1) == "conv4_4"
+                 else f"{m.group(1)}_{m.group(2)}")
+        return _conv_leaf(f"{owner}.stem.0."
+                          f"{'0' if m.group(3) == '1' else '2'}.{m.group(4)}")
+    m = re.fullmatch(r"(upconv\d)_u/t/(kernel|bias)", path)
+    if m:
+        return _conv_leaf(f"{m.group(1)}_u.0.{m.group(2)}", _conv_t)
+    m = re.fullmatch(r"up(\d)_(kernel|res)/c(\d)/Conv_0/(kernel|bias)", path)
+    if m:
+        scale, head, i, leaf = m.groups()
+        tail = "" if head == "kernel" and i == "2" else ".0"
+        return _conv_leaf(f"upconv{_DRB_SCALE[scale]}_{head}.{i}{tail}.{leaf}")
+    m = re.fullmatch(r"(img_d\d_feature)/c(\d)/Conv_0/(kernel|bias)", path)
+    if m:
+        return _conv_leaf(f"{m.group(1)}.{m.group(2)}.0.{m.group(3)}")
+    raise KeyError(f"unmapped JAX parameter: {path}")
+
+
+# IFAN's JAX heads -> the reference Sequentials' members
+_IFAN_HEADS = {"dme_in": "DME.0.0", "dme_out": "DME.3",
+               "conv_dme": "conv_DME.0", "conv4_4_in": "conv4_4.0.0",
+               "conv4_4_out": "conv4_4.3.0", "F_in": "F.0.0",
+               "F_out": "F.3", "conv_res_in": "conv_res.0.0",
+               "conv_res_out": "conv_res.2.0", "out_res": "out_res.0"}
+_IFAN_RES = {"dme_res1": "DME.1", "dme_res2": "DME.2",
+             "conv4_4_res1": "conv4_4.1", "conv4_4_res2": "conv4_4.2",
+             "F_res1": "F.1", "F_res2": "F.2", "conv_res_mid": "conv_res.1"}
+
+
+def _ifan_name(path: str) -> tuple[str, object]:
+    m = re.fullmatch(r"(k?conv\d_\d)/Conv_0/(kernel|bias)", path)
+    if m:
+        return _conv_leaf(f"{m.group(1)}.0.{m.group(2)}")
+    m = re.fullmatch(r"(\w+)/Conv_0/(kernel|bias)", path)
+    if m and m.group(1) in _IFAN_HEADS:
+        return _conv_leaf(f"{_IFAN_HEADS[m.group(1)]}.{m.group(2)}")
+    m = re.fullmatch(r"(\w+)/stem(\d)_([ab])/Conv_0/(kernel|bias)", path)
+    if m:
+        owner = _IFAN_RES.get(m.group(1), m.group(1))
+        return _conv_leaf(f"{owner}.stem.{m.group(2)}."
+                          f"{'0' if m.group(3) == 'a' else '2'}.{m.group(4)}")
+    m = re.fullmatch(r"(upconv\d)_u/t/(kernel|bias)", path)
+    if m:
+        return _conv_leaf(f"{m.group(1)}_u.0.{m.group(2)}", _conv_t)
+    raise KeyError(f"unmapped JAX parameter: {path}")
+
+
+def _maxim_kernel(w):
+    return _conv(w) if w.ndim == 4 else _linear(w)
+
+
+def _maxim_name(path: str) -> tuple[str, object]:
+    *mods, leaf = path.replace("/Conv_0/", "/").split("/")
+    name = ".".join(mods)
+    if leaf == "scale":
+        return f"{name}.weight", _same
+    transposed = re.fullmatch(r"y_up|stage\d+_dec\d+_up", mods[-1])
+    return _conv_leaf(f"{name}.{leaf}",
+                      _conv_t if transposed else _maxim_kernel)
+
+
 def _classifier_name(path: str) -> tuple[str, object]:
     module, leaf = path.split("/")
     if leaf == "scale":
@@ -379,15 +586,17 @@ def _classifier_name(path: str) -> tuple[str, object]:
 
 
 def from_jax(params) -> dict[str, torch.Tensor]:
-    """The port's reference-named state dict from JAX SwinIR, HAT,
-    Restormer, DehazeFormer, NAFNet, FBCNN or degradation-classifier
-    params."""
+    """The port's state dict from JAX SwinIR, HAT, Restormer, X-Restormer,
+    DehazeFormer, NAFNet, FBCNN, MPRNet, MAXIM, DRBNet, IFAN or
+    degradation-classifier params."""
     if "params" in params:
         params = params["params"]
     if "inner" in params:  # FBCNN with a pinned quality factor
         params = params["inner"]
     rename = _ref_name
-    if "encoder_level1_0" in params:
+    if "spatial_attn" in params.get("encoder_level1_0", {}):
+        rename = _xrestormer_name  # X-Restormer has Restormer's top level
+    elif "encoder_level1_0" in params:
         rename = _restormer_name
     elif "hab0" in params.get("layer0", {}):
         rename = _hat_name
@@ -399,6 +608,15 @@ def from_jax(params) -> dict[str, torch.Tensor]:
         rename = _fbcnn_namer(sum(k.startswith("down0_res") for k in params))
     elif "feat_fc" in params:
         rename = _classifier_name
+    elif "stage1_encoder" in params:
+        rename = _mprnet_namer(sum(
+            k.startswith("orb1_cab") for k in params["stage3_orsnet"]))
+    elif "stage0_input_conv_0" in params:
+        rename = _maxim_name
+    elif "dme_in" in params:
+        rename = _ifan_name
+    elif "conv4_4_pre" in params:
+        rename = _drbnet_name
     out = {}
     for path, value in _flatten(params):
         name, fn = rename(path)

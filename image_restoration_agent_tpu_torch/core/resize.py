@@ -1,13 +1,20 @@
-"""Separable bicubic resize as two dense matmuls (counterpart of
+"""Separable resizes as two dense matmuls (counterpart of
 ``image_restoration_agent_tpu/core/resize.py``).
 
-Two conventions:
+Three conventions:
 
 - MATLAB ``imresize`` (cubic a=-0.5, antialiasing on downscale, reflected
   borders): the degradation classifier's 224 px input
   (``iqa/classifier.py:prepare_input``).
 - torch ``F.interpolate(mode="bicubic", align_corners=False)`` (cubic
   a=-0.75, no antialias, clamped borders): NAFNet's input upscale.
+- ``jax.image.resize(method="bilinear")`` with its default
+  ``antialias=True``: MAXIM's skip signals. On a downscale the triangle
+  widens by the inverse ratio and each output's weights are renormalized
+  to sum to one, so the border rows weigh only the taps inside the image.
+  That is not ``F.interpolate(antialias=False)`` (MPRNet's resize); torch's
+  own ``antialias=True`` agrees with it at the sizes the tests hold, but
+  the port keeps the JAX package's formula.
 
 The interpolation weights depend only on the shapes, so they are built
 once in numpy (float64, normalised per row, then float32) and the resize
@@ -64,6 +71,25 @@ def _resize_matrix(in_size: int, out_size: int, a: float, antialias: bool,
     return mat.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=256)
+def _triangle_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """Dense (out_size, in_size) matrix of ``jax.image.resize``'s bilinear
+    weights with antialias (``jax._src.image.scale.compute_weight_mat``):
+    the triangle ``max(0, 1 - |d|)`` at half-pixel centres, widened by
+    ``in / out`` on a downscale, each row divided by its sum."""
+    if in_size == out_size:  # jax.image.resize leaves the axis untouched
+        return np.eye(out_size, dtype=np.float32)
+    inv = in_size / out_size
+    sample = (np.arange(out_size, dtype=np.float64) + 0.5) * inv - 0.5
+    d = np.abs(sample[:, None] - np.arange(in_size)[None, :]) / max(inv, 1.0)
+    w = np.maximum(0.0, 1.0 - d)
+    tot = w.sum(axis=1, keepdims=True)
+    w = np.where(np.abs(tot) > 1000 * np.finfo(np.float32).eps,
+                 w / np.where(tot != 0, tot, 1), 0.0)
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[:, None], w, 0.0).astype(np.float32)
+
+
 def _apply_separable(img: torch.Tensor, mh: np.ndarray,
                      mw: np.ndarray) -> torch.Tensor:
     if img.is_cuda:
@@ -96,3 +122,27 @@ def resize_bicubic_torch(img: torch.Tensor, scale: float) -> torch.Tensor:
     mh = _resize_matrix(h, out_shape[0], -0.75, False, False)
     mw = _resize_matrix(w, out_shape[1], -0.75, False, False)
     return _apply_separable(img, mh, mw)
+
+
+@functools.lru_cache(maxsize=64)
+def _triangle_on(in_size: int, out_size: int, device: torch.device,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """:func:`_triangle_matrix` rounded to ``dtype``, as float32 on
+    ``device``, kept (a request resizes at the same few sizes)."""
+    m = torch.from_numpy(_triangle_matrix(in_size, out_size))
+    return m.to(dtype).float().to(device)
+
+
+def resize_bilinear_jax(img: torch.Tensor, out_h: int,
+                        out_w: int) -> torch.Tensor:
+    """``jax.image.resize(img, (..., out_h, out_w, C), "bilinear")`` (its
+    default antialias) of ``(..., H, W, C)`` in float32, the weights
+    rounded to ``img``'s dtype first (the JAX package casts them to the
+    image's), one cast of the result."""
+    if img.is_cuda:
+        exact_f32()
+    h, w = img.shape[-3], img.shape[-2]
+    mh = _triangle_on(h, out_h, img.device, img.dtype)
+    mw = _triangle_on(w, out_w, img.device, img.dtype)
+    out = torch.einsum("oh,...hwc->...owc", mh, img.float())
+    return torch.einsum("pw,...hwc->...hpc", mw, out).to(img.dtype)

@@ -20,9 +20,9 @@ from ..ops.layernorm import (layer_norm_bias_free, layer_norm_lanes,
                              layer_norm_with_bias)
 from ..ops.pixel_shuffle import pixel_shuffle
 
-__all__ = ["Conv", "Conv1x1", "DWConv", "RestormerLayerNorm",
-           "layer_norm_lanes", "conv_plain", "fused_pixelshuffle_head",
-           "upsample_tail"]
+__all__ = ["Conv", "Conv1x1", "ConvLib", "ConvTranspose", "DWConv",
+           "RestormerLayerNorm", "layer_norm_lanes", "conv_plain",
+           "fused_pixelshuffle_head", "upsample_tail"]
 
 
 def cache_key(x: torch.Tensor, params) -> tuple:
@@ -86,6 +86,57 @@ class Conv1x1(nn.Module):
             exact_f32()
         y = x @ self.matrix().to(x.dtype)
         return y if self.bias is None else y + self.bias.to(y.dtype)
+
+
+def _nchw_lib(x: torch.Tensor):
+    """``x`` as an NCHW view for a library conv (exact float32 on the
+    card)."""
+    if x.is_cuda and x.dtype == torch.float32:
+        exact_f32()
+    return x.permute(0, 3, 1, 2)
+
+
+class ConvLib(nn.Module):
+    """A conv the JAX package runs through XLA (a 1x1 on a small canvas, a
+    strided conv): ``k x k``, stride ``stride``, the symmetric
+    ``(k - 1) // 2`` zero pad (torch ``Conv2d(cin, cout, k, stride,
+    padding=(k - 1) // 2)``), through the library conv in ``x``'s dtype on
+    a channels-last tensor; reference layout (O, I, k, k)."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
+                 bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
+        self.bias = nn.Parameter(torch.empty(cout)) if bias else None
+        self.stride = stride
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        y = F.conv2d(_nchw_lib(x), self.weight.to(x.dtype), b,
+                     stride=self.stride,
+                     padding=(self.weight.shape[-1] - 1) // 2)
+        return y.permute(0, 2, 3, 1)
+
+
+class ConvTranspose(nn.Module):
+    """torch ``ConvTranspose2d(cin, cout, k, stride, padding)`` on a
+    channels-last tensor through the library op, as the JAX package runs
+    its Flax ``ConvTranspose`` (SAME padding) through XLA: k 2, stride 2,
+    padding 0 (MAXIM) and k 4, stride 2, padding 1 (DRBNet, IFAN) both
+    double the size exactly. Reference layout (I, O, k, k)."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 2,
+                 padding: int = 0, bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cin, cout, k, k))
+        self.bias = nn.Parameter(torch.empty(cout)) if bias else None
+        self.stride, self.padding = stride, padding
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        y = F.conv_transpose2d(_nchw_lib(x), self.weight.to(x.dtype), b,
+                               stride=self.stride, padding=self.padding)
+        return y.permute(0, 2, 3, 1)
 
 
 class DWConv(nn.Module):
