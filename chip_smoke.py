@@ -158,7 +158,35 @@ Phases, each printing one JSON line:
     its golden's weights, the other tools random and nearly the identity):
     the plan's 14 tool calls with no KeyError, the per-tool invocations,
     one warm-up run whose every kernel call form zoo_kernels checked, then
-    three timed (p50, min, max) and one split as agent_path's.
+    three timed (p50, min, max) and one split as agent_path's;
+32. ridcp_kernels (with the kernel checks, also under ``--quick`` at small
+    shapes): K3 and ``swin_block`` (K1, K2, K1 and ``mlp_block``'s two K1;
+    the three strip-route forms of RIDCP's RSTBs at 192x320, C 256, hidden
+    1024: dc 0, -4 with the bank, +4) at every call form of the 1280x720
+    ``ridcp`` request, traced on the meta device at the engine's 768x1280
+    canvas, and K1's fc1 (256 -> 1024, LayerNorm-in, GELU) and fc2 (1024
+    -> 256 in K chunks, residual, scatter) at its MLP, ``F.linear``
+    beside both;
+33. ridcp_path: ``ridcp`` (random weights, ``zoo_state``) serving 1280x720
+    whole in bf16 (one warm-up, three timed; best, median, MP/s), each
+    kernel's launches against the traced count (38 K3, 24 ``swin_block``,
+    96 K1, 24 K2 and 24 ``mlp_block`` per request), a ``torch.profiler``
+    split, every call form checked by ridcp_kernels; on a 256x256 probe f32
+    on the card against the CPU path (>= 60 dB), bf16 against f32 (>= the
+    CPU control - 2 dB) and the share of VQ codes whose card and CPU f32
+    argmins agree; every model of the dehazing box registered;
+34. serve_path: the HTTP API (``api/server.py`` ``make_server``) on a
+    loopback port over default_agent_path's engine and the unmodified
+    ``build_default_executor``: /health (device ``cuda``, the card's name,
+    the native codec), three /process requests on the agent golden input
+    (JSON, multipart, JSON), each with its /download; the same plan and
+    subtask results, byte-equal downloads, no ``tool_errors`` in any
+    request's graph state, every call form checked by zoo_kernels, p50
+    seconds and launches; then /evaluate_degradation and /compare_quality
+    on ``make_eval_server`` with the classifier on the card;
+35. cli_path: ``python -m image_restoration_agent_tpu_torch.cli restore
+    <png> --model ridcp`` and ``... test-tools`` in subprocesses with no
+    ``--device`` (the card): the restored image's shape, every tool ok.
 Phases 20-22 are the lab path: each counts its kernel's launches over one
 call (6 ``swin_pair_block`` per chain, 1 ``conv3x3_pair`` per tail, 1
 ``lab_strip`` per call), with every count set to 0 just before.
@@ -1949,7 +1977,9 @@ def kernel_calls(model):
     call. K3 from every ``Conv``; K4 and K5 from a Restormer or X-Restormer
     block where it takes the fused route (X-Restormer's runs K4 twice);
     from a Swin block on the partition route one ``wmsa_block`` and one
-    ``mlp_block`` (the strip route has no case here and raises)."""
+    ``mlp_block``; on the strip route one ``swin_block`` (four K1, one K2
+    and ``mlp_block`` inside), its form keyed by the folded roll ``dc`` its
+    input frame gives and whether it reads the shift-mask bank."""
     from image_restoration_agent_tpu_torch.models.common import Conv
     from image_restoration_agent_tpu_torch.models.restormer import (
         TransformerBlock)
@@ -1959,7 +1989,8 @@ def kernel_calls(model):
 
     forms: dict = {}
     counts = {"conv3x3": 0, "gdfn_block": 0, "mdta_front": 0,
-              "wmsa_block": 0, "mlp_block": 0}
+              "wmsa_block": 0, "mlp_block": 0, "swin_block": 0,
+              "token_linear": 0, "window_attention": 0}
 
     def conv(name, mod, args, kw):
         arg = lambda i, k, d: args[i] if len(args) > i else kw.get(k, d)
@@ -1984,12 +2015,19 @@ def kernel_calls(model):
 
     def swin(name, mod, args, kw):
         x = args[0]
-        if mod.strip(x):
-            raise NotImplementedError(f"{name}: no case for the strip route")
         ws = mod.window_size
         shift = 0 if min(x.shape[1:3]) <= ws else mod.shift_size
+        hid = mod.mlp.fc1.out_features
+        if mod.strip(x):
+            in_frame = args[1] if len(args) > 1 else kw.get("in_frame", 0)
+            forms.setdefault(("swin_strip", tuple(x.shape), mod.num_heads,
+                              ws, -shift - in_frame, shift > 0, hid), name)
+            for k, v in (("swin_block", 1), ("token_linear", 4),
+                         ("window_attention", 1), ("mlp_block", 1)):
+                counts[k] += v
+            return
         forms.setdefault(("swin_partition", tuple(x.shape), mod.num_heads,
-                          ws, shift, mod.mlp.fc1.out_features), name)
+                          ws, shift, hid), name)
         counts["wmsa_block"] += 1
         counts["mlp_block"] += 1
 
@@ -2099,6 +2137,57 @@ def unchecked_forms(path: str, seen: dict, shapes=None) -> list[str]:
             if key not in checked]
 
 
+def swin_weights(randn, c: int, heads: int, ws: int, hid: int) -> dict:
+    """One Swin block's reference-layout weights, random from ``randn``."""
+    return dict(
+        norm1_w=1 + randn(c, scale=0.1), norm1_b=randn(c, scale=0.1),
+        qkv_w=randn(3 * c, c, scale=c ** -0.5), qkv_b=randn(3 * c, scale=0.1),
+        proj_w=randn(c, c, scale=c ** -0.5), proj_b=randn(c, scale=0.1),
+        rpb_table=randn((2 * ws - 1) ** 2, heads, scale=0.5),
+        norm2_w=1 + randn(c, scale=0.1), norm2_b=randn(c, scale=0.1),
+        fc1_w=randn(hid, c, scale=c ** -0.5), fc1_b=randn(hid, scale=0.1),
+        fc2_w=randn(c, hid, scale=hid ** -0.5), fc2_b=randn(c, scale=0.1))
+
+
+def swin_strip_cases(key, name: str, path: str, dtype, randn,
+                     quick: bool) -> list[dict]:
+    """``swin_block`` (K1, K2, K1 and ``mlp_block``'s two K1; fast
+    numerics in bf16, exact in f32) at one strip-route Swin block's form:
+    its canvas, heads, window, folded roll and bank."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.ops.swin_block import (
+        prepare_swin_params, swin_block, swin_block_plain)
+    from image_restoration_agent_tpu_torch.ops.window_attention import (
+        shift_attention_mask)
+
+    _, shape, heads, ws, dc, banked, hid = key
+    b, h, w, c = (1, 2 * ws, 4 * ws, shape[3]) if quick else shape
+    wts = swin_weights(randn, c, heads, ws, hid)
+    p = prepare_swin_params(**wts, num_heads=heads, ws=ws, dtype=dtype)
+    p32 = prepare_swin_params(**wts, num_heads=heads, ws=ws,
+                              dtype=torch.float32)
+    n, t = ws * ws, b * h * w
+    bank = torch.from_numpy(shift_attention_mask(
+        2 * ws, 2 * ws, ws, ws // 2).reshape(2, 2, n, n)).to("cuda") \
+        if banked else None
+    x32 = randn(b, h, w, c)
+    x = x32.to(dtype)
+    kw = dict(num_heads=heads, ws=ws, dc=dc, mask_bank=bank,
+              fast=dtype == torch.bfloat16)
+    es = 4 if dtype == torch.float32 else 2
+    return [dict(
+        name="swin_block", path=path,
+        variant=f"{path} {name} {h}x{w} C{c} hid{hid} dc={dc}"
+        + (",bank" if banked else ""),
+        kernel=lambda: swin_block(x, p, **kw),
+        plain=lambda: swin_block_plain(x, p, **kw),
+        ref32=lambda: swin_block_plain(x32, p32, **kw), library=None,
+        flops=(2 * t * c * 3 * c + 2 * t * c * c + 4 * t * c * hid
+               + 4 * t * n * c),
+        nbytes=2 * t * c * es + (4 * c * c + 2 * c * hid) * es, reps=3)]
+
+
 def swin_partition_cases(key, name: str, path: str, dtype, randn,
                          quick: bool) -> list[dict]:
     """``wmsa_block`` (with the full shift mask where the block shifts)
@@ -2115,14 +2204,7 @@ def swin_partition_cases(key, name: str, path: str, dtype, randn,
 
     _, shape, heads, ws, shift, hid = key
     b, h, w, c = (1, 2 * ws, 4 * ws, shape[3]) if quick else shape
-    wts = dict(
-        norm1_w=1 + randn(c, scale=0.1), norm1_b=randn(c, scale=0.1),
-        qkv_w=randn(3 * c, c, scale=c ** -0.5), qkv_b=randn(3 * c, scale=0.1),
-        proj_w=randn(c, c, scale=c ** -0.5), proj_b=randn(c, scale=0.1),
-        rpb_table=randn((2 * ws - 1) ** 2, heads, scale=0.5),
-        norm2_w=1 + randn(c, scale=0.1), norm2_b=randn(c, scale=0.1),
-        fc1_w=randn(hid, c, scale=c ** -0.5), fc1_b=randn(hid, scale=0.1),
-        fc2_w=randn(c, hid, scale=hid ** -0.5), fc2_b=randn(c, scale=0.1))
+    wts = swin_weights(randn, c, heads, ws, hid)
     p = prepare_swin_params(**wts, num_heads=heads, ws=ws, dtype=dtype)
     p32 = prepare_swin_params(**wts, num_heads=heads, ws=ws,
                               dtype=torch.float32)
@@ -2160,12 +2242,14 @@ def form_cases(path: str, forms: dict, dtype, randn, gen, quick: bool,
     """The check cases of one path's call forms (at 16x128, or a two by
     four window canvas, with --quick): K3 through ``conv_case``, K4 and K5
     through ``restormer_block_cases`` at the block's batch, the Swin
-    partition route through ``swin_partition_cases``."""
+    partition route through ``swin_partition_cases``, the strip route
+    through ``swin_strip_cases``."""
     cases, blocks = [], []
     for key, name in forms.items():
-        if key[0] == "swin_partition":
-            cases += swin_partition_cases(key, name, path, dtype, randn,
-                                          quick)
+        if key[0] in ("swin_partition", "swin_strip"):
+            fn = swin_partition_cases if key[0] == "swin_partition" \
+                else swin_strip_cases
+            cases += fn(key, name, path, dtype, randn, quick)
             continue
         shape = (1, 16, 128, key[1][3]) if quick else key[1]
         if key[0] == "block":
@@ -2871,6 +2955,422 @@ def zoo_phases(phase, card: str) -> dict:
     return served
 
 
+# ---------------------------------------------------------------------------
+# slice 12: RIDCP (the dehazing box), the HTTP API and the command line
+
+# GoPro-sized 1280x720 hazy frame: the engine serves it whole (1280 <=
+# max_size 1500) on the 768x1280 canvas; RIDCP's Swin blocks then run at
+# 192x320, C 256 (fc2 at K 1024), the f32 and bf16 probes at 256x256
+RIDCP_REQUEST = (720, 1280)
+RIDCP_PROBE = (256, 256)
+
+
+@functools.lru_cache(maxsize=None)
+def ridcp_kernel_shapes() -> dict:
+    """``ridcp``: (call forms, launches per request) of the 1280x720
+    request, traced on the meta device at the engine's canvas."""
+    return {"ridcp": traced_calls("ridcp", served_canvas(
+        "ridcp", *RIDCP_REQUEST))}
+
+
+def ridcp_linear_cases(dtype, randn, quick: bool) -> list[dict]:
+    """K1 at RIDCP's MLP on the strip route (C 256, hidden 1024, the
+    192x320 canvas's 61440 tokens): fc1 (LayerNorm-in, GELU, float32 rows
+    in) and fc2 (K 1024 in chunks, the float32 residual, scattered to the
+    canvas), each beside ``F.linear`` on the same operands."""
+    import torch
+    import torch.nn.functional as F
+
+    from image_restoration_agent_tpu_torch.ops.swin_block import (
+        SCATTER, kernel_matrix, token_linear, token_linear_plain)
+
+    c, hid, ws = 256, 1024, 8
+    h, w = (16, 32) if quick else (192, 320)
+    t = h * w
+    es = 4 if dtype == torch.float32 else 2
+    gelu = "tanh" if dtype == torch.bfloat16 else "erf"
+    w1, w2 = randn(c, hid, scale=c ** -0.5), randn(hid, c, scale=hid ** -0.5)
+    b1, b2 = randn(hid, scale=0.1), randn(c, scale=0.1)
+    ln = (1 + randn(c, scale=0.1), randn(c, scale=0.1))
+    x1 = randn(t, c)  # the attention half's float32 output
+    hdn32 = 0.5 * randn(t, hid)
+    hdn = hdn32.to(dtype)
+    k1, k2 = kernel_matrix(w1, dtype), kernel_matrix(w2, dtype)
+    f1, f2 = kernel_matrix(w1, torch.float32), kernel_matrix(w2,
+                                                             torch.float32)
+    geom = (1, h, w, ws, 0)
+    fc1 = dict(ln=ln, gelu=gelu)
+    fc2 = dict(res=x1, geom=geom, o_map=SCATTER)
+    x1d, w1t, w2t = x1.to(dtype), w1.t().to(dtype), w2.t().to(dtype)
+    return [dict(
+        name="token_linear", path="ridcp",
+        variant=f"ridcp fc1 ln+gelu {c}->{hid} {h}x{w}",
+        kernel=lambda: token_linear(x1, k1, b1, out_dtype=dtype, **fc1),
+        plain=lambda: token_linear_plain(x1, k1, b1, out_dtype=dtype, **fc1),
+        ref32=lambda: token_linear_plain(x1, f1, b1, out_dtype=torch.float32,
+                                         **fc1),
+        library=lambda: F.linear(x1d, w1t, b1.to(dtype)),
+        flops=2 * t * c * hid, nbytes=t * c * 4 + c * hid * es
+        + t * hid * es, reps=5), dict(
+        name="token_linear", path="ridcp",
+        variant=f"ridcp fc2 {hid}->{c} +res scatter {h}x{w}",
+        kernel=lambda: token_linear(hdn, k2, b2, out_dtype=dtype, **fc2),
+        plain=lambda: token_linear_plain(hdn, k2, b2, out_dtype=dtype,
+                                         **fc2),
+        ref32=lambda: token_linear_plain(hdn32, f2, b2,
+                                         out_dtype=torch.float32, **fc2),
+        library=lambda: F.linear(hdn, w2t, b2.to(dtype)),
+        flops=2 * t * hid * c, nbytes=t * hid * es + hid * c * es
+        + t * c * (4 + es), reps=5)]
+
+
+def ridcp_kernel_checks(quick: bool, seed: int = 31) -> list[dict]:
+    """K1 (``swin_block`` at the three strip-route forms, and K1's fc1 and
+    fc2 at RIDCP's MLP) and K3 against their plain versions at every call
+    form of ``ridcp_kernel_shapes`` (small shapes with --quick), f32 and
+    bf16."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def randn(*s, scale=1.0):
+        return (torch.randn(*s, generator=gen) * scale).to(dev)
+
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        forms, _ = ridcp_kernel_shapes()["ridcp"]
+        cases = form_cases("ridcp", forms, dtype, randn, gen, quick, reps=3)
+        cases += ridcp_linear_cases(dtype, randn, quick)
+        rows += [check_case(cs, dtype) for cs in cases]
+        del cases
+    return rows
+
+
+def _ridcp_probe(state, img, device: str, dtype_name: str) -> tuple:
+    """``ridcp`` on ``img`` alone: (output, the VectorQuantizer's code
+    indices)."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.models import build_model
+
+    m = build_model("ridcp", device=device, dtype=getattr(torch, dtype_name))
+    m.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()},
+                      strict=True)
+    codes = []
+    hook = m.quantize_group[0].register_forward_hook(
+        lambda mod, a, out: codes.append(out[1].cpu()))
+    with torch.no_grad():
+        out = m(torch.from_numpy(img)[None].to(device, m.residual_conv
+                                               .weight.dtype)).float()
+    hook.remove()
+    return out[0].cpu().numpy(), codes[0].numpy()
+
+
+def ridcp_path(card: str, requests: int = 3) -> dict:
+    """``ridcp`` (random weights from its seed, ``zoo_state``) serving one
+    1280x720 request in bf16 through ``Engine(device="cuda")``: one
+    warm-up, ``requests`` timed (best, median, MP/s), each kernel's launches
+    against the traced count per request, a ``torch.profiler`` split of one
+    more, one more with its call forms recorded (all checked by
+    ridcp_kernels). On a 256x256 probe: f32 on the card against the CPU
+    path (>= 60 dB), bf16 against f32 on the card (>= the CPU control - 2
+    dB), and the share of VQ codes on which the card's f32 argmin agrees
+    with the CPU's. Every model of the dehazing box is registered."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.agent.executor import (
+        DEFAULT_TOOLBOXES)
+    from image_restoration_agent_tpu_torch.models import MODEL_REGISTRY
+
+    h, w = RIDCP_REQUEST
+    state = zoo_state("ridcp")
+    img = np.random.default_rng(7).random((h, w, 3), dtype=np.float32)
+    eng, warm, warm_s, secs, results, counts, profile, key = serve(
+        "ridcp", state, img, requests, shape_bucket=128)
+    shapes = ridcp_kernel_shapes()
+    per_req = {k: v for k, v in shapes["ridcp"][1].items() if v}
+    with kernel_calls(eng.store.get("ridcp")) as (seen, _):
+        eng.restore_array(img, "ridcp")
+    unchecked = unchecked_forms("ridcp", seen, shapes)
+    del eng
+    launches = {k: counts[k] for k in per_req}
+    others = {k: v for k, v in counts.items() if k not in per_req and v}
+    ok = all(r.image.shape == (h, w, 3) and r.nonfinite == 0
+             for r in results + [warm])
+    ok = ok and launches == {k: v * requests for k, v in per_req.items()} \
+        and all(per_req.get(k, 0) > 0 for k in ("conv3x3", "swin_block",
+                                                "token_linear")) \
+        and not others and not unchecked
+    dehaze = [m for _, m in DEFAULT_TOOLBOXES["dehazing"]]
+    missing = [m for m in dehaze if m not in MODEL_REGISTRY]
+    probe = np.random.default_rng(8).random((*RIDCP_PROBE, 3),
+                                            dtype=np.float32)
+    card32, codes_card = _ridcp_probe(state, probe, "cuda", "float32")
+    card16, _ = _ridcp_probe(state, probe, "cuda", "bfloat16")
+    torch.set_num_threads(8)
+    cpu32, codes_cpu = _ridcp_probe(state, probe, "cpu", "float32")
+    cpu16, _ = _ridcp_probe(state, probe, "cpu", "bfloat16")
+    exact = range_psnr(card32, cpu32)
+    db = range_psnr(card16, card32)
+    ctrl = range_psnr(cpu16, cpu32)
+    agree = float((codes_card == codes_cpu).mean())
+    best = min(secs)
+    return {"phase": "ridcp_path", "model": "ridcp", "dtype": "bfloat16",
+            "input": [h, w, 3], "forwards": [list(f) for f in
+                                             served_canvas("ridcp", h, w)],
+            "pipeline": list(key[1:6]), "warmup_seconds": warm_s,
+            "seconds_best": best, "seconds_median": float(np.median(secs)),
+            "seconds": secs, "mp_per_s": h * w / 1e6 / best,
+            "launches": launches, "expected_per_request": per_req,
+            "other_launches": others, "call_forms": len(seen),
+            "unchecked_forms": unchecked, "profile": profile,
+            "dehazing_box": dehaze, "unregistered": missing,
+            "probe": list(probe.shape), "f32_card_vs_cpu_db": exact,
+            "f32_floor_db": 60.0, "bf16_vs_f32_db": db, "control_db": ctrl,
+            "floor_db": ctrl - 2.0, "vq_codes": int(codes_cpu.size),
+            "vq_argmin_agreement": agree,
+            "output_max_abs": float(np.abs(cpu32).max()), "card": card,
+            "pass": bool(ok and not missing and exact >= 60.0
+                         and db >= ctrl - 2.0)}
+
+
+class _RecordingGraph:
+    """The compiled agent graph, keeping each request's final state: the
+    graph app turns a tool's exception into a ``tool_errors`` entry and
+    goes on, so only the state shows that a tool failed."""
+
+    def __init__(self, graph):
+        self.graph, self.states = graph, []
+
+    def invoke(self, state):
+        out = self.graph.invoke(state)
+        self.states.append(out)
+        return out
+
+
+def _http(url: str, body: bytes | None = None, ctype: str = "") -> tuple:
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, headers=(
+        {"Content-Type": ctype} if ctype else {}))
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def serve_path(card: str) -> dict:
+    """The port's HTTP API on the card: ``make_server`` on a loopback port
+    in a thread, over an engine set up as default_agent_path's (Restormer
+    on its golden's weights, the other tools random and nearly the
+    identity) and the unmodified ``build_default_executor(engine)``; one
+    /health (device ``cuda`` and the card's name), then three /process
+    requests on the agent golden input (a JSON image_path in the work
+    root, a multipart upload, JSON again), each followed by its
+    /download. Fails on a status other than 200, plans or subtask results
+    that differ between the requests, downloaded bytes that differ from
+    ``final_output/<task_id>.png``, any ``tool_errors`` in a request's
+    graph state, a plan box outside default_agent_path's (whose call forms
+    zoo_kernels checked) or an unchecked call form. Then two requests to
+    ``make_eval_server`` with the classifier on the card."""
+    import tempfile
+    import threading
+
+    import torch
+
+    from image_restoration_agent_tpu_torch.agent import (
+        build_default_executor, create_image_analysis_graph)
+    from image_restoration_agent_tpu_torch.api import (AgentAPIServer,
+                                                       make_server)
+    from image_restoration_agent_tpu_torch.api.eval_service import (
+        make_eval_server)
+    from image_restoration_agent_tpu_torch.engine import Engine
+    from image_restoration_agent_tpu_torch.offline import (
+        materialize_synthetic_weights)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
+        root = Path(td)
+        wdir = root / "weights"
+        materialize_synthetic_weights(wdir, ["restormer_synth"])
+        eng = Engine(weight_dir=wdir, device="cuda",
+                     param_dtype=torch.bfloat16, allow_random_init=False)
+        for model in default_agent_models():
+            if model != "restormer":
+                eng.set_weights(model, zoo_state(model, residual=1e-3))
+        ex = build_default_executor(engine=eng)
+        graph = _RecordingGraph(create_image_analysis_graph(
+            executor=ex, device="cuda"))
+        app = AgentAPIServer(root / "work", graph=graph,
+                             engine_status=eng.status)
+        srv = make_server(host="127.0.0.1", port=0, app=app)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        img, src = agent_input(root)
+        inp = app.work_root / "uploads" / "noisy.png"
+        inp.write_bytes(src.read_bytes())
+        boundary = "----chipsmoke12"
+        upload = (f"--{boundary}\r\nContent-Disposition: form-data; "
+                  f'name="file"; filename="noisy.png"\r\n'
+                  "Content-Type: image/png\r\n\r\n").encode() \
+            + inp.read_bytes() + f"\r\n--{boundary}--\r\n".encode()
+        requests = [
+            ("json", json.dumps({"image_path": str(inp)}).encode(),
+             "application/json"),
+            ("multipart", upload, f"multipart/form-data; boundary={boundary}"),
+            ("json", json.dumps({"image_path": str(inp)}).encode(),
+             "application/json")]
+        seen: dict = {}
+        codes, outs, secs, downloads = [], [], [], []
+        try:
+            code, body = _http(f"{base}/health")
+            health = json.loads(body)
+            codes.append(code)
+            with contextlib.ExitStack() as stack:
+                for model in default_agent_models():
+                    forms, _ = stack.enter_context(
+                        kernel_calls(eng.store.get(model)))
+                    seen[model] = forms
+                reset_launch_counts()
+                for kind, body, ctype in requests:
+                    t0 = time.perf_counter()
+                    code, raw = _http(f"{base}/process", body, ctype)
+                    secs.append(time.perf_counter() - t0)
+                    codes.append(code)
+                    out = json.loads(raw)
+                    outs.append(out)
+                    code, png = _http(f"{base}/download/{out.get('task_id')}")
+                    codes.append(code)
+                    final = app.work_root / "final_output" / \
+                        f"{out.get('task_id')}.png"
+                    downloads.append(final.exists()
+                                     and png == final.read_bytes())
+                counts = launch_counts()
+            ev = make_eval_server(host="127.0.0.1", port=0, device="cuda")
+            threading.Thread(target=ev.serve_forever, daemon=True).start()
+            ebase = f"http://127.0.0.1:{ev.server_address[1]}"
+            t0 = time.perf_counter()
+            sev = _http(f"{ebase}/evaluate_degradation", json.dumps(
+                {"img_path": str(inp), "degradation": "noise"}).encode(),
+                "application/json")
+            cmp_ = _http(f"{ebase}/compare_quality", json.dumps(
+                {"img_path_A": str(inp),
+                 "img_path_B": outs[-1].get("output_path", "")}).encode(),
+                "application/json")
+            eval_s = time.perf_counter() - t0
+            ev.shutdown()
+            ev.server_close()
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        errors = [e for st in graph.states for e in st.get("tool_errors",
+                                                            [])]
+        seen = {key: f"{model} {name}" for model, forms in seen.items()
+                for key, name in forms.items()}
+        unchecked = unchecked_forms("default_agent", seen,
+                                    zoo_kernel_shapes())
+        plans = [o.get("initial_plan") for o in outs]
+        results = [o.get("subtask_success") for o in outs]
+        boxes = {s for p in plans for s, _ in (p or [])}
+        used = ("conv3x3", "gdfn_block", "mdta_front", "wmsa_block",
+                "mlp_block")
+        launches = {k: counts[k] for k in used}
+        answers = [json.loads(sev[1]).get("answer"),
+                   json.loads(cmp_[1]).get("answer")]
+        invocations = {f"{sub}/{t.tool_name}": t.invocations
+                       for sub, tools in ex.toolbox_router.items()
+                       for t in tools if t.invocations}
+        ok = (all(c == 200 for c in codes) and all(downloads)
+              and all(p == plans[0] for p in plans) and plans[0]
+              and all(r == results[0] for r in results)
+              and not errors and boxes <= set(DEFAULT_PLAN)
+              and not unchecked and all(v > 0 for v in launches.values())
+              and health.get("device") == "cuda"
+              and health.get("device_name") == torch.cuda.get_device_name(0)
+              and sev[0] == 200 and cmp_[0] == 200
+              and answers[0] in ("very low", "low", "medium", "high",
+                                 "very high")
+              and answers[1] in ("Image A", "Image B", "similar"))
+        return {"phase": "serve_path", "dtype": "bfloat16",
+                "input": list(img.shape), "requests": [k for k, _, _ in
+                                                       requests],
+                "health": health, "statuses": codes,
+                "downloads_equal": downloads, "plan": plans[0],
+                "subtask_success": results[0],
+                "executed": [st.get("executed") for st in graph.states],
+                "tool_calls": sum(invocations.values()),
+                "invocations": invocations,
+                "tool_errors": errors, "seconds": secs,
+                "p50_s": float(np.median(secs)), "launches": launches,
+                "other_launches": {k: v for k, v in counts.items()
+                                   if k not in used and v},
+                "call_forms": len(seen), "unchecked_forms": unchecked,
+                "eval_service": {"answers": answers, "seconds": eval_s},
+                "card": card, "pass": bool(ok)}
+
+
+def cli_path() -> dict:
+    """The command line on the card, in subprocesses with no ``--device``:
+    ``restore <png> --model ridcp -o out.png`` (random weights, no weight
+    dir; the output's shape is the input's) and ``test-tools`` (the tiny
+    toolboxes; every tool's ``ok``)."""
+    import tempfile
+
+    from image_restoration_agent_tpu_torch.core.io import (load_image,
+                                                           save_image)
+
+    cmd = [sys.executable, "-m", "image_restoration_agent_tpu_torch.cli"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
+        root = Path(td)
+        src, dst = root / "hazy.png", root / "out.png"
+        yy, xx = np.mgrid[0:360, 0:640] / 640.0
+        save_image(np.stack([0.6 + 0.3 * yy, 0.6 + 0.2 * xx,
+                             0.7 + 0.1 * np.sin(9 * xx * yy)], -1), src)
+        runs = {}
+        for name, args in (
+                ("restore", ["restore", str(src), "--model", "ridcp", "-o",
+                             str(dst)]),
+                ("test_tools", ["test-tools", "--work-dir",
+                                str(root / "tools")])):
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd + args, capture_output=True, text=True,
+                               timeout=600)
+            runs[name] = (r, time.perf_counter() - t0)
+        r, restore_s = runs["restore"]
+        rec = json.loads(r.stdout.strip().splitlines()[-1]) \
+            if r.returncode == 0 else {}
+        shape = list(load_image(dst).shape) if dst.exists() else None
+        t, tools_s = runs["test_tools"]
+        report = json.loads(t.stdout) if t.returncode == 0 else {}
+        bad = [k for k, v in report.items() if not v["ok"]]
+        ok = (r.returncode == 0 and rec.get("shape") == [360, 640]
+              and shape == [360, 640, 3] and t.returncode == 0
+              and len(report) >= 8 and not bad)
+        return {"phase": "cli_path",
+                "restore": {"rc": r.returncode, "record": rec,
+                            "output_shape": shape, "seconds": restore_s,
+                            "stderr_tail": r.stderr[-600:]},
+                "test_tools": {"rc": t.returncode, "tools": len(report),
+                               "not_ok": bad, "seconds": tools_s,
+                               "stderr_tail": t.stderr[-600:]},
+                "pass": bool(ok)}
+
+
+def slice12_phases(phase, card: str) -> dict:
+    """Slice 12's phases in order; returns each served path's result
+    (``ridcp``, ``serve``) for its launch counts."""
+    import torch
+
+    served = {"ridcp": phase("ridcp_path", ridcp_path, card)}
+    torch.cuda.empty_cache()
+    served["serve"] = phase("serve_path", serve_path, card)
+    torch.cuda.empty_cache()
+    phase("cli_path", cli_path)
+    return served
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -2929,6 +3429,7 @@ def main() -> int:
     rows += phase("lab_kernels", lab_kernel_checks, args.quick) or []
     rows += phase("agent_kernels", agent_kernel_checks, args.quick) or []
     rows += phase("zoo_kernels", zoo_kernel_checks, args.quick) or []
+    rows += phase("ridcp_kernels", ridcp_kernel_checks, args.quick) or []
     failures += [f"kernel {r['name']} {r['variant']} {r['dtype']}"
                  for r in rows if not r["pass"]]
     # each path's launch counts, read just after the path ran (with
@@ -2936,7 +3437,7 @@ def main() -> int:
     counts = launch_counts()
     launches = {p: counts for p in ("swinir", "restormer", "hat", "denoise",
                                     "dehaze", "nafnet", "fbcnn", "agent",
-                                    "default_agent",
+                                    "default_agent", "ridcp", "serve",
                                     *(n for n, _, _ in ZOO_REQUESTS))}
     # the lab path: one pair chain, one head tail, one lab_strip call, each
     # counted alone
@@ -2976,6 +3477,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         launches.update({p: r["launches"] if r else {}
                          for p, r in zoo_phases(phase, card).items()})
+        torch.cuda.empty_cache()
+        launches.update({p: r["launches"] if r else {}
+                         for p, r in slice12_phases(phase, card).items()})
         launches.update({
             "swinir": served["launches"] if served else {},
             "restormer": served_r["launches"] if served_r else {},

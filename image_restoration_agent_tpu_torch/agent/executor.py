@@ -154,8 +154,8 @@ class Executor:
 
 #: subtask -> [(tool_name, engine model name)]: the full reference rosters
 #: (SURVEY.md §2.2 per-subtask toolboxes). The port serves every model of
-#: them but two: the super-resolution box's ``diffbir`` and the dehazing
-#: box's ``ridcp`` raise ``KeyError`` at their first call.
+#: them but one: the super-resolution box's ``diffbir`` raises ``KeyError``
+#: at its first call.
 DEFAULT_TOOLBOXES: dict[str, list[tuple[str, str]]] = {
     "super-resolution": [
         ("diffbir", "diffbir"),

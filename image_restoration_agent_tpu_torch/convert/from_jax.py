@@ -9,7 +9,8 @@ Restormer's), Restormer by ``encoder_level1_0``, HAT by ``layer0/hab0``,
 DehazeFormer by ``patch_unembed``, NAFNet by ``intro``, FBCNN by
 ``qf_embed``, the classifier by ``feat_fc``, MPRNet by ``stage1_encoder``,
 MAXIM by ``stage0_input_conv_0``, IFAN by ``dme_in``, DRBNet by
-``conv4_4_pre`` (IFAN has no ``conv4_4_pre``), SwinIR otherwise. It is
+``conv4_4_pre`` (IFAN has no ``conv4_4_pre``), RIDCP by ``quantize``,
+SwinIR otherwise. It is
 the inverse of ``image_restoration_agent_tpu/convert/torch_import.py``:
 
 - ``swinir_rules`` (KAIR names): conv kernels (kh, kw, I, O) -> (O, I, kh,
@@ -82,6 +83,21 @@ the inverse of ``image_restoration_agent_tpu/convert/torch_import.py``:
 - ``ifan_rules`` (``IFAN.py`` names): ``dme_*``, ``conv4_4_*``, ``F_*``,
   ``conv_res_*`` -> the members of the ``DME``, ``conv4_4``, ``F`` and
   ``conv_res`` Sequentials, ``stem{i}_{a,b}`` -> ``stem.{i}.{0,2}``;
+- ``ridcp_rules`` (``dehaze_vq_weight_arch.py`` names, detected by
+  ``quantize``): ``in_conv`` -> ``multiscale_encoder.in_conv``,
+  ``enc{i}_down`` / ``enc{i}_res{j}`` -> ``multiscale_encoder.blocks.{i}.0``
+  / ``.{j+1}``, ``enc_swin{i}`` -> ``multiscale_encoder.blocks.{D}
+  .swin_blks.{i}`` (the RSTB leaves as SwinIR's), ``before_quant`` ->
+  ``before_quant_group.0``, ``quantize/codebook`` / ``hq_weight`` ->
+  ``quantize_group.0.embedding.weight`` / ``.weight``, ``after_quant`` ->
+  ``after_quant_group.0.conv``, ``dec{i}_conv`` / ``dec{i}_res{j}`` ->
+  ``decoder_group.{i}.block.1`` / ``.{j+2}``, ``resid{i}_*`` ->
+  ``multiscale_decoder.upsampler.{i}.*`` likewise, ``warp{i}/offset_feat``
+  / ``conv_offset`` / ``dcn_kernel`` / ``dcn_bias`` ->
+  ``multiscale_decoder.warp.{i}.offset`` / ``.dcn.conv_offset`` /
+  ``.dcn.weight`` (a conv transpose) / ``.dcn.bias``; a ResBlock's
+  ``gn1`` / ``c1`` / ``gn2`` / ``c2`` -> ``conv.0.norm`` / ``conv.2`` /
+  ``conv.3.norm`` / ``conv.5``;
 - MAXIM (Flax upstream, no torch reference): the JAX package's module
   names kept with ``/Conv_0`` dropped, ``kernel`` -> ``weight`` (Dense
   (I, O) -> (O, I), Conv (kh, kw, I, O) -> (O, I, kh, kw), the
@@ -561,6 +577,63 @@ def _ifan_name(path: str) -> tuple[str, object]:
     raise KeyError(f"unmapped JAX parameter: {path}")
 
 
+# a RIDCP ResBlock's JAX leaves -> the reference's Sequential members
+_RIDCP_RES = {"gn1/scale": "conv.0.norm.weight",
+              "gn1/bias": "conv.0.norm.bias",
+              "gn2/scale": "conv.3.norm.weight",
+              "gn2/bias": "conv.3.norm.bias",
+              "c1/Conv_0/kernel": "conv.2.kernel",
+              "c1/Conv_0/bias": "conv.2.bias",
+              "c2/Conv_0/kernel": "conv.5.kernel",
+              "c2/Conv_0/bias": "conv.5.bias"}
+_RIDCP_TOP = {"in_conv": "multiscale_encoder.in_conv",
+              "before_quant/Conv_0": "before_quant_group.0",
+              "after_quant/Conv_0": "after_quant_group.0.conv",
+              "out_conv/Conv_0": "out_conv",
+              "residual_conv/Conv_0": "residual_conv"}
+
+
+def _ridcp_namer(depth: int):
+    enc = "multiscale_encoder.blocks"
+
+    def name(path: str) -> tuple[str, object]:
+        m = re.fullmatch(r"enc_swin(\d+)/(.*)", path)
+        if m:  # the RSTB's leaves under SwinIR's names, moved
+            ref, fn = _ref_name(f"layer{m.group(1)}/{m.group(2)}")
+            return (f"{enc}.{depth}.swin_blks." + ref[len("layers."):], fn)
+        m = re.fullmatch(r"(.*)/(kernel|bias)", path)
+        if m and m.group(1) in _RIDCP_TOP:
+            return _conv_leaf(f"{_RIDCP_TOP[m.group(1)]}.{m.group(2)}")
+        if path == "quantize/codebook":
+            return "quantize_group.0.embedding.weight", _same
+        if path == "quantize/hq_weight":
+            return "quantize_group.0.weight", _same
+        m = re.fullmatch(r"(enc|dec|resid)(\d+)_(down|conv|res\d)/(.*)", path)
+        if m:
+            kind, i, part, rest = m.groups()
+            owner = {"enc": f"{enc}.{i}", "dec": f"decoder_group.{i}.block",
+                     "resid": f"multiscale_decoder.upsampler.{i}"}[kind]
+            if part in ("down", "conv"):
+                return _conv_leaf(f"{owner}.{'0' if part == 'down' else '1'}"
+                                  f".{rest.split('/')[-1]}")
+            j = int(part[3:]) + (1 if kind == "enc" else 2)
+            return _conv_leaf(f"{owner}.{j}.{_RIDCP_RES[rest]}")
+        m = re.fullmatch(r"warp(\d+)/(.*)", path)
+        if m:
+            i, rest = m.groups()
+            owner = f"multiscale_decoder.warp.{i}"
+            leaf = {"offset_feat/Conv_0/kernel": "offset.kernel",
+                    "offset_feat/Conv_0/bias": "offset.bias",
+                    "conv_offset/Conv_0/kernel": "dcn.conv_offset.kernel",
+                    "conv_offset/Conv_0/bias": "dcn.conv_offset.bias",
+                    "dcn_kernel": "dcn.kernel", "dcn_bias": "dcn.bias"}
+            if rest in leaf:
+                return _conv_leaf(f"{owner}.{leaf[rest]}")
+        raise KeyError(f"unmapped JAX parameter: {path}")
+
+    return name
+
+
 def _maxim_kernel(w):
     return _conv(w) if w.ndim == 4 else _linear(w)
 
@@ -587,7 +660,7 @@ def _classifier_name(path: str) -> tuple[str, object]:
 
 def from_jax(params) -> dict[str, torch.Tensor]:
     """The port's state dict from JAX SwinIR, HAT, Restormer, X-Restormer,
-    DehazeFormer, NAFNet, FBCNN, MPRNet, MAXIM, DRBNet, IFAN or
+    DehazeFormer, NAFNet, FBCNN, MPRNet, MAXIM, DRBNet, IFAN, RIDCP or
     degradation-classifier params."""
     if "params" in params:
         params = params["params"]
@@ -617,6 +690,8 @@ def from_jax(params) -> dict[str, torch.Tensor]:
         rename = _ifan_name
     elif "conv4_4_pre" in params:
         rename = _drbnet_name
+    elif "quantize" in params:
+        rename = _ridcp_namer(sum(k.endswith("_down") for k in params))
     out = {}
     for path, value in _flatten(params):
         name, fn = rename(path)

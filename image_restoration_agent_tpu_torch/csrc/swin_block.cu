@@ -235,6 +235,14 @@ __global__ void __launch_bounds__(NT) token_linear_kernel(
 //     the weight is read once per block, not once per 64 rows. Where K x
 //     NS and at least two A stages do not fit in 227 KB, the plan takes
 //     narrower slices (fc2 at K 360: 2 x 96).
+//   - K > 512 (RIDCP's fc2 at K 1024): a 64-row stage of whole rows no
+//     longer fits beside the weight, so a tile is staged as K chunks of cb
+//     64-k blocks (cb <= 8, one stage each, the last chunk ragged) and the
+//     consumer walks them into one float32 accumulator, freeing each stage
+//     as its products finish; the epilogue runs once, after the last
+//     chunk. The producer zero-fills each chunk's columns past K. The
+//     LayerNorm prologue needs whole rows and takes K <= 512 (cb covers
+//     the row: one chunk, the layout above).
 //   - A producer warpgroup gathers each tile's rows through the row map
 //     (map_row32) into a ring of S stages (S even) in the
 //     128-byte-swizzled K-major layout (K padded to 64, the pad zeroed
@@ -253,7 +261,7 @@ __global__ void __launch_bounds__(NT) token_linear_kernel(
 //     store of two columns through o_map.
 constexpr int L_NT = 512;  // two producer + two consumer warpgroups
 constexpr int L_TM = 64;   // rows per tile (one m64 accumulator)
-constexpr int MAXK = 512;
+constexpr int MAXK = 2048;
 // registers a thread after setmaxnreg, within the 512 x 128 the block was
 // launched with (setmaxnreg.inc waits for registers the CTA does not
 // have): 256 x 88 + 256 x 168 = 65536; a producer holds 32 floats of rows,
@@ -278,12 +286,13 @@ __host__ __device__ constexpr size_t l_head_bytes(int stages, int K,
 __host__ __device__ constexpr size_t l_w_bytes(int K, int ns) {
   return static_cast<size_t>((K + 63) / 64 * 64) * ns * 2;
 }
-__host__ __device__ constexpr size_t l_a_bytes(int K) {
-  return static_cast<size_t>(L_TM) * ((K + 63) / 64 * 64) * 2;
+// one A stage: 64 rows of a chunk of cb 64-k blocks
+__host__ __device__ constexpr size_t l_a_bytes(int cb) {
+  return static_cast<size_t>(L_TM) * 64 * cb * 2;
 }
-constexpr size_t l_smem_bytes(int K, int ns, int stages) {
+constexpr size_t l_smem_bytes(int K, int ns, int stages, int cb) {
   return l_head_bytes(stages, K, ns) + l_round(l_w_bytes(K, ns)) +
-         static_cast<size_t>(stages) * l_a_bytes(K);
+         static_cast<size_t>(stages) * l_a_bytes(cb);
 }
 
 // 4 consecutive elements of a float32 or bfloat16 row (8/16-byte aligned)
@@ -318,10 +327,11 @@ __device__ __forceinline__ void named_sync(int id, int count) {
 // 32 j) .. + 3), the rows with on[q]: the optional LayerNorm (float32
 // two-pass statistics, eps 1e-5, the rows' shuffles interleaved), rounded
 // to bf16 and stored into an A stage
+// (columns from k4 to kz4, a chunk's pad past K, are stored as zeros)
 template <int KJ, int NR>
 __device__ __forceinline__ void ln_store_rows(
     float4 (&v)[NR][KJ], const bool (&on)[NR], unsigned char* as, int r0,
-    int rstep, int K, int k4, const float* __restrict__ ln_g,
+    int rstep, int K, int k4, int kz4, const float* __restrict__ ln_g,
     const float* __restrict__ ln_b, int lane) {
   float mu[NR], rs[NR];
 #pragma unroll
@@ -368,7 +378,13 @@ __device__ __forceinline__ void ln_store_rows(
 #pragma unroll
     for (int j = 0; j < KJ; ++j) {
       const int c = lane + 32 * j;
-      if (c >= k4) continue;
+      if (c >= kz4) continue;
+      if (c >= k4) {
+        *reinterpret_cast<uint2*>(
+            as + sw128_offset(r0 + q * rstep, 4 * c, L_TM)) =
+            make_uint2(0u, 0u);
+        continue;
+      }
       float e[4] = {v[q][j].x, v[q][j].y, v[q][j].z, v[q][j].w};
       if (ln_g != nullptr) {  // 16-byte aligned shared-memory copies
         const float4 gg = *reinterpret_cast<const float4*>(ln_g + 4 * c);
@@ -427,8 +443,9 @@ __device__ __forceinline__ void epilogue4(float (&v)[4], const float* b,
   }
 }
 
-// KJ: float4 groups a lane holds of one row (K <= 128 KJ); RP rows a warp
-// normalizes at once (RP / 2 loaded at once on the float32 path)
+// KJ: float4 groups a lane holds of one staged row (cb 64-k blocks <= 128
+// KJ k); RP rows a warp normalizes at once (RP / 2 loaded at once on the
+// float32 path); cb: 64-k blocks a chunk (all of them for whole rows)
 template <int NS, int KJ>
 __global__ void __launch_bounds__(L_NT, 1) token_linear_mma_kernel(
     const void* __restrict__ A, int a_dt,
@@ -436,7 +453,7 @@ __global__ void __launch_bounds__(L_NT, 1) token_linear_mma_kernel(
     const void* __restrict__ R, int r_dt, void* __restrict__ O, int o_dt,
     const float* __restrict__ ln_g, const float* __restrict__ ln_b,
     long long M, int K, int N, int gelu, Geom g, int a_map, int r_map,
-    int o_map, int nslices, int S) {
+    int o_map, int nslices, int S, int cb) {
   constexpr int RP = 8 / KJ;
   extern __shared__ __align__(1024) unsigned char smem[];
   uint64_t* wbar = reinterpret_cast<uint64_t*>(smem);
@@ -449,8 +466,9 @@ __global__ void __launch_bounds__(L_NT, 1) token_linear_mma_kernel(
   unsigned char* Ws = smem + l_head_bytes(S, K, NS);
   const uint32_t wbytes = static_cast<uint32_t>(l_w_bytes(K, NS));
   unsigned char* As = Ws + l_round(wbytes);
-  const int abytes = static_cast<int>(l_a_bytes(K));
+  const int abytes = static_cast<int>(l_a_bytes(cb));
   const int kpa = (K + 63) / 64 * 64, kblocks = kpa / 64, k4 = K / 4;
+  const int nch = (kblocks + cb - 1) / cb;  // K chunks a tile, 1: whole K
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   // warpgroups 0 and 1 produce, 2 and 3 consume; pair p (producer p,
@@ -478,8 +496,9 @@ __global__ void __launch_bounds__(L_NT, 1) token_linear_mma_kernel(
       lnb_s[e] = e < K ? ln_b[e] : 0.f;
     }
   const float* lg = ln_g != nullptr ? lng_s : nullptr;
-  // the A stages' pad columns [K, kpa), zero for good (8-byte groups)
-  const int per = (kpa - K) / 4;
+  // whole rows: the A stages' pad columns [K, kpa), zero for good (8-byte
+  // groups); chunks: the producer zero-fills them with each chunk
+  const int per = nch == 1 ? (kpa - K) / 4 : 0;
   for (int e = tid; e < S * L_TM * per; e += L_NT) {
     const int s = e / (L_TM * per), r = (e / per) % L_TM;
     *reinterpret_cast<uint2*>(As + s * abytes +
@@ -500,14 +519,18 @@ __global__ void __launch_bounds__(L_NT, 1) token_linear_mma_kernel(
     const long long ntiles = t0 < mtiles ? (mtiles - t0 + tstep - 1) / tstep
                                          : 0;
     const int nown = ntiles > pp ? static_cast<int>((ntiles - pp + 1) / 2) : 0;
-    // stage the k-th own tile's row maps: source rows (the producer's),
+    // the q-th own staging is chunk q % nch of own tile q / nch, in stage
+    // (2 q + pp) % S
+    const int nstg = nown * nch;
+    // stage the q-th staging's row maps: source rows (the producer's),
     // output and residual rows (the consumer's, published with the stage)
-    auto maps = [&](int k) {
-      const int it = 2 * k + pp, st = it % S;
+    auto maps = [&](int q) {
+      const int it = 2 * q + pp, st = it % S;
       if (it >= S) mbar_wait(&empty[st], ((it / S) - 1) & 1);
       {  // threads 0-63 the source rows, 64-127 the output and residual
         const int r = ptid % L_TM;
-        const long long t = (t0 + it * tstep) * L_TM + r;
+        const long long t =
+            (t0 + (2 * (q / nch) + pp) * tstep) * L_TM + r;
         int* rw = rows_s + st * 3 * L_TM;
         const bool in = t < M;
         const int t32 = static_cast<int>(t);
@@ -527,26 +550,33 @@ __global__ void __launch_bounds__(L_NT, 1) token_linear_mma_kernel(
       // published; with ln_g the landed rows are normalized in place
       const int LA = S / 2 - 1 < 2 ? S / 2 - 1 : 2;
       const __nv_bfloat16* a16 = static_cast<const __nv_bfloat16*>(A);
-      auto issue = [&](int k) {
-        maps(k);
-        const int st = (2 * k + pp) % S;
+      auto issue = [&](int q) {
+        maps(q);
+        const int st = (2 * q + pp) % S;
         unsigned char* as = As + st * abytes;
         const int* src = rows_s + st * 3 * L_TM;
+        // the chunk's first 4-k group, and the groups it writes: up to K
+        // for whole rows, the whole chunk (zeros past K) for chunks
+        const int c0 = (q % nch) * cb * 16;
+        const int cn = nch == 1 ? k4 : min(cb * 16, kpa / 4 - c0);
         for (int r = pw; r < L_TM; r += 4) {
           const int s = src[r];
-          for (int c = lane; c < k4; c += 32)
+          for (int c = lane; c < cn; c += 32) {
+            const bool in = s >= 0 && c0 + c < k4;
             cp_async8z(as + sw128_offset(r, 4 * c, L_TM),
-                       s >= 0 ? a16 + static_cast<long long>(s) * K + 4 * c
-                              : a16,
-                       s >= 0 ? 8 : 0);
+                       in ? a16 + static_cast<long long>(s) * K +
+                                4 * (c0 + c)
+                          : a16,
+                       in ? 8 : 0);
+          }
         }
       };
-      for (int i = 0; i < LA; ++i) {  // LA groups, empty past the last tile
-        if (i < nown) issue(i);
+      for (int i = 0; i < LA; ++i) {  // LA groups, empty past the last one
+        if (i < nstg) issue(i);
         cp_async_commit();
       }
-      for (int k = 0; k < nown; ++k) {
-        if (k + LA < nown) issue(k + LA);
+      for (int k = 0; k < nstg; ++k) {
+        if (k + LA < nstg) issue(k + LA);
         cp_async_commit();
         if (LA == 2)
           cp_async_wait<2>();
@@ -581,7 +611,8 @@ __global__ void __launch_bounds__(L_NT, 1) token_linear_mma_kernel(
                 }
               }
             }
-            ln_store_rows<KJ, RP>(v, on, as, r0, 4, K, k4, lg, lnb_s, lane);
+            ln_store_rows<KJ, RP>(v, on, as, r0, 4, K, k4, k4, lg, lnb_s,
+                                  lane);
           }
         }
         fence_proxy_async();
@@ -593,11 +624,16 @@ __global__ void __launch_bounds__(L_NT, 1) token_linear_mma_kernel(
       // issued before the current one is processed
       constexpr int RF = RP / 2;
       constexpr int NG = L_TM / (4 * RF);  // row groups a warp per tile
-      for (int k = 0; k < nown; ++k) {
+      for (int k = 0; k < nstg; ++k) {
         maps(k);
         const int st = (2 * k + pp) % S;
         unsigned char* as = As + st * abytes;
         const int* src = rows_s + st * 3 * L_TM;
+        // the chunk's first 4-k group, its groups inside K, and the groups
+        // it writes (zeros past K)
+        const int c0 = (k % nch) * cb * 16;
+        const int kl4 = min(k4 - c0, cb * 16);
+        const int kz4 = nch == 1 ? kl4 : min(cb * 16, kpa / 4 - c0);
         float4 v[2][RF][KJ];
         auto load = [&](float4 (&u)[RF][KJ], int r0) {
 #pragma unroll
@@ -605,8 +641,10 @@ __global__ void __launch_bounds__(L_NT, 1) token_linear_mma_kernel(
 #pragma unroll
             for (int j = 0; j < KJ; ++j) {
               const int c = lane + 32 * j, s = src[r0 + q];
-              u[q][j] = s >= 0 && c < k4
-                            ? load4(A, static_cast<long long>(s) * K + 4 * c,
+              u[q][j] = s >= 0 && c < kl4
+                            ? load4(A,
+                                    static_cast<long long>(s) * K +
+                                        4 * (c0 + c),
                                     a_dt)
                             : make_float4(0.f, 0.f, 0.f, 0.f);
             }
@@ -619,8 +657,8 @@ __global__ void __launch_bounds__(L_NT, 1) token_linear_mma_kernel(
           bool on[RF];
 #pragma unroll
           for (int q = 0; q < RF; ++q) on[q] = src[r0 + q] >= 0;
-          ln_store_rows<KJ, RF>(v[i & 1], on, as, r0, 1, K, k4, lg, lnb_s,
-                                lane);
+          ln_store_rows<KJ, RF>(v[i & 1], on, as, r0, 1, K, kl4, kz4, lg,
+                                lnb_s, lane);
         }
         fence_proxy_async();
         mbar_arrive(&full[st]);
@@ -636,19 +674,41 @@ __global__ void __launch_bounds__(L_NT, 1) token_linear_mma_kernel(
   const int n0 = sl * NS;
   mbar_wait(wbar, 0);
   float acc[NS / 2];
-  int it = 0;
+  int it = 0, q = 0;  // the block's tiles, this consumer's stagings
   for (long long tile = t0; tile < mtiles; tile += tstep, ++it) {
     if ((it & 1) != ci) continue;
-    const int st = it % S;
-    mbar_wait(&full[st], (it / S) & 1);
+    // the tile's chunks before the last: multiply, then free the stage
+    for (int ch = 0; ch + 1 < nch; ++ch, ++q) {
+      const int sq = 2 * q + ci, st = sq % S;
+      mbar_wait(&full[st], (sq / S) & 1);
+      const unsigned char* as = As + st * abytes;
+      wgmma_fence();
+      for (int kb = 0; kb < cb; ++kb) {
+        const int kg = ch * cb + kb;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          wgmma_ss<NS>(acc, a_desc_sw128(as + kb * (L_TM * 128) + j * 32),
+                       b_desc(Ws + (4 * kg + j) * NS * 32, NS * 16),
+                       kg > 0 || j > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&empty[st]);
+    }
+    const int sq = 2 * q + ci, st = sq % S;
+    ++q;
+    mbar_wait(&full[st], (sq / S) & 1);
     const unsigned char* as = As + st * abytes;
+    const int kb0 = (nch - 1) * cb;  // the last chunk's first 64-k block
     wgmma_fence();
-    for (int kb = 0; kb < kblocks; ++kb) {  // 64 k a block, 4 k16 steps
+    for (int kb = 0; kb < kblocks - kb0; ++kb) {  // 4 k16 steps a block
+      const int kg = kb0 + kb;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         wgmma_ss<NS>(acc, a_desc_sw128(as + kb * (L_TM * 128) + j * 32),
-                     b_desc(Ws + (4 * kb + j) * NS * 32, NS * 16),
-                     kb > 0 || j > 0);
+                     b_desc(Ws + (4 * kg + j) * NS * 32, NS * 16),
+                     kg > 0 || j > 0);
     }
     wgmma_commit();
     const int* rw = rows_s + st * 3 * L_TM + L_TM;
@@ -1583,9 +1643,11 @@ size_t attention_f32_smem(int np, int dpt, int L, int n, int mw) {
 // slice width `ns` (an instantiated width); `stages`, `smem` and `grid` are
 // the wrapper's launch plan (token_linear_plan): the ring depth (even),
 // the shared memory bytes (which must cover what the kernel lays out) and
-// the number of persistent blocks (a multiple of the slice count). K % 4
-// == 0, K <= 512, rows with 16-byte aligned starts, M and every mapped
-// row < 2^31.
+// the number of persistent blocks (a multiple of the slice count), and
+// `cb` the 64-k blocks an A stage holds (all of K's for whole rows; fewer
+// stages a tile's K in chunks, K > 512, no LayerNorm). K % 4 == 0,
+// K <= 2048, rows with 16-byte aligned starts, M and every mapped row
+// < 2^31.
 // float32: Wt is (K, N) row-major and the plan arguments are unused.
 extern "C" int token_linear(const void* A, int a_dt, const void* Wt,
                             int w_dt, int ns, const void* bias,
@@ -1593,7 +1655,8 @@ extern "C" int token_linear(const void* A, int a_dt, const void* Wt,
                             const void* ln_g, const void* ln_b, long long M,
                             int K, int N, int gelu, int B, int H, int W,
                             int ws, int dc, int a_map, int r_map, int o_map,
-                            int stages, int smem, int grid, void* stream) {
+                            int stages, int cb, int smem, int grid,
+                            void* stream) {
   const Geom g{B, H, W, ws, dc};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* lg = static_cast<const float*>(ln_g);
@@ -1601,9 +1664,11 @@ extern "C" int token_linear(const void* A, int a_dt, const void* Wt,
   const float* bf = static_cast<const float*>(bias);
   if (w_dt == kBF16) {
     const int nslices = (N + ns - 1) / ns;
+    const int kblocks = (K + 63) / 64;
     if (K % 4 != 0 || K > MAXK || stages < 2 || stages > 8 || stages % 2 ||
-        grid % nslices != 0 ||
-        static_cast<size_t>(smem) < l_smem_bytes(K, ns, stages))
+        grid % nslices != 0 || cb < 1 || cb > 8 ||
+        (cb < kblocks && lg != nullptr) || (cb > kblocks) ||
+        static_cast<size_t>(smem) < l_smem_bytes(K, ns, stages, cb))
       return cudaErrorInvalidValue;
     auto launch = [&](auto kernel) {
       const cudaError_t e = cudaFuncSetAttribute(
@@ -1612,10 +1677,10 @@ extern "C" int token_linear(const void* A, int a_dt, const void* Wt,
       kernel<<<grid, L_NT, smem, s>>>(
           A, a_dt, static_cast<const __nv_bfloat16*>(Wt), bf, R, r_dt, O,
           o_dt, lg, lb, M, K, N, gelu, g, a_map, r_map, o_map, nslices,
-          stages);
+          stages, cb);
       return static_cast<int>(cudaGetLastError());
     };
-    const bool narrow = K <= 256;
+    const bool narrow = cb <= 4;  // a staged row of at most 256 k
     switch (ns) {
 #define IRK_CASE(n)                                      \
   case n:                                                \

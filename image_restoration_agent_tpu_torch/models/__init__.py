@@ -11,6 +11,7 @@ from . import maxim as _maxim  # noqa: F401
 from . import mprnet as _mprnet  # noqa: F401
 from . import nafnet as _nafnet  # noqa: F401
 from . import restormer as _restormer  # noqa: F401
+from . import ridcp as _ridcp  # noqa: F401
 from . import swinir as _swinir  # noqa: F401
 from . import xrestormer as _xrestormer  # noqa: F401
 

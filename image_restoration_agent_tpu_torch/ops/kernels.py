@@ -42,7 +42,8 @@ class LaunchPlan(NamedTuple):
     """How a bf16 K1 or K3 launch covers its output: ``grid`` blocks of
     ``threads``; the output columns as ``slices`` slices of ``ns`` (an
     instantiated wgmma width); a ring of ``stages`` shared-memory stages;
-    ``smem`` bytes of shared memory a block."""
+    ``smem`` bytes of shared memory a block; ``chunk`` the 64-k blocks of
+    K an A stage of K1 holds (0 where the kernel has no such stage)."""
 
     grid: int
     threads: int
@@ -50,6 +51,7 @@ class LaunchPlan(NamedTuple):
     ns: int
     stages: int
     smem: int
+    chunk: int = 0
 
 
 def gemm_width(n: int) -> int:

@@ -52,7 +52,10 @@ The block's CUDA path is two hand-written kernels in
   a producer warpgroup gathers and normalizes 64-row tiles into a ring of
   stages while two consumer warpgroups multiply and run the epilogue from
   their accumulator registers (:func:`token_linear_plan` is the launch
-  plan). In f32 it runs 64x64 tiles on FP32 FMA (no TF32).
+  plan). Past K 512 (RIDCP's fc2 at K 1024) a stage holds a chunk of K
+  rather than whole rows, the consumer walks a tile's chunks into one
+  float32 accumulator, and the LayerNorm prologue is not taken. In f32 it
+  runs 64x64 tiles on FP32 FMA (no TF32), any K.
 - K2 ``window_attention``: N = ws^2 <= 256 tokens per window, logits
   ``(q.k) * scale + bias`` (``scale`` 1 where q is pre-scaled). In bf16 the
   products run on ``mma.sync`` with each warp's 16 x N logits, softmax
@@ -321,10 +324,51 @@ def _round1k(v: int) -> int:
     return -(-v // 1024) * 1024
 
 
-def token_linear_smem(k: int, ns: int, stages: int) -> int:
+# the widest K a stage holds whole rows of (and the LayerNorm prologue
+# takes), and the widest K the kernel takes at all (in chunks)
+LINEAR_ROW_K, LINEAR_MAX_K = 512, 2048
+
+
+def token_linear_smem(k: int, ns: int, stages: int,
+                      chunk: int | None = None) -> int:
+    """Shared memory of a bf16 K1 block: ``stages`` A stages of ``chunk``
+    64-k blocks each (default: whole rows) beside the K x NS weight."""
     kp = -(-k // 64) * 64
+    cb = kp // 64 if chunk is None else chunk
     head = _round1k(256 + stages * 3 * LINEAR_ROWS * 4 + 4 * ns + 8 * kp)
-    return head + _round1k(kp * ns * 2) + stages * LINEAR_ROWS * kp * 2
+    return head + _round1k(kp * ns * 2) + stages * LINEAR_ROWS * cb * 128
+
+
+def _linear_form(k: int, n: int) -> tuple[int, int, int, int]:
+    """(slices, NS, stages, chunk) of the bf16 K1: see
+    :func:`token_linear_slices`; ``chunk`` is the 64-k blocks an A stage
+    holds."""
+    nsl = -(-n // LINEAR_MAX_N)
+    kb = -(-k // 64)
+    if k % 4 or k > LINEAR_MAX_K:
+        return nsl, kernels.gemm_width(-(-n // nsl)), 0, kb
+    while True:
+        ns = kernels.gemm_width(-(-n // nsl))
+        if k <= LINEAR_ROW_K:
+            fits = [s for s in range(2, LINEAR_MAX_STAGES + 1, 2)
+                    if token_linear_smem(k, ns, s) <= kernels.SMEM_LIMIT]
+            if fits:
+                return nsl, ns, max(fits), kb
+        else:
+            # balanced chunks of at most 8 blocks (512 k); the most k in
+            # flight (at least 4 blocks), then a ring of 4 (two stages a
+            # producer-consumer pair), then the wider chunk
+            fits = [(s * cb, min(s, 4), cb, s)
+                    for cb in sorted({-(-kb // c)
+                                      for c in range(-(-kb // 8), kb + 1)})
+                    for s in range(2, LINEAR_MAX_STAGES + 1, 2)
+                    if token_linear_smem(k, ns, s, cb) <= kernels.SMEM_LIMIT]
+            best = max(fits, default=(0, 0, 0, 0))
+            if best[0] >= 4:
+                return nsl, ns, best[3], best[2]
+        if ns == kernels.GEMM_WIDTHS[0]:
+            raise ValueError(f"no bf16 token_linear plan holds K={k}")
+        nsl += 1
 
 
 def token_linear_slices(k: int, n: int) -> tuple[int, int, int]:
@@ -333,29 +377,23 @@ def token_linear_slices(k: int, n: int) -> tuple[int, int, int]:
     shared memory beside a ring of at least two 64-row A stages (qkv 540
     as 3 x 184, fc1 360 as 2 x 184, proj 180 as 184; fc2 at K 360 as
     2 x 96), with the deepest even ring that fits (its two
-    producer-consumer pairs take alternate stages). A K the kernel does
-    not take (K % 4 or K > 512) gets the slices and no stages."""
-    nsl = -(-n // LINEAR_MAX_N)
-    if k % 4 or k > 512:
-        return nsl, kernels.gemm_width(-(-n // nsl)), 0
-    while True:
-        ns = kernels.gemm_width(-(-n // nsl))
-        fits = [s for s in range(2, LINEAR_MAX_STAGES + 1, 2)
-                if token_linear_smem(k, ns, s) <= kernels.SMEM_LIMIT]
-        if fits:
-            return nsl, ns, max(fits)
-        nsl += 1
+    producer-consumer pairs take alternate stages). Past K 512 a stage
+    holds a chunk of K, not whole rows, and the plan takes the fewest
+    slices with at least four 64-k blocks of A in flight (RIDCP's fc2 at
+    K 1024: 4 x 64, four stages of 128 k). A K the kernel does not take
+    (K % 4 or K > 2048) gets the slices and no stages."""
+    return _linear_form(k, n)[:3]
 
 
 def token_linear_plan(m: int, k: int, n: int, sms: int) -> kernels.LaunchPlan:
     """The bf16 K1 launch: persistent blocks, ``sms // slices`` a slice
     (no more than the 64-row tiles), each walking tiles b, b + step, ...
     of its slice; 512 threads (two producer and two consumer
-    warpgroups)."""
-    nsl, ns, stages = token_linear_slices(k, n)
+    warpgroups); ``chunk`` 64-k blocks an A stage."""
+    nsl, ns, stages, cb = _linear_form(k, n)
     per = max(1, min(-(-m // LINEAR_ROWS), sms // nsl))
     return kernels.LaunchPlan(nsl * per, 512, nsl, ns, stages,
-                              token_linear_smem(k, ns, stages))
+                              token_linear_smem(k, ns, stages, cb), cb)
 
 
 def _token_linear_cuda(a, w, b, ln, gelu, res, geom, a_map, r_map, o_map,
@@ -365,11 +403,14 @@ def _token_linear_cuda(a, w, b, ln, gelu, res, geom, a_map, r_map, o_map,
     plan = None
     if w.dtype == torch.bfloat16:
         # the tensor-core path reads each row in 8- or 16-byte pieces
-        # (K % 4, K <= 512, 16-byte aligned rows) and holds row indices
-        # in 32 bits
-        if k % 4 or k > 512 or a.data_ptr() % 16 or m >= 2 ** 31:
-            raise ValueError(f"bf16 token_linear needs K % 4 == 0, K <= 512, "
-                             f"16-byte aligned rows and M < 2^31 (K={k})")
+        # (K % 4, 16-byte aligned rows), holds row indices in 32 bits and
+        # normalizes whole rows only (LayerNorm at K <= 512)
+        if (k % 4 or k > LINEAR_MAX_K or a.data_ptr() % 16 or m >= 2 ** 31
+                or (ln is not None and k > LINEAR_ROW_K)):
+            raise ValueError(
+                f"bf16 token_linear needs K % 4 == 0, K <= {LINEAR_MAX_K} "
+                f"(K <= {LINEAR_ROW_K} with LayerNorm), 16-byte aligned "
+                f"rows and M < 2^31 (K={k})")
         plan = token_linear_plan(m, k, n, kernels.sm_count(a.device))
         want = (plan.slices, -(-k // 64) * 8, plan.ns // 8, 8, 8)
     else:
@@ -404,14 +445,15 @@ def _token_linear_cuda(a, w, b, ln, gelu, res, geom, a_map, r_map, o_map,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int] + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+                   ctypes.c_int] + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     lg, lb = ln if ln is not None else (None, None)
-    ns, stages, smem, grid = (plan.ns, plan.stages, plan.smem, plan.grid) \
-        if plan is not None else (0, 0, 0, 0)
+    ns, stages, cb, smem, grid = (plan.ns, plan.stages, plan.chunk,
+                                  plan.smem, plan.grid) \
+        if plan is not None else (0, 0, 0, 0, 0)
     err = fn(_ptr(a), _DT[a.dtype], _ptr(w), _DT[w.dtype], ns,
              _ptr(b), _ptr(res), _DT[res.dtype] if res is not None else 0,
              _ptr(out), _DT[out.dtype], _ptr(lg), _ptr(lb), m, k, n,
-             _GELU[gelu], *g, a_map, r_map, o_map, stages, smem, grid,
+             _GELU[gelu], *g, a_map, r_map, o_map, stages, cb, smem, grid,
              torch.cuda.current_stream(a.device).cuda_stream)
     kernels.check(err, "token_linear")
     token_linear.launches += 1

@@ -71,7 +71,8 @@ def test_conv3x3_form_holds_the_weights(cin, cout):
 
 
 @pytest.mark.parametrize("k,n", [*K1_WEIGHTS, (8, 24), (48, 144), (36, 24),
-                                 (512, 540), (4, 3), (1, 180)])
+                                 (512, 540), (4, 3), (1, 180), (1024, 256),
+                                 (1028, 180)])
 def test_kernel_matrix_holds_the_weights(k, n):
     rng = np.random.default_rng(k * 1000 + n)
     w = _rand(rng, k, n)
@@ -150,6 +151,45 @@ def test_token_linear_plan_fits_and_covers(m, k, n):
     assert (seen == 1).all()
     form = tsb.kernel_matrix(torch.zeros(k, n), torch.bfloat16)
     assert form.shape[0] == plan.slices and form.shape[2] * 8 == plan.ns
+
+
+# K past 512: RIDCP's fc2 (hidden 1024 -> C 256 at the 768x1280 request's
+# 192x320 canvas), and the card tests' K 640 / 1028 at N 256 / 180
+K1_WIDE = ((1024, 256), (640, 256), (1028, 256), (640, 180), (1028, 180))
+
+
+@pytest.mark.parametrize("k,n", K1_WIDE)
+@pytest.mark.parametrize("m", [192 * 320, 1000])
+def test_token_linear_wide_k_plan_fits_and_covers(m, k, n):
+    """Past K 512 an A stage holds a chunk of ``chunk`` 64-k blocks, not
+    whole rows: the ring and the K x NS weight fit in shared memory, the
+    chunks (at most 512 k each) cover K, at least four 64-k blocks of A are
+    in flight, and the slices and tiles cover the output once."""
+    plan = tsb.token_linear_plan(m, k, n, sms=132)
+    kb = -(-k // 64)
+    assert plan.smem <= tkern.SMEM_LIMIT and plan.stages >= 2
+    assert plan.stages % 2 == 0
+    assert 1 <= plan.chunk <= 8 and plan.chunk < kb
+    assert plan.smem == tsb.token_linear_smem(k, plan.ns, plan.stages,
+                                              plan.chunk)
+    assert plan.stages * plan.chunk >= 4
+    assert plan.ns in tkern.GEMM_WIDTHS and plan.threads == 512
+    assert (plan.slices - 1) * plan.ns < n <= plan.slices * plan.ns
+    assert plan.grid % plan.slices == 0 and plan.grid <= 132
+    form = tsb.kernel_matrix(torch.zeros(k, n), torch.bfloat16)
+    assert form.shape[0] == plan.slices and form.shape[2] * 8 == plan.ns
+
+
+def test_k_up_to_512_keeps_whole_rows():
+    """K <= 512 keeps its plan: one chunk, the whole (padded) row, and the
+    shared memory the whole-row formula gives; RIDCP's fc1 (256 -> 1024)
+    and qkv (256 -> 768) take it."""
+    for k, n in (*K1_WEIGHTS, (256, 1024), (256, 768), (256, 256),
+                 (512, 512)):
+        plan = tsb.token_linear_plan(61440, k, n, sms=132)
+        assert plan.chunk == -(-k // 64)
+        assert plan.smem == tsb.token_linear_smem(k, plan.ns, plan.stages)
+    assert tsb.token_linear_slices(1024, 256)[:2] == (4, 64)
 
 
 def test_served_slices_are_the_designed_ones():

@@ -248,6 +248,76 @@ def test_token_linear_bf16_within_rounding(cuda, name):
     assert d.max() <= dc.max() + ulp, name
 
 
+# K past 512 (RIDCP's fc2 at hidden 1024): the bf16 kernel stages a tile's
+# K in chunks into one float32 accumulator; 640 and 1028 leave a ragged
+# last chunk (1028: a ragged last 64-k block too)
+_WIDE_K_FORMS = {
+    "plain": dict(),
+    "res_gelu": dict(gelu="erf", res=True),
+    "maps": dict(gelu="tanh", res=True, maps=True)}
+
+
+@pytest.mark.parametrize("k", [640, 1024, 1028])
+@pytest.mark.parametrize("n", [256, 180])
+@pytest.mark.parametrize("form", sorted(_WIDE_K_FORMS))
+@pytest.mark.parametrize("a_dtype", [torch.bfloat16, torch.float32])
+def test_token_linear_wide_k_matches_matmul(cuda, k, n, form, a_dtype):
+    """bf16 K1 at K 640 / 1024 / 1028 against torch.matmul on the same
+    bf16 values with float32 accumulation, with and without residual and
+    GELU, ragged M (1000 rows) or the gather/scatter maps: float32 output,
+    so only the order of the sums differs (within 1e-4 of max|ref|). The
+    float32 K1 (no K limit) against the float32 matmul the same way."""
+    case = _WIDE_K_FORMS[form]
+    gen = torch.Generator().manual_seed(k + n)
+    geom = (2, 24, 40, 8, -4) if case.get("maps") else None
+    m = 2 * 24 * 40 if geom else 1000
+    maps = dict(a_map=tsb.GATHER, r_map=tsb.GATHER, o_map=tsb.SCATTER,
+                geom=geom) if geom else {}
+    a = _randn(gen, m, k).to(a_dtype).to(cuda)
+    w = _randn(gen, k, n, scale=k ** -0.5)
+    b = _randn(gen, n, scale=0.1).to(cuda)
+    res = _randn(gen, m, n).to(cuda) if case.get("res") else None
+    gelu = case.get("gelu")
+
+    def ref(a_, w_, r_):
+        rows = a_[tsb._row_map(m, maps["a_map"], geom, cuda)] if geom \
+            else a_
+        v = tsb._gelu(rows.float() @ w_.float() + b, gelu)
+        if r_ is not None:
+            v = v + (r_[tsb._row_map(m, maps["r_map"], geom, cuda)]
+                     if geom else r_).float()
+        out = torch.empty_like(v)
+        out[tsb._row_map(m, maps["o_map"], geom, cuda) if geom
+            else slice(None)] = v
+        return out
+
+    n0 = tsb.token_linear.launches
+    w16 = w.to(torch.bfloat16)
+    got = tsb.token_linear(a, tsb.kernel_matrix(w16, torch.bfloat16).to(cuda),
+                           b, gelu=gelu, res=res, out_dtype=torch.float32,
+                           **maps)
+    want = ref(a.to(torch.bfloat16), w16.to(cuda), res)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+    a32 = a.float()
+    got32 = tsb.token_linear(a32, tsb.kernel_matrix(w, torch.float32)
+                             .to(cuda), b, gelu=gelu, res=res, **maps)
+    want32 = ref(a32, w.to(cuda), res)
+    torch.testing.assert_close(got32, want32, rtol=0,
+                               atol=1e-4 * float(want32.abs().max()))
+    assert tsb.token_linear.launches == n0 + 2
+
+
+def test_token_linear_wide_k_refuses_layernorm(cuda):
+    """The bf16 K1 normalizes whole staged rows: a LayerNorm prologue past
+    K 512 is refused, never computed on a chunk."""
+    a = torch.zeros(64, 1024, dtype=torch.bfloat16, device=cuda)
+    w = tsb.kernel_matrix(torch.zeros(1024, 64), torch.bfloat16).to(cuda)
+    ln = (torch.ones(1024, device=cuda), torch.zeros(1024, device=cuda))
+    with pytest.raises(ValueError, match="LayerNorm"):
+        tsb.token_linear(a, w, torch.zeros(64, device=cuda), ln=ln)
+
+
 def _restormer_weights(gen, c, heads, ln_kind, bias, dev):
     hid = int(2.66 * c)
     ln = {"none": None, "biasfree": (1 + _randn(gen, c, scale=0.1),),

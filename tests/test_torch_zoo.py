@@ -41,21 +41,20 @@ def test_spec_equals_jax(name):
 
 
 def test_only_diffbir_and_ridcp_are_missing():
-    assert set(JREG) - set(TREG) == {"diffbir", "diffbir_tiny", "ridcp",
-                                     "ridcp_tiny"}
+    """Since RIDCP landed, only DiffBIR and its tiny form are missing."""
+    assert set(JREG) - set(TREG) == {"diffbir", "diffbir_tiny"}
 
 
 @pytest.mark.parametrize("subtask", [
     "denoising", "motion deblurring", "deraining", "defocus deblurring",
-    "jpeg compression artifact removal"])
+    "jpeg compression artifact removal", "dehazing"])
 def test_default_toolbox_resolves(subtask):
     """Every model of these boxes of the unmodified DEFAULT_TOOLBOXES is
-    registered; super-resolution and dehazing still wait on DiffBIR and
-    RIDCP."""
+    registered; super-resolution still waits on DiffBIR."""
     assert all(m in TREG for _, m in texec.DEFAULT_TOOLBOXES[subtask])
     missing = {m for box in ("super-resolution", "dehazing")
                for _, m in texec.DEFAULT_TOOLBOXES[box] if m not in TREG}
-    assert missing == {"diffbir", "ridcp"}
+    assert missing == {"diffbir"}
 
 
 # ---------------------------------------------------------------------------
