@@ -187,6 +187,33 @@ Phases, each printing one JSON line:
 35. cli_path: ``python -m image_restoration_agent_tpu_torch.cli restore
     <png> --model ridcp`` and ``... test-tools`` in subprocesses with no
     ``--device`` (the card): the restored image's shape, every tool ok.
+36. diffbir_kernels (with the kernel checks, also under ``--quick`` at
+    small shapes): K3 and ``swin_block`` against their plain versions at
+    every call form of the 256 px ``diffbir`` request, traced on the meta
+    device at the engine's 256 canvas with bf16 weights, each form in the
+    dtype the request runs it in (stage 1 and the condition encoder bf16;
+    the ControlNet, UNet and VAE decoder float32, which is what the JAX
+    package's promotions give under bf16 weights);
+37. diffbir_path (bench.py's diffbir_sr): ``diffbir`` (random weights,
+    torch's own init) serving 256x256 in bf16 through
+    ``Engine(device="cuda")``, whole image, 50 steps: a warm-up request
+    whose call forms diffbir_kernels checked, two timed (best, median, the
+    launches per request against the trace, peak device memory), a
+    ``torch.profiler`` split of one more (busy share, K3's f32 share);
+    every model of the super-resolution box registered;
+38. diffbir_exact: full geometry on a 64 px input's 128 canvas, 2 steps,
+    f32 on the card against the port's CPU path with the same injected
+    draws, PSNR >= 60 dB;
+39. diffbir_bf16_vs_f32: bf16 against f32 on the card on that probe, PSNR
+    >= the CPU path's bf16-vs-f32 control - 2 dB;
+40. sr_process: ``/process`` through ``make_server`` on the unmodified
+    default executor with a 192 px input: the plan includes
+    super-resolution, ``diffbir`` is called, no ``tool_errors``;
+41. agent_fast and agent_full (BASELINE #5 as bench.py:444-488 defines
+    it): IRAgent on ``build_default_executor(fast=True)`` with 192 px
+    inputs and on the unmodified default executor (random-init full-size
+    models, f32) with 512 px inputs, 2 warm-ups, p50 over 5, each run's
+    plan.
 Phases 20-22 are the lab path: each counts its kernel's launches over one
 call (6 ``swin_pair_block`` per chain, 1 ``conv3x3_pair`` per tail, 1
 ``lab_strip`` per call), with every count set to 0 just before.
@@ -1028,21 +1055,29 @@ def main_path(state, card: str, requests: int = 3) -> dict:
             "profile": profile, "card": card, "pass": bool(ok)}
 
 
-def profile_request(eng, img, model: str, top: int = 12) -> dict:
+def profile_request(eng, img, model: str, top: int = 12,
+                    results: list | None = None,
+                    cpu_ops: bool = True) -> dict:
     """One more request under torch.profiler: device time by kernel, the
     library ops that launched the most of it, and the device's busy share
     of the request's wall time. Only the device's own rows (kernels,
-    copies) are summed: an op's self device time repeats its kernels'."""
+    copies) are summed: an op's self device time repeats its kernels'.
+    ``results``, where given, gets the request's result. ``cpu_ops=False``
+    records the device's activity alone (no op rows): a request of 180 000
+    launches then takes about half the profiler's processing."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu_ops
+                                      else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        eng.restore_array(img, model)
+        res = eng.restore_array(img, model)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    if results is not None:
+        results.append(res)
 
     def self_dev_us(e):
         return (getattr(e, "self_device_time_total", None)
@@ -1969,13 +2004,15 @@ TRACE = (Path(__file__).resolve().parent / "tests" / "data"
 
 
 @contextlib.contextmanager
-def kernel_calls(model):
+def kernel_calls(model, dtypes: dict | None = None):
     """Record the kernel calls ``model``'s forward makes inside the block:
     ``(forms, counts)``, ``forms`` mapping each call form (the input's
     shape and what else decides the kernel's work) to the first module
     that made it, ``counts`` the calls of each kernel wrapper the modules
-    call. K3 from every ``Conv``; K4 and K5 from a Restormer or X-Restormer
-    block where it takes the fused route (X-Restormer's runs K4 twice);
+    call; ``dtypes``, where given, maps each form to {module: input
+    dtype} over the modules that made it. K3 from every ``Conv``; K4 and
+    K5 from a Restormer or X-Restormer block where it takes the fused
+    route (X-Restormer's runs K4 twice);
     from a Swin block on the partition route one ``wmsa_block`` and one
     ``mlp_block``; on the strip route one ``swin_block`` (four K1, one K2
     and ``mlp_block`` inside), its form keyed by the folded roll ``dc`` its
@@ -1992,14 +2029,18 @@ def kernel_calls(model):
               "wmsa_block": 0, "mlp_block": 0, "swin_block": 0,
               "token_linear": 0, "window_attention": 0}
 
+    def seen(key, name, x):
+        forms.setdefault(key, name)
+        if dtypes is not None:
+            dtypes.setdefault(key, {})[name] = x.dtype
+
     def conv(name, mod, args, kw):
         arg = lambda i, k, d: args[i] if len(args) > i else kw.get(k, d)
         cout, cin = mod.weight.shape[:2]
-        forms.setdefault(("conv3x3", tuple(args[0].shape), cin, cout,
-                          mod.bias is not None,
-                          arg(1, "res", None) is not None, mod.act,
-                          arg(2, "roll", 0),
-                          arg(3, "ln_pre", None) is not None), name)
+        seen(("conv3x3", tuple(args[0].shape), cin, cout,
+              mod.bias is not None, arg(1, "res", None) is not None, mod.act,
+              arg(2, "roll", 0), arg(3, "ln_pre", None) is not None), name,
+             args[0])
         counts["conv3x3"] += 1
 
     def block(name, mod, args, kw):
@@ -2020,14 +2061,14 @@ def kernel_calls(model):
         hid = mod.mlp.fc1.out_features
         if mod.strip(x):
             in_frame = args[1] if len(args) > 1 else kw.get("in_frame", 0)
-            forms.setdefault(("swin_strip", tuple(x.shape), mod.num_heads,
-                              ws, -shift - in_frame, shift > 0, hid), name)
+            seen(("swin_strip", tuple(x.shape), mod.num_heads, ws,
+                  -shift - in_frame, shift > 0, hid), name, x)
             for k, v in (("swin_block", 1), ("token_linear", 4),
                          ("window_attention", 1), ("mlp_block", 1)):
                 counts[k] += v
             return
-        forms.setdefault(("swin_partition", tuple(x.shape), mod.num_heads,
-                          ws, shift, hid), name)
+        seen(("swin_partition", tuple(x.shape), mod.num_heads, ws, shift,
+              hid), name, x)
         counts["wmsa_block"] += 1
         counts["mlp_block"] += 1
 
@@ -2044,21 +2085,25 @@ def kernel_calls(model):
             h.remove()
 
 
-def traced_calls(name: str, inputs) -> tuple:
-    """``kernel_calls`` of model ``name`` (its registered configuration)
-    over its forwards on ``inputs``, a list of (b, h, w) input shapes, run
-    on the meta device: shapes only. The counts are summed over the
-    forwards."""
+def traced_calls(name: str, inputs, dtype=None, dtypes: dict | None = None,
+                 **overrides) -> tuple:
+    """``kernel_calls`` of model ``name`` (its registered configuration,
+    with ``overrides``) over its forwards on ``inputs``, a list of (b, h,
+    w) input shapes, run on the meta device (the weights and input in
+    ``dtype``, float32 by default): shapes only. The counts are summed over
+    the forwards; ``dtypes`` gathers each form's modules and their input
+    dtypes (``kernel_calls``)."""
     import torch
 
     from image_restoration_agent_tpu_torch.models import get_spec
 
     spec = get_spec(name)
+    dtype = dtype or torch.float32
     with torch.device("meta"):
-        model = spec.build(**spec.config).eval()
-    with kernel_calls(model) as (forms, counts), torch.no_grad():
+        model = spec.build(**{**spec.config, **overrides}).eval().to(dtype)
+    with kernel_calls(model, dtypes) as (forms, counts), torch.no_grad():
         for b, h, w in inputs:
-            model(torch.empty(b, h, w, 3, device="meta"))
+            model(torch.empty(b, h, w, 3, device="meta", dtype=dtype))
     return forms, counts
 
 
@@ -2700,10 +2745,11 @@ def torch_default_init(m, seed: int) -> None:
     U(+-1/sqrt(fan_in)) (``Conv2d`` / ``Linear.reset_parameters``; fan_in
     from dim 1 as torch counts it), norm scales 1 and shifts 0, PReLU
     slopes 0.25, attention temperatures 1, X-Restormer's rel-pos tables
-    N(0, dim_head**-0.5), Swin bias tables N(0, 0.02). The registry's
-    fan-in normal weights make MPRNet's and MAXIM's random outputs grow to
-    1e3-1e5 through their stages, too ill-conditioned to compare f32
-    rounding orders; with these they stay near the image's range."""
+    N(0, dim_head**-0.5), Swin bias tables and DiffBIR's empty_context N(0,
+    0.02). The registry's fan-in normal weights make MPRNet's and MAXIM's
+    random outputs grow to 1e3-1e5 through their stages, too
+    ill-conditioned to compare f32 rounding orders; with these they stay
+    near the image's range."""
     import torch
 
     gen = torch.Generator().manual_seed(seed)
@@ -2729,6 +2775,8 @@ def torch_default_init(m, seed: int) -> None:
                 elif name in ("rel_height", "rel_width"):
                     fill(p, "n", p.shape[1] ** -0.5)
                 elif name == "relative_position_bias_table":
+                    fill(p, "n", 0.02)
+                elif name == "empty_context":
                     fill(p, "n", 0.02)
                 else:
                     raise ValueError(f"no initialisation for {name}")
@@ -3371,6 +3419,432 @@ def slice12_phases(phase, card: str) -> dict:
     return served
 
 
+# ---------------------------------------------------------------------------
+# slice 13: DiffBIR (the super-resolution box), BASELINE #5
+
+# bench.py's diffbir_sr preset: a 256 px request, whole image on the
+# engine's 256 canvas; stage 1 at 1024 px (its Swin blocks on the 128x128
+# pixel-unshuffled canvas), the 128x128 latent, 50 sampler steps. The f32
+# and bf16 probes: a 64 px input (the engine's 128 canvas), 2 steps.
+DIFFBIR_REQUEST = (256, 256)
+DIFFBIR_PROBE = (64, 64)
+DIFFBIR_PROBE_STEPS = 2
+# /process on a small image: the graph app puts super-resolution first
+SR_PROCESS_SIZE = 192
+# BASELINE #5 (bench.py:444-488): warm-up runs, timed runs (p50)
+AGENT_WARMUP, AGENT_RUNS = 2, 5
+# the top-level modules of DiffBIRPipeline, each a stage of the request
+DIFFBIR_STAGES = ("preprocess_model", "cond_encoder", "control_model",
+                  "model.diffusion_model", "first_stage_model")
+
+
+@functools.lru_cache(maxsize=1)
+def diffbir_state(seed: int = 0) -> dict:
+    """``diffbir``'s random weights from ``seed`` with torch's own init
+    (``torch_default_init``, as ``zoo_state``; built on the meta device,
+    so 1.36 B parameters get one random draw, not the registry's first):
+    the zero convs and the UNet's out conv get U(+-1/sqrt(fan_in)) like
+    every conv, so a wrong tap order shows; ``empty_context`` N(0, 0.02).
+    """
+    import torch
+
+    from image_restoration_agent_tpu_torch.models import get_spec
+
+    spec = get_spec("diffbir")
+    with torch.device("meta"):
+        m = spec.build(**spec.config)
+    m = m.to_empty(device="cpu")
+    torch_default_init(m, seed)
+    return {k: v.numpy() for k, v in m.state_dict().items()}
+
+
+def diffbir_engine():
+    """The bf16 ``Engine(device="cuda")`` that diffbir_path and sr_process
+    share, ``diffbir`` set to ``diffbir_state``."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.engine import Engine
+
+    eng = Engine(device="cuda", param_dtype=torch.bfloat16)
+    eng.set_weights("diffbir", diffbir_state())
+    return eng
+
+
+@functools.lru_cache(maxsize=None)
+def diffbir_kernel_shapes() -> dict:
+    """``diffbir``: (call forms, launches per request, each form's
+    {module: input dtype}) of the 256 px request in bf16, traced on the
+    meta device at the
+    engine's canvas with bf16 weights and input, so each stage runs in the
+    dtype the served request gives it (stage 1 and the condition encoder
+    bf16, the ControlNet, UNet and decoder float32). Traced at 1 and 2
+    sampler steps; every step makes the same calls, so the 50-step
+    launches are the 1-step ones plus 49 times the difference."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.models import get_spec
+
+    canvas = served_canvas("diffbir", *DIFFBIR_REQUEST)
+    dtypes: dict = {}
+    f1, c1 = traced_calls("diffbir", canvas, dtype=torch.bfloat16,
+                          dtypes=dtypes, num_steps=1)
+    f2, c2 = traced_calls("diffbir", canvas, dtype=torch.bfloat16,
+                          num_steps=2)
+    if set(f1) != set(f2):
+        raise RuntimeError("a sampler step made other call forms")
+    steps = get_spec("diffbir").build().num_steps
+    per_req = {k: c1[k] + (steps - 1) * (c2[k] - c1[k]) for k in c1}
+    return {"diffbir": (f1, per_req, dtypes)}
+
+
+def diffbir_stage_dtypes() -> dict:
+    """stage -> the dtypes its kernel calls run in (from the trace)."""
+    _, _, dtypes = diffbir_kernel_shapes()["diffbir"]
+    out: dict = {}
+    for mods in dtypes.values():
+        for name, dt in mods.items():
+            stage = next(s for s in DIFFBIR_STAGES if name.startswith(s))
+            out.setdefault(stage, set()).add(str(dt).split(".")[-1])
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def diffbir_kernel_checks(quick: bool, seed: int = 37) -> list[dict]:
+    """K3 and ``swin_block`` (K1, K2, K1 and ``mlp_block``'s two K1)
+    against their plain versions at every call form of the 256 px DiffBIR
+    request (``diffbir_kernel_shapes``; small shapes with --quick), each in
+    the dtype the bf16 request runs it in. Inputs drawn on the card."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*s, scale=1.0):
+        return torch.randn(*s, generator=gen, device=dev) * scale
+
+    forms, _, dtypes = diffbir_kernel_shapes()["diffbir"]
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        sub = {k: v for k, v in forms.items()
+               if dtype in dtypes[k].values()}
+        cases = form_cases("diffbir", sub, dtype, randn, gen, quick, reps=3)
+        rows += [check_case(cs, dtype) for cs in cases]
+        del cases
+    return rows
+
+
+def _diffbir_model(state: dict, device: str, dtype, **overrides):
+    """``diffbir`` with ``state`` on ``device`` in ``dtype``, built on the
+    meta device and given the weights (no random init first)."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.models import get_spec
+
+    spec = get_spec("diffbir")
+    with torch.device("meta"):
+        m = spec.build(**{**spec.config, **overrides})
+    m.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()},
+                      strict=True, assign=True)
+    return m.to(device=device, dtype=dtype).eval()
+
+
+@functools.lru_cache(maxsize=1)
+def diffbir_probes() -> dict:
+    """``diffbir`` on the probe's canvas (a 64 px input's: 128x128), 2
+    steps, the same injected draws everywhere: f32 and bf16 on the card and
+    on the CPU (the plain path); {"card32", "card16", "cpu32", "cpu16"}
+    as numpy, and the seconds of each."""
+    import torch
+
+    state = diffbir_state()
+    (_, h, w), = served_canvas("diffbir", *DIFFBIR_PROBE)
+    rng = np.random.default_rng(22)
+    x = torch.from_numpy(rng.random((1, h, w, 3), dtype=np.float32))
+    lat = (1, 4 * h // 8, 4 * w // 8, 4)
+    noise = [torch.from_numpy(rng.standard_normal(lat).astype(np.float32))
+             for _ in range(DIFFBIR_PROBE_STEPS + 1)]
+    out, secs = {}, {}
+    torch.set_num_threads(8)
+    for dev, tag in (("cuda", "card"), ("cpu", "cpu")):
+        for dtype, bits in ((torch.float32, "32"), (torch.bfloat16, "16")):
+            m = _diffbir_model(state, dev, dtype,
+                               num_steps=DIFFBIR_PROBE_STEPS)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                y = m(x.to(dev, dtype), noise=[n.to(dev) for n in noise])
+            out[tag + bits] = y[0].float().cpu().numpy()
+            secs[tag + bits] = time.perf_counter() - t0
+            del m, y
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+    out["seconds"] = secs
+    out["canvas"] = [h, w]
+    return out
+
+
+def diffbir_exact() -> dict:
+    """f32 on the card against the port's CPU path, full geometry, the
+    probe's 128 canvas, 2 steps, the same draws: PSNR >= 60 dB."""
+    pr = diffbir_probes()
+    db = range_psnr(pr["card32"], pr["cpu32"])
+    return {"phase": "diffbir_exact", "canvas": pr["canvas"],
+            "steps": DIFFBIR_PROBE_STEPS, "f32_card_vs_cpu_db": db,
+            "floor_db": 60.0, "output_shape": list(pr["cpu32"].shape),
+            "output_max_abs": float(np.abs(pr["cpu32"]).max()),
+            "seconds": pr["seconds"], "pass": bool(db >= 60.0)}
+
+
+def diffbir_bf16_vs_f32() -> dict:
+    """bf16 against f32 on the card on the probe, PSNR >= the plain
+    control (the CPU path's bf16 against its f32) - 2 dB."""
+    pr = diffbir_probes()
+    db = range_psnr(pr["card16"], pr["card32"])
+    ctrl = range_psnr(pr["cpu16"], pr["cpu32"])
+    return {"phase": "diffbir_bf16_vs_f32", "canvas": pr["canvas"],
+            "bf16_vs_f32_db": db, "control_db": ctrl,
+            "floor_db": ctrl - 2.0,
+            "finite": bool(np.isfinite(pr["card16"]).all()),
+            "pass": bool(db >= ctrl - 2.0 and np.isfinite(pr["card16"]).all())}
+
+
+def _share(profile: dict, pattern: str) -> float:
+    """The device ms of the profile's kernels whose name matches."""
+    return sum(r["device_ms"] for r in profile["top"]
+               if re.search(pattern, r["name"]))
+
+
+def diffbir_path(eng, card: str) -> dict:
+    """bench.py's diffbir_sr: ``eng`` (``diffbir_engine``: bf16, random
+    weights) serving a 256x256 request with ``diffbir``, whole image, 50
+    steps: one warm-up request with every kernel call form recorded (all
+    checked by diffbir_kernels), then two timed ones (best, median), the
+    second under ``torch.profiler`` with the device's activity alone
+    (busy share, top kernels, K3's f32 and bf16 shares; the profiler adds
+    about 0.2% to its wall time; with the ops' rows too its processing
+    took two minutes),
+    with the launch counts over both against the traced count per request
+    and the peak device memory. Every model of the super-resolution box is
+    registered."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.agent.executor import (
+        DEFAULT_TOOLBOXES)
+    from image_restoration_agent_tpu_torch.models import MODEL_REGISTRY
+
+    h, w = DIFFBIR_REQUEST
+    requests = 2
+    img = np.random.default_rng(21).random((h, w, 3), dtype=np.float32)
+    t0 = time.perf_counter()
+    model = eng.store.get("diffbir")
+    load_s = time.perf_counter() - t0
+    weights_bytes = torch.cuda.memory_allocated()
+    with kernel_calls(model) as (seen, _):
+        t0 = time.perf_counter()
+        warm = eng.restore_array(img, "diffbir")
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    shapes = diffbir_kernel_shapes()
+    unchecked = unchecked_forms("diffbir", seen, shapes)
+    per_req = {k: v for k, v in shapes["diffbir"][1].items() if v}
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = [eng.restore_array(img, "diffbir")]
+    torch.cuda.synchronize()
+    secs = [time.perf_counter() - t0]
+    t0 = time.perf_counter()
+    profile = profile_request(eng, img, "diffbir", top=40, results=results,
+                              cpu_ops=False)
+    profile_s = time.perf_counter() - t0
+    secs.append(profile["wall_ms"] / 1e3)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del model
+    launches = {k: counts[k] for k in per_req}
+    others = {k: v for k, v in counts.items() if k not in per_req and v}
+    same = all(np.array_equal(r.image, warm.image) for r in results)
+    ok = all(r.image.shape == (4 * h, 4 * w, 3) and r.nonfinite == 0
+             for r in results + [warm])
+    ok = ok and launches == {k: v * requests for k, v in per_req.items()} \
+        and all(per_req.get(k, 0) > 0 for k in (
+            "conv3x3", "swin_block", "token_linear", "window_attention")) \
+        and not others and not unchecked and same
+    sr_box = [m for _, m in DEFAULT_TOOLBOXES["super-resolution"]]
+    missing = [m for m in sr_box if m not in MODEL_REGISTRY]
+    busy = profile["device_busy_ms"]
+    best = min(secs)
+    return {"phase": "diffbir_path", "model": "diffbir", "dtype": "bfloat16",
+            "input": [h, w, 3], "forwards": [list(f) for f in served_canvas(
+                "diffbir", h, w)], "steps": 50,
+            "stage_dtypes": diffbir_stage_dtypes(),
+            "weights_load_seconds": load_s, "weights_bytes": weights_bytes,
+            "warmup_seconds": warm_s, "profile_seconds": profile_s,
+            "seconds_best": best,
+            "seconds_median": float(np.median(secs)), "seconds": secs,
+            "mp_per_s": h * w / 1e6 / best,
+            "peak_memory_bytes": peak, "deterministic": same,
+            "launches": launches, "expected_per_request": per_req,
+            "other_launches": others, "call_forms": len(seen),
+            "unchecked_forms": unchecked, "profile": profile,
+            "k3_f32_share_of_busy": _share(profile, r"conv3x3_kernel") / busy,
+            "k3_bf16_share_of_busy": _share(profile, r"conv3x3_mma") / busy,
+            "super_resolution_box": sr_box, "unregistered": missing,
+            "card": card, "pass": bool(ok and not missing)}
+
+
+def sr_process(eng, card: str) -> dict:
+    """``/process`` through ``make_server`` on the unmodified default
+    executor with a 192 px bench-style input (``random * 0.6``, seed 0):
+    the size rule puts super-resolution in the plan, whose box tries
+    ``diffbir`` first. ``eng`` is diffbir_path's bf16 engine; the other
+    models of the super-resolution and denoising boxes random from their
+    seeds (``zoo_state``; the denoisers' global residual scaled by 1e-3),
+    loaded by the request. The request answers 200, its graph state has no
+    ``tool_errors``, super-resolution is executed and ``diffbir`` was
+    called; the downloaded bytes are the result's."""
+    import tempfile
+    import threading
+
+    from image_restoration_agent_tpu_torch.agent import (
+        build_default_executor, create_image_analysis_graph)
+    from image_restoration_agent_tpu_torch.agent.executor import (
+        DEFAULT_TOOLBOXES)
+    from image_restoration_agent_tpu_torch.api import (AgentAPIServer,
+                                                       make_server)
+    from image_restoration_agent_tpu_torch.core.io import save_image
+
+    for box in ("super-resolution", "denoising"):
+        for _, model in DEFAULT_TOOLBOXES[box]:
+            if model != "diffbir" and model not in eng._states:
+                eng.set_weights(model, zoo_state(
+                    model, residual=1e-3 if model in LAST_CONV else 1.0))
+    ex = build_default_executor(engine=eng)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
+        root = Path(td)
+        graph = _RecordingGraph(create_image_analysis_graph(
+            executor=ex, device="cuda"))
+        app = AgentAPIServer(root / "work", graph=graph,
+                             engine_status=eng.status)
+        srv = make_server(host="127.0.0.1", port=0, app=app)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        rng = np.random.default_rng(0)
+        img = rng.random((SR_PROCESS_SIZE, SR_PROCESS_SIZE, 3),
+                         dtype=np.float32) * 0.6
+        inp = app.work_root / "uploads" / "small.png"
+        save_image(img, inp)
+        reset_launch_counts()
+        try:
+            t0 = time.perf_counter()
+            code, raw = _http(f"{base}/process", json.dumps(
+                {"image_path": str(inp)}).encode(), "application/json")
+            secs = time.perf_counter() - t0
+            out = json.loads(raw)
+            dl_code, png = _http(f"{base}/download/{out.get('task_id')}")
+            final = app.work_root / "final_output" / \
+                f"{out.get('task_id')}.png"
+            download_ok = final.exists() and png == final.read_bytes()
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        counts = launch_counts()
+    state = graph.states[-1] if graph.states else {}
+    errors = list(state.get("tool_errors", []))
+    invocations = {f"{sub}/{t.tool_name}": t.invocations
+                   for sub, tools in ex.toolbox_router.items()
+                   for t in tools if t.invocations}
+    plan = out.get("initial_plan") or []
+    ok = (code == 200 and dl_code == 200 and download_ok and not errors
+          and "super-resolution" in state.get("executed", [])
+          and invocations.get("super-resolution/diffbir", 0) > 0
+          and counts["conv3x3"] > 0 and counts["swin_block"] > 0)
+    return {"phase": "sr_process", "dtype": "bfloat16",
+            "input": [SR_PROCESS_SIZE, SR_PROCESS_SIZE, 3],
+            "status": code, "download_status": dl_code,
+            "download_equal": download_ok, "plan": plan,
+            "executed": state.get("executed"),
+            "subtask_success": out.get("subtask_success"),
+            "tool_errors": errors, "invocations": invocations,
+            "tool_calls": sum(invocations.values()), "seconds": secs,
+            "launches": {k: v for k, v in counts.items() if v},
+            "random_init_models": sorted(eng.random_init_models),
+            "card": card, "pass": bool(ok)}
+
+
+def agent_baseline(card: str, fast: bool) -> dict:
+    """BASELINE #5 as bench.py's bench_agent_p50 defines it: IRAgent
+    (defaults: rollback, reflection, MockLLM, the v4 classifier) on
+    ``build_default_executor(fast=fast)`` exactly as shipped (its own
+    ``Engine(device="cuda")``, float32, random init); a new seeded image
+    each run (``default_rng(0).random((size, size, 3)) * 0.6``; 192 px
+    fast, 512 px full), 2 warm-up runs then 5 timed (p50, min, max), the
+    plan and tool calls of each run and the launches over the timed
+    ones."""
+    import tempfile
+
+    import torch
+
+    from image_restoration_agent_tpu_torch.agent import (
+        IRAgent, build_default_executor)
+    from image_restoration_agent_tpu_torch.core.io import save_image
+
+    size = 192 if fast else 512
+    rng = np.random.default_rng(0)
+    ex = build_default_executor(fast=fast)
+    secs, plans, calls = [], [], []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
+        for i in range(AGENT_WARMUP + AGENT_RUNS):
+            img = rng.random((size, size, 3), dtype=np.float32) * 0.6
+            inp = Path(td) / f"in_{i}.png"
+            save_image(img, inp)
+            if i == AGENT_WARMUP:
+                reset_launch_counts()
+            t0 = time.perf_counter()
+            agent = IRAgent(inp, Path(td) / f"work_{i}", executor=ex,
+                            silent=True)
+            result = agent.run()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            summary = json.loads(agent.summary_path.read_text())
+            plans.append(summary["plan"]["initial"])
+            calls.append(summary["n_invocations"])
+            if result is None or not result.exists():
+                raise RuntimeError(f"agent run {i} wrote no result")
+            if i >= AGENT_WARMUP:
+                secs.append(dt)
+        counts = launch_counts()
+    p50 = sorted(secs)[len(secs) // 2]
+    return {"phase": "agent_fast" if fast else "agent_full",
+            "dtype": "float32", "input": [size, size, 3],
+            "toolboxes": "build_default_executor(fast=True)" if fast
+            else "DEFAULT_TOOLBOXES", "warmup_runs": AGENT_WARMUP,
+            "p50_s": p50, "min_s": min(secs), "max_s": max(secs),
+            "seconds": secs, "plans": plans, "tool_calls": calls,
+            "launches": {k: v for k, v in counts.items() if v},
+            "card": card, "pass": bool(all(calls) and counts["conv3x3"] > 0)}
+
+
+def slice13_phases(phase, card: str) -> dict:
+    """Slice 13's phases in order; returns the DiffBIR path's result for
+    its launch counts."""
+    import torch
+
+    eng = diffbir_engine()
+    served = {"diffbir": phase("diffbir_path", diffbir_path, eng, card)}
+    phase("sr_process", sr_process, eng, card)
+    del eng
+    torch.cuda.empty_cache()
+    phase("diffbir_exact", diffbir_exact)
+    phase("diffbir_bf16_vs_f32", diffbir_bf16_vs_f32)
+    diffbir_probes.cache_clear()
+    diffbir_state.cache_clear()
+    torch.cuda.empty_cache()
+    phase("agent_fast", agent_baseline, card, True)
+    torch.cuda.empty_cache()
+    phase("agent_full", agent_baseline, card, False)
+    torch.cuda.empty_cache()
+    return served
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -3430,6 +3904,7 @@ def main() -> int:
     rows += phase("agent_kernels", agent_kernel_checks, args.quick) or []
     rows += phase("zoo_kernels", zoo_kernel_checks, args.quick) or []
     rows += phase("ridcp_kernels", ridcp_kernel_checks, args.quick) or []
+    rows += phase("diffbir_kernels", diffbir_kernel_checks, args.quick) or []
     failures += [f"kernel {r['name']} {r['variant']} {r['dtype']}"
                  for r in rows if not r["pass"]]
     # each path's launch counts, read just after the path ran (with
@@ -3438,6 +3913,7 @@ def main() -> int:
     launches = {p: counts for p in ("swinir", "restormer", "hat", "denoise",
                                     "dehaze", "nafnet", "fbcnn", "agent",
                                     "default_agent", "ridcp", "serve",
+                                    "diffbir",
                                     *(n for n, _, _ in ZOO_REQUESTS))}
     # the lab path: one pair chain, one head tail, one lab_strip call, each
     # counted alone
@@ -3480,6 +3956,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         launches.update({p: r["launches"] if r else {}
                          for p, r in slice12_phases(phase, card).items()})
+        torch.cuda.empty_cache()
+        launches.update({p: r["launches"] if r else {}
+                         for p, r in slice13_phases(phase, card).items()})
         launches.update({
             "swinir": served["launches"] if served else {},
             "restormer": served_r["launches"] if served_r else {},

@@ -9,8 +9,8 @@ invocation), tools dispatch to the port's in-process Engine, whose weight
 store keeps hot models resident in device memory.
 
 Toolbox composition mirrors the reference's per-subtask rosters
-(SURVEY.md §2.2) as the JAX package lists them: a tool whose model the
-port does not register yet raises ``KeyError`` at its first call.
+(SURVEY.md §2.2) as the JAX package lists them; a tool whose model is not
+registered raises ``KeyError`` at its first call.
 Classical brightening tools (CLAHE / gamma / constant shift on the HSV V
 channel, executor/brightening/__init__.py:36-66) are implemented directly
 with OpenCV, imported when a brightening tool runs.
@@ -154,8 +154,7 @@ class Executor:
 
 #: subtask -> [(tool_name, engine model name)]: the full reference rosters
 #: (SURVEY.md §2.2 per-subtask toolboxes). The port serves every model of
-#: them but one: the super-resolution box's ``diffbir`` raises ``KeyError``
-#: at its first call.
+#: them.
 DEFAULT_TOOLBOXES: dict[str, list[tuple[str, str]]] = {
     "super-resolution": [
         ("diffbir", "diffbir"),

@@ -102,7 +102,40 @@ the inverse of ``image_restoration_agent_tpu/convert/torch_import.py``:
   names kept with ``/Conv_0`` dropped, ``kernel`` -> ``weight`` (Dense
   (I, O) -> (O, I), Conv (kh, kw, I, O) -> (O, I, kh, kw), the
   ``y_up`` / ``dec{i}_up`` ConvTranspose with its flip), LayerNorm
-  ``scale`` -> ``weight``.
+  ``scale`` -> ``weight``;
+- DiffBIR (detected by ``control_model``; the reference checkpoint's
+  names, ``convert/torch_import.py:diffbir_rules`` there): ``/Conv_0``
+  dropped, kernels by rank (Dense (I, O) -> (O, I), Conv as above), norm
+  ``scale`` -> ``weight``; ``diffusion_model`` -> ``model.diffusion_model``
+  and ``control_model``: ``time_fc{1,2}`` -> ``time_embed.{0,2}``,
+  ``in_conv`` -> ``input_blocks.0.0``, ``down{l}_res{b}`` / ``_attn{b}``
+  -> ``input_blocks.{1 + l(nrb+1) + b}.{0,1}``, ``down{l}_downsample`` ->
+  ``input_blocks.{1 + l(nrb+1) + nrb}.0.op``, ``mid_res1`` / ``mid_attn``
+  / ``mid_res2`` -> ``middle_block.{0,1,2}``, ``up{l}_res{b}`` /
+  ``_attn{b}`` -> ``output_blocks.{(L-1-l)(nrb+1) + b}.{0,1}``,
+  ``up{l}_upsample`` -> that level's last entry's ``.{1 or 2}.conv``,
+  ``out_norm`` / ``out_conv`` -> ``out.{0,2}``, ``zero{i}/conv`` /
+  ``zero_mid/conv`` -> ``zero_convs.{i}.0`` / ``middle_block_out.0``; in a
+  ResBlock ``in_norm`` / ``in_conv`` / ``emb_proj`` / ``out_norm`` /
+  ``out_conv`` / ``skip`` -> ``in_layers.0`` / ``.2`` / ``emb_layers.1``
+  / ``out_layers.0`` / ``.3`` / ``skip_connection``, in a transformer
+  ``block0`` -> ``transformer_blocks.0``, ``to_out`` -> ``to_out.0``,
+  ``ff_in`` / ``ff_out`` -> ``ff.net.0.proj`` / ``ff.net.2``; the VAE's
+  ``down{i}_block{j}`` / ``up{i}_block{j}`` -> ``down.{i}.block.{j}`` /
+  ``up.{i}.block.{j}``, ``down{i}_downsample`` / ``up{i}_upsample`` ->
+  ``.downsample.conv`` / ``.upsample.conv``, ``mid_block1`` / ``mid_attn``
+  / ``mid_block2`` -> ``mid.block_1`` / ``mid.attn_1`` / ``mid.block_2``;
+  ``preprocess_model`` as SwinIR's, its unshuffled ``conv_first`` ->
+  ``conv_first.1``; ``empty_context`` unchanged. The JAX pipeline never
+  runs the VAE's encoder, so its tree has no
+  ``first_stage_model.encoder`` or ``quant_conv``, which a reference
+  checkpoint holds.
+
+A reference DiffBIR checkpoint (``general_full_v1.ckpt``) loads into the
+port through :func:`diffbir_checkpoint_state`: it drops what the JAX
+converter drops (``cond_stage_model.*``, the LDM schedule buffers, the EMA
+shadows, SwinIR's index and mask buffers) and fills ``empty_context`` from
+the checkpoint's own ``cond_stage_model`` (:func:`extract_empty_context`).
 """
 
 from __future__ import annotations
@@ -634,7 +667,8 @@ def _ridcp_namer(depth: int):
     return name
 
 
-def _maxim_kernel(w):
+def _rank_kernel(w):
+    """A Flax kernel by rank: Conv (kh, kw, I, O) or Dense (I, O)."""
     return _conv(w) if w.ndim == 4 else _linear(w)
 
 
@@ -645,7 +679,108 @@ def _maxim_name(path: str) -> tuple[str, object]:
         return f"{name}.weight", _same
     transposed = re.fullmatch(r"y_up|stage\d+_dec\d+_up", mods[-1])
     return _conv_leaf(f"{name}.{leaf}",
-                      _conv_t if transposed else _maxim_kernel)
+                      _conv_t if transposed else _rank_kernel)
+
+
+_SD_PARTS = {"in_norm": "in_layers.0", "in_conv": "in_layers.2",
+             "emb_proj": "emb_layers.1", "out_norm": "out_layers.0",
+             "out_conv": "out_layers.3", "skip": "skip_connection",
+             "block0": "transformer_blocks.0", "to_out": "to_out.0",
+             "ff_in": "ff.net.0.proj", "ff_out": "ff.net.2"}
+_VAE_MID = {"mid_block1": "mid.block_1", "mid_attn": "mid.attn_1",
+            "mid_block2": "mid.block_2"}
+
+
+def _unshuffled_first(sd: dict, prefix: str = "") -> None:
+    """SwinIR with a pixel-unshuffled input: its ``conv_first`` takes more
+    channels than ``conv_last`` gives back, and the reference names it
+    ``conv_first.1`` (a ``Sequential(PixelUnshuffle, Conv2d)``)."""
+    w, last = sd.get(prefix + "conv_first.weight"), \
+        sd.get(prefix + "conv_last.weight")
+    if w is not None and last is not None and w.shape[1] != last.shape[0]:
+        for leaf in ("weight", "bias"):
+            sd[f"{prefix}conv_first.1.{leaf}"] = sd.pop(
+                f"{prefix}conv_first.{leaf}")
+
+
+def _diffbir_namer(params):
+    unet = params["diffusion_model"]
+    nrb = sum(bool(re.fullmatch(r"down0_res\d+", k)) for k in unet)
+    levels = sum(bool(re.fullmatch(r"down\d+_res0", k)) for k in unet)
+    attn = {int(k[4:-6]) for k in unet if re.fullmatch(r"down\d+_attn0", k)}
+
+    def unet_top(mod: str) -> str:
+        if mod in ("time_fc1", "time_fc2"):
+            return f"time_embed.{2 * (int(mod[-1]) - 1)}"
+        if mod == "in_conv":
+            return "input_blocks.0.0"
+        if mod in ("mid_res1", "mid_attn", "mid_res2"):
+            return "middle_block." + {"mid_res1": "0", "mid_attn": "1",
+                                      "mid_res2": "2"}[mod]
+        if mod in ("out_norm", "out_conv"):
+            return "out.0" if mod == "out_norm" else "out.2"
+        if mod == "zero_mid":
+            return "middle_block_out.0"
+        m = re.fullmatch(r"zero(\d+)", mod)
+        if m:
+            return f"zero_convs.{m.group(1)}.0"
+        m = re.fullmatch(r"(down|up)(\d+)_(res|attn|downsample|upsample)"
+                         r"(\d*)", mod)
+        if not m:
+            raise KeyError(mod)
+        side, lvl, kind, b = m.group(1), int(m.group(2)), m.group(3), \
+            m.group(4)
+        if side == "down":
+            idx = 1 + lvl * (nrb + 1) + (nrb if kind == "downsample"
+                                         else int(b))
+            return f"input_blocks.{idx}." + {"res": "0", "attn": "1",
+                                             "downsample": "0.op"}[kind]
+        idx = (levels - 1 - lvl) * (nrb + 1) + (nrb if kind == "upsample"
+                                                 else int(b))
+        sub = {"res": "0", "attn": "1",
+               "upsample": f"{2 if lvl in attn else 1}.conv"}[kind]
+        return f"output_blocks.{idx}.{sub}"
+
+    def vae_part(mods: list[str]) -> list[str]:
+        out = [mods[0]]
+        for mod in mods[1:]:
+            m = re.fullmatch(r"(down|up)(\d+)_(block|downsample|upsample)"
+                             r"(\d*)", mod)
+            if m:
+                side, i, kind, j = m.groups()
+                out.append(f"{side}.{i}." + (f"block.{j}" if kind == "block"
+                                             else f"{kind}.conv"))
+            else:
+                out.append(_VAE_MID.get(mod, mod))
+        return out
+
+    def name(path: str) -> tuple[str, object]:
+        if path == "empty_context":
+            return path, _same
+        top, *mods, leaf = path.replace("/Conv_0", "").split("/")
+        if top == "preprocess_model":
+            ref, fn = _ref_name(path[len(top) + 1:])
+            return f"{top}.{ref}", fn
+        if top in ("diffusion_model", "control_model"):
+            prefix = "model.diffusion_model" if top == "diffusion_model" \
+                else top
+            inner = mods[1:]
+            if mods[0].startswith("zero"):  # ZeroConv's own nn.Conv
+                inner = inner[1:]
+            mods = [prefix, unet_top(mods[0])] + [_SD_PARTS.get(m, m)
+                                                  for m in inner]
+        elif top in ("first_stage_model", "cond_encoder"):
+            mods = [top] + vae_part(mods)
+        else:
+            raise KeyError(f"unmapped JAX parameter: {path}")
+        mod = ".".join(mods)
+        if leaf == "scale":
+            return f"{mod}.weight", _same
+        if leaf == "kernel":
+            return f"{mod}.weight", _rank_kernel
+        return f"{mod}.{leaf}", _same
+
+    return name
 
 
 def _classifier_name(path: str) -> tuple[str, object]:
@@ -660,12 +795,32 @@ def _classifier_name(path: str) -> tuple[str, object]:
 
 def from_jax(params) -> dict[str, torch.Tensor]:
     """The port's state dict from JAX SwinIR, HAT, Restormer, X-Restormer,
-    DehazeFormer, NAFNet, FBCNN, MPRNet, MAXIM, DRBNet, IFAN, RIDCP or
-    degradation-classifier params."""
+    DehazeFormer, NAFNet, FBCNN, MPRNet, MAXIM, DRBNet, IFAN, RIDCP,
+    DiffBIR or degradation-classifier params."""
     if "params" in params:
         params = params["params"]
     if "inner" in params:  # FBCNN with a pinned quality factor
         params = params["inner"]
+    rename = _namer(params)
+    out = {}
+    for path, value in _flatten(params):
+        name, fn = rename(path)
+        t = torch.from_numpy(
+            np.ascontiguousarray(fn(value)).astype(np.float32))
+        if name in out and not torch.equal(out[name], t):
+            raise ValueError(f"{path}: the JAX tree's two copies of {name} "
+                             "differ; the reference has one")
+        out[name] = t
+    if rename is _ref_name:
+        _unshuffled_first(out)
+    elif "control_model" in params:
+        _unshuffled_first(out, "preprocess_model.")
+    return out
+
+
+def _namer(params):
+    """``path -> (port name, layout transform)`` for the family of the JAX
+    tree ``params`` (read from its top-level keys)."""
     rename = _ref_name
     if "spatial_attn" in params.get("encoder_level1_0", {}):
         rename = _xrestormer_name  # X-Restormer has Restormer's top level
@@ -692,16 +847,9 @@ def from_jax(params) -> dict[str, torch.Tensor]:
         rename = _drbnet_name
     elif "quantize" in params:
         rename = _ridcp_namer(sum(k.endswith("_down") for k in params))
-    out = {}
-    for path, value in _flatten(params):
-        name, fn = rename(path)
-        t = torch.from_numpy(
-            np.ascontiguousarray(fn(value)).astype(np.float32))
-        if name in out and not torch.equal(out[name], t):
-            raise ValueError(f"{path}: the JAX tree's two copies of {name} "
-                             "differ; the reference has one")
-        out[name] = t
-    return out
+    elif "control_model" in params:
+        rename = _diffbir_namer(params)
+    return rename
 
 
 def strip_block_params(blk, *, num_heads: int,
@@ -738,3 +886,96 @@ def read_flat_npz(path) -> dict:
                 node = node.setdefault(p, {})
             node[leaf] = z[key]
     return tree
+
+
+# ---------------------------------------------------------------------------
+# a reference DiffBIR checkpoint
+
+# what a reference checkpoint holds beside the pipeline's weights: the
+# OpenCLIP text stack, the LDM schedule buffers, the EMA shadows, SwinIR's
+# index and mask buffers (the JAX converter's drops, torch_import.py
+# diffbir_rules and swinir_rules)
+_DIFFBIR_DROPS = (r"cond_stage_model\..*", r"betas", r"alphas_cumprod.*",
+                  r"sqrt_.*", r"log_.*", r"posterior_.*", r"lvlb_weights",
+                  r"logvar", r"model_ema\..*", r"lq_.*", r"scale_factor",
+                  r"preprocess_model\..*relative_position_index",
+                  r"preprocess_model\..*attn_mask")
+
+
+def extract_empty_context(state: dict, context_length: int = 77,
+                          sot: int = 49406, eot: int = 49407,
+                          penultimate: bool = True,
+                          heads: int | None = None) -> np.ndarray:
+    """The OpenCLIP empty-prompt conditioning from a DiffBIR / SD2.1
+    checkpoint's own ``cond_stage_model`` weights, in numpy float32 (no
+    open_clip): FrozenOpenCLIPEmbedder(layer="penultimate") on the tokens
+    [SOT, EOT, 0...]: token and position embeddings, every resblock but
+    the last with a causal mask (exact GELU), then ``ln_final``. Returns
+    the (context_length, width) array that fills ``empty_context``
+    (``convert/torch_import.py:extract_empty_context`` there)."""
+    from scipy.special import erf  # exact GELU (open_clip nn.GELU)
+
+    p = "cond_stage_model.model."
+
+    def arr(key):
+        return np.asarray(state[p + key], np.float32)
+
+    tok, pos = arr("token_embedding.weight"), arr("positional_embedding")
+    width = tok.shape[1]
+    heads = heads or max(1, width // 64)
+    hd = width // heads
+    ids = np.zeros(context_length, np.int64)
+    ids[0], ids[1] = sot, eot
+    x = tok[ids] + pos[:context_length]
+
+    def ln(x, prefix):
+        w, b = arr(prefix + ".weight"), arr(prefix + ".bias")
+        mu = x.mean(-1, keepdims=True)
+        var = ((x - mu) ** 2).mean(-1, keepdims=True)
+        return (x - mu) / np.sqrt(var + 1e-5) * w + b
+
+    def split(t):
+        return t.reshape(context_length, heads, hd).transpose(1, 0, 2)
+
+    n_layers = 0
+    while f"{p}transformer.resblocks.{n_layers}.ln_1.weight" in state:
+        n_layers += 1
+    mask = np.triu(np.full((context_length, context_length), -np.inf), 1)
+    for i in range(n_layers - (1 if penultimate else 0)):
+        rb = f"transformer.resblocks.{i}"
+        y = ln(x, rb + ".ln_1")
+        qkv = y @ arr(rb + ".attn.in_proj_weight").T \
+            + arr(rb + ".attn.in_proj_bias")
+        q, k, v = np.split(qkv, 3, axis=-1)
+        lg = split(q) @ split(k).transpose(0, 2, 1) / np.sqrt(hd) \
+            + mask[None]
+        lg = lg - lg.max(-1, keepdims=True)
+        e = np.exp(lg)
+        a = e / e.sum(-1, keepdims=True)
+        o = (a @ split(v)).transpose(1, 0, 2).reshape(context_length, width)
+        x = x + o @ arr(rb + ".attn.out_proj.weight").T \
+            + arr(rb + ".attn.out_proj.bias")
+        y = ln(x, rb + ".ln_2")
+        h = y @ arr(rb + ".mlp.c_fc.weight").T + arr(rb + ".mlp.c_fc.bias")
+        h = 0.5 * h * (1.0 + erf(h / np.sqrt(2.0)))
+        x = x + h @ arr(rb + ".mlp.c_proj.weight").T \
+            + arr(rb + ".mlp.c_proj.bias")
+    return ln(x, "ln_final")
+
+
+def diffbir_checkpoint_state(state: dict,
+                             context_length: int = 77) -> dict:
+    """The port's ``DiffBIRPipeline`` state dict from a reference DiffBIR
+    checkpoint's (its names are the port's): the keys the JAX converter
+    drops are dropped, and ``empty_context`` (1, context_length, width) is
+    computed from the checkpoint's ``cond_stage_model``. The result loads
+    with ``load_state_dict(..., strict=True)``. This is the loader for the
+    reference checkpoint (``general_full_v1.ckpt``, which carries every
+    component, stage 1 included); nothing calls it until that file is in
+    the repository."""
+    ctx = extract_empty_context(state, context_length)
+    out = {k: torch.as_tensor(np.asarray(v)) for k, v in state.items()
+           if not any(re.fullmatch(p, k) for p in _DIFFBIR_DROPS)}
+    out["empty_context"] = torch.from_numpy(
+        np.ascontiguousarray(ctx[None], np.float32))
+    return out

@@ -15,6 +15,11 @@ Three conventions:
   That is not ``F.interpolate(antialias=False)`` (MPRNet's resize); torch's
   own ``antialias=True`` agrees with it at the sizes the tests hold, but
   the port keeps the JAX package's formula.
+- ``jax.image.resize(method="bicubic")``: DiffBIR's x4 upsample before
+  stage 1. The Keys cubic with a = -0.5, its taps that fall outside the
+  image dropped and each output's weights renormalized; neither
+  ``F.interpolate(mode="bicubic")`` (a = -0.75, clamped borders) nor
+  MATLAB's (reflected borders) gives it.
 
 The interpolation weights depend only on the shapes, so they are built
 once in numpy (float64, normalised per row, then float32) and the resize
@@ -71,18 +76,30 @@ def _resize_matrix(in_size: int, out_size: int, a: float, antialias: bool,
     return mat.astype(np.float32)
 
 
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """``jax._src.image.scale._fill_keys_cubic_kernel`` (a = -0.5) at
+    ``x >= 0``."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return np.where(x >= 2.0, 0.0, out)
+
+
+def _triangle(x: np.ndarray) -> np.ndarray:
+    return np.maximum(0.0, 1.0 - x)
+
+
 @functools.lru_cache(maxsize=256)
-def _triangle_matrix(in_size: int, out_size: int) -> np.ndarray:
-    """Dense (out_size, in_size) matrix of ``jax.image.resize``'s bilinear
-    weights with antialias (``jax._src.image.scale.compute_weight_mat``):
-    the triangle ``max(0, 1 - |d|)`` at half-pixel centres, widened by
-    ``in / out`` on a downscale, each row divided by its sum."""
+def _jax_matrix(in_size: int, out_size: int, kernel: str) -> np.ndarray:
+    """Dense (out_size, in_size) matrix of ``jax.image.resize``'s weights
+    with antialias (``jax._src.image.scale.compute_weight_mat``): the kernel
+    (``"triangle"`` or ``"cubic"``) at half-pixel centres, widened by ``in
+    / out`` on a downscale, each row divided by its sum."""
     if in_size == out_size:  # jax.image.resize leaves the axis untouched
         return np.eye(out_size, dtype=np.float32)
     inv = in_size / out_size
     sample = (np.arange(out_size, dtype=np.float64) + 0.5) * inv - 0.5
     d = np.abs(sample[:, None] - np.arange(in_size)[None, :]) / max(inv, 1.0)
-    w = np.maximum(0.0, 1.0 - d)
+    w = {"triangle": _triangle, "cubic": _keys_cubic}[kernel](d)
     tot = w.sum(axis=1, keepdims=True)
     w = np.where(np.abs(tot) > 1000 * np.finfo(np.float32).eps,
                  w / np.where(tot != 0, tot, 1), 0.0)
@@ -125,12 +142,23 @@ def resize_bicubic_torch(img: torch.Tensor, scale: float) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=64)
-def _triangle_on(in_size: int, out_size: int, device: torch.device,
-                 dtype: torch.dtype) -> torch.Tensor:
-    """:func:`_triangle_matrix` rounded to ``dtype``, as float32 on
-    ``device``, kept (a request resizes at the same few sizes)."""
-    m = torch.from_numpy(_triangle_matrix(in_size, out_size))
+def _jax_matrix_on(in_size: int, out_size: int, kernel: str,
+                   device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """:func:`_jax_matrix` rounded to ``dtype``, as float32 on ``device``,
+    kept (a request resizes at the same few sizes)."""
+    m = torch.from_numpy(_jax_matrix(in_size, out_size, kernel))
     return m.to(dtype).float().to(device)
+
+
+def _resize_jax(img: torch.Tensor, out_h: int, out_w: int,
+                kernel: str) -> torch.Tensor:
+    if img.is_cuda:
+        exact_f32()
+    h, w = img.shape[-3], img.shape[-2]
+    mh = _jax_matrix_on(h, out_h, kernel, img.device, img.dtype)
+    mw = _jax_matrix_on(w, out_w, kernel, img.device, img.dtype)
+    out = torch.einsum("oh,...hwc->...owc", mh, img.float())
+    return torch.einsum("pw,...hwc->...hpc", mw, out).to(img.dtype)
 
 
 def resize_bilinear_jax(img: torch.Tensor, out_h: int,
@@ -139,10 +167,13 @@ def resize_bilinear_jax(img: torch.Tensor, out_h: int,
     default antialias) of ``(..., H, W, C)`` in float32, the weights
     rounded to ``img``'s dtype first (the JAX package casts them to the
     image's), one cast of the result."""
-    if img.is_cuda:
-        exact_f32()
-    h, w = img.shape[-3], img.shape[-2]
-    mh = _triangle_on(h, out_h, img.device, img.dtype)
-    mw = _triangle_on(w, out_w, img.device, img.dtype)
-    out = torch.einsum("oh,...hwc->...owc", mh, img.float())
-    return torch.einsum("pw,...hwc->...hpc", mw, out).to(img.dtype)
+    return _resize_jax(img, out_h, out_w, "triangle")
+
+
+def resize_bicubic_jax(img: torch.Tensor, out_h: int,
+                       out_w: int) -> torch.Tensor:
+    """``jax.image.resize(img, (..., out_h, out_w, C), "bicubic")`` of
+    ``(..., H, W, C)``: the Keys cubic (a = -0.5) with renormalized border
+    weights, in float32 with the weights rounded to ``img``'s dtype, one
+    cast of the result."""
+    return _resize_jax(img, out_h, out_w, "cubic")

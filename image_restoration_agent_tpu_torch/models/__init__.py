@@ -3,6 +3,7 @@ from .registry import (MODEL_REGISTRY, ModelSpec, build_model, get_spec,
 
 # model modules register themselves on import
 from . import dehazeformer as _dehazeformer  # noqa: F401
+from . import diffbir as _diffbir  # noqa: F401
 from . import drbnet as _drbnet  # noqa: F401
 from . import fbcnn as _fbcnn  # noqa: F401
 from . import hat as _hat  # noqa: F401

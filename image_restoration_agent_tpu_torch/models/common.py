@@ -98,23 +98,23 @@ def _nchw_lib(x: torch.Tensor):
 
 class ConvLib(nn.Module):
     """A conv the JAX package runs through XLA (a 1x1 on a small canvas, a
-    strided conv): ``k x k``, stride ``stride``, the symmetric
-    ``(k - 1) // 2`` zero pad (torch ``Conv2d(cin, cout, k, stride,
-    padding=(k - 1) // 2)``), through the library conv in ``x``'s dtype on
-    a channels-last tensor; reference layout (O, I, k, k)."""
+    strided conv): ``k x k``, stride ``stride``, a symmetric zero pad of
+    ``padding`` (by default ``(k - 1) // 2``: torch ``Conv2d(cin, cout, k,
+    stride, padding=(k - 1) // 2)``), through the library conv in ``x``'s
+    dtype on a channels-last tensor; reference layout (O, I, k, k)."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
-                 bias: bool = True):
+                 bias: bool = True, padding: int | None = None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
         self.bias = nn.Parameter(torch.empty(cout)) if bias else None
         self.stride = stride
+        self.padding = (k - 1) // 2 if padding is None else padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(x.dtype)
         y = F.conv2d(_nchw_lib(x), self.weight.to(x.dtype), b,
-                     stride=self.stride,
-                     padding=(self.weight.shape[-1] - 1) // 2)
+                     stride=self.stride, padding=self.padding)
         return y.permute(0, 2, 3, 1)
 
 

@@ -23,6 +23,11 @@ TPU (:func:`strip_route`, ``models/swinir.py:175-186`` there):
   denoising at 1088x1928), and for an odd window (``swinir_jpeg_40``,
   window 7), which the JAX package sends to XLA with the same math.
 
+``unshuffle_scale`` r > 1 (DiffBIR's stage 1) pixel-unshuffles the input by
+r before ``conv_first``, which is then the reference's
+``Sequential(PixelUnshuffle(r), Conv2d)`` (state-dict name
+``conv_first.1``).
+
 On the card that is the kernels; on the CPU, their plain versions.
 """
 
@@ -35,7 +40,7 @@ import torch
 from torch import nn
 
 from ..device import exact_f32
-from ..ops.pixel_shuffle import pixel_shuffle
+from ..ops.pixel_shuffle import pixel_shuffle, pixel_unshuffle
 from ..ops.swin_block import (mlp_block, prepare_swin_params,
                               strip_chunk_width, swin_block, wmsa_block)
 from ..ops.window_attention import (shift_attention_mask, window_partition,
@@ -216,6 +221,15 @@ class _Shuffle(nn.Module):
         return pixel_shuffle(x, self.r)
 
 
+class _Unshuffle(nn.Module):
+    def __init__(self, r: int):
+        super().__init__()
+        self.r = r
+
+    def forward(self, x):
+        return pixel_unshuffle(x, self.r)
+
+
 class PixelShuffleHead:
     """The pixel-shuffle SR head of SwinIR and HAT (a mixin of their
     modules): ``conv_before_upsample`` (LeakyReLU), ``upsample`` ([conv,
@@ -277,7 +291,8 @@ class SwinIR(PixelShuffleHead, nn.Module):
                  window_size: int = 8, mlp_ratio: float = 2.0,
                  upscale: int = 1, img_range: float = 1.0,
                  upsampler: str = "", patch_norm: bool = True,
-                 num_feat: int = 64, packed_output: bool = False):
+                 num_feat: int = 64, packed_output: bool = False,
+                 unshuffle_scale: int = 0):
         super().__init__()
         if packed_output and upsampler != "pixelshuffle":
             raise ValueError("packed_output supports the pixelshuffle head "
@@ -287,7 +302,12 @@ class SwinIR(PixelShuffleHead, nn.Module):
         self.upsampler = upsampler
         self.upscale = upscale
         self.packed_output = packed_output
-        self.conv_first = Conv(img_channels, embed_dim)
+        if unshuffle_scale > 1:
+            r = unshuffle_scale
+            self.conv_first = nn.Sequential(
+                _Unshuffle(r), Conv(img_channels * r * r, embed_dim))
+        else:
+            self.conv_first = Conv(img_channels, embed_dim)
         self.patch_embed = _PatchEmbed(embed_dim, patch_norm)
         self.layers = nn.ModuleList([
             RSTB(embed_dim, d, h, window_size, mlp_ratio)

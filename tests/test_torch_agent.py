@@ -172,14 +172,17 @@ def test_tool_contract_matches_jax(fast_executor, tmp_path, tool):
 
 
 def test_unserved_toolbox_model_raises_at_first_call(tmp_path):
-    """DEFAULT_TOOLBOXES is the JAX package's table; a tool whose model
-    the port does not register raises when it is called."""
+    """A toolbox entry whose model the port does not register builds (the
+    executor resolves models at call time) and raises ``KeyError`` when it
+    is called."""
     from image_restoration_agent_tpu_torch.engine import Engine
-    ex = texec.build_default_executor(engine=Engine(device="cpu"))
+    ex = texec.build_default_executor(
+        engine=Engine(device="cpu"),
+        toolboxes={"super-resolution": [("ghost", "no_such_model")]})
     in_dir = tmp_path / "0-img"
     tio.save_image(np.zeros((8, 8, 3), np.float32), in_dir / "input.png")
     with pytest.raises(KeyError):
-        ex.invoke_a_tool("super-resolution", "diffbir", in_dir,
+        ex.invoke_a_tool("super-resolution", "ghost", in_dir,
                          tmp_path / "o")
 
 

@@ -1,8 +1,8 @@
 """The zoo behind the agent's default toolboxes: the port's registry
 against the JAX package's (the new models' serving specs field for field,
-the names still missing), the default toolboxes it now resolves, and a
-whole agent run of image_restoration_agent_tpu_torch against the JAX agent
-on a toolbox of the new tiny models with the same weights."""
+the same names in both), the default toolboxes it resolves, and a whole
+agent run of image_restoration_agent_tpu_torch against the JAX agent on a
+toolbox of the new tiny models with the same weights."""
 
 import dataclasses
 import json
@@ -25,7 +25,7 @@ torch.set_num_threads(1)
 
 NEW = ("xrestormer", "xrestormer_tiny", "mprnet", "mprnet_tiny", "maxim_s2",
        "maxim_s3", "maxim_tiny", "drbnet", "drbnet_tiny", "ifan",
-       "ifan_tiny")
+       "ifan_tiny", "diffbir", "diffbir_tiny")
 
 
 def _fields(spec) -> dict:
@@ -41,20 +41,21 @@ def test_spec_equals_jax(name):
 
 
 def test_only_diffbir_and_ridcp_are_missing():
-    """Since RIDCP landed, only DiffBIR and its tiny form are missing."""
-    assert set(JREG) - set(TREG) == {"diffbir", "diffbir_tiny"}
+    """Since DiffBIR landed, nothing is missing: the two registries hold
+    the same 35 names."""
+    assert set(JREG) == set(TREG) and len(TREG) == 35
 
 
 @pytest.mark.parametrize("subtask", [
     "denoising", "motion deblurring", "deraining", "defocus deblurring",
-    "jpeg compression artifact removal", "dehazing"])
+    "jpeg compression artifact removal", "dehazing", "super-resolution"])
 def test_default_toolbox_resolves(subtask):
-    """Every model of these boxes of the unmodified DEFAULT_TOOLBOXES is
-    registered; super-resolution still waits on DiffBIR."""
+    """Every model of each box of the unmodified DEFAULT_TOOLBOXES is
+    registered, the super-resolution box's ``diffbir`` included, and the
+    port's table is the JAX package's."""
     assert all(m in TREG for _, m in texec.DEFAULT_TOOLBOXES[subtask])
-    missing = {m for box in ("super-resolution", "dehazing")
-               for _, m in texec.DEFAULT_TOOLBOXES[box] if m not in TREG}
-    assert missing == {"diffbir"}
+    assert texec.DEFAULT_TOOLBOXES[subtask] == \
+        jexec.DEFAULT_TOOLBOXES[subtask]
 
 
 # ---------------------------------------------------------------------------
