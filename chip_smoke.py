@@ -214,12 +214,35 @@ Phases, each printing one JSON line:
     inputs and on the unmodified default executor (random-init full-size
     models, f32) with 512 px inputs, 2 warm-ups, p50 over 5, each run's
     plan.
+42. retrieval_exact: full-width CLIP RN50x4 (288 px image tower, the
+    77-token text tower) fused with the Combiner (``CLIPRetrievalEmbedder``,
+    its tokenizer on a synthetic merges file) and the stand-in, random
+    weights from their seeds, f32: the card's fused embedding against the
+    port's CPU path on the same weights, cosine >= 1 - 1e-6 and max-abs <=
+    1e-4 x max|ref|, on a 512x384 and a 1080p input;
+43. retrieval_path: ``embed_array`` times of both embedders on those
+    inputs (best of 3), ``NumpyVectorStore.query`` over 10 000 random unit
+    vectors, ``insert_solved_runs`` over 10 fabricated work dirs;
+44. retrieval_agent (the survey's fast path): on the agent golden input
+    with ``AGENT_TOOLBOXES`` in bf16, ``local`` IRAgent runs, the first
+    solved run inserted in a store by ``insert_solved_runs``, IRAgent in
+    ``clip_retrieval`` mode on it (plan and tools the stored ones; its
+    launches counted, every call form checked by agent_kernels) and the
+    graph app on it (retrieval branch) and on a store of another image
+    (depictqa branch); p50 of 3 of each beside ``local`` mode's;
+45. iqa_exact: LPIPS-Alex (256 px pair), MANIQA (two 224 crops), MUSIQ
+    (384 px) and CLIP-IQA (RN50, native 256 px) at full width on random
+    weights, f32, the card against the CPU path, relative error <= 1e-4;
+46. iqa_path: the six-metric ``Scorer`` on a 1920x1080 pair with the
+    learned models passed in: ms per metric, peak device memory, a
+    ``torch.profiler`` top-10 of the slowest metric.
 Phases 20-22 are the lab path: each counts its kernel's launches over one
 call (6 ``swin_pair_block`` per chain, 1 ``conv3x3_pair`` per tail, 1
 ``lab_strip`` per call), with every count set to 0 just before.
 
 Then the ``kernels`` line (each kernel's launches counted on the path
-that runs it), the ``nvidia-smi`` line, and last
+that runs it, and every path's launches by kernel), the ``nvidia-smi``
+line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
 that last line; so does a machine without a card.
 """
@@ -3845,6 +3868,707 @@ def slice13_phases(phase, card: str) -> dict:
     return served
 
 
+# ---------------------------------------------------------------------------
+# slice 14: the retrieval fast path and the quality scorers
+
+# the published geometries, overridable (a CPU rehearsal sets tiny ones):
+# CLIP RN50x4 at 288 with its 77-token text tower, the Combiner (640,
+# 2560, 5120), the stand-in (its Combiner at the same widths), CLIP-IQA's
+# ResNet-50, MANIQA (ViT-B/8 at 224, TABlocks, two Swin stages), MUSIQ (14
+# layers, hidden 384), LPIPS-Alex
+S14_CLIP = {}            # CLIPModel() defaults: RN50x4
+S14_COMBINER = {}        # Combiner() defaults
+S14_FEATURE = 640
+S14_N_PX = 288
+S14_RN50 = None          # None: iqa.clipiqa.RN50_CONFIG
+S14_MANIQA = {}
+S14_MUSIQ = {}
+S14_SCORE_HW = (1080, 1920)
+S14_STORE_SIZE = 10_000
+S14_INSERT_RUNS = 10
+S14_RUNS = 3
+# the captions the synthetic merges file builds whole (the retrieval
+# caption and CLIP-IQA's prompts)
+S14_WORDS = ("similar", "degradation", "good", "bad", "photo")
+
+
+def write_merges(path) -> Path:
+    """A CLIP merges file with CLIP's vocabulary size (49408): its first
+    merges build ``S14_WORDS`` letter by letter, the rest unique pairs of
+    byte symbols. CLIP's own file is not in the repository; the tokenizer's
+    work is the same."""
+    import gzip
+    import itertools
+
+    from image_restoration_agent_tpu_torch.retrieval.tokenizer import (
+        bytes_to_unicode)
+
+    head = []
+    for w in S14_WORDS:
+        sym = list(w[:-1]) + [w[-1] + "</w>"]
+        cur = sym[0]
+        for s in sym[1:]:
+            head.append(f"{cur} {s}")
+            cur += s
+    seen = set(head)
+    alphabet = list(bytes_to_unicode().values())
+    pad = [m for m in (f"{a} {b}" for a, b in itertools.product(
+        alphabet, alphabet)) if m not in seen][:49152 - 256 - 2 - len(head)]
+    path = Path(path)
+    with gzip.open(path, "wt", encoding="utf-8") as f:
+        f.write("\n".join(["#version: 0.2"] + head + pad))
+    return path
+
+
+def random_init(model, seed: int):
+    """Random weights from ``seed`` for the retrieval and quality models:
+    matrices and kernels normal over the square root of their fan-in,
+    1-D weights (norm scales) 1 + 0.05 N, other vectors 0.02 N, BatchNorm
+    running means 0.1 N and variances U(0.5, 1.5); scalars kept. Returns
+    ``model``."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in list(model.named_parameters()) + [
+                (n, b) for n, b in model.named_buffers()
+                if n.endswith(("running_mean", "running_var"))]:
+            if p.dim() == 0:
+                continue
+            n = torch.randn(p.shape, generator=gen)
+            if name.endswith("running_var"):
+                v = 0.5 + torch.rand(p.shape, generator=gen)
+            elif name.endswith("running_mean"):
+                v = 0.1 * n
+            elif p.dim() == 1 and name.endswith("weight"):
+                v = 1.0 + 0.05 * n
+            elif p.dim() == 1:
+                v = 0.02 * n
+            else:
+                v = n / p[0].numel() ** 0.5
+            p.copy_(v)
+    return model
+
+
+@functools.lru_cache(maxsize=1)
+def retrieval_states(seed: int = 41) -> dict:
+    """CPU state dicts of CLIP RN50x4 and the Combiner (``random_init``
+    from ``seed``, ``seed + 1``)."""
+    from image_restoration_agent_tpu_torch.retrieval.clip import CLIPModel
+    from image_restoration_agent_tpu_torch.retrieval.combiner import (
+        Combiner)
+
+    return {"clip": random_init(CLIPModel(**S14_CLIP), seed).state_dict(),
+            "combiner": random_init(Combiner(**S14_COMBINER),
+                                    seed + 1).state_dict()}
+
+
+def _built(cls, state: dict, **kw):
+    """``cls(**kw)`` holding ``state``'s tensors, built on the meta device
+    (no init of its own)."""
+    import torch
+
+    with torch.device("meta"):
+        m = cls(**kw)
+    m.load_state_dict(state, strict=True, assign=True)
+    return m
+
+
+def clip_embedder(device: str, bpe):
+    """``CLIPRetrievalEmbedder`` on ``device`` over ``retrieval_states``."""
+    from image_restoration_agent_tpu_torch.retrieval.clip import CLIPModel
+    from image_restoration_agent_tpu_torch.retrieval.combiner import (
+        Combiner)
+    from image_restoration_agent_tpu_torch.retrieval.embedder import (
+        CLIPRetrievalEmbedder)
+    from image_restoration_agent_tpu_torch.retrieval.tokenizer import (
+        SimpleTokenizer)
+
+    st = retrieval_states()
+    return CLIPRetrievalEmbedder(
+        None, None, SimpleTokenizer(bpe), n_px=S14_N_PX,
+        feature_dim=S14_FEATURE,
+        clip_model=_built(CLIPModel, st["clip"], **S14_CLIP),
+        combiner_model=_built(Combiner, st["combiner"], **S14_COMBINER),
+        device=device)
+
+
+def standin_embedder(device: str, seed: int = 43):
+    from image_restoration_agent_tpu_torch.retrieval.embedder import (
+        RetrievalEmbedder)
+    return RetrievalEmbedder(seed=seed, feature_dim=S14_FEATURE,
+                             device=device)
+
+
+def _vec_check(card_v, cpu_v) -> dict:
+    a = np.asarray(card_v, np.float64)
+    b = np.asarray(cpu_v, np.float64)
+    cos = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+    err = float(np.abs(a - b).max())
+    scale = float(np.abs(b).max())
+    return {"cosine": cos, "max_abs_err": err, "max_abs_ref": scale,
+            "pass": bool(cos >= 1 - 1e-6 and err <= 1e-4 * scale)}
+
+
+def s14_images() -> dict:
+    """Seeded inputs: a 512x384 gradient with noise and a 1080p one."""
+    rng = np.random.default_rng(47)
+    out = {}
+    for name, (h, w) in (("512x384", (384, 512)), ("1080p", (1080, 1920))):
+        yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+        base = np.stack([yy, xx, 0.5 + 0.4 * np.sin(9 * yy * xx)], -1)
+        out[name] = np.clip(base + 0.05 * rng.standard_normal(base.shape),
+                            0, 1).astype(np.float32)
+    return out
+
+
+def retrieval_exact(card: str, dev: str = "cuda") -> dict:
+    """Full-width CLIP RN50x4 + Combiner (``CLIPRetrievalEmbedder``) and
+    the stand-in, random weights from their seeds, f32: the fused
+    embedding on ``dev`` against the port's CPU path on the same weights,
+    cosine >= 1 - 1e-6 and max-abs <= 1e-4 x max|ref|, on two images; the
+    caption's text feature alone likewise."""
+    import tempfile
+
+    import torch
+
+    imgs = s14_images()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
+        bpe = write_merges(Path(td) / "bpe.txt.gz")
+        on_dev, on_cpu = clip_embedder(dev, bpe), clip_embedder("cpu", bpe)
+        rows = {f"clip {k}": _vec_check(on_dev.embed_array(v),
+                                        on_cpu.embed_array(v))
+                for k, v in imgs.items()}
+        rows["clip caption text feature"] = _vec_check(
+            on_dev._text_feat[0].cpu().numpy(), on_cpu._text_feat[0].numpy())
+        del on_dev, on_cpu
+        on_dev, on_cpu = standin_embedder(dev), standin_embedder("cpu")
+        rows.update({f"standin {k}": _vec_check(on_dev.embed_array(v),
+                                                on_cpu.embed_array(v))
+                     for k, v in imgs.items()})
+        del on_dev, on_cpu
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return {"phase": "retrieval_exact", "dtype": "float32",
+            "clip": S14_CLIP or "RN50x4", "n_px": S14_N_PX, "checks": rows,
+            "card": card, "pass": all(r["pass"] for r in rows.values())}
+
+
+def _best_ms(fn, reps: int = 3, dev: str = "cuda") -> tuple[float, list]:
+    """Best of ``reps`` host-clock runs of ``fn`` after one warm-up, each
+    ending in ``torch.cuda.synchronize()``; (best ms, all ms)."""
+    import torch
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    fn()
+    sync()
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return min(ms), ms
+
+
+def profile_top(fn, dev: str = "cuda", top: int = 10) -> dict:
+    """One call of ``fn`` under torch.profiler, ending in a synchronize:
+    its wall ms, the device's busy ms and share (the device's own rows),
+    and the ``top`` device rows by self time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if dev == "cuda" else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+
+    def self_dev_us(e):
+        return (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0) or 0)
+
+    evs = sorted(prof.key_averages(), key=self_dev_us, reverse=True)
+    rows = [e for e in evs if e.device_type != DeviceType.CPU]
+    busy = sum(self_dev_us(e) for e in rows) / 1e3
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "device_busy_share": busy / wall,
+            "top": [{"name": e.key[:80], "calls": e.count,
+                     "device_ms": self_dev_us(e) / 1e3}
+                    for e in rows[:top]]}
+
+
+def fabricate_runs(root, img, n: int) -> None:
+    """``n`` agent work dirs as IRAgent leaves them (``logs/summary.json``
+    with an execution path, ``img_tree/0-img/input.png``), each input
+    ``img`` with its own seeded noise."""
+    from image_restoration_agent_tpu_torch.core.io import save_image
+
+    rng = np.random.default_rng(53)
+    plans = ((["denoising"], ["nafnet"]),
+             (["motion deblurring", "denoising"], ["restormer", "nafnet"]),
+             (["jpeg compression artifact removal"], ["fbcnn_blind"]))
+    for i in range(n):
+        run = Path(root) / f"run_{i:03d}"
+        (run / "logs").mkdir(parents=True)
+        subtasks, tools = plans[i % len(plans)]
+        (run / "logs" / "summary.json").write_text(json.dumps(
+            {"execution_path": {"subtasks": subtasks, "tools": tools}}))
+        noisy = np.clip(img + 0.02 * rng.standard_normal(img.shape), 0, 1)
+        save_image(noisy.astype(np.float32),
+                   run / "img_tree" / "0-img" / "input.png")
+
+
+def retrieval_path(card: str, dev: str = "cuda") -> dict:
+    """Times of the fast path's parts, f32: ``embed_array`` of the CLIP
+    embedder (RN50x4 at 288, the caption feature made once) and of the
+    stand-in (224) on the 512x384 and 1080p inputs, best of 3 after a
+    warm-up, and a ``torch.profiler`` top-10 of the CLIP embedding;
+    ``NumpyVectorStore.query`` (top-5) over 10 000 random unit
+    vectors (a store file loaded); ``insert_solved_runs`` over 10
+    fabricated work dirs of
+    512x384 inputs (decode, embed, insert) with the CLIP embedder."""
+    import tempfile
+
+    import torch
+
+    from image_restoration_agent_tpu_torch.retrieval import NumpyVectorStore
+    from image_restoration_agent_tpu_torch.train.retrieval import (
+        insert_solved_runs)
+
+    imgs = s14_images()
+    out = {"phase": "retrieval_path", "dtype": "float32", "card": card}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
+        root = Path(td)
+        t0 = time.perf_counter()
+        clip = clip_embedder(dev, write_merges(root / "bpe.txt.gz"))
+        out["clip_build_seconds"] = time.perf_counter() - t0
+        standin = standin_embedder(dev)
+        embed = {}
+        for name, emb in (("clip_rn50x4_288", clip),
+                          ("standin_224", standin)):
+            for k, v in imgs.items():
+                best, ms = _best_ms(lambda: emb.embed_array(v), dev=dev)
+                embed[f"{name} {k}"] = {"best_ms": best, "ms": ms}
+        out["embed"] = embed
+        out["clip_embed_profile"] = profile_top(
+            lambda: clip.embed_array(imgs["512x384"]), dev)
+        # the store as a file of the package's format (names, seqs, unit
+        # vectors), loaded: filling it through insert() is quadratic (a
+        # list search and a concatenate per entry, as the JAX store's)
+        rng = np.random.default_rng(59)
+        vecs = rng.standard_normal((S14_STORE_SIZE, S14_FEATURE))
+        vecs = (vecs / np.linalg.norm(vecs, axis=1, keepdims=True)).astype(
+            np.float32)
+        np.savez_compressed(root / "store.npz", embeddings=vecs,
+                            meta=json.dumps({
+                                "names": [f"r{i}" for i in range(len(vecs))],
+                                "seqs": ["denoising_nafnet"] * len(vecs),
+                                "dim": S14_FEATURE, "embedder": None}))
+        t0 = time.perf_counter()
+        store = NumpyVectorStore.load(root / "store.npz")
+        out["store_load_seconds"] = time.perf_counter() - t0
+        q = clip.embed_array(imgs["512x384"])
+        best, ms = _best_ms(lambda: store.query(q, topk=5), dev="cpu")
+        out["query"] = {"entries": len(store), "best_ms": best, "ms": ms,
+                        "top1": store.query(q, topk=1)[0]}
+        fabricate_runs(root / "runs", imgs["512x384"], S14_INSERT_RUNS)
+        ins = NumpyVectorStore(dim=S14_FEATURE, embedder=clip)
+        t0 = time.perf_counter()
+        n = insert_solved_runs(root / "runs", ins, clip)
+        dt = time.perf_counter() - t0
+        out["insert_solved_runs"] = {"inserted": n, "seconds": dt,
+                                     "ms_per_run": dt * 1e3 / max(n, 1)}
+        ok = n == S14_INSERT_RUNS and len(ins) == n
+        del clip, standin
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    out["pass"] = bool(ok)
+    return out
+
+
+def centre_combiner(emb, images) -> None:
+    """Centre ``emb``'s (a ``CLIPRetrievalEmbedder``) fused output on
+    ``images``: the dynamic scalar off (its bias -30) and the output
+    layer's bias less the mean pre-normalisation output. With random
+    weights every pair of images embeds at a cosine above 0.9, so without
+    this no other image falls under the graph app's 0.9 threshold."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.retrieval.clip import preprocess
+
+    cb = emb.combiner
+    outs = []
+    with torch.no_grad():
+        cb.dynamic_scalar[3].bias.fill_(-30.0)
+        for img in images:
+            x = preprocess(torch.from_numpy(img).to(emb.device),
+                           n_px=emb.n_px, target_ratio=emb.target_ratio)
+            f = emb.clip.encode_image(x[None])
+            t = emb._text_feat
+            both = torch.cat([torch.relu(cb.text_projection_layer(t)),
+                              torch.relu(cb.image_projection_layer(f))], -1)
+            s = cb.dynamic_scalar(both)
+            outs.append(cb.output_layer(torch.relu(cb.combiner_layer(both)))
+                        + s * t + (1 - s) * f)
+        cb.output_layer.bias -= torch.cat(outs).mean(dim=0)
+
+
+def retrieval_agent(card: str, dev: str = "cuda") -> dict:
+    """The fast path end to end on the agent golden input, bf16 engine with
+    ``AGENT_TOOLBOXES`` (synthetic weights), f32 CLIP embedder (random
+    RN50x4 + Combiner): ``local`` IRAgent runs (a warm-up, 3 timed); the
+    first solved run inserted with ``insert_solved_runs``; IRAgent in
+    ``clip_retrieval`` mode on that store (a warm-up with every kernel call
+    form recorded, all of which agent_kernels checked, then 3 timed with
+    the launch counts set to 0 just before and read just after): its plan
+    must be the stored subtasks and its tools the stored tools; the graph
+    app on the same store (retrieval branch, similarity >= 0.9; 3 timed)
+    and on a store whose only entry is another image (depictqa branch,
+    with the embedder centred on the two images; 3 timed). p50 seconds of
+    each beside local mode's."""
+    import tempfile
+
+    import torch
+
+    from image_restoration_agent_tpu_torch.agent import (
+        IRAgent, build_default_executor, run_agent)
+    from image_restoration_agent_tpu_torch.engine import Engine
+    from image_restoration_agent_tpu_torch.offline import (
+        materialize_synthetic_weights)
+    from image_restoration_agent_tpu_torch.retrieval import (
+        NumpyVectorStore, RetrievalRecord)
+    from image_restoration_agent_tpu_torch.train.retrieval import (
+        insert_solved_runs)
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
+        root = Path(td)
+        wdir = root / "weights"
+        materialize_synthetic_weights(
+            wdir, ["nafnet_synth", "fbcnn_synth", "restormer_synth"])
+        eng = Engine(weight_dir=wdir, device=dev, allow_random_init=False,
+                     param_dtype=torch.bfloat16)
+        ex = build_default_executor(engine=eng, toolboxes=AGENT_TOOLBOXES)
+        img, inp = agent_input(root)
+        emb = clip_embedder(dev, write_merges(root / "bpe.txt.gz"))
+
+        def agent(out, **kw):
+            t0 = time.perf_counter()
+            a = IRAgent(inp, out, executor=ex, rng_seed=0,
+                        with_rollback=False, silent=True, device=dev, **kw)
+            if a.run() is None:
+                raise RuntimeError("the agent wrote no result")
+            sync()
+            return (time.perf_counter() - t0,
+                    json.loads(a.summary_path.read_text()))
+
+        local = [agent(root / f"local{i}") for i in range(1 + S14_RUNS)]
+        store = NumpyVectorStore(dim=S14_FEATURE, embedder=emb)
+        inserted = insert_solved_runs(root / "local0", store, emb)
+        stored = local[0][1]["execution_path"]
+
+        seen: dict = {}
+        with contextlib.ExitStack() as stack:
+            for model in agent_models():
+                forms, _ = stack.enter_context(
+                    kernel_calls(eng.store.get(model)))
+                seen[model] = forms
+            warm = agent(root / "rwarm", evaluate_degradation_by=
+                         "clip_retrieval", retrieval_store=store)
+        seen = {key: f"{model} {name}" for model, forms in seen.items()
+                for key, name in forms.items()}
+        unchecked = unchecked_forms("agent", seen) if dev == "cuda" else []
+        reset_launch_counts()
+        timed = [agent(root / f"r{i}", evaluate_degradation_by=
+                       "clip_retrieval", retrieval_store=store)
+                 for i in range(S14_RUNS)]
+        counts = launch_counts()
+        traces = [_trace(s) for _, s in [warm] + timed]
+        plan_ok = all(
+            [p[0] for p in t["plan_initial"]] == stored["subtasks"]
+            and t["execution_tools"] == stored["tools"]
+            and t["execution_subtasks"] == stored["subtasks"]
+            for t in traces)
+
+        def graph(st, out):
+            t0 = time.perf_counter()
+            state = run_agent(inp, out, executor=ex, retrieval_store=st,
+                              device=dev)
+            sync()
+            return time.perf_counter() - t0, state
+
+        g_ret = [graph(store, root / f"gr{i}") for i in range(1 + S14_RUNS)]
+        other = np.ascontiguousarray(img[::-1, ::-1] * 0.5 + 0.25)
+        sim_raw = float(emb.embed_array(img) @ emb.embed_array(other))
+        centre_combiner(emb, [img, other])
+        other_store = NumpyVectorStore(dim=S14_FEATURE, embedder=emb)
+        other_store.insert(RetrievalRecord("other", "dehazing_nafnet",
+                                           emb.embed_array(other)))
+        g_dep = [graph(other_store, root / f"gd{i}")
+                 for i in range(1 + S14_RUNS)]
+        ret_ok = all(s["retrieval"]["similarity"] >= 0.9
+                     and "evaluation" not in s
+                     and [list(p) for p in s["initial_plan"]]
+                     == [list(p) for p in zip(stored["subtasks"],
+                                              stored["tools"])]
+                     for _, s in g_ret)
+        dep_ok = all(s["retrieval"]["similarity"] < 0.9
+                     and "evaluation" in s
+                     and all(t is None for _, t in s["initial_plan"])
+                     for _, s in g_dep)
+        random_init_models = sorted(eng.random_init_models)
+        del eng, ex, emb
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    launches = {k: v for k, v in counts.items() if v}
+    secs = {"local": [t for t, _ in local[1:]],
+            "clip_retrieval": [t for t, _ in timed],
+            "graph_retrieval": [t for t, _ in g_ret[1:]],
+            "graph_depictqa": [t for t, _ in g_dep[1:]]}
+    return {"phase": "retrieval_agent", "dtype": "bfloat16 engine, float32 "
+            "embedder", "input": list(img.shape), "inserted": inserted,
+            "stored": stored, "trace": traces[0],
+            "local_plan": local[0][1]["plan"]["initial"],
+            "p50_s": {k: float(np.median(v)) for k, v in secs.items()},
+            "seconds": secs,
+            "graph_similarity": {
+                "retrieval": g_ret[0][1]["retrieval"]["similarity"],
+                "depictqa": g_dep[0][1]["retrieval"]["similarity"],
+                "other_image_before_centring": sim_raw},
+            "launches": launches, "call_forms": len(seen),
+            "unchecked_forms": unchecked,
+            "random_init_models": random_init_models, "card": card,
+            "pass": bool(inserted == 1 and plan_ok and ret_ok and dep_ok
+                         and launches and not unchecked
+                         and not random_init_models)}
+
+
+def maniqa_reference_init(m, seed: int):
+    """The official MANIQA's initialisation from ``seed``: timm's ViT and
+    the Swin stages' ``_init_weights`` (linear weights N(0, 0.02) cut at
+    two sigma, biases 0, LayerNorms 1 and 0, bias tables and the position
+    embedding N(0, 0.02), CLS N(0, 1e-6)), torch's own elsewhere (the
+    TABlocks, the 1x1 convs, the heads, the patch embedding: U(+-1/sqrt(
+    fan_in))). With ``random_init``'s fan-in weights the activations grow
+    through the first Swin stage until the second TABlocks' softmax turns
+    on the last bits of float32, and the card's and the CPU's scores
+    differ by about 1e-3 though both compute the same function. Returns
+    ``m``."""
+    import torch
+    from torch import nn
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod_name, mod in m.named_modules():
+            timm = mod_name.startswith(("vit.", "swintransformer"))
+            for name, p in mod.named_parameters(recurse=False):
+                if isinstance(mod, nn.Linear) and timm:
+                    if name == "weight":
+                        nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04,
+                                              generator=gen)
+                    else:
+                        p.zero_()
+                elif isinstance(mod, (nn.Linear, nn.Conv2d)):
+                    fan_in = mod.weight[0].numel()
+                    p.copy_((torch.rand(p.shape, generator=gen) * 2 - 1)
+                            * fan_in ** -0.5)
+                elif isinstance(mod, nn.LayerNorm):
+                    p.fill_(1.0 if name == "weight" else 0.0)
+                elif name in ("relative_position_bias_table", "pos_embed"):
+                    nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04,
+                                          generator=gen)
+                elif name == "cls_token":
+                    p.copy_(1e-6 * torch.randn(p.shape, generator=gen))
+                else:
+                    raise ValueError(f"no initialisation for {name}")
+    return m
+
+
+def iqa_models(seed: int = 61) -> dict:
+    """The learned metrics at full width with random weights (CPU modules):
+    LPIPS-Alex (``random_init``, heads made non-negative), MANIQA (its
+    reference's initialisation, ``maniqa_reference_init``), MUSIQ and
+    CLIP-IQA's CLIP ResNet-50 without the pool's positional embedding
+    (``random_init``)."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.iqa.clipiqa import RN50_CONFIG
+    from image_restoration_agent_tpu_torch.iqa.lpips import LPIPS
+    from image_restoration_agent_tpu_torch.iqa.maniqa import MANIQA
+    from image_restoration_agent_tpu_torch.iqa.musiq import MUSIQ
+    from image_restoration_agent_tpu_torch.retrieval.clip import CLIPModel
+
+    lp = random_init(LPIPS(), seed)
+    with torch.no_grad():
+        for k in range(5):
+            w = getattr(lp, f"lin{k}").model[1].weight
+            w.abs_()
+    return {"lpips": lp,
+            "maniqa": maniqa_reference_init(MANIQA(**S14_MANIQA), seed + 1),
+            "musiq": random_init(MUSIQ(**S14_MUSIQ), seed + 2),
+            "clip_rn50": random_init(CLIPModel(**(S14_RN50 or RN50_CONFIG),
+                                               attnpool_pos=False),
+                                     seed + 3)}
+
+
+def iqa_scorers(models: dict, dev: str) -> dict:
+    """Each metric's scorer on ``dev`` over copies of ``models``' weights:
+    callables of (img, ref) numpy arrays -> float."""
+    import copy
+
+    import torch
+
+    from image_restoration_agent_tpu_torch.iqa.clipiqa import ClipIQA
+    from image_restoration_agent_tpu_torch.iqa.maniqa import ManiqaScorer
+    from image_restoration_agent_tpu_torch.iqa.musiq import MusiqScorer
+
+    tf = np.random.default_rng(67).standard_normal(
+        (2, models["clip_rn50"].text_projection.shape[1])).astype(np.float32)
+    lp = copy.deepcopy(models["lpips"]).to(dev).eval()
+
+    @torch.no_grad()
+    def lpips(img, ref):
+        a, b = (torch.from_numpy(x).to(dev)[None] for x in (img, ref))
+        return float(lp(a, b)[0])
+
+    return {"lpips": lpips,
+            "maniqa": ManiqaScorer(None, copy.deepcopy(models["maniqa"]),
+                                   device=dev),
+            "musiq": MusiqScorer(None, copy.deepcopy(models["musiq"]),
+                                 device=dev),
+            "clipiqa": ClipIQA(None, clip_model=copy.deepcopy(
+                models["clip_rn50"]), text_features=tf, device=dev)}
+
+
+def iqa_exact(card: str, dev: str = "cuda") -> dict:
+    """Each learned metric at full width on random weights, f32, the card
+    against the port's CPU path on the same weights and input, relative
+    error <= 1e-4 on the score: LPIPS-Alex on a 256 px pair, MANIQA on two
+    224 crops, MUSIQ on a 384 px image (3 scales), CLIP-IQA (RN50) native
+    at 256 px."""
+    import torch
+
+    models = iqa_models()
+    rng = np.random.default_rng(71)
+
+    def img(h, w):
+        return rng.random((h, w, 3), dtype=np.float32)
+
+    a256 = img(256, 256)
+    b256 = np.clip(a256 + 0.05 * rng.standard_normal(a256.shape), 0,
+                   1).astype(np.float32)
+    cases = {"lpips": (a256, b256), "maniqa": (img(256, 320), None),
+             "musiq": (img(384, 384), None), "clipiqa": (img(256, 256),
+                                                         None)}
+    rows = {}
+    for side, dv in (("card", dev), ("cpu", "cpu")):
+        sc = iqa_scorers(models, dv)
+        sc["maniqa"].n_crops = 2
+        for name, (x, y) in cases.items():
+            fn = sc[name]
+            rows.setdefault(name, {})[side] = fn(x, y) if name == "lpips" \
+                else fn(x)
+        del sc
+        if dv == "cuda":
+            torch.cuda.empty_cache()
+    for r in rows.values():
+        r["rel_err"] = abs(r["card"] - r["cpu"]) / max(abs(r["cpu"]), 1e-30)
+        r["pass"] = bool(r["rel_err"] <= 1e-4 and r["cpu"] != 0.0
+                         and math.isfinite(r["card"]))
+    return {"phase": "iqa_exact", "dtype": "float32", "scores": rows,
+            "inputs": {k: list(v[0].shape) for k, v in cases.items()},
+            "card": card, "pass": all(r["pass"] for r in rows.values())}
+
+
+def iqa_path(card: str, dev: str = "cuda") -> dict:
+    """``Scorer(("psnr", "ssim", "lpips", "maniqa", "clipiqa", "musiq"))``
+    with the learned models passed in (random weights, f32) scoring a
+    1920x1080 pair: ms and peak device memory per metric (each alone,
+    best of 3 after a warm-up; the models' weights resident throughout),
+    the six together with their peak, and a ``torch.profiler`` top-10 of
+    the slowest metric."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.iqa.scorer import Scorer
+
+    metrics = ("psnr", "ssim", "lpips", "maniqa", "clipiqa", "musiq")
+    models = iqa_models()
+    sc = iqa_scorers(models, dev)
+    lp_state = models["lpips"].state_dict()
+    kw = dict(lpips_state=lp_state, clipiqa=sc["clipiqa"],
+              maniqa=sc["maniqa"], musiq=sc["musiq"], device=dev)
+    h, w = S14_SCORE_HW
+    rng = np.random.default_rng(73)
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    ref = np.stack([yy, xx, 0.5 + 0.4 * np.sin(9 * yy * xx)], -1)
+    img = np.clip(ref + 0.04 * rng.standard_normal(ref.shape), 0, 1)
+    ref, img = ref.astype(np.float32), img.astype(np.float32)
+    per = {}
+    resident = torch.cuda.memory_allocated() if dev == "cuda" else None
+    for m in metrics:
+        one = Scorer((m,), **kw)
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        best, ms = _best_ms(lambda: one.score_arrays(img, ref), dev=dev)
+        per[m] = {"best_ms": best, "ms": ms,
+                  "value": one.score_arrays(img, ref)[m],
+                  "peak_memory_bytes": torch.cuda.max_memory_allocated()
+                  if dev == "cuda" else None}
+    full = Scorer(metrics, **kw)
+    full.score_arrays(img, ref)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scores = full.score_arrays(img, ref)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    all_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else None
+    slowest = max(per, key=lambda m: per[m]["best_ms"])
+    one = Scorer((slowest,), **kw)
+    profile = profile_top(lambda: one.score_arrays(img, ref), dev)
+    del sc, full, one, models
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    ok = all(isinstance(scores[m], float) and math.isfinite(scores[m])
+             for m in metrics)
+    return {"phase": "iqa_path", "dtype": "float32", "input": [h, w, 3],
+            "per_metric": per, "six_ms": all_ms, "scores": scores,
+            "resident_weights_bytes": resident, "peak_memory_bytes": peak,
+            "slowest": slowest,
+            "profile": profile, "card": card,
+            "pass": bool(ok and (profile["top"] or dev != "cuda"))}
+
+
+def slice14_phases(phase, card: str) -> dict:
+    """Slice 14's phases in order; returns the retrieval agent's result for
+    its launch counts."""
+    import torch
+
+    phase("retrieval_exact", retrieval_exact, card)
+    phase("retrieval_path", retrieval_path, card)
+    served = {"retrieval": phase("retrieval_agent", retrieval_agent, card)}
+    retrieval_states.cache_clear()
+    torch.cuda.empty_cache()
+    phase("iqa_exact", iqa_exact, card)
+    torch.cuda.empty_cache()
+    phase("iqa_path", iqa_path, card)
+    torch.cuda.empty_cache()
+    return served
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -3913,7 +4637,7 @@ def main() -> int:
     launches = {p: counts for p in ("swinir", "restormer", "hat", "denoise",
                                     "dehaze", "nafnet", "fbcnn", "agent",
                                     "default_agent", "ridcp", "serve",
-                                    "diffbir",
+                                    "diffbir", "retrieval",
                                     *(n for n, _, _ in ZOO_REQUESTS))}
     # the lab path: one pair chain, one head tail, one lab_strip call, each
     # counted alone
@@ -3959,6 +4683,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         launches.update({p: r["launches"] if r else {}
                          for p, r in slice13_phases(phase, card).items()})
+        torch.cuda.empty_cache()
+        launches.update({p: r["launches"] if r else {}
+                         for p, r in slice14_phases(phase, card).items()})
         launches.update({
             "swinir": served["launches"] if served else {},
             "restormer": served_r["launches"] if served_r else {},
@@ -3975,7 +4702,11 @@ def main() -> int:
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         **{k: r[k] for k in REPLACED_MS if k in r}}
-        for r in rows]})
+        for r in rows],
+        # every path's launches by kernel, each read just after the path
+        # ran (a row's "launches" is its own path's)
+        "launches_by_path": {p: {k: v for k, v in c.items() if v}
+                             for p, c in launches.items()}})
     print(card, flush=True)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "failures": failures})

@@ -13,12 +13,21 @@
   check (reference test_tool/test_tool.py + test_env.sh).
 - ``... warmup`` builds the CUDA kernels and walks each (model, size)
   through the serving path before traffic arrives.
+- ``... insert-runs <output_dir> [--store retrieval_store.npz]`` embeds the
+  input of every solved agent run under ``output_dir`` into the retrieval
+  store (``default_embedder``: CLIP RN50x4 + Combiner where their weights
+  are in the port's ``weights/``, else the stand-in), creating the store
+  or adding to it; the file is the JAX package's format.
 
-Every subcommand that builds an engine or an evaluator takes ``--device``:
-``cuda`` (the default; it raises without a card) or ``cpu``. ``score``,
-``insert-runs``, ``convert-weights``, ``validate-weights``,
-``ablation-grid`` and ``eval-suite`` reach modules the port does not have
-yet; they exit with status 2 and name the missing module.
+Every subcommand that builds an engine, an evaluator or an embedder takes
+``--device``: ``cuda`` (the default; it raises without a card) or ``cpu``.
+``score``, ``convert-weights``, ``validate-weights``, ``ablation-grid`` and
+``eval-suite`` reach modules the port does not have yet; they exit with
+status 2 and name the missing module.
+
+``infer --evaluate-by clip_retrieval`` builds the agent without a
+retrieval store, as the JAX CLI does, so it fails on ``None.embed`` (a
+reference fault, pinned in ``tests/test_torch_retrieval.py``).
 """
 
 from __future__ import annotations
@@ -32,8 +41,6 @@ from pathlib import Path
 NOT_PORTED = {
     "score": "image_restoration_agent_tpu_torch.offline.eval_harness "
              "(compute_scores) and iqa.metrics",
-    "insert-runs": "image_restoration_agent_tpu_torch.retrieval "
-                   "(NumpyVectorStore, embedder) and train.retrieval",
     "convert-weights": "image_restoration_agent_tpu_torch.convert.manifest",
     "validate-weights": "image_restoration_agent_tpu_torch.offline."
                         "validate_weights (and the synthetic goldens' "
@@ -122,6 +129,7 @@ def build_parser() -> argparse.ArgumentParser:
                               "store")
     pir.add_argument("output_dir", help="agent output dir with run subdirs")
     pir.add_argument("--store", default="retrieval_store.npz")
+    _device_arg(pir)
 
     pw = sub.add_parser(
         "convert-weights",
@@ -241,6 +249,19 @@ def main(argv=None):
         print(json.dumps({"output": str(args.output),
                           "seconds": round(res.seconds, 3),
                           "shape": list(res.output_shape)}))
+    elif args.cmd == "insert-runs":
+        from .retrieval import NumpyVectorStore, default_embedder
+        from .train.retrieval import insert_solved_runs
+
+        emb = default_embedder(device=args.device)
+        store_path = Path(args.store)
+        store = (NumpyVectorStore.load(store_path, embedder=emb)
+                 if store_path.exists()
+                 else NumpyVectorStore(dim=640, embedder=emb))
+        n = insert_solved_runs(Path(args.output_dir), store, emb)
+        store.save(store_path)
+        print(json.dumps({"inserted": n, "total": len(store),
+                          "store": str(store_path)}))
     elif args.cmd == "warmup":
         from .engine import Engine
         from .ops import kernels

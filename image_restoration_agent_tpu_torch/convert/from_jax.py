@@ -7,11 +7,12 @@ top-level keys: X-Restormer by the ``spatial_attn`` of
 ``encoder_level1_0`` (checked first: its other top-level names are
 Restormer's), Restormer by ``encoder_level1_0``, HAT by ``layer0/hab0``,
 DehazeFormer by ``patch_unembed``, NAFNet by ``intro``, FBCNN by
-``qf_embed``, the classifier by ``feat_fc``, MPRNet by ``stage1_encoder``,
-MAXIM by ``stage0_input_conv_0``, IFAN by ``dme_in``, DRBNet by
-``conv4_4_pre`` (IFAN has no ``conv4_4_pre``), RIDCP by ``quantize``,
-SwinIR otherwise. It is
-the inverse of ``image_restoration_agent_tpu/convert/torch_import.py``:
+``qf_embed``, the classifier by ``feat_fc`` (V3, V5) or ``head`` (V1),
+MPRNet by ``stage1_encoder``, MAXIM by ``stage0_input_conv_0``, IFAN by
+``dme_in``, DRBNet by ``conv4_4_pre`` (IFAN has no ``conv4_4_pre``), RIDCP
+by ``quantize``, CLIP, the Combiner, the retrieval stand-in, LPIPS,
+MANIQA, MUSIQ and a bare ViT by the names listed below, SwinIR otherwise.
+It is the inverse of ``image_restoration_agent_tpu/convert/torch_import.py``:
 
 - ``swinir_rules`` (KAIR names): conv kernels (kh, kw, I, O) -> (O, I, kh,
   kw); linear kernels (I, O) -> (O, I); ``upsample{i}`` ->
@@ -57,9 +58,11 @@ the inverse of ``image_restoration_agent_tpu/convert/torch_import.py``:
   ``res.2``. The transposed conv's Flax kernel (2, 2, I, O), applied with
   ``transpose_kernel=False``, is torch's (I, O, 2, 2) with both taps
   flipped;
-- the degradation classifier (``iqa/classifier.py``, detected by
-  ``feat_fc``): the Flax names kept, ``kernel`` -> ``weight`` (conv and
-  linear transposes), GroupNorm ``scale`` -> ``weight``;
+- the degradation classifier (``iqa/classifier.py``; V3 and V5 detected
+  by ``feat_fc``, V1 by ``conv0``, ``gn0`` and ``head``): the Flax names
+  kept, ``kernel`` -> ``weight`` (conv and linear transposes), GroupNorm
+  ``scale`` -> ``weight``, V5's ``thresh0`` and ``thresh_deltas``
+  unchanged;
 - ``xrestormer_rules`` (``xrestormer_arch.py`` names): Restormer's
   top-level rules; per block ``norm1``..``norm4`` -> ``.body``,
   ``channel_attn`` / ``channel_ffn`` / ``spatial_ffn`` convs as Restormer's,
@@ -130,6 +133,34 @@ the inverse of ``image_restoration_agent_tpu/convert/torch_import.py``:
   runs the VAE's encoder, so its tree has no
   ``first_stage_model.encoder`` or ``quant_conv``, which a reference
   checkpoint holds.
+
+- the retrieval and quality families (the JAX converter's ``clip_rules``,
+  ``combiner_rules``, ``lpips_rules``, ``maniqa_rules`` and
+  ``musiq_rules``, inverted). CLIP (detected by ``visual`` and ``text``):
+  ``visual/layer{l}_{b}`` -> ``visual.layer{l}.{b}``, ``down_conv`` /
+  ``down_bn`` -> ``downsample.0`` / ``.1``, FrozenBN ``scale`` / ``bias`` /
+  ``mean`` / ``var`` -> ``weight`` / ``bias`` / ``running_mean`` /
+  ``running_var`` (plus ``num_batches_tracked`` 0), ``text/block{i}`` ->
+  ``transformer.resblocks.{i}`` (``in_proj`` kernel -> ``attn.in_proj_weight``,
+  ``out_proj`` -> ``attn.out_proj``, ``c_fc`` / ``c_proj`` -> ``mlp.*``),
+  ``text/token_embedding`` -> ``token_embedding.weight``, and
+  ``logit_scale`` (absent there) ln 100. The Combiner (``ds_hidden``):
+  ``text_projection`` -> ``text_projection_layer`` (and the image's),
+  ``ds_hidden`` / ``ds_out`` -> ``dynamic_scalar.0`` / ``.3``. The
+  retrieval stand-in (``image_tower``): Flax names under ``image_tower``,
+  ``caption_embedding``, the Combiner's under ``combiner``. LPIPS
+  (``net`` and ``lin0``): ``net/conv{k}`` -> ``net.slice{k+1}.{0, 3, 6,
+  8, 10}``, ``lin{k}`` (C,) -> ``lin{k}.model.1.weight`` (1, C, 1, 1).
+  ViT (``pos_embed``): timm's names (``patch_embed.proj``,
+  ``blocks.{i}.attn.qkv`` / ``attn.proj`` / ``mlp.fc1``...). MANIQA
+  (``tablock1_0``): the ViT under ``vit.``, ``tablock{1,2}_{i}`` ->
+  ``tablock{1,2}.{i}``, ``swin{s}/layer{l}_block{b}`` ->
+  ``swintransformer{s}.layers.{l}.blocks.{b}`` (``qkv``, ``proj``, the
+  bias table under ``attn``, ``fc1`` / ``fc2`` under ``mlp``, plus the
+  ``attn.relative_position_index`` buffer), ``fc_score{0,1}`` /
+  ``fc_weight{0,1}`` -> ``fc_score.{0,3}`` / ``fc_weight.{0,3}``. MUSIQ
+  (``hse_embedding``): flat names, ``block{i}`` -> ``blocks.{i}`` as the
+  ViT's.
 
 A reference DiffBIR checkpoint (``general_full_v1.ckpt``) loads into the
 port through :func:`diffbir_checkpoint_state`: it drops what the JAX
@@ -784,6 +815,8 @@ def _diffbir_namer(params):
 
 
 def _classifier_name(path: str) -> tuple[str, object]:
+    if "/" not in path:  # the V5 head's thresholds
+        return path, _same
     module, leaf = path.split("/")
     if leaf == "scale":
         return f"{module}.weight", _same
@@ -793,10 +826,160 @@ def _classifier_name(path: str) -> tuple[str, object]:
     return f"{module}.{leaf}", _same
 
 
+def _flax_leaf(module: str, leaf: str) -> tuple[str, object]:
+    """A Dense, Conv or norm leaf under the port name ``module``: kernels
+    by rank, ``scale`` -> ``weight``."""
+    if leaf == "kernel":
+        return f"{module}.weight", _rank_kernel
+    if leaf == "scale":
+        return f"{module}.weight", _same
+    return f"{module}.{leaf}", _same
+
+
+_COMBINER = {"text_projection": "text_projection_layer",
+             "image_projection": "image_projection_layer",
+             "combiner_layer": "combiner_layer",
+             "output_layer": "output_layer",
+             "ds_hidden": "dynamic_scalar.0", "ds_out": "dynamic_scalar.3"}
+_BN = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+       "var": "running_var"}
+
+
+def _combiner_name(path: str, prefix: str = "") -> tuple[str, object]:
+    module, leaf = path.split("/")
+    return _flax_leaf(prefix + _COMBINER[module], leaf)
+
+
+def _standin_name(path: str) -> tuple[str, object]:
+    top, *rest = path.split("/")
+    if top == "combiner":
+        return _combiner_name("/".join(rest), "combiner.")
+    if top == "image_tower":
+        module, leaf = rest
+        return _flax_leaf(f"image_tower.{module}", leaf)
+    return path, _same  # caption_embedding
+
+
+def _clip_name(path: str) -> tuple[str, object]:
+    """CLIP (``clip_rules`` there, inverted): the published checkpoint's
+    names."""
+    top, *mods, leaf = path.split("/")
+    if top == "visual":
+        m = re.fullmatch(r"layer(\d+)_(\d+)", mods[0])
+        if m:
+            mods = [f"layer{m.group(1)}", m.group(2)] + [
+                {"down_conv": "downsample.0", "down_bn": "downsample.1"}
+                .get(x, x) for x in mods[1:]]
+        module = ".".join(["visual"] + mods)
+        if re.search(r"(^|\.)(bn\d|downsample\.1)$", module):
+            return f"{module}.{_BN[leaf]}", _same
+        if leaf == "positional_embedding":
+            return f"{module}.{leaf}", _same
+        return _flax_leaf(module, leaf)
+    if not mods:  # token_embedding, positional_embedding, text_projection
+        return (f"{leaf}.weight" if leaf == "token_embedding" else leaf,
+                _same)
+    if mods[0] == "ln_final":
+        return _flax_leaf("ln_final", leaf)
+    i = mods[0][len("block"):]
+    blk = f"transformer.resblocks.{i}"
+    part = mods[1]
+    if part == "in_proj":
+        if leaf == "kernel":
+            return f"{blk}.attn.in_proj_weight", _linear
+        return f"{blk}.attn.in_proj_bias", _same
+    module = {"out_proj": "attn.out_proj", "c_fc": "mlp.c_fc",
+              "c_proj": "mlp.c_proj"}.get(part, part)
+    return _flax_leaf(f"{blk}.{module}", leaf)
+
+
+def _clip_extras(sd: dict) -> None:
+    """What the JAX tree does not hold: every BatchNorm's
+    ``num_batches_tracked`` (0) and ``logit_scale``, which the JAX package
+    drops and its CLIP-IQA fixes at 100 (so ln 100 here)."""
+    for k in [k for k in sd if k.endswith(".running_mean")]:
+        sd[k[:-len("running_mean")] + "num_batches_tracked"] = \
+            torch.tensor(0)
+    sd["logit_scale"] = torch.tensor(float(np.log(100.0)))
+
+
+def _vit_name(path: str, prefix: str = "") -> tuple[str, object]:
+    """timm ViT names (``iqa_rules._vit_rules`` there, inverted)."""
+    top, *mods = path.split("/")
+    if top in ("cls_token", "pos_embed"):
+        return prefix + top, _same
+    if top == "patch_embed":
+        return _flax_leaf(f"{prefix}patch_embed.proj", mods[0])
+    i = top[len("block"):]
+    *inner, leaf = mods
+    module = {"qkv": "attn.qkv", "proj": "attn.proj"}.get(
+        inner[0], ".".join(inner))
+    return _flax_leaf(f"{prefix}blocks.{i}.{module}", leaf)
+
+
+def _maniqa_name(path: str) -> tuple[str, object]:
+    """The official MANIQA checkpoint's names (``maniqa_rules`` there,
+    inverted)."""
+    top, *mods = path.split("/")
+    if top == "vit":
+        return _vit_name("/".join(mods), "vit.")
+    m = re.fullmatch(r"(tablock[12])_(\d+)", top)
+    if m:
+        return _flax_leaf(f"{m.group(1)}.{m.group(2)}.{mods[0]}", mods[1])
+    m = re.fullmatch(r"swin([12])", top)
+    if m:
+        mm = re.fullmatch(r"layer(\d+)_block(\d+)", mods[0])
+        blk = (f"swintransformer{m.group(1)}.layers.{mm.group(1)}.blocks."
+               f"{mm.group(2)}")
+        part = mods[1]
+        if part == "relative_position_bias_table":
+            return f"{blk}.attn.{part}", _same
+        module = {"qkv": "attn.qkv", "proj": "attn.proj", "fc1": "mlp.fc1",
+                  "fc2": "mlp.fc2"}.get(part, part)
+        return _flax_leaf(f"{blk}.{module}", mods[2])
+    m = re.fullmatch(r"(fc_score|fc_weight)([01])", top)
+    if m:
+        return _flax_leaf(f"{m.group(1)}.{3 * int(m.group(2))}", mods[0])
+    return _flax_leaf(top, mods[0])  # conv1, conv2
+
+
+def _maniqa_extras(sd: dict) -> None:
+    """Each Swin block's ``attn.relative_position_index`` buffer, which the
+    official state dict holds and the JAX tree recomputes."""
+    from ..ops.window_attention import relative_position_index
+    for k in [k for k in sd if k.endswith(".relative_position_bias_table")]:
+        ws = (int(round(sd[k].shape[0] ** 0.5)) + 1) // 2
+        sd[k[:-len("bias_table")] + "index"] = torch.from_numpy(
+            relative_position_index(ws).astype(np.int64))
+
+
+def _musiq_name(path: str) -> tuple[str, object]:
+    """The flat names of ``musiq_rules`` there."""
+    top, *mods = path.split("/")
+    if top.startswith("block"):
+        return _vit_name(path)
+    if not mods:  # hse_embedding, scale_embedding, cls_token
+        return top, _same
+    return _flax_leaf(top, mods[0])  # patch_proj, norm, head
+
+
+def _lpips_name(path: str) -> tuple[str, object]:
+    """The ``lpips`` package's names: ``net/conv{k}`` -> ``net.slice{k+1}
+    .{torchvision index}``, ``lin{k}`` (C,) -> ``lin{k}.model.1.weight``
+    (1, C, 1, 1)."""
+    top, *mods = path.split("/")
+    if top.startswith("lin"):
+        return f"{top}.model.1.weight", lambda w: w.reshape(1, -1, 1, 1)
+    k = int(mods[0][len("conv"):])
+    idx = (0, 3, 6, 8, 10)[k]
+    return _flax_leaf(f"net.slice{k + 1}.{idx}", mods[1])
+
+
 def from_jax(params) -> dict[str, torch.Tensor]:
     """The port's state dict from JAX SwinIR, HAT, Restormer, X-Restormer,
     DehazeFormer, NAFNet, FBCNN, MPRNet, MAXIM, DRBNet, IFAN, RIDCP,
-    DiffBIR or degradation-classifier params."""
+    DiffBIR, degradation-classifier (V1, V3, V5), CLIP, Combiner,
+    retrieval stand-in, LPIPS, ViT, MANIQA or MUSIQ params."""
     if "params" in params:
         params = params["params"]
     if "inner" in params:  # FBCNN with a pinned quality factor
@@ -815,6 +998,10 @@ def from_jax(params) -> dict[str, torch.Tensor]:
         _unshuffled_first(out)
     elif "control_model" in params:
         _unshuffled_first(out, "preprocess_model.")
+    elif rename is _clip_name:
+        _clip_extras(out)
+    elif rename is _maniqa_name:
+        _maniqa_extras(out)
     return out
 
 
@@ -834,8 +1021,8 @@ def _namer(params):
         rename = _nafnet_name
     elif "qf_embed" in params:
         rename = _fbcnn_namer(sum(k.startswith("down0_res") for k in params))
-    elif "feat_fc" in params:
-        rename = _classifier_name
+    elif "feat_fc" in params or {"conv0", "gn0", "head"} <= params.keys():
+        rename = _classifier_name  # V3 and V5 by feat_fc, V1 by its head
     elif "stage1_encoder" in params:
         rename = _mprnet_namer(sum(
             k.startswith("orb1_cab") for k in params["stage3_orsnet"]))
@@ -849,6 +1036,20 @@ def _namer(params):
         rename = _ridcp_namer(sum(k.endswith("_down") for k in params))
     elif "control_model" in params:
         rename = _diffbir_namer(params)
+    elif "visual" in params and "text" in params:
+        rename = _clip_name
+    elif "ds_hidden" in params:
+        rename = _combiner_name
+    elif "image_tower" in params:
+        rename = _standin_name
+    elif "lin0" in params and "net" in params:
+        rename = _lpips_name
+    elif "tablock1_0" in params:
+        rename = _maniqa_name
+    elif "hse_embedding" in params:
+        rename = _musiq_name
+    elif "pos_embed" in params and "patch_embed" in params:
+        rename = _vit_name
     return rename
 
 

@@ -1,7 +1,12 @@
+from .metrics import psnr, ssim
+from .scorer import Scorer
 from .classifier import (DEGRADATIONS, EVALUATED_DEGRADATIONS,
-                         SEVERITY_LEVELS, DegradationClassifierV3,
+                         SEVERITY_LEVELS, DegradationClassifier,
+                         DegradationClassifierV3, DegradationClassifierV5,
                          SeverityEvaluator, degradation_features)
 
-__all__ = ["DEGRADATIONS", "EVALUATED_DEGRADATIONS", "SEVERITY_LEVELS",
-           "DegradationClassifierV3", "SeverityEvaluator",
+__all__ = ["psnr", "ssim", "Scorer", "DEGRADATIONS",
+           "EVALUATED_DEGRADATIONS", "SEVERITY_LEVELS",
+           "DegradationClassifier", "DegradationClassifierV3",
+           "DegradationClassifierV5", "SeverityEvaluator",
            "degradation_features"]

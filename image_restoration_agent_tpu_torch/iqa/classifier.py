@@ -7,7 +7,10 @@ the image resized to 224 px with MATLAB's bicubic (``core/resize.py``).
 The shipped weights are the JAX package's v4 checkpoint with the V3
 architecture (what its ``SeverityEvaluator.default()`` resolves to),
 carried across as ``weights/degradation_classifier_v4.npz`` (the Flax
-tree, paths joined by dots; ``convert.write_flat_npz``).
+tree, paths joined by dots; ``convert.write_flat_npz``). The V1
+architecture (the JAX package's 160 px and v2 checkpoints) and V5 (the
+ordinal CORAL head) load through ``SeverityEvaluator.from_npz`` too, and
+``default()`` searches the JAX package's order of checkpoints.
 
 Everything runs in float32 (no TF32 on the card): the argmax decides the
 agent's plan and reflections. Where PyTorch's defaults differ from the
@@ -156,7 +159,52 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")  # Flax nn.gelu's default form
 
 
-class DegradationClassifierV3(nn.Module):
+class ConvTrunk:
+    """Stride-2 SAME 3x3 convs, each followed by GroupNorm(8) and GELU,
+    then a global average pool: the trunk of every classifier and of the
+    retrieval stand-in's image tower. Its parameters sit on the owner
+    under the Flax names (``conv{i}``, ``gn{i}``), so this is a mixin of
+    helpers, not a submodule."""
+
+    def _add_trunk(self, widths: tuple[int, ...]) -> None:
+        chans = (3, *widths)
+        for i, (a, b) in enumerate(zip(chans[:-1], chans[1:])):
+            setattr(self, f"conv{i}", nn.Conv2d(a, b, 3, stride=2))
+            setattr(self, f"gn{i}", nn.GroupNorm(8, b, eps=1e-6))
+        self.depth = len(widths)
+
+    def _trunk(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, S, S, 3) -> (B, widths[-1])."""
+        y = x.permute(0, 3, 1, 2)
+        for i in range(self.depth):
+            (t, b), (l, r) = (_same_pad(y.shape[2], 3, 2),
+                              _same_pad(y.shape[3], 3, 2))
+            y = getattr(self, f"conv{i}")(F.pad(y, (l, r, t, b)))
+            y = _gelu(getattr(self, f"gn{i}")(y))
+        return y.mean(dim=(2, 3))
+
+
+class DegradationClassifier(ConvTrunk, nn.Module):
+    """The v1 classifier (the 160 px and v2 checkpoints): a 4-stage conv
+    trunk -> fc1 -> (8, 5) severity logits. Flax names (``conv{i}``,
+    ``gn{i}``, ``fc1``, ``head``)."""
+
+    def __init__(self, width: int = 32, num_levels: int = 5):
+        super().__init__()
+        self.num_levels = num_levels
+        self._add_trunk((width, width * 2, width * 4, width * 4))
+        self.fc1 = nn.Linear(width * 4, width * 8)
+        self.head = nn.Linear(width * 8, len(DEGRADATIONS) * num_levels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, S, S, 3)
+        if x.is_cuda:
+            exact_f32()
+        z = _gelu(self.fc1(self._trunk(x)))
+        return self.head(z).reshape(z.shape[0], len(DEGRADATIONS),
+                                    self.num_levels)
+
+
+class DegradationClassifierV3(ConvTrunk, nn.Module):
     """CNN trunk + analytic degradation priors -> (8, 5) severity logits.
     Parameter names are the Flax module's (``conv{i}``, ``gn{i}``,
     ``feat_fc``, ``fc1``, ``fc2``, ``head``)."""
@@ -164,31 +212,83 @@ class DegradationClassifierV3(nn.Module):
     def __init__(self, width: int = 32, num_levels: int = 5):
         super().__init__()
         self.num_levels = num_levels
-        chans = (3, width, width * 2, width * 4, width * 4, width * 8)
-        for i, (a, b) in enumerate(zip(chans[:-1], chans[1:])):
-            setattr(self, f"conv{i}", nn.Conv2d(a, b, 3, stride=2))
-            setattr(self, f"gn{i}", nn.GroupNorm(8, b, eps=1e-6))
-        self.depth = len(chans) - 1
+        self._add_trunk((width, width * 2, width * 4, width * 4, width * 8))
         self.feat_fc = nn.Linear(22, width * 4)
         self.fc1 = nn.Linear(width * 8 + width * 4, width * 8)
         self.fc2 = nn.Linear(width * 8, width * 8)
         self.head = nn.Linear(width * 8, len(DEGRADATIONS) * num_levels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, S, S, 3)
+    def _features(self, x: torch.Tensor) -> torch.Tensor:
+        """The trunk and the priors through fc1 and fc2: (B, 8 * width)."""
         if x.is_cuda:
             exact_f32()
-        feats = degradation_features(x)
-        y = x.permute(0, 3, 1, 2)
-        for i in range(self.depth):
-            (t, b), (l, r) = (_same_pad(y.shape[2], 3, 2),
-                              _same_pad(y.shape[3], 3, 2))
-            y = getattr(self, f"conv{i}")(F.pad(y, (l, r, t, b)))
-            y = _gelu(getattr(self, f"gn{i}")(y))
-        y = y.mean(dim=(2, 3))
-        z = torch.cat([y, _gelu(self.feat_fc(feats))], dim=-1)
-        z = _gelu(self.fc2(_gelu(self.fc1(z))))
+        z = torch.cat([self._trunk(x),
+                       _gelu(self.feat_fc(degradation_features(x)))], -1)
+        return _gelu(self.fc2(_gelu(self.fc1(z))))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, S, S, 3)
+        z = self._features(x)
         return self.head(z).reshape(z.shape[0], len(DEGRADATIONS),
                                     self.num_levels)
+
+
+class DegradationClassifierV5(DegradationClassifierV3):
+    """The v3 trunk with an ordinal (CORAL) severity head: one score per
+    degradation against 4 learned thresholds kept increasing by a
+    cumulative softplus, ``P(level > k) = sigmoid(score - t_k)``.
+    ``forward`` returns the 5 levels' log-probabilities, shaped like the v3
+    logits; ``cumulative=True`` returns the 4 cumulative logits. Flax names
+    (``score``, ``thresh0``, ``thresh_deltas``)."""
+
+    def __init__(self, width: int = 32, num_levels: int = 5):
+        super().__init__(width, num_levels)
+        del self.head
+        nd = len(DEGRADATIONS)
+        self.score = nn.Linear(width * 8, nd)
+        self.thresh0 = nn.Parameter(torch.zeros(nd, 1))
+        self.thresh_deltas = nn.Parameter(
+            torch.full((nd, num_levels - 2), 0.55))
+
+    def forward(self, x: torch.Tensor,
+                cumulative: bool = False) -> torch.Tensor:
+        score = self.score(self._features(x))                # (B, nd)
+        thresh = torch.cat([self.thresh0, self.thresh0 + torch.cumsum(
+            F.softplus(self.thresh_deltas), dim=-1)], dim=-1)
+        cum = score[:, :, None] - thresh[None]               # (B, nd, L-1)
+        if cumulative:
+            return cum
+        sig = torch.sigmoid(cum)                             # decreasing
+        upper = torch.cat([torch.ones_like(sig[..., :1]), sig], -1)
+        lower = torch.cat([sig, torch.zeros_like(sig[..., :1])], -1)
+        return torch.log(upper - lower + 1e-9)
+
+
+def architecture_of(state: dict) -> type:
+    """The classifier class whose parameters ``state`` holds (V5 by its
+    ``score``, V3 by its ``feat_fc``, else V1)."""
+    if "score.weight" in state:
+        return DegradationClassifierV5
+    if "feat_fc.weight" in state:
+        return DegradationClassifierV3
+    return DegradationClassifier
+
+
+def prepare_input(img, size: int = 224) -> torch.Tensor:
+    """Resize an (H, W, 3) float image (numpy, or a tensor on any device)
+    to the classifier's (size, size, 3) input with MATLAB's bicubic, as a
+    float32 tensor on the image's device (numpy: the CPU)."""
+    x = torch.from_numpy(np.ascontiguousarray(img, np.float32)) \
+        if isinstance(img, np.ndarray) else img.float()
+    return resize_matlab(x, out_shape=(size, size))
+
+
+# the shipped checkpoints in default()'s order: (file stem, architecture
+# or None for the v5 slot's marker, input size)
+_SHIPPED = (("degradation_classifier_v5", None, 224),
+            ("degradation_classifier_v4", DegradationClassifierV3, 224),
+            ("degradation_classifier_v3", DegradationClassifierV3, 224),
+            ("degradation_classifier_v2", DegradationClassifier, 224),
+            ("degradation_classifier", DegradationClassifier, 160))
 
 
 class SeverityEvaluator:
@@ -214,22 +314,46 @@ class SeverityEvaluator:
 
     @classmethod
     def from_npz(cls, path: str | Path = WEIGHTS, input_size: int = 224,
+                 model: nn.Module | None = None,
                  device: str | torch.device = "cuda") -> "SeverityEvaluator":
-        """Serve a Flax classifier tree written by ``write_flat_npz``."""
+        """Serve a Flax classifier tree written by ``write_flat_npz`` (the
+        counterpart of the JAX ``from_checkpoint``); without ``model`` the
+        architecture is read from the tree's names."""
         from ..convert.from_jax import from_jax, read_flat_npz
-        return cls(state=from_jax(read_flat_npz(path)),
+        state = from_jax(read_flat_npz(path))
+        return cls(state=state, model=model or architecture_of(state)(),
                    input_size=input_size, device=device)
 
     _default: dict = {}
 
     @classmethod
-    def default(cls, device: str | torch.device = "cuda"
-                ) -> "SeverityEvaluator":
-        """The shipped v4 classifier on ``device``, one instance per device
-        for the process (its logit cache is shared by every agent run)."""
-        key = str(resolve_device(device))
+    def default(cls, device: str | torch.device = "cuda",
+                weights: str | Path | None = None) -> "SeverityEvaluator":
+        """The best shipped classifier on ``device``, one instance per
+        device for the process (its logit cache is shared by every agent
+        run). The JAX package's search order over ``weights`` (the port's
+        ``weights/``): the v5 slot (its ``.arch`` marker says ``coral``,
+        the default, or ``softmax`` for the V3 head), v4, v3, v2 (V1 at
+        224 px), then the 160 px v1; random weights where none exists. A
+        file that exists and does not load raises."""
+        root = Path(weights) if weights else WEIGHTS.parent
+        key = (str(resolve_device(device)), str(root))
         if key not in cls._default:
-            cls._default[key] = cls.from_npz(device=key)
+            inst = None
+            for stem, arch, size in _SHIPPED:
+                path = root / f"{stem}.npz"
+                if not path.exists():
+                    continue
+                if arch is None:
+                    marker = root / f"{stem}.arch"
+                    coral = not marker.exists() or \
+                        marker.read_text().strip() == "coral"
+                    arch = DegradationClassifierV5 if coral \
+                        else DegradationClassifierV3
+                inst = cls.from_npz(path, input_size=size, model=arch(),
+                                    device=key[0])
+                break
+            cls._default[key] = inst or cls(device=key[0])
         return cls._default[key]
 
     @torch.no_grad()
@@ -247,7 +371,7 @@ class SeverityEvaluator:
         if key not in cache:
             x = torch.from_numpy(np.ascontiguousarray(img, np.float32)).to(
                 self.device)
-            x = resize_matlab(x, out_shape=(self.input_size,) * 2)[None]
+            x = prepare_input(x, self.input_size)[None]
             cache[key] = self.model(x)[0].cpu().numpy()
             if len(cache) > 16:
                 cache.pop(next(iter(cache)))

@@ -3,6 +3,8 @@
 the committed weights file, held against the JAX package's
 ``iqa/classifier.py`` and its orbax checkpoint."""
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -10,7 +12,9 @@ import pytest
 import torch
 
 from image_restoration_agent_tpu.iqa import classifier as jcls
-from image_restoration_agent_tpu_torch.convert import read_flat_npz
+from image_restoration_agent_tpu_torch.convert import (from_jax,
+                                                       read_flat_npz,
+                                                       write_flat_npz)
 from image_restoration_agent_tpu_torch.iqa import classifier as tcls
 
 torch.set_num_threads(1)
@@ -167,3 +171,129 @@ def test_default_is_one_instance_per_device(port_default):
     assert tcls.SEVERITY_LEVELS == jcls.SEVERITY_LEVELS
     assert tcls.DEGRADATIONS == jcls.DEGRADATIONS
     assert tcls.EVALUATED_DEGRADATIONS == jcls.EVALUATED_DEGRADATIONS
+
+
+# ---------------------------------------------------------------------------
+# the V1 and V5 architectures, the in-tree checkpoints, default()'s order
+
+JAX_WEIGHTS = Path(jcls.__file__).resolve().parents[1] / "weights"
+
+# every in-tree checkpoint: (directory, JAX architecture, input size); the
+# v5 run's .arch marker says softmax, so its head is V3's
+CHECKPOINTS = [("degradation_classifier", jcls.DegradationClassifier, 160),
+               ("degradation_classifier_v2", jcls.DegradationClassifier, 224),
+               ("degradation_classifier_v3", jcls.DegradationClassifierV3,
+                224),
+               ("degradation_classifier_v5_final",
+                jcls.DegradationClassifierV3, 224)]
+
+
+@pytest.mark.parametrize("name,arch,size", CHECKPOINTS,
+                         ids=[c[0] for c in CHECKPOINTS])
+def test_in_tree_checkpoints_carry_across(tmp_path, name, arch, size):
+    """Restore the orbax checkpoint with the JAX package, write it as the
+    port's flat .npz, serve it with ``from_npz`` (the architecture read
+    from the tree) and compare logits and severities."""
+    if name.endswith("v5_final"):
+        marker = JAX_WEIGHTS / f"{name}.arch"
+        assert marker.read_text().strip() == "softmax"
+    jev = jcls.SeverityEvaluator.from_checkpoint(
+        JAX_WEIGHTS / name, input_size=size, model=arch())
+    path = tmp_path / f"{name}.npz"
+    write_flat_npz(jax.tree.map(np.asarray, jev.params), path)
+    tev = tcls.SeverityEvaluator.from_npz(path, input_size=size,
+                                          device="cpu")
+    assert type(tev.model).__name__ == arch.__name__
+    for img in _images()[:2]:
+        want, got = jev.logits(img), tev.logits(img)
+        assert got.shape == want.shape == (8, 5)
+        assert float(np.abs(got - want).max()) <= \
+            1e-4 * float(np.abs(want).max())
+        assert tev.evaluate(img) == jev.evaluate(img)
+
+
+def _random_params(model, size, seed):
+    shapes = jax.eval_shape(lambda: model.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, size, size, 3))))
+    rng = np.random.default_rng(seed)
+
+    def draw(a):
+        n = rng.standard_normal(a.shape).astype(np.float32)
+        return 0.3 * n if len(a.shape) <= 1 else \
+            n / np.sqrt(np.prod(a.shape[:-1])).astype(np.float32)
+
+    return jax.tree.map(draw, shapes)
+
+
+@pytest.mark.parametrize("arch", ["v1", "v5"])
+def test_v1_and_v5_architectures_match_jax(arch):
+    """V1 and the CORAL head of V5 on random weights (no in-tree CORAL
+    checkpoint): logits / level log-probs and the cumulative logits."""
+    jm = {"v1": jcls.DegradationClassifier,
+          "v5": jcls.DegradationClassifierV5}[arch]()
+    params = _random_params(jm, 64, 3)
+    pm = {"v1": tcls.DegradationClassifier,
+          "v5": tcls.DegradationClassifierV5}[arch]().eval()
+    state = from_jax(params)
+    assert tcls.architecture_of(state) is type(pm)
+    pm.load_state_dict(state, strict=True)
+    x = np.stack([im[:64, :64] for im in _images()[:2]])
+    want = np.asarray(jm.apply(params, jnp.asarray(x)))
+    with torch.no_grad():
+        got = pm(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (2, 8, 5)
+    assert float(np.abs(got - want).max()) <= \
+        1e-4 * float(np.abs(want).max())
+    if arch == "v5":
+        want = np.asarray(jm.apply(params, jnp.asarray(x), cumulative=True))
+        with torch.no_grad():
+            got = pm(torch.from_numpy(x), cumulative=True).numpy()
+        assert got.shape == (2, 8, 4)
+        assert float(np.abs(got - want).max()) <= \
+            1e-4 * float(np.abs(want).max())
+
+
+def test_prepare_input_matches_jax():
+    img = _images()[0]
+    want = jcls.prepare_input(img, 160)
+    got = tcls.prepare_input(img, 160)
+    assert got.shape == want.shape == (160, 160, 3)
+    assert float(np.abs(got.numpy() - want).max()) <= 1e-5
+
+
+def test_default_search_order(tmp_path, monkeypatch):
+    """The JAX package's order over a weights directory: the v5 slot (its
+    .arch marker: coral, the default, or softmax), v4, v3, v2, the 160 px
+    v1; random weights where none is there."""
+    monkeypatch.setattr(tcls.SeverityEvaluator, "_default", {})
+    v1 = _random_params(jcls.DegradationClassifier(), 64, 2)
+    v3 = _random_params(jcls.DegradationClassifierV3(), 64, 1)
+    v5 = _random_params(jcls.DegradationClassifierV5(), 64, 4)
+
+    def pick(files: dict, marker=None):
+        d = tmp_path / f"w{len(list(tmp_path.iterdir()))}"
+        d.mkdir()
+        for stem, params in files.items():
+            write_flat_npz(params, d / f"{stem}.npz")
+        if marker is not None:
+            (d / "degradation_classifier_v5.arch").write_text(marker + "\n")
+        ev = tcls.SeverityEvaluator.default(device="cpu", weights=d)
+        return type(ev.model).__name__, ev.input_size
+
+    every = {"degradation_classifier_v4": v3,
+             "degradation_classifier_v3": v3,
+             "degradation_classifier_v2": v1, "degradation_classifier": v1}
+    assert pick({**every, "degradation_classifier_v5": v5}) == \
+        ("DegradationClassifierV5", 224)
+    assert pick({**every, "degradation_classifier_v5": v3}, "softmax") == \
+        ("DegradationClassifierV3", 224)
+    assert pick(every) == ("DegradationClassifierV3", 224)
+    assert pick({"degradation_classifier_v2": v1,
+                 "degradation_classifier": v1}) == \
+        ("DegradationClassifier", 224)
+    assert pick({"degradation_classifier": v1}) == \
+        ("DegradationClassifier", 160)
+    assert pick({}) == ("DegradationClassifierV3", 224)  # random init
+    # the port's own weights/ holds v4 alone: v4 is what default() serves
+    assert sorted(p.name for p in tcls.WEIGHTS.parent.glob("*.npz")) == \
+        ["degradation_classifier_v4.npz"]

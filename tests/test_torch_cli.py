@@ -1,10 +1,11 @@
 """The port's command line (``python -m image_restoration_agent_tpu_torch
 .cli``) on the CPU: the JAX CLI's subcommands and flags plus ``--device``;
-``restore``, ``infer --fast``, ``test-tools`` and ``warmup`` run; the
-subcommands whose modules are not ported fail with a message naming them
-and never import JAX; and every module of the port, ``cli.py`` and
-``api/*`` included, imports in a subprocess where ``jax``, ``flax`` and the
-JAX package cannot be imported."""
+``restore``, ``infer --fast``, ``test-tools``, ``warmup`` and
+``insert-runs`` run; the subcommands whose modules are not ported fail
+with a message naming them and never import JAX; and every module of the
+port, ``cli.py`` and ``api/*`` included, imports in a subprocess where
+``jax``, ``flax``, ``optax``, ``orbax``, ``regex``, ``PIL`` and the JAX
+package cannot be imported."""
 
 import argparse
 import json
@@ -31,6 +32,7 @@ import importlib.abc, sys
 class _Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
         if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                  "regex", "PIL",
                                   "image_restoration_agent_tpu"):
             raise ImportError("blocked in this test: " + name)
         return None
@@ -56,7 +58,8 @@ def _subcommands(parser) -> dict:
 
 def test_subcommands_and_flags_are_the_jax_clis_plus_device():
     """Every subcommand of the JAX CLI, each with the JAX CLI's flags; the
-    six that build an engine or an evaluator add ``--device``."""
+    seven that build an engine, an evaluator or an embedder add
+    ``--device``."""
     captured = {}
     real = argparse.ArgumentParser.parse_args
 
@@ -74,14 +77,14 @@ def test_subcommands_and_flags_are_the_jax_clis_plus_device():
     got = _subcommands(cli.build_parser())
     assert set(got) == set(want)
     with_device = {"infer", "serve", "eval-service", "restore", "test-tools",
-                   "warmup"}
+                   "warmup", "insert-runs"}
     for name in want:
         extra = {"--device"} if name in with_device else set()
         assert got[name] == want[name] | extra, name
     for name in with_device:
         args = cli.build_parser().parse_args(
-            [name] + {"infer": ["x"], "restore": ["x", "--model", "m"]}
-            .get(name, []))
+            [name] + {"infer": ["x"], "restore": ["x", "--model", "m"],
+                      "insert-runs": ["x"]}.get(name, []))
         assert args.device == "cuda"  # nothing picks the CPU by itself
 
 
@@ -128,13 +131,41 @@ def test_warmup_on_the_cpu(capsys):
         "256,512x768,720p")
 
 
+def test_insert_runs_on_the_cpu(tmp_path, capsys):
+    """``insert-runs --device cpu`` over fabricated agent work dirs writes
+    a store the JAX package's ``NumpyVectorStore.load`` reads, under the
+    random stand-in's own identity; a second pass adds to it."""
+    from image_restoration_agent_tpu.retrieval import (NumpyVectorStore,
+                                                       RetrievalEmbedder)
+    from test_torch_retrieval import fabricate_runs
+
+    fabricate_runs(tmp_path / "runs")
+    store = tmp_path / "store.npz"
+    argv = ["insert-runs", str(tmp_path / "runs"), "--store", str(store),
+            "--device", "cpu"]
+    assert cli.main(argv) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec == {"inserted": 3, "total": 3, "store": str(store)}
+    st = NumpyVectorStore.load(store)
+    assert st.embedder_id == "random_standin_torch_seed0"
+    assert st._names == ["run_a", "run_b", "run_c"]
+    assert st._seqs[0] == "denoising_nafnet/deraining_mprnet"
+    np.testing.assert_allclose(np.linalg.norm(st._embs, axis=1), 1.0,
+                               atol=1e-5)
+    with pytest.raises(ValueError, match="random_standin_torch_seed0"):
+        NumpyVectorStore.load(store, embedder=RetrievalEmbedder)
+    assert cli.main(argv) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (rec["inserted"], rec["total"]) == (3, 3)
+
+
 @pytest.mark.parametrize("cmd", sorted(cli.NOT_PORTED))
 def test_unported_subcommands_fail_with_their_module(cmd):
     """Run as ``python -m ...cli`` with JAX blocked: status 2, the missing
     module named on stderr, no traceback (JAX is never reached)."""
-    argv = {"score": ["r", "g"], "insert-runs": ["o"],
-            "convert-weights": ["list"], "validate-weights": ["--synthetic"],
-            "ablation-grid": [], "eval-suite": []}[cmd]
+    argv = {"score": ["r", "g"], "convert-weights": ["list"],
+            "validate-weights": ["--synthetic"], "ablation-grid": [],
+            "eval-suite": []}[cmd]
     r = _run_blocked(
         "import runpy, sys\n"
         f"sys.argv = ['cli', {cmd!r}, *{argv!r}]\n"
@@ -147,9 +178,9 @@ def test_unported_subcommands_fail_with_their_module(cmd):
 
 
 def test_every_port_module_imports_without_jax():
-    """Every module of image_restoration_agent_tpu_torch (cli.py and api/*
-    included) imports where jax, flax and image_restoration_agent_tpu
-    cannot be imported."""
+    """Every module of image_restoration_agent_tpu_torch (cli.py, api/*,
+    retrieval/* and iqa/* included) imports where jax, flax, optax, orbax,
+    regex, PIL and image_restoration_agent_tpu cannot be imported."""
     r = _run_blocked(
         "import importlib, pkgutil\n"
         "import image_restoration_agent_tpu_torch as pkg\n"
@@ -158,7 +189,8 @@ def test_every_port_module_imports_without_jax():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'image_restoration_agent_tpu')]\n"
+        "('jax', 'flax', 'optax', 'orbax', 'regex', 'PIL', "
+        "'image_restoration_agent_tpu')]\n"
         "assert not bad, bad\n"
         "print(len(names), ' '.join(names))\n")
     assert r.returncode == 0, r.stderr
@@ -166,6 +198,10 @@ def test_every_port_module_imports_without_jax():
     for mod in ("cli", "api.server", "api.eval_service", "api.playground",
                 "api.controller", "core.io_native", "core.decode_pool",
                 "core.color", "utils.config", "utils.misc", "ops.dcn",
-                "models.ridcp"):
+                "models.ridcp", "retrieval.store", "retrieval.combiner",
+                "retrieval.tokenizer", "retrieval.clip",
+                "retrieval.embedder", "train.retrieval", "iqa.metrics",
+                "iqa.lpips", "iqa.vit", "iqa.maniqa", "iqa.musiq",
+                "iqa.clipiqa", "iqa.scorer"):
         assert f"image_restoration_agent_tpu_torch.{mod}" in names.split()
     assert int(count) > 60
