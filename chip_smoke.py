@@ -235,7 +235,37 @@ Phases, each printing one JSON line:
     weights, f32, the card against the CPU path, relative error <= 1e-4;
 46. iqa_path: the six-metric ``Scorer`` on a 1920x1080 pair with the
     learned models passed in: ms per metric, peak device memory, a
-    ``torch.profiler`` top-10 of the slowest metric.
+    ``torch.profiler`` top-10 of the slowest metric;
+47. degrade_exact: the 16 degradation combos on one suite image each,
+    ``synthesize_combo`` on the card against the CPU from the same seed:
+    equal, except ``lowres``'s (<= 1 level on <= 0.1% of the pixels);
+48. eval_suite_fast: ``cli eval-suite --combos 16 --device cuda`` in a
+    fresh process (the tiny executor), against the same suite on the CPU
+    (plans, executed subtasks, tool calls equal; PSNR within 0.05 dB, SSIM
+    within 1e-3), and its results scored on the card against the CPU
+    (1e-6 relative);
+49. eval_suite_full: ``run_suite`` on the default toolboxes as shipped
+    (f32, random init) on three combos: per case the plan, tools,
+    seconds (DiffBIR's apart) and launches; every kernel call form
+    recorded and predicted by the meta-device trace at the engine's
+    canvases;
+50. exploration_path: ``exhaust_sequences`` on [brightening, denoising]
+    over the default executor at 96 px (45 tool calls, the tree's nodes
+    and leaves as ``expected_tree_counts`` says), fail rates from the v4
+    classifier on the card, ``distill_experience`` with MockLLM;
+51. eval_suite_kernels: every call form of phases 49-50, its kernels
+    against their plain versions in f32;
+52. ablation_grid: ``cli ablation-grid --combos 2 --device cuda``: six
+    variants, seven pairs, the grid's JSON and markdown;
+53. validate_synthetic: ``cli validate-weights --synthetic --device
+    cuda``: the four committed goldens through the port's converter and
+    tiled path at >= recorded - 0.1 dB; xrestormer ``missing``;
+54. convert_maxim: an official-named MAXIM-S3 ``.npz`` through ``cli
+    convert-weights``, the written state equal to the drawn one, served
+    from the written file at 1280x720 in f32, the card against the CPU
+    on a 256x128 probe (>= 60 dB);
+55. engine_profile: ``Engine.profile`` around one NAFNet 256 px request:
+    the Chrome trace names K3's kernel.
 Phases 20-22 are the lab path: each counts its kernel's launches over one
 call (6 ``swin_pair_block`` per chain, 1 ``conv3x3_pair`` per tail, 1
 ``lab_strip`` per call), with every count set to 0 just before.
@@ -1089,7 +1119,6 @@ def profile_request(eng, img, model: str, top: int = 12,
     records the device's activity alone (no op rows): a request of 180 000
     launches then takes about half the profiler's processing."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu_ops
@@ -1101,24 +1130,44 @@ def profile_request(eng, img, model: str, top: int = 12,
         wall = time.perf_counter() - t0
     if results is not None:
         results.append(res)
+    return profile_summary(prof, wall, top)
+
+
+def profile_summary(prof, wall: float, top: int) -> dict:
+    """A finished torch.profiler run over ``wall`` seconds: the device's
+    busy ms and share and its ``top`` kernels, summed by name from the
+    trace's raw device events (kernels, copies); the library ops that
+    launched the most only where CPU activity was recorded, since their
+    rows need the profiler's own processing (tens of seconds over a
+    DiffBIR request's events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
 
     def self_dev_us(e):
         return (getattr(e, "self_device_time_total", None)
                 or getattr(e, "self_cuda_time_total", 0) or 0)
 
-    def rows(evs):
-        return [{"name": e.key[:80], "calls": e.count,
-                 "device_ms": self_dev_us(e) / 1e3}
-                for e in evs[:top] if self_dev_us(e) > 0]
-
-    evs = sorted(prof.key_averages(), key=self_dev_us, reverse=True)
-    dev = [e for e in evs if e.device_type != DeviceType.CPU]
-    ops = [e for e in evs if e.device_type == DeviceType.CPU]
-    busy = sum(self_dev_us(e) for e in dev) / 1e3
+    dev: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CPU:
+            n, us = dev.get(e.name(), (0, 0.0))
+            dev[e.name()] = (n + 1, us + e.duration_ns() / 1e3)
+    ranked = sorted(dev.items(), key=lambda kv: kv[1][1], reverse=True)
+    busy = sum(us for _, us in dev.values()) / 1e3
+    ops = []
+    if top and ProfilerActivity.CPU in prof.activities:
+        evs = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CPU),
+                     key=self_dev_us, reverse=True)
+        ops = [{"name": e.key[:80], "calls": e.count,
+                "device_ms": self_dev_us(e) / 1e3}
+               for e in evs[:top] if self_dev_us(e) > 0]
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
             "device_busy_share": busy / (wall * 1e3),
-            "device_kernels": len(dev), "top": rows(dev),
-            "top_ops": rows(ops)}
+            "device_kernels": len(dev),
+            "top": [{"name": k[:80], "calls": n, "device_ms": us / 1e3}
+                    for k, (n, us) in ranked[:top] if us > 0],
+            "top_ops": ops}
 
 
 def fast_vs_exact(state) -> dict:
@@ -2039,8 +2088,14 @@ def kernel_calls(model, dtypes: dict | None = None):
     from a Swin block on the partition route one ``wmsa_block`` and one
     ``mlp_block``; on the strip route one ``swin_block`` (four K1, one K2
     and ``mlp_block`` inside), its form keyed by the folded roll ``dc`` its
-    input frame gives and whether it reads the shift-mask bank."""
+    input frame gives and whether it reads the shift-mask bank; from a HAT
+    block on the strip route ``swin_attn_block``, ``roll2d`` where it
+    shifts and ``mlp_block``; from DehazeFormer's window attention one
+    ``wmsa``."""
     from image_restoration_agent_tpu_torch.models.common import Conv
+    from image_restoration_agent_tpu_torch.models.dehazeformer import (
+        WindowAttention)
+    from image_restoration_agent_tpu_torch.models.hat import HAB
     from image_restoration_agent_tpu_torch.models.restormer import (
         TransformerBlock)
     from image_restoration_agent_tpu_torch.models.swinir import SwinBlock
@@ -2050,7 +2105,8 @@ def kernel_calls(model, dtypes: dict | None = None):
     forms: dict = {}
     counts = {"conv3x3": 0, "gdfn_block": 0, "mdta_front": 0,
               "wmsa_block": 0, "mlp_block": 0, "swin_block": 0,
-              "token_linear": 0, "window_attention": 0}
+              "token_linear": 0, "window_attention": 0,
+              "swin_attn_block": 0, "roll2d": 0, "wmsa": 0}
 
     def seen(key, name, x):
         forms.setdefault(key, name)
@@ -2082,6 +2138,14 @@ def kernel_calls(model, dtypes: dict | None = None):
         ws = mod.window_size
         shift = 0 if min(x.shape[1:3]) <= ws else mod.shift_size
         hid = mod.mlp.fc1.out_features
+        if isinstance(mod, HAB) and mod.strip(x):
+            seen(("hat_strip", tuple(x.shape), mod.num_heads, ws, -shift,
+                  shift > 0, hid), name, x)
+            for k, v in (("swin_attn_block", 1), ("token_linear", 4),
+                         ("window_attention", 1), ("mlp_block", 1),
+                         ("roll2d", int(shift > 0))):
+                counts[k] += v
+            return
         if mod.strip(x):
             in_frame = args[1] if len(args) > 1 else kw.get("in_frame", 0)
             seen(("swin_strip", tuple(x.shape), mod.num_heads, ws,
@@ -2095,11 +2159,16 @@ def kernel_calls(model, dtypes: dict | None = None):
         counts["wmsa_block"] += 1
         counts["mlp_block"] += 1
 
+    def window(name, mod, args, kw):
+        seen(("wmsa", tuple(args[0].shape), mod.num_heads), name, args[0])
+        counts["wmsa"] += 1
+
     hooks = [mod.register_forward_pre_hook(
         (lambda m, a, kw, n=name, f=fn: f(n, m, a, kw)), with_kwargs=True)
         for name, mod in model.named_modules()
         for cls, fn in ((Conv, conv), (TransformerBlock, block),
-                        (XTransformerBlock, block), (SwinBlock, swin))
+                        (XTransformerBlock, block), (SwinBlock, swin),
+                        (WindowAttention, window))
         if isinstance(mod, cls)]
     try:
         yield forms, counts
@@ -2146,9 +2215,11 @@ def served_canvas(name: str, h: int, w: int, bucket: int = 128) -> tuple:
     scale = get_spec(name).scale
 
     class Probe(torch.nn.Module):
-        def forward(self, x, **kw):
+        def forward(self, x, packed_output=False):
             b, hh, ww, c = x.shape
             seen.append((b, hh, ww))
+            if packed_output:  # band mode: packed RGB rows
+                return x.new_zeros(b, hh * scale, ww * scale * c)
             return x.new_zeros(b, hh * scale, ww * scale, c)
 
     eng = Engine(device="cpu", shape_bucket=bucket, hbm_budget_bytes=1 << 30)
@@ -2236,10 +2307,10 @@ def swin_strip_cases(key, name: str, path: str, dtype, randn,
     p32 = prepare_swin_params(**wts, num_heads=heads, ws=ws,
                               dtype=torch.float32)
     n, t = ws * ws, b * h * w
-    bank = torch.from_numpy(shift_attention_mask(
-        2 * ws, 2 * ws, ws, ws // 2).reshape(2, 2, n, n)).to("cuda") \
-        if banked else None
     x32 = randn(b, h, w, c)
+    bank = torch.from_numpy(shift_attention_mask(
+        2 * ws, 2 * ws, ws, ws // 2).reshape(2, 2, n, n)).to(x32.device) \
+        if banked else None
     x = x32.to(dtype)
     kw = dict(num_heads=heads, ws=ws, dc=dc, mask_bank=bank,
               fast=dtype == torch.bfloat16)
@@ -2311,9 +2382,15 @@ def form_cases(path: str, forms: dict, dtype, randn, gen, quick: bool,
     four window canvas, with --quick): K3 through ``conv_case``, K4 and K5
     through ``restormer_block_cases`` at the block's batch, the Swin
     partition route through ``swin_partition_cases``, the strip route
-    through ``swin_strip_cases``."""
+    through ``swin_strip_cases``, HAT's strip route through
+    ``hat_strip_cases``, DehazeFormer's window attention through
+    ``wmsa_cases``."""
     cases, blocks = [], []
     for key, name in forms.items():
+        if key[0] in ("hat_strip", "wmsa"):
+            fn = hat_strip_cases if key[0] == "hat_strip" else wmsa_cases
+            cases += fn(key, name, path, dtype, randn, quick)
+            continue
         if key[0] in ("swin_partition", "swin_strip"):
             fn = swin_partition_cases if key[0] == "swin_partition" \
                 else swin_strip_cases
@@ -3639,11 +3716,10 @@ def diffbir_path(eng, card: str) -> dict:
     """bench.py's diffbir_sr: ``eng`` (``diffbir_engine``: bf16, random
     weights) serving a 256x256 request with ``diffbir``, whole image, 50
     steps: one warm-up request with every kernel call form recorded (all
-    checked by diffbir_kernels), then two timed ones (best, median), the
-    second under ``torch.profiler`` with the device's activity alone
-    (busy share, top kernels, K3's f32 and bf16 shares; the profiler adds
-    about 0.2% to its wall time; with the ops' rows too its processing
-    took two minutes),
+    checked by diffbir_kernels), then one timed under ``torch.profiler``
+    with the device's activity alone (busy share, top kernels, K3's f32
+    and bf16 shares; the profiler adds about 0.2% to its wall time; with
+    the ops' rows too its processing took two minutes),
     with the launch counts over both against the traced count per request
     and the peak device memory. Every model of the super-resolution box is
     registered."""
@@ -3654,7 +3730,7 @@ def diffbir_path(eng, card: str) -> dict:
     from image_restoration_agent_tpu_torch.models import MODEL_REGISTRY
 
     h, w = DIFFBIR_REQUEST
-    requests = 2
+    requests = 1
     img = np.random.default_rng(21).random((h, w, 3), dtype=np.float32)
     t0 = time.perf_counter()
     model = eng.store.get("diffbir")
@@ -3670,15 +3746,12 @@ def diffbir_path(eng, card: str) -> dict:
     per_req = {k: v for k, v in shapes["diffbir"][1].items() if v}
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    results = [eng.restore_array(img, "diffbir")]
-    torch.cuda.synchronize()
-    secs = [time.perf_counter() - t0]
+    results: list = []
     t0 = time.perf_counter()
     profile = profile_request(eng, img, "diffbir", top=40, results=results,
                               cpu_ops=False)
     profile_s = time.perf_counter() - t0
-    secs.append(profile["wall_ms"] / 1e3)
+    secs = [profile["wall_ms"] / 1e3]
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     del model
@@ -4569,6 +4642,802 @@ def slice14_phases(phase, card: str) -> dict:
     return served
 
 
+# ---------------------------------------------------------------------------
+# slice 15: the offline pipelines (degradation synthesis, the 16-combo
+# suite, the ablation grid, exploration and distillation, the weight
+# converters, validate-weights, Engine.profile)
+
+# the full suite's combos: none with "low resolution"; the 96 px suite
+# images put super-resolution on every plan all the same, so the combos'
+# own boxes are mostly not planned (exploration_path's one-box trees
+# serve the dehazing box and HAT)
+S15_FULL_COMBOS = ("rain + haze", "dark + noise",
+                   "defocus blur + jpeg compression artifact")
+S15_EXPLORE = ["brightening", "denoising"]
+# exploration_path's one-box trees after the pair: every tool of the
+# dehazing box and of the super-resolution box but DiffBIR (which
+# eval_suite_full serves), so RIDCP, DehazeFormer and HAT serve at 96 px
+S15_EXPLORE_BOXES = ("dehazing", "super-resolution")
+S15_MAXIM_REQUEST = (720, 1280)
+S15_MAXIM_PROBE = (128, 256)
+S15_NAFNET_PX = 256
+# path -> {call form: "model module"}: the forms eval_suite_full and
+# exploration_path recorded and predicted, which eval_suite_kernels checks
+S15_FORMS: dict = {}
+
+
+def _sync(dev: str) -> None:
+    import torch
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def recording_engine(dev: str = "cuda"):
+    """``Engine(device=dev)`` (f32, the registry's random init: the engine
+    ``build_default_executor`` makes) whose every model gets the
+    ``kernel_calls`` hooks as it loads; yields (engine, {model: forms})."""
+    from image_restoration_agent_tpu_torch.engine import Engine
+
+    eng = Engine(device=dev)
+    seen: dict = {}
+    loader = eng.store._loader
+    with contextlib.ExitStack() as stack:
+        def hooked(name):
+            model = loader(name)
+            seen[name], _ = stack.enter_context(kernel_calls(model))
+            return model
+
+        eng.store._loader = hooked
+        yield eng, seen
+
+
+def record_forms(path: str, eng, seen: dict) -> tuple:
+    """Put the call forms ``seen`` on ``path`` and their prediction (each
+    (model, request size) in the engine's call log traced on the meta
+    device at the canvas ``served_canvas`` gives it; DiffBIR at one
+    sampler step, which makes every step's forms) in ``S15_FORMS``;
+    returns (the engine's (model, h, w) requests, the forms seen, the
+    forms predicted, the seen forms the prediction missed)."""
+    served = sorted({(c["model"], c["h"], c["w"]) for c in eng.call_log})
+    predicted: dict = {}
+    for model, h, w in served:
+        kw = {"num_steps": 1} if model == "diffbir" else {}
+        forms, _ = traced_calls(model, served_canvas(model, h, w), **kw)
+        for key, name in forms.items():
+            predicted.setdefault(key, f"{model} {name}")
+    seen = {key: f"{model} {name}" for model, forms in seen.items()
+            for key, name in forms.items()}
+    untraced = [f"{name}: {key}" for key, name in seen.items()
+                if key not in predicted]
+    earlier = {k for forms in S15_FORMS.values() for k in forms}
+    S15_FORMS[path] = {k: v for k, v in {**predicted, **seen}.items()
+                       if k not in earlier}
+    return served, seen, predicted, untraced
+
+
+def degrade_exact(card: str) -> dict:
+    """The 16 combos, one ``synthetic_hq`` image each, through
+    ``synthesize_combo`` on the card and on the CPU from the same seed:
+    equal images, except ``lowres``'s, at most one level apart on at most
+    0.1% of the pixels (the MATLAB-bicubic sums run in another order)."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.data import synthesize_combo
+    from image_restoration_agent_tpu_torch.offline.benchmark_suite import (
+        ALL_COMBOS, synthetic_hq)
+
+    hqs = synthetic_hq(len(ALL_COMBOS), seed=0)
+    cases, secs, ok = [], {"cuda": 0.0, "cpu": 0.0}, True
+    for i, (combo, hq) in enumerate(zip(ALL_COMBOS, hqs)):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            out[dev] = synthesize_combo(hq, combo,
+                                        rng=np.random.default_rng(i),
+                                        device=dev)
+            torch.cuda.synchronize()
+            secs[dev] += time.perf_counter() - t0
+        same_shape = out["cuda"].shape == out["cpu"].shape
+        d = (np.abs(out["cuda"].astype(np.int16)
+                    - out["cpu"].astype(np.int16)) if same_shape
+             else np.full(1, 255))
+        frac = float((d > 0).mean())
+        lowres = "low resolution" in combo
+        good = same_shape and (
+            (int(d.max()) <= 1 and frac <= 1e-3) if lowres
+            else int(d.max()) == 0)
+        ok = ok and good
+        cases.append({"combo": combo, "shape": list(out["cuda"].shape),
+                      "max_diff": int(d.max()), "diff_frac": frac,
+                      "pass": bool(good)})
+    return {"phase": "degrade_exact", "cases": cases,
+            "cuda_seconds": secs["cuda"], "cpu_seconds": secs["cpu"],
+            "cv2": _cv2_version(), "card": card, "pass": bool(ok)}
+
+
+def _cli(args: list, timeout: int = 900) -> tuple:
+    """``python -m image_restoration_agent_tpu_torch.cli <args>`` in a
+    fresh process (it loads the kernels this process built): (completed
+    process, seconds, its last stdout line as JSON or None)."""
+    cmd = [sys.executable, "-m", "image_restoration_agent_tpu_torch.cli"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd + args, capture_output=True, text=True,
+                       timeout=timeout)
+    secs = time.perf_counter() - t0
+    try:
+        rec = json.loads(r.stdout.strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError):
+        rec = None
+    return r, secs, rec
+
+
+def _suite_results(work: Path) -> tuple:
+    """(result dir, ground-truth dir) of a suite's work dir: each case's
+    agent result and its ``hq.png`` copied under the case's name, the
+    layout ``score`` pairs by file name."""
+    import shutil
+
+    res, gt = work / "_score" / "res", work / "_score" / "gt"
+    res.mkdir(parents=True, exist_ok=True)
+    gt.mkdir(parents=True, exist_ok=True)
+    for case in sorted(work.glob("case_*")):
+        result = next(case.glob("runs/*/result.png"))
+        shutil.copy(result, res / f"{case.name}.png")
+        shutil.copy(case / "hq.png", gt / f"{case.name}.png")
+    return res, gt
+
+
+def eval_suite_fast(card: str) -> dict:
+    """``cli eval-suite --combos 16 --device cuda`` in a fresh process (the
+    tiny fast executor, as the JAX CLI's default ``--fast``): 16 records,
+    a plan each, ``report.json`` and ``report.md``. The same suite on the
+    CPU in this process: equal plans, executed subtasks and tool calls,
+    PSNR within 0.05 dB, SSIM within 1e-3. Then ``compute_scores`` of the
+    card suite's results against its ``hq.png``s on the card and on the
+    CPU, within 1e-6 relative."""
+    import tempfile
+
+    import torch
+
+    from image_restoration_agent_tpu_torch.offline.benchmark_suite import (
+        run_suite)
+    from image_restoration_agent_tpu_torch.offline.eval_harness import (
+        compute_scores)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
+        work = Path(td) / "suite"
+        r, card_s, rec = _cli(["eval-suite", "--combos", "16", "--device",
+                               "cuda", "--work-dir", str(work)])
+        report = json.loads((work / "report.json").read_text()) \
+            if (work / "report.json").exists() else {"records": []}
+        recs = report["records"]
+        torch.set_num_threads(8)
+        t0 = time.perf_counter()
+        cpu = run_suite(Path(td) / "cpu", fast=True, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        diffs = []
+        for a, b in zip(recs, cpu["records"]):
+            diffs.append({
+                "combo": a["combo"],
+                "same_trace": all(a[k] == b[k] for k in
+                                  ("plan", "executed", "n_invocations")),
+                "psnr_diff": max(abs(a[k] - b[k]) for k in
+                                 ("input_psnr", "output_psnr")),
+                "ssim_diff": max(abs(a[k] - b[k]) for k in
+                                 ("input_ssim", "output_ssim"))})
+        split = _fast_case_split(work / "case_001" / "lq.png",
+                                 Path(td) / "split")
+        res, gt = _suite_results(work)
+        t0 = time.perf_counter()
+        s_card = compute_scores(res, gt, device="cuda")
+        score_card_s = time.perf_counter() - t0
+        s_cpu = compute_scores(res, gt, device="cpu")
+        rel = max(abs(s_card["per_image"][n][m] - v) / max(abs(v), 1e-12)
+                  for n, s in s_cpu["per_image"].items()
+                  for m, v in s.items())
+        ok = (r.returncode == 0 and rec is not None and rec["cases"] == 16
+              and len(recs) == 16 and all(x["plan"] for x in recs)
+              and (work / "report.md").exists()
+              and len(diffs) == 16 and all(
+                  d["same_trace"] and d["psnr_diff"] <= 0.05
+                  and d["ssim_diff"] <= 1e-3 for d in diffs)
+              and s_card["n"] == 16 and rel <= 1e-6)
+        return {"phase": "eval_suite_fast", "cli": rec,
+                "rc": r.returncode, "stderr_tail": r.stderr[-600:],
+                "seconds": card_s, "cpu_seconds": cpu_s,
+                "mean_input_psnr": report.get("mean_input_psnr"),
+                "mean_output_psnr": report.get("mean_output_psnr"),
+                "plans": [x["plan"] for x in recs],
+                "tool_calls": [x["n_invocations"] for x in recs],
+                "card_vs_cpu": diffs, "score_seconds": score_card_s,
+                "score_rel_err": rel, "score_mean": s_card["mean"],
+                "case_001_split": split, "card": card, "pass": bool(ok)}
+
+
+def _fast_case_split(inp: Path, out: Path) -> dict:
+    """The suite's first case once more in this process on the card (the
+    tiny executor, warmed by one run) under torch.profiler: wall seconds
+    and the device's busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from image_restoration_agent_tpu_torch.agent import (
+        IRAgent, build_default_executor)
+
+    ex = build_default_executor(fast=True, device="cuda")
+    IRAgent(inp, out / "warm", executor=ex, device="cuda").run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        IRAgent(inp, out / "run", executor=ex, device="cuda").run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = profile_summary(prof, wall, 0)["device_busy_ms"]
+    return {"wall_s": wall, "device_busy_ms": busy,
+            "device_busy_share": busy / (wall * 1e3),
+            "host_share": 1.0 - busy / (wall * 1e3)}
+
+
+def eval_suite_full(card: str, dev: str = "cuda") -> dict:
+    """``run_suite`` on ``build_default_executor`` as shipped (the
+    DEFAULT_TOOLBOXES over ``Engine(device="cuda")``: full width, f32,
+    the registry's random init) on ``S15_FULL_COMBOS``, one 96 px image
+    each. Per case: the plan, the tools called, its seconds (DiffBIR's
+    apart; the host seconds in the classifier, PNG I/O and the engine's
+    requests, as ``agent_split`` counts them), each kernel's launches
+    (every count set to 0 just before the case's agent and read just
+    after). The suite's first DiffBIR call runs under torch.profiler with
+    the device's activity alone (``diffbir_profile``: busy share, top
+    kernels); the profiler's processing after the call is taken out of
+    the case's seconds. Every model's kernel call forms are
+    recorded as it serves; the meta-device trace of each (model, request
+    size) the engine served (``served_canvas``) must predict them all.
+    eval_suite_kernels then checks every form."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from image_restoration_agent_tpu_torch.agent import (
+        IRAgent, build_default_executor)
+    from image_restoration_agent_tpu_torch.offline import benchmark_suite
+
+    from image_restoration_agent_tpu_torch.agent import (evaluators,
+                                                         executor, iragent)
+    from image_restoration_agent_tpu_torch.engine import Engine
+    from image_restoration_agent_tpu_torch.iqa.classifier import (
+        SeverityEvaluator)
+
+    cases = []
+    acc = {"classifier_s": 0.0, "png_io_s": 0.0, "engine_s": 0.0}
+    dprof: dict = {"processing_s": 0.0}
+    serve = Engine.restore_array
+
+    def profiled(self, img, name, *a, **kw):
+        if name != "diffbir" or "wall_ms" in dprof or dev != "cuda":
+            return serve(self, img, name, *a, **kw)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = serve(self, img, name, *a, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dprof.update(profile_summary(prof, wall, 12),
+                     input=list(np.shape(img)))
+        dprof["processing_s"] = time.perf_counter() - t0 - wall
+        return res
+    wrapped = [(SeverityEvaluator, "logits", "classifier_s"),
+               (Engine, "restore_array", "engine_s")] + [
+        (mod, fn, "png_io_s") for mod, fns in (
+            (executor, ("load_image", "save_image")),
+            (evaluators, ("load_image",)), (iragent, ("load_image",)))
+        for fn in fns]
+    with recording_engine(dev) as (eng, seen), \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
+        ex = build_default_executor(engine=eng)
+
+        class CaseAgent(IRAgent):
+            def run(self):
+                before = {f"{t.subtask}/{t.tool_name}": (t.invocations,
+                                                          t.total_seconds)
+                          for ts in ex.toolbox_router.values() for t in ts}
+                acc0 = dict(acc)
+                proc0 = dprof["processing_s"]
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                out = super().run()
+                _sync(dev)
+                proc = dprof["processing_s"] - proc0
+                secs = time.perf_counter() - t0 - proc
+                counts = launch_counts()
+                tools = {}
+                for ts in ex.toolbox_router.values():
+                    for t in ts:
+                        k = f"{t.subtask}/{t.tool_name}"
+                        n0, s0 = before[k]
+                        if t.invocations > n0:
+                            tools[k] = {"calls": t.invocations - n0,
+                                        "seconds": t.total_seconds - s0 - (
+                                            proc if k.endswith("/diffbir")
+                                            else 0.0)}
+                acc["engine_s"] -= proc
+                summary = json.loads(self.summary_path.read_text())
+                cases.append({
+                    "plan": summary["plan"]["initial"],
+                    "executed": summary["execution_path"]["subtasks"],
+                    "tools": summary["execution_path"]["tools"],
+                    "tool_calls": summary["n_invocations"],
+                    "seconds": secs,
+                    "diffbir_seconds": tools.get(
+                        "super-resolution/diffbir", {}).get("seconds", 0.0),
+                    "tool_seconds": tools,
+                    "host_split": {k: acc[k] - acc0[k] for k in acc},
+                    "launches": {k: v for k, v in counts.items() if v}})
+                return out
+
+        benchmark_suite.IRAgent = CaseAgent
+        Engine.restore_array = profiled
+        saved = [(o, n, _wrap_seconds(o, n, acc, k)) for o, n, k in wrapped]
+        try:
+            t0 = time.perf_counter()
+            report = benchmark_suite.run_suite(
+                Path(td), combos=list(S15_FULL_COMBOS), executor=ex,
+                device=dev)
+            suite_s = time.perf_counter() - t0
+        finally:
+            benchmark_suite.IRAgent = IRAgent
+            for o, n, fn in saved:
+                setattr(o, n, fn)
+            Engine.restore_array = serve
+        suite_s -= dprof["processing_s"]
+        served, seen, predicted, untraced = record_forms("eval_suite", eng,
+                                                         seen)
+    totals: dict = {}
+    for c, r in zip(cases, report["records"]):
+        c.update(combo=r["combo"], input_psnr=r["input_psnr"],
+                 output_psnr=r["output_psnr"])
+        for k, v in c["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+    if "wall_ms" in dprof:
+        dprof["k3_ms"] = _share(dprof, "conv3x3")
+    ok = (len(cases) == len(S15_FULL_COMBOS)
+          and all(c["plan"] and c["tool_calls"] > 0 for c in cases)
+          and totals.get("conv3x3", 0) > 0 and not untraced)
+    return {"phase": "eval_suite_full", "dtype": "float32",
+            "toolboxes": "DEFAULT_TOOLBOXES", "input": [96, 96, 3],
+            "seconds": suite_s, "cases": cases, "diffbir_profile": dprof,
+            "mean_input_psnr": report["mean_input_psnr"],
+            "mean_output_psnr": report["mean_output_psnr"],
+            "served": [list(x) for x in served],
+            "call_forms": len(seen), "predicted_forms": len(predicted),
+            "form_kinds": sorted({k[0] for k in seen}),
+            "untraced_forms": untraced, "launches": totals, "card": card,
+            "pass": bool(ok)}
+
+
+def hat_strip_cases(key, name: str, path: str, dtype, randn,
+                    quick: bool) -> list[dict]:
+    """A strip-route HAT block's kernels at its form: ``swin_attn_block``
+    (K1, K2, K1; with the mask bank where the block shifts), ``roll2d``
+    back by the shift, and ``mlp_block``."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.ops.roll2d import (roll2d,
+                                                              roll2d_plain)
+    from image_restoration_agent_tpu_torch.ops.swin_block import (
+        mlp_block, mlp_block_plain, prepare_swin_params, swin_attn_block,
+        swin_attn_block_plain)
+    from image_restoration_agent_tpu_torch.ops.window_attention import (
+        shift_attention_mask)
+
+    _, shape, heads, ws, dc, banked, hid = key
+    b, h, w, c = (1, 2 * ws, 4 * ws, shape[3]) if quick else shape
+    wts = swin_weights(randn, c, heads, ws, hid)
+    p = prepare_swin_params(**wts, num_heads=heads, ws=ws, dtype=dtype)
+    p32 = prepare_swin_params(**wts, num_heads=heads, ws=ws,
+                              dtype=torch.float32)
+    n, t = ws * ws, b * h * w
+    x32 = randn(b, h, w, c)
+    bank = torch.from_numpy(shift_attention_mask(
+        2 * ws, 2 * ws, ws, ws // 2).reshape(2, 2, n, n)).to(x32.device) \
+        if banked else None
+    x = x32.to(dtype)
+    kw = dict(num_heads=heads, ws=ws, dc=dc, mask_bank=bank,
+              fast=dtype == torch.bfloat16)
+    es = 4 if dtype == torch.float32 else 2
+    var = f"{path} {name} {b}x{h}x{w} C{c} dc={dc}" + (
+        ",bank" if banked else "")
+    tok32 = randn(t, c)
+    tok = tok32.to(dtype)
+    cases = [dict(
+        name="swin_attn_block", path=path, variant=var,
+        kernel=lambda: swin_attn_block(x, p, **kw),
+        plain=lambda: swin_attn_block_plain(x, p, **kw),
+        ref32=lambda: swin_attn_block_plain(x32, p32, **kw), library=None,
+        flops=2 * t * c * 3 * c + 2 * t * c * c + 4 * t * n * c,
+        nbytes=2 * t * c * es + 4 * c * c * es + p.rpb.numel() * 4, reps=3),
+        dict(name="mlp_block", path=path, variant=var,
+             kernel=lambda: mlp_block(tok, *p.mlp),
+             plain=lambda: mlp_block_plain(tok, *p.mlp),
+             ref32=lambda: mlp_block_plain(tok32, *p32.mlp), library=None,
+             reps=3, flops=4 * t * c * hid,
+             nbytes=2 * t * c * es + 2 * c * hid * es)]
+    if banked:
+        shift = -dc
+        cases.append(dict(
+            name="roll2d", path=path, variant=f"{var} shift={shift:+d}",
+            kernel=lambda: roll2d(x, shift, ws),
+            plain=lambda: roll2d_plain(x, shift, ws),
+            ref32=lambda: roll2d_plain(x32, shift, ws),
+            library=lambda: torch.roll(x, (shift, shift), (1, 2)),
+            flops=0, nbytes=2 * t * c * es, reps=5))
+    return cases
+
+
+def wmsa_cases(key, name: str, path: str, dtype, randn,
+               quick: bool) -> list[dict]:
+    """DehazeFormer's ``wmsa`` (K2 with the logit scale) at one window
+    attention's form, SDPA beside it on head-major q, k, v made before
+    timing."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.ops.swin_block import (
+        wmsa, wmsa_plain)
+
+    _, shape, heads = key
+    nwb, n, c3 = (min(shape[0], 64), shape[1], shape[2]) if quick \
+        else shape
+    c, hd = c3 // 3, c3 // 3 // heads
+    q32 = randn(nwb, n, c3)
+    rpb = randn(heads, n, n, scale=0.5)
+    qkv = q32.to(dtype)
+    qh, kh, vh = (qkv.reshape(nwb, n, 3, heads, hd)
+                  .permute(2, 0, 3, 1, 4).contiguous())
+    am = rpb[None].to(dtype)
+    es = 4 if dtype == torch.float32 else 2
+    return [dict(
+        name="wmsa", path=path, variant=f"{path} {name} nWB {nwb} N {n} "
+        f"C {c} heads {heads}",
+        kernel=lambda: wmsa(qkv, rpb, None, num_heads=heads),
+        plain=lambda: wmsa_plain(qkv, rpb, None, num_heads=heads),
+        ref32=lambda: wmsa_plain(q32, rpb, None, num_heads=heads),
+        library=lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=am, scale=hd ** -0.5),
+        flops=4 * nwb * n * n * c,
+        nbytes=nwb * n * 4 * c * es + rpb.numel() * 4, reps=5)]
+
+
+def eval_suite_kernels(quick: bool, seed: int = 67) -> list[dict]:
+    """Every call form eval_suite_full and exploration_path recorded or
+    predicted (``S15_FORMS``), its kernels against their plain versions in
+    float32, the dtype those paths run (small shapes with --quick, where
+    the forms are the prediction of Restormer and SwinIR-denoise-15 on a
+    96 px request)."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def randn(*s, scale=1.0):
+        return (torch.randn(*s, generator=gen) * scale).to(dev)
+
+    paths = dict(S15_FORMS)
+    if not paths:  # --quick: no path ran
+        forms = {}
+        for model in ("restormer", "swinir_denoise_15"):
+            f, _ = traced_calls(model, served_canvas(model, 96, 96))
+            forms.update({k: f"{model} {v}" for k, v in f.items()})
+        paths = {"eval_suite": forms}
+    rows = []
+    for path, forms in paths.items():
+        cases = form_cases(path, forms, torch.float32, randn, gen, quick,
+                           reps=3)
+        rows += [check_case(cs, torch.float32) for cs in cases]
+        del cases
+    return rows
+
+
+def ablation_grid(card: str) -> dict:
+    """``cli ablation-grid --combos 2 --device cuda`` in a fresh process:
+    the six variants and seven paired comparisons, ``ablation_grid.json``
+    and ``.md`` written."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
+        work = Path(td) / "grid"
+        r, secs, rec = _cli(["ablation-grid", "--combos", "2", "--device",
+                             "cuda", "--work-dir", str(work)])
+        grid = json.loads((work / "ablation_grid.json").read_text()) \
+            if (work / "ablation_grid.json").exists() else {}
+        md = (work / "ablation_grid.md").exists()
+    ok = (r.returncode == 0 and rec is not None
+          and len(rec["variants"]) == 6 and len(rec["pairs"]) == 7
+          and grid == {"variants": rec["variants"], "pairs": rec["pairs"]}
+          and md)
+    return {"phase": "ablation_grid", "seconds": secs, "rc": r.returncode,
+            "variants": rec and rec["variants"],
+            "pairs": rec and rec["pairs"], "stderr_tail": r.stderr[-600:],
+            "card": card, "pass": bool(ok)}
+
+
+def exploration_path(card: str, dev: str = "cuda") -> dict:
+    """``exhaust_sequences`` on [brightening, denoising] over
+    ``build_default_executor(device="cuda")`` (3 and 6 tools) on a 96 px
+    suite image: 3 + 6 + 18 + 18 = 45 tool calls, nodes and leaves as
+    ``expected_tree_counts`` says; then ``explore_fail_rates`` with the v4
+    classifier on the card and ``distill_experience`` with MockLLM. Then a
+    one-box tree for each of ``S15_EXPLORE_BOXES`` on the same engine and
+    image: one call for each tool of the default box (DiffBIR left out).
+    The launch counts are set to 0 before the pair and read after the
+    boxes; every kernel call form is among eval_suite_kernels' checked
+    ones."""
+    import tempfile
+
+    from image_restoration_agent_tpu_torch.agent import (
+        LocalEvaluator, build_default_executor)
+    from image_restoration_agent_tpu_torch.agent.executor import (
+        DEFAULT_TOOLBOXES)
+    from image_restoration_agent_tpu_torch.agent.llm import MockLLM
+    from image_restoration_agent_tpu_torch.core.io import save_image
+    from image_restoration_agent_tpu_torch.offline import (
+        distill_experience, exhaust_sequences, expected_tree_counts,
+        explore_fail_rates)
+    from image_restoration_agent_tpu_torch.offline.benchmark_suite import (
+        synthetic_hq)
+
+    with recording_engine(dev) as (eng, seen), \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
+        ex = build_default_executor(engine=eng)
+        counts_t = [len(ex.toolbox_router[s]) for s in S15_EXPLORE]
+        want = expected_tree_counts(counts_t)
+        src = Path(td) / "in.png"
+        save_image(synthetic_hq(1, seed=5)[0].astype(np.float32) / 255, src)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        leaves = exhaust_sequences(src, Path(td) / "tree", S15_EXPLORE, ex)
+        _sync(dev)
+        tree_s = time.perf_counter() - t0
+        counts = launch_counts()
+        nodes = len(list((Path(td) / "tree").rglob("0-img/output.png")))
+        calls = sum(t.invocations for ts in ex.toolbox_router.values()
+                    for t in ts)
+        t0 = time.perf_counter()
+        rates = explore_fail_rates(Path(td) / "tree",
+                                   LocalEvaluator(device=dev),
+                                   S15_EXPLORE)
+        rates_s = time.perf_counter() - t0
+        exp = distill_experience(rates, MockLLM(),
+                                 Path(td) / "schedule_experience.json")
+        ex1 = build_default_executor(engine=eng, toolboxes={
+            b: [e for e in DEFAULT_TOOLBOXES[b] if e[0] != "diffbir"]
+            for b in S15_EXPLORE_BOXES})
+        boxes = {}
+        for b in S15_EXPLORE_BOXES:
+            t0 = time.perf_counter()
+            got = exhaust_sequences(src, Path(td) / b.replace(" ", "_"), [b],
+                                    ex1)
+            _sync(dev)
+            tools = ex1.toolbox_router[b]
+            boxes[b] = {"tools": [t.tool_name for t in tools],
+                        "leaves": len(got),
+                        "tool_calls": sum(t.invocations for t in tools),
+                        "seconds": time.perf_counter() - t0}
+        all_counts = launch_counts()
+        served, seen, predicted, untraced = record_forms("exploration", eng,
+                                                         seen)
+    ok = (len(leaves) == want["leaves"] and nodes == want["nodes"]
+          and calls == want["nodes"] == 45 and len(rates) == 2
+          and all(r["n"] == want["leaves"] // 2 for r in rates.values())
+          and exp["raw"] and exp["distilled"] and not untraced
+          and counts["conv3x3"] > 0
+          and all(x["leaves"] == x["tool_calls"] == len(x["tools"]) > 0
+                  for x in boxes.values()))
+    return {"phase": "exploration_path", "subtasks": S15_EXPLORE,
+            "tool_counts": counts_t, "expected": want, "leaves": len(leaves),
+            "nodes": nodes, "tool_calls": calls, "tree_seconds": tree_s,
+            "fail_rates": rates, "fail_rate_seconds": rates_s,
+            "distilled_chars": len(exp["distilled"]), "boxes": boxes,
+            "served": [list(x) for x in served],
+            "pair_launches": {k: v for k, v in counts.items() if v},
+            "launches": {k: v for k, v in all_counts.items() if v},
+            "call_forms": len(seen), "predicted_forms": len(predicted),
+            "untraced_forms": untraced, "card": card, "pass": bool(ok)}
+
+
+def validate_synthetic_phase(card: str) -> dict:
+    """``cli validate-weights --synthetic --device cuda`` in a fresh
+    process: the four committed goldens rebuilt as ``.pth``, converted
+    through the port's ``convert_checkpoint`` and served through the tiled
+    path, each at or above its recorded PSNR - 0.1 dB; then ``validate``
+    on a directory without ``dehaze_300k.pth``: xrestormer ``missing``."""
+    import tempfile
+
+    from image_restoration_agent_tpu_torch.offline.validate_weights import (
+        validate)
+
+    r, secs, rec = _cli(["validate-weights", "--synthetic", "--device",
+                         "cuda"])
+    records = (rec or {}).get("records", [])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
+        (Path(td) / "ckpts").mkdir()
+        rep = validate(Path(td) / "ckpts", Path(td) / "w",
+                       models=["xrestormer"], device="cuda")
+    names = sorted(x["golden"] for x in records)
+    ok = (r.returncode == 0 and names == ["fbcnn_synth", "nafnet_synth",
+                                          "restormer_synth",
+                                          "swinir_sr_x4_synth"]
+          and all(x["status"] == "pass" and x["shape_ok"]
+                  and x["golden_psnr_db"] >= x["want_db"] - 0.1
+                  for x in records)
+          and [x["status"] for x in rep["records"]] == ["missing"])
+    return {"phase": "validate_synthetic", "seconds": secs,
+            "rc": r.returncode, "records": records,
+            "xrestormer": rep["records"], "stderr_tail": r.stderr[-600:],
+            "card": card, "pass": bool(ok)}
+
+
+def maxim_official(state: dict, cfg: dict) -> dict:
+    """The official checkpoint's flat ``<module>/<param>`` leaves of a
+    port MAXIM state dict: each name mapped back through the name map
+    (the JAX package's module path, then the upstream one) and each
+    tensor back to its Flax layout (Conv (kh, kw, I, O), Dense (I, O),
+    ConvTranspose (kh, kw, I, O) with both taps flipped, LayerNorm
+    ``scale``)."""
+    from image_restoration_agent_tpu_torch.convert.maxim_rules import (
+        maxim_name_map)
+
+    back = {v: k for k, v in maxim_name_map(**cfg).items()}
+    out = {}
+    for key, t in state.items():
+        w = t.numpy() if hasattr(t, "numpy") else np.asarray(t)
+        mod, leaf = key.rsplit(".", 1)
+        mod = mod.replace(".", "/")
+        jmod = mod if mod in back else mod + "/Conv_0"
+        transposed = re.fullmatch(r"y_up|stage\d+_dec\d+_up",
+                                  mod.split("/")[-1])
+        if leaf == "bias":
+            name = "bias"
+        elif w.ndim == 1:
+            name = "scale"
+        else:
+            name = "kernel"
+            if transposed:
+                w = np.transpose(w[:, :, ::-1, ::-1], (2, 3, 0, 1))
+            elif w.ndim == 4:
+                w = np.transpose(w, (2, 3, 1, 0))
+            else:
+                w = w.T
+        out[f"{back[jmod]}/{name}"] = np.ascontiguousarray(w, np.float32)
+    return out
+
+
+def convert_maxim_phase(card: str) -> dict:
+    """An official-named MAXIM-S3 ``.npz`` (``opt/target/`` leaves of
+    torch's own init, ``zoo_state``, mapped back to the upstream names and
+    Flax layouts) through ``cli convert-weights maxim_s3 --ckpt``: the
+    written state equals the drawn one. ``Engine(weight_dir=...,
+    allow_random_init=False)`` serves a 1280x720 request from it in f32;
+    the card against the port's CPU path on the same weights on a 256x128
+    probe, >= 60 dB."""
+    import tempfile
+
+    import torch
+
+    from image_restoration_agent_tpu_torch.convert.maxim_rules import (
+        name_map_config)
+    from image_restoration_agent_tpu_torch.convert.torch_import import (
+        read_state)
+    from image_restoration_agent_tpu_torch.engine import Engine
+    from image_restoration_agent_tpu_torch.models import get_spec
+
+    state = zoo_state("maxim_s3")
+    flat = maxim_official(state, name_map_config(get_spec("maxim_s3")
+                                                 .config))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
+        npz = Path(td) / "maxim_s3_dehazing_sots-indoor.npz"
+        np.savez(npz, **{f"opt/target/{k}": v for k, v in flat.items()},
+                 **{"opt/state/step": np.zeros((), np.int64)})
+        r, conv_s, rec = _cli(["convert-weights", "maxim_s3", "--ckpt",
+                               str(npz), "--out", str(Path(td) / "w")])
+        written = read_state(Path(td) / "w" / "maxim_s3.npz") \
+            if r.returncode == 0 else {}
+        same = written.keys() == state.keys() and all(
+            np.array_equal(written[k], np.asarray(state[k]))
+            for k in state)
+        eng = Engine(weight_dir=Path(td) / "w", device="cuda",
+                     allow_random_init=False)
+        img = np.random.default_rng(8).random((*S15_MAXIM_REQUEST, 3),
+                                              dtype=np.float32)
+        warm = eng.restore_array(img, "maxim_s3")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = eng.restore_array(img, "maxim_s3")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        probe = np.random.default_rng(9).random((*S15_MAXIM_PROBE, 3),
+                                                dtype=np.float32)
+        card32 = _probe("maxim_s3", written, probe, "cuda", "float32")
+        torch.set_num_threads(8)
+        cpu32 = _probe("maxim_s3", written, probe, "cpu", "float32")
+    db = range_psnr(card32, cpu32)
+    ok = (r.returncode == 0 and rec is not None and same
+          and res.image.shape == (*S15_MAXIM_REQUEST, 3)
+          and res.nonfinite == 0 and not res.random_init
+          and counts["conv3x3"] > 0 and db >= 60.0)
+    return {"phase": "convert_maxim", "official_leaves": len(flat),
+            "convert_seconds": conv_s, "cli": rec, "rc": r.returncode,
+            "state_equal": bool(same), "dtype": "float32",
+            "input": list(img.shape), "warmup_seconds": warm.seconds,
+            "seconds": secs,
+            "launches": {k: v for k, v in counts.items() if v},
+            "probe": list(probe.shape), "f32_card_vs_cpu_db": db,
+            "floor_db": 60.0, "stderr_tail": r.stderr[-600:], "card": card,
+            "pass": bool(ok)}
+
+
+def engine_profile(card: str) -> dict:
+    """``with eng.profile(dir):`` around one NAFNet 256 px request (the
+    nafnet_synth weights, f32): the Chrome trace is written under the
+    directory and names K3's kernel."""
+    import tempfile
+
+    from image_restoration_agent_tpu_torch.engine import Engine
+    from image_restoration_agent_tpu_torch.offline import (
+        materialize_synthetic_weights)
+
+    img = np.random.default_rng(10).random((S15_NAFNET_PX, S15_NAFNET_PX,
+                                            3), dtype=np.float32)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
+        materialize_synthetic_weights(Path(td) / "w", ["nafnet_synth"])
+        eng = Engine(weight_dir=Path(td) / "w", device="cuda",
+                     allow_random_init=False)
+        eng.restore_array(img, "nafnet")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with eng.profile(Path(td) / "prof") as e:
+            res = e.restore_array(img, "nafnet")
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        trace = eng.last_trace
+        events = json.loads(trace.read_text())["traceEvents"] \
+            if trace and trace.exists() else []
+    kernels = sorted({ev["name"][:60] for ev in events
+                      if ev.get("cat") == "kernel"})
+    k3 = [k for k in kernels if "conv3x3" in k]
+    ok = (trace is not None and trace.parent.name == "prof" and events
+          and k3 and counts["conv3x3"] > 0 and res.nonfinite == 0)
+    return {"phase": "engine_profile", "seconds": secs,
+            "trace_events": len(events), "device_kernels": len(kernels),
+            "k3_kernels": k3, "launches": {k: v for k, v in counts.items()
+                                           if v},
+            "card": card, "pass": bool(ok)}
+
+
+def slice15_phases(phase, card: str) -> dict:
+    """Slice 15's phases in order; returns (each path's result:
+    ``eval_suite``, ``exploration``, ``maxim_convert``, ``engine_profile``,
+    for its launch counts; eval_suite_kernels' rows)."""
+    import torch
+
+    phase("degrade_exact", degrade_exact, card)
+    phase("eval_suite_fast", eval_suite_fast, card)
+    torch.cuda.empty_cache()
+    S15_FORMS.clear()
+    served = {"eval_suite": phase("eval_suite_full", eval_suite_full, card)}
+    torch.cuda.empty_cache()
+    served["exploration"] = phase("exploration_path", exploration_path, card)
+    torch.cuda.empty_cache()
+    rows = phase("eval_suite_kernels", eval_suite_kernels, False) or []
+    phase("ablation_grid", ablation_grid, card)
+    phase("validate_synthetic", validate_synthetic_phase, card)
+    served["maxim_convert"] = phase("convert_maxim", convert_maxim_phase,
+                                    card)
+    torch.cuda.empty_cache()
+    served["engine_profile"] = phase("engine_profile", engine_profile, card)
+    return served, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -4629,6 +5498,8 @@ def main() -> int:
     rows += phase("zoo_kernels", zoo_kernel_checks, args.quick) or []
     rows += phase("ridcp_kernels", ridcp_kernel_checks, args.quick) or []
     rows += phase("diffbir_kernels", diffbir_kernel_checks, args.quick) or []
+    if args.quick:  # slice 15's checks follow its paths in the full run
+        rows += phase("eval_suite_kernels", eval_suite_kernels, True) or []
     failures += [f"kernel {r['name']} {r['variant']} {r['dtype']}"
                  for r in rows if not r["pass"]]
     # each path's launch counts, read just after the path ran (with
@@ -4637,7 +5508,9 @@ def main() -> int:
     launches = {p: counts for p in ("swinir", "restormer", "hat", "denoise",
                                     "dehaze", "nafnet", "fbcnn", "agent",
                                     "default_agent", "ridcp", "serve",
-                                    "diffbir", "retrieval",
+                                    "diffbir", "retrieval", "eval_suite",
+                                    "exploration", "maxim_convert",
+                                    "engine_profile",
                                     *(n for n, _, _ in ZOO_REQUESTS))}
     # the lab path: one pair chain, one head tail, one lab_strip call, each
     # counted alone
@@ -4686,6 +5559,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         launches.update({p: r["launches"] if r else {}
                          for p, r in slice14_phases(phase, card).items()})
+        torch.cuda.empty_cache()
+        served15, rows15 = slice15_phases(phase, card)
+        launches.update({p: r["launches"] if r else {}
+                         for p, r in served15.items()})
+        failures += [f"kernel {r['name']} {r['variant']} {r['dtype']}"
+                     for r in rows15 if not r["pass"]]
+        rows += rows15
         launches.update({
             "swinir": served["launches"] if served else {},
             "restormer": served_r["launches"] if served_r else {},

@@ -19,11 +19,23 @@
   are in the port's ``weights/``, else the stand-in), creating the store
   or adding to it; the file is the JAX package's format.
 
-Every subcommand that builds an engine, an evaluator or an embedder takes
-``--device``: ``cuda`` (the default; it raises without a card) or ``cpu``.
-``score``, ``convert-weights``, ``validate-weights``, ``ablation-grid`` and
-``eval-suite`` reach modules the port does not have yet; they exit with
-status 2 and name the missing module.
+- ``... score <result_dir> <gt_dir>`` scores every result image against
+  its same-named ground truth (PSNR, SSIM).
+- ``... convert-weights <model> --ckpt <file>`` converts a downloaded
+  reference checkpoint into the port's weight file ``<out>/<model>.npz``
+  (a reference-named state dict; ``list`` prints the manifest, no
+  ``--ckpt`` the entry).
+- ``... validate-weights <ckpt_dir>`` converts every manifest entry found
+  there and runs each family on a fixture or its golden;
+  ``--synthetic`` runs the committed real-geometry synthetic goldens
+  through the same converter.
+- ``... eval-suite`` runs the agent over the 16 degradation combos and
+  ``... ablation-grid`` over the retrieval / reflection / rollback
+  variants, writing markdown and JSON reports.
+
+Every subcommand that builds an engine, a scorer, an evaluator or an
+embedder takes ``--device``: ``cuda`` (the default; it raises without a
+card) or ``cpu``.
 
 ``infer --evaluate-by clip_retrieval`` builds the agent without a
 retrieval store, as the JAX CLI does, so it fails on ``None.embed`` (a
@@ -36,22 +48,6 @@ import argparse
 import json
 import sys
 from pathlib import Path
-
-# subcommand -> the port modules it needs and does not have yet
-NOT_PORTED = {
-    "score": "image_restoration_agent_tpu_torch.offline.eval_harness "
-             "(compute_scores) and iqa.metrics",
-    "convert-weights": "image_restoration_agent_tpu_torch.convert.manifest",
-    "validate-weights": "image_restoration_agent_tpu_torch.offline."
-                        "validate_weights (and the synthetic goldens' "
-                        "validate_synthetic)",
-    "ablation-grid": "image_restoration_agent_tpu_torch.offline."
-                     "eval_harness (run_ablation_grid) and "
-                     "offline.benchmark_suite",
-    "eval-suite": "image_restoration_agent_tpu_torch.offline."
-                  "benchmark_suite (run_suite)",
-}
-
 
 def parse_sizes(spec: str) -> list[tuple[int, int]]:
     """'256,512x768,720p' -> [(256, 256), (768, 512), (720, 1280)];
@@ -123,6 +119,7 @@ def build_parser() -> argparse.ArgumentParser:
     psc.add_argument("result_dir")
     psc.add_argument("gt_dir")
     psc.add_argument("-o", "--output", default=None)
+    _device_arg(psc)
 
     pir = sub.add_parser("insert-runs",
                          help="embed solved agent runs into the retrieval "
@@ -133,11 +130,12 @@ def build_parser() -> argparse.ArgumentParser:
 
     pw = sub.add_parser(
         "convert-weights",
-        help="convert a downloaded reference checkpoint to orbax")
+        help="convert a downloaded reference checkpoint to the port's "
+             "weight file (<out>/<model>.npz)")
     pw.add_argument("model", help="registry/manifest name, or 'list'")
     pw.add_argument("--ckpt", help="path to the downloaded checkpoint")
     pw.add_argument("--out", default="weights",
-                    help="orbax weight root (engine weight_dir)")
+                    help="weight root (engine weight_dir)")
 
     pvw = sub.add_parser(
         "validate-weights",
@@ -148,12 +146,15 @@ def build_parser() -> argparse.ArgumentParser:
                      help="directory of downloaded checkpoints "
                           "(omit with --synthetic)")
     pvw.add_argument("--out", default="weights",
-                     help="orbax weight root (engine weight_dir)")
+                     help="weight root (engine weight_dir)")
     pvw.add_argument("--models", default=None,
                      help="comma-separated subset of manifest models")
     pvw.add_argument("--synthetic", action="store_true",
                      help="run the committed synthetic real-geometry "
-                          "goldens (no downloaded weights needed)")
+                          "goldens (no downloaded weights needed): rebuild "
+                          "each deterministic .pth, convert through the "
+                          "manifest, serve, gate PSNR at 0.1 dB")
+    _device_arg(pvw)
 
     pwu = sub.add_parser(
         "warmup",
@@ -186,6 +187,7 @@ def build_parser() -> argparse.ArgumentParser:
     pab.add_argument("--combos", type=int, default=4)
     pab.add_argument("--images-per-combo", type=int, default=1)
     pab.add_argument("--fast", action="store_true", default=True)
+    _device_arg(pab)
 
     pv = sub.add_parser("eval-suite",
                         help="run the 16-combo agent benchmark")
@@ -194,18 +196,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="how many of the 16 combos to run")
     pv.add_argument("--images-per-combo", type=int, default=1)
     pv.add_argument("--fast", action="store_true", default=True)
+    _device_arg(pv)
     return p
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    p = build_parser()
+    args = p.parse_args(argv)
 
-    if args.cmd in NOT_PORTED:
-        print(f"{args.cmd}: not ported yet; it needs "
-              f"{NOT_PORTED[args.cmd]}, which the port does not have "
-              f"(run it from image_restoration_agent_tpu.cli)",
-              file=sys.stderr)
-        return 2
     if args.cmd == "infer":
         from .agent import IRAgent, build_default_executor
 
@@ -281,6 +279,72 @@ def main(argv=None):
                                                      for r in records), 3),
                           "kernels_built": built,
                           "cache_dir": str(kernels.BUILD_DIR)}))
+    elif args.cmd == "score":
+        from .offline import compute_scores
+
+        out = compute_scores(Path(args.result_dir), Path(args.gt_dir),
+                             Path(args.output) if args.output else None,
+                             device=args.device)
+        print(json.dumps({"mean": out["mean"], "n": out["n"]}))
+    elif args.cmd == "convert-weights":
+        from .convert.manifest import MANIFEST, convert_checkpoint, get_entry
+
+        if args.model == "list":
+            for e in MANIFEST:
+                print(f"{e.model:22s} {e.ckpt_file:55s} {e.source}")
+        else:
+            entry = get_entry(args.model)
+            if not args.ckpt:
+                print(json.dumps({
+                    "model": entry.model, "ckpt_file": entry.ckpt_file,
+                    "source": entry.source, "rules": entry.rules,
+                    "notes": entry.notes}))
+            else:
+                out = convert_checkpoint(args.model, args.ckpt, args.out)
+                print(json.dumps({"weights_file": str(out)}))
+    elif args.cmd == "validate-weights":
+        if args.synthetic:
+            from .offline.synthetic_goldens import validate_synthetic
+
+            report = validate_synthetic(
+                names=args.models.split(",") if args.models else None,
+                device=args.device)
+            print(json.dumps(report))
+            return 1 if report["failed"] else 0
+        if not args.ckpt_dir:
+            p.error("ckpt_dir is required unless --synthetic is given")
+        from .offline.validate_weights import validate
+
+        report = validate(
+            Path(args.ckpt_dir), Path(args.out),
+            models=args.models.split(",") if args.models else None,
+            device=args.device)
+        print(json.dumps({k: report[k] for k in
+                          ("pass", "converted_aux", "failed", "missing")}))
+        return 1 if report["failed"] else 0
+    elif args.cmd == "ablation-grid":
+        from .offline.benchmark_suite import ALL_COMBOS
+        from .offline.eval_harness import run_ablation_grid
+
+        grid = run_ablation_grid(Path(args.work_dir),
+                                 combos=ALL_COMBOS[: args.combos],
+                                 images_per_combo=args.images_per_combo,
+                                 fast=args.fast, device=args.device)
+        print(json.dumps({"variants": grid["variants"],
+                          "pairs": grid["pairs"],
+                          "report": str(Path(args.work_dir)
+                                        / "ablation_grid.md")}))
+    elif args.cmd == "eval-suite":
+        from .offline.benchmark_suite import ALL_COMBOS, run_suite
+
+        report = run_suite(Path(args.work_dir),
+                           combos=ALL_COMBOS[: args.combos],
+                           images_per_combo=args.images_per_combo,
+                           fast=args.fast, device=args.device)
+        print(json.dumps({"mean_input_psnr": report["mean_input_psnr"],
+                          "mean_output_psnr": report["mean_output_psnr"],
+                          "cases": len(report["records"]),
+                          "report": str(Path(args.work_dir) / "report.md")}))
     elif args.cmd == "test-tools":
         import numpy as np
 

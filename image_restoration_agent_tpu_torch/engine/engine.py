@@ -14,8 +14,10 @@ packed RGB, then blended and cropped.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
+import os
 import time
 from pathlib import Path
 from typing import Callable, Optional
@@ -23,6 +25,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..convert.torch_import import BUFFERS, read_state
 from ..core.io import load_image, save_image, to_float
 from ..core.tiling import plan_tiles, tiled_apply
 from ..device import resolve_device
@@ -31,10 +34,6 @@ from ..models.registry import MODEL_REGISTRY, get_spec
 from ..ops.swin_block import pad_width_for_strips
 from .weights import WeightStore
 
-# reference buffers, not parameters (SwinIR's, HAT's, DehazeFormer's)
-_BUFFERS = ("relative_position_index", "attn_mask",
-            "relative_position_index_SA", "relative_position_index_OCA",
-            "relative_positions")
 
 
 @dataclasses.dataclass
@@ -67,21 +66,6 @@ def _bucket(size: int, bucket: int, multiple: int) -> int:
     return -(-size // b) * b
 
 
-def load_state(path: str | Path) -> dict[str, np.ndarray]:
-    """A reference-named state dict from a ``.pth`` (the ``params_ema`` /
-    ``params`` / ``state_dict`` wrapper keys are unwrapped) or ``.npz``."""
-    path = Path(path)
-    if path.suffix == ".npz":
-        with np.load(path) as z:
-            return {k: z[k] for k in z.files}
-    raw = torch.load(str(path), map_location="cpu", weights_only=True)
-    for key in ("params_ema", "params", "state_dict", "model"):
-        if isinstance(raw, dict) and isinstance(raw.get(key), dict):
-            raw = raw[key]
-            break
-    return {k: v.numpy() for k, v in raw.items()}
-
-
 class Engine:
     """In-process serving runtime for the port's model zoo."""
 
@@ -108,6 +92,7 @@ class Engine:
             else hbm_budget_bytes)
         self._pipelines: dict[tuple, tuple[Callable, int]] = {}
         self.call_log: list[dict] = []
+        self.last_trace: Optional[Path] = None  # written by profile()
 
     # ---------------- weights ----------------
 
@@ -122,12 +107,12 @@ class Engine:
         if state is None and self.weight_dir is not None:
             for suffix in (".pth", ".npz"):
                 if (self.weight_dir / f"{name}{suffix}").exists():
-                    state = load_state(self.weight_dir / f"{name}{suffix}")
+                    state = read_state(self.weight_dir / f"{name}{suffix}")
                     break
         model = build_model(name, device="cpu")
         if state is not None:
             sd = {k: torch.as_tensor(np.asarray(v)) for k, v in state.items()
-                  if not k.endswith(_BUFFERS)}
+                  if not k.endswith(BUFFERS)}
             model.load_state_dict(sd, strict=True)
         elif not self.allow_random_init:
             raise FileNotFoundError(
@@ -277,6 +262,27 @@ class Engine:
         return res
 
     # ---------------- observability ----------------
+
+    @contextlib.contextmanager
+    def profile(self, log_dir: str | Path):
+        """``torch.profiler`` trace context around engine calls: CPU
+        activity, and the card's kernels and copies where the engine runs
+        on one; on exit a Chrome trace (``trace_<pid>_<n>.json``) is
+        written under ``log_dir``. Yields the engine."""
+        from torch.profiler import ProfilerActivity, profile
+
+        log_dir = Path(log_dir)
+        log_dir.mkdir(parents=True, exist_ok=True)
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            yield self
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        n = len(list(log_dir.glob(f"trace_{os.getpid()}_*.json")))
+        self.last_trace = log_dir / f"trace_{os.getpid()}_{n}.json"
+        prof.export_chrome_trace(str(self.last_trace))
 
     def status(self) -> dict:
         """Engine health snapshot."""

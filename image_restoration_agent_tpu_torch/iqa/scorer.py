@@ -8,9 +8,10 @@ metrics MANIQA, CLIP-IQA and MUSIQ on the image alone. Each learned metric
 runs its port (``iqa/lpips.py``, ``maniqa.py``, ``clipiqa.py``,
 ``musiq.py``) where an instance or state is passed in, or where its
 converted weights are in the port's ``weights/`` (``lpips_alex.npz``,
-``maniqa.npz``, ``musiq.npz``: the JAX trees as flat ``.npz``), loaded
-on first use; otherwise that metric reports None. CLIP-IQA has no default
-file: it needs its instance. Everything runs on ``device``.
+``maniqa.npz``, ``musiq.npz``: the reference-named state dicts that
+``convert-weights`` writes), loaded on first use; otherwise that metric
+reports None. CLIP-IQA has no default file: it needs its instance.
+Everything runs on ``device``.
 """
 
 from __future__ import annotations
@@ -33,8 +34,8 @@ _DEFAULT_LPIPS = _WEIGHTS / "lpips_alex.npz"
 
 
 def _state(path: Path) -> dict:
-    from ..convert.from_jax import from_jax, read_flat_npz
-    return from_jax(read_flat_npz(path))
+    from ..convert.torch_import import read_state
+    return {k: torch.as_tensor(v) for k, v in read_state(path).items()}
 
 
 class Scorer:

@@ -9,21 +9,28 @@ at real width). The weights are regenerated in pure numpy from
 :func:`materialize_synthetic_weights` writes them as ``<model>.npz`` files
 that ``Engine(weight_dir=...)`` serves (the JAX package writes orbax
 directories for its engine instead).
+
+The gate (:func:`run_synthetic_golden`, ``cli validate-weights
+--synthetic``) rebuilds a golden's reference-named ``.pth``, converts it
+through the same ``convert/manifest`` path an operator would use on
+downloaded weights, serves it through the tiled path on ``device`` and
+asserts PSNR within ``GOLDEN_PSNR_TOL_DB`` (0.1 dB) of the recorded value.
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import tempfile
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from ..core.io import load_image, to_float
-
-GOLDEN_PSNR_TOL_DB = 0.1
-GOLDEN_ROOT = (Path(__file__).resolve().parents[2]
-               / "image_restoration_agent_tpu" / "goldens")
+from ..device import resolve_device
+from .validate_weights import (GOLDEN_PSNR_TOL_DB, GOLDEN_ROOT,
+                               _run_family, psnr)
 
 
 def _tensor_rng(seed: int, name: str) -> np.random.Generator:
@@ -72,12 +79,6 @@ def load_golden(golden_dir: str | Path) -> dict:
             "expected": expected}
 
 
-def psnr(a: np.ndarray, b: np.ndarray) -> float:
-    mse = float(np.mean((np.asarray(a, np.float64)
-                         - np.asarray(b, np.float64)) ** 2))
-    return float("inf") if mse == 0 else -10.0 * np.log10(mse)
-
-
 def list_synthetic_goldens(root: Path | None = None) -> list[Path]:
     root = Path(root) if root else GOLDEN_ROOT
     if not root.exists():
@@ -103,3 +104,74 @@ def materialize_synthetic_weights(weight_root: str | Path,
         np.savez(path, **build_state(spec))
         out[spec["model"]] = path
     return out
+
+
+def write_pth(state: dict[str, np.ndarray], path: Path,
+              wrap_key: str | None = None) -> None:
+    """Write a real torch ``.pth`` (the artifact the converter consumes),
+    optionally wrapped under a dict key the way reference releases ship
+    (SwinIR/Restormer use ``params``)."""
+    sd = {k: torch.from_numpy(np.ascontiguousarray(v))
+          for k, v in state.items()}
+    torch.save({wrap_key: sd} if wrap_key else sd, str(path))
+
+
+def convert_golden_checkpoint(golden_dir: Path, out_root: Path) -> Path:
+    """Rebuild one golden's reference-named ``.pth`` and convert it through
+    the manifest path (``convert.manifest.convert_checkpoint``, a strict
+    load into the port's module) into ``out_root/<model>.npz``. Returns
+    the written file."""
+    from ..convert.manifest import convert_checkpoint
+
+    golden_dir = Path(golden_dir)
+    spec = json.loads((golden_dir / "spec.json").read_text())
+    model = spec["model"]
+    out_root = Path(out_root)
+    out_root.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory() as td:
+        pth = Path(td) / spec.get("ckpt_file", f"{model}.pth")
+        write_pth(build_state(spec), pth, wrap_key=spec.get("wrap_key"))
+        return convert_checkpoint(model, pth, out_root)
+
+
+def run_synthetic_golden(golden_dir: Path, weight_root: Path | None = None,
+                         device: str | torch.device = "cuda") -> dict:
+    """Execute one golden gate end-to-end: rebuild the ckpt -> manifest
+    convert -> read the written weights -> tiled serve on ``device`` ->
+    PSNR vs the committed expectation.
+
+    Returns a record dict with ``status`` in {"pass", "golden_failed"}.
+    """
+    from ..convert.torch_import import read_state
+
+    golden_dir = Path(golden_dir)
+    g = load_golden(golden_dir)
+    model = g["spec"]["model"]
+    with tempfile.TemporaryDirectory() as td:
+        out_root = Path(weight_root) if weight_root else Path(td) / "weights"
+        state = read_state(convert_golden_checkpoint(golden_dir, out_root))
+    run = _run_family(model, state, g["input"], device)
+    db = psnr(run["output"], g["expected"])
+    want = float(g["spec"]["psnr_db"])
+    ok = run["shape_ok"] and db >= want - GOLDEN_PSNR_TOL_DB
+    return {"model": model, "golden": golden_dir.name,
+            "golden_psnr_db": round(db, 3), "want_db": want,
+            "shape_ok": run["shape_ok"],
+            "status": "pass" if ok else "golden_failed"}
+
+
+def validate_synthetic(weight_root: Path | None = None,
+                       names: list[str] | None = None,
+                       device: str | torch.device = "cuda") -> dict:
+    """Run every committed synthetic golden gate (or those in ``names``) on
+    ``device``. CLI: ``python -m image_restoration_agent_tpu_torch.cli
+    validate-weights --synthetic``."""
+    device = resolve_device(device)
+    records = []
+    for d in list_synthetic_goldens():
+        if names and d.name not in names:
+            continue
+        records.append(run_synthetic_golden(d, weight_root, device))
+    return {"records": records,
+            "pass": sum(r["status"] == "pass" for r in records),
+            "failed": sum(r["status"] != "pass" for r in records)}

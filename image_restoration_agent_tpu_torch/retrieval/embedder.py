@@ -135,14 +135,17 @@ class CLIPRetrievalEmbedder:
     @classmethod
     def from_npz(cls, clip_path: str | Path, combiner_path: str | Path,
                  bpe_path: str | Path, **kw) -> "CLIPRetrievalEmbedder":
-        """From the JAX package's CLIP and Combiner trees written as flat
-        ``.npz`` (``convert.write_flat_npz``; the counterpart of the JAX
+        """From CLIP and Combiner weight files: the reference-named state
+        dicts ``convert-weights`` writes (the counterpart of the JAX
         ``from_dirs``, whose orbax directories need JAX to read)."""
-        from ..convert.from_jax import from_jax, read_flat_npz
+        from ..convert.torch_import import read_state
         from .tokenizer import SimpleTokenizer
 
-        return cls(from_jax(read_flat_npz(clip_path)),
-                   from_jax(read_flat_npz(combiner_path)),
+        def state(path):
+            return {k: torch.as_tensor(v)
+                    for k, v in read_state(path).items()}
+
+        return cls(state(clip_path), state(combiner_path),
                    SimpleTokenizer(bpe_path), **kw)
 
     @torch.no_grad()
@@ -162,9 +165,9 @@ def default_embedder(weight_root: str | Path | None = None,
                      device: str | torch.device = "cuda"):
     """The reference's CLIP embedder where its assets exist in
     ``weight_root`` (the port's ``weights/``): ``clip_rn50x4.npz``,
-    ``combiner.npz`` (the JAX trees as flat ``.npz``) and CLIP's merges
-    file ``bpe_simple_vocab_16e6.txt.gz``; else the stand-in with random
-    weights. Assets that exist and do not load raise."""
+    ``combiner.npz`` (state dicts, :meth:`CLIPRetrievalEmbedder.from_npz`)
+    and CLIP's merges file ``bpe_simple_vocab_16e6.txt.gz``; else the
+    stand-in with random weights. Assets that exist and do not load raise."""
     root = Path(weight_root) if weight_root else WEIGHTS
     clip_npz = root / "clip_rn50x4.npz"
     comb_npz = root / "combiner.npz"

@@ -1,8 +1,9 @@
 """The port's command line (``python -m image_restoration_agent_tpu_torch
 .cli``) on the CPU: the JAX CLI's subcommands and flags plus ``--device``;
 ``restore``, ``infer --fast``, ``test-tools``, ``warmup`` and
-``insert-runs`` run; the subcommands whose modules are not ported fail
-with a message naming them and never import JAX; and every module of the
+``insert-runs`` run; ``score``, ``convert-weights``, ``validate-weights``,
+``ablation-grid`` and ``eval-suite`` run in a subprocess where JAX cannot
+be imported and print the JAX CLI's JSON keys; and every module of the
 port, ``cli.py`` and ``api/*`` included, imports in a subprocess where
 ``jax``, ``flax``, ``optax``, ``orbax``, ``regex``, ``PIL`` and the JAX
 package cannot be imported."""
@@ -58,7 +59,7 @@ def _subcommands(parser) -> dict:
 
 def test_subcommands_and_flags_are_the_jax_clis_plus_device():
     """Every subcommand of the JAX CLI, each with the JAX CLI's flags; the
-    seven that build an engine, an evaluator or an embedder add
+    eleven that build an engine, a scorer, an evaluator or an embedder add
     ``--device``."""
     captured = {}
     real = argparse.ArgumentParser.parse_args
@@ -77,14 +78,16 @@ def test_subcommands_and_flags_are_the_jax_clis_plus_device():
     got = _subcommands(cli.build_parser())
     assert set(got) == set(want)
     with_device = {"infer", "serve", "eval-service", "restore", "test-tools",
-                   "warmup", "insert-runs"}
+                   "warmup", "insert-runs", "score", "validate-weights",
+                   "ablation-grid", "eval-suite"}
     for name in want:
         extra = {"--device"} if name in with_device else set()
         assert got[name] == want[name] | extra, name
     for name in with_device:
         args = cli.build_parser().parse_args(
             [name] + {"infer": ["x"], "restore": ["x", "--model", "m"],
-                      "insert-runs": ["x"]}.get(name, []))
+                      "insert-runs": ["x"], "score": ["r", "g"]}.get(name,
+                                                                    []))
         assert args.device == "cuda"  # nothing picks the CPU by itself
 
 
@@ -159,22 +162,105 @@ def test_insert_runs_on_the_cpu(tmp_path, capsys):
     assert (rec["inserted"], rec["total"]) == (3, 3)
 
 
-@pytest.mark.parametrize("cmd", sorted(cli.NOT_PORTED))
-def test_unported_subcommands_fail_with_their_module(cmd):
-    """Run as ``python -m ...cli`` with JAX blocked: status 2, the missing
-    module named on stderr, no traceback (JAX is never reached)."""
-    argv = {"score": ["r", "g"], "convert-weights": ["list"],
-            "validate-weights": ["--synthetic"], "ablation-grid": [],
-            "eval-suite": []}[cmd]
+# a tiny manifest entry (injected as tests/test_validate_weights.py does):
+# swinir_tiny's own reference-named state, saved in SwinIR's wrapper
+_TINY_ENTRY = """
+import torch
+from image_restoration_agent_tpu_torch.convert import manifest
+from image_restoration_agent_tpu_torch.models import build_model
+torch.save({"params": build_model("swinir_tiny", device="cpu")
+            .state_dict()}, WORK + "/ckpts/tiny_swinir.pth")
+manifest.MANIFEST = (
+    manifest.WeightEntry("swinir_tiny", "tiny_swinir.pth", "local",
+                         "swinir_rules"),
+    manifest.WeightEntry("swinir_sr_x4", "absent.pth", "local",
+                         "swinir_rules"))
+"""
+
+# subcommand case -> (argv after the subcommand, setup code, JSON keys the
+# JAX CLI prints)
+_CASES = {
+    "score": (["{w}/res", "{w}/gt", "-o", "{w}/s.json"], "",
+              {"mean", "n"}),
+    "convert-weights": (["nafnet"], "",
+                        {"model", "ckpt_file", "source", "rules", "notes"}),
+    "convert-weights-ckpt": (["swinir_tiny", "--ckpt",
+                              "{w}/ckpts/tiny_swinir.pth", "--out",
+                              "{w}/conv"], _TINY_ENTRY, {"weights_file"}),
+    "validate-weights": (["{w}/ckpts", "--out", "{w}/weights"], _TINY_ENTRY,
+                         {"pass", "converted_aux", "failed", "missing"}),
+    "validate-weights-synthetic": (["--synthetic", "--models",
+                                    "nafnet_synth"], "",
+                                   {"records", "pass", "failed"}),
+    "ablation-grid": (["--combos", "1", "--work-dir", "{w}/grid"], "",
+                      {"variants", "pairs", "report"}),
+    "eval-suite": (["--combos", "2", "--work-dir", "{w}/suite"], "",
+                   {"mean_input_psnr", "mean_output_psnr", "cases",
+                    "report"}),
+}
+
+
+@pytest.mark.parametrize("case", list(_CASES))
+def test_offline_subcommands_run_on_the_cpu(case, tmp_path):
+    """Run as ``python -m ...cli <subcommand> ... --device cpu`` (no
+    ``--device`` for ``convert-weights``, which builds nothing) with JAX
+    blocked: exit 0, the JAX CLI's JSON keys on the last line, JAX never
+    reached."""
+    cmd = case.split("-ckpt")[0].split("-synthetic")[0]
+    argv, setup, keys = _CASES[case]
+    argv = [a.format(w=tmp_path) for a in argv]
+    if cmd != "convert-weights":
+        argv += ["--device", "cpu"]
+    (tmp_path / "ckpts").mkdir()
+    rng = np.random.default_rng(0)
+    for i in range(2):
+        img = rng.random((16, 20, 3), dtype=np.float32)
+        tio.save_image(img, tmp_path / "gt" / f"{i}.png")
+        tio.save_image(np.clip(img + 0.05, 0, 1), tmp_path / "res" / f"{i}.png")
     r = _run_blocked(
-        "import runpy, sys\n"
-        f"sys.argv = ['cli', {cmd!r}, *{argv!r}]\n"
-        "runpy.run_module('image_restoration_agent_tpu_torch.cli', "
-        "run_name='__main__')\n")
-    assert r.returncode == 2, r.stderr
-    assert "not ported yet" in r.stderr
-    assert cli.NOT_PORTED[cmd].split()[0] in r.stderr
-    assert "Traceback" not in r.stderr
+        "import runpy, sys, torch\n"
+        "torch.set_num_threads(2)\n"
+        f"WORK = {str(tmp_path)!r}\n" + setup
+        + f"sys.argv = ['cli', {cmd!r}, *{argv!r}]\n"
+        "try:\n"
+        "    runpy.run_module('image_restoration_agent_tpu_torch.cli', "
+        "run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert not e.code, e.code\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'orbax', 'image_restoration_agent_tpu')]\n"
+        "assert not bad, bad\n")
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "blocked in this test" not in r.stderr
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert set(out) == keys, out
+    if case == "score":
+        assert out["n"] == 2 and out["mean"]["psnr"] > 20
+    elif case == "convert-weights-ckpt":
+        assert out["weights_file"].endswith("conv/swinir_tiny.npz")
+    elif case == "validate-weights":
+        assert (out["pass"], out["missing"], out["failed"]) == (1, 1, 0)
+    elif case == "validate-weights-synthetic":
+        assert (out["pass"], out["failed"]) == (1, 0)
+    elif case == "ablation-grid":
+        assert len(out["variants"]) == 6 and len(out["pairs"]) == 7
+    elif case == "eval-suite":
+        assert out["cases"] == 2
+        assert (tmp_path / "suite" / "report.json").exists()
+
+
+@pytest.mark.parametrize("argv", [["score", "r", "g"], ["eval-suite"],
+                                  ["ablation-grid"],
+                                  ["validate-weights", "--synthetic"]])
+def test_offline_subcommands_default_to_the_card(argv, tmp_path,
+                                                 monkeypatch):
+    """Without ``--device`` they run on ``cuda``: without a card they
+    raise before doing any work."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(argv)
 
 
 def test_every_port_module_imports_without_jax():
@@ -202,6 +288,10 @@ def test_every_port_module_imports_without_jax():
                 "retrieval.tokenizer", "retrieval.clip",
                 "retrieval.embedder", "train.retrieval", "iqa.metrics",
                 "iqa.lpips", "iqa.vit", "iqa.maniqa", "iqa.musiq",
-                "iqa.clipiqa", "iqa.scorer"):
+                "iqa.clipiqa", "iqa.scorer", "data.degrade",
+                "offline.benchmark_suite", "offline.eval_harness",
+                "offline.exploration", "offline.distill",
+                "offline.validate_weights", "convert.manifest",
+                "convert.torch_import", "convert.maxim_rules"):
         assert f"image_restoration_agent_tpu_torch.{mod}" in names.split()
     assert int(count) > 60
