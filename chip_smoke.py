@@ -201,7 +201,7 @@ Phases, each printing one JSON line:
     launches per request against the trace, peak device memory), a
     ``torch.profiler`` split of one more (busy share, K3's f32 share);
     every model of the super-resolution box registered;
-38. diffbir_exact: full geometry on a 64 px input's 128 canvas, 2 steps,
+38. diffbir_exact: full geometry on a 64 px input's 128 canvas, 1 step,
     f32 on the card against the port's CPU path with the same injected
     draws, PSNR >= 60 dB;
 39. diffbir_bf16_vs_f32: bf16 against f32 on the card on that probe, PSNR
@@ -265,7 +265,32 @@ Phases, each printing one JSON line:
     from the written file at 1280x720 in f32, the card against the CPU
     on a 256x128 probe (>= 60 dB);
 55. engine_profile: ``Engine.profile`` around one NAFNet 256 px request:
-    the Chrome trace names K3's kernel.
+    the Chrome trace names K3's kernel;
+56. train_kernels (with the kernel checks, also under ``--quick`` at
+    2x16x128): K3, K4 and K5 at Restormer's training forms in f32 at
+    8x128x128 (K3 at patch_embed, down1_2, up2_1 and output, and its
+    ``res``, ``ln_pre`` and ``shuffle`` epilogues; K4 and the MDTA block
+    at C 48 and C 96) through their autograd functions: the forward
+    against the plain version (max-abs <= 1e-4 x max|ref|), every input's
+    and parameter's gradient against the plain version's own autograd on
+    the card (<= 1e-5 x max|grad|), forward and backward ms;
+57. train_exact: 3 ``Trainer`` steps of full-width ``restormer`` (f32,
+    batch 2, crop 128) on the card and on the CPU from the same init and
+    batches, every loss within 1e-4 relative;
+58. train_path: ``Trainer`` on ``restormer`` at the JAX defaults (batch 8,
+    crop 128, f32), 20 steps: median s per step over steps 5-20, peak
+    memory, K3, K4 and K5 launches per step, the loss falling from step
+    1 to 20, one more step profiled (top device rows) and one split into
+    forward and backward by CUDA events;
+59. classifier_train: ``synthesize_multi`` and ``build_dataset`` card vs
+    CPU, 50 steps of ``train_classifier_v3_dataset`` on the v4 recipe with
+    and without ``device_data``, its ``snapshot_fn`` calls;
+60. retrieval_train: 20 steps of ``train_retrieval_model``, the loss
+    falling;
+61. parallel_single_rank: an ``nccl`` world of one rank: the sharded step
+    equals the Trainer's, ``tiled_apply_sharded`` and
+    ``tiled_apply_halo`` equal ``tiled_apply`` bit for bit on a 256 px
+    NAFNet input, and ``dryrun_multichip(1)``.
 Phases 20-22 are the lab path: each counts its kernel's launches over one
 call (6 ``swin_pair_block`` per chain, 1 ``conv3x3_pair`` per tail, 1
 ``lab_strip`` per call), with every count set to 0 just before.
@@ -1228,8 +1253,10 @@ def restormer_golden() -> dict:
                            for k, v in g["state"].items()}, strict=True)
     n0 = gdfn_block.launches
     t0 = time.perf_counter()
-    out = tiled_apply(model, torch.from_numpy(g["input"]).cuda(), tile=None,
-                      pad_multiple=8, pad_kind="reflect").cpu().numpy()
+    with torch.no_grad():  # a served forward (Restormer's records a graph)
+        out = tiled_apply(model, torch.from_numpy(g["input"]).cuda(),
+                          tile=None, pad_multiple=8,
+                          pad_kind="reflect").cpu().numpy()
     secs = time.perf_counter() - t0
     db = psnr(np.clip(out, 0, 1), g["expected"])
     want = g["spec"]["psnr_db"] - 0.1
@@ -1276,6 +1303,7 @@ def restormer_fast_vs_exact(state) -> dict:
         (h, w, 3), dtype=np.float32))
     sd = {k: torch.from_numpy(v) for k, v in state.items()}
 
+    @torch.no_grad()  # served forwards (Restormer's records a graph)
     def run(device, dtype):
         m = build_model("restormer", device=device, dtype=dtype)
         m.load_state_dict(sd, strict=True)
@@ -3525,10 +3553,11 @@ def slice12_phases(phase, card: str) -> dict:
 # bench.py's diffbir_sr preset: a 256 px request, whole image on the
 # engine's 256 canvas; stage 1 at 1024 px (its Swin blocks on the 128x128
 # pixel-unshuffled canvas), the 128x128 latent, 50 sampler steps. The f32
-# and bf16 probes: a 64 px input (the engine's 128 canvas), 2 steps.
+# and bf16 probes: a 64 px input (the engine's 128 canvas), one sampler
+# step (each stage runs once; more steps repeat the same launches).
 DIFFBIR_REQUEST = (256, 256)
 DIFFBIR_PROBE = (64, 64)
-DIFFBIR_PROBE_STEPS = 2
+DIFFBIR_PROBE_STEPS = 1
 # /process on a small image: the graph app puts super-resolution first
 SR_PROCESS_SIZE = 192
 # BASELINE #5 (bench.py:444-488): warm-up runs, timed runs (p50)
@@ -3683,7 +3712,7 @@ def diffbir_probes() -> dict:
 
 def diffbir_exact() -> dict:
     """f32 on the card against the port's CPU path, full geometry, the
-    probe's 128 canvas, 2 steps, the same draws: PSNR >= 60 dB."""
+    probe's 128 canvas, one step, the same draws: PSNR >= 60 dB."""
     pr = diffbir_probes()
     db = range_psnr(pr["card32"], pr["cpu32"])
     return {"phase": "diffbir_exact", "canvas": pr["canvas"],
@@ -5438,6 +5467,563 @@ def slice15_phases(phase, card: str) -> dict:
     return served, rows
 
 
+# ---------------------------------------------------------------------------
+# slice 16: training and parallelism
+
+S16_MODEL = "restormer"               # full width (dim 48), the trained family
+S16_BATCH, S16_CROP = 8, 128          # the JAX TrainConfig's defaults
+S16_STEPS = 20
+S16_EXACT = (2, 128, 3)               # batch, crop, steps on card and CPU
+S16_CLS = dict(n=64, batch=32, size=224, steps=50, lr=5e-4, smooth=0.1,
+               p_multi=0.75)          # the v4 recipe (train_classifier_v4)
+S16_RET = dict(batch=8, steps=20, lr=1e-4)
+S16_TILE = (256, 64, 16)              # NAFNet input px, tile, overlap
+
+
+def _s16_images(n: int = 4, size: int = 192, seed: int = 16) -> list:
+    from image_restoration_agent_tpu_torch.train.classifier import (
+        procedural_corpus)
+    return procedural_corpus(n, size=size, seed=seed)
+
+
+def _s16_noise(patch, drng):
+    """The denoising pairs the training phases learn: Gaussian sigma 25."""
+    noisy = patch.astype(np.float32) + drng.normal(0, 25, patch.shape)
+    return np.clip(noisy, 0, 255).astype(np.uint8)
+
+
+def _grad_err(got, want) -> float:
+    """max over tensors of max|g - g_ref| / max|g_ref| (a leaf the outputs
+    do not reach has no gradient on either side; on one side only, inf)."""
+    errs = []
+    for a, b in zip(got, want):
+        if a is None or b is None:
+            errs.append(0.0 if a is None and b is None else float("inf"))
+            continue
+        scale = float(b.abs().max()) or 1.0
+        errs.append(float((a - b).abs().max()) / scale)
+    return max(errs)
+
+
+def train_case(name: str, variant: str, make, flops: float, nbytes: float,
+               library=None, reps: int = 5) -> dict:
+    """One kernel at a training form, f32: ``make()`` gives (leaves,
+    kernel_fn, plain_fn[, kernel_grad_fn, plain_grad_fn]), each fn mapping
+    the leaf tensors to outputs. The kernel's forward (through its
+    autograd function, grad enabled) against the plain version (max-abs
+    <= 1e-4 x max|ref|), and every leaf's gradient from the kernel's
+    backward (the plain VJP, ``ops/autograd.py``) against the plain
+    version's own autograd on the card (<= 1e-5 x each gradient's max|g|),
+    random cotangents on the grad fns' outputs (the kernel's own: K5's v,
+    gram and sums of squares where the forward is the MDTA block); forward
+    kernel ms, backward ms, the plain version's forward and backward ms."""
+    import torch
+
+    leaves, kfn, pfn, *grad_fns = make()
+    out_k = kfn(*leaves)
+    out_p = pfn(*leaves)
+    err = float((out_k - out_p).detach().abs().max())
+    tol = 1e-4 * float(out_p.detach().abs().max())
+    # the gradients of the kernel's own outputs (K5's three, where the
+    # case's forward is the MDTA block around it)
+    kg, pg = grad_fns or (kfn, pfn)
+    outs_k, outs_p = kg(*leaves), pg(*leaves)
+    if not isinstance(outs_k, tuple):
+        outs_k, outs_p = (outs_k,), (outs_p,)
+    cot = [torch.randn_like(o) for o in outs_p]
+    gk = torch.autograd.grad(outs_k, leaves, cot, retain_graph=True,
+                             allow_unused=True)
+    gp = torch.autograd.grad(outs_p, leaves, cot, retain_graph=True,
+                             allow_unused=True)
+    gerr = _grad_err(gk, gp)
+    finite = bool(torch.isfinite(out_k).all()) and all(
+        bool(torch.isfinite(g).all()) for g in gk if g is not None)
+    row = dict(name=name, variant=variant, dtype="float32", path="train",
+               route="cuda", source=SOURCE[name], replaces=REPLACES[name],
+               max_abs_err=err, tolerance=tol, grad_max_rel_err=gerr,
+               grad_tolerance=1e-5, leaves=len(leaves),
+               grad_of="front" if grad_fns else "output")
+    row["pass"] = err <= tol and gerr <= 1e-5 and finite
+    with torch.no_grad():
+        row["ms"] = cuda_ms(lambda: kfn(*leaves), reps)
+        row["plain_ms"] = cuda_ms(lambda: pfn(*leaves), 2)
+        row["library_ms"] = (cuda_ms(library, reps) if library is not None
+                             else None)
+    row["backward_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        outs_k, leaves, cot, retain_graph=True, allow_unused=True), reps)
+    row["plain_backward_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        outs_p, leaves, cot, retain_graph=True, allow_unused=True), 2)
+    row["bound_ms"], row["bound_by"] = bound(flops, nbytes, "float32")
+    emit({"phase": "kernel", **row})
+    del out_k, out_p, outs_k, outs_p, gk, gp
+    torch.cuda.empty_cache()
+    return row
+
+
+def _leaf(*shape, scale=1.0, shift=0.0, gen=None):
+    import torch
+    t = torch.randn(*shape, generator=gen) * scale + shift
+    return t.cuda().requires_grad_(True)
+
+
+def train_kernel_checks(quick: bool, seed: int = 71) -> list[dict]:
+    """K3, K4 and K5 at Restormer's training forms (f32, 8 x 128 x 128 at
+    crop 128; 2 x 16 x 128 with --quick): K3 at patch_embed 3->48,
+    down1_2 48->24, up2_1 96->192 (64 x 64) and output 96->3, and its
+    ``res``, ``ln_pre`` and ``shuffle`` (``Conv``) epilogues; K4 and K5
+    (the MDTA block) at C 48 and C 96, heads 1 (encoder 1; decoder 1 and
+    refinement). ``F.conv2d`` beside K3's plain forms."""
+    import torch
+    import torch.nn.functional as F
+
+    from image_restoration_agent_tpu_torch.models.common import Conv
+    from image_restoration_agent_tpu_torch.ops.conv3x3 import (
+        conv3x3, conv3x3_plain, conv3x3_weights)
+    from image_restoration_agent_tpu_torch.ops.pixel_shuffle import \
+        pixel_shuffle
+    from image_restoration_agent_tpu_torch.ops.restormer_fused import (
+        gdfn_block, gdfn_block_plain, gdfn_weights, mdta_block,
+        mdta_block_plain, mdta_front, mdta_front_plain, mdta_weights)
+
+    gen = torch.Generator().manual_seed(seed)
+    b, hw = (2, 16) if quick else (S16_BATCH, S16_CROP)
+    wfull = 128 if quick else hw
+    rows = []
+    for cname, cin, cout, s, epi in (
+            ("patch_embed", 3, 48, 1, ""), ("down1_2", 48, 24, 1, ""),
+            ("up2_1", 96, 192, 2, ""), ("output", 96, 3, 1, ""),
+            ("output", 96, 3, 1, "res"), ("norm+conv", 48, 48, 1, "ln_pre"),
+            ("up2_1", 96, 192, 2, "shuffle")):
+        h, w = hw // s, wfull // s
+
+        def make(cin=cin, cout=cout, h=h, w=w, epi=epi):
+            x = _leaf(b, h, w, cin, gen=gen)
+            wt = _leaf(3, 3, cin, cout, scale=(9 * cin) ** -0.5, gen=gen)
+            bias = _leaf(cout, scale=0.1, gen=gen)
+            k = conv3x3_weights(wt, bias, torch.float32)  # made once
+            if epi == "res":
+                r = _leaf(b, h, w, cout, gen=gen)
+                return ([x, wt, bias, r],
+                        lambda x, wt, bias, r: conv3x3(
+                            x, k, res=r, params=(wt, bias)),
+                        lambda x, wt, bias, r: conv3x3_plain(x, wt, bias,
+                                                             res=r))
+            if epi == "ln_pre":
+                g, lb = _leaf(cin, scale=0.1, shift=1.0, gen=gen), \
+                    _leaf(cin, scale=0.1, gen=gen)
+                return ([x, wt, bias, g, lb],
+                        lambda x, wt, bias, g, lb: conv3x3(
+                            x, k, ln_pre=(g, lb), params=(wt, bias)),
+                        lambda x, wt, bias, g, lb: conv3x3_plain(
+                            x, wt, bias, ln_pre=(g, lb)))
+            if epi == "shuffle":
+                m = Conv(cin, cout, shuffle=2).cuda()
+                with torch.no_grad():
+                    m.weight.copy_(wt.detach().permute(3, 2, 0, 1))
+                    m.bias.copy_(bias.detach())
+                return ([x, m.weight, m.bias], lambda x, *_: m(x),
+                        lambda x, wo, bo: pixel_shuffle(conv3x3_plain(
+                            x, wo.permute(2, 3, 1, 0), bo), 2))
+            return ([x, wt, bias],
+                    lambda x, wt, bias: conv3x3(x, k, params=(wt, bias)),
+                    lambda x, wt, bias: conv3x3_plain(x, wt, bias))
+
+        library = None
+        if not epi:
+            xl = torch.randn(b, cin, h, w, device="cuda").contiguous(
+                memory_format=torch.channels_last)
+            wl = torch.randn(cout, cin, 3, 3, device="cuda").contiguous(
+                memory_format=torch.channels_last)
+            library = (lambda xl=xl, wl=wl: F.conv2d(xl, wl, padding=1))
+        px = b * h * w
+        rows.append(train_case(
+            "conv3x3", f"train {cname} {b}x{h}x{w} {cin}->{cout}"
+            + (f" {epi}" if epi else ""), make,
+            2 * px * 9 * cin * cout,
+            4 * (px * (cin + cout * (2 if epi == "res" else 1))
+                 + 9 * cin * cout), library))
+
+    for lvl, c in (("encoder1", 48), ("decoder1", 96)):
+        hid = int(2.66 * c)
+        p = b * hw * wfull
+
+        def ln():
+            return (_leaf(c, scale=0.1, shift=1.0, gen=gen),
+                    _leaf(c, scale=0.1, gen=gen))
+
+        def make_g(c=c, hid=hid):
+            x = _leaf(b, hw, wfull, c, gen=gen)
+            g = [*ln(), _leaf(c, 2 * hid, scale=c ** -0.5, gen=gen),
+                 _leaf(9, 2 * hid, scale=1 / 3, gen=gen),
+                 _leaf(hid, c, scale=hid ** -0.5, gen=gen)]
+
+            def params(lw, lb, wi, wd, wo):
+                return ((lw, lb), wi, None, wd, None, wo, None)
+
+            k = gdfn_weights(*params(*g), torch.float32)
+            return ([x, *g],
+                    lambda x, *g: gdfn_block(x, k, fast=False,
+                                             params=params(*g)),
+                    lambda x, *g: gdfn_block_plain(x, *params(*g),
+                                                   fast=False))
+
+        rows.append(train_case(
+            "gdfn_block", f"train {lvl} {b}x{hw}x{wfull} C{c}", make_g,
+            p * (6 * c * hid + 36 * hid), 4 * (2 * p * c + 3 * c * hid)))
+
+        def make_m(c=c):
+            x = _leaf(b, hw, wfull, c, gen=gen)
+            m = [*ln(), _leaf(c, 3 * c, scale=c ** -0.5, gen=gen),
+                 _leaf(9, 3 * c, scale=1 / 3, gen=gen),
+                 _leaf(c, c, scale=c ** -0.5, gen=gen),
+                 _leaf(1, 1, 1, scale=0.1, shift=1.0, gen=gen)]
+
+            def params(lw, lb, wq, wd, wp, t):
+                return ((lw, lb), wq, None, wd, None, wp, None, t)
+
+            k = mdta_weights(*params(*m), 1, torch.float32)
+            return ([x, *m],
+                    lambda x, *m: mdta_block(x, k, params(*m)),
+                    lambda x, *m: mdta_block_plain(x, *params(*m), 1),
+                    lambda x, *m: mdta_front(x, k, params(*m)[:5]),
+                    lambda x, *m: mdta_front_plain(x, *params(*m)[:5],
+                                                   num_heads=1))
+
+        rows.append(train_case(
+            "mdta_front", f"train {lvl} {b}x{hw}x{wfull} C{c} heads=1 "
+            "(block)", make_m, p * (8 * c * c + 54 * c + 2 * c * c),
+            4 * (2 * p * c + 4 * c * c)))
+    return rows
+
+
+def _trainer(dev: str, batch: int, crop: int, steps: int, work: Path):
+    from image_restoration_agent_tpu_torch.models import build_model
+    from image_restoration_agent_tpu_torch.train import (TrainConfig,
+                                                         Trainer)
+    return Trainer(build_model(S16_MODEL, device=dev, seed=0),
+                   TrainConfig(total_iters=steps, batch_size=batch,
+                               crop_size=crop, log_freq=1,
+                               save_freq=10 ** 9, val_freq=10 ** 9),
+                   work_dir=work, device=dev)
+
+
+def train_exact(card: str) -> dict:
+    """``S16_EXACT`` Trainer steps of ``restormer`` (full width, f32) at
+    batch 2, crop 128 on the card and on the port's CPU path, from the same
+    ``build_model(seed=0)`` init and the same ``paired_crop_stream``
+    batches: the loss of every step within 1e-4 relative."""
+    import tempfile
+
+    import torch
+
+    from image_restoration_agent_tpu_torch.train import paired_crop_stream
+
+    b, crop, steps = S16_EXACT
+    imgs = _s16_images()
+    losses, secs = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
+        for dev in ("cuda", "cpu"):
+            tr = _trainer(dev, b, crop, steps, Path(td) / dev)
+            t0 = time.perf_counter()
+            tr.fit(paired_crop_stream(imgs, _s16_noise, b, crop, seed=0))
+            _sync(dev)
+            secs[dev] = time.perf_counter() - t0
+            losses[dev] = [h["loss"] for h in tr.history]
+            del tr
+    torch.cuda.empty_cache()
+    rel = max(abs(a - c) / abs(c) for a, c in zip(losses["cuda"],
+                                                  losses["cpu"]))
+    return {"phase": "train_exact", "model": S16_MODEL, "batch": b,
+            "crop": crop, "steps": steps, "losses_card": losses["cuda"],
+            "losses_cpu": losses["cpu"], "max_rel_diff": rel,
+            "tolerance": 1e-4, "seconds": secs, "card": card,
+            "pass": len(losses["cuda"]) == steps and rel <= 1e-4}
+
+
+def _step_split(model, lq, hq) -> dict:
+    """One forward + loss and its backward (``torch.autograd.grad`` over the
+    parameters, as the train step takes it) timed by CUDA events on the
+    stream: ms of each and the backward's share of the two."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.train import charbonnier_loss
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    loss = charbonnier_loss(model(lq), hq)
+    ev[1].record()
+    torch.autograd.grad(loss, list(model.parameters()))
+    ev[2].record()
+    ev[2].synchronize()
+    fwd, bwd = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    return {"forward_ms": fwd, "backward_ms": bwd,
+            "backward_share": bwd / (fwd + bwd)}
+
+
+def train_path(card: str) -> dict:
+    """``Trainer`` on ``restormer`` at the JAX defaults (crop 128, batch 8,
+    charbonnier, lr 3e-4), f32, ``S16_STEPS`` steps of synthetic
+    denoising: the median s per step over steps 5..20, the peak device
+    memory, K3, K4 and K5 launches per step (every count set to 0 just
+    before the steps, read just after), the loss at steps 1 and 20 (it
+    must fall), one more step under torch.profiler (its top device rows)
+    and one forward and backward split by CUDA events (the backward's
+    share)."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from image_restoration_agent_tpu_torch.train import paired_crop_stream
+
+    stream = paired_crop_stream(_s16_images(), _s16_noise, S16_BATCH,
+                                S16_CROP, seed=1)
+    batches = [next(stream) for _ in range(S16_STEPS + 1)]
+    marks = []
+
+    def timed():
+        for bt in batches[:S16_STEPS]:
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            yield bt
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
+        tr = _trainer("cuda", S16_BATCH, S16_CROP, S16_STEPS, Path(td))
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        state = tr.fit(timed())
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        losses = [h["loss"] for h in tr.history]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.fit(iter(batches[S16_STEPS:]), state)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        lq, hq = (torch.from_numpy(a).cuda() for a in batches[-1])
+        split = _step_split(tr.model, lq, hq)
+    step_s = np.diff(marks)
+    per = {k: v / S16_STEPS for k, v in counts.items() if v}
+    summary = profile_summary(prof, wall, 12)
+    ok = (len(losses) == S16_STEPS and losses[-1] < losses[0]
+          and all(per.get(k, 0) > 0 for k in ("conv3x3", "gdfn_block",
+                                               "mdta_front"))
+          and all(np.isfinite(losses)))
+    del tr, state
+    torch.cuda.empty_cache()
+    return {"phase": "train_path", "model": S16_MODEL, "dtype": "float32",
+            "batch": S16_BATCH, "crop": S16_CROP, "steps": S16_STEPS,
+            "median_step_s": float(np.median(step_s[4:])),
+            "step_s": step_s.tolist(), "peak_mem_gb": peak / 1e9,
+            "loss_step1": losses[0], "loss_step20": losses[-1],
+            "launches_per_step": per, "launches": {k: v for k, v in
+                                                   counts.items() if v},
+            "profile": summary, "split": split, "card": card,
+            "pass": bool(ok)}
+
+
+def classifier_train(card: str) -> dict:
+    """The classifier's data on the card against the CPU (one
+    ``np.random`` Generator each): ``synthesize_multi``'s images and
+    labels equal, ``build_dataset`` equal with the host's Pillow resize and
+    within 1e-6 with the MATLAB resize on the device; then 50 steps of
+    ``train_classifier_v3_dataset`` on the v4 recipe (``ordinal_smooth``
+    0.1, lr 5e-4, batch 32, 224 px, a ``DegradationClassifierV3``) with and
+    without ``device_data``, s per step, and the ``snapshot_fn`` calls."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.train import classifier as tcls
+
+    c = S16_CLS
+    corpus = tcls.procedural_corpus(8, size=288, seed=7)
+    ra, rb = np.random.default_rng(16), np.random.default_rng(16)
+    multi_equal = True
+    for img in corpus:
+        (la, ya), (lb, yb) = (tcls.synthesize_multi(img, ra),
+                              tcls.synthesize_multi(img, rb))
+        multi_equal &= bool(np.array_equal(la, lb) and np.array_equal(ya, yb))
+    t0 = time.perf_counter()
+    xs, ys = tcls.build_dataset(corpus, c["n"], seed=0, size=c["size"],
+                                p_multi=c["p_multi"], device="cuda")
+    build_s = time.perf_counter() - t0
+    xc, yc = tcls.build_dataset(corpus, c["n"], seed=0, size=c["size"],
+                                p_multi=c["p_multi"], device="cpu")
+    xm, ym = tcls.build_dataset(corpus, 8, seed=1, size=c["size"],
+                                fast_resize=False, device="cuda")
+    xmc, ymc = tcls.build_dataset(corpus, 8, seed=1, size=c["size"],
+                                  fast_resize=False, device="cpu")
+    resize_err = float(np.abs(xm - xmc).max())
+    data_ok = (multi_equal and np.array_equal(xs, xc)
+               and np.array_equal(ys, yc) and np.array_equal(ym, ymc)
+               and resize_err <= 1e-6)
+    runs = {}
+    for device_data in (False, True):
+        snaps = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # device_data: chunks of 25 steps (a snapshot after the first)
+        _, losses = tcls.train_classifier_v3_dataset(
+            xs, ys, steps=c["steps"], batch=c["batch"], lr=c["lr"],
+            ordinal_smooth=c["smooth"], snapshot_every=25,
+            snapshot_fn=lambda s, step: snaps.append(step),
+            device_data=device_data, log_every=25 if device_data else 0,
+            device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        runs["device_data" if device_data else "host_batches"] = {
+            "s_per_step": secs / c["steps"], "seconds": secs,
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "snapshots": snaps, "finite": bool(np.isfinite(losses).all())}
+    ok = (data_ok and all(r["finite"] for r in runs.values())
+          and runs["host_batches"]["snapshots"] == [25, 50]
+          and runs["device_data"]["snapshots"] == [25])
+    torch.cuda.empty_cache()
+    return {"phase": "classifier_train", "examples": c["n"],
+            "build_dataset_s": build_s, "synthesize_multi_equal": multi_equal,
+            "dataset_equal": bool(np.array_equal(xs, xc)
+                                  and np.array_equal(ys, yc)),
+            "matlab_resize_max_abs": resize_err, "runs": runs, "card": card,
+            "pass": bool(ok)}
+
+
+def retrieval_train(card: str) -> dict:
+    """20 steps of ``train_retrieval_model`` (the stand-in at feature 640,
+    random init from seed 0) on pairs of noisy views of 8 seeded 224 px
+    images: s per step, the loss falling."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.train.retrieval import \
+        train_retrieval_model
+
+    c = S16_RET
+    rng = np.random.default_rng(21)
+    base = rng.random((c["batch"], 224, 224, 3)).astype(np.float32)
+
+    def pairs():
+        while True:
+            noise = rng.normal(0, 0.02, base.shape).astype(np.float32)
+            yield base, np.clip(base + noise, 0, 1)
+
+    t0 = time.perf_counter()
+    _, losses = train_retrieval_model(pairs(), steps=c["steps"], lr=c["lr"],
+                                      device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return {"phase": "retrieval_train", "steps": c["steps"],
+            "batch": c["batch"], "s_per_step": secs / c["steps"],
+            "loss_first": losses[0], "loss_last": losses[-1], "card": card,
+            "pass": bool(np.isfinite(losses).all()
+                         and losses[-1] < losses[0])}
+
+
+def parallel_single_rank(card: str) -> dict:
+    """An ``nccl`` world of one rank on the card: the hand-built
+    ``make_sharded_train_step`` on a ``data x model`` mesh of 1 x 1 equals
+    the ``Trainer``'s step (two steps of ``nafnet`` at 4 x 64 x 64, losses
+    and parameters bit for bit); ``tiled_apply_sharded`` and
+    ``tiled_apply_halo`` equal ``core.tiling.tiled_apply`` bit for bit on a
+    256 x 256 NAFNet input (tile 64, overlap 16: the sharded path against
+    one batch of all 25 tiles, the halo path against batches of a tile
+    row); cuDNN held to its deterministic algorithms for both sides of
+    each; and ``parallel.dryrun.dryrun_multichip(1)``."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from image_restoration_agent_tpu_torch.core.tiling import tiled_apply
+    from image_restoration_agent_tpu_torch.models import build_model
+    from image_restoration_agent_tpu_torch.parallel import (
+        UpdateRule, init_distributed, make_mesh, make_sharded_train_step,
+        make_train_state, tiled_apply_halo, tiled_apply_sharded)
+    from image_restoration_agent_tpu_torch.parallel.dryrun import (
+        dryrun_multichip, free_port)
+    from image_restoration_agent_tpu_torch.train import (TrainConfig,
+                                                         Trainer)
+
+    dev = init_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                           backend="nccl")
+    det = torch.backends.cudnn.deterministic
+    # both sides of each comparison on cuDNN's deterministic algorithms
+    # (its default weight gradients sum with atomics)
+    torch.backends.cudnn.deterministic = True
+    try:
+        rng = np.random.default_rng(31)
+        lq = rng.random((4, 64, 64, 3), dtype=np.float32)
+        hq = rng.random((4, 64, 64, 3), dtype=np.float32)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
+            a = build_model("nafnet", device=dev, seed=0)
+            tr = Trainer(a, TrainConfig(total_iters=2, log_freq=1),
+                         work_dir=td, device=dev)
+            tr.fit(iter([(lq, hq)] * 2))
+        b = build_model("nafnet", device=dev, seed=0)
+        tx = UpdateRule(3e-4)
+        step, _, _ = make_sharded_train_step(b, tx, make_mesh(
+            {"data": 1, "model": 1}))
+        state = make_train_state(b, tx)
+        hand = []
+        for _ in range(2):
+            state, loss = step(state, torch.from_numpy(lq).to(dev),
+                               torch.from_numpy(hq).to(dev))
+            hand.append(loss.item())
+        step_equal = ([h["loss"] for h in tr.history] == hand and all(
+            torch.equal(p, q) for p, q in zip(a.parameters(),
+                                              b.parameters())))
+
+        px, tile, ov = S16_TILE
+        mesh = make_mesh({"tile": 1})
+        img = torch.from_numpy(rng.random((px, px, 3), dtype=np.float32)
+                               ).to(dev)
+        with torch.no_grad():
+            b.eval()
+            reset_launch_counts()
+            sharded = tiled_apply_sharded(b, img, mesh, tile=tile,
+                                          overlap=ov, pad_multiple=8)
+            halo = tiled_apply_halo(b, img, mesh, tile=tile, overlap=ov)
+            counts = launch_counts()
+            n = ((px - tile) // (tile - ov) + 1)
+            single_all = tiled_apply(b, img, tile=tile, overlap=ov,
+                                     batch=n * n, pad_multiple=8)
+            single_row = tiled_apply(b, img, tile=tile, overlap=ov,
+                                     batch=n, pad_multiple=1)
+        diffs = {"sharded": float((sharded - single_all).abs().max()),
+                 "halo": float((halo - single_row).abs().max())}
+        tiles_equal = bool(torch.equal(sharded, single_all)
+                           and torch.equal(halo, single_row))
+        t0 = time.perf_counter()
+        dry = dryrun_multichip(1)
+        dry_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = det
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return {"phase": "parallel_single_rank", "backend": "nccl",
+            "world": 1, "train_step_equal": step_equal,
+            "losses": hand, "tiles_equal": tiles_equal,
+            "max_abs_diff": diffs, "tile_launches": {
+                k: v for k, v in counts.items() if v},
+            "dryrun": dry, "dryrun_s": dry_s, "card": card,
+            "pass": bool(step_equal and tiles_equal)}
+
+
+def slice16_phases(phase, card: str) -> tuple:
+    """Slice 16's phases in order; returns ({"train": train_path's
+    result}, train_kernels' rows)."""
+    import torch
+
+    rows = phase("train_kernels", train_kernel_checks, False) or []
+    torch.cuda.empty_cache()
+    phase("train_exact", train_exact, card)
+    served = {"train": phase("train_path", train_path, card)}
+    phase("classifier_train", classifier_train, card)
+    phase("retrieval_train", retrieval_train, card)
+    phase("parallel_single_rank", parallel_single_rank, card)
+    return served, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -5498,8 +6084,9 @@ def main() -> int:
     rows += phase("zoo_kernels", zoo_kernel_checks, args.quick) or []
     rows += phase("ridcp_kernels", ridcp_kernel_checks, args.quick) or []
     rows += phase("diffbir_kernels", diffbir_kernel_checks, args.quick) or []
-    if args.quick:  # slice 15's checks follow its paths in the full run
+    if args.quick:  # slices 15's and 16's checks follow their paths
         rows += phase("eval_suite_kernels", eval_suite_kernels, True) or []
+        rows += phase("train_kernels", train_kernel_checks, True) or []
     failures += [f"kernel {r['name']} {r['variant']} {r['dtype']}"
                  for r in rows if not r["pass"]]
     # each path's launch counts, read just after the path ran (with
@@ -5510,7 +6097,7 @@ def main() -> int:
                                     "default_agent", "ridcp", "serve",
                                     "diffbir", "retrieval", "eval_suite",
                                     "exploration", "maxim_convert",
-                                    "engine_profile",
+                                    "engine_profile", "train",
                                     *(n for n, _, _ in ZOO_REQUESTS))}
     # the lab path: one pair chain, one head tail, one lab_strip call, each
     # counted alone
@@ -5566,6 +6153,13 @@ def main() -> int:
         failures += [f"kernel {r['name']} {r['variant']} {r['dtype']}"
                      for r in rows15 if not r["pass"]]
         rows += rows15
+        torch.cuda.empty_cache()
+        served16, rows16 = slice16_phases(phase, card)
+        launches.update({p: r["launches"] if r else {}
+                         for p, r in served16.items()})
+        failures += [f"kernel {r['name']} {r['variant']} {r['dtype']}"
+                     for r in rows16 if not r["pass"]]
+        rows += rows16
         launches.update({
             "swinir": served["launches"] if served else {},
             "restormer": served_r["launches"] if served_r else {},

@@ -177,3 +177,68 @@ def resize_bicubic_jax(img: torch.Tensor, out_h: int,
     weights, in float32 with the weights rounded to ``img``'s dtype, one
     cast of the result."""
     return _resize_jax(img, out_h, out_w, "cubic")
+
+
+# ---------------------------------------------------------------------------
+# Pillow's BICUBIC resize of 8-bit images, reproduced in numpy (the card's
+# machine has no PIL)
+
+_PIL_BITS = 22  # Pillow's Resample.c PRECISION_BITS (32 - 8 - 2)
+
+
+def _pil_cubic(x: np.ndarray) -> np.ndarray:
+    x = np.abs(x)
+    a = -0.5
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+@functools.lru_cache(maxsize=16)
+def _pil_coeffs(in_size: int, out_size: int) -> tuple:
+    """Pillow's ``precompute_coeffs`` (support 2 scaled by the downscale
+    factor, windows rounded as ``(int)(center -+ support + 0.5)``, weights
+    normalized, then ``normalize_coeffs_8bpc``'s fixed point): per output
+    pixel the first input index and the int64 weights, (out, ksize)."""
+    scale = in_size / out_size
+    fscale = max(scale, 1.0)
+    support = 2.0 * fscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    first = np.zeros(out_size, np.int64)
+    kk = np.zeros((out_size, ksize), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        w = _pil_cubic((np.arange(xmax) + xmin - center + 0.5) / fscale)
+        ww = w.sum()
+        if ww != 0.0:
+            w = w / ww
+        q = w * (1 << _PIL_BITS)
+        kk[xx, :xmax] = np.where(q < 0, np.trunc(q - 0.5), np.trunc(q + 0.5))
+        first[xx] = xmin
+    return first, kk
+
+
+def _pil_pass(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One 8-bit pass along ``axis`` of an int64 (H, W, C) image."""
+    first, kk = _pil_coeffs(img.shape[axis], out_size)
+    idx = np.minimum(first[:, None] + np.arange(kk.shape[1]),
+                     img.shape[axis] - 1)
+    src = np.take(img, idx, axis=axis)     # axis -> (out, ksize)
+    w = kk.reshape((1,) * axis + kk.shape + (1,) * (img.ndim - axis - 1))
+    acc = (src * w).sum(axis=axis + 1) + (1 << (_PIL_BITS - 1))
+    return np.clip(acc >> _PIL_BITS, 0, 255)
+
+
+def resize_pil_bicubic(img: np.ndarray, out_h: int, out_w: int
+                       ) -> np.ndarray:
+    """``np.asarray(Image.fromarray(img).resize((out_w, out_h),
+    Image.BICUBIC))`` for a uint8 (H, W, 3) image, bit for bit: Pillow's
+    two-pass 8-bit resampling (horizontal first, each pass rounded and
+    clipped to uint8)."""
+    x = img.astype(np.int64)
+    if out_w != x.shape[1]:
+        x = _pil_pass(x, out_w, 1)
+    if out_h != x.shape[0]:
+        x = _pil_pass(x, out_h, 0)
+    return x.astype(np.uint8)

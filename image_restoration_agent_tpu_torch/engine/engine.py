@@ -216,7 +216,10 @@ class Engine:
                                       else 0)
         x = torch.from_numpy(np.ascontiguousarray(img, np.float32)).to(
             self.device)
-        out = fn(model, x)
+        # serving records no graph, whatever the family: the models' own
+        # forwards leave grad on so that they can be trained
+        with torch.no_grad():
+            out = fn(model, x)
         nonfinite = int((~torch.isfinite(out)).sum())
         if packed_c > 1:  # packed RGB: a free row-major view back to NHWC
             out = out.reshape(out.shape[0], out.shape[1] // packed_c,
@@ -267,8 +270,9 @@ class Engine:
     def profile(self, log_dir: str | Path):
         """``torch.profiler`` trace context around engine calls: CPU
         activity, and the card's kernels and copies where the engine runs
-        on one; on exit a Chrome trace (``trace_<pid>_<n>.json``) is
-        written under ``log_dir``. Yields the engine."""
+        on one; on exit, also when the body raises, a Chrome trace
+        (``trace_<pid>_<n>.json``) is written under ``log_dir``. Yields the
+        engine."""
         from torch.profiler import ProfilerActivity, profile
 
         log_dir = Path(log_dir)
@@ -276,13 +280,20 @@ class Engine:
         acts = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
-        with profile(activities=acts) as prof:
-            yield self
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-        n = len(list(log_dir.glob(f"trace_{os.getpid()}_*.json")))
-        self.last_trace = log_dir / f"trace_{os.getpid()}_{n}.json"
-        prof.export_chrome_trace(str(self.last_trace))
+        prof = profile(activities=acts)
+        try:
+            with prof:
+                try:
+                    yield self
+                finally:
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+        finally:
+            # the trace is written whether or not the body raised: a
+            # failing request is when it is most wanted
+            n = len(list(log_dir.glob(f"trace_{os.getpid()}_*.json")))
+            self.last_trace = log_dir / f"trace_{os.getpid()}_{n}.json"
+            prof.export_chrome_trace(str(self.last_trace))
 
     def status(self) -> dict:
         """Engine health snapshot."""

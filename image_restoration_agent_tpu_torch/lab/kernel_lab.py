@@ -42,6 +42,7 @@ import argparse
 import torch
 
 from ..device import resolve_device
+from ..ops.autograd import forbid_grad
 from ..ops.swin_block import (GATHER, IDENTITY, SCATTER, kernel_matrix,
                               token_linear, token_linear_plain,
                               window_attention, window_attention_plain)
@@ -110,7 +111,9 @@ def lab_strip(x, lnw, lnb, wqkv, bqkv, wproj, bproj, rpb, *,
 
     A CUDA tensor runs K1, K2, K1 (two K1 without K2 for the probes, one
     for ``base_noproj``) or raises; a CPU tensor runs
-    :func:`lab_strip_plain`."""
+    :func:`lab_strip_plain`. Under autograd with an operand requiring grad
+    it raises (no backward)."""
+    forbid_grad("lab_strip", x, lnw, lnb, wqkv, bqkv, wproj, bproj, rpb)
     if not x.is_cuda:
         return lab_strip_plain(x, lnw, lnb, wqkv, bqkv, wproj, bproj, rpb,
                                num_heads=num_heads, ws=ws, mode=mode)

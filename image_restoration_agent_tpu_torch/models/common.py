@@ -61,7 +61,8 @@ class Conv(nn.Module):
 
     def forward(self, x, res=None, roll: int = 0, ln_pre=None):
         y = conv3x3(x, self.kernel_weights(x), act=self.act, res=res,
-                    roll=roll, ln_pre=ln_pre)
+                    roll=roll, ln_pre=ln_pre,
+                    params=(self.hwio(), self.bias))
         if self.shuffle > 1:
             y = pixel_shuffle(y, self.shuffle)
         return y
@@ -299,6 +300,13 @@ def upsample_tail(x, w1, b1, wl, bl, r: int, kernel_weights=None):
     ``kernel_weights`` is a kept :func:`tail_weights` result."""
     if conv3x3_fits(x.shape[1], x.shape[2]):
         k1, k2 = kernel_weights or tail_weights(w1, b1, wl, bl, r, x.dtype)
-        return pixel_shuffle(conv3x3(conv3x3(x, k1), k2), r)
+        p1 = p2 = None
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (w1, b1, wl, bl)):
+            p1 = (w1, b1)
+            p2 = (conv_after_shuffle_weights(wl, r),
+                  None if bl is None else bl.repeat_interleave(r * r))
+        return pixel_shuffle(conv3x3(conv3x3(x, k1, params=p1), k2,
+                                     params=p2), r)
     y = pixel_shuffle(conv_plain(x, w1, b1), r)
     return conv_plain(y, wl, bl)

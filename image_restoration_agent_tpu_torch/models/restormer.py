@@ -76,28 +76,41 @@ class TransformerBlock(nn.Module):
         return (restormer_fused_supported(h, w, c, 3 * c)
                 and restormer_fused_supported(h, w, c, 2 * self.ffn.hidden))
 
+    def mdta_params(self) -> tuple:
+        """:func:`ops.restormer_fused.mdta_block_plain`'s (ln, w_qkv, b_qkv,
+        w_dw, b_dw, w_proj, b_proj, temperature), views of the parameters."""
+        a = self.attn
+        return (self.norm1.params(), a.qkv.matrix(), a.qkv.bias,
+                a.qkv_dwconv.taps(), a.qkv_dwconv.bias,
+                a.project_out.matrix(), a.project_out.bias, a.temperature)
+
+    def gdfn_params(self) -> tuple:
+        """:func:`ops.restormer_fused.gdfn_block_plain`'s (ln, w_in, b_in,
+        w_dw, b_dw, w_out, b_out), views of the parameters."""
+        f = self.ffn
+        return (self.norm2.params(), f.project_in.matrix(),
+                f.project_in.bias, f.dwconv.taps(), f.dwconv.bias,
+                f.project_out.matrix(), f.project_out.bias)
+
     def kernel_weights(self, x: torch.Tensor):
         """The fused blocks' kernel forms for ``x``'s dtype and device, made
         once and kept while the parameters are unchanged."""
         key = cache_key(x, list(self.parameters()))
         if self._prepared is None or self._prepared[0] != key:
-            a, f = self.attn, self.ffn
-            mw = mdta_weights(
-                self.norm1.params(), a.qkv.matrix(), a.qkv.bias,
-                a.qkv_dwconv.taps(), a.qkv_dwconv.bias, a.project_out.matrix(),
-                a.project_out.bias, a.temperature, a.num_heads, x.dtype)
-            gw = gdfn_weights(
-                self.norm2.params(), f.project_in.matrix(), f.project_in.bias,
-                f.dwconv.taps(), f.dwconv.bias, f.project_out.matrix(),
-                f.project_out.bias, x.dtype)
+            mw = mdta_weights(*self.mdta_params(), self.attn.num_heads,
+                              x.dtype)
+            gw = gdfn_weights(*self.gdfn_params(), x.dtype)
             self._prepared = (key, mw, gw)
         return self._prepared[1:]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused(x):
+            # the forms are side inputs; the parameters' views are what
+            # autograd differentiates (ops/autograd.py)
             mw, gw = self.kernel_weights(x)
-            x = mdta_block(x, mw)
-            return gdfn_block(x, gw, fast=x.dtype == torch.bfloat16)
+            x = mdta_block(x, mw, self.mdta_params())
+            return gdfn_block(x, gw, fast=x.dtype == torch.bfloat16,
+                              params=self.gdfn_params())
         x = x + self.attn(self.norm1(x))
         return x + self.ffn(self.norm2(x))
 
@@ -170,10 +183,10 @@ class Restormer(nn.Module):
             self.skip_conv = Conv1x1(d, d * 2, bias)
         self.output = Conv(d * 2, out_channels, bias=bias)
 
-    @torch.no_grad()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, inp_channels) -> (B, H, W, out_channels); H and W
-        multiples of 8."""
+        multiples of 8. Records a graph where grad is enabled (training);
+        the Engine serves under ``torch.no_grad()``."""
         e1_in = self.patch_embed(x)
         e1 = self.encoder_level1(e1_in)
         e2 = self.encoder_level2(self.down1_2(e1))

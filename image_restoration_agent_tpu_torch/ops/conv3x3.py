@@ -49,6 +49,7 @@ import torch.nn.functional as F
 
 from ..device import exact_f32
 from . import kernels
+from .autograd import forbid_grad, kernel_function
 from .layernorm import layer_norm_lanes
 
 _ACTS = {None: 0, "lrelu": 1, "lrelu2": 2}
@@ -221,11 +222,30 @@ def _conv3x3_cuda(x, k: Conv3x3Weights, act, res, roll, ln_pre):
     return out
 
 
+def _conv3x3_launch(side, x, w, b, res, lg, lb):
+    form, act, roll = side
+    k = form if form is not None else conv3x3_weights(w, b, x.dtype)
+    return _conv3x3_cuda(x, k, act, res, roll,
+                         None if lg is None else (lg, lb))
+
+
+def _conv3x3_plain(side, x, w, b, res, lg, lb):
+    form, act, roll = side
+    if w is None:  # the kernel form alone: its weights are constants
+        w, b = form.hwio, form.b
+    return conv3x3_plain(x, w, b, act=act, res=res, roll=roll,
+                         ln_pre=None if lg is None else (lg, lb))
+
+
+_conv3x3_function = kernel_function("conv3x3", _conv3x3_launch,
+                                    _conv3x3_plain)
+
+
 def conv3x3(x: torch.Tensor, w: torch.Tensor | Conv3x3Weights,
             b: torch.Tensor | None = None, *, act: str | None = None,
             res: torch.Tensor | None = None, roll: int = 0,
-            ln_pre: tuple[torch.Tensor, torch.Tensor] | None = None
-            ) -> torch.Tensor:
+            ln_pre: tuple[torch.Tensor, torch.Tensor] | None = None,
+            params: tuple | None = None) -> torch.Tensor:
     """SAME 3x3 conv, stride 1, channels-last.
 
     Args:
@@ -242,20 +262,23 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor | Conv3x3Weights,
             a separate roll pass.
         ln_pre: optional (scale, bias) of a LayerNorm over Cin (eps 1e-5)
             applied before the conv; the zero padding applies to its output.
+        params: with a kernel form ``w``, the (HWIO weight, bias or None)
+            it was made from; gradients reach them. Without, the form's
+            weights are constants.
 
     A CUDA tensor runs the K3 kernel (``csrc/conv3x3.cu``) or raises; a CPU
-    tensor runs :func:`conv3x3_plain`.
+    tensor runs :func:`conv3x3_plain`. Under autograd the backward is
+    :func:`conv3x3_plain`'s VJP (``ops/autograd.py``) in every input:
+    ``x``, the weights, the bias, ``res`` and the LayerNorm's parameters.
     """
     if isinstance(w, Conv3x3Weights):
         if b is not None:
             raise ValueError("the kernel form holds the bias; pass b=None")
-    elif x.is_cuda:
-        w = conv3x3_weights(w, b, x.dtype)
-    if x.is_cuda:
-        return _conv3x3_cuda(x, w, act, res, roll, ln_pre)
-    if isinstance(w, Conv3x3Weights):
-        w, b = w.hwio, w.b
-    return conv3x3_plain(x, w, b, act=act, res=res, roll=roll, ln_pre=ln_pre)
+        form, (wd, bd) = w, params or (None, None)
+    else:
+        form, wd, bd = None, w, b
+    lg, lb = ln_pre if ln_pre is not None else (None, None)
+    return _conv3x3_function((form, act, roll), x, wd, bd, res, lg, lb)
 
 
 conv3x3.launches = 0
@@ -440,6 +463,7 @@ def conv3x3_pair(x, w1, b1=None, w2=None, b2=None, *, act_mid=None):
     A CUDA tensor runs one K7 launch (``csrc/conv3x3_pair.cu``; Cin <= 64,
     Cout <= 32) or raises; a CPU tensor runs :func:`conv3x3_pair_plain`.
     """
+    forbid_grad("conv3x3_pair", x, w1, b1, w2, b2)
     if isinstance(w1, Conv3x3PairWeights):
         k = w1
         w1, b1, w2, b2 = k.hwio

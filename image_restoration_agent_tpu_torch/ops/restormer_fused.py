@@ -84,6 +84,7 @@ import torch.nn.functional as F
 
 from ..device import exact_f32
 from . import kernels
+from .autograd import kernel_function
 
 CHUNK = 32          # hidden channels per chunk (csrc/restormer_fused.cu: HC)
 _VMEM_BUDGET = 96 * 1024 * 1024
@@ -415,14 +416,41 @@ def _gdfn_cuda(x: torch.Tensor, k: GdfnWeights, fast: bool) -> torch.Tensor:
     return out
 
 
-def gdfn_block(x: torch.Tensor, w: GdfnWeights, *, fast: bool
-               ) -> torch.Tensor:
+def _ln_tuple(n: int, ln_w, ln_b):
+    """The ``ln`` argument from its flattened (arity, scale, bias)."""
+    return None if n == 0 else (ln_w,) if n == 1 else (ln_w, ln_b)
+
+
+def _flat_ln(ln) -> tuple:
+    """(arity, scale, bias) of an ``ln`` argument."""
+    if ln is None:
+        return 0, None, None
+    return len(ln), ln[0], ln[1] if len(ln) > 1 else None
+
+
+def _gdfn_launch(side, x, *params):
+    return _gdfn_cuda(x, side[0], side[1])
+
+
+def _gdfn_plain(side, x, ln_w, ln_b, *params):
+    return gdfn_block_plain(x, _ln_tuple(side[2], ln_w, ln_b), *params,
+                            fast=side[1])
+
+
+_gdfn_function = kernel_function("gdfn_block", _gdfn_launch, _gdfn_plain)
+
+
+def gdfn_block(x: torch.Tensor, w: GdfnWeights, *, fast: bool,
+               params: tuple | None = None) -> torch.Tensor:
     """``x + GDFN(LN(x))`` in one launch (K4, ``csrc/restormer_fused.cu``)
     on a CUDA tensor, or raises; :func:`gdfn_block_plain` on a CPU tensor.
-    ``w`` is the kernel form from :func:`gdfn_weights` for ``x.dtype``."""
-    if x.is_cuda:
-        return _gdfn_cuda(x, w, fast)
-    return gdfn_block_plain(x, *w.params, fast=fast)
+    ``w`` is the kernel form from :func:`gdfn_weights` for ``x.dtype``;
+    ``params`` the (ln, w_in, b_in, w_dw, b_dw, w_out, b_out) it was made
+    from (default ``w.params``), which autograd differentiates through
+    :func:`gdfn_block_plain`'s VJP (``ops/autograd.py``)."""
+    ln, *rest = params if params is not None else w.params
+    n, ln_w, ln_b = _flat_ln(ln)
+    return _gdfn_function((w, fast, n), x, ln_w, ln_b, *rest)
 
 
 gdfn_block.launches = 0
@@ -644,13 +672,29 @@ def _mdta_cuda(x: torch.Tensor, k: MdtaWeights):
     return v, gram, ssq
 
 
-def mdta_front(x: torch.Tensor, w: MdtaWeights):
+def _mdta_launch(side, x, *params):
+    return _mdta_cuda(x, side[0])
+
+
+def _mdta_plain(side, x, ln_w, ln_b, *params):
+    return mdta_front_plain(x, _ln_tuple(side[1], ln_w, ln_b), *params,
+                            num_heads=side[0].num_heads)
+
+
+_mdta_function = kernel_function("mdta_front", _mdta_launch, _mdta_plain)
+
+
+def mdta_front(x: torch.Tensor, w: MdtaWeights,
+               params: tuple | None = None):
     """MDTA's front (K5, ``csrc/restormer_fused.cu``) on a CUDA tensor, or
     raises; :func:`mdta_front_plain` on a CPU tensor. Returns (v, gram,
-    ssq) as :func:`mdta_front_plain` does."""
-    if x.is_cuda:
-        return _mdta_cuda(x, w)
-    return mdta_front_plain(x, *w.params, num_heads=w.num_heads)
+    ssq) as :func:`mdta_front_plain` does. ``params`` is the (ln, w_qkv,
+    b_qkv, w_dw, b_dw) ``w`` was made from (default ``w.params``), which
+    autograd differentiates through :func:`mdta_front_plain`'s VJP
+    (``ops/autograd.py``)."""
+    ln, *rest = params if params is not None else w.params
+    n, ln_w, ln_b = _flat_ln(ln)
+    return _mdta_function((w, n), x, ln_w, ln_b, *rest)
 
 
 mdta_front.launches = 0
@@ -724,11 +768,18 @@ def mdta_epilogue(x, v, gram, ssq, temperature, w_proj, b_proj,
     return x + out.reshape(bsz, h, w, c)
 
 
-def mdta_block(x: torch.Tensor, w: MdtaWeights) -> torch.Tensor:
+def mdta_block(x: torch.Tensor, w: MdtaWeights,
+               params: tuple | None = None) -> torch.Tensor:
     """``x + project_out(MDTA(LN(x)))``: :func:`mdta_front` then
-    :func:`mdta_epilogue`."""
-    v, gram, ssq = mdta_front(x, w)
-    return mdta_epilogue(x, v, gram, ssq, w.temperature, w.w_proj, w.b_proj,
+    :func:`mdta_epilogue`. ``params`` is :func:`mdta_block_plain`'s (ln,
+    w_qkv, b_qkv, w_dw, b_dw, w_proj, b_proj, temperature) that ``w`` was
+    made from: the differentiable inputs (default: ``w``'s own, the
+    epilogue's in float32)."""
+    if params is None:
+        params = (*w.params, w.w_proj, w.b_proj, w.temperature)
+    v, gram, ssq = mdta_front(x, w, params[:5])
+    w_proj, b_proj, temperature = params[5:]
+    return mdta_epilogue(x, v, gram, ssq, temperature, w_proj, b_proj,
                          w.num_heads)
 
 

@@ -23,6 +23,7 @@ import ctypes
 import torch
 
 from . import kernels
+from .autograd import forbid_grad
 
 
 def _check(x: torch.Tensor, shift: int, ws: int) -> None:
@@ -77,7 +78,9 @@ def roll2d(x: torch.Tensor, shift: int, ws: int = 8) -> torch.Tensor:
     canvas, ``shift`` = +-ws/2, H and W multiples of ``ws``.
 
     A CUDA tensor runs the K6 kernel or raises; a CPU tensor runs
-    :func:`roll2d_plain`."""
+    :func:`roll2d_plain`. Under autograd with ``x`` requiring grad it
+    raises (K6 has no backward)."""
+    forbid_grad("roll2d", x)
     if x.is_cuda:
         _check(x, shift, ws)
         return _roll2d_cuda(x, shift)

@@ -111,6 +111,7 @@ import torch
 import torch.nn.functional as F
 
 from . import kernels
+from .autograd import forbid_grad
 from .layernorm import layer_norm_lanes
 from .window_attention import (relative_position_bias, window_partition,
                                window_reverse)
@@ -480,6 +481,7 @@ def token_linear(a, w, b, *, ln=None, gelu=None, res=None, geom=None,
             of the output frame).
         out_dtype: dtype of the (M, N) output (default ``w.dtype``).
     """
+    forbid_grad("token_linear", a, w, b, ln, res)
     if a.is_cuda:
         return _token_linear_cuda(a, w, b, ln, gelu, res, geom, a_map,
                                   r_map, o_map, out_dtype)
@@ -704,6 +706,7 @@ def window_attention(qkv, rpb, bank, *, num_heads, nwy, nwx, fast,
     block per (window, head). Bank entries that are all zero are skipped
     (:func:`bank_zero_flags`).
     """
+    forbid_grad("window_attention", qkv, rpb, bank, mask, table)
     if qkv.is_cuda:
         return _window_attention_cuda(qkv, rpb, bank, num_heads, nwy, nwx,
                                       fast, mask, scale, table)
@@ -761,6 +764,7 @@ def mlp_block(x, ln_w, ln_b, w1, b1, w2, b2, *, fast=False, out_dtype=None,
     With ``scatter = (B, H, W, ws, ...)`` the rows are in window order and
     the result is written as the (B, H, W, C) canvas. Two K1 launches on a
     CUDA tensor; :func:`mlp_block_plain` on a CPU tensor."""
+    forbid_grad("mlp_block", x, ln_w, ln_b, w1, b1, w2, b2)
     if x.is_cuda:
         return _mlp_block_cuda(x, ln_w, ln_b, w1, b1, w2, b2, fast,
                                out_dtype, scatter)
@@ -838,6 +842,7 @@ def swin_block(x, p: SwinBlockParams, *, num_heads: int, ws: int,
     A CUDA tensor runs the kernels (:func:`swin_block_composed`) or raises;
     a CPU tensor runs :func:`swin_block_plain`.
     """
+    forbid_grad("swin_block", x, p, mask_bank)
     if x.is_cuda:
         out = swin_block_composed(x, p, num_heads=num_heads, ws=ws, dc=dc,
                                   mask_bank=mask_bank, fast=fast)
@@ -884,6 +889,7 @@ def swin_attn_block(x, p: SwinBlockParams, *, num_heads: int, ws: int,
     + gathered residual scattered to the rolled frame) or raises; a CPU
     tensor runs :func:`swin_attn_block_plain`.
     """
+    forbid_grad("swin_attn_block", x, p, mask_bank)
     if not x.is_cuda:
         return swin_attn_block_plain(x, p, num_heads=num_heads, ws=ws, dc=dc,
                                      mask_bank=mask_bank, fast=fast)
@@ -937,6 +943,7 @@ def wmsa_block(xw, p: SwinBlockParams, *, num_heads: int, mask=None):
     in full-mask mode, K1 proj + residual) or raises; a CPU tensor runs
     :func:`wmsa_block_plain`.
     """
+    forbid_grad("wmsa_block", xw, p, mask)
     if not xw.is_cuda:
         return wmsa_block_plain(xw, p, num_heads=num_heads, mask=mask)
     nwb, n, c = xw.shape
@@ -987,6 +994,7 @@ def wmsa(qkv, rpb, mask=None, *, num_heads: int):
     A CUDA tensor launches K2 with that logit scale (one launch) or raises;
     a CPU tensor runs :func:`wmsa_plain`.
     """
+    forbid_grad("wmsa", qkv, rpb, mask)
     if not qkv.is_cuda:
         return wmsa_plain(qkv, rpb, mask, num_heads=num_heads)
     out = _wmsa(window_attention, qkv, rpb, mask, num_heads)
@@ -1312,6 +1320,7 @@ def swin_pair_block(x, pa: SwinBlockParams, pb: SwinBlockParams, mask_bank,
     (:func:`swin_pair_weights` in bf16, :func:`_pair_form` in f32) are made
     at a block's first launch and kept on its qkv weight.
     """
+    forbid_grad("swin_pair_block", x, pa, pb, mask_bank)
     _check_pair(x, num_heads, ws, dc1)
     if not x.is_cuda:
         return swin_pair_block_plain(x, pa, pb, mask_bank,

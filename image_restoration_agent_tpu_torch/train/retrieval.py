@@ -1,16 +1,16 @@
-"""Retrieval store population and validation (the serving half of
+"""Retrieval training, validation and store population (counterpart of
 ``image_restoration_agent_tpu/train/retrieval.py``).
 
+- ``train_retrieval_model``: contrastive (InfoNCE) training of the
+  stand-in's image tower and Combiner on pairs of views of the same
+  degraded content (the reference's ``combiner_train.py``), optax's Adam
+  (``parallel.train_step.UpdateRule``).
+- ``recall_at_k``: retrieval validation (the reference's ``validate.py``
+  recall@K).
 - ``insert_solved_runs``: walk agent work dirs (``logs/summary.json``),
   build ``res_seq`` strings from the execution paths, embed each run's
   input image and insert it into a vector store (the reference's
   ``insert_emb_to_postgresql.py``).
-- ``recall_at_k``: retrieval validation (the reference's ``validate.py``
-  recall@K).
-
-The JAX module's training half, ``info_nce_loss`` and
-``train_retrieval_model`` (contrastive training of the stand-in with
-optax), is not ported yet: it comes with the port's training slice.
 """
 
 from __future__ import annotations
@@ -19,8 +19,56 @@ import json
 from pathlib import Path
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
+from ..device import resolve_device
+from ..models.registry import init_weights
+from ..parallel.train_step import UpdateRule
+from ..retrieval.embedder import RetrievalModel
 from ..retrieval.store import RetrievalRecord
+
+
+def info_nce_loss(emb_a: torch.Tensor, emb_b: torch.Tensor,
+                  temperature: float = 0.07) -> torch.Tensor:
+    """Symmetric InfoNCE between two views of the same items (row i of
+    ``emb_a`` and of ``emb_b``)."""
+    logits = emb_a @ emb_b.T / temperature
+    labels = torch.arange(emb_a.shape[0], device=emb_a.device)
+    return 0.5 * (F.cross_entropy(logits, labels)
+                  + F.cross_entropy(logits.T, labels))
+
+
+def train_retrieval_model(pair_batches, steps: int = 200, lr: float = 1e-4,
+                          seed: int = 0, model: RetrievalModel | None = None,
+                          device: str | torch.device = "cuda"):
+    """Pull two views of the same degraded content together and push the
+    batch's other items apart. ``pair_batches`` yields (view_a, view_b)
+    float (B, 224, 224, 3) batches; the given model's parameters are the
+    initial state (without one: ``RetrievalModel()`` with
+    ``init_weights(seed)`` and the caption embedding at zero; at
+    ``init_weights``' 1 + noise it dominates the Combiner and every image
+    embeds alike). Returns (state_dict, losses)."""
+    if model is None:
+        model = RetrievalModel()
+        init_weights(model, seed)
+        with torch.no_grad():  # the caption's learned embedding starts at
+            model.caption_embedding.zero_()  # zero, as the Flax one does
+    dev = resolve_device(device)
+    model = model.to(dev, torch.float32)
+    params = list(model.parameters())
+    rule = UpdateRule(lr)
+    state = rule.init(params)
+    losses = []
+    it = iter(pair_batches)
+    for _ in range(steps):
+        a, b = (torch.as_tensor(np.asarray(v, np.float32)).to(dev)
+                for v in next(it))
+        loss = info_nce_loss(model(a), model(b))
+        rule.update(params, list(torch.autograd.grad(loss, params)), state)
+        losses.append(loss.item())
+    return {k: v.detach().cpu().clone()
+            for k, v in model.state_dict().items()}, losses
 
 
 def recall_at_k(embedder, queries: list, gallery: list, labels_q: list,

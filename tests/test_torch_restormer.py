@@ -320,7 +320,8 @@ def test_restormer_tiny_matches_jax_f32(tiny, hw, mode):
     assert routes == ([True] * 4 if hw == (64, 1024)
                       else [True, True, False, False])
     want = _jax_tiny(params, x, mode, jnp.float32)
-    got = m_t(torch.from_numpy(x)).numpy()
+    with torch.no_grad():  # a served forward
+        got = m_t(torch.from_numpy(x)).numpy()
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=1e-4)
 
@@ -344,7 +345,8 @@ def test_restormer_tiny_matches_jax_bf16(tiny, hw, mode):
     ref32 = _jax_tiny(params, x, "off", jnp.float32)
     m16 = build_model("restormer_tiny", device="cpu", dtype=torch.bfloat16)
     m16.load_state_dict(m_t.state_dict(), strict=True)
-    got = m16(torch.from_numpy(x).bfloat16()).float().numpy()
+    with torch.no_grad():  # a served forward
+        got = m16(torch.from_numpy(x).bfloat16()).float().numpy()
 
     def rms(a):
         return float(np.sqrt(np.mean(a ** 2)))
@@ -390,7 +392,8 @@ def test_from_jax_output_matches(tiny):
         want = np.asarray(m_j.apply(params, jnp.asarray(x)))
     finally:
         jrf.set_fused_mode("auto")
-    got = m_t(torch.from_numpy(x)).numpy()
+    with torch.no_grad():  # a served forward
+        got = m_t(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-4)
 
 
