@@ -38,7 +38,9 @@ Phases, each printing one JSON line:
    in bf16 (one warm-up request, three timed), with the launch counts of
    every kernel wrapper over the timed requests;
 6. fast_vs_exact: the bf16 fast band path against the f32 exact whole-image
-   path on a 480x270 probe, PSNR >= the plain bf16-vs-f32 control - 2 dB;
+   path on a 480x270 probe, PSNR >= the plain bf16-vs-f32 control (on its
+   240x136 corner, where the card's f32 is also held against the CPU's)
+   - 2 dB;
 7. restormer_golden: restormer_synth (320x320) in float32, PSNR >=
    recorded - 0.1;
 8. restormer_path: ``Engine(device="cuda")`` serving 1280x720 with
@@ -58,7 +60,7 @@ Phases, each printing one JSON line:
     launches, and a ``torch.profiler`` split of one more request;
 12. hat_fast_vs_exact: bf16 against f32 exact on the card on a 480x270
     probe (6 tiles), PSNR >= the plain bf16-vs-f32 control (the CPU path,
-    on the probe canvas's top-left 128x128) - 2 dB;
+    on the probe canvas's top-left 64x64) - 2 dB;
 13. swinir_denoise_path: ``swinir_denoise_15`` serving 1920x1080 whole
     image in bf16 (the 1088x1928 canvas, every block on the partition
     route): 36 ``wmsa_block``, 36 ``mlp_block`` and 9 K3 launches per
@@ -201,7 +203,7 @@ Phases, each printing one JSON line:
     launches per request against the trace, peak device memory), a
     ``torch.profiler`` split of one more (busy share, K3's f32 share);
     every model of the super-resolution box registered;
-38. diffbir_exact: full geometry on a 64 px input's 128 canvas, 1 step,
+38. diffbir_exact: full geometry on a 64x64 canvas, 1 step,
     f32 on the card against the port's CPU path with the same injected
     draws, PSNR >= 60 dB;
 39. diffbir_bf16_vs_f32: bf16 against f32 on the card on that probe, PSNR
@@ -275,7 +277,7 @@ Phases, each printing one JSON line:
     and parameter's gradient against the plain version's own autograd on
     the card (<= 1e-5 x max|grad|), forward and backward ms;
 57. train_exact: 3 ``Trainer`` steps of full-width ``restormer`` (f32,
-    batch 2, crop 128) on the card and on the CPU from the same init and
+    batch 1, crop 128) on the card and on the CPU from the same init and
     batches, every loss within 1e-4 relative;
 58. train_path: ``Trainer`` on ``restormer`` at the JAX defaults (batch 8,
     crop 128, f32), 20 steps: median s per step over steps 5-20, peak
@@ -290,7 +292,29 @@ Phases, each printing one JSON line:
 61. parallel_single_rank: an ``nccl`` world of one rank: the sharded step
     equals the Trainer's, ``tiled_apply_sharded`` and
     ``tiled_apply_halo`` equal ``tiled_apply`` bit for bit on a 256 px
-    NAFNet input, and ``dryrun_multichip(1)``.
+    NAFNet input, and ``dryrun_multichip(1)``;
+62. swin_train_kernels (with the kernel checks, also under ``--quick`` at
+    2x16x16): K1, K2, K6 and the Swin block at the Swin families' training
+    forms in f32 (8 x 32 x 32 tokens: SwinIR-M's qkv, proj, fc1 and fc2,
+    its K2 with bank and table at N 64 and its whole shifted block;
+    HAT's K2 at N 256 and K6 by +-8; DehazeFormer-b's ``wmsa`` at level 0;
+    RIDCP's fc2 at K 1024) through their autograd functions, checked as
+    in phase 56, with forward, backward, plain and bound ms;
+63. swin_train_path: ``Trainer`` on ``swinir_sr_x4`` (SwinIR-M x4) at the
+    JAX defaults (batch 8, HQ crop 128, LQ 32 by ``lowres``, f32), 20
+    steps: median s per step over steps 5-20, peak memory, launches per
+    step (``swin_block``, ``token_linear``, ``window_attention`` and
+    ``conv3x3`` in every step), the loss falling, one step profiled and
+    one split into forward and backward;
+64. swin_train_exact: 3 steps of it at batch 2 on the card and on the
+    CPU from the same init and batches, every loss within 1e-4 relative;
+65. family_train: 2 ``Trainer`` steps of each newly trainable family at
+    full width (SwinIR denoising, HAT, DehazeFormer-b, RIDCP, X-Restormer,
+    MPRNet, MAXIM-S2/S3, DRBNet, IFAN; batch 2, crop 128): finite losses,
+    every parameter with a finite gradient, each family's kernels
+    launched.
+Every phase but the training ones (56-65) runs under ``torch.no_grad()``,
+as a served forward does.
 Phases 20-22 are the lab path: each counts its kernel's launches over one
 call (6 ``swin_pair_block`` per chain, 1 ``conv3x3_pair`` per tail, 1
 ``lab_strip`` per call), with every count set to 0 just before.
@@ -527,8 +551,12 @@ def kernel_checks(shape, seed: int = 0) -> list[dict]:
     t = b * h * w
     gen = torch.Generator(device="cpu").manual_seed(seed)
 
+    # drawn on the card (the CPU's generator, about 0.1 s per 1e7 values,
+    # took much of a phase at the request shapes)
+    dgen = torch.Generator(device=dev).manual_seed(seed)
+
     def randn(*s, scale=1.0):
-        return (torch.randn(*s, generator=gen) * scale).to(dev)
+        return torch.randn(*s, generator=dgen, device=dev) * scale
 
     x32 = randn(b, h, w, c)
     wts = dict(
@@ -880,8 +908,12 @@ def restormer_kernel_checks(quick: bool, seed: int = 3) -> list[dict]:
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(seed)
 
+    # drawn on the card (the CPU's generator, about 0.1 s per 1e7 values,
+    # took much of a phase at the request shapes)
+    dgen = torch.Generator(device=dev).manual_seed(seed)
+
     def randn(*s, scale=1.0):
-        return (torch.randn(*s, generator=gen) * scale).to(dev)
+        return torch.randn(*s, generator=dgen, device=dev) * scale
 
     shapes = [(n, (1, 16, 128, s[3]), hd) for n, s, hd in RESTORMER_SHAPES] \
         if quick else list(RESTORMER_SHAPES)
@@ -924,8 +956,12 @@ def hat_kernel_checks(quick: bool, seed: int = 11) -> list[dict]:
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(seed)
 
+    # drawn on the card (the CPU's generator, about 0.1 s per 1e7 values,
+    # took much of a phase at the request shapes)
+    dgen = torch.Generator(device=dev).manual_seed(seed)
+
     def randn(*s, scale=1.0):
-        return (torch.randn(*s, generator=gen) * scale).to(dev)
+        return torch.randn(*s, generator=dgen, device=dev) * scale
 
     def weights(c, heads, ws):
         hid = 2 * c
@@ -1196,6 +1232,11 @@ def profile_summary(prof, wall: float, top: int) -> dict:
 
 
 def fast_vs_exact(state) -> dict:
+    """SwinIR-M x4 in bf16 through the band (fast) against f32 whole-image
+    (exact) on the card on a 270x480 probe; the control, the plain versions
+    (the CPU path) in bf16 against f32, on its top-left 136x240 (a quarter
+    of the CPU work), where the card's exact run is also held against the
+    CPU's f32."""
     import torch
 
     from image_restoration_agent_tpu_torch.core.tiling import tiled_apply
@@ -1206,31 +1247,36 @@ def fast_vs_exact(state) -> dict:
     h, w = 270, 480
     img = torch.from_numpy(np.random.default_rng(7).random(
         (h, w, 3), dtype=np.float32))
-    ph, pw = -(-h // 8) * 8, pad_width_for_strips(w)
-    bh = -(-(ph + 16) // 2 // 8) * 8
-    band = dict(tile=(bh, pw), overlap=16, scale=4, batch=1, pad_to=(ph, pw))
     whole = dict(tile=None, scale=4, pad_multiple=8, pad_mode="extra",
                  pad_kind="symmetric")
     sd = {k: torch.from_numpy(v) for k, v in state.items()}
 
-    def run(device, dtype, kw):
+    def band(h, w):
+        ph, pw = -(-h // 8) * 8, pad_width_for_strips(w)
+        bh = -(-(ph + 16) // 2 // 8) * 8
+        return dict(tile=(bh, pw), overlap=16, scale=4, batch=1,
+                    pad_to=(ph, pw))
+
+    def run(device, dtype, im, kw):
         m = build_model("swinir_sr_x4", device=device, dtype=dtype)
         m.load_state_dict(sd, strict=True)
         out = tiled_apply(lambda b: m(b.to(dtype)).float(),
-                          img.to(device), **kw)
+                          im.to(device), **kw)
         return out.cpu().numpy()
 
-    fast = run("cuda", torch.bfloat16, band)
-    exact = run("cuda", torch.float32, whole)
-    # the control: the plain versions (the CPU path) in bf16 vs f32
+    fast = run("cuda", torch.bfloat16, img, band(h, w))
+    exact = run("cuda", torch.float32, img, whole)
+    sub = img[:136, :240]
+    exact_sub = run("cuda", torch.float32, sub, whole)
     torch.set_num_threads(8)
-    ctrl16 = run("cpu", torch.bfloat16, band)
-    ctrl32 = run("cpu", torch.float32, whole)
+    ctrl16 = run("cpu", torch.bfloat16, sub, band(136, 240))
+    ctrl32 = run("cpu", torch.float32, sub, whole)
     db = range_psnr(fast, exact)
     ctrl = range_psnr(ctrl16, ctrl32)
-    return {"phase": "fast_vs_exact", "probe": [h, w], "psnr_db": db,
+    return {"phase": "fast_vs_exact", "probe": [h, w],
+            "control_probe": [136, 240], "psnr_db": db,
             "control_db": ctrl, "floor_db": ctrl - 2.0,
-            "exact_plain_vs_card_db": range_psnr(ctrl32, exact),
+            "exact_plain_vs_card_db": range_psnr(ctrl32, exact_sub),
             "pass": bool(db >= ctrl - 2.0)}
 
 
@@ -1517,8 +1563,9 @@ def hat_fast_vs_exact(state) -> dict:
     """bf16 fast against f32 exact on the card on a 480x270 probe (a
     272x496 canvas, 6 tiles, one batch). The control (plain bf16 against
     plain f32, the CPU path) is taken on the probe canvas's top-left
-    128x128 as one forward, where the card's fast-vs-exact PSNR is also
-    reported: the whole probe takes minutes on the CPU, a 256 tile two."""
+    64x64 (4 x 4 windows, shifted ones included) as one forward, where the
+    card's fast-vs-exact PSNR is also reported: the whole probe takes
+    minutes on the CPU, a 256 tile two, a 128 crop 10 s."""
     import torch
 
     from image_restoration_agent_tpu_torch.core.pad import pad_to_multiple
@@ -1530,7 +1577,7 @@ def hat_fast_vs_exact(state) -> dict:
         (h, w, 3), dtype=np.float32))
     kw = dict(tile=256, overlap=32, scale=4, batch=6, pad_multiple=16,
               pad_mode="extra", pad_kind="symmetric")
-    crop = pad_to_multiple(img, 16, "extra", "symmetric")[0][:128, :128]
+    crop = pad_to_multiple(img, 16, "extra", "symmetric")[0][:64, :64]
     sd = {k: torch.from_numpy(v) for k, v in state.items()}
 
     def model(device, dtype):
@@ -1634,8 +1681,12 @@ def dehazeformer_kernel_checks(quick: bool, seed: int = 13) -> list[dict]:
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(seed)
 
+    # drawn on the card (the CPU's generator, about 0.1 s per 1e7 values,
+    # took much of a phase at the request shapes)
+    dgen = torch.Generator(device=dev).manual_seed(seed)
+
     def randn(*s, scale=1.0):
-        return (torch.randn(*s, generator=gen) * scale).to(dev)
+        return torch.randn(*s, generator=dgen, device=dev) * scale
 
     n = 64
     cases32 = []
@@ -1844,8 +1895,12 @@ def lab_kernel_checks(quick: bool, seed: int = 19) -> list[dict]:
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(seed)
 
+    # drawn on the card (the CPU's generator, about 0.1 s per 1e7 values,
+    # took much of a phase at the request shapes)
+    dgen = torch.Generator(device=dev).manual_seed(seed)
+
     def randn(*s, scale=1.0):
-        return (torch.randn(*s, generator=gen) * scale).to(dev)
+        return torch.randn(*s, generator=dgen, device=dev) * scale
 
     heads_shapes = [(1, 16, 256, 64), (1, 24, 256, 64)] if quick \
         else list(HEAD_SHAPES)
@@ -2452,8 +2507,12 @@ def agent_kernel_checks(quick: bool, seed: int = 23) -> list[dict]:
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(seed)
 
+    # drawn on the card (the CPU's generator, about 0.1 s per 1e7 values,
+    # took much of a phase at the request shapes)
+    dgen = torch.Generator(device=dev).manual_seed(seed)
+
     def randn(*s, scale=1.0):
-        return (torch.randn(*s, generator=gen) * scale).to(dev)
+        return torch.randn(*s, generator=dgen, device=dev) * scale
 
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -2959,8 +3018,12 @@ def zoo_kernel_checks(quick: bool, seed: int = 29) -> list[dict]:
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(seed)
 
+    # drawn on the card (the CPU's generator, about 0.1 s per 1e7 values,
+    # took much of a phase at the request shapes)
+    dgen = torch.Generator(device=dev).manual_seed(seed)
+
     def randn(*s, scale=1.0):
-        return (torch.randn(*s, generator=gen) * scale).to(dev)
+        return torch.randn(*s, generator=dgen, device=dev) * scale
 
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -3210,8 +3273,12 @@ def ridcp_kernel_checks(quick: bool, seed: int = 31) -> list[dict]:
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(seed)
 
+    # drawn on the card (the CPU's generator, about 0.1 s per 1e7 values,
+    # took much of a phase at the request shapes)
+    dgen = torch.Generator(device=dev).manual_seed(seed)
+
     def randn(*s, scale=1.0):
-        return (torch.randn(*s, generator=gen) * scale).to(dev)
+        return torch.randn(*s, generator=dgen, device=dev) * scale
 
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -3553,8 +3620,11 @@ def slice12_phases(phase, card: str) -> dict:
 # bench.py's diffbir_sr preset: a 256 px request, whole image on the
 # engine's 256 canvas; stage 1 at 1024 px (its Swin blocks on the 128x128
 # pixel-unshuffled canvas), the 128x128 latent, 50 sampler steps. The f32
-# and bf16 probes: a 64 px input (the engine's 128 canvas), one sampler
-# step (each stage runs once; more steps repeat the same launches).
+# and bf16 probes: the model called on a 64x64 canvas (the smallest its
+# stages take: stage 1's 32x32 unshuffled canvas, a 32x32 latent; the
+# engine pads any input to 128, a CPU half four times as long), one
+# sampler step (each stage runs once; more steps repeat the same
+# launches).
 DIFFBIR_REQUEST = (256, 256)
 DIFFBIR_PROBE = (64, 64)
 DIFFBIR_PROBE_STEPS = 1
@@ -3678,14 +3748,14 @@ def _diffbir_model(state: dict, device: str, dtype, **overrides):
 
 @functools.lru_cache(maxsize=1)
 def diffbir_probes() -> dict:
-    """``diffbir`` on the probe's canvas (a 64 px input's: 128x128), 2
+    """``diffbir`` on the probe's 64x64 canvas, ``DIFFBIR_PROBE_STEPS``
     steps, the same injected draws everywhere: f32 and bf16 on the card and
     on the CPU (the plain path); {"card32", "card16", "cpu32", "cpu16"}
     as numpy, and the seconds of each."""
     import torch
 
     state = diffbir_state()
-    (_, h, w), = served_canvas("diffbir", *DIFFBIR_PROBE)
+    h, w = DIFFBIR_PROBE
     rng = np.random.default_rng(22)
     x = torch.from_numpy(rng.random((1, h, w, 3), dtype=np.float32))
     lat = (1, 4 * h // 8, 4 * w // 8, 4)
@@ -3712,7 +3782,7 @@ def diffbir_probes() -> dict:
 
 def diffbir_exact() -> dict:
     """f32 on the card against the port's CPU path, full geometry, the
-    probe's 128 canvas, one step, the same draws: PSNR >= 60 dB."""
+    probe's 64 canvas, one step, the same draws: PSNR >= 60 dB."""
     pr = diffbir_probes()
     db = range_psnr(pr["card32"], pr["cpu32"])
     return {"phase": "diffbir_exact", "canvas": pr["canvas"],
@@ -5147,8 +5217,12 @@ def eval_suite_kernels(quick: bool, seed: int = 67) -> list[dict]:
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(seed)
 
+    # drawn on the card (the CPU's generator, about 0.1 s per 1e7 values,
+    # took much of a phase at the request shapes)
+    dgen = torch.Generator(device=dev).manual_seed(seed)
+
     def randn(*s, scale=1.0):
-        return (torch.randn(*s, generator=gen) * scale).to(dev)
+        return torch.randn(*s, generator=dgen, device=dev) * scale
 
     paths = dict(S15_FORMS)
     if not paths:  # --quick: no path ran
@@ -5473,7 +5547,7 @@ def slice15_phases(phase, card: str) -> dict:
 S16_MODEL = "restormer"               # full width (dim 48), the trained family
 S16_BATCH, S16_CROP = 8, 128          # the JAX TrainConfig's defaults
 S16_STEPS = 20
-S16_EXACT = (2, 128, 3)               # batch, crop, steps on card and CPU
+S16_EXACT = (1, 128, 3)               # batch, crop, steps on card and CPU
 S16_CLS = dict(n=64, batch=32, size=224, steps=50, lr=5e-4, smooth=0.1,
                p_multi=0.75)          # the v4 recipe (train_classifier_v4)
 S16_RET = dict(batch=8, steps=20, lr=1e-4)
@@ -5506,7 +5580,7 @@ def _grad_err(got, want) -> float:
 
 
 def train_case(name: str, variant: str, make, flops: float, nbytes: float,
-               library=None, reps: int = 5) -> dict:
+               library=None, reps: int = 5, path: str = "train") -> dict:
     """One kernel at a training form, f32: ``make()`` gives (leaves,
     kernel_fn, plain_fn[, kernel_grad_fn, plain_grad_fn]), each fn mapping
     the leaf tensors to outputs. The kernel's forward (through its
@@ -5516,7 +5590,8 @@ def train_case(name: str, variant: str, make, flops: float, nbytes: float,
     version's own autograd on the card (<= 1e-5 x each gradient's max|g|),
     random cotangents on the grad fns' outputs (the kernel's own: K5's v,
     gram and sums of squares where the forward is the MDTA block); forward
-    kernel ms, backward ms, the plain version's forward and backward ms."""
+    kernel ms, backward ms, the plain version's forward and backward ms.
+    ``path`` names the training path whose launches the row reports."""
     import torch
 
     leaves, kfn, pfn, *grad_fns = make()
@@ -5538,7 +5613,7 @@ def train_case(name: str, variant: str, make, flops: float, nbytes: float,
     gerr = _grad_err(gk, gp)
     finite = bool(torch.isfinite(out_k).all()) and all(
         bool(torch.isfinite(g).all()) for g in gk if g is not None)
-    row = dict(name=name, variant=variant, dtype="float32", path="train",
+    row = dict(name=name, variant=variant, dtype="float32", path=path,
                route="cuda", source=SOURCE[name], replaces=REPLACES[name],
                max_abs_err=err, tolerance=tol, grad_max_rel_err=gerr,
                grad_tolerance=1e-5, leaves=len(leaves),
@@ -5709,7 +5784,7 @@ def _trainer(dev: str, batch: int, crop: int, steps: int, work: Path):
 
 def train_exact(card: str) -> dict:
     """``S16_EXACT`` Trainer steps of ``restormer`` (full width, f32) at
-    batch 2, crop 128 on the card and on the port's CPU path, from the same
+    batch 1, crop 128 on the card and on the port's CPU path, from the same
     ``build_model(seed=0)`` init and the same ``paired_crop_stream``
     batches: the loss of every step within 1e-4 relative."""
     import tempfile
@@ -6014,13 +6089,433 @@ def slice16_phases(phase, card: str) -> tuple:
     result}, train_kernels' rows)."""
     import torch
 
-    rows = phase("train_kernels", train_kernel_checks, False) or []
+    rows = phase("train_kernels", train_kernel_checks, False,
+                 grad=True) or []
     torch.cuda.empty_cache()
-    phase("train_exact", train_exact, card)
-    served = {"train": phase("train_path", train_path, card)}
-    phase("classifier_train", classifier_train, card)
-    phase("retrieval_train", retrieval_train, card)
-    phase("parallel_single_rank", parallel_single_rank, card)
+    phase("train_exact", train_exact, card, grad=True)
+    served = {"train": phase("train_path", train_path, card, grad=True)}
+    phase("classifier_train", classifier_train, card, grad=True)
+    phase("retrieval_train", retrieval_train, card, grad=True)
+    phase("parallel_single_rank", parallel_single_rank, card, grad=True)
+    return served, rows
+
+
+# ---------------------------------------------------------------------------
+# slice 17: Swin-family training
+
+S17_MODEL = "swinir_sr_x4"   # SwinIR-M x4: embed 180, 6 x 6 blocks, 6 heads
+S17_BATCH, S17_CROP = 8, 128  # the JAX TrainConfig's defaults (LQ 32 x 32)
+S17_STEPS = 20
+S17_EXACT = (2, 128, 3)       # batch, crop, steps on card and CPU
+# its learning rate: at the default 3e-4 the random SwinIR-M's third loss
+# moves 3.0e-4 relative between two CPU thread counts (float32 summation
+# order, amplified by Adam's first sign-like steps); at 1e-4, 6e-8
+S17_EXACT_LR = 1e-4
+# the newly trainable families at full width, 2 Trainer steps each:
+# (model, HQ crop, scale, initialisation, kernels its step must launch);
+# the initialisations the serving phases give them ("registry":
+# build_model's; "reference": dehazeformer_reference_init; "torch":
+# torch_default_init, with which the zoo's random outputs stay near the
+# image's range and IFAN's clamp does not saturate)
+S17_FAMILIES = (
+    ("swinir_denoise_15", 128, 1, "registry",
+     ("swin_block", "token_linear", "window_attention", "conv3x3")),
+    ("hat_sr_x4", 128, 4, "registry",
+     ("swin_attn_block", "roll2d", "mlp_block", "window_attention",
+      "conv3x3")),
+    ("dehazeformer_b", 128, 1, "reference", ("wmsa", "window_attention")),
+    ("ridcp", 128, 1, "torch", ("swin_block", "token_linear", "conv3x3")),
+    ("xrestormer", 128, 1, "torch", ("gdfn_block", "mdta_front",
+                                     "conv3x3")),
+    ("mprnet", 128, 1, "torch", ("conv3x3",)),
+    ("maxim_s2", 128, 1, "torch", ("conv3x3",)),
+    ("maxim_s3", 128, 1, "torch", ("conv3x3",)),
+    ("drbnet", 128, 1, "torch", ("conv3x3",)),
+    ("ifan", 128, 1, "torch", ("conv3x3",)))
+
+
+def _s17_lowres(patch, rng):
+    """The SR pairs: the port's ``data/degrade.lowres`` (MATLAB bicubic
+    x1/4) on the host."""
+    from image_restoration_agent_tpu_torch.data.degrade import lowres
+    return lowres(patch, device="cpu")
+
+
+def swin_train_kernel_checks(quick: bool, seed: int = 73) -> list[dict]:
+    """K1, K2, K6 and the Swin block at the Swin families' training forms
+    (f32; batch 8 at crop 128, so 8 x 32 x 32 tokens at the x4 models' LR
+    canvas; 2 x 16 x 16 with --quick) through their autograd functions
+    (``train_case``): SwinIR-M's K1 qkv (LayerNorm + rolled gather), proj
+    (gathered residual), fc1 (LayerNorm + erf-GELU) and fc2 (residual +
+    scatter), its K2 with the shift bank and the bias table (N 64) and the
+    whole block; HAT's K2 at window 16 (N 256) and K6 by +-8;
+    DehazeFormer-b's K2 in its logit-scale mode (``wmsa``, level 0: C 24,
+    2 heads, its bias differentiated); RIDCP's K1 fc2 at K 1024 (C 256)."""
+    import importlib
+
+    import torch
+
+    from image_restoration_agent_tpu_torch.ops.roll2d import (roll2d,
+                                                              roll2d_plain)
+    from image_restoration_agent_tpu_torch.ops.window_attention import (
+        relative_position_bias, shift_attention_mask)
+
+    # the module (ops/__init__.py re-exports a function of its name)
+    tsb = importlib.import_module(
+        "image_restoration_agent_tpu_torch.ops.swin_block")
+    gen = torch.Generator().manual_seed(seed)
+    b, hw = (2, 16) if quick else (S17_BATCH, S17_CROP // 4)
+    m = b * hw * hw
+    rows = []
+
+    def leaf(*shape, scale=1.0, shift=0.0):
+        return _leaf(*shape, scale=scale, shift=shift, gen=gen)
+
+    def k1_case(variant, c_in, c_out, ws=8, dc=0, ln=False, gelu=None,
+                res=False, a_map=tsb.IDENTITY, r_map=tsb.IDENTITY,
+                o_map=tsb.IDENTITY, path="swin_train"):
+        geom = (b, hw, hw, ws, dc)
+
+        def make():
+            a, w = leaf(m, c_in), leaf(c_in, c_out, scale=c_in ** -0.5)
+            bias = leaf(c_out, scale=0.1)
+            extra = ([leaf(c_in, scale=0.1, shift=1.0), leaf(c_in, scale=0.1)]
+                     if ln else []) + ([leaf(m, c_out)] if res else [])
+            form = tsb.kernel_matrix(w.detach(), torch.float32)
+
+            def split(rest):
+                lnp = (rest[0], rest[1]) if ln else None
+                r = rest[2 if ln else 0] if res else None
+                return dict(ln=lnp, gelu=gelu, res=r, geom=geom,
+                            a_map=a_map, r_map=r_map, o_map=o_map)
+
+            return ([a, w, bias, *extra],
+                    lambda a, w, bias, *rest: tsb.token_linear(
+                        a, form, bias, params=w, **split(rest)),
+                    lambda a, w, bias, *rest: tsb.token_linear_plain(
+                        a, w, bias, **split(rest)))
+
+        nbytes = 4 * (m * c_in + c_in * c_out + c_out + m * c_out
+                      + (m * c_out if res else 0) + (2 * c_in if ln else 0))
+        rows.append(train_case("token_linear", f"train {variant} {m}x{c_in}"
+                               f"->{c_out}", make, 2 * m * c_in * c_out,
+                               nbytes, path=path))
+
+    c, heads = 180, 6
+    k1_case("SwinIR-M qkv (LN + gather)", c, 3 * c, dc=-4, ln=True,
+            a_map=tsb.GATHER)
+    k1_case("SwinIR-M proj (gathered residual)", c, c, dc=-4, res=True,
+            r_map=tsb.GATHER)
+    k1_case("SwinIR-M fc1 (LN + erf-GELU)", c, 2 * c, ln=True, gelu="erf")
+    k1_case("SwinIR-M fc2 (residual + scatter)", 2 * c, c, res=True,
+            o_map=tsb.SCATTER)
+    k1_case("RIDCP fc2 K1024 (residual + scatter)", 1024, 256, res=True,
+            o_map=tsb.SCATTER, path="family_train")
+
+    def k2_case(variant, ws, shift, cc, nh, path):
+        n = ws * ws
+        nwy = nwx = hw // ws
+        bank = None
+        if shift:
+            bank = torch.from_numpy(shift_attention_mask(
+                2 * ws, 2 * ws, ws, shift).reshape(2, 2, n, n)).cuda()
+        kw = dict(num_heads=nh, nwy=nwy, nwx=nwx, fast=False)
+
+        def make():
+            qkv = leaf(m, 3 * cc)
+            table = leaf((2 * ws - 1) ** 2, nh, scale=0.1)
+            return ([qkv, table],
+                    lambda q, t: tsb.window_attention(
+                        q, relative_position_bias(t, ws), bank,
+                        table=t.detach(), **kw),
+                    lambda q, t: tsb.window_attention_plain(
+                        q, relative_position_bias(t, ws), bank, **kw))
+
+        # SDPA on the same q, k, v with the bias and the bank as its mask
+        qh, kh, vh = torch.randn(3, m // n, nh, n, cc // nh).cuda()
+        am = torch.randn(nh, n, n).cuda()[None]
+        if bank is not None:
+            am = am + tsb._bank_per_window(bank, nwy, nwx)[:, None]
+        am = am.repeat(b, 1, 1, 1).contiguous()
+        rows.append(train_case(
+            "window_attention", f"train {variant} {m // n}x{n} C{cc} "
+            f"heads={nh}", make, 4 * m * n * cc,
+            4 * (m * 4 * cc + (2 * ws - 1) ** 2 * nh),
+            library=lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=am, scale=1.0), path=path))
+
+    k2_case("SwinIR-M bank + table", 8, 4, c, heads, "swin_train")
+    if hw % 16 == 0:
+        k2_case("HAT window 16 bank + table", 16, 8, c, heads,
+                "family_train")
+
+    for shift in (8, -8) if hw % 16 == 0 else ():
+        def make_r(shift=shift):
+            x = leaf(b, hw, hw, c)
+            return ([x], lambda x: roll2d(x, shift, 16),
+                    lambda x: roll2d_plain(x, shift, 16))
+        xl = torch.randn(b, hw, hw, c).cuda()
+        rows.append(train_case("roll2d", f"train HAT {b}x{hw}x{hw}x{c} "
+                               f"shift {shift:+d}", make_r, 0,
+                               8 * m * c, path="family_train",
+                               library=lambda xl=xl, sh=shift: torch.roll(
+                                   xl, (sh, sh), (1, 2))))
+
+    # DehazeFormer-b level 0 at crop 128: C 24, 2 heads, window 8
+    dw = (2, 16) if quick else (S17_BATCH, S17_CROP)
+    nwb = dw[0] * (dw[1] // 8) ** 2
+
+    def make_w():
+        qkv = leaf(nwb, 64, 72)
+        rpb = leaf(2, 64, 64, scale=0.1)
+        return ([qkv, rpb], lambda q, r: tsb.wmsa(q, r, num_heads=2),
+                lambda q, r: tsb.wmsa_plain(q, r, num_heads=2))
+
+    wq, wk, wv = torch.randn(3, nwb, 2, 64, 12).cuda()
+    wm = torch.randn(1, 2, 64, 64).cuda()
+    rows.append(train_case("wmsa", f"train DehazeFormer-b level 0 {nwb}x64 "
+                           "C24 heads=2", make_w, 4 * nwb * 64 * 64 * 24,
+                           4 * (nwb * 64 * 96 + 2 * 64 * 64),
+                           library=lambda: torch.nn.functional
+                           .scaled_dot_product_attention(
+                               wq, wk, wv, attn_mask=wm, scale=12 ** -0.5),
+                           path="family_train"))
+
+    def make_block():
+        x = leaf(b, hw, hw, c)
+        hid = 2 * c
+        ref = tsb.SwinBlockRef(
+            leaf(c, scale=0.1, shift=1.0), leaf(c, scale=0.1),
+            leaf(3 * c, c, scale=c ** -0.5), leaf(3 * c, scale=0.1),
+            leaf(c, c, scale=c ** -0.5), leaf(c, scale=0.1),
+            leaf(225, heads, scale=0.1), leaf(c, scale=0.1, shift=1.0),
+            leaf(c, scale=0.1), leaf(hid, c, scale=c ** -0.5),
+            leaf(hid, scale=0.1), leaf(c, hid, scale=hid ** -0.5),
+            leaf(c, scale=0.1))
+        form = tsb.prepare_swin_params(**ref._asdict(), num_heads=heads,
+                                       ws=8, dtype=torch.float32)
+        bank = torch.from_numpy(shift_attention_mask(16, 16, 8, 4).reshape(
+            2, 2, 64, 64)).cuda()
+        kw = dict(num_heads=heads, ws=8, dc=-4, mask_bank=bank)
+        return ([x, *ref],
+                lambda x, *r: tsb.swin_block(x, form, ref=tsb.SwinBlockRef(
+                    *r), **kw),
+                lambda x, *r: tsb.swin_block_plain(x, tsb.reference_params(
+                    tsb.SwinBlockRef(*r), num_heads=heads, ws=8,
+                    dtype=torch.float32), **kw))
+
+    rows.append(train_case(
+        "swin_block", f"train SwinIR-M shifted block {b}x{hw}x{hw}x{c}",
+        make_block, m * (16 * c * c + 4 * 64 * c),
+        4 * (2 * m * c + 8 * c * c + 225 * heads), path="swin_train"))
+    return rows
+
+
+def _s17_trainer(name: str, dev: str, batch: int, crop: int, steps: int,
+                 work: Path, seed: int = 0, lr: float = 3e-4):
+    from image_restoration_agent_tpu_torch.models import build_model
+    from image_restoration_agent_tpu_torch.train import (TrainConfig,
+                                                         Trainer)
+    return Trainer(build_model(name, device=dev, seed=seed),
+                   TrainConfig(total_iters=steps, batch_size=batch,
+                               crop_size=crop, base_lr=lr, log_freq=1,
+                               save_freq=10 ** 9, val_freq=10 ** 9),
+                   work_dir=work, device=dev)
+
+
+def _s17_batches(n: int, batch: int, crop: int, degrade, seed: int) -> list:
+    from image_restoration_agent_tpu_torch.train import paired_crop_stream
+    stream = paired_crop_stream(_s16_images(), degrade, batch, crop,
+                                seed=seed)
+    return [next(stream) for _ in range(n)]
+
+
+def swin_train_path(card: str) -> dict:
+    """``Trainer`` on ``swinir_sr_x4`` (SwinIR-M x4) at the JAX defaults
+    (batch 8, HQ crop 128, LQ 32 by ``data/degrade.lowres``, Charbonnier,
+    lr 3e-4), f32, ``S17_STEPS`` steps: the median s per step over steps
+    5-20, the peak device memory, the launches per step (every count set
+    to 0 just before the steps, read just after; ``swin_block``,
+    ``token_linear``, ``window_attention`` and ``conv3x3`` each in every
+    step), the loss falling from step 1 to 20, one more step under
+    torch.profiler (its top device rows) and one forward and backward
+    split by CUDA events."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = _s17_batches(S17_STEPS + 1, S17_BATCH, S17_CROP, _s17_lowres,
+                           seed=17)
+    marks, per_step = [], []
+
+    def timed():
+        for bt in batches[:S17_STEPS]:
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            per_step.append(launch_counts())
+            yield bt
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        per_step.append(launch_counts())
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
+        tr = _s17_trainer(S17_MODEL, "cuda", S17_BATCH, S17_CROP, S17_STEPS,
+                          Path(td))
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        state = tr.fit(timed())
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        losses = [h["loss"] for h in tr.history]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.fit(iter(batches[S17_STEPS:]), state)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        lq, hq = (torch.from_numpy(a).cuda() for a in batches[-1])
+        split = _step_split(tr.model, lq, hq)
+    step_s = np.diff(marks)
+    # each step's own launches: the counts before the next step's batch
+    # minus those before its own
+    steps = [{k: b[k] - a[k] for k in b} for a, b in zip(per_step,
+                                                         per_step[1:])]
+    need = ("swin_block", "token_linear", "window_attention", "conv3x3")
+    every = all(st[k] > 0 for st in steps for k in need)
+    per = {k: v / S17_STEPS for k, v in counts.items() if v}
+    summary = profile_summary(prof, wall, 12)
+    ok = (len(losses) == S17_STEPS and losses[-1] < losses[0] and every
+          and all(np.isfinite(losses)))
+    del tr, state
+    torch.cuda.empty_cache()
+    return {"phase": "swin_train_path", "model": S17_MODEL,
+            "dtype": "float32", "batch": S17_BATCH, "crop": S17_CROP,
+            "lq": [S17_CROP // 4] * 2, "steps": S17_STEPS,
+            "median_step_s": float(np.median(step_s[4:])),
+            "step_s": step_s.tolist(), "peak_mem_gb": peak / 1e9,
+            "loss_step1": losses[0], "loss_step20": losses[-1],
+            "launches_per_step": per, "launched_every_step": bool(every),
+            "launches": {k: v for k, v in counts.items() if v},
+            "profile": summary, "split": split, "card": card,
+            "pass": bool(ok)}
+
+
+def swin_train_exact(card: str) -> dict:
+    """``S17_EXACT`` Trainer steps of ``swinir_sr_x4`` (f32, batch 2, HQ
+    crop 128, lr ``S17_EXACT_LR``) on the card and on the port's CPU path
+    from the same ``build_model(seed=0)`` init and the same batches: every
+    loss within 1e-4 relative."""
+    import tempfile
+
+    import torch
+
+    b, crop, steps = S17_EXACT
+    batches = _s17_batches(steps, b, crop, _s17_lowres, seed=18)
+    losses, secs = {}, {}
+    torch.set_num_threads(8)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
+        for dev in ("cuda", "cpu"):
+            tr = _s17_trainer(S17_MODEL, dev, b, crop, steps, Path(td) / dev,
+                              lr=S17_EXACT_LR)
+            t0 = time.perf_counter()
+            tr.fit(iter(batches))
+            _sync(dev)
+            secs[dev] = time.perf_counter() - t0
+            losses[dev] = [h["loss"] for h in tr.history]
+            del tr
+    torch.cuda.empty_cache()
+    rel = max(abs(a - c) / abs(c) for a, c in zip(losses["cuda"],
+                                                  losses["cpu"]))
+    return {"phase": "swin_train_exact", "model": S17_MODEL, "batch": b,
+            "crop": crop, "steps": steps, "lr": S17_EXACT_LR,
+            "losses_card": losses["cuda"],
+            "losses_cpu": losses["cpu"], "max_rel_diff": rel,
+            "tolerance": 1e-4, "seconds": secs, "card": card,
+            "pass": len(losses["cuda"]) == steps and rel <= 1e-4}
+
+
+def family_train(card: str) -> dict:
+    """Two ``Trainer`` steps of each newly trainable family at full width
+    (``S17_FAMILIES``: batch 2, HQ crop 128; LQ by ``lowres`` for the x4
+    models, Gaussian noise for the others), f32, then one more forward and
+    backward: the losses finite, every parameter with a finite gradient
+    (none missing but a model's ``gradient_free``, the gradient not all
+    zero), and each family's kernels launched in its steps (counts set to
+    0 just before them)."""
+    import tempfile
+
+    import torch
+
+    from image_restoration_agent_tpu_torch.train import charbonnier_loss
+
+    out, launches, ok = {}, {}, True
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
+        for i, (name, crop, scale, init, need) in enumerate(S17_FAMILIES):
+            batches = _s17_batches(
+                3, 2, crop, _s17_lowres if scale > 1 else _s16_noise,
+                seed=40 + i)
+            t0 = time.perf_counter()
+            tr = _s17_trainer(name, "cuda", 2, crop, 2, Path(td) / name)
+            if init == "reference":
+                dehazeformer_reference_init(tr.model, 0)
+            elif init == "torch":
+                torch_default_init(tr.model, 0)
+            build_s = time.perf_counter() - t0
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            tr.fit(iter(batches[:2]))
+            torch.cuda.synchronize()
+            step_s = (time.perf_counter() - t0) / 2
+            counts = {k: v for k, v in launch_counts().items() if v}
+            model = tr.model
+            lq, hq = (torch.from_numpy(a).cuda() for a in batches[2])
+            params = dict(model.named_parameters())
+            grads = torch.autograd.grad(
+                charbonnier_loss(model(lq), hq), list(params.values()),
+                allow_unused=True)
+            free = tuple(getattr(model, "gradient_free", ()))
+            missing = [n for n, g in zip(params, grads)
+                       if g is None and not n.startswith(free)]
+            finite = all(bool(torch.isfinite(g).all()) for g in grads
+                         if g is not None)
+            losses = [h["loss"] for h in tr.history]
+            launched = all(counts.get(k, 0) > 0 for k in need)
+            norm = float(torch.sqrt(sum((g.double() ** 2).sum()
+                                        for g in grads if g is not None)))
+            good = (len(losses) == 2 and bool(np.isfinite(losses).all())
+                    and not missing and finite and norm > 0 and launched)
+            ok = ok and good
+            out[name] = {
+                "crop": crop, "lq": list(batches[0][0].shape[1:3]),
+                "init": init,
+                "params": sum(p.numel() for p in params.values()),
+                "losses": losses, "build_s": build_s, "step_s": step_s,
+                "grad_norm": norm,
+                "missing": missing, "finite": finite,
+                "launches": counts, "pass": good}
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            del tr, model, grads, params
+            torch.cuda.empty_cache()
+    return {"phase": "family_train", "batch": 2, "dtype": "float32",
+            "families": out, "launches": launches, "card": card,
+            "pass": bool(ok)}
+
+
+def slice17_phases(phase, card: str) -> tuple:
+    """Slice 17's phases in order; returns ({"swin_train": ...,
+    "family_train": ...}, swin_train_kernels' rows)."""
+    import torch
+
+    rows = phase("swin_train_kernels", swin_train_kernel_checks, False,
+                 grad=True) or []
+    torch.cuda.empty_cache()
+    served = {"swin_train": phase("swin_train_path", swin_train_path, card,
+                                  grad=True)}
+    phase("swin_train_exact", swin_train_exact, card, grad=True)
+    served["family_train"] = phase("family_train", family_train, card,
+                                   grad=True)
     return served, rows
 
 
@@ -6055,10 +6550,12 @@ def main() -> int:
     shape = (1, 64, 128, 180) if args.quick else (1, 552, 1920, 180)
     rows = []
 
-    def phase(name, fn, *a):
+    def phase(name, fn, *a, grad=False):
+        # every phase but the training ones runs as served: no graph
         t0 = time.perf_counter()
         try:
-            out = fn(*a)
+            with torch.set_grad_enabled(grad):
+                out = fn(*a)
         except Exception:
             traceback.print_exc()
             failures.append(f"{name}: raised")
@@ -6084,9 +6581,12 @@ def main() -> int:
     rows += phase("zoo_kernels", zoo_kernel_checks, args.quick) or []
     rows += phase("ridcp_kernels", ridcp_kernel_checks, args.quick) or []
     rows += phase("diffbir_kernels", diffbir_kernel_checks, args.quick) or []
-    if args.quick:  # slices 15's and 16's checks follow their paths
+    if args.quick:  # slices 15-17's checks follow their paths
         rows += phase("eval_suite_kernels", eval_suite_kernels, True) or []
-        rows += phase("train_kernels", train_kernel_checks, True) or []
+        rows += phase("train_kernels", train_kernel_checks, True,
+                      grad=True) or []
+        rows += phase("swin_train_kernels", swin_train_kernel_checks, True,
+                      grad=True) or []
     failures += [f"kernel {r['name']} {r['variant']} {r['dtype']}"
                  for r in rows if not r["pass"]]
     # each path's launch counts, read just after the path ran (with
@@ -6097,7 +6597,8 @@ def main() -> int:
                                     "default_agent", "ridcp", "serve",
                                     "diffbir", "retrieval", "eval_suite",
                                     "exploration", "maxim_convert",
-                                    "engine_profile", "train",
+                                    "engine_profile", "train", "swin_train",
+                                    "family_train",
                                     *(n for n, _, _ in ZOO_REQUESTS))}
     # the lab path: one pair chain, one head tail, one lab_strip call, each
     # counted alone
@@ -6160,6 +6661,13 @@ def main() -> int:
         failures += [f"kernel {r['name']} {r['variant']} {r['dtype']}"
                      for r in rows16 if not r["pass"]]
         rows += rows16
+        torch.cuda.empty_cache()
+        served17, rows17 = slice17_phases(phase, card)
+        launches.update({p: r["launches"] if r else {}
+                         for p, r in served17.items()})
+        failures += [f"kernel {r['name']} {r['variant']} {r['dtype']}"
+                     for r in rows17 if not r["pass"]]
+        rows += rows17
         launches.update({
             "swinir": served["launches"] if served else {},
             "restormer": served_r["launches"] if served_r else {},

@@ -142,7 +142,6 @@ class DRBNet(nn.Module):
         res = getattr(self, f"upconv{lvl}_res")(feat)
         return est + fac(est, kern, self.kw) + res
 
-    @torch.no_grad()
     def forward(self, x01: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) in [0, 1] -> (B, H, W, 3); H and W multiples of
         8."""

@@ -123,21 +123,22 @@ class HAB(SwinBlock):
         b, h, w, c = x.shape
         ws = self.window_size
         shift = 0 if min(h, w) <= ws else self.shift_size
-        p = self.kernel_params(x)
+        p, ref = self.kernel_params(x), self.reference()
         conv_x = self.conv_block(x, ln_pre=(self.norm1.weight,
                                             self.norm1.bias))
         if self.strip(x):
             bank = self._mask_bank(shift, x.device) if shift > 0 else None
             y = swin_attn_block(x, p, num_heads=self.num_heads, ws=ws,
                                 dc=-shift, mask_bank=bank,
-                                fast=x.dtype == torch.bfloat16)
+                                fast=x.dtype == torch.bfloat16, ref=ref)
             if shift > 0:
                 y = roll2d(y, shift, ws)
         else:
             y = partition_attention(x, p, num_heads=self.num_heads, ws=ws,
-                                    shift=shift)
+                                    shift=shift, ref=ref)
         x = torch.add(y, conv_x, alpha=self.conv_scale)
-        return mlp_block(x.reshape(-1, c), *p.mlp).reshape(b, h, w, c)
+        return mlp_block(x.reshape(-1, c), *p.mlp,
+                         params=ref.mlp).reshape(b, h, w, c)
 
 
 class OCAB(nn.Module):
@@ -169,7 +170,6 @@ class OCAB(nn.Module):
         return F.layer_norm(x, ln.normalized_shape, ln.weight.to(x.dtype),
                             ln.bias.to(x.dtype), ln.eps)
 
-    @torch.no_grad()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.is_cuda and x.dtype == torch.float32:
             exact_f32()
@@ -199,12 +199,13 @@ class OCAB(nn.Module):
 
         qh = heads_f32(qw * hd ** -0.5)
         kh, vh = heads_f32(unfold(k)), heads_f32(unfold(v))
-        out = torch.empty_like(qh)
         step = max(1, _LOGITS_BYTES // (heads * ws * ws * m * 4))
+        chunks = []
         for i in range(0, qh.shape[0], step):
             s = torch.matmul(qh[i:i + step], kh[i:i + step].transpose(-1, -2))
-            torch.matmul(torch.softmax(s.add_(bias), dim=-1),
-                         vh[i:i + step], out=out[i:i + step])
+            chunks.append(torch.matmul(torch.softmax(s.add_(bias), dim=-1),
+                                       vh[i:i + step]))
+        out = chunks[0] if len(chunks) == 1 else torch.cat(chunks)
         out = out.to(x.dtype).transpose(1, 2).reshape(-1, ws, ws, c)
         out = window_reverse(out, ws, h, w)
         x = self._linear(out, self.proj) + x
@@ -273,7 +274,6 @@ class HAT(PixelShuffleHead, nn.Module):
         self.init_pixelshuffle_head(embed_dim, num_feat, upscale,
                                     img_channels)
 
-    @torch.no_grad()
     def forward(self, x: torch.Tensor,
                 packed_output: bool | None = None) -> torch.Tensor:
         """(B, H, W, 3) -> (B, H*s, W*s, 3), or packed (B, H*s, W*s*3)."""

@@ -124,7 +124,6 @@ class IFAN(nn.Module):
             feats.append(x)
         return feats
 
-    @torch.no_grad()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) in [0, 1] -> (B, H, W, 3); H and W multiples of
         8."""

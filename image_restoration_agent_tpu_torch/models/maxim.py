@@ -324,7 +324,6 @@ class MAXIM(nn.Module):
             else:
                 add(p + "output_conv_0", Conv(fts[0], num_outputs))
 
-    @torch.no_grad()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) -> (B, H, W, num_outputs); H and W multiples of the
         block size x 2^depth."""

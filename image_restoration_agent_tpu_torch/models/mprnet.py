@@ -214,7 +214,6 @@ class MPRNet(nn.Module):
         self.concat23 = Conv(2 * f, f + so, bias=False)
         self.tail = Conv(f + so, 3, bias=False)
 
-    @torch.no_grad()
     def forward(self, x3_img: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) -> (B, H, W, 3); H and W multiples of 8."""
         b, h, w, _ = x3_img.shape

@@ -238,7 +238,17 @@ class _ResidualDecoder(nn.Module):
 
 class RIDCP(nn.Module):
     """Single-scale-codebook configuration (the released RIDCP model):
-    codebook at 1/4 res with 1024 x 512 entries, depth 2."""
+    codebook at 1/4 res with 1024 x 512 entries, depth 2.
+
+    Trained through the output, the codebook gets its gradient from the
+    gather of the chosen codes (``jnp.take`` in the JAX package); the
+    quantizer's input conv and HQ prior reach the output only through the
+    ``argmin``, and ``out_conv`` not at all, so no derivative reaches them
+    (``jax.grad`` gives them zeros): :attr:`gradient_free` names them for
+    the train step (``parallel/train_step.py``)."""
+
+    gradient_free = ("before_quant_group.", "quantize_group.0.weight",
+                     "out_conv.")
 
     def __init__(self, n_embed: int = 1024, embed_dim: int = 512,
                  max_depth: int = 2, gt_res: int = 256,
@@ -269,7 +279,6 @@ class RIDCP(nn.Module):
         self.residual_conv = Conv(cq[gt_res], 3)
         self.multiscale_decoder = _ResidualDecoder(widths, act, use_warp)
 
-    @torch.no_grad()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) -> (B, H, W, 3) for H and W multiples of 8 whose
         1/4-resolution canvas is one of the window (8)."""

@@ -41,7 +41,7 @@ from torch import nn
 
 from ..device import exact_f32
 from ..ops.pixel_shuffle import pixel_shuffle, pixel_unshuffle
-from ..ops.swin_block import (mlp_block, prepare_swin_params,
+from ..ops.swin_block import (SwinBlockRef, mlp_block, prepare_swin_params,
                               strip_chunk_width, swin_block, wmsa_block)
 from ..ops.window_attention import (shift_attention_mask, window_partition,
                                     window_reverse)
@@ -76,16 +76,18 @@ def full_shift_mask(h: int, w: int, ws: int, shift: int,
 
 
 def partition_attention(x: torch.Tensor, p, *, num_heads: int, ws: int,
-                        shift: int) -> torch.Tensor:
+                        shift: int, ref: SwinBlockRef | None = None
+                        ) -> torch.Tensor:
     """The attention half on the partition route (the JAX package's
     ``models/swinir.py:217-229``): roll by -shift, window partition,
-    :func:`ops.swin_block.wmsa_block` with the full shift mask, window
-    reverse, roll back. Output in frame 0, in ``x``'s dtype."""
+    :func:`ops.swin_block.wmsa_block` with the full shift mask (gradients
+    reaching ``ref``), window reverse, roll back. Output in frame 0, in
+    ``x``'s dtype."""
     _, h, w, c = x.shape
     y = torch.roll(x, (-shift, -shift), dims=(1, 2)) if shift else x
     yw = window_partition(y, ws).reshape(-1, ws * ws, c)
     yw = wmsa_block(yw, p, num_heads=num_heads,
-                    mask=full_shift_mask(h, w, ws, shift, x.device))
+                    mask=full_shift_mask(h, w, ws, shift, x.device), ref=ref)
     y = window_reverse(yw.reshape(-1, ws, ws, c), ws, h, w)
     return torch.roll(y, (shift, shift), dims=(1, 2)) if shift else y
 
@@ -122,21 +124,26 @@ class SwinBlock(nn.Module):
         self._prepared: tuple | None = None
         self._bank: tuple | None = None
 
+    def reference(self) -> SwinBlockRef:
+        """This block's parameters as the kernels' wrappers take them
+        (their ``ref``: what the gradients reach)."""
+        a, m = self.attn, self.mlp
+        return SwinBlockRef(
+            self.norm1.weight, self.norm1.bias, a.qkv.weight, a.qkv.bias,
+            a.proj.weight, a.proj.bias, a.relative_position_bias_table,
+            self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias,
+            m.fc2.weight, m.fc2.bias)
+
     def kernel_params(self, x: torch.Tensor):
-        """This block's weights in kernel form for ``x``'s dtype/device."""
+        """This block's weights in kernel form for ``x``'s dtype/device,
+        kept while the parameters are unchanged (a constant side input of
+        the wrappers; the gradients go to :meth:`reference`)."""
         tensors = list(self.parameters())
         key = cache_key(x, tensors)
         if self._prepared is None or self._prepared[0] != key:
             p = prepare_swin_params(
-                norm1_w=self.norm1.weight, norm1_b=self.norm1.bias,
-                qkv_w=self.attn.qkv.weight, qkv_b=self.attn.qkv.bias,
-                proj_w=self.attn.proj.weight, proj_b=self.attn.proj.bias,
-                rpb_table=self.attn.relative_position_bias_table,
-                norm2_w=self.norm2.weight, norm2_b=self.norm2.bias,
-                fc1_w=self.mlp.fc1.weight, fc1_b=self.mlp.fc1.bias,
-                fc2_w=self.mlp.fc2.weight, fc2_b=self.mlp.fc2.bias,
-                num_heads=self.num_heads, ws=self.window_size,
-                dtype=x.dtype)
+                **self.reference()._asdict(), num_heads=self.num_heads,
+                ws=self.window_size, dtype=x.dtype)
             self._prepared = (key, p)
         return self._prepared[1]
 
@@ -164,18 +171,19 @@ class SwinBlock(nn.Module):
         # no shift when the canvas is not larger than one window
         # (reference SwinTransformerBlock.__init__)
         shift = 0 if min(h, w) <= ws else self.shift_size
-        p = self.kernel_params(x)
+        p, ref = self.kernel_params(x), self.reference()
         if self.strip(x):
             bank = self._mask_bank(shift, x.device) if shift > 0 else None
             y = swin_block(x, p, num_heads=self.num_heads, ws=ws,
                            dc=-shift - in_frame, mask_bank=bank,
-                           fast=x.dtype == torch.bfloat16)
+                           fast=x.dtype == torch.bfloat16, ref=ref)
             return y, -shift
         if in_frame:
             raise ValueError("frames only flow on the strip route")
         y = partition_attention(x, p, num_heads=self.num_heads, ws=ws,
-                                shift=shift)
-        y = mlp_block(y.reshape(-1, c), *p.mlp, out_dtype=x.dtype)
+                                shift=shift, ref=ref)
+        y = mlp_block(y.reshape(-1, c), *p.mlp, out_dtype=x.dtype,
+                      params=ref.mlp)
         return y.reshape(b, h, w, c), 0
 
 
@@ -263,8 +271,14 @@ class PixelShuffleHead:
         tensors = [p for st in stages for p in st] + [wl, bl]
         key = cache_key(y, tensors)
         if self._head is None or self._head[0] != key:
-            self._head = (key, head_weights(stages, wl, bl, rs),
-                          tail_weights(*stages[-1], wl, bl, rs[-1], y.dtype))
+            with torch.no_grad():
+                self._head = (key, head_weights(stages, wl, bl, rs),
+                              tail_weights(*stages[-1], wl, bl, rs[-1],
+                                           y.dtype))
+        composed = self._head[1]
+        if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+            # the kept form is constant: a gradient takes the live one
+            composed = head_weights(stages, wl, bl, rs)
 
         def seq_head(z):
             for (w, b), r in zip(stages[:-1], rs[:-1]):
@@ -273,8 +287,7 @@ class PixelShuffleHead:
                                  kernel_weights=self._head[2])
 
         return fused_pixelshuffle_head(y, stages, wl, bl, rs, seq_head,
-                                       packed=packed,
-                                       composed=self._head[1])
+                                       packed=packed, composed=composed)
 
 
 class SwinIR(PixelShuffleHead, nn.Module):
@@ -337,7 +350,6 @@ class SwinIR(PixelShuffleHead, nn.Module):
         else:
             self.conv_last = Conv(embed_dim, img_channels)
 
-    @torch.no_grad()
     def forward(self, x: torch.Tensor,
                 packed_output: bool | None = None) -> torch.Tensor:
         """(B, H, W, C) -> (B, H*s, W*s, C); ``packed_output`` overrides

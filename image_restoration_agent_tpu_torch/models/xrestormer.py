@@ -132,24 +132,34 @@ class XTransformerBlock(nn.Module):
                 and restormer_fused_supported(h, w, c,
                                               2 * self.channel_ffn.hidden))
 
+    def mdta_params(self) -> tuple:
+        """:func:`ops.restormer_fused.mdta_block_plain`'s (ln, w_qkv, b_qkv,
+        w_dw, b_dw, w_proj, b_proj, temperature), views of the parameters."""
+        a = self.channel_attn
+        return (self.norm1.params(), a.qkv.matrix(), a.qkv.bias,
+                a.qkv_dwconv.taps(), a.qkv_dwconv.bias,
+                a.project_out.matrix(), a.project_out.bias, a.temperature)
+
+    def gdfn_params(self, spatial: bool) -> tuple:
+        """:func:`ops.restormer_fused.gdfn_block_plain`'s (ln, w_in, b_in,
+        w_dw, b_dw, w_out, b_out) of the channel (or spatial) GDFN, views of
+        the parameters."""
+        ln, f = ((self.norm4, self.spatial_ffn) if spatial
+                 else (self.norm2, self.channel_ffn))
+        return (ln.params(), f.project_in.matrix(), f.project_in.bias,
+                f.dwconv.taps(), f.dwconv.bias, f.project_out.matrix(),
+                f.project_out.bias)
+
     def kernel_weights(self, x: torch.Tensor):
         """The fused blocks' kernel forms (MDTA, channel GDFN, spatial
         GDFN) for ``x``'s dtype and device, kept while the parameters are
         unchanged."""
         key = cache_key(x, list(self.parameters()))
         if self._prepared is None or self._prepared[0] != key:
-            a = self.channel_attn
-            mw = mdta_weights(
-                self.norm1.params(), a.qkv.matrix(), a.qkv.bias,
-                a.qkv_dwconv.taps(), a.qkv_dwconv.bias,
-                a.project_out.matrix(), a.project_out.bias, a.temperature,
-                a.num_heads, x.dtype)
-            gws = tuple(gdfn_weights(
-                ln.params(), f.project_in.matrix(), f.project_in.bias,
-                f.dwconv.taps(), f.dwconv.bias, f.project_out.matrix(),
-                f.project_out.bias, x.dtype)
-                for ln, f in ((self.norm2, self.channel_ffn),
-                              (self.norm4, self.spatial_ffn)))
+            mw = mdta_weights(*self.mdta_params(),
+                              self.channel_attn.num_heads, x.dtype)
+            gws = tuple(gdfn_weights(*self.gdfn_params(spatial), x.dtype)
+                        for spatial in (False, True))
             self._prepared = (key, mw, *gws)
         return self._prepared[1:]
 
@@ -157,14 +167,18 @@ class XTransformerBlock(nn.Module):
         fast = x.dtype == torch.bfloat16
         fused = self.fused(x)
         if fused:
+            # the forms are side inputs; the parameters' views are what
+            # autograd differentiates (ops/autograd.py)
             mw, gw1, gw2 = self.kernel_weights(x)
-            x = gdfn_block(mdta_block(x, mw), gw1, fast=fast)
+            x = gdfn_block(mdta_block(x, mw, self.mdta_params()), gw1,
+                           fast=fast, params=self.gdfn_params(False))
         else:
             x = x + self.channel_attn(self.norm1(x))
             x = x + self.channel_ffn(self.norm2(x))
         x = x + self.spatial_attn(self.norm3(x))
         if fused:
-            return gdfn_block(x, gw2, fast=fast)
+            return gdfn_block(x, gw2, fast=fast,
+                              params=self.gdfn_params(True))
         return x + self.spatial_ffn(self.norm4(x))
 
 
@@ -207,7 +221,6 @@ class XRestormer(nn.Module):
         self.refinement = stage(d * 2, 0, num_refinement_blocks)
         self.output = Conv(d * 2, out_channels, bias=bias)
 
-    @torch.no_grad()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, inp_channels) -> (B, H, W, out_channels); H and W
         multiples of 8 x the window."""

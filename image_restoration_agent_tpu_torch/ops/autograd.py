@@ -12,14 +12,21 @@ one ``torch.autograd.Function``:
   and detached inputs, and ``torch.autograd.grad`` of its outputs.
 
 A kernel's weight form (``Conv3x3Weights``, ``GdfnWeights``,
-``MdtaWeights``) is a side input that is not differentiated; the
+``MdtaWeights``, K1's :func:`ops.swin_block.kernel_matrix`, a Swin block's
+``SwinBlockParams``) is a side input that is not differentiated; the
 reference-layout parameters it was made from are the differentiable
 inputs. Where no input needs a gradient the launch runs bare, so serving
-is unchanged.
+is unchanged. Every kernel of a trained path has this backward: K3, K4,
+K5, K1 ``token_linear``, K2 ``window_attention``, K6 ``roll2d`` and the
+Swin wrappers built on K1 and K2 (``mlp_block``, ``swin_block``,
+``swin_attn_block``, ``wmsa_block``; ``wmsa`` is K2 alone). A wrapper's
+backward recomputes its block from the saved input, so a Swin block keeps
+only its input for the backward.
 
-:func:`forbid_grad` guards the kernels that have no backward yet (the Swin
-family's K1, K2 and K6, and the lab kernels): under autograd they raise
-rather than drop a gradient.
+:func:`forbid_grad` guards the kernels that no trained path runs and that
+have no backward (the lab kernels K7 ``conv3x3_pair``, K8
+``swin_pair_block`` and ``lab_strip``): under autograd they raise rather
+than drop a gradient.
 """
 
 from __future__ import annotations

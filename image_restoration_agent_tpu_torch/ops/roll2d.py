@@ -23,7 +23,7 @@ import ctypes
 import torch
 
 from . import kernels
-from .autograd import forbid_grad
+from .autograd import kernel_function
 
 
 def _check(x: torch.Tensor, shift: int, ws: int) -> None:
@@ -73,18 +73,27 @@ def _roll2d_cuda(x: torch.Tensor, shift: int) -> torch.Tensor:
     return out
 
 
+def _roll2d_launch(side, x):
+    shift, ws = side
+    _check(x, shift, ws)
+    return _roll2d_cuda(x, shift)
+
+
+def _roll2d_plain(side, x):
+    return roll2d_plain(x, *side)
+
+
+_roll2d_function = kernel_function("roll2d", _roll2d_launch, _roll2d_plain)
+
+
 def roll2d(x: torch.Tensor, shift: int, ws: int = 8) -> torch.Tensor:
     """``torch.roll(x, (shift, shift), dims=(1, 2))`` of a (B, H, W, C)
     canvas, ``shift`` = +-ws/2, H and W multiples of ``ws``.
 
     A CUDA tensor runs the K6 kernel or raises; a CPU tensor runs
-    :func:`roll2d_plain`. Under autograd with ``x`` requiring grad it
-    raises (K6 has no backward)."""
-    forbid_grad("roll2d", x)
-    if x.is_cuda:
-        _check(x, shift, ws)
-        return _roll2d_cuda(x, shift)
-    return roll2d_plain(x, shift, ws)
+    :func:`roll2d_plain`. Under autograd the backward is
+    :func:`roll2d_plain`'s VJP (``ops/autograd.py``): the roll back."""
+    return _roll2d_function((shift, ws), x)
 
 
 roll2d.launches = 0

@@ -111,7 +111,7 @@ import torch
 import torch.nn.functional as F
 
 from . import kernels
-from .autograd import forbid_grad
+from .autograd import forbid_grad, kernel_function
 from .layernorm import layer_norm_lanes
 from .window_attention import (relative_position_bias, window_partition,
                                window_reverse)
@@ -174,6 +174,76 @@ class SwinBlockParams(NamedTuple):
         return (self.ln2_w, self.ln2_b, self.w1, self.b1, self.w2, self.b2)
 
 
+class SwinBlockRef(NamedTuple):
+    """One block's reference-layout tensors (``nn.LayerNorm`` scale and
+    shift, ``nn.Linear`` weights (out, in) and biases, the ((2ws-1)^2,
+    heads) bias table): what :func:`prepare_swin_params` makes the kernel
+    form from, and what the wrappers' gradients reach (their ``ref``)."""
+
+    norm1_w: torch.Tensor
+    norm1_b: torch.Tensor
+    qkv_w: torch.Tensor
+    qkv_b: torch.Tensor
+    proj_w: torch.Tensor
+    proj_b: torch.Tensor
+    rpb_table: torch.Tensor
+    norm2_w: torch.Tensor
+    norm2_b: torch.Tensor
+    fc1_w: torch.Tensor
+    fc1_b: torch.Tensor
+    fc2_w: torch.Tensor
+    fc2_b: torch.Tensor
+
+    @property
+    def mlp(self) -> tuple[torch.Tensor, ...]:
+        """:func:`mlp_block`'s ``params``."""
+        return (self.norm2_w, self.norm2_b, self.fc1_w, self.fc1_b,
+                self.fc2_w, self.fc2_b)
+
+
+def _q_fold(c: int, num_heads: int, device) -> torch.Tensor:
+    """(3C,) float32: the attention scale on the q columns, 1 elsewhere."""
+    f = torch.ones(3 * c, device=device)
+    f[:c] = (c // num_heads) ** -0.5
+    return f
+
+
+def reference_params(ref: SwinBlockRef, *, num_heads: int, ws: int,
+                     dtype: torch.dtype) -> SwinBlockParams:
+    """The values of :func:`prepare_swin_params`'s form, made
+    differentiably from ``ref``: (K, N) matrices in ``dtype`` (not packed:
+    the plain versions read either), the q columns scaled, vectors and the
+    gathered bias float32. The plain versions run on it where a gradient is
+    taken (the backward's recompute)."""
+    c = ref.qkv_w.shape[1]
+    fold = _q_fold(c, num_heads, ref.qkv_w.device)
+    return SwinBlockParams(
+        ref.norm1_w.float(), ref.norm1_b.float(),
+        (ref.qkv_w.t().float() * fold).to(dtype), ref.qkv_b.float() * fold,
+        ref.proj_w.t().to(dtype), ref.proj_b.float(),
+        relative_position_bias(ref.rpb_table.float(), ws),
+        *_mlp_reference(ref.mlp, dtype))
+
+
+def _mlp_reference(params, dtype) -> tuple[torch.Tensor, ...]:
+    """:func:`mlp_block`'s (ln_w, ln_b, w1, b1, w2, b2) from its reference
+    ``params`` (LN scale and shift, fc1 and fc2 as ``nn.Linear``)."""
+    lw, lb, w1, b1, w2, b2 = params
+    return (lw.float(), lb.float(), w1.t().to(dtype), b1.float(),
+            w2.t().to(dtype), b2.float())
+
+
+def _block_params(p: SwinBlockParams, ref, num_heads: int, ws: int
+                  ) -> SwinBlockParams:
+    """What a wrapper's plain version runs on: the form ``p``, or where a
+    gradient is being taken and the caller gave its reference tensors
+    ``ref``, the same values made from them (:func:`reference_params`)."""
+    if ref and torch.is_grad_enabled():
+        return reference_params(SwinBlockRef(*ref), num_heads=num_heads,
+                                ws=ws, dtype=p.wqkv.dtype)
+    return p
+
+
 def kernel_matrix(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """K1's weight form of a (K, N) matrix, contiguous in ``dtype``: in
     float32 the matrix itself; in bfloat16 the order the tensor-core kernel
@@ -229,12 +299,9 @@ def kernel_params(ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, rpb, ln2_w, ln2_b,
     """Kernel-form weights from the TPU strip kernels' layout: matrices
     (K, N) applied as ``x @ w``, the (heads, N, N) relative-position bias;
     the attention scale folded into the q columns."""
-    c = wqkv.shape[0]
-    scale = (c // num_heads) ** -0.5
-    wqkv = wqkv.detach().float().clone()
-    bqkv = bqkv.detach().float().clone()
-    wqkv[:, :c] *= scale
-    bqkv[:c] *= scale
+    fold = _q_fold(wqkv.shape[0], num_heads, wqkv.device)
+    wqkv = wqkv.detach().float() * fold
+    bqkv = bqkv.detach().float() * fold
 
     def mat(w):
         return kernel_matrix(w.detach().float(), dtype)
@@ -461,9 +528,29 @@ def _token_linear_cuda(a, w, b, ln, gelu, res, geom, a_map, r_map, o_map,
     return out
 
 
+def _token_linear_launch(side, a, wd, b, lg, lb, res):
+    w, gelu, geom, a_map, r_map, o_map, out_dtype = side
+    return _token_linear_cuda(a, w, b, None if lg is None else (lg, lb),
+                              gelu, res, geom, a_map, r_map, o_map,
+                              out_dtype)
+
+
+def _token_linear_plain(side, a, wd, b, lg, lb, res):
+    w, gelu, geom, a_map, r_map, o_map, out_dtype = side
+    if wd is not None and torch.is_grad_enabled():
+        w = wd.to(w.dtype)
+    return token_linear_plain(a, w, b, ln=None if lg is None else (lg, lb),
+                              gelu=gelu, res=res, geom=geom, a_map=a_map,
+                              r_map=r_map, o_map=o_map, out_dtype=out_dtype)
+
+
+_token_linear_function = kernel_function(
+    "token_linear", _token_linear_launch, _token_linear_plain)
+
+
 def token_linear(a, w, b, *, ln=None, gelu=None, res=None, geom=None,
                  a_map=IDENTITY, r_map=IDENTITY, o_map=IDENTITY,
-                 out_dtype=None):
+                 out_dtype=None, params=None):
     """K1: a GEMM over token rows with fused LayerNorm/gather prologue and
     bias/GELU/residual/scatter epilogue.
 
@@ -480,14 +567,18 @@ def token_linear(a, w, b, *, ln=None, gelu=None, res=None, geom=None,
             pixel of the rolled canvas) or SCATTER (window order -> pixel
             of the output frame).
         out_dtype: dtype of the (M, N) output (default ``w.dtype``).
+        params: the (K, N) float32 matrix ``w`` was made from; gradients
+            reach it. Without, the form's weights are constants.
+
+    A CUDA tensor runs the kernel or raises; a CPU tensor runs
+    :func:`token_linear_plain`. Under autograd the backward is
+    :func:`token_linear_plain`'s VJP (``ops/autograd.py``) in ``a``,
+    ``params``, ``b``, the LayerNorm's parameters and ``res``.
     """
-    forbid_grad("token_linear", a, w, b, ln, res)
-    if a.is_cuda:
-        return _token_linear_cuda(a, w, b, ln, gelu, res, geom, a_map,
-                                  r_map, o_map, out_dtype)
-    return token_linear_plain(a, w, b, ln=ln, gelu=gelu, res=res, geom=geom,
-                              a_map=a_map, r_map=r_map, o_map=o_map,
-                              out_dtype=out_dtype)
+    lg, lb = ln if ln is not None else (None, None)
+    return _token_linear_function(
+        (w, gelu, geom, a_map, r_map, o_map, out_dtype), a, params, b, lg,
+        lb, res)
 
 
 token_linear.launches = 0
@@ -673,6 +764,24 @@ def _window_attention_cuda(qkv, rpb, bank, num_heads, nwy, nwx, fast,
     return out
 
 
+def _window_attention_launch(side, qkv, rpb):
+    bank, mask, table, num_heads, nwy, nwx, fast, scale = side
+    # a bias that carries a gradient may be a view (the table's gather)
+    return _window_attention_cuda(qkv, rpb.contiguous(), bank, num_heads,
+                                  nwy, nwx, fast, mask, scale, table)
+
+
+def _window_attention_plain(side, qkv, rpb):
+    bank, mask, _, num_heads, nwy, nwx, fast, scale = side
+    return window_attention_plain(qkv, rpb, bank, num_heads=num_heads,
+                                  nwy=nwy, nwx=nwx, fast=fast, mask=mask,
+                                  scale=scale)
+
+
+_window_attention_function = kernel_function(
+    "window_attention", _window_attention_launch, _window_attention_plain)
+
+
 def window_attention(qkv, rpb, bank, *, num_heads, nwy, nwx, fast,
                      mask=None, scale: float = 1.0, table=None):
     """K2: attention of every (window, head) over window-order rows.
@@ -704,15 +813,12 @@ def window_attention(qkv, rpb, bank, *, num_heads, nwy, nwx, fast,
     <= 64 (every head from one staging of the window's rows) or per
     (window, head) above; in f32 FP32-FMA products tiled in registers, one
     block per (window, head). Bank entries that are all zero are skipped
-    (:func:`bank_zero_flags`).
+    (:func:`bank_zero_flags`). Under autograd the backward is
+    :func:`window_attention_plain`'s VJP (``ops/autograd.py``) in ``qkv``
+    and ``rpb``; the bank, mask and table are constants.
     """
-    forbid_grad("window_attention", qkv, rpb, bank, mask, table)
-    if qkv.is_cuda:
-        return _window_attention_cuda(qkv, rpb, bank, num_heads, nwy, nwx,
-                                      fast, mask, scale, table)
-    return window_attention_plain(qkv, rpb, bank, num_heads=num_heads,
-                                  nwy=nwy, nwx=nwx, fast=fast, mask=mask,
-                                  scale=scale)
+    return _window_attention_function(
+        (bank, mask, table, num_heads, nwy, nwx, fast, scale), qkv, rpb)
 
 
 window_attention.launches = 0
@@ -754,8 +860,25 @@ def _mlp_block_cuda(x, ln_w, ln_b, w1, b1, w2, b2, fast, out_dtype,
     return out
 
 
+def _mlp_block_launch(side, x, *params):
+    form, fast, out_dtype, scatter = side
+    return _mlp_block_cuda(x, *form, fast, out_dtype, scatter)
+
+
+def _mlp_block_plain(side, x, *params):
+    form, fast, out_dtype, scatter = side
+    if params and torch.is_grad_enabled():
+        form = _mlp_reference(params, form[2].dtype)
+    return mlp_block_plain(x, *form, fast=fast, out_dtype=out_dtype,
+                           scatter=scatter)
+
+
+_mlp_block_function = kernel_function("mlp_block", _mlp_block_launch,
+                                      _mlp_block_plain)
+
+
 def mlp_block(x, ln_w, ln_b, w1, b1, w2, b2, *, fast=False, out_dtype=None,
-              scatter=None):
+              scatter=None, params=None):
     """LN -> fc1 -> GELU -> fc2 -> +residual over (T, C) tokens.
 
     ``w1`` (C, hidden) and ``w2`` (hidden, C) are in their kernel form
@@ -763,13 +886,15 @@ def mlp_block(x, ln_w, ln_b, w1, b1, w2, b2, *, fast=False, out_dtype=None,
     biases float32. ``fast`` takes tanh-GELU (else erf).
     With ``scatter = (B, H, W, ws, ...)`` the rows are in window order and
     the result is written as the (B, H, W, C) canvas. Two K1 launches on a
-    CUDA tensor; :func:`mlp_block_plain` on a CPU tensor."""
-    forbid_grad("mlp_block", x, ln_w, ln_b, w1, b1, w2, b2)
-    if x.is_cuda:
-        return _mlp_block_cuda(x, ln_w, ln_b, w1, b1, w2, b2, fast,
-                               out_dtype, scatter)
-    return mlp_block_plain(x, ln_w, ln_b, w1, b1, w2, b2, fast=fast,
-                           out_dtype=out_dtype, scatter=scatter)
+    CUDA tensor; :func:`mlp_block_plain` on a CPU tensor.
+
+    ``params``: the reference tensors the form was made from (LN scale and
+    shift, fc1 and fc2 weights as ``nn.Linear`` (out, in) and biases:
+    :attr:`SwinBlockRef.mlp`); gradients reach them and ``x`` through
+    :func:`mlp_block_plain`'s VJP (``ops/autograd.py``), the block
+    recomputed in the backward. Without, the form is constant."""
+    return _mlp_block_function(((ln_w, ln_b, w1, b1, w2, b2), fast,
+                                out_dtype, scatter), x, *(params or ()))
 
 
 mlp_block.launches = 0
@@ -826,8 +951,28 @@ def swin_block_composed(x, p: SwinBlockParams, *, num_heads: int, ws: int,
     return mlp_block(x1, *p.mlp, fast=fast, out_dtype=x.dtype, scatter=geom)
 
 
+def _swin_block_launch(side, x, *ref):
+    p, num_heads, ws, dc, mask_bank, fast = side
+    out = swin_block_composed(x, p, num_heads=num_heads, ws=ws, dc=dc,
+                              mask_bank=mask_bank, fast=fast)
+    swin_block.launches += 1
+    return out
+
+
+def _swin_block_plain(side, x, *ref):
+    p, num_heads, ws, dc, mask_bank, fast = side
+    return swin_block_plain(x, _block_params(p, ref, num_heads, ws),
+                            num_heads=num_heads, ws=ws, dc=dc,
+                            mask_bank=mask_bank, fast=fast)
+
+
+_swin_block_function = kernel_function("swin_block", _swin_block_launch,
+                                       _swin_block_plain)
+
+
 def swin_block(x, p: SwinBlockParams, *, num_heads: int, ws: int,
-               dc: int = 0, mask_bank=None, fast: bool = False):
+               dc: int = 0, mask_bank=None, fast: bool = False,
+               ref: SwinBlockRef | None = None):
     """One Swin block over ``x`` (B, H, W, C) read through
     ``roll(x, (dc, dc))``; the output stays in that rolled frame.
 
@@ -838,18 +983,17 @@ def swin_block(x, p: SwinBlockParams, *, num_heads: int, ws: int,
         dc: the folded roll, |dc| <= ws.
         mask_bank: None, or the (2, 2, N, N) float32 shift-mask bank.
         fast: the bf16 serving numerics (see the module docstring).
+        ref: the :class:`SwinBlockRef` ``p`` was made from; gradients reach
+            it. Without, ``p`` is constant.
 
     A CUDA tensor runs the kernels (:func:`swin_block_composed`) or raises;
-    a CPU tensor runs :func:`swin_block_plain`.
+    a CPU tensor runs :func:`swin_block_plain`. Under autograd the backward
+    is :func:`swin_block_plain`'s VJP on :func:`reference_params`
+    (``ops/autograd.py``): the block is recomputed from its input, which is
+    all it keeps.
     """
-    forbid_grad("swin_block", x, p, mask_bank)
-    if x.is_cuda:
-        out = swin_block_composed(x, p, num_heads=num_heads, ws=ws, dc=dc,
-                                  mask_bank=mask_bank, fast=fast)
-        swin_block.launches += 1
-        return out
-    return swin_block_plain(x, p, num_heads=num_heads, ws=ws, dc=dc,
-                            mask_bank=mask_bank, fast=fast)
+    return _swin_block_function((p, num_heads, ws, dc, mask_bank, fast), x,
+                                *(ref or ()))
 
 
 swin_block.launches = 0
@@ -876,23 +1020,8 @@ def swin_attn_block_plain(x, p: SwinBlockParams, *, num_heads: int, ws: int,
     return window_reverse(x1.reshape(-1, ws, ws, c), ws, h, w)
 
 
-def swin_attn_block(x, p: SwinBlockParams, *, num_heads: int, ws: int,
-                    dc: int = 0, mask_bank=None, fast: bool = False):
-    """The attention half of a Swin block over ``x`` (B, H, W, C) read
-    through ``roll(x, (dc, dc))``: ``xr + proj(attn(LN1(xr)))`` in the
-    rolled frame, in ``x``'s dtype. The TPU's ``swin_strip_pallas`` with
-    ``mlp=None``, HAT's call: numerics as :func:`swin_block`'s (``fast``
-    where the windows per row and the heads are even), ``p``'s MLP
-    weights unused.
-
-    A CUDA tensor runs three launches (K1 LN1 + gather -> qkv, K2, K1 proj
-    + gathered residual scattered to the rolled frame) or raises; a CPU
-    tensor runs :func:`swin_attn_block_plain`.
-    """
-    forbid_grad("swin_attn_block", x, p, mask_bank)
-    if not x.is_cuda:
-        return swin_attn_block_plain(x, p, num_heads=num_heads, ws=ws, dc=dc,
-                                     mask_bank=mask_bank, fast=fast)
+def _swin_attn_block_launch(side, x, *ref):
+    p, num_heads, ws, dc, mask_bank, fast = side
     _check_block(x, ws, dc)
     b, h, w, c = x.shape
     fast = fast and _paired(w, ws, num_heads)
@@ -907,6 +1036,36 @@ def swin_attn_block(x, p: SwinBlockParams, *, num_heads: int, ws: int,
                        o_map=SCATTER, out_dtype=x.dtype)
     swin_attn_block.launches += 1
     return out.reshape(b, h, w, c)
+
+
+def _swin_attn_block_plain(side, x, *ref):
+    p, num_heads, ws, dc, mask_bank, fast = side
+    return swin_attn_block_plain(x, _block_params(p, ref, num_heads, ws),
+                                 num_heads=num_heads, ws=ws, dc=dc,
+                                 mask_bank=mask_bank, fast=fast)
+
+
+_swin_attn_block_function = kernel_function(
+    "swin_attn_block", _swin_attn_block_launch, _swin_attn_block_plain)
+
+
+def swin_attn_block(x, p: SwinBlockParams, *, num_heads: int, ws: int,
+                    dc: int = 0, mask_bank=None, fast: bool = False,
+                    ref: SwinBlockRef | None = None):
+    """The attention half of a Swin block over ``x`` (B, H, W, C) read
+    through ``roll(x, (dc, dc))``: ``xr + proj(attn(LN1(xr)))`` in the
+    rolled frame, in ``x``'s dtype. The TPU's ``swin_strip_pallas`` with
+    ``mlp=None``, HAT's call: numerics as :func:`swin_block`'s (``fast``
+    where the windows per row and the heads are even), ``p``'s MLP
+    weights unused; ``ref`` as :func:`swin_block`'s.
+
+    A CUDA tensor runs three launches (K1 LN1 + gather -> qkv, K2, K1 proj
+    + gathered residual scattered to the rolled frame) or raises; a CPU
+    tensor runs :func:`swin_attn_block_plain`, which is also the backward's
+    recompute under autograd.
+    """
+    return _swin_attn_block_function((p, num_heads, ws, dc, mask_bank, fast),
+                                     x, *(ref or ()))
 
 
 swin_attn_block.launches = 0
@@ -925,7 +1084,31 @@ def wmsa_block_plain(xw, p: SwinBlockParams, *, num_heads: int, mask=None):
     return out.to(xw.dtype).reshape(nwb, n, c)
 
 
-def wmsa_block(xw, p: SwinBlockParams, *, num_heads: int, mask=None):
+def _wmsa_block_launch(side, xw, *ref):
+    p, num_heads, mask = side
+    nwb, n, c = xw.shape
+    xt = xw.contiguous().reshape(-1, c)
+    qkv = token_linear(xt, p.wqkv, p.bqkv, ln=(p.ln1_w, p.ln1_b))
+    a = window_attention(qkv, p.rpb, None, num_heads=num_heads, nwy=1,
+                         nwx=1, fast=False, mask=mask, table=p.rpb_table)
+    out = token_linear(a, p.wproj, p.bproj, res=xt, out_dtype=xw.dtype)
+    wmsa_block.launches += 1
+    return out.reshape(nwb, n, c)
+
+
+def _wmsa_block_plain(side, xw, *ref):
+    p, num_heads, mask = side
+    ws = round(p.rpb.shape[-1] ** 0.5)
+    return wmsa_block_plain(xw, _block_params(p, ref, num_heads, ws),
+                            num_heads=num_heads, mask=mask)
+
+
+_wmsa_block_function = kernel_function("wmsa_block", _wmsa_block_launch,
+                                       _wmsa_block_plain)
+
+
+def wmsa_block(xw, p: SwinBlockParams, *, num_heads: int, mask=None,
+               ref: SwinBlockRef | None = None):
     """``xw + proj(attn(LN1(xw)))`` over partitioned windows: the TPU's
     ``wmsa_block_pallas``.
 
@@ -935,25 +1118,17 @@ def wmsa_block(xw, p: SwinBlockParams, *, num_heads: int, mask=None):
         p: :class:`SwinBlockParams` (its MLP weights unused).
         mask: None or the (nW, N, N) float32 shift mask; window ``w`` adds
             ``mask[w % nW]``.
+        ref: as :func:`swin_block`'s.
 
     Exact softmax in both dtypes. Cast points are the TPU kernel's: the LN
     output, qkv and the attention output in ``xw``'s dtype, proj +
     residual in float32 and one cast (the attention scale is folded into
     the q weights). A CUDA tensor runs three launches (K1 LN1 -> qkv, K2
     in full-mask mode, K1 proj + residual) or raises; a CPU tensor runs
-    :func:`wmsa_block_plain`.
+    :func:`wmsa_block_plain`, which is also the backward's recompute under
+    autograd.
     """
-    forbid_grad("wmsa_block", xw, p, mask)
-    if not xw.is_cuda:
-        return wmsa_block_plain(xw, p, num_heads=num_heads, mask=mask)
-    nwb, n, c = xw.shape
-    xt = xw.contiguous().reshape(-1, c)
-    qkv = token_linear(xt, p.wqkv, p.bqkv, ln=(p.ln1_w, p.ln1_b))
-    a = window_attention(qkv, p.rpb, None, num_heads=num_heads, nwy=1,
-                         nwx=1, fast=False, mask=mask, table=p.rpb_table)
-    out = token_linear(a, p.wproj, p.bproj, res=xt, out_dtype=xw.dtype)
-    wmsa_block.launches += 1
-    return out.reshape(nwb, n, c)
+    return _wmsa_block_function((p, num_heads, mask), xw, *(ref or ()))
 
 
 wmsa_block.launches = 0
@@ -992,13 +1167,13 @@ def wmsa(qkv, rpb, mask=None, *, num_heads: int):
     are ``(q.k) * head_dim**-0.5`` in float32 plus the bias, the softmax is
     exact, ``p`` is cast to the qkv dtype before ``p.v`` (float32 sums).
     A CUDA tensor launches K2 with that logit scale (one launch) or raises;
-    a CPU tensor runs :func:`wmsa_plain`.
+    a CPU tensor runs :func:`wmsa_plain`. Gradients reach ``qkv`` and
+    ``rpb`` (DehazeFormer's comes out of its bias MLP) through
+    :func:`window_attention`'s backward.
     """
-    forbid_grad("wmsa", qkv, rpb, mask)
-    if not qkv.is_cuda:
-        return wmsa_plain(qkv, rpb, mask, num_heads=num_heads)
     out = _wmsa(window_attention, qkv, rpb, mask, num_heads)
-    wmsa.launches += 1
+    if qkv.is_cuda:
+        wmsa.launches += 1
     return out
 
 

@@ -163,19 +163,14 @@ def make_train_state(model: nn.Module, tx: UpdateRule) -> TrainState:
 
 
 def _forward_with_graph(model, lq):
-    """``model(lq)``, which must record a graph. A family whose forward is
-    decorated with ``torch.no_grad()`` (its kernels have no backward) is
-    run once undecorated, so the first kernel without a gradient raises
-    naming itself."""
+    """``model(lq)``, which must record a graph: a forward run under
+    ``torch.no_grad()`` (DiffBIR's sampler) cannot be trained."""
     pred = model(lq)
-    if pred.requires_grad:
-        return pred
-    raw = getattr(type(model).forward, "__wrapped__", None)
-    if raw is not None:
-        raw(model, lq)
-    raise RuntimeError(
-        f"{type(model).__name__}.forward records no autograd graph (it "
-        "runs under torch.no_grad()); it cannot be trained")
+    if not pred.requires_grad:
+        raise RuntimeError(
+            f"{type(model).__name__}.forward records no autograd graph (it "
+            "runs under torch.no_grad()); it cannot be trained")
+    return pred
 
 
 def make_sharded_train_step(model: nn.Module, tx: UpdateRule, mesh: Mesh,
@@ -190,11 +185,15 @@ def make_sharded_train_step(model: nn.Module, tx: UpdateRule, mesh: Mesh,
     every shardable parameter and moment (:func:`shard_dims`);
     ``train_step(state, lq, hq) -> (state, loss)`` takes the data-sharded
     batch, updates ``state`` and the model in place, and returns the
-    global batch's mean loss (a 0-d float32 tensor)."""
+    global batch's mean loss (a 0-d float32 tensor). Every parameter must
+    get a gradient, but those whose names start with one of the model's
+    ``gradient_free`` prefixes (RIDCP's: no derivative reaches them), which
+    take zeros."""
     if loss_fn is None:
         from ..train.losses import charbonnier_loss as loss_fn
     names = [n for n, _ in model.named_parameters()]
     full = dict(model.named_parameters())
+    free = tuple(getattr(model, "gradient_free", ()))
     n_data = mesh.shape.get(data_axis, 1)
     n_model = mesh.shape.get(model_axis, 1)
     dims = shard_dims(model, n_model) if n_model > 1 \
@@ -245,6 +244,10 @@ def make_sharded_train_step(model: nn.Module, tx: UpdateRule, mesh: Mesh,
         loss = loss_fn(pred, hq)
         grads = torch.autograd.grad(loss, [full[n] for n in names],
                                     allow_unused=True)
+        # a parameter the model declares out of the loss's reach takes the
+        # zero gradient jax.grad gives it; any other without one is a fault
+        grads = [torch.zeros_like(full[n]) if g is None and n.startswith(free)
+                 else g for n, g in zip(names, grads)]
         missing = [n for n, g in zip(names, grads) if g is None]
         if missing:
             raise RuntimeError(f"no gradient reached {missing}")

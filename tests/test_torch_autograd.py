@@ -3,9 +3,11 @@
 ``mdta_front`` (through ``mdta_block``) against ``jax.vjp`` of the JAX
 package's XLA route at the same inputs, every float32 gradient within
 1e-5 x its largest magnitude; a whole ``nafnet_small`` loss against
-``jax.value_and_grad``; every kernel without a backward raising under
-autograd, naming itself; serving graph-free; and the JAX package's own
-fault pinned: ``jax.grad`` cannot pass through its Pallas conv."""
+``jax.value_and_grad``; every lab kernel (no trained path runs one, and
+none has a backward) raising under autograd, naming itself, also through
+the ``Trainer``; serving graph-free; and the JAX package's own fault
+pinned: ``jax.grad`` cannot pass through its Pallas conv. The Swin
+family's kernels' gradients are ``test_torch_swin_train.py``'s."""
 
 import importlib
 
@@ -408,26 +410,11 @@ def _swin_case():
 def _no_grad_kernels():
     from image_restoration_agent_tpu_torch.lab.kernel_lab import lab_strip
     from image_restoration_agent_tpu_torch.ops.conv3x3 import conv3x3_pair
-    from image_restoration_agent_tpu_torch.ops.roll2d import roll2d
 
     c, heads, ws, p = _swin_case()
     x = torch.rand(1, 8, 8, c, requires_grad=True)
-    xt = torch.rand(64, c, requires_grad=True)
-    qkv = torch.rand(4, ws * ws, 3 * c, requires_grad=True)
     rpb = torch.zeros(heads, ws * ws, ws * ws)
     return {
-        "token_linear": lambda: tsb.token_linear(xt, p.wqkv, p.bqkv),
-        "window_attention": lambda: tsb.window_attention(
-            qkv.reshape(-1, 3 * c), rpb, None, num_heads=heads, nwy=2,
-            nwx=2, fast=False),
-        "mlp_block": lambda: tsb.mlp_block(xt, *p.mlp),
-        "swin_block": lambda: tsb.swin_block(x, p, num_heads=heads, ws=ws),
-        "swin_attn_block": lambda: tsb.swin_attn_block(
-            x, p, num_heads=heads, ws=ws),
-        "wmsa_block": lambda: tsb.wmsa_block(
-            x.reshape(4, ws * ws, c), p, num_heads=heads),
-        "wmsa": lambda: tsb.wmsa(qkv, rpb, num_heads=heads),
-        "roll2d": lambda: roll2d(x, 2, ws),
         "conv3x3_pair": lambda: conv3x3_pair(
             torch.rand(1, 8, 128, 4, requires_grad=True),
             torch.rand(3, 3, 4, 4), torch.rand(4), torch.rand(3, 3, 4, 2),
@@ -454,19 +441,38 @@ def test_kernel_without_backward_raises_under_autograd(kernel):
         assert torch.isfinite(call()).all()
 
 
-def test_trainer_names_the_kernel_without_a_gradient(tmp_path):
-    """A Swin-family model (its forward under ``torch.no_grad()``) given to
-    the Trainer raises naming the first kernel without a backward."""
+class _PairNet(torch.nn.Module):
+    """A trainable model whose forward runs the lab kernel K7
+    (``conv3x3_pair``) on its parameters."""
+
+    def __init__(self):
+        super().__init__()
+        self.w1 = torch.nn.Parameter(torch.randn(3, 3, 3, 4) * 0.2)
+        self.b1 = torch.nn.Parameter(torch.zeros(4))
+        self.w2 = torch.nn.Parameter(torch.randn(3, 3, 4, 3) * 0.2)
+        self.b2 = torch.nn.Parameter(torch.zeros(3))
+
+    def forward(self, x):
+        from image_restoration_agent_tpu_torch.ops.conv3x3 import \
+            conv3x3_pair
+        return conv3x3_pair(x, self.w1, self.b1, self.w2, self.b2)
+
+
+def test_trainer_names_the_lab_kernel_without_a_gradient(tmp_path):
+    """A model that runs a lab kernel (no backward) given to the Trainer
+    raises naming the kernel, on the train step's path; the same model
+    serves under ``torch.no_grad()``."""
     from image_restoration_agent_tpu_torch.train import (TrainConfig,
                                                          Trainer)
 
-    tr = Trainer(build_model("swinir_tiny", device="cpu"),
-                 TrainConfig(total_iters=1), work_dir=tmp_path,
+    model = _PairNet()
+    tr = Trainer(model, TrainConfig(total_iters=1), work_dir=tmp_path,
                  device="cpu")
-    x = np.random.default_rng(0).random((1, 16, 16, 3), dtype=np.float32)
-    y = np.repeat(np.repeat(x, 4, 1), 4, 2)
-    with pytest.raises(RuntimeError, match=r"^(swin_block|token_linear)"):
-        tr.fit(iter([(x, y)]))
+    x = np.random.default_rng(0).random((1, 8, 128, 3), dtype=np.float32)
+    with pytest.raises(RuntimeError, match=r"^conv3x3_pair: "):
+        tr.fit(iter([(x, x)]))
+    with torch.no_grad():
+        assert torch.isfinite(model(torch.from_numpy(x))).all()
 
 
 def test_engine_serves_without_a_graph(monkeypatch):

@@ -278,7 +278,7 @@ def test_window_attention_bias_mlp_matches_jax(df12):
     wa = m.layer3.blocks[0].attn.attn
     _close_f32(wa.bias(torch.device("cpu")).detach().numpy(),
                bias.transpose(2, 0, 1))
-    with torch.no_grad():  # wmsa (K2) has no backward
+    with torch.no_grad():
         _close_f32(wa(_t(qkv)).detach().numpy(), out)
 
 
@@ -295,7 +295,7 @@ def test_dfattention_matches_jax(df12, monkeypatch, shift, route):
     with _route(monkeypatch, route):
         want = jdf.DFAttention(24, 2, 8, shift, True).apply(
             {"params": params["params"][blk]["attn"]}, jnp.asarray(x))
-    with torch.no_grad():  # wmsa (K2) has no backward
+    with torch.no_grad():
         got = m.layer3.blocks[1 if shift else 0].attn(_t(x))
     _close_f32(got.detach().numpy(), want)
 
@@ -316,7 +316,7 @@ def test_dfblock_matches_jax(df12, attn):
                       m.layer1.blocks[0])
     assert (tm.norm1 is not None) is attn
     want = jm.apply(_blk(params, pm), jnp.asarray(x))
-    with torch.no_grad():  # wmsa (K2) has no backward
+    with torch.no_grad():
         _close_f32(tm(_t(x)).detach().numpy(), want)
 
 

@@ -84,6 +84,7 @@ def tiny(request):
         jax_apply(m, params, x, jnp.float32)
 
 
+@torch.no_grad()  # a served forward (the model records a graph)
 def test_tiny_matches_jax_f32(tiny):
     """f32 within 1e-4 x max|ref| (measured 5e-7 of max|ref| 0.93 for
     DRBNet, 2e-7 of 1.0 for IFAN); both outputs are clipped to their
@@ -96,6 +97,7 @@ def test_tiny_matches_jax_f32(tiny):
                                rtol=0)
 
 
+@torch.no_grad()  # a served forward (the model records a graph)
 def test_tiny_matches_jax_bf16(tiny):
     """The port's bf16 RMS error against its own f32 at most 1.25x the JAX
     bf16 model's against JAX f32 (measured 0.67x DRBNet, 0.93x IFAN: the

@@ -320,6 +320,7 @@ _ROUTES = [(8, (16, 24), True), (8, (16, 392), False), (16, (32, 48), True),
 @pytest.mark.parametrize("ws,hw,strip", _ROUTES,
                          ids=["ws8-strip", "ws8-partition", "ws16-strip",
                               "ws16-partition"])
+@torch.no_grad()  # a served forward (the model records a graph)
 def test_hat_tiny_matches_jax_f32(ws, hw, strip):
     """Whole hat_tiny (one RHAG of depth 2, so a HAB shifts) at window 8
     and 16 through both HAB routes, against the JAX model's XLA path in
@@ -337,6 +338,7 @@ def test_hat_tiny_matches_jax_f32(ws, hw, strip):
     _close_f32(got, want, 1e-4)
 
 
+@torch.no_grad()  # a served forward (the model records a graph)
 def test_hat_tiny_bf16_matches_jax_strip_kernels(tiny, monkeypatch):
     """bf16 hat_tiny against the JAX bf16 model on its TPU route (strip
     kernel, roll2d_pallas, in interpret mode): held, as Restormer's bf16

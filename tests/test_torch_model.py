@@ -47,6 +47,7 @@ def tiny():
     return params, m_t
 
 
+@torch.no_grad()  # a served forward (the model records a graph)
 @pytest.mark.parametrize("packed", [False, True])
 def test_swinir_tiny_matches_jax(tiny, packed):
     params, m_t = tiny
@@ -64,6 +65,7 @@ def test_swinir_tiny_matches_jax(tiny, packed):
     dict(upscale=3, upsampler="pixelshuffle", num_feat=16),
     dict(upsampler="", img_range=255.0),
 ], ids=["direct", "nearest+conv", "pixelshuffle-x3", "denoise"])
+@torch.no_grad()  # a served forward (the model records a graph)
 def test_swinir_heads_match_jax(cfg):
     """Every upsampler head, with JAX-initialized weights carried across by
     from_jax (strict load)."""
@@ -82,6 +84,7 @@ def test_swinir_heads_match_jax(cfg):
         1.0, float(np.abs(want).max())))
 
 
+@torch.no_grad()  # a served forward (the model records a graph)
 def test_band_tiled_apply_matches_jax(tiny):
     """Band mode: pad_to a strip-chunkable width, (bh, pw) row bands with a
     16 px overlap, packed RGB, on both sides."""
@@ -300,6 +303,7 @@ _TINY = dict(embed_dim=16, depths=(2,), num_heads=(2,), upsampler="",
 
 @pytest.mark.parametrize("ws,hw", [(8, (16, 392)), (7, (14, 21))],
                          ids=["wide-no-chunk", "window7"])
+@torch.no_grad()  # a served forward (the model records a graph)
 def test_swinir_partition_route_matches_jax_f32(ws, hw):
     """A canvas that takes the partition route (wider than 384 with no
     strip chunk width; window 7) through wmsa_block + mlp_block (erf-GELU),
@@ -324,6 +328,7 @@ def test_swinir_partition_route_matches_jax_f32(ws, hw):
                                atol=1e-4 * float(np.abs(want).max()))
 
 
+@torch.no_grad()  # a served forward (the model records a graph)
 def test_swinir_tiny_bf16_partition_route_matches_jax():
     """bf16 swinir_tiny on a partition-route canvas (16x392) against the
     JAX bf16 model on its TPU route (wmsa_block_pallas + mlp_block_pallas
@@ -353,6 +358,7 @@ def test_swinir_tiny_bf16_partition_route_matches_jax():
     assert np.abs(got - want).max() <= 2 * np.abs(ctrl).max()
 
 
+@torch.no_grad()  # a served forward (the model records a graph)
 def test_swinir_window7_bf16_partition_route_matches_jax():
     """bf16 SwinIR at swinir_jpeg_40's geometry (window 7, embed 180, 6
     heads, img_range 255), cut to one RSTB of two blocks, on a 14x21
@@ -389,6 +395,7 @@ def test_swinir_window7_bf16_partition_route_matches_jax():
     assert np.abs(got - want).max() <= 2 * np.abs(ctrl).max()
 
 
+@torch.no_grad()  # a served forward (the model records a graph)
 def test_slice1_route_fault_is_repaired(monkeypatch):
     """The fault this repairs: slice 1 ran every SwinIR block as the strip
     form, whose bf16 numerics are the fast ones (clamp-exp2 softmax,

@@ -167,6 +167,7 @@ def maxim_tiny(request):
     return _tiny("maxim_tiny", 5, num_stages=request.param)
 
 
+@torch.no_grad()  # a served forward (the model records a graph)
 def _check_f32(x, m32, want):
     got = m32(torch.from_numpy(x)).numpy()
     assert got.shape == want.shape
@@ -174,6 +175,7 @@ def _check_f32(x, m32, want):
                                rtol=0)
 
 
+@torch.no_grad()  # a served forward (the model records a graph)
 def _check_bf16(m, params, x, m32, m16, j32, mult):
     j16 = jax_apply(m, params, x, jnp.bfloat16)
     t32 = m32(torch.from_numpy(x)).numpy()
@@ -227,6 +229,7 @@ def test_mprnet_names_round_trip_through_jax_rules(mprnet_tiny):
                                       err_msg=jax.tree_util.keystr(path))
 
 
+@torch.no_grad()  # a served forward (the model records a graph)
 def test_mprnet_matches_torch_transcription():
     """TMPRNet (tests/test_convert_mprnet.py: the published MPRNet in torch,
     one PReLU shared by every CAB) loads into the port's mprnet_tiny

@@ -343,6 +343,55 @@ def test_single_process_mesh_step_is_the_trainer_step(tmp_path):
         torch.testing.assert_close(p, q, rtol=0, atol=0, msg=n)
 
 
+def test_sharded_swinir_step_is_the_trainer_step(tmp_path):
+    """The Swin kernels' backward on two ``gloo`` ranks: ``swinir_tiny``
+    (x4 head, 16 px LR) on a ``data=1 x model=2`` mesh, each rank holding
+    half of every shardable parameter and gathering the whole ones back
+    into the model after each update (so every Swin block's kernel form is
+    remade from the written parameters), two steps: the losses and the
+    gathered parameters equal the ``Trainer``'s step on one process within
+    float32 rounding (1e-6 relative on the losses, 1e-5 x |p| + 1e-6)."""
+    from image_restoration_agent_tpu_torch.train import (TrainConfig,
+                                                         Trainer)
+
+    path = tmp_path / "rank0.pth"
+    _ranks(2, f"""
+        from image_restoration_agent_tpu_torch.models import build_model
+        from image_restoration_agent_tpu_torch.parallel import (
+            UpdateRule, make_mesh, make_sharded_train_step,
+            make_train_state)
+        rng = np.random.default_rng(9)
+        lq = torch.from_numpy(rng.random((2, 16, 16, 3), dtype=np.float32))
+        hq = torch.from_numpy(rng.random((2, 64, 64, 3), dtype=np.float32))
+        model = build_model("swinir_tiny", device="cpu", seed=4)
+        tx = UpdateRule(1e-3)
+        step, shard_state, shard_batch = make_sharded_train_step(
+            model, tx, make_mesh({{"data": 1, "model": 2}}))
+        state = shard_state(make_train_state(model, tx))
+        losses = []
+        for _ in range(2):
+            state, loss = step(state, shard_batch(lq), shard_batch(hq))
+            losses.append(loss.item())
+        if RANK == 0:
+            torch.save({{"losses": losses, "state": model.state_dict()}},
+                       {str(path)!r})
+        emit({{"rank": RANK, "losses": losses}})
+    """)
+    rng = np.random.default_rng(9)
+    lq = rng.random((2, 16, 16, 3), dtype=np.float32)
+    hq = rng.random((2, 64, 64, 3), dtype=np.float32)
+    model = build_model("swinir_tiny", device="cpu", seed=4)
+    tr = Trainer(model, TrainConfig(total_iters=2, base_lr=1e-3, log_freq=1),
+                 work_dir=tmp_path / "single", device="cpu")
+    tr.fit(iter([(lq, hq)] * 2))
+    got = torch.load(path, weights_only=True)
+    np.testing.assert_allclose(got["losses"],
+                               [h["loss"] for h in tr.history], rtol=1e-6)
+    for name, p in model.state_dict().items():
+        torch.testing.assert_close(got["state"][name], p, rtol=1e-5,
+                                   atol=1e-6, msg=name)
+
+
 # ---------------------------------------------------------------------------
 # the dry run
 

@@ -280,6 +280,7 @@ def tiny():
     return m, params, x, port_pair("ridcp_tiny", params)
 
 
+@torch.no_grad()  # a served forward (the model records a graph)
 def test_tiny_matches_jax_f32(tiny):
     """Batch of 2 (the fusion's means run over the batch): f32 within 1e-4
     x max|ref| (measured 1.9e-5 of max|ref| 27: the fusion ratio, about
@@ -295,6 +296,7 @@ def test_tiny_matches_jax_f32(tiny):
     assert np.abs(one - got[:1]).max() > 1e-3 * np.abs(want).max()
 
 
+@torch.no_grad()  # a served forward (the model records a graph)
 def test_tiny_matches_jax_bf16(tiny):
     """The port's bf16 RMS error against its own f32 at most 1.5x the JAX
     bf16 model's against JAX f32 (measured 1.13x; the VQ's argmin can
@@ -324,6 +326,7 @@ def test_names_round_trip_through_jax_rules(tiny):
                                       err_msg=jax.tree_util.keystr(path))
 
 
+@torch.no_grad()  # a served forward (the model records a graph)
 def test_port_matches_torch_transcription():
     """TRIDCP (``tests/test_convert_ridcp.py``, the published architecture
     in torch) loaded into the port with ``strict=True`` (its

@@ -161,6 +161,7 @@ def test_routes(tiny):
     assert routes == [True, False, False, False]
 
 
+@torch.no_grad()  # a served forward (the model records a graph)
 @pytest.mark.parametrize("mode", ["interpret", "off"])
 def test_xrestormer_tiny_matches_jax_f32(tiny, mode):
     """At 64x128 the port's level-1 blocks take the fused route (K5, K4,
@@ -176,6 +177,7 @@ def test_xrestormer_tiny_matches_jax_f32(tiny, mode):
                                rtol=0)
 
 
+@torch.no_grad()  # a served forward (the model records a graph)
 @pytest.mark.parametrize("mode", ["interpret", "off"])
 def test_xrestormer_tiny_matches_jax_bf16(tiny, mode):
     """bf16 weights and input: the port's RMS error against its own f32 at
@@ -224,6 +226,7 @@ def test_from_jax_detects_xrestormer_before_restormer(tiny):
         _restormer_name("encoder_level1_0/spatial_attn/rel_height")
 
 
+@torch.no_grad()  # a served forward (the model records a graph)
 def test_matches_torch_transcription():
     """TXRestormer (tests/test_convert_xrestormer.py, the published
     architecture in torch with the reference's names; window 4, dim_head
