@@ -10,6 +10,10 @@ Phases, each printing one JSON line:
 1. device: card name and count, ``nvidia-smi`` name and power limit;
 2. build: every CUDA source built by nvcc in parallel, with the
    ``-Xptxas -v`` register and spill figures, one line per kernel;
+   tf32_tile: the split-TF32 core alone (``gemm_tile_tf32``: one 64-row
+   tile through the float32 K1's staging, split and ``wgmma``) at every
+   TF32 width, with and without the weights' low part, against a float64
+   product on the card (max error <= 1e-5 x max|ref|);
 3. kernels: each kernel wrapper against its plain PyTorch version on the
    same inputs at the serving path's shapes (a 552x1920 band of SwinIR-M;
    K2 there in table mode as the band serves it, and at window 7, N 49,
@@ -315,6 +319,20 @@ Phases, each printing one JSON line:
     launched.
 Every phase but the training ones (56-65) runs under ``torch.no_grad()``,
 as a served forward does.
+
+Float32 K3 and K1 run split TF32 on the tensor cores (three TF32 products
+a k step, two where the weights are bf16-rounded or the rows bf16); every
+other float32 kernel runs FP32 FMA. Each float32 kernel row prints its
+``f32_route`` (``split-tf32 xP``, ``fma``, or both for a composite such as
+``swin_block``), and its bound takes that route: P x FLOP / 495 TFLOP/s for
+the split-TF32 launches' FLOP, FLOP / 67 TFLOP/s for the rest, bytes /
+3.35 TB/s, the largest. A row of one float32 K3 or K1 launch also prints a
+float64 control (``f64_max_abs_err`` of the kernel and
+``plain_f64_max_abs_err`` of the float32 plain version against a float64
+conv or matmul on the card, over the top 32 output rows or first 8192
+tokens; printed, not gated) and passes only if ``repeatable`` (a second
+launch on the same operands gives the same bits). DiffBIR's float32 forms
+are checked on bf16-rounded weights, as its request holds them.
 Phases 20-22 are the lab path: each counts its kernel's launches over one
 call (6 ``swin_pair_block`` per chain, 1 ``conv3x3_pair`` per tail, 1
 ``lab_strip`` per call), with every count set to 0 just before.
@@ -343,7 +361,11 @@ from pathlib import Path
 import numpy as np
 
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # H100 SXM, dense
+PEAK_TF32 = 495e12  # the split-TF32 route's passes run at the TF32 rate
 PEAK_BYTES = 3.35e12
+# the kernels whose float32 path is split TF32 on the tensor cores (every
+# other float32 kernel runs FP32 FMA)
+SPLIT_TF32 = ("conv3x3", "token_linear")
 SRC = "image_restoration_agent_tpu_torch/csrc/"
 TPU = "image_restoration_agent_tpu/ops/"
 REPLACES = {
@@ -460,11 +482,160 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
     return a.elapsed_time(b) / reps
 
 
-def bound(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
-    t_ops = flops / PEAK_FLOPS[dtype]
+def bound(flops: float, nbytes: float, dtype: str, tf32_flops: float = 0.0,
+          passes: int = 3) -> tuple[float, str]:
+    """The least time for ``flops`` and ``nbytes``: bf16 at 989 TFLOP/s;
+    float32 on its route, ``tf32_flops`` of them split TF32 (``passes``
+    TF32 products each, at 495 TFLOP/s) and the rest FP32 FMA at 67; the
+    bytes at 3.35 TB/s."""
+    if dtype == "float32":
+        split = min(tf32_flops, flops)
+        t_ops = passes * split / PEAK_TF32 + (flops - split) / PEAK_FLOPS[
+            dtype]
+    else:
+        t_ops = flops / PEAK_FLOPS[dtype]
     t_mem = nbytes / PEAK_BYTES
     return (max(t_ops, t_mem) * 1e3,
             "operations" if t_ops >= t_mem else "bytes")
+
+
+@contextlib.contextmanager
+def split_launches(calls: list):
+    """Record the float32 K3 and K1 launches made inside the block: each
+    one's wrapper, FLOP and split-TF32 passes; the first one's arguments
+    and output too while it is the only one (the single-kernel rows' float64
+    control and repeat)."""
+    import importlib
+
+    import torch
+
+    from image_restoration_agent_tpu_torch.ops import kernels
+
+    tconv = importlib.import_module(
+        "image_restoration_agent_tpu_torch.ops.conv3x3")
+    tsb = importlib.import_module(
+        "image_restoration_agent_tpu_torch.ops.swin_block")
+    saved = (tconv._conv3x3_cuda, tsb._token_linear_cuda)
+
+    def record(name, fn, args, out):
+        if name == "conv3x3":
+            x, k = args[:2]
+            if k.w.dtype != torch.float32:
+                return
+            flops = 2 * x.numel() * 9 * k.cout
+            passes = kernels.split_passes(k.parts)
+        else:
+            a, w, b, ln = args[:4]
+            if w.dtype != torch.float32:
+                return
+            flops = 2 * a.numel() * b.shape[0]
+            passes = kernels.split_passes(
+                w.shape[2], a.dtype == torch.float32 or ln is not None)
+        if calls:
+            calls[0].update(args=None, out=None)
+        calls.append(dict(name=name, flops=flops, passes=passes, fn=fn,
+                          args=None if calls else args,
+                          out=None if calls else out))
+
+    def wrap(name, fn):
+        def run(*args):
+            out = fn(*args)
+            record(name, fn, args, out)
+            return out
+        return run
+
+    tconv._conv3x3_cuda = wrap("conv3x3", saved[0])
+    tsb._token_linear_cuda = wrap("token_linear", saved[1])
+    try:
+        yield calls
+    finally:
+        tconv._conv3x3_cuda, tsb._token_linear_cuda = saved
+
+
+def _ref64(call: dict):
+    """A float64 reference of one recorded float32 K3 or K1 launch, and the
+    float32 plain version's result on the same operands, each over a cut of
+    the output (K3: the top 32 rows; K1: the first 8192 rows) with the
+    launch's own values there: (kernel, plain, float64) tensors."""
+    import torch
+    import torch.nn.functional as F
+
+    from image_restoration_agent_tpu_torch.ops.conv3x3 import conv3x3_plain
+    from image_restoration_agent_tpu_torch.ops.swin_block import (
+        _dense, _gelu, _row_map, token_linear_plain)
+
+    def ln64(v, g, b):
+        mu = v.mean(-1, keepdim=True)
+        var = (v - mu).square().mean(-1, keepdim=True)
+        return (v - mu) / torch.sqrt(var + 1e-5) * g.double() + b.double()
+
+    out = call["out"].detach()
+    if call["name"] == "conv3x3":
+        x, k, act, res, roll, ln_pre = (
+            a.detach() if torch.is_tensor(a) else a for a in call["args"])
+        rows = min(32, x.shape[1])
+        xd = x.double()
+        if ln_pre is not None:
+            xd = ln64(xd, *ln_pre)
+        if roll:
+            xd = torch.roll(xd, (roll, roll), dims=(1, 2))
+        y = F.conv2d(xd[:, :rows + 1].permute(0, 3, 1, 2),
+                     k.hwio.double().permute(3, 2, 0, 1), padding=1)
+        y = y.permute(0, 2, 3, 1)[:, :rows]
+        if k.b is not None:
+            y = y + k.b.double()
+        if act is not None:
+            y = F.leaky_relu(y, {"lrelu": 0.01, "lrelu2": 0.2}[act])
+        if res is not None:
+            y = y + res[:, :rows].double()
+        plain = conv3x3_plain(x, k.hwio, k.b, act=act, res=res, roll=roll,
+                              ln_pre=ln_pre)
+        return out[:, :rows], plain[:, :rows], y
+    a, w, b, ln, gelu, res, geom, a_map, r_map, o_map, out_dtype = (
+        v.detach() if torch.is_tensor(v) else v for v in call["args"])
+    m, kk = a.shape
+    n = b.shape[0]
+    cut = min(m, 8192)
+    src = _row_map(m, a_map, geom, a.device)[:cut]
+    dst = _row_map(m, o_map, geom, a.device)[:cut]
+    y = a[src].double()
+    if ln is not None:
+        y = ln64(y, *ln)
+    y = _gelu(y @ _dense(w, kk, n).double() + b.double(), gelu)
+    if res is not None:
+        y = y + res[_row_map(m, r_map, geom, a.device)[:cut]].double()
+    plain = token_linear_plain(a, w, b, ln=ln, gelu=gelu, res=res, geom=geom,
+                               a_map=a_map, r_map=r_map, o_map=o_map,
+                               out_dtype=out_dtype)
+    return out[dst], plain[dst], y
+
+
+def split_route(name: str, calls: list, flops: float) -> dict:
+    """A float32 row's route from the launches it made: ``split-tf32 xP``
+    (P passes), ``fma``, or both; and for a single K3 or K1 launch the
+    float64 control (the kernel's and the plain f32 version's max error
+    against a float64 product on the card, printed, not gated) and
+    ``repeatable`` (a second launch on the same operands gives the same
+    bits)."""
+    import torch
+
+    tf32 = sum(c["flops"] for c in calls)
+    passes = max((c["passes"] for c in calls), default=3)
+    route = "fma" if not calls else f"split-tf32 x{passes}" \
+        if tf32 >= flops else f"split-tf32 x{passes} + fma"
+    info = dict(f32_route=route, tf32_flops=tf32, tf32_passes=passes)
+    if name in SPLIT_TF32 and len(calls) == 1 and calls[0]["out"] is not None:
+        c = calls[0]
+        with torch.no_grad():
+            got, plain, ref = _ref64(c)
+            info["f64_max_abs_err"] = float((got.double() - ref).abs().max())
+            info["plain_f64_max_abs_err"] = float(
+                (plain.double() - ref).abs().max())
+            again = c["fn"](*c["args"])
+            info["repeatable"] = bool(torch.equal(again, c["out"]))
+        del got, plain, ref, again
+    calls.clear()
+    return info
 
 
 def range_psnr(a, ref) -> float:
@@ -487,7 +658,8 @@ def check_case(cs: dict, dtype) -> dict:
     import torch
 
     dn = str(dtype).split(".")[-1]
-    got = cs["kernel"]()
+    with split_launches([]) as calls:
+        got = cs["kernel"]()
     torch.cuda.synchronize()
     want = cs["plain"]().float()
     d = (got.float() - want).abs()
@@ -518,6 +690,8 @@ def check_case(cs: dict, dtype) -> dict:
                        and err <= row["tolerance"] and finite)
         del dc_
     del got, want, d
+    if dtype == torch.float32:
+        row.update(split_route(cs["name"], calls, cs["flops"]))
     for key, fn in cs.get("extra_ms", {}).items():
         row[key] = cuda_ms(fn, cs["reps"])
     row.update(cs.get("extra", {}))
@@ -526,10 +700,51 @@ def check_case(cs: dict, dtype) -> dict:
     row["plain_ms"] = cuda_ms(cs["plain"], 2)
     row["library_ms"] = (cuda_ms(cs["library"], cs["reps"])
                          if cs["library"] is not None else None)
-    row["bound_ms"], row["bound_by"] = bound(cs["flops"], cs["nbytes"], dn)
+    row["bound_ms"], row["bound_by"] = bound(
+        cs["flops"], cs["nbytes"], dn, row.get("tf32_flops", 0.0),
+        row.get("tf32_passes", 3))
     emit({"phase": "kernel", **row})
     torch.cuda.empty_cache()
     return row
+
+
+def tf32_tile_check(seed: int = 5) -> dict:
+    """The split-TF32 core alone, as ``gemm_tile`` checks the bf16 one: one
+    64-row tile through ``gemm_tile_tf32`` (the float32 K1's own staging,
+    ldmatrix, split and wgmma) at every TF32 width, K 8 and 32, float32
+    weights (three products) and bf16-rounded ones (two), against a float64
+    product of the same float32 values on the card: max error <= 1e-5 x
+    max|ref| (a wrong fragment layout or descriptor gives errors of the
+    order of the values; plain TF32 about 1e-3)."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.ops import kernels
+    from image_restoration_agent_tpu_torch.ops.swin_block import (
+        gemm_tile_tf32)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cases, worst = [], 0.0
+    for n in kernels.TF32_WIDTHS:
+        for k in (8, 32):
+            for rounded in (False, True):
+                a = torch.randn(64, k, generator=gen, device="cuda")
+                w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
+                if rounded:
+                    w = w.to(torch.bfloat16).float()
+                got = gemm_tile_tf32(a, w)
+                torch.cuda.synchronize()
+                ref = a.double() @ w.double()
+                rel = float((got.double() - ref).abs().max()
+                            / ref.abs().max())
+                plain_tf32 = float(
+                    (kernels.tf32_round(a).double()
+                     @ kernels.tf32_round(w).double() - ref).abs().max()
+                    / ref.abs().max())
+                worst = max(worst, rel)
+                cases.append(dict(n=n, k=k, wl=not rounded, max_rel_err=rel,
+                                  plain_tf32_rel_err=plain_tf32))
+    return {"phase": "tf32_tile", "cases": cases, "max_rel_err": worst,
+            "tolerance": 1e-5, "pass": worst <= 1e-5}
 
 
 def kernel_checks(shape, seed: int = 0) -> list[dict]:
@@ -753,12 +968,14 @@ def kernel_checks(shape, seed: int = 0) -> list[dict]:
 def conv_case(randn, dtype, path: str, variant: str, cin: int, cout: int,
               h: int, w: int, *, bias: bool, res: bool = False,
               act: str | None = None, roll: int = 0, reps: int = 5,
-              b: int = 1, ln: bool = False) -> dict:
+              b: int = 1, ln: bool = False, w_bf16: bool = False) -> dict:
     """One K3 case on a (b, h, w, cin) input: the kernel against
     ``conv3x3_plain`` with the epilogues the caller's conv uses (a bias, a
     residual, an activation, a folded roll, an input LayerNorm),
     ``F.conv2d`` beside it where one library call computes the same
-    function (no epilogue but the bias)."""
+    function (no epilogue but the bias). ``w_bf16``: bf16-rounded weights,
+    as a path that runs float32 on bf16 weights holds them (DiffBIR's
+    served request: the split-TF32 route's two-product form)."""
     import torch
 
     from image_restoration_agent_tpu_torch.ops.conv3x3 import (
@@ -768,10 +985,14 @@ def conv_case(randn, dtype, path: str, variant: str, cin: int, cout: int,
     x32 = randn(b, h, w, cin)
     x = x32.to(dtype)
     wk = randn(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
+    if w_bf16:
+        wk = wk.to(torch.bfloat16).float()
     bv = randn(cout, scale=0.1) if bias else None
     r32 = randn(b, h, w, cout) if res else None
     r = r32.to(dtype) if res else None
-    kf = conv3x3_weights(wk, bv, dtype)
+    # the form made as the model makes it: from bf16 parameters where the
+    # path holds bf16 weights
+    kf = conv3x3_weights(wk.to(torch.bfloat16) if w_bf16 else wk, bv, dtype)
     kw = dict(act=act, roll=roll, ln_pre=(1 + randn(cin, scale=0.1),
                                           randn(cin, scale=0.1))
               if ln else None)
@@ -2460,7 +2681,7 @@ def swin_partition_cases(key, name: str, path: str, dtype, randn,
 
 
 def form_cases(path: str, forms: dict, dtype, randn, gen, quick: bool,
-               reps: int = 10) -> list[dict]:
+               reps: int = 10, w_bf16: bool = False) -> list[dict]:
     """The check cases of one path's call forms (at 16x128, or a two by
     four window canvas, with --quick): K3 through ``conv_case``, K4 and K5
     through ``restormer_block_cases`` at the block's batch, the Swin
@@ -2493,7 +2714,7 @@ def form_cases(path: str, forms: dict, dtype, randn, gen, quick: bool,
             randn, dtype, path, f"{path} {name} {size} {cin}->{cout}"
             + (" res" if res else "") + (" ln_pre" if ln else ""), cin,
             cout, h, w, bias=bias, res=res, act=act, roll=roll, ln=ln,
-            reps=reps, b=b))
+            reps=reps, b=b, w_bf16=w_bf16))
     return cases + restormer_block_cases(blocks, dtype, randn, gen, path)
 
 
@@ -3711,7 +3932,8 @@ def diffbir_kernel_checks(quick: bool, seed: int = 37) -> list[dict]:
     """K3 and ``swin_block`` (K1, K2, K1 and ``mlp_block``'s two K1)
     against their plain versions at every call form of the 256 px DiffBIR
     request (``diffbir_kernel_shapes``; small shapes with --quick), each in
-    the dtype the bf16 request runs it in. Inputs drawn on the card."""
+    the dtype the bf16 request runs it in, the float32 forms on bf16-rounded
+    weights as the request holds them. Inputs drawn on the card."""
     import torch
 
     dev = torch.device("cuda")
@@ -3725,7 +3947,9 @@ def diffbir_kernel_checks(quick: bool, seed: int = 37) -> list[dict]:
     for dtype in (torch.float32, torch.bfloat16):
         sub = {k: v for k, v in forms.items()
                if dtype in dtypes[k].values()}
-        cases = form_cases("diffbir", sub, dtype, randn, gen, quick, reps=3)
+        # the float32 stages run on the engine's bf16-rounded weights
+        cases = form_cases("diffbir", sub, dtype, randn, gen, quick, reps=3,
+                           w_bf16=dtype == torch.float32)
         rows += [check_case(cs, dtype) for cs in cases]
         del cases
     return rows
@@ -3880,7 +4104,7 @@ def diffbir_path(eng, card: str) -> dict:
             "launches": launches, "expected_per_request": per_req,
             "other_launches": others, "call_forms": len(seen),
             "unchecked_forms": unchecked, "profile": profile,
-            "k3_f32_share_of_busy": _share(profile, r"conv3x3_kernel") / busy,
+            "k3_f32_share_of_busy": _share(profile, r"conv3x3_tf32") / busy,
             "k3_bf16_share_of_busy": _share(profile, r"conv3x3_mma") / busy,
             "super_resolution_box": sr_box, "unregistered": missing,
             "card": card, "pass": bool(ok and not missing)}
@@ -5595,7 +5819,8 @@ def train_case(name: str, variant: str, make, flops: float, nbytes: float,
     import torch
 
     leaves, kfn, pfn, *grad_fns = make()
-    out_k = kfn(*leaves)
+    with split_launches([]) as calls:
+        out_k = kfn(*leaves)
     out_p = pfn(*leaves)
     err = float((out_k - out_p).detach().abs().max())
     tol = 1e-4 * float(out_p.detach().abs().max())
@@ -5618,7 +5843,9 @@ def train_case(name: str, variant: str, make, flops: float, nbytes: float,
                max_abs_err=err, tolerance=tol, grad_max_rel_err=gerr,
                grad_tolerance=1e-5, leaves=len(leaves),
                grad_of="front" if grad_fns else "output")
-    row["pass"] = err <= tol and gerr <= 1e-5 and finite
+    row.update(split_route(name, calls, flops))
+    row["pass"] = (err <= tol and gerr <= 1e-5 and finite
+                   and row.get("repeatable", True))
     with torch.no_grad():
         row["ms"] = cuda_ms(lambda: kfn(*leaves), reps)
         row["plain_ms"] = cuda_ms(lambda: pfn(*leaves), 2)
@@ -5628,7 +5855,8 @@ def train_case(name: str, variant: str, make, flops: float, nbytes: float,
         outs_k, leaves, cot, retain_graph=True, allow_unused=True), reps)
     row["plain_backward_ms"] = cuda_ms(lambda: torch.autograd.grad(
         outs_p, leaves, cot, retain_graph=True, allow_unused=True), 2)
-    row["bound_ms"], row["bound_by"] = bound(flops, nbytes, "float32")
+    row["bound_ms"], row["bound_by"] = bound(
+        flops, nbytes, "float32", row["tf32_flops"], row["tf32_passes"])
     emit({"phase": "kernel", **row})
     del out_k, out_p, outs_k, outs_p, gk, gp
     torch.cuda.empty_cache()
@@ -6569,6 +6797,7 @@ def main() -> int:
             emit({"phase": name, "phase_seconds": secs})
         return out
 
+    phase("tf32_tile", tf32_tile_check)
     rows = phase("kernels", kernel_checks, shape) or []
     rows += phase("restormer_kernels", restormer_kernel_checks,
                   args.quick) or []
@@ -6683,7 +6912,7 @@ def main() -> int:
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        **{k: r[k] for k in REPLACED_MS if k in r}}
+        **{k: r[k] for k in (*REPLACED_MS, "f32_route") if k in r}}
         for r in rows],
         # every path's launches by kernel, each read just after the path
         # ran (a row's "launches" is its own path's)

@@ -55,6 +55,15 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
                "l"(gmem));
 }
 
+// 16 bytes global -> shared (both addresses 16-byte aligned), zero-filled
+// when `bytes` is 0
+__device__ __forceinline__ void cp_async16z(void* smem, const void* gmem,
+                                            int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(bytes));
+}
+
 // one 4-byte global -> shared copy (both addresses 4-byte aligned)
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -79,6 +88,20 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// the same with a run-time count n of 0-4
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  if (n <= 0)
+    cp_async_wait<0>();
+  else if (n == 1)
+    cp_async_wait<1>();
+  else if (n == 2)
+    cp_async_wait<2>();
+  else if (n == 3)
+    cp_async_wait<3>();
+  else
+    cp_async_wait<4>();
 }
 
 // one global -> shared copy of `w` bytes (16, 8 or 4; both addresses

@@ -256,14 +256,6 @@ __host__ __device__ inline QLay q_layout(int cinp) {
 // Q_SLOT bytes)
 __host__ __device__ inline int q_ks2(int no) { return no <= 16 ? 4 : 2; }
 
-// 16 bytes global -> shared, zero-filled when `bytes` is 0
-__device__ __forceinline__ void cp_async16z(void* smem, const void* gmem,
-                                            int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(bytes));
-}
-
 // NO: Cout padded to 8 (the conv2 product's width)
 template <int NO>
 __global__ void __launch_bounds__(Q_NT, 1) conv3x3_pair_mma_kernel(

@@ -1,6 +1,7 @@
-// The Hopper GEMM core shared by K1 (swin_block.cu: token_linear_mma_kernel)
-// and K3 (conv3x3.cu: conv3x3_mma_kernel): device-side helpers only, inline
-// PTX for sm_90a (no CUTLASS collectives; nothing here launches).
+// The Hopper GEMM core shared by K1 (swin_block.cu: token_linear_mma_kernel,
+// token_linear_tf32_kernel) and K3 (conv3x3.cu: conv3x3_mma_kernel,
+// conv3x3_tf32_kernel): device-side helpers only, inline PTX for sm_90a (no
+// CUTLASS collectives; nothing here launches).
 //
 //   - wgmma.mma_async m64nNk16, bf16 x bf16 -> f32, B from shared memory
 //     through a matrix descriptor, A either from registers (wgmma_rs: each
@@ -31,6 +32,22 @@
 //     fences that order them against the async proxy (fence.mbarrier_init,
 //     fence.proxy.async: generic stores read by wgmma through a descriptor
 //     need the latter before the barrier that publishes them).
+//   - The split-TF32 core of the float32 kernels (K3's conv3x3_tf32_kernel,
+//     K1's token_linear_tf32_kernel): wgmma m64nNk8 .f32.tf32.tf32, A from
+//     registers, B by descriptor. TF32 takes no transpose, so both operands
+//     are K-major. A float32 x is split in registers as xh = rna_tf32(x),
+//     xl = rna_tf32(x - xh); the weight w arrives split as wh = rna_tf32(w)
+//     and wl = w - wh (exact in float32, read by the tensor cores as its top
+//     19 bits), and a product is xl wh + xh wl + xh wh into one float32
+//     accumulator, the small products issued first: each term is off by
+//     about 2^-21 relative, a few float32 ulps, where plain TF32 (xh wh
+//     alone) keeps about 3 decimal digits. wl is absent (and its product
+//     skipped) where the weights are bf16-rounded. B's packed order is the
+//     bf16 one with 4 k (16 bytes) to a core-matrix row: a k8 step is two
+//     k quads (LBO = NS x 16 bytes apart) of NS/8 core matrices of 8
+//     columns x 4 k (128 bytes, SBO). A's fragment (rows g, g + 8, k t, t
+//     + 4 of the warp's 16 x 8) is ldmatrix.x4 of 16-byte rows of 4 floats:
+//     the b16 matrices' 32-bit words are the tf32 fragment's elements.
 //
 // Accumulator layout of m64nN (per thread, N/2 floats): warp w of the
 // warpgroup holds rows 16 w + g and 16 w + g + 8 (g = lane / 4); for each
@@ -49,6 +66,12 @@
 #define IRK_GEMM_WIDTHS_192(X) \
   X(8) X(16) X(24) X(32) X(48) X(64) X(96) X(128) X(184) X(192)
 #define IRK_GEMM_WIDTHS(X) IRK_GEMM_WIDTHS_192(X) X(256)
+// the N widths of the split-TF32 kernels (ops/kernels.py:TF32_WIDTHS): a
+// float32 slice stops at 128 (its A fragments, hi and lo, take the
+// registers a wider accumulator would need); K1's 512-thread blocks have
+// 128 registers a thread, so its slices stop at 96
+#define IRK_TF32_WIDTHS_96(X) X(8) X(16) X(32) X(48) X(64) X(96)
+#define IRK_TF32_WIDTHS(X) IRK_TF32_WIDTHS_96(X) X(128)
 
 namespace irk {
 
@@ -775,6 +798,187 @@ __device__ __forceinline__ void wgmma_ss<256>(float* d, uint64_t a, uint64_t b,
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(a), "l"(b), "r"(acc));
+}
+
+// ---------------------------------------------------------------------------
+// split TF32
+
+// x rounded to TF32 (10 mantissa bits; nearest, ties away from zero), as a
+// float32 bit pattern with the low 13 bits zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r & 0xFFFFE000u;
+}
+
+// a fragment of float32 bit patterns (in raw) split into its TF32 high and
+// low parts: hi = rna(x), lo = rna(x - hi) (x - hi is exact in float32)
+__device__ __forceinline__ void split_tf32(const uint32_t (&raw)[4],
+                                           uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float x = __uint_as_float(raw[i]);
+    hi[i] = tf32_rna(x);
+    lo[i] = tf32_rna(x - __uint_as_float(hi[i]));
+  }
+}
+
+// d (+)= a x b: a 64 x 8 TF32 fragment from registers, b an 8 x N
+// descriptor (K-major, packed as the note at the top says); acc 0
+// overwrites d
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t (&a)[4],
+                                           uint64_t b, int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<8>(float* d, const uint32_t (&a)[4],
+                                            uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<16>(float* d, const uint32_t (&a)[4],
+                                            uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<32>(float* d, const uint32_t (&a)[4],
+                                            uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<48>(float* d, const uint32_t (&a)[4],
+                                            uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float* d, const uint32_t (&a)[4],
+                                            uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<96>(float* d, const uint32_t (&a)[4],
+                                            uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<128>(float* d, const uint32_t (&a)[4],
+                                            uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+// One k8 step of the split product: d += xl wh (+ xh wl) + xh wh, A's hi
+// and lo fragments from split_tf32, bh and bl the step's descriptors of
+// wh and wl (bl unused when !wlo), alo false where x is TF32-exact (bf16
+// activations: xl = 0). The caller fences and commits.
+template <int N>
+__device__ __forceinline__ void wgmma_split(float* d, const uint32_t (&hi)[4],
+                                            const uint32_t (&lo)[4],
+                                            uint64_t bh, uint64_t bl,
+                                            bool alo, bool wlo, int acc) {
+  if (alo) {
+    wgmma_tf32<N>(d, lo, bh, acc);
+    acc = 1;
+  }
+  if (wlo) {
+    wgmma_tf32<N>(d, hi, bl, acc);
+    acc = 1;
+  }
+  wgmma_tf32<N>(d, hi, bh, acc);
 }
 
 // ---------------------------------------------------------------------------

@@ -5,10 +5,12 @@
 // H100, and what is left for later work.
 //
 // K1 token_linear: out[o(t), :] = epi(pro(A[g(t), :]) @ W + bias)
-//   - float32: one 64x64 output tile per block, K staged 32 at a time in
-//     shared memory, 4x4 outputs per thread with FP32 FMA; bfloat16:
-//     wgmma on the Hopper tensor cores (sm90_gemm.cuh), persistent
-//     warp-specialised blocks, see the note above token_linear_mma_kernel;
+//   - float32: the split-TF32 product on the Hopper tensor cores
+//     (sm90_gemm.cuh: split_tf32, wgmma_split), float32 accuracy at two or
+//     three TF32 passes, any K, see the note above
+//     token_linear_tf32_kernel; bfloat16: wgmma on the Hopper tensor cores
+//     (sm90_gemm.cuh), persistent warp-specialised blocks, see the note
+//     above token_linear_mma_kernel;
 //   - prologue: optional LayerNorm of each row (float32 two-pass
 //     statistics, eps 1e-5), the operand rounded to the weight dtype;
 //     optional gather g of window-order token t from the rolled canvas;
@@ -45,11 +47,6 @@
 using namespace irk;
 
 namespace {
-
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 32;
-constexpr int NT = 256;
 
 struct Geom {
   int B, H, W, ws, dc;
@@ -98,127 +95,6 @@ __device__ __forceinline__ int map_row32(int t, int mode, const Geom& g) {
     j = pmod(j - g.dc, g.W);
   }
   return (b * g.H + i) * g.W + j;
-}
-
-// LayerNorm statistics of the block's BM rows (float32, two passes, eps
-// 1e-5), one warp per row; rows with srow < 0 are past the end.
-__device__ __forceinline__ void row_stats(const void* __restrict__ A,
-                                          int a_dt, const long long* srow,
-                                          int K, float* mean_s,
-                                          float* rstd_s) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < BM; r += NT / 32) {
-    const long long row = srow[r];
-    float mu = 0.f, rs = 0.f;
-    if (row >= 0) {  // uniform across the warp
-      float s = 0.f;
-      for (int k = lane; k < K; k += 32) s += load_any(A, row * K + k, a_dt);
-      mu = warp_sum(s) / K;
-      float v = 0.f;
-      for (int k = lane; k < K; k += 32) {
-        const float d = load_any(A, row * K + k, a_dt) - mu;
-        v += d * d;
-      }
-      rs = rsqrtf(warp_sum(v) / K + 1e-5f);
-    }
-    if (lane == 0) {
-      mean_s[r] = mu;
-      rstd_s[r] = rs;
-    }
-  }
-}
-
-// float32: FP32 FMA, 4x4 outputs per thread
-__global__ void __launch_bounds__(NT) token_linear_kernel(
-    const void* __restrict__ A, int a_dt, const float* __restrict__ Wt,
-    const float* __restrict__ bias, const void* __restrict__ R, int r_dt,
-    void* __restrict__ O, int o_dt, const float* __restrict__ ln_g,
-    const float* __restrict__ ln_b, long long M, int K, int N, int gelu,
-    Geom g, int a_map, int r_map, int o_map) {
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Bs[BK][BN];
-  __shared__ long long srow[BM];
-  __shared__ float mean_s[BM];
-  __shared__ float rstd_s[BM];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int n_tiles = (N + BN - 1) / BN;
-  const long long m0 = static_cast<long long>(blockIdx.x / n_tiles) * BM;
-  const int n0 = static_cast<int>(blockIdx.x % n_tiles) * BN;
-
-  for (int r = tid; r < BM; r += NT) {
-    const long long t = m0 + r;
-    srow[r] = t < M ? map_row(t, a_map, g) : -1;
-  }
-  __syncthreads();
-
-  if (ln_g != nullptr) {
-    row_stats(A, a_dt, srow, K, mean_s, rstd_s);
-    __syncthreads();
-  }
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int e = tid; e < BM * BK; e += NT) {
-      const int r = e / BK, k = e % BK;
-      const long long row = srow[r];
-      float v = 0.f;
-      if (row >= 0 && k0 + k < K) {
-        v = load_any(A, row * K + k0 + k, a_dt);
-        if (ln_g != nullptr)
-          v = (v - mean_s[r]) * rstd_s[r] * ln_g[k0 + k] + ln_b[k0 + k];
-      }
-      As[k][r] = v;
-    }
-    for (int e = tid; e < BK * BN; e += NT) {
-      const int k = e / BN, c = e % BN;
-      float v = 0.f;
-      if (k0 + k < K && n0 + c < N)
-        v = Wt[static_cast<long long>(k0 + k) * N + n0 + c];
-      Bs[k][c] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long t = m0 + ty * 4 + i;
-    if (t >= M) continue;
-    const long long orow = map_row(t, o_map, g);
-    const long long rrow = R != nullptr ? map_row(t, r_map, g) : 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = n0 + tx * 4 + j;
-      if (c >= N) continue;
-      float v = acc[i][j] + bias[c];
-      if (gelu == 1) {
-        v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-      } else if (gelu == 2) {
-        v = 0.5f * v *
-            (1.f + tanhf(0.7978845608f * (v + 0.044715f * v * v * v)));
-      }
-      if (R != nullptr) v += load_any(R, rrow * N + c, r_dt);
-      store_any(O, orow * N + c, o_dt, v);
-    }
-  }
 }
 
 // bf16 on Hopper: wgmma (sm90_gemm.cuh), persistent and warp-specialised.
@@ -755,6 +631,332 @@ __global__ void __launch_bounds__(L_NT, 1) token_linear_mma_kernel(
       }
     }
   }
+}
+
+// float32 on Hopper: the split-TF32 core (sm90_gemm.cuh: split_tf32,
+// wgmma_split) in K3's float32 ring (conv3x3.cu: conv3x3_tf32_kernel) rather
+// than the bf16 kernel's persistent walk, whose weight slice stays in shared
+// memory: split float32 weights (wh and wl, 8 bytes a value) leave room for
+// a resident slice of 96 columns beside two A stages at K 180, 48 at K 360
+// and 16 at K 1024.
+//   - Block: four warpgroups, a tile of 256 rows (one m64 accumulator each)
+//     x one slice of NS <= 96 output columns (the weight streamed through
+//     shared memory is read once per 256 rows); a row tile's slices are
+//     neighbours in the grid, so its rows come from L2 after the first.
+//   - K in stages of 32 (any K: the last stage zero-filled past K), a ring
+//     of S stages (2-6 by shared memory): each row gathered through the row
+//     map into a 128-byte-swizzled K-major tile of 256 x 32 floats (16-byte
+//     chunk c of row r at c ^ (r % 8)) by 16-byte cp.async (float32 rows,
+//     K % 4 == 0, 16-byte aligned), through registers otherwise (bf16 rows,
+//     widened exactly; a ragged K), and the stage's weights by one bulk
+//     copy of the packed form (kernel_matrix: [slice][K/32][part][k
+//     quad][NS/8][8][4]).
+//   - LayerNorm at any K: token_ln_stats_kernel takes each row's float32
+//     two-pass statistics once (not once per slice), and the consumer
+//     normalizes its A fragments in registers after ldmatrix, before the
+//     split (the scale and shift of its two k columns a k8 step).
+//   - Products: per k8 step ldmatrix.x4 of the warp's 16 rows, split into
+//     TF32 hi and lo in registers, 2 or 3 wgmma m64nNSk8 (xl wh, xh wl, xh
+//     wh; xl is 0 for bf16 rows without LayerNorm, and skipped).
+//   - Epilogue from the accumulators, the bf16 kernel's: bias, erf/tanh
+//     GELU, the residual through r_map, 16- or 8-byte stores of four
+//     columns through o_map.
+// What bounds it: the tensor cores at 2-3 TF32 passes (3 x FLOP / 495
+// TFLOP/s); at K 180 (SwinIR-M) a block runs 6 stages, so its set-up (row
+// maps, the ring's fill) and its epilogue are a large share, and the
+// streamed weights and rows (about 0.9 KB a row) ask L2 for about as many
+// bytes a cycle as the products take.
+constexpr int T_CT = 512;   // four warpgroups
+constexpr int T_TM = 256;   // rows a block
+constexpr int T_KC = 32;    // k a stage
+// barriers (128), the row maps ([3][T_TM] long long), the slice's bias
+// (128 floats); then S A and S weight stages
+constexpr int T_FIXED = 7168;
+constexpr int T_A_BYTES = T_TM * T_KC * 4;
+static_assert(128 + 3 * T_TM * 8 + 128 * 4 <= T_FIXED, "fixed shared memory");
+
+constexpr size_t t_smem_bytes(int ns, int parts, int stages) {
+  return T_FIXED + static_cast<size_t>(stages) *
+                       (T_A_BYTES + T_KC * ns * 4 * parts);
+}
+
+// LayerNorm statistics (mean, rstd) of each of A's M rows over K: float32
+// two passes (the second from L1), eps 1e-5; one warp a row
+__global__ void __launch_bounds__(256) token_ln_stats_kernel(
+    const void* __restrict__ A, int a_dt, long long M, int K,
+    float2* __restrict__ stats) {
+  const int lane = threadIdx.x % 32;
+  const long long nw = static_cast<long long>(gridDim.x) * 8;
+  for (long long r = (blockIdx.x * 256LL + threadIdx.x) / 32; r < M;
+       r += nw) {
+    float s = 0.f;
+    for (int k = lane; k < K; k += 32) s += load_any(A, r * K + k, a_dt);
+    const float mu = warp_sum(s) / K;
+    float v = 0.f;
+    for (int k = lane; k < K; k += 32) {
+      const float d = load_any(A, r * K + k, a_dt) - mu;
+      v += d * d;
+    }
+    const float rs = rsqrtf(warp_sum(v) / K + 1e-5f);
+    if (lane == 0) stats[r] = make_float2(mu, rs);
+  }
+}
+
+template <int NS>
+__global__ void __launch_bounds__(T_CT, 1) token_linear_tf32_kernel(
+    const void* __restrict__ A, int a_dt, const float* __restrict__ Wp,
+    const float* __restrict__ bias, const void* __restrict__ R, int r_dt,
+    void* __restrict__ O, int o_dt, const float* __restrict__ ln_g,
+    const float* __restrict__ ln_b, const float2* __restrict__ stats,
+    long long M, int K, int N, int gelu, Geom g, int a_map, int r_map,
+    int o_map, int nslices, int S, int parts, int vec) {
+  const int wstage = T_KC * NS * 4 * parts;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  long long* rows_s = reinterpret_cast<long long*>(smem + 128);  // [3][T_TM]
+  float* bias_s = reinterpret_cast<float*>(rows_s + 3 * T_TM);  // [128]
+  unsigned char* As = smem + T_FIXED;
+  unsigned char* Wst = As + S * T_A_BYTES;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wg = warp / 4, wq = warp % 4;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int sl = static_cast<int>(blockIdx.x % nslices);
+  const long long m0 = static_cast<long long>(blockIdx.x / nslices) * T_TM;
+  const int n0 = sl * NS;
+  const int nk = (K + T_KC - 1) / T_KC;
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(&bars[s], 1);
+    fence_barrier_init();
+  }
+  for (int r = tid; r < T_TM; r += T_CT) {
+    const long long t = m0 + r;
+    const bool in = t < M;
+    rows_s[r] = in ? map_row(t, a_map, g) : -1;
+    rows_s[T_TM + r] = in ? map_row(t, o_map, g) : -1;
+    rows_s[2 * T_TM + r] = in && R != nullptr ? map_row(t, r_map, g) : 0;
+  }
+  for (int e = tid; e < 128; e += T_CT)
+    bias_s[e] = e < NS && n0 + e < N ? bias[n0 + e] : 0.f;
+  __syncthreads();
+
+  const float* wsl = Wp + static_cast<long long>(sl) * nk * (wstage / 4);
+  auto load_w = [&](int j) {  // thread 0: stage j's weights
+    const int st = j % S;
+    mbar_arrive_expect_tx(&bars[st], wstage);
+    bulk_g2s(Wst + st * wstage, wsl + static_cast<long long>(j) * (wstage / 4),
+             wstage, &bars[st]);
+  };
+  const int pre = S - 1 < nk ? S - 1 : nk;
+  if (tid == 0)
+    for (int j = 0; j < pre; ++j) load_w(j);
+
+  // stage j's A: 16-byte chunks (row e >> 3, k 32 j + 4 (e & 7) ..)
+  auto stage_a = [&](int j) {
+    unsigned char* as = As + (j % S) * T_A_BYTES;
+    for (int e = tid; e < T_TM * 8; e += T_CT) {
+      const int r = e >> 3, q = e & 7;
+      unsigned char* dst = as + r * 128 + ((q ^ (r & 7)) << 4);
+      const long long s = rows_s[r];
+      const int k = j * T_KC + 4 * q;
+      if (vec) {
+        const bool in = s >= 0 && k < K;
+        cp_async16z(dst, in ? static_cast<const float*>(A) + s * K + k : A,
+                    in ? 16 : 0);
+        continue;
+      }
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      if (s >= 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (k + i < K) v[i] = load_any(A, s * K + k + i, a_dt);
+      }
+      *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  };
+  for (int j = 0; j < S - 1; ++j) {  // S - 1 groups, empty past the end
+    if (j < nk) stage_a(j);
+    cp_async_commit();
+  }
+
+  // this lane's ldmatrix row address of each k8 step of a stage, and with
+  // LayerNorm its two rows' statistics (rows g and g + 8 of the fragment)
+  uint32_t aoff[4];
+  float mu[2] = {0.f, 0.f}, rs[2] = {0.f, 0.f};
+  {
+    const int r = 64 * wg + 16 * wq + frag_row(lane);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      aoff[ks] = r * 128 + (((2 * ks + frag_khalf(lane)) ^ (r & 7)) << 4);
+    if (ln_g != nullptr)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long s = rows_s[64 * wg + 16 * wq + gq + 8 * h];
+        if (s >= 0) {
+          const float2 st = stats[s];
+          mu[h] = st.x;
+          rs[h] = st.y;
+        }
+      }
+  }
+  float acc[NS / 2];
+  uint32_t hi[4][4], lo[4][4];
+  const bool alo = a_dt != kBF16 || ln_g != nullptr;
+  const bool wlo = parts == 2;
+  for (int j = 0; j < nk; ++j) {
+    const int st = j % S;
+    // the LayerNorm scale and shift of this lane's k columns (t, t + 4 of
+    // each k8 step), loaded before the barrier wait
+    float lg[4][2], lb[4][2];
+    if (ln_g != nullptr)
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k = j * T_KC + 8 * ks + tq + 4 * h;
+          lg[ks][h] = k < K ? __ldg(ln_g + k) : 0.f;
+          lb[ks][h] = k < K ? __ldg(ln_b + k) : 0.f;
+        }
+    cp_async_wait_upto(S - 2);
+    __syncthreads();  // stage j's rows visible; stage j - 1 free
+    mbar_wait(&bars[st], (j / S) & 1);
+    const unsigned char* as = As + st * T_A_BYTES;
+    const unsigned char* wsg = Wst + st * wstage;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      uint32_t raw[4];
+      ldmatrix_x4(raw, as + aoff[ks]);
+      if (ln_g != nullptr)  // raw[i]: row g + 8 (i & 1), k t + 4 (i >> 1)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          raw[i] = __float_as_uint(
+              (__uint_as_float(raw[i]) - mu[i & 1]) * rs[i & 1] *
+                  lg[ks][i >> 1] +
+              lb[ks][i >> 1]);
+      split_tf32(raw, hi[ks], lo[ks]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_split<NS>(acc, hi[ks], lo[ks], b_desc(wsg + ks * NS * 32, NS * 16),
+                      b_desc(wsg + (4 + ks) * NS * 32, NS * 16), alo, wlo,
+                      j > 0 || ks > 0);
+    wgmma_commit();
+    const int jn = j + S - 1;  // refill the stage j - 1 used
+    if (jn < nk) {
+      if (tid == 0) load_w(jn);
+      stage_a(jn);
+    }
+    cp_async_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(hi);
+    fence_regs(lo);
+  }
+
+  // Lanes t and t ^ 1 of a quad swap halves of column groups j and j + 1,
+  // so each holds 4 consecutive columns (as the bf16 kernel's epilogue)
+  const bool odd = tq & 1;
+  const bool vecn = (N & 3) == 0;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = 64 * wg + 16 * wq + gq + 8 * half;
+    const long long orow = rows_s[T_TM + r];
+    if (orow < 0) continue;
+    const long long ob = orow * N;
+    const long long rb = rows_s[2 * T_TM + r] * N;
+#pragma unroll
+    for (int j = 0; j + 1 < NS / 8; j += 2) {
+      const float x0 = acc[4 * j + 2 * half], x1 = acc[4 * j + 2 * half + 1];
+      const float y0 = acc[4 * j + 4 + 2 * half],
+                  y1 = acc[4 * j + 5 + 2 * half];
+      const float s0 = __shfl_xor_sync(0xffffffffu, odd ? x0 : y0, 1);
+      const float s1 = __shfl_xor_sync(0xffffffffu, odd ? x1 : y1, 1);
+      float v[4] = {odd ? s0 : x0, odd ? s1 : x1, odd ? y0 : s0,
+                    odd ? y1 : s1};
+      const int cl = odd ? 8 * (j + 1) + 2 * (tq - 1) : 8 * j + 2 * tq;
+      epilogue4(v, bias_s + cl, n0 + cl, N, vecn, gelu, R, r_dt, rb, O, o_dt,
+                ob);
+    }
+    if constexpr ((NS / 8) % 2 == 1) {  // the last group alone
+      constexpr int j = NS / 8 - 1;
+      const int cl = 8 * j + 2 * tq;
+      const int col = n0 + cl;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (col + i >= N) continue;
+        float v = gelu_f(acc[4 * j + 2 * half + i] + bias_s[cl + i], gelu);
+        if (R != nullptr) v += load_any(R, rb + col + i, r_dt);
+        store_any(O, ob + col + i, o_dt, v);
+      }
+    }
+  }
+}
+
+// The split-TF32 core's own check: one warpgroup computes D (64 x NS,
+// float32) = A (64 x K, float32 row-major, K 8..32 a multiple of 8) x B
+// (the first stage of a one-slice float32 kernel_matrix form, `parts` 1 or
+// 2), A staged in token_linear_tf32_kernel's swizzled layout and read by
+// ldmatrix, split in registers, B by bulk copy: the kernel's own product.
+template <int NS>
+__global__ void __launch_bounds__(128) gemm_tile_tf32_kernel(
+    const float* __restrict__ A, const float* __restrict__ Bp,
+    float* __restrict__ D, int K, int parts) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  unsigned char* As = smem + 1024;
+  unsigned char* Bs = As + 64 * T_KC * 4;
+  const int tid = threadIdx.x, wq = tid / 32, lane = tid % 32;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    fence_barrier_init();
+  }
+  for (int e = tid; e < 64 * T_KC; e += 128) {
+    const int r = e / T_KC, k = e % T_KC;
+    *reinterpret_cast<float*>(As + r * 128 + (((k >> 2) ^ (r & 7)) << 4) +
+                              (k & 3) * 4) = k < K ? A[r * K + k] : 0.f;
+  }
+  __syncthreads();
+  const uint32_t bbytes = static_cast<uint32_t>(T_KC) * NS * 4 * parts;
+  if (tid == 0) {
+    mbar_arrive_expect_tx(bar, bbytes);
+    bulk_g2s(Bs, Bp, bbytes, bar);
+  }
+  mbar_wait(bar, 0);
+  float acc[NS / 2];
+#pragma unroll
+  for (int i = 0; i < NS / 2; ++i) acc[i] = 0.f;
+  uint32_t hi[4][4], lo[4][4];
+  const int r = wq * 16 + frag_row(lane);
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    uint32_t raw[4];
+    ldmatrix_x4(raw, As + r * 128 +
+                         (((2 * ks + frag_khalf(lane)) ^ (r & 7)) << 4));
+    split_tf32(raw, hi[ks], lo[ks]);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    if (ks < K / 8)
+      wgmma_split<NS>(acc, hi[ks], lo[ks], b_desc(Bs + ks * NS * 32, NS * 16),
+                      b_desc(Bs + (4 + ks) * NS * 32, NS * 16), true,
+                      parts == 2, 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+  fence_regs(hi);
+  fence_regs(lo);
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NS / 8; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int rr = wq * 16 + gq + 8 * half, c = 8 * j + 2 * tq;
+      D[rr * NS + c] = acc[4 * j + 2 * half];
+      D[rr * NS + c + 1] = acc[4 * j + 2 * half + 1];
+    }
 }
 
 // The GEMM core's own check (tests/test_torch_kernels.py): one warpgroup
@@ -1648,15 +1850,22 @@ size_t attention_f32_smem(int np, int dpt, int L, int n, int mw) {
 // stages a tile's K in chunks, K > 512, no LayerNorm). K % 4 == 0,
 // K <= 2048, rows with 16-byte aligned starts, M and every mapped row
 // < 2^31.
-// float32: Wt is (K, N) row-major and the plan arguments are unused.
+// float32: Wt is the packed split-TF32 form of kernel_matrix (`parts` 1:
+// wh alone, 2: wh and wl) for a slice width `ns` (an IRK_TF32_WIDTHS
+// width <= 96), `stages` the ring depth (2-6), `smem` and `grid` the plan's
+// (token_linear_f32_plan: one block per 256-row tile and slice), `vec` 1
+// where rows may be staged 16 bytes at a time (float32 rows, K % 4 == 0,
+// 16-byte aligned), `stats` an (M, 2) float32 workspace for the rows'
+// LayerNorm statistics where ln_g is given (else nullptr); `cb` is unused.
+// Any K and M.
 extern "C" int token_linear(const void* A, int a_dt, const void* Wt,
                             int w_dt, int ns, const void* bias,
                             const void* R, int r_dt, void* O, int o_dt,
                             const void* ln_g, const void* ln_b, long long M,
                             int K, int N, int gelu, int B, int H, int W,
                             int ws, int dc, int a_map, int r_map, int o_map,
-                            int stages, int cb, int smem, int grid,
-                            void* stream) {
+                            int stages, int cb, int smem, int grid, int parts,
+                            int vec, void* stats, void* stream) {
   const Geom g{B, H, W, ws, dc};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* lg = static_cast<const float*>(ln_g);
@@ -1692,12 +1901,40 @@ extern "C" int token_linear(const void* A, int a_dt, const void* Wt,
         return cudaErrorInvalidValue;
     }
   }
-  const long long tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
-  const dim3 grid32(static_cast<unsigned>(tiles));
-  token_linear_kernel<<<grid32, NT, 0, s>>>(
-      A, a_dt, static_cast<const float*>(Wt), bf, R, r_dt, O, o_dt, lg, lb,
-      M, K, N, gelu, g, a_map, r_map, o_map);
-  return static_cast<int>(cudaGetLastError());
+  const int nslices = (N + ns - 1) / ns;
+  if (parts < 1 || parts > 2 || stages < 2 || stages > 6 || K < 1 ||
+      static_cast<size_t>(smem) < t_smem_bytes(ns, parts, stages) ||
+      grid != ((M + T_TM - 1) / T_TM) * nslices ||
+      (lg != nullptr) != (stats != nullptr))
+    return cudaErrorInvalidValue;
+  float2* st = static_cast<float2*>(stats);
+  if (st != nullptr) {  // the rows' LayerNorm statistics, once
+    long long blocks = (M + 7) / 8;
+    if (blocks > 132 * 32) blocks = 132 * 32;
+    token_ln_stats_kernel<<<static_cast<unsigned>(blocks), 256, 0, s>>>(
+        A, a_dt, M, K, st);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  auto launch = [&](auto kernel) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<grid, T_CT, smem, s>>>(A, a_dt, static_cast<const float*>(Wt),
+                                    bf, R, r_dt, O, o_dt, lg, lb, st, M, K,
+                                    N, gelu, g, a_map, r_map, o_map, nslices,
+                                    stages, parts, vec);
+    return static_cast<int>(cudaGetLastError());
+  };
+  switch (ns) {
+#define IRK_CASE(n) \
+  case n:           \
+    return launch(token_linear_tf32_kernel<n>);
+    IRK_TF32_WIDTHS_96(IRK_CASE)
+#undef IRK_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // D = A x B for one 64-row tile through the GEMM core (gemm_tile_kernel):
@@ -1722,6 +1959,35 @@ extern "C" int gemm_tile(const void* A, const void* Bp, void* D, int K,
   case n:           \
     return launch(gemm_tile_kernel<n>);
     IRK_GEMM_WIDTHS(IRK_CASE)
+#undef IRK_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// D = A x B for one 64-row tile through the split-TF32 core
+// (gemm_tile_tf32_kernel): A (64, K) float32, K in {8, 16, 24, 32}; Bp a
+// one-slice float32 kernel_matrix form of a (K, ns) weight with `parts`
+// parts.
+extern "C" int gemm_tile_tf32(const void* A, const void* Bp, void* D, int K,
+                              int ns, int parts, void* stream) {
+  if (K % 8 != 0 || K < 8 || K > T_KC || parts < 1 || parts > 2)
+    return cudaErrorInvalidValue;
+  const int smem = 1024 + 64 * T_KC * 4 + T_KC * ns * 4 * parts;
+  auto launch = [&](auto kernel) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<1, 128, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(A), static_cast<const float*>(Bp),
+        static_cast<float*>(D), K, parts);
+    return static_cast<int>(cudaGetLastError());
+  };
+  switch (ns) {
+#define IRK_CASE(n) \
+  case n:           \
+    return launch(gemm_tile_tf32_kernel<n>);
+    IRK_TF32_WIDTHS(IRK_CASE)
 #undef IRK_CASE
     default:
       return cudaErrorInvalidValue;

@@ -7,7 +7,9 @@ TPU row-strip MXU kernel). The CUDA kernel is ``csrc/conv3x3.cu`` (K3):
 - What bounds it on the H100: at the serving shape (552x1920, 180->180)
   the conv is 6.1e11 FLOP against 0.76 GB of bf16 input and output, about
   800 FLOP per byte, so the tensor-core rate bounds it (0.62 ms in bf16);
-  the f32 exact path is bound by the 67 TFLOP/s FP32 rate (9.2 ms).
+  the f32 exact path runs three TF32 passes (two where the weights are
+  bf16-rounded) on the tensor cores, bound by 3 x FLOP at 495 TFLOP/s
+  (3.7 ms) where FP32 FMA would be bound by 67 TFLOP/s (9.2 ms).
 - Design: an implicit GEMM with no im2col in device memory; the folded
   roll is resolved in the load addresses (modular indices) and SAME zero
   padding applied at the edges of the rolled canvas; with ``ln_pre`` each
@@ -23,8 +25,17 @@ TPU row-strip MXU kernel). The CUDA kernel is ``csrc/conv3x3.cu`` (K3):
   arrives by one bulk copy per stage from the packed form
   (:func:`conv3x3_weights`), and the epilogue runs from the accumulator
   registers. :func:`conv3x3_plan` is the launch plan.
-- f32 (the exact mode): a block owns 64 pixels of one row and 64 output
-  channels, 4x4 outputs per thread on FP32 FMA (no TF32).
+- f32 (the exact mode): split TF32 on ``wgmma``. The weights are kept as
+  ``wh = rna_tf32(w)`` and ``wl = w - wh`` (exact, so ``wh + wl == w``;
+  no ``wl`` where the weights are bf16-rounded, as DiffBIR's served
+  weights are), the activations split in registers into ``xh`` and
+  ``xl``, and ``xl wh + xh wl + xh wh`` summed in float32: each product
+  off by about 2^-21 relative, where plain TF32 keeps about three digits.
+  A block owns 128 pixels (8 x 16 or another of four tile shapes, the
+  rows of a narrow canvas flattened into it) and a slice of at most 128
+  output channels, 8 input channels a stage; where the tiles cannot fill
+  the card the input channels are split across blocks and summed in a
+  fixed order by a second pass (:func:`conv3x3_plan`).
 
 :func:`conv3x3_pair` replaces ``conv3x3_pair_pallas`` (two chained SAME
 convs, the intermediate ``u`` kept on chip) with K7,
@@ -42,6 +53,7 @@ path runs it: the x4 head keeps the JAX package's two-conv form
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -85,14 +97,17 @@ def conv3x3_plain(x: torch.Tensor, w: torch.Tensor,
 
 
 class Conv3x3Weights(NamedTuple):
-    """K3's weight form, made once per weight (:func:`conv3x3_weights`):
-    in float32 the HWIO weight, contiguous; in bfloat16 the packed order
-    the tensor-core kernel copies one stage at a time, (slices, Cin/16, 9
-    taps, 2, NS/8, 8, 8): for each output-channel slice of NS columns and
-    each 16-channel chunk of the input, the 9 taps' 16 x NS blocks as 8 x 8
-    core matrices (8 output channels x 8 input channels, input channels
-    fastest), zero-padded. The bias in float32. ``cin`` and ``cout`` are
-    the true channel counts."""
+    """K3's weight form, made once per weight (:func:`conv3x3_weights`),
+    in the packed order the tensor-core kernel copies one stage at a time.
+    In bfloat16 (slices, Cin/16, 9 taps, 2, NS/8, 8, 8): for each
+    output-channel slice of NS columns and each 16-channel chunk of the
+    input, the 9 taps' 16 x NS blocks as 8 x 8 core matrices (8 output
+    channels x 8 input channels, input channels fastest), zero-padded. In
+    float32 the split-TF32 form (slices, Cin/8, parts, 9 taps, 2, NS/8, 8,
+    4): 8-channel chunks, core matrices of 8 output channels x 4 input
+    channels, and the parts ``wh`` and, where the weight has one, ``wl``
+    (:func:`kernels.tf32_split`: ``wh + wl == w`` bit for bit). The bias in
+    float32. ``cin`` and ``cout`` are the true channel counts."""
 
     w: torch.Tensor
     b: torch.Tensor | None
@@ -100,9 +115,19 @@ class Conv3x3Weights(NamedTuple):
     cout: int
 
     @property
+    def parts(self) -> int:
+        """Split-TF32 parts of a float32 form (1: ``wh`` alone), else 1."""
+        return self.w.shape[2] if self.w.dim() == 8 else 1
+
+    @property
     def hwio(self) -> torch.Tensor:
-        """The (3, 3, Cin, Cout) weight this form holds."""
-        w = self.w if self.w.dim() == 4 else _unpack_taps(self.w)
+        """The (3, 3, Cin, Cout) weight this form holds (in float32 ``wh +
+        wl``, the weight it was made from bit for bit)."""
+        w = self.w
+        if w.dim() == 8:
+            w = w[:, :, 0] + w[:, :, 1] if w.shape[2] == 2 else w[:, :, 0]
+        if w.dim() == 7:
+            w = _unpack_taps(w)
         return w[:, :, :self.cin, :self.cout]
 
 
@@ -110,29 +135,37 @@ def conv3x3_weights(w: torch.Tensor, b: torch.Tensor | None,
                     dtype: torch.dtype) -> Conv3x3Weights:
     """The kernel form of (3, 3, Cin, Cout) weights and a bias."""
     cin, cout = w.shape[2], w.shape[3]
-    wk = w.detach().to(dtype)
+    if dtype == torch.float32:  # split from the source type (bf16: exact)
+        parts = kernels.tf32_split(w.detach())
+        nsl, ns = conv3x3_f32_slices(cout, len(parts))
+        wk = torch.stack([_pack_taps(p, nsl, ns, CONV_F32_KC)
+                          for p in parts], dim=2)
+    else:
+        wk = w.detach().to(dtype)
     if dtype == torch.bfloat16:
         wk = _pack_taps(wk, *kernels.gemm_slices(cout))
     bk = None if b is None else b.detach().float().contiguous()
     return Conv3x3Weights(wk.contiguous(), bk, cin, cout)
 
 
-def _pack_taps(w: torch.Tensor, nsl: int, ns: int) -> torch.Tensor:
-    """(3, 3, Cin, Cout) -> K3's packed order (nsl, Cin/16, 9, 2, ns/8, 8,
-    8), Cin zero-padded to 16 and Cout to nsl * ns."""
+def _pack_taps(w: torch.Tensor, nsl: int, ns: int,
+               kc: int = 16) -> torch.Tensor:
+    """(3, 3, Cin, Cout) -> K3's packed order (nsl, Cin/kc, 9, 2, ns/8, 8,
+    kc/2), Cin zero-padded to kc (16 in bf16, 8 in float32) and Cout to
+    nsl * ns."""
     cin, cout = w.shape[2], w.shape[3]
-    nc = -(-cin // 16)
-    w = F.pad(w, (0, nsl * ns - cout, 0, nc * 16 - cin))
+    nc = -(-cin // kc)
+    w = F.pad(w, (0, nsl * ns - cout, 0, nc * kc - cin))
     # (tap, chunk, k half, k, slice, n group, n) -> (slice, chunk, tap,
     # k half, n group, n, k)
-    return w.reshape(9, nc, 2, 8, nsl, ns // 8, 8).permute(
+    return w.reshape(9, nc, 2, kc // 2, nsl, ns // 8, 8).permute(
         4, 1, 0, 2, 5, 6, 3)
 
 
 def _unpack_taps(w: torch.Tensor) -> torch.Tensor:
     """The padded (3, 3, Cin, Cout) weight of a :func:`_pack_taps` form."""
-    nsl, nc, ns = w.shape[0], w.shape[1], w.shape[4] * 8
-    return w.permute(2, 1, 3, 6, 0, 4, 5).reshape(3, 3, nc * 16, nsl * ns)
+    nsl, nc, ns, kc = w.shape[0], w.shape[1], w.shape[4] * 8, w.shape[6] * 2
+    return w.permute(2, 1, 3, 6, 0, 4, 5).reshape(3, 3, nc * kc, nsl * ns)
 
 
 # conv3x3_mma_kernel's tile and shared memory (csrc/conv3x3.cu: M_TH, TP,
@@ -146,18 +179,106 @@ def conv3x3_smem(ns: int, stages: int) -> int:
     return _CONV_FIXED + stages * (_CONV_HALO + 9 * ns * CONV_KC * 2)
 
 
-def conv3x3_plan(b: int, h: int, w: int, cin: int,
-                 cout: int) -> kernels.LaunchPlan:
-    """The bf16 K3 launch for a (b, h, w, cin) -> cout conv: one block per
-    (2 rows, 64 pixels, output-channel slice), the deepest ring of 2-4
-    stages that fits (each stage a 16-channel chunk: 9 x 16 x NS weights
-    and the 4 x 66-pixel halo)."""
-    nsl, ns = kernels.gemm_slices(cout)
-    stages = max(s for s in (2, 3, 4)
-                 if s == 2 or conv3x3_smem(ns, s) <= kernels.SMEM_LIMIT)
-    grid = b * -(-h // CONV_ROWS) * -(-w // CONV_PIXELS) * nsl
-    return kernels.LaunchPlan(grid, 256, nsl, ns, stages,
-                              conv3x3_smem(ns, stages))
+# conv3x3_tf32_kernel's tile and shared memory (csrc/conv3x3.cu: F_PIX,
+# F_KC, F_FIXED, F_HALO_BYTES): 128 output pixels a block, TR x TC with TC
+# one of CONV_F32_TILE_COLS, 8 input channels a stage, the halo stage
+# sized for the widest tile (4 x 66 pixels)
+CONV_F32_PIXELS, CONV_F32_KC = 128, 8
+CONV_F32_TILE_COLS = (8, 16, 32, 64)
+_F32_MAXHALO = 4 * 66
+_F32_FIXED = 128 + 16 * _F32_MAXHALO
+_F32_HALO = _F32_MAXHALO * CONV_F32_KC * 4
+# the most K parts a float32 launch is split into, and the fewest
+# 8-channel chunks a part takes
+CONV_F32_MAX_SPLIT, CONV_F32_MIN_CHUNKS = 16, 4
+
+
+def conv3x3_f32_smem(ns: int, parts: int, stages: int) -> int:
+    return _F32_FIXED + stages * (_F32_HALO + 9 * CONV_F32_KC * ns * 4
+                                  * parts)
+
+
+def conv3x3_f32_slices(cout: int, parts: int) -> tuple[int, int]:
+    """(slices, NS) of the float32 K3: at most 128 output channels a slice
+    with ``wh`` alone, 96 with ``wh`` and ``wl`` (three stages of both fit
+    in shared memory)."""
+    return kernels.tf32_slices(cout, 128 if parts == 1 else 96)
+
+
+def _f32_tile_cols(h: int, w: int) -> int:
+    """The float32 tile's columns: the fewest halo pixels staged over the
+    canvas, the wider tile on a tie (16 x 16 and 32 x 32 levels fill 8 x
+    16 tiles; wide canvases take 8 x 16 too, 180 halo pixels a tile
+    against 264 for 2 x 64)."""
+    def staged(c):
+        r = CONV_F32_PIXELS // c
+        return -(-h // r) * -(-w // c) * (r + 2) * (c + 2)
+    return min(CONV_F32_TILE_COLS, key=lambda c: (staged(c), -c))
+
+
+@functools.lru_cache(maxsize=4096)
+def conv3x3_plan(b: int, h: int, w: int, cin: int, cout: int,
+                 dtype: torch.dtype = torch.bfloat16, parts: int = 1,
+                 sms: int = kernels.H100_SMS) -> kernels.LaunchPlan:
+    """The K3 launch for a (b, h, w, cin) -> cout conv.
+
+    bf16: one block per (2 rows, 64 pixels, output-channel slice), the
+    deepest ring of 2-4 stages that fits (each stage a 16-channel chunk: 9
+    x 16 x NS weights and the 4 x 66-pixel halo).
+
+    float32 (``parts`` 1 or 2: the weight form's split-TF32 parts): one
+    block per (128-pixel tile of ``tile`` columns, K part, output-channel
+    slice); the deepest ring of 2-5 stages that fits (each stage an
+    8-channel chunk: 9 x 8 x NS weights of each part and the halo). Where
+    the tiles and slices make fewer blocks than ``sms``, the 8-channel
+    chunks are cut into ``split`` contiguous parts (as many as keep one
+    wave, at most 16, at least 4 chunks a part), summed by a second pass in
+    a fixed order. :func:`conv3x3_blocks` lists what each block covers."""
+    if dtype == torch.bfloat16:
+        nsl, ns = kernels.gemm_slices(cout)
+        stages = max(s for s in (2, 3, 4)
+                     if s == 2 or conv3x3_smem(ns, s) <= kernels.SMEM_LIMIT)
+        grid = b * -(-h // CONV_ROWS) * -(-w // CONV_PIXELS) * nsl
+        return kernels.LaunchPlan(grid, 256, nsl, ns, stages,
+                                  conv3x3_smem(ns, stages))
+    nsl, ns = conv3x3_f32_slices(cout, parts)
+    tc = _f32_tile_cols(h, w)
+    tr = CONV_F32_PIXELS // tc
+    blocks = b * -(-h // tr) * -(-w // tc) * nsl
+    nc = -(-cin // CONV_F32_KC)
+    split = 1
+    if blocks < sms:
+        split = max(1, min(sms // blocks, nc // CONV_F32_MIN_CHUNKS,
+                           CONV_F32_MAX_SPLIT))
+    stages = max(s for s in (2, 3, 4, 5)
+                 if s == 2 or conv3x3_f32_smem(ns, parts, s)
+                 <= kernels.SMEM_LIMIT)
+    return kernels.LaunchPlan(blocks * split, 256, nsl, ns, stages,
+                              conv3x3_f32_smem(ns, parts, stages), 0, tc,
+                              split)
+
+
+def conv3x3_blocks(plan: kernels.LaunchPlan, b: int, h: int, w: int,
+                   cin: int, cout: int):
+    """What each block of a float32 :func:`conv3x3_plan` launch computes,
+    in grid order, by the kernel's own block decode (csrc/conv3x3.cu:
+    conv3x3_tf32_kernel): (image, rows y0..y1, columns x0..x1, output
+    channels n0..n1, input channels c0..c1), ends exclusive and clipped to
+    the conv's shape."""
+    tc = plan.tile
+    tr = CONV_F32_PIXELS // tc
+    nxt, nyt = -(-w // tc), -(-h // tr)
+    nc = -(-cin // CONV_F32_KC)
+    for bid in range(plan.grid):
+        sl, rest = bid % plan.slices, bid // plan.slices
+        sp, rest = rest % plan.split, rest // plan.split
+        x0, rest = rest % nxt * tc, rest // nxt
+        y0, bb = rest % nyt * tr, rest // nyt
+        c0 = sp * nc // plan.split
+        c1 = (sp + 1) * nc // plan.split
+        yield (bb, y0, min(y0 + tr, h), x0, min(x0 + tc, w),
+               sl * plan.ns, min(sl * plan.ns + plan.ns, cout),
+               c0 * CONV_F32_KC, min(c1 * CONV_F32_KC, cin))
 
 
 def conv3x3_fits(h: int, w: int) -> bool:
@@ -174,12 +295,14 @@ def _conv3x3_cuda(x, k: Conv3x3Weights, act, res, roll, ln_pre):
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"conv3x3 kernel takes float32 or bfloat16, "
                         f"not {x.dtype}")
-    plan = None
     if x.dtype == torch.bfloat16:
         plan = conv3x3_plan(bsz, h, wd, cin, cout)
         want = (plan.slices, -(-cin // 16), 9, 2, plan.ns // 8, 8, 8)
     else:
-        want = (3, 3, cin, cout)
+        plan = conv3x3_plan(bsz, h, wd, cin, cout, torch.float32,
+                            parts=k.parts, sms=kernels.sm_count(x.device))
+        want = (plan.slices, -(-cin // CONV_F32_KC), k.parts, 9, 2,
+                plan.ns // 8, 8, 4)
     if k.cin != cin or k.w.dtype != x.dtype or not k.w.is_contiguous() \
             or k.w.shape != want:
         raise ValueError(f"weight {tuple(k.w.shape)} {k.w.dtype} is not the "
@@ -206,16 +329,24 @@ def _conv3x3_cuda(x, k: Conv3x3Weights, act, res, roll, ln_pre):
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    args = [ptr(x), ptr(wk), ptr(bk), ptr(res), ptr(lg), ptr(lb), ptr(out),
-            bsz, h, wd, cin, cout, int(roll), _ACTS[act]]
-    if plan is None:
-        fn = lib.conv3x3_f32
-    else:
+    args = [ptr(x), ptr(wk), ptr(bk), ptr(res), ptr(lg), ptr(lb), ptr(out)]
+    if x.dtype == torch.bfloat16:
         fn = lib.conv3x3_bf16
-        args += [plan.ns, plan.stages, plan.smem]
+        args += [bsz, h, wd, cin, cout, int(roll), _ACTS[act], plan.ns,
+                 plan.stages, plan.smem]
+    else:
+        # split K's float32 partial sums, added in order by a second pass
+        ws = torch.empty((plan.split, bsz * h * wd, cout),
+                         dtype=torch.float32, device=x.device) \
+            if plan.split > 1 else None
+        fn = lib.conv3x3_f32
+        args += [ptr(ws), bsz, h, wd, cin, cout, int(roll), _ACTS[act],
+                 plan.ns, k.parts, plan.tile, plan.split, plan.stages,
+                 plan.smem, int(cin % 4 == 0 and x.data_ptr() % 16 == 0)]
+    npt = 8 if x.dtype == torch.float32 else 7
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 \
-        + [ctypes.c_int] * (len(args) - 7) + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * npt \
+        + [ctypes.c_int] * (len(args) - npt) + [ctypes.c_void_p]
     err = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(err, "conv3x3")
     conv3x3.launches += 1

@@ -34,16 +34,23 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # the N widths K1's and K3's bf16 kernels are instantiated for
 # (csrc/sm90_gemm.cuh: IRK_GEMM_WIDTHS); a slice runs at the first >= it
 GEMM_WIDTHS = (8, 16, 24, 32, 48, 64, 96, 128, 184, 192, 256)
+# the N widths of the split-TF32 float32 kernels of K1 and K3
+# (csrc/sm90_gemm.cuh: IRK_TF32_WIDTHS)
+TF32_WIDTHS = (8, 16, 32, 48, 64, 96, 128)
 # shared memory one block may use on the H100 (227 KB)
 SMEM_LIMIT = 232448
+# streaming multiprocessors of the H100 SXM (the plans' default)
+H100_SMS = 132
 
 
 class LaunchPlan(NamedTuple):
-    """How a bf16 K1 or K3 launch covers its output: ``grid`` blocks of
+    """How a K1 or K3 launch covers its output: ``grid`` blocks of
     ``threads``; the output columns as ``slices`` slices of ``ns`` (an
     instantiated wgmma width); a ring of ``stages`` shared-memory stages;
     ``smem`` bytes of shared memory a block; ``chunk`` the 64-k blocks of
-    K an A stage of K1 holds (0 where the kernel has no such stage)."""
+    K an A stage of the bf16 K1 holds (0 where the kernel has no such
+    stage); ``tile`` the columns of the float32 K3's 128-pixel tile (0
+    elsewhere) and ``split`` its K parts (1: no split)."""
 
     grid: int
     threads: int
@@ -52,6 +59,8 @@ class LaunchPlan(NamedTuple):
     stages: int
     smem: int
     chunk: int = 0
+    tile: int = 0
+    split: int = 1
 
 
 def gemm_width(n: int) -> int:
@@ -67,6 +76,60 @@ def gemm_slices(n: int) -> tuple[int, int]:
     most 256 columns, each at its instantiated width."""
     k = -(-n // 256)
     return k, gemm_width(-(-n // k))
+
+
+def tf32_width(n: int) -> int:
+    """The split-TF32 width a float32 slice of ``n`` columns runs at."""
+    for w in TF32_WIDTHS:
+        if w >= n:
+            return w
+    raise ValueError(f"no TF32 width holds {n} columns (at most 128)")
+
+
+def tf32_slices(n: int, widest: int = 128) -> tuple[int, int]:
+    """(slices, width) of a float32 K1 or K3 for ``n`` output columns:
+    equal slices of at most ``widest`` columns, among the fewest slice
+    counts that fit and the next two the one with the fewest padded
+    columns plus 32 a slice (each slice stages and splits its A again),
+    then the fewest slices (540 as 6 x 96, 1280 as 10 x 128, 180 as 2 x
+    96, 48 as 1 x 48)."""
+    k0 = -(-n // widest)
+    return min(((k * (tf32_width(-(-n // k)) + 32), k,
+                 tf32_width(-(-n // k))) for k in range(k0, k0 + 3)))[1:]
+
+
+def tf32_round(x):
+    """``x`` (float32) rounded to TF32 as ``cvt.rna.tf32.f32`` rounds:
+    nearest, ties away from zero, the low 13 mantissa bits zero."""
+    bits = x.contiguous().view(_torch().int32)
+    return ((bits + 0x1000) & -8192).view(_torch().float32)
+
+
+def tf32_split(w) -> list:
+    """The split-TF32 parts of a weight, in float32: ``[wh]`` where ``w`` is
+    TF32-exact (bf16 or fp16 weights by their type, with no pass over
+    them; float32 weights holding bf16-rounded values), else ``[wh, wl]``
+    with ``wh = tf32_round(w)`` and ``wl = w - wh``, exact in float32, so
+    that ``wh + wl == w`` bit for bit."""
+    torch = _torch()
+    if w.dtype in (torch.bfloat16, torch.float16):
+        return [w.float()]
+    w = w.float()
+    wh = tf32_round(w)
+    wl = w - wh
+    # a meta tensor (a traced model) has no values: both parts
+    return [wh, wl] if w.is_meta or bool(wl.any()) else [wh]
+
+
+def split_passes(parts: int, a_low: bool = True) -> int:
+    """TF32 products a split-TF32 k step issues: ``xh wh``, ``xl wh`` where
+    the activations have a low part, ``xh wl`` where the weights do."""
+    return 1 + int(a_low) + int(parts == 2)
+
+
+def _torch():
+    import torch
+    return torch
 
 
 _lock = threading.Lock()

@@ -55,7 +55,13 @@ The block's CUDA path is two hand-written kernels in
   plan). Past K 512 (RIDCP's fc2 at K 1024) a stage holds a chunk of K
   rather than whole rows, the consumer walks a tile's chunks into one
   float32 accumulator, and the LayerNorm prologue is not taken. In f32 it
-  runs 64x64 tiles on FP32 FMA (no TF32), any K.
+  runs split TF32 on ``wgmma`` (``wh + wl`` from the form,
+  :func:`kernel_matrix`; ``xh + xl`` split in registers; ``xl wh + xh wl +
+  xh wh`` in float32, float32 accuracy at three TF32 passes, two where the
+  weights are bf16-rounded): 256-row tiles by a slice of at most 96
+  columns, K in a ring of 32-k stages (any K; LayerNorm at any K, its row
+  statistics taken once by a first pass and applied to the A fragments in
+  registers; :func:`token_linear_f32_plan`).
 - K2 ``window_attention``: N = ws^2 <= 256 tokens per window, logits
   ``(q.k) * scale + bias`` (``scale`` 1 where q is pre-scaled). In bf16 the
   products run on ``mma.sync`` with each warp's 16 x N logits, softmax
@@ -82,8 +88,9 @@ bf16, so memory bounds it (0.12 ms on the H100).
 
 What bounds it on the H100: one block at the serving shape (552x1920,
 C 180, 6 heads) is 6.0e11 FLOP against 0.76 GB of bf16 input and output,
-so the tensor-core rate bounds it (about 0.6 ms in bf16; 8.9 ms on the
-FP32 pipes in f32). This form still writes the qkv, attention, x1 and
+so the tensor-core rate bounds it (about 0.6 ms in bf16; in f32 its K1
+products run three TF32 passes, 3 x FLOP at 495 TFLOP/s, and K2 the FP32
+pipes). This form still writes the qkv, attention, x1 and
 hidden intermediates to device memory (about 7 GB of traffic per block in
 bf16); keeping the block on chip is later work.
 
@@ -105,6 +112,7 @@ the port pads the band canvas exactly as the JAX engine does.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -147,9 +155,9 @@ def pad_width_for_strips(w: int, ws: int = 8) -> int:
 
 class SwinBlockParams(NamedTuple):
     """One block's weights in kernel form: matrices (K, N) in the compute
-    dtype with the logit scale folded into the q columns (row-major in
-    float32, packed in bfloat16, see :func:`kernel_matrix`); vectors and
-    the (heads, N, N) relative-position bias in float32. ``rpb_table`` is
+    dtype with the logit scale folded into the q columns (packed, see
+    :func:`kernel_matrix`); vectors and the (heads, N, N)
+    relative-position bias in float32. ``rpb_table`` is
     the ((2ws-1)^2, heads) float32 table ``rpb`` was made from, where the
     caller has it: K2 then rebuilds the bias in shared memory from it
     (:func:`window_attention`'s ``table``)."""
@@ -245,14 +253,22 @@ def _block_params(p: SwinBlockParams, ref, num_heads: int, ws: int
 
 
 def kernel_matrix(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """K1's weight form of a (K, N) matrix, contiguous in ``dtype``: in
-    float32 the matrix itself; in bfloat16 the order the tensor-core kernel
-    bulk-copies into shared memory, (slices, K/8, NS/8, 8, 8): N cut into
+    """K1's weight form of a (K, N) matrix, contiguous in ``dtype``, in the
+    order the tensor-core kernel bulk-copies into shared memory. In
+    bfloat16 (slices, K/8, NS/8, 8, 8): N cut into
     :func:`token_linear_slices` slices of NS columns, each slice's K x NS
     block as 8 x 8 core matrices (8 columns x 8 k, k fastest), K padded to
-    64 (the A operand's 128-byte swizzle blocks), zero-padded. The true K
-    and N are the rows of the operand and the length of the bias
+    64 (the A operand's 128-byte swizzle blocks), zero-padded. In float32
+    the split-TF32 form (slices, K/32, parts, 8, NS/8, 8, 4): slices of
+    :func:`kernels.tf32_slices` (at most 96), K in stages of 32, core
+    matrices of 8
+    columns x 4 k, and the parts ``wh`` and, where the matrix has one,
+    ``wl`` (:func:`kernels.tf32_split`: ``wh + wl == w`` bit for bit). The
+    true K and N are the rows of the operand and the length of the bias
     (:func:`_dense` recovers the matrix)."""
+    if dtype == torch.float32:  # split from the source type (bf16: exact)
+        nsl, ns = kernels.tf32_slices(w.shape[1], LINEAR_F32_MAX_N)
+        return _tf32_matrices(w.detach(), nsl, ns)
     w = w.to(dtype)
     if dtype == torch.bfloat16:
         nsl, ns, _ = token_linear_slices(*w.shape)
@@ -269,11 +285,28 @@ def _core_matrices(w: torch.Tensor, nsl: int, ns: int) -> torch.Tensor:
     return w.reshape(kp // 8, 8, nsl, ns // 8, 8).permute(2, 0, 3, 4, 1)
 
 
+def _tf32_matrices(w: torch.Tensor, nsl: int, ns: int) -> torch.Tensor:
+    """(K, N) float32 -> (nsl, K/32, parts, 8, ns/8, 8, 4), K zero-padded
+    to 32 and N to nsl * ns: the split-TF32 order of :func:`kernel_matrix`
+    (one stage of 32 k a slice's [part][k quad][column group][column][k])."""
+    k, n = w.shape
+    kp = -(-k // 32) * 32
+    parts = kernels.tf32_split(F.pad(w, (0, nsl * ns - n, 0, kp - k)))
+    return torch.stack([p.reshape(kp // 32, 8, 4, nsl, ns // 8, 8)
+                        .permute(3, 0, 1, 4, 5, 2) for p in parts], dim=2)
+
+
 def _dense(w: torch.Tensor, k: int, n: int) -> torch.Tensor:
-    """The true (K, N) matrix of a kernel-form weight, in float32."""
+    """The true (K, N) matrix of a kernel-form weight, in float32 (of the
+    split-TF32 form ``wh + wl``, the matrix it was made from bit for
+    bit)."""
     if w.dim() == 5:
         nsl, kg, ng = w.shape[:3]
         w = w.permute(1, 4, 0, 2, 3).reshape(kg * 8, nsl * ng * 8)
+    elif w.dim() == 7:
+        nsl, kc, _, _, ng = w.shape[:5]
+        w = w[:, :, 0] + w[:, :, 1] if w.shape[2] == 2 else w[:, :, 0]
+        w = w.permute(1, 2, 5, 0, 3, 4).reshape(kc * 32, nsl * ng * 8)
     return w[:k, :n].float()
 
 
@@ -453,6 +486,39 @@ def token_linear_slices(k: int, n: int) -> tuple[int, int, int]:
     return _linear_form(k, n)[:3]
 
 
+# token_linear_tf32_kernel's tile and shared memory (csrc/swin_block.cu:
+# T_TM, T_KC, T_FIXED, t_smem_bytes): 256 rows a block (four warpgroups,
+# 128 registers a thread), slices of at most 96 columns, K in stages of
+# 32, a ring of 2-6
+LINEAR_F32_ROWS, LINEAR_F32_KC, LINEAR_F32_MAX_STAGES = 256, 32, 6
+LINEAR_F32_MAX_N = 96
+_LINEAR_F32_FIXED = 7168
+
+
+def token_linear_f32_smem(ns: int, parts: int, stages: int) -> int:
+    return _LINEAR_F32_FIXED + stages * (LINEAR_F32_ROWS * LINEAR_F32_KC * 4
+                                         + LINEAR_F32_KC * ns * 4 * parts)
+
+
+@functools.lru_cache(maxsize=4096)
+def token_linear_f32_plan(m: int, k: int, n: int,
+                          parts: int) -> kernels.LaunchPlan:
+    """The float32 K1 launch (split TF32) for a weight form of ``parts``
+    parts: one block of 512 threads per (256-row tile, slice of
+    :func:`kernels.tf32_slices` at most 96 wide), the slices of a row tile
+    neighbours in the grid; the deepest ring of 2-6 stages of 32 k that
+    fits, no deeper than K needs."""
+    nsl, ns = kernels.tf32_slices(n, LINEAR_F32_MAX_N)
+    nk = -(-k // LINEAR_F32_KC)
+    stages = max(s for s in range(2, LINEAR_F32_MAX_STAGES + 1)
+                 if s == 2 or (s <= nk + 1 and token_linear_f32_smem(
+                     ns, parts, s) <= kernels.SMEM_LIMIT))
+    return kernels.LaunchPlan(-(-m // LINEAR_F32_ROWS) * nsl, 512, nsl, ns,
+                              stages, token_linear_f32_smem(ns, parts,
+                                                            stages))
+
+
+@functools.lru_cache(maxsize=4096)
 def token_linear_plan(m: int, k: int, n: int, sms: int) -> kernels.LaunchPlan:
     """The bf16 K1 launch: persistent blocks, ``sms // slices`` a slice
     (no more than the 64-row tiles), each walking tiles b, b + step, ...
@@ -468,7 +534,6 @@ def _token_linear_cuda(a, w, b, ln, gelu, res, geom, a_map, r_map, o_map,
                        out_dtype):
     m, k = a.shape
     n = b.shape[0]
-    plan = None
     if w.dtype == torch.bfloat16:
         # the tensor-core path reads each row in 8- or 16-byte pieces
         # (K % 4, 16-byte aligned rows), holds row indices in 32 bits and
@@ -481,8 +546,12 @@ def _token_linear_cuda(a, w, b, ln, gelu, res, geom, a_map, r_map, o_map,
                 f"rows and M < 2^31 (K={k})")
         plan = token_linear_plan(m, k, n, kernels.sm_count(a.device))
         want = (plan.slices, -(-k // 64) * 8, plan.ns // 8, 8, 8)
+        parts = 1
     else:
-        want = (k, n)
+        parts = w.shape[2] if w.dim() == 7 else 0
+        plan = token_linear_f32_plan(m, k, n, parts)
+        want = (plan.slices, -(-k // LINEAR_F32_KC), parts, 8, plan.ns // 8,
+                8, 4)
     if w.shape != want:
         raise ValueError(f"weight {tuple(w.shape)} is not the kernel form "
                          f"{want} (kernel_matrix) for K={k}, N={n}")
@@ -513,15 +582,19 @@ def _token_linear_cuda(a, w, b, ln, gelu, res, geom, a_map, r_map, o_map,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int] + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+                   ctypes.c_int] + [ctypes.c_int] * 14 + [ctypes.c_void_p] * 2
     lg, lb = ln if ln is not None else (None, None)
-    ns, stages, cb, smem, grid = (plan.ns, plan.stages, plan.chunk,
-                                  plan.smem, plan.grid) \
-        if plan is not None else (0, 0, 0, 0, 0)
-    err = fn(_ptr(a), _DT[a.dtype], _ptr(w), _DT[w.dtype], ns,
+    # the float32 kernel stages float32 rows 16 bytes at a time, and takes
+    # the rows' LayerNorm statistics once into a workspace
+    vec = int(a.dtype == torch.float32 and k % 4 == 0
+              and a.data_ptr() % 16 == 0)
+    stats = torch.empty((m, 2), dtype=torch.float32, device=a.device) \
+        if ln is not None and w.dtype == torch.float32 else None
+    err = fn(_ptr(a), _DT[a.dtype], _ptr(w), _DT[w.dtype], plan.ns,
              _ptr(b), _ptr(res), _DT[res.dtype] if res is not None else 0,
              _ptr(out), _DT[out.dtype], _ptr(lg), _ptr(lb), m, k, n,
-             _GELU[gelu], *g, a_map, r_map, o_map, stages, cb, smem, grid,
+             _GELU[gelu], *g, a_map, r_map, o_map, plan.stages, plan.chunk,
+             plan.smem, plan.grid, parts, vec, _ptr(stats),
              torch.cuda.current_stream(a.device).cuda_stream)
     kernels.check(err, "token_linear")
     token_linear.launches += 1
@@ -616,6 +689,33 @@ def gemm_tile(a: torch.Tensor, w: torch.Tensor, *,
              int(a_in_registers),
              torch.cuda.current_stream(a.device).cuda_stream)
     kernels.check(err, "gemm_tile")
+    return out
+
+
+def gemm_tile_tf32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One 64-row tile through the split-TF32 core (one warpgroup), its own
+    check: ``a`` (64, K) float32 with K in 8..32 a multiple of 8, ``w`` a
+    (K, N) float32 weight with N a TF32 width, packed here as one
+    :func:`kernel_matrix` slice (``wl`` where it has one); returns ``a @ w``
+    (float32) through the float32 K1's own staging, ldmatrix, split and
+    ``wgmma``. A CPU tensor takes :func:`gemm_tile_plain`."""
+    if not a.is_cuda:
+        return gemm_tile_plain(a, w)
+    k, n = w.shape
+    if a.shape != (64, k) or k % 8 or not 8 <= k <= 32 \
+            or n not in kernels.TF32_WIDTHS or a.dtype != torch.float32 \
+            or w.dtype != torch.float32:
+        raise ValueError("gemm_tile_tf32 takes a (64, K) and a (K, N) "
+                         "float32 tile, K in 8..32, N a TF32 width")
+    a, wp = a.contiguous(), _tf32_matrices(w, 1, n).contiguous()
+    out = torch.empty((64, n), dtype=torch.float32, device=a.device)
+    fn = kernels.load("swin_block").gemm_tile_tf32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    err = fn(a.data_ptr(), wp.data_ptr(), out.data_ptr(), k, n, wp.shape[2],
+             torch.cuda.current_stream(a.device).cuda_stream)
+    kernels.check(err, "gemm_tile_tf32")
     return out
 
 

@@ -1,10 +1,12 @@
 """The bf16 weight forms and launch plans of K1 (token_linear), K3
 (conv3x3), K4 (gdfn_block), K5 (mdta_front), K7 (conv3x3_pair) and K8
-(swin_pair_block), on the CPU: the packed forms hold exactly
-the weights they were made from, zero elsewhere; the plain paths give the
-same result on the packed form as on the raw weights; and every served
-shape's launch plan fits in a block's shared memory and covers each output
-element once (K5: each output pixel and each per-head gram element)."""
+(swin_pair_block), and the float32 split-TF32 forms and plans of K1 and K3,
+on the CPU: the packed forms hold exactly the weights they were made from,
+zero elsewhere; the plain paths give the same result on the packed form as
+on the raw weights; and every served shape's launch plan fits in a block's
+shared memory and covers each output element once (K5: each output pixel
+and each per-head gram element; the float32 K3: each output pixel and
+channel once in each K part, the parts covering K once)."""
 
 import importlib
 
@@ -82,8 +84,9 @@ def test_kernel_matrix_holds_the_weights(k, n):
     assert form.is_contiguous() and form.dtype == torch.bfloat16
     assert torch.equal(tsb._dense(form, k, n), w.to(torch.bfloat16).float())
     assert (form != 0).sum() == (w.to(torch.bfloat16) != 0).sum()
-    # float32 keeps the matrix as it is
-    assert torch.equal(tsb.kernel_matrix(w, torch.float32), w)
+    # float32: the split-TF32 form holds the matrix bit for bit
+    assert torch.equal(tsb._dense(tsb.kernel_matrix(w, torch.float32), k, n),
+                       w)
 
 
 def test_plain_paths_on_the_packed_forms_equal_the_raw_weights():
@@ -553,3 +556,180 @@ def test_swin_pair_form_is_made_once_per_weight():
     p.b2.add_(1.0)
     g = tsb._pair_cached(p, heads, tsb.swin_pair_weights)
     assert g is not f and torch.equal(g.b2[:c], p.b2)
+
+
+# ---------------------------------------------------------------------------
+# float32: the split-TF32 forms of K3 and K1 and the float32 K3 plan
+
+
+def _low13(t):
+    return t.contiguous().view(torch.int32) & 0x1FFF
+
+
+def _split_parts(packed, dim):
+    return [packed.select(dim, i) for i in range(packed.shape[dim])]
+
+
+@pytest.mark.parametrize("cin,cout", [(3, 3), (3, 48), (6, 5), (20, 70),
+                                      (180, 180), (96, 3), (512, 320),
+                                      (64, 1280)])
+@pytest.mark.parametrize("rounded", [False, True, "bf16"])
+def test_conv3x3_f32_form_splits_the_weights(cin, cout, rounded):
+    """The float32 K3 form is wh = rna_tf32(w) (low 13 mantissa bits zero)
+    and wl = w - wh exactly, so hwio gives w back bit for bit; bf16-rounded
+    weights, in float32 or as bf16 (DiffBIR's served form: its float32
+    stages' weights are bf16 parameters), are TF32-exact and hold no wl."""
+    rng = np.random.default_rng(cin * 1000 + cout)
+    w = _rand(rng, 3, 3, cin, cout)
+    if rounded:
+        w = w.to(torch.bfloat16).float()
+    src = w.to(torch.bfloat16) if rounded == "bf16" else w
+    k = tconv.conv3x3_weights(src, None, torch.float32)
+    nsl, ns = tconv.conv3x3_f32_slices(cout, k.parts)
+    assert k.parts == (1 if rounded else 2)
+    assert k.w.shape == (nsl, -(-cin // 8), k.parts, 9, 2, ns // 8, 8, 4)
+    assert k.w.is_contiguous() and k.w.dtype == torch.float32
+    assert torch.equal(k.hwio, w)
+    assert k.hwio.view(torch.int32).equal(w.view(torch.int32))
+    parts = _split_parts(k.w, 2)
+    assert (_low13(parts[0]) == 0).all()
+    wh = tconv._unpack_taps(parts[0])[:, :, :cin, :cout]
+    if not rounded:
+        wl = tconv._unpack_taps(parts[1])[:, :, :cin, :cout]
+        assert torch.equal(wl, w - wh) and torch.equal(wh + wl, w)
+        assert torch.equal(wh, tkern.tf32_round(w))
+    else:
+        assert torch.equal(wh, w)
+
+
+@pytest.mark.parametrize("k,n", [*K1_WEIGHTS, (8, 24), (36, 24), (4, 3),
+                                 (1, 180), (1024, 256), (1028, 180),
+                                 (256, 1024), (33, 129)])
+@pytest.mark.parametrize("rounded", [False, True, "bf16"])
+def test_kernel_matrix_f32_splits_the_weights(k, n, rounded):
+    """The float32 K1 form: slices of at most 96 columns, K in stages of
+    32, wh with its low 13 bits zero and wl = w - wh exactly; _dense gives
+    w back bit for bit; bf16-rounded weights (in float32 or as bf16) hold
+    no wl."""
+    rng = np.random.default_rng(k * 1000 + n + 7)
+    w = _rand(rng, k, n)
+    if rounded:
+        w = w.to(torch.bfloat16).float()
+    src = w.to(torch.bfloat16) if rounded == "bf16" else w
+    form = tsb.kernel_matrix(src, torch.float32)
+    nsl, ns = tkern.tf32_slices(n, tsb.LINEAR_F32_MAX_N)
+    assert ns <= 96
+    parts = 1 if rounded else 2
+    assert form.shape == (nsl, -(-k // 32), parts, 8, ns // 8, 8, 4)
+    assert form.is_contiguous() and form.dtype == torch.float32
+    assert ns in tkern.TF32_WIDTHS and (nsl - 1) * ns < n <= nsl * ns
+    assert tsb._dense(form, k, n).view(torch.int32).equal(
+        w.view(torch.int32))
+    hi = _split_parts(form, 2)[0]
+    assert (_low13(hi) == 0).all()
+    wh = tsb._dense(hi.unsqueeze(2).contiguous(), k, n)
+    assert torch.equal(wh, tkern.tf32_round(w))
+    if not rounded:
+        wl = tsb._dense(_split_parts(form, 2)[1].unsqueeze(2).contiguous(),
+                        k, n)
+        assert torch.equal(wl, w - wh)
+
+
+@pytest.mark.parametrize("v", [1.0, -1.0, 1.0 + 2 ** -11, -(1.0 + 2 ** -11),
+                               1.0 + 3 * 2 ** -11, 2 - 2 ** -23, 1.5e-30,
+                               -7.5e30, 0.0])
+def test_tf32_round_is_nearest_ties_away(v):
+    """tf32_round is cvt.rna.tf32.f32: nearest TF32 (10 mantissa bits),
+    ties away from zero, the low 13 bits zero."""
+    x = torch.tensor([v], dtype=torch.float32)
+    got = float(tkern.tf32_round(x))
+    m, e = np.frexp(np.float64(x.item()))
+    q = np.float64(2.0 ** (e - 11))
+    lo = np.floor(np.abs(np.float64(x.item())) / q) * q
+    rem = np.abs(np.float64(x.item())) - lo
+    want = np.sign(x.item()) * (lo + q if rem >= q / 2 else lo)
+    assert got == float(want)
+
+
+# the float32 K3 plan over canvases of width 16, 32, 136 and 1920 (a few
+# rows: coverage is per column tile and row tile), Cin 3 to 2560, Cout 3
+# to 1280, both weight forms
+_F32_PLAN_CASES = [(2, 16, 16, 2560, 1280), (1, 32, 32, 2560, 1280),
+                   (1, 16, 16, 640, 320), (2, 19, 136, 180, 180),
+                   (1, 24, 136, 3, 48), (1, 8, 1920, 64, 3),
+                   (1, 9, 1920, 180, 60), (3, 21, 32, 512, 512),
+                   (1, 16, 16, 8, 1280), (8, 16, 136, 96, 192)]
+
+
+@pytest.mark.parametrize("shape", _F32_PLAN_CASES,
+                         ids=["x".join(map(str, s)) for s in _F32_PLAN_CASES])
+@pytest.mark.parametrize("parts", [1, 2])
+def test_conv3x3_f32_plan_fits_and_covers(shape, parts):
+    """Every block of the float32 K3 plan, by the kernel's own decode
+    (conv3x3_blocks): within one K part the blocks cover each output pixel
+    and channel exactly once, the parts cover the input channels exactly
+    once in contiguous ranges of at least four 8-channel chunks, the
+    shared memory fits in 227 KB, and the form's slices are the plan's."""
+    b, h, w, cin, cout = shape
+    plan = tconv.conv3x3_plan(b, h, w, cin, cout, torch.float32,
+                              parts=parts)
+    assert plan.smem <= tkern.SMEM_LIMIT and 2 <= plan.stages <= 5
+    assert plan.smem == tconv.conv3x3_f32_smem(plan.ns, parts, plan.stages)
+    assert plan.ns in tkern.TF32_WIDTHS and plan.threads == 256
+    assert plan.ns <= (128 if parts == 1 else 96)
+    assert plan.tile in tconv.CONV_F32_TILE_COLS
+    assert 1 <= plan.split <= tconv.CONV_F32_MAX_SPLIT
+    seen: dict = {}
+    for bb, y0, y1, x0, x1, n0, n1, c0, c1 in tconv.conv3x3_blocks(
+            plan, b, h, w, cin, cout):
+        cov = seen.setdefault((c0, c1), np.zeros((b, h, w, cout), np.uint8))
+        if y0 < y1 and x0 < x1:
+            cov[bb, y0:y1, x0:x1, n0:n1] += 1
+    ranges = sorted(seen)
+    assert len(ranges) == plan.split
+    assert ranges[0][0] == 0 and ranges[-1][1] == cin
+    assert all(a[1] == b_[0] for a, b_ in zip(ranges, ranges[1:]))
+    nc = -(-cin // 8)
+    assert plan.split == 1 or nc // plan.split >= tconv.CONV_F32_MIN_CHUNKS
+    for cov in seen.values():
+        assert (cov == 1).all()
+    if plan.split > 1:
+        assert plan.grid <= 132
+    wk = torch.zeros(3, 3, cin, cout)
+    if parts == 2:
+        wk[0, 0, 0, 0] = 1 + 2 ** -20
+    k = tconv.conv3x3_weights(wk, None, torch.float32)
+    assert k.parts == parts
+    assert k.w.shape[0] == plan.slices and k.w.shape[5] * 8 == plan.ns
+
+
+def test_conv3x3_f32_plan_splits_only_what_cannot_fill_the_card():
+    """DiffBIR's UNet at 16 x 16 (2560 -> 1280, bf16-rounded weights) is
+    10 slices of two tiles: split six ways into 120 blocks; its 32 x 32
+    level (80 blocks) and the VAE's 512 x 512 level are not split."""
+    p16 = tconv.conv3x3_plan(1, 16, 16, 2560, 1280, torch.float32, parts=1)
+    assert (p16.slices, p16.ns, p16.split, p16.grid) == (10, 128, 6, 120)
+    p32 = tconv.conv3x3_plan(1, 32, 32, 2560, 1280, torch.float32, parts=1)
+    assert p32.split == 1
+    p512 = tconv.conv3x3_plan(1, 512, 512, 512, 512, torch.float32, parts=1)
+    assert p512.split == 1 and p512.grid == 64 * 32 * 4  # 8 x 16 tiles
+
+
+@pytest.mark.parametrize("m,k,n", [(552 * 1920, 180, 540), (8192, 180, 360),
+                                   (8192, 360, 180), (61440, 1024, 256),
+                                   (1000, 36, 24), (7, 3, 5), (8192, 1028,
+                                                               180)])
+@pytest.mark.parametrize("parts", [1, 2])
+def test_token_linear_f32_plan_fits(m, k, n, parts):
+    """The float32 K1 plan: one block per (256-row tile, slice), a ring of
+    2-6 stages of 32 k no deeper than K needs, within 227 KB; the form's
+    slices are the plan's."""
+    plan = tsb.token_linear_f32_plan(m, k, n, parts)
+    assert plan.smem <= tkern.SMEM_LIMIT and 2 <= plan.stages <= 6
+    assert plan.smem == tsb.token_linear_f32_smem(plan.ns, parts,
+                                                  plan.stages)
+    assert plan.grid == -(-m // 256) * plan.slices and plan.threads == 512
+    assert plan.ns <= 96 and (plan.slices - 1) * plan.ns < n
+    assert plan.stages <= max(2, -(-k // 32) + 1)
+    form = tsb.kernel_matrix(torch.zeros(k, n), torch.float32)
+    assert form.shape[0] == plan.slices and form.shape[4] * 8 == plan.ns

@@ -191,6 +191,109 @@ def test_gemm_tile_matches_matmul(cuda, n, k, a_in_registers):
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-5)
 
 
+# the float32 K1's forms: LayerNorm-in with the gather, GELU, the residual
+# through its map and the scatter, bf16 rows, bf16 output, K past 512 with
+# LayerNorm, a ragged K (not a multiple of 4) and a ragged M
+_TL_F32 = {
+    "qkv": dict(k=180, n=540, ln=True, maps=True),
+    "fc1_erf": dict(k=180, n=360, ln=True, gelu="erf"),
+    "fc2_tanh_res": dict(k=360, n=180, gelu="tanh", res=True, maps=True),
+    "bf16_rows": dict(k=96, n=64, a_dt=torch.bfloat16),
+    "bf16_rows_ln": dict(k=96, n=48, a_dt=torch.bfloat16, ln=True),
+    "bf16_out": dict(k=64, n=96, out=torch.bfloat16, res=True),
+    "wide_k_ln": dict(k=1024, n=256, ln=True, gelu="erf"),
+    "ragged_k": dict(k=37, n=24, ln=True, m=1000),
+    "tiny": dict(k=3, n=5, m=7)}
+
+
+@pytest.mark.parametrize("n", tkern.TF32_WIDTHS)
+@pytest.mark.parametrize("k", [8, 32])
+@pytest.mark.parametrize("rounded", [False, True])
+def test_gemm_tile_tf32_matches_float64(cuda, n, k, rounded):
+    """One 64 x N x K tile through the split-TF32 core (the float32 K1's
+    staging, ldmatrix of 32-bit elements, the split in registers, wgmma
+    .tf32 with B by descriptor from the packed form) against a float64
+    product of the same float32 values: within 1e-5 of max|ref| with and
+    without wl (bf16-rounded weights). A wrong fragment layout gives
+    errors of the order of the values, plain TF32 about 1e-3."""
+    gen = torch.Generator().manual_seed(n + k + rounded)
+    a = _randn(gen, 64, k)
+    w = _randn(gen, k, n, scale=k ** -0.5)
+    if rounded:
+        w = w.to(torch.bfloat16).float()
+    ref = a.double() @ w.double()
+    got = tsb.gemm_tile_tf32(a.to(cuda), w.to(cuda)).cpu().double()
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+# float32 K3 where the plan splits K (a 16 x 16 canvas: two tiles a slice)
+# and where it does not, with every epilogue; two launches give the same
+# bits (the split's second pass adds the parts in a fixed order)
+@pytest.mark.parametrize("case", [
+    dict(h=16, w=16, cin=256, cout=128), dict(h=16, w=16, cin=320, cout=200,
+                                              res=True, act="lrelu"),
+    dict(h=16, w=16, cin=256, cout=64, ln=True, roll=3, rounded=True),
+    dict(h=19, w=70, cin=180, cout=180, rounded=True, res=True),
+    dict(h=32, w=32, cin=96, cout=3, act="lrelu2")])
+def test_conv3x3_f32_split_route_matches_plain(cuda, case):
+    gen = torch.Generator().manual_seed(case["cin"] + case["cout"])
+    h, w, cin, cout = case["h"], case["w"], case["cin"], case["cout"]
+    x = _randn(gen, 1, h, w, cin).to(cuda)
+    wk = _randn(gen, 3, 3, cin, cout, scale=(9 * cin) ** -0.5)
+    if case.get("rounded"):
+        wk = wk.to(torch.bfloat16).float()
+    b = _randn(gen, cout, scale=0.1).to(cuda)
+    kw = dict(act=case.get("act"), roll=case.get("roll", 0))
+    if case.get("res"):
+        kw["res"] = _randn(gen, 1, h, w, cout).to(cuda)
+    if case.get("ln"):
+        kw["ln_pre"] = (1 + _randn(gen, cin, scale=0.1).to(cuda),
+                        _randn(gen, cin, scale=0.1).to(cuda))
+    form = tconv.conv3x3_weights(wk.to(cuda), b, torch.float32)
+    assert form.parts == (1 if case.get("rounded") else 2)
+    got = tconv.conv3x3(x, form, **kw)
+    again = tconv.conv3x3(x, form, **kw)
+    want = tconv.conv3x3_plain(x, wk.to(cuda), b, **kw)
+    assert torch.equal(got, again)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("name", sorted(_TL_F32))
+def test_token_linear_f32_matches_plain(cuda, name):
+    """The float32 K1 (split TF32) against its plain version under the f32
+    rule, with every prologue and epilogue form, float32 and bf16 rows,
+    ragged K and M; two launches give the same bits."""
+    case = _TL_F32[name]
+    gen = torch.Generator().manual_seed(11)
+    k, n, ws = case["k"], case["n"], 4
+    geom = (2, 3 * ws, 5 * ws, ws, -(ws // 2))
+    m = case.get("m", geom[0] * geom[1] * geom[2])
+    a = _randn(gen, m, k).to(case.get("a_dt", torch.float32)).to(cuda)
+    w = _randn(gen, k, n, scale=k ** -0.5)
+    b = _randn(gen, n, scale=0.1).to(cuda)
+    ln = (1 + _randn(gen, k, scale=0.1).to(cuda),
+          _randn(gen, k, scale=0.1).to(cuda)) if case.get("ln") else None
+    res = _randn(gen, m, n).to(cuda) if case.get("res") else None
+    maps = dict(a_map=1, r_map=1, o_map=2, geom=geom) \
+        if case.get("maps") else {}
+    kw = dict(ln=ln, gelu=case.get("gelu"), res=res,
+              out_dtype=case.get("out"), **maps)
+    form = tsb.kernel_matrix(w, torch.float32).to(cuda)
+    n0 = tsb.token_linear.launches
+    got = tsb.token_linear(a, form, b, **kw)
+    again = tsb.token_linear(a, form, b, **kw)
+    assert tsb.token_linear.launches == n0 + 2
+    want = tsb.token_linear_plain(a, form, b, **kw)
+    assert torch.equal(got, again)
+    if got.dtype == torch.float32:
+        assert float((got - want).abs().max()) <= \
+            1e-4 * float(want.abs().max())
+    else:  # a bf16 store: within one bf16 ulp of the output's scale
+        ulp = 2.0 ** (math.floor(math.log2(float(want.float().abs().max())))
+                      - 7)
+        assert float((got.float() - want.float()).abs().max()) <= ulp
+
+
 # the band's four K1 shapes (qkv 180 -> 540 gathered, proj 180 -> 180 with
 # a gathered residual, fc1 180 -> 360 + GELU from float32 rows, fc2
 # 360 -> 180 + residual scattered), a ragged M (240 and 1000 rows: not a

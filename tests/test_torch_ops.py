@@ -150,8 +150,10 @@ def test_conv3x3_kernel_form_equals_raw_weights(dtype):
     wk = _t((rng.standard_normal((3, 3, 6, 5)) / 4).astype(np.float32))
     b = _t(rng.standard_normal(5).astype(np.float32)).to(dtype)
     k = tconv.conv3x3_weights(wk, b, dtype)
-    # bf16: (slices, Cin/16, taps, k halves, Cout/8, 8, 8), Cout 5 -> 8
-    form = (1, 1, 9, 2, 1, 8, 8) if dtype == torch.bfloat16 else (3, 3, 6, 5)
+    # bf16: (slices, Cin/16, taps, k halves, Cout/8, 8, 8), Cout 5 -> 8;
+    # float32: (slices, Cin/8, parts wh and wl, taps, k quads, Cout/8, 8, 4)
+    form = (1, 1, 9, 2, 1, 8, 8) if dtype == torch.bfloat16 \
+        else (1, 1, 2, 9, 2, 1, 8, 4)
     assert k.w.shape == form and k.w.dtype == dtype
     assert k.b.dtype == torch.float32 and (k.cin, k.cout) == (6, 5)
     torch.testing.assert_close(tconv.conv3x3(x, k, act="lrelu", roll=-4),
