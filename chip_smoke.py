@@ -33,7 +33,9 @@ Phases, each printing one JSON line:
    same for K2 at N 256 in table mode (no mask, bank, full mask; SDPA
    beside it),
    ``swin_attn_block`` (dc 0, -8), K6 ``roll2d`` (+-8; ``torch.roll``
-   beside it) and K3 at the CAB's shapes on one HAT tile batch
+   beside it; in f32 also at HAT's 1x144x144 and 8x32x32 canvases, their
+   profiler device times taken early in the run) and K3 at the CAB's
+   shapes on one HAT tile batch
    (5x256x256, C 180), and ``wmsa_block`` with the full mask at N 64 on the
    1088x1928 denoise canvas and at N 256 on the HAT batch;
 4. golden: SwinIR-M x4 on the real-geometry synthetic golden in float32,
@@ -43,7 +45,7 @@ Phases, each printing one JSON line:
    every kernel wrapper over the timed requests;
 6. fast_vs_exact: the bf16 fast band path against the f32 exact whole-image
    path on a 480x270 probe, PSNR >= the plain bf16-vs-f32 control (on its
-   240x136 corner, where the card's f32 is also held against the CPU's)
+   128x136 corner, where the card's f32 is also held against the CPU's)
    - 2 dB;
 7. restormer_golden: restormer_synth (320x320) in float32, PSNR >=
    recorded - 0.1;
@@ -52,7 +54,7 @@ Phases, each printing one JSON line:
    three timed): 8 K3, 44 K4 and 44 K5 launches per request, and a
    ``torch.profiler`` split of one more;
 9. restormer_fast_vs_exact: bf16 through the kernels against f32 exact on
-   a 128x1024 probe (every level on the fused route), PSNR >= the plain
+   a 64x1024 probe (every level on the fused route), PSNR >= the plain
    bf16-vs-f32 control - 2 dB;
 10. hat_exact: f32 ``hat_sr_x4`` (random weights from its seed) on the
     card against the CPU plain f32 path on a 112x112 input (one 128x128
@@ -191,8 +193,9 @@ Phases, each printing one JSON line:
     seconds and launches; then /evaluate_degradation and /compare_quality
     on ``make_eval_server`` with the classifier on the card;
 35. cli_path: ``python -m image_restoration_agent_tpu_torch.cli restore
-    <png> --model ridcp`` and ``... test-tools`` in subprocesses with no
-    ``--device`` (the card): the restored image's shape, every tool ok.
+    <png> --model ridcp`` and ``... test-tools`` in two subprocesses at
+    once with no ``--device`` (the card): the restored image's shape,
+    every tool ok.
 36. diffbir_kernels (with the kernel checks, also under ``--quick`` at
     small shapes): K3 and ``swin_block`` against their plain versions at
     every call form of the 256 px ``diffbir`` request, traced on the meta
@@ -202,7 +205,8 @@ Phases, each printing one JSON line:
     package's promotions give under bf16 weights);
 37. diffbir_path (bench.py's diffbir_sr): ``diffbir`` (random weights,
     torch's own init) serving 256x256 in bf16 through
-    ``Engine(device="cuda")``, whole image, 50 steps: a warm-up request
+    ``Engine(device="cuda")``, whole image, 10 sampler steps (the preset's
+    50 cut to 10: every step makes the same calls): a warm-up request
     whose call forms diffbir_kernels checked, two timed (best, median, the
     launches per request against the trace, peak device memory), a
     ``torch.profiler`` split of one more (busy share, K3's f32 share);
@@ -320,18 +324,22 @@ Phases, each printing one JSON line:
 Every phase but the training ones (56-65) runs under ``torch.no_grad()``,
 as a served forward does.
 
-Float32 K3 and K1 run split TF32 on the tensor cores (three TF32 products
-a k step, two where the weights are bf16-rounded or the rows bf16); every
-other float32 kernel runs FP32 FMA. Each float32 kernel row prints its
-``f32_route`` (``split-tf32 xP``, ``fma``, or both for a composite such as
-``swin_block``), and its bound takes that route: P x FLOP / 495 TFLOP/s for
-the split-TF32 launches' FLOP, FLOP / 67 TFLOP/s for the rest, bytes /
-3.35 TB/s, the largest. A row of one float32 K3 or K1 launch also prints a
-float64 control (``f64_max_abs_err`` of the kernel and
+Float32 K3, K1 and K2 run split TF32 on the tensor cores (three TF32
+products a k step, two where K3's or K1's weights are bf16-rounded or the
+rows bf16); every other float32 kernel runs FP32 FMA. Each float32 kernel
+row prints its ``f32_route`` (``split-tf32 xP``, ``fma``, or both for a
+composite such as ``gdfn_block``), and its bound takes that route: P x
+FLOP / 495 TFLOP/s for the split-TF32 launches' FLOP, FLOP / 67 TFLOP/s for
+the rest, bytes / 3.35 TB/s, the largest. A row of one float32 K3, K1 or K2
+launch also prints a float64 control (``f64_max_abs_err`` of the kernel and
 ``plain_f64_max_abs_err`` of the float32 plain version against a float64
-conv or matmul on the card, over the top 32 output rows or first 8192
-tokens; printed, not gated) and passes only if ``repeatable`` (a second
-launch on the same operands gives the same bits). DiffBIR's float32 forms
+conv, matmul or attention on the card, over the top 32 output rows, the
+first 8192 tokens, or the last 8192 tokens' windows; printed, not gated)
+and passes only if ``repeatable`` (a second launch on the same operands
+gives the same bits). Every K6 ``roll2d`` row passes only if
+``bit_equal`` to ``torch.roll``, and prints the profiler's device time of
+K6 and of ``torch.roll`` (``device_ms``, ``library_device_ms``) beside the
+event loop's ``ms`` and ``library_ms``. DiffBIR's float32 forms
 are checked on bf16-rounded weights, as its request holds them.
 Phases 20-22 are the lab path: each counts its kernel's launches over one
 call (6 ``swin_pair_block`` per chain, 1 ``conv3x3_pair`` per tail, 1
@@ -364,8 +372,8 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # H100 SXM, dense
 PEAK_TF32 = 495e12  # the split-TF32 route's passes run at the TF32 rate
 PEAK_BYTES = 3.35e12
 # the kernels whose float32 path is split TF32 on the tensor cores (every
-# other float32 kernel runs FP32 FMA)
-SPLIT_TF32 = ("conv3x3", "token_linear")
+# other float32 kernel runs FP32 FMA); "wmsa" is K2 alone
+SPLIT_TF32 = ("conv3x3", "token_linear", "window_attention", "wmsa")
 SRC = "image_restoration_agent_tpu_torch/csrc/"
 TPU = "image_restoration_agent_tpu/ops/"
 REPLACES = {
@@ -385,13 +393,14 @@ REPLACES = {
     "lab_strip": "scripts/kernel_lab.py:229",
 }
 SOURCE = {"swin_block": SRC + "swin_block.cu", "token_linear":
-          SRC + "swin_block.cu", "window_attention": SRC + "swin_block.cu",
+          SRC + "swin_block.cu",
+          "window_attention": SRC + "window_attention.cu",
           "swin_attn_block": SRC + "swin_block.cu",
           "wmsa_block": SRC + "swin_block.cu", "roll2d": SRC + "roll2d.cu",
           "mlp_block": SRC + "swin_block.cu", "conv3x3": SRC + "conv3x3.cu",
           "gdfn_block": SRC + "restormer_fused.cu",
           "mdta_front": SRC + "restormer_fused.cu",
-          "wmsa": SRC + "swin_block.cu",
+          "wmsa": SRC + "window_attention.cu",
           "conv3x3_pair": SRC + "conv3x3_pair.cu",
           "swin_pair_block": SRC + "swin_pair.cu",
           "lab_strip": SRC + "swin_block.cu"}
@@ -482,6 +491,27 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
     return a.elapsed_time(b) / reps
 
 
+def device_ms(fn, reps: int = 20) -> float | None:
+    """The device's own time per call of ``fn`` (torch.profiler's kernel
+    and copy rows summed over ``reps`` calls after a warm-up, divided by
+    ``reps``): the kernel without the host's launch work, which the event
+    loop of :func:`cuda_ms` also times where a call is shorter than its
+    launch. None where the trace holds no device row."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+          if e.device_type() != DeviceType.CPU]
+    return sum(ns) / reps / 1e6 if ns else None
+
+
 def bound(flops: float, nbytes: float, dtype: str, tf32_flops: float = 0.0,
           passes: int = 3) -> tuple[float, str]:
     """The least time for ``flops`` and ``nbytes``: bf16 at 989 TFLOP/s;
@@ -501,10 +531,10 @@ def bound(flops: float, nbytes: float, dtype: str, tf32_flops: float = 0.0,
 
 @contextlib.contextmanager
 def split_launches(calls: list):
-    """Record the float32 K3 and K1 launches made inside the block: each
-    one's wrapper, FLOP and split-TF32 passes; the first one's arguments
-    and output too while it is the only one (the single-kernel rows' float64
-    control and repeat)."""
+    """Record the float32 K3, K1 and K2 launches made inside the block:
+    each one's wrapper, FLOP and split-TF32 passes; the first one's
+    arguments and output too while it is the only one (the single-kernel
+    rows' float64 control and repeat)."""
     import importlib
 
     import torch
@@ -515,10 +545,18 @@ def split_launches(calls: list):
         "image_restoration_agent_tpu_torch.ops.conv3x3")
     tsb = importlib.import_module(
         "image_restoration_agent_tpu_torch.ops.swin_block")
-    saved = (tconv._conv3x3_cuda, tsb._token_linear_cuda)
+    saved = (tconv._conv3x3_cuda, tsb._token_linear_cuda,
+             tsb._window_attention_cuda)
 
     def record(name, fn, args, out):
-        if name == "conv3x3":
+        if name == "window_attention":
+            qkv, rpb = args[:2]
+            if qkv.dtype != torch.float32:
+                return
+            # q k^T and p v: 2 x 2 t n C, each product three TF32 passes
+            flops = 4 * qkv.numel() // 3 * rpb.shape[-1]
+            passes = 3
+        elif name == "conv3x3":
             x, k = args[:2]
             if k.w.dtype != torch.float32:
                 return
@@ -546,17 +584,56 @@ def split_launches(calls: list):
 
     tconv._conv3x3_cuda = wrap("conv3x3", saved[0])
     tsb._token_linear_cuda = wrap("token_linear", saved[1])
+    tsb._window_attention_cuda = wrap("window_attention", saved[2])
     try:
         yield calls
     finally:
-        tconv._conv3x3_cuda, tsb._token_linear_cuda = saved
+        (tconv._conv3x3_cuda, tsb._token_linear_cuda,
+         tsb._window_attention_cuda) = saved
+
+
+def _attn64(call: dict):
+    """:func:`_ref64` of a float32 K2 launch: its last windows (8192
+    tokens, or one window; the bank's and the full mask's last entries are
+    there) in float64 from the same float32 q, k, v, bias and mask."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.ops.swin_block import (
+        EXP2_CLAMP, LOG2E, _bank_per_window, window_attention_plain)
+
+    qkv, rpb, bank, heads, nwy, nwx, fast, mask, scale, _ = (
+        a.detach() if torch.is_tensor(a) else a for a in call["args"])
+    t, c3 = qkv.shape
+    c, n = c3 // 3, rpb.shape[-1]
+    nwin = t // n
+    cw = min(nwin, max(1, 8192 // n))
+    win = torch.arange(nwin - cw, nwin, device=qkv.device)
+    rows = slice((nwin - cw) * n, t)
+    q, k, v = (qkv[rows].double().reshape(cw, n, 3, heads, c // heads)
+               .permute(2, 0, 3, 1, 4))
+    s = (q @ k.transpose(-1, -2)) * scale + rpb.double()
+    if bank is not None:
+        s = s + _bank_per_window(bank, nwy, nwx).double()[
+            win % (nwy * nwx)][:, None]
+    elif mask is not None:
+        s = s + mask.double()[win % mask.shape[0]][:, None]
+    if fast:
+        e = torch.exp2(torch.clamp(s * LOG2E, max=EXP2_CLAMP))
+        p = e / e.sum(-1, keepdim=True)
+    else:
+        p = torch.softmax(s, -1)
+    y = (p @ v).permute(0, 2, 1, 3).reshape(cw * n, c)
+    plain = window_attention_plain(qkv, rpb, bank, num_heads=heads, nwy=nwy,
+                                   nwx=nwx, fast=fast, mask=mask, scale=scale)
+    return call["out"].detach()[rows], plain[rows], y
 
 
 def _ref64(call: dict):
-    """A float64 reference of one recorded float32 K3 or K1 launch, and the
-    float32 plain version's result on the same operands, each over a cut of
-    the output (K3: the top 32 rows; K1: the first 8192 rows) with the
-    launch's own values there: (kernel, plain, float64) tensors."""
+    """A float64 reference of one recorded float32 K3, K1 or K2 launch, and
+    the float32 plain version's result on the same operands, each over a
+    cut of the output (K3: the top 32 rows; K1: the first 8192 rows; K2:
+    :func:`_attn64`) with the launch's own values there: (kernel, plain,
+    float64) tensors."""
     import torch
     import torch.nn.functional as F
 
@@ -569,6 +646,8 @@ def _ref64(call: dict):
         var = (v - mu).square().mean(-1, keepdim=True)
         return (v - mu) / torch.sqrt(var + 1e-5) * g.double() + b.double()
 
+    if call["name"] == "window_attention":
+        return _attn64(call)
     out = call["out"].detach()
     if call["name"] == "conv3x3":
         x, k, act, res, roll, ln_pre = (
@@ -612,7 +691,7 @@ def _ref64(call: dict):
 
 def split_route(name: str, calls: list, flops: float) -> dict:
     """A float32 row's route from the launches it made: ``split-tf32 xP``
-    (P passes), ``fma``, or both; and for a single K3 or K1 launch the
+    (P passes), ``fma``, or both; and for a single K3, K1 or K2 launch the
     float64 control (the kernel's and the plain f32 version's max error
     against a float64 product on the card, printed, not gated) and
     ``repeatable`` (a second launch on the same operands gives the same
@@ -669,6 +748,8 @@ def check_case(cs: dict, dtype) -> dict:
                source=SOURCE[cs["name"]], replaces=REPLACES[cs["name"]],
                max_abs_err=err, rms_err=float(d.square().mean().sqrt()))
     finite = bool(torch.isfinite(got.float()).all())
+    if cs["name"] == "roll2d":  # a copy: bit for bit torch.roll's
+        row["bit_equal"] = bool(torch.equal(got.float(), want))
     if dtype == torch.float32:
         scale = float(want.abs().max())
         row["tolerance"] = 1e-4 * scale
@@ -695,11 +776,15 @@ def check_case(cs: dict, dtype) -> dict:
     for key, fn in cs.get("extra_ms", {}).items():
         row[key] = cuda_ms(fn, cs["reps"])
     row.update(cs.get("extra", {}))
-    row["pass"] = row["pass"] and row.get("repeatable", True)
+    row["pass"] = (row["pass"] and row.get("repeatable", True)
+                   and row.get("bit_equal", True))
     row["ms"] = cuda_ms(cs["kernel"], cs["reps"])
     row["plain_ms"] = cuda_ms(cs["plain"], 2)
     row["library_ms"] = (cuda_ms(cs["library"], cs["reps"])
                          if cs["library"] is not None else None)
+    if cs["name"] == "roll2d":  # the device's time beside the event loop's
+        row["device_ms"] = device_ms(cs["kernel"])
+        row["library_device_ms"] = device_ms(cs["library"])
     row["bound_ms"], row["bound_by"] = bound(
         cs["flops"], cs["nbytes"], dn, row.get("tf32_flops", 0.0),
         row.get("tf32_passes", 3))
@@ -1157,10 +1242,11 @@ def restormer_kernel_checks(quick: bool, seed: int = 3) -> list[dict]:
 def hat_kernel_checks(quick: bool, seed: int = 11) -> list[dict]:
     """The slice-3 kernels against their plain versions: K2 at N 256 (no
     mask, bank, full mask), ``swin_attn_block`` (dc 0, -8), K6 ``roll2d``
-    (+-8) and K3 at the CAB's shapes on one HAT tile batch (5x256x256, C
-    180, window 16), ``wmsa_block`` with the full mask at N 64 on the
-    1088x1928 denoise canvas and at N 256 on the HAT batch. ``--quick``
-    takes a 32x64 batch of one and a 24x40 canvas."""
+    (+-8; in f32 also at 1x144x144 and 8x32x32, HAT's 96 px tree and
+    training forms) and K3 at the CAB's shapes on one HAT tile batch
+    (5x256x256, C 180, window 16), ``wmsa_block`` with the full mask at N
+    64 on the 1088x1928 denoise canvas and at N 256 on the HAT batch.
+    ``--quick`` takes a 32x64 batch of one and a 24x40 canvas."""
     import torch
 
     from image_restoration_agent_tpu_torch.ops.conv3x3 import (
@@ -1278,14 +1364,24 @@ def hat_kernel_checks(quick: bool, seed: int = 11) -> list[dict]:
                 library=None, flops=blk_flops,
                 nbytes=blk_bytes + (0 if bk is None else bk.numel() * 4),
                 reps=3))
-        for shift in (8, -8):
-            cases.append(dict(
-                name="roll2d", variant=f"shift={shift:+d}", path="hat",
-                kernel=lambda sh=shift: roll2d(x, sh, 16),
-                plain=lambda sh=shift: roll2d_plain(x, sh, 16),
-                ref32=lambda sh=shift: roll2d_plain(x16_32, sh, 16),
-                library=lambda sh=shift: torch.roll(x, (sh, sh), (1, 2)),
-                flops=0, nbytes=2 * t * c * es, reps=10))
+        # the HAT batch, and (float32) the small canvases of HAT's 96 px
+        # tree and its training crop: their device times early in the run
+        rolls = [(x, x16_32, "")] + ([
+            (r32, r32, f"{'x'.join(map(str, r32.shape))} ")
+            for r32 in (randn(1, 144, 144, c), randn(8, 32, 32, c))]
+            if dtype == torch.float32 else [])
+        for xr, xr32, form in rolls:
+            for shift in (8, -8):
+                cases.append(dict(
+                    name="roll2d", variant=f"{form}shift={shift:+d}",
+                    path="hat",
+                    kernel=lambda xr=xr, sh=shift: roll2d(xr, sh, 16),
+                    plain=lambda xr=xr, sh=shift: roll2d_plain(xr, sh, 16),
+                    ref32=lambda xr32=xr32, sh=shift: roll2d_plain(
+                        xr32, sh, 16),
+                    library=lambda xr=xr, sh=shift: torch.roll(
+                        xr, (sh, sh), (1, 2)),
+                    flops=0, nbytes=2 * xr.numel() * es, reps=50))
         # wmsa_block: N 256 on the HAT batch, N 64 on the denoise canvas
         xw16 = window_partition(x, 16).reshape(-1, n, c)
         xw16_32 = window_partition(x16_32, 16).reshape(-1, n, c)
@@ -1392,14 +1488,15 @@ def main_path(state, card: str, requests: int = 3) -> dict:
 
 def profile_request(eng, img, model: str, top: int = 12,
                     results: list | None = None,
-                    cpu_ops: bool = True) -> dict:
-    """One more request under torch.profiler: device time by kernel, the
-    library ops that launched the most of it, and the device's busy share
-    of the request's wall time. Only the device's own rows (kernels,
-    copies) are summed: an op's self device time repeats its kernels'.
-    ``results``, where given, gets the request's result. ``cpu_ops=False``
-    records the device's activity alone (no op rows): a request of 180 000
-    launches then takes about half the profiler's processing."""
+                    cpu_ops: bool = False) -> dict:
+    """One more request under torch.profiler: device time by kernel and
+    the device's busy share of the request's wall time. Only the device's
+    own rows (kernels, copies) are summed: an op's self device time
+    repeats its kernels'. ``results``, where given, gets the request's
+    result. ``cpu_ops=True`` also records the library ops that launched
+    the most of it; their rows need the profiler's own processing, which
+    took 9-10 s after one HAT or X-Restormer request (the device's
+    activity alone: a fraction of a second)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1455,7 +1552,7 @@ def profile_summary(prof, wall: float, top: int) -> dict:
 def fast_vs_exact(state) -> dict:
     """SwinIR-M x4 in bf16 through the band (fast) against f32 whole-image
     (exact) on the card on a 270x480 probe; the control, the plain versions
-    (the CPU path) in bf16 against f32, on its top-left 136x240 (a quarter
+    (the CPU path) in bf16 against f32, on its top-left 136x128 (an eighth
     of the CPU work), where the card's exact run is also held against the
     CPU's f32."""
     import torch
@@ -1487,15 +1584,15 @@ def fast_vs_exact(state) -> dict:
 
     fast = run("cuda", torch.bfloat16, img, band(h, w))
     exact = run("cuda", torch.float32, img, whole)
-    sub = img[:136, :240]
+    sub = img[:136, :128]
     exact_sub = run("cuda", torch.float32, sub, whole)
     torch.set_num_threads(8)
-    ctrl16 = run("cpu", torch.bfloat16, sub, band(136, 240))
+    ctrl16 = run("cpu", torch.bfloat16, sub, band(136, 128))
     ctrl32 = run("cpu", torch.float32, sub, whole)
     db = range_psnr(fast, exact)
     ctrl = range_psnr(ctrl16, ctrl32)
     return {"phase": "fast_vs_exact", "probe": [h, w],
-            "control_probe": [136, 240], "psnr_db": db,
+            "control_probe": [136, 128], "psnr_db": db,
             "control_db": ctrl, "floor_db": ctrl - 2.0,
             "exact_plain_vs_card_db": range_psnr(ctrl32, exact_sub),
             "pass": bool(db >= ctrl - 2.0)}
@@ -1559,13 +1656,13 @@ def restormer_path(state, card: str, requests: int = 3) -> dict:
 
 def restormer_fast_vs_exact(state) -> dict:
     """bf16 through the kernels against f32 exact on the card, on a probe
-    whose every level takes the fused route (level 4 is 16x128)."""
+    whose every level takes the fused route (level 4 is 8x128)."""
     import torch
 
     from image_restoration_agent_tpu_torch.core.tiling import tiled_apply
     from image_restoration_agent_tpu_torch.models import build_model
 
-    h, w = 128, 1024
+    h, w = 64, 1024
     img = torch.from_numpy(np.random.default_rng(9).random(
         (h, w, 3), dtype=np.float32))
     sd = {k: torch.from_numpy(v) for k, v in state.items()}
@@ -2988,11 +3085,10 @@ def _wrap_seconds(owner, name: str, acc: dict, key: str):
 
 
 def agent_split(eng, toolboxes, inp, out) -> dict:
-    """One more agent run under torch.profiler, with the host seconds in
-    the classifier (resize + forward + copy back), in PNG decode/encode and
-    in the engine's requests counted by wrappers."""
-    import torch
-    from torch.autograd import DeviceType
+    """One more agent run under torch.profiler (the device's activity
+    alone), with the host seconds in the classifier (resize + forward +
+    copy back), in PNG decode/encode and in the engine's requests counted
+    by wrappers."""
     from torch.profiler import ProfilerActivity, profile
 
     from image_restoration_agent_tpu_torch.agent import (evaluators,
@@ -3010,27 +3106,19 @@ def agent_split(eng, toolboxes, inp, out) -> dict:
         for fn in fns]
     saved = [(o, n, _wrap_seconds(o, n, acc, k)) for o, n, k in wrapped]
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             secs, _ = _run_agent(eng, toolboxes, inp, out)
     finally:
         for o, n, fn in saved:
             setattr(o, n, fn)
-
-    def self_dev_us(e):
-        return (getattr(e, "self_device_time_total", None)
-                or getattr(e, "self_cuda_time_total", 0) or 0)
-
-    evs = sorted(prof.key_averages(), key=self_dev_us, reverse=True)
-    dev = [e for e in evs if e.device_type != DeviceType.CPU]
-    busy = sum(self_dev_us(e) for e in dev) / 1e3
+    summary = profile_summary(prof, secs, 10)
     return {"wall_s": secs, **acc,
             "classifier_share": acc["classifier_s"] / secs,
             "png_io_share": acc["png_io_s"] / secs,
             "engine_share": acc["engine_s"] / secs,
-            "device_busy_ms": busy, "device_busy_share": busy / (secs * 1e3),
-            "top": [{"name": e.key[:80], "calls": e.count,
-                     "device_ms": self_dev_us(e) / 1e3} for e in dev[:10]]}
+            "device_busy_ms": summary["device_busy_ms"],
+            "device_busy_share": summary["device_busy_share"],
+            "top": summary["top"]}
 
 
 def _cv2_version() -> str | None:
@@ -3779,7 +3867,7 @@ def cli_path() -> dict:
     """The command line on the card, in subprocesses with no ``--device``:
     ``restore <png> --model ridcp -o out.png`` (random weights, no weight
     dir; the output's shape is the input's) and ``test-tools`` (the tiny
-    toolboxes; every tool's ``ok``)."""
+    toolboxes; every tool's ``ok``), both at once."""
     import tempfile
 
     from image_restoration_agent_tpu_torch.core.io import (load_image,
@@ -3792,16 +3880,21 @@ def cli_path() -> dict:
         yy, xx = np.mgrid[0:360, 0:640] / 640.0
         save_image(np.stack([0.6 + 0.3 * yy, 0.6 + 0.2 * xx,
                              0.7 + 0.1 * np.sin(9 * xx * yy)], -1), src)
+        # both commands at once, each timed from the common start
+        t0 = time.perf_counter()
+        procs = {name: subprocess.Popen(cmd + args, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True)
+                 for name, args in (
+                     ("restore", ["restore", str(src), "--model", "ridcp",
+                                  "-o", str(dst)]),
+                     ("test_tools", ["test-tools", "--work-dir",
+                                     str(root / "tools")]))}
         runs = {}
-        for name, args in (
-                ("restore", ["restore", str(src), "--model", "ridcp", "-o",
-                             str(dst)]),
-                ("test_tools", ["test-tools", "--work-dir",
-                                str(root / "tools")])):
-            t0 = time.perf_counter()
-            r = subprocess.run(cmd + args, capture_output=True, text=True,
-                               timeout=600)
-            runs[name] = (r, time.perf_counter() - t0)
+        for name, p in procs.items():
+            out, err = p.communicate(timeout=600)
+            runs[name] = (subprocess.CompletedProcess(p.args, p.returncode,
+                                                      out, err),
+                          time.perf_counter() - t0)
         r, restore_s = runs["restore"]
         rec = json.loads(r.stdout.strip().splitlines()[-1]) \
             if r.returncode == 0 else {}
@@ -3840,13 +3933,15 @@ def slice12_phases(phase, card: str) -> dict:
 
 # bench.py's diffbir_sr preset: a 256 px request, whole image on the
 # engine's 256 canvas; stage 1 at 1024 px (its Swin blocks on the 128x128
-# pixel-unshuffled canvas), the 128x128 latent, 50 sampler steps. The f32
+# pixel-unshuffled canvas), the 128x128 latent; of its 50 sampler steps the
+# served paths run DIFFBIR_STEPS (each step makes the same calls). The f32
 # and bf16 probes: the model called on a 64x64 canvas (the smallest its
 # stages take: stage 1's 32x32 unshuffled canvas, a 32x32 latent; the
 # engine pads any input to 128, a CPU half four times as long), one
 # sampler step (each stage runs once; more steps repeat the same
 # launches).
 DIFFBIR_REQUEST = (256, 256)
+DIFFBIR_STEPS = 10
 DIFFBIR_PROBE = (64, 64)
 DIFFBIR_PROBE_STEPS = 1
 # /process on a small image: the graph app puts super-resolution first
@@ -3898,11 +3993,10 @@ def diffbir_kernel_shapes() -> dict:
     engine's canvas with bf16 weights and input, so each stage runs in the
     dtype the served request gives it (stage 1 and the condition encoder
     bf16, the ControlNet, UNet and decoder float32). Traced at 1 and 2
-    sampler steps; every step makes the same calls, so the 50-step
-    launches are the 1-step ones plus 49 times the difference."""
+    sampler steps; every step makes the same calls, so the launches of
+    DIFFBIR_STEPS steps are the 1-step ones plus DIFFBIR_STEPS - 1 times
+    the difference."""
     import torch
-
-    from image_restoration_agent_tpu_torch.models import get_spec
 
     canvas = served_canvas("diffbir", *DIFFBIR_REQUEST)
     dtypes: dict = {}
@@ -3912,8 +4006,7 @@ def diffbir_kernel_shapes() -> dict:
                           num_steps=2)
     if set(f1) != set(f2):
         raise RuntimeError("a sampler step made other call forms")
-    steps = get_spec("diffbir").build().num_steps
-    per_req = {k: c1[k] + (steps - 1) * (c2[k] - c1[k]) for k in c1}
+    per_req = {k: c1[k] + (DIFFBIR_STEPS - 1) * (c2[k] - c1[k]) for k in c1}
     return {"diffbir": (f1, per_req, dtypes)}
 
 
@@ -4037,8 +4130,9 @@ def _share(profile: dict, pattern: str) -> float:
 
 def diffbir_path(eng, card: str) -> dict:
     """bench.py's diffbir_sr: ``eng`` (``diffbir_engine``: bf16, random
-    weights) serving a 256x256 request with ``diffbir``, whole image, 50
-    steps: one warm-up request with every kernel call form recorded (all
+    weights) serving a 256x256 request with ``diffbir``, whole image,
+    DIFFBIR_STEPS sampler steps (sr_process then serves at that depth
+    too): one warm-up request with every kernel call form recorded (all
     checked by diffbir_kernels), then one timed under ``torch.profiler``
     with the device's activity alone (busy share, top kernels, K3's f32
     and bf16 shares; the profiler adds about 0.2% to its wall time; with
@@ -4058,6 +4152,7 @@ def diffbir_path(eng, card: str) -> dict:
     t0 = time.perf_counter()
     model = eng.store.get("diffbir")
     load_s = time.perf_counter() - t0
+    model.num_steps = DIFFBIR_STEPS
     weights_bytes = torch.cuda.memory_allocated()
     with kernel_calls(model) as (seen, _):
         t0 = time.perf_counter()
@@ -4093,7 +4188,7 @@ def diffbir_path(eng, card: str) -> dict:
     best = min(secs)
     return {"phase": "diffbir_path", "model": "diffbir", "dtype": "bfloat16",
             "input": [h, w, 3], "forwards": [list(f) for f in served_canvas(
-                "diffbir", h, w)], "steps": 50,
+                "diffbir", h, w)], "steps": DIFFBIR_STEPS,
             "stage_dtypes": diffbir_stage_dtypes(),
             "weights_load_seconds": load_s, "weights_bytes": weights_bytes,
             "warmup_seconds": warm_s, "profile_seconds": profile_s,
@@ -5393,7 +5488,7 @@ def hat_strip_cases(key, name: str, path: str, dtype, randn,
             plain=lambda: roll2d_plain(x, shift, ws),
             ref32=lambda: roll2d_plain(x32, shift, ws),
             library=lambda: torch.roll(x, (shift, shift), (1, 2)),
-            flops=0, nbytes=2 * t * c * es, reps=5))
+            flops=0, nbytes=2 * t * c * es, reps=50))
     return cases
 
 
@@ -5844,13 +5939,19 @@ def train_case(name: str, variant: str, make, flops: float, nbytes: float,
                grad_tolerance=1e-5, leaves=len(leaves),
                grad_of="front" if grad_fns else "output")
     row.update(split_route(name, calls, flops))
+    if name == "roll2d":  # a copy: bit for bit torch.roll's
+        row["bit_equal"] = bool(torch.equal(out_k, out_p))
     row["pass"] = (err <= tol and gerr <= 1e-5 and finite
-                   and row.get("repeatable", True))
+                   and row.get("repeatable", True)
+                   and row.get("bit_equal", True))
     with torch.no_grad():
         row["ms"] = cuda_ms(lambda: kfn(*leaves), reps)
         row["plain_ms"] = cuda_ms(lambda: pfn(*leaves), 2)
         row["library_ms"] = (cuda_ms(library, reps) if library is not None
                              else None)
+        if name == "roll2d":
+            row["device_ms"] = device_ms(lambda: kfn(*leaves))
+            row["library_device_ms"] = device_ms(library)
     row["backward_ms"] = cuda_ms(lambda: torch.autograd.grad(
         outs_k, leaves, cot, retain_graph=True, allow_unused=True), reps)
     row["plain_backward_ms"] = cuda_ms(lambda: torch.autograd.grad(
@@ -6100,8 +6201,7 @@ def train_path(card: str) -> dict:
         counts = launch_counts()
         peak = torch.cuda.max_memory_allocated()
         losses = [h["loss"] for h in tr.history]
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             tr.fit(iter(batches[S16_STEPS:]), state)
             torch.cuda.synchronize()
@@ -6485,7 +6585,7 @@ def swin_train_kernel_checks(quick: bool, seed: int = 73) -> list[dict]:
         xl = torch.randn(b, hw, hw, c).cuda()
         rows.append(train_case("roll2d", f"train HAT {b}x{hw}x{hw}x{c} "
                                f"shift {shift:+d}", make_r, 0,
-                               8 * m * c, path="family_train",
+                               8 * m * c, path="family_train", reps=50,
                                library=lambda xl=xl, sh=shift: torch.roll(
                                    xl, (sh, sh), (1, 2))))
 
@@ -6596,8 +6696,7 @@ def swin_train_path(card: str) -> dict:
         counts = launch_counts()
         peak = torch.cuda.max_memory_allocated()
         losses = [h["loss"] for h in tr.history]
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             tr.fit(iter(batches[S17_STEPS:]), state)
             torch.cuda.synchronize()

@@ -1,8 +1,9 @@
-// The Swin block's two kernels (replacing the TPU strip kernel
+// K1 of the Swin block (replacing, with K2 in csrc/window_attention.cu,
+// the TPU strip kernel
 // image_restoration_agent_tpu/ops/pallas_attention.py:swin_strip_pallas,
-// mlp_block_pallas, wmsa_block_pallas and, K2 alone, wmsa_pallas). See
-// ops/swin_block.py for the blocks they make, what bounds them on the
-// H100, and what is left for later work.
+// mlp_block_pallas and wmsa_block_pallas). See ops/swin_block.py for the
+// blocks they make, what bounds them on the H100, and what is left for
+// later work.
 //
 // K1 token_linear: out[o(t), :] = epi(pro(A[g(t), :]) @ W + bias)
 //   - float32: the split-TF32 product on the Hopper tensor cores
@@ -17,28 +18,10 @@
 //   - epilogue: bias, optional erf/tanh GELU, optional residual read
 //     through its own row map, store through map o (scatter to the output
 //     frame) in float32 or bfloat16.
-// K2 window_attention: every (window, head) of N = ws^2 <= 256 tokens
-//   (head width <= 64), logits (q.k) * scale + bias (+ mask): scale 1 for
-//   the Swin block's callers (q pre-scaled in the weights), head_dim**-0.5
-//   for the TPU's wmsa_pallas contract (q unscaled, the product scaled in
-//   float32; ops/swin_block.py:wmsa). The bias is the dense (heads, N, N)
-//   rpb, or the ((2ws-1)^2, heads) table staged in shared memory with
-//   rpb[h, i, j] rebuilt by the relative-position index rule (the same
-//   values); the mask an edge bank (entries the wrapper found all zero are
-//   skipped) or a full (nW, N, N) mask.
-//   - bfloat16 (window_attention_mma_kernel): mma.sync m16n8k16 with the
-//     16 x N logits of a warp's 16 query rows in registers; the softmax
-//     runs on the accumulators and p, rounded to bf16, is PV's A fragment
-//     (no logits in shared memory). N <= 64: one block per window stages
-//     the window's contiguous run of N x 3C (every head) with one sweep of
-//     16-byte cp.async; N > 64: one block per (window, head) stages its
-//     q, k, v once for all 4 warps.
-//   - float32 (window_attention_f32_kernel): one block per (window, head),
-//     k and v staged once, 64-query chunks, QK^T and PV tiled in registers
-//     on FP32 FMA (4 rows x N/16 keys, then 4 rows x 1-4 columns a thread).
 //
 // Plain C interface for ctypes; each entry returns cudaGetLastError().
 
+#include <algorithm>
 #include <type_traits>
 
 #include "common.cuh"
@@ -1027,818 +1010,6 @@ __global__ void __launch_bounds__(128) gemm_tile_kernel(
     }
 }
 
-// ---------------------------------------------------------------------------
-// K2: window_attention (design in the note at the top of this file)
-
-constexpr int MAXN = 256;             // tokens per window
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kExp2Clamp = 86.56f;  // 60 * log2(e): the TPU kernel's clamp
-
-__host__ __device__ constexpr size_t align16(size_t v) {
-  return (v + 15) / 16 * 16;
-}
-
-struct Attn {
-  const void* qkv;        // (nwin * N, 3C) window-order rows
-  const float* rpb;       // dense (heads, N, N), or nullptr in table mode
-  const float* table;     // ((2ws-1)^2, heads) bias table, or nullptr
-  const float* bank;      // (2, 2, N, N) edge bank, or nullptr
-  const float* mask;      // (nmask, N, N) full mask, or nullptr
-  const uint32_t* bits;   // the bank's or mask's bit form, or nullptr
-  void* out;              // (nwin * N, C)
-  int nmask, n, C, heads, nwy, nwx, ws, fast, bank_zero, mw;
-  float scale, mval;
-};
-
-// The entry of the mask (or bank) that window `win` adds, or -1: mask[win
-// % nmask] in full-mask mode; in bank mode bank[is_last_window_row,
-// is_last_window_col], or -1 where bit `sel` of bank_zero says that entry
-// is all zero (adding +0.0 changes no logit).
-__device__ __forceinline__ int mask_entry(const Attn& a, long long win) {
-  if (a.mask != nullptr) return static_cast<int>(win % a.nmask);
-  if (a.bank == nullptr) return -1;
-  const int wx = static_cast<int>(win % a.nwx);
-  const int wy = static_cast<int>((win / a.nwx) % a.nwy);
-  const int sel = (wy == a.nwy - 1) * 2 + (wx == a.nwx - 1);
-  return (a.bank_zero >> sel) & 1 ? -1 : sel;
-}
-
-// The additive mask of one query row (rows past N read row N - 1: never
-// stored). With the bit form (a.bits: bit j of word j / 32 of a row set
-// where the entry holds a.mval, 0 elsewhere; a.mw words a row) the row's
-// words come from `wrow` (shared memory, or device memory); otherwise the
-// dense float32 row.
-struct MaskRow {
-  const uint32_t* w;
-  const float* d;
-  float val;
-};
-
-__device__ __forceinline__ MaskRow mask_row(const Attn& a, int entry,
-                                            const uint32_t* staged, int i) {
-  if (entry < 0) return MaskRow{nullptr, nullptr, 0.f};
-  i = min(i, a.n - 1);
-  if (a.bits != nullptr)
-    return MaskRow{staged != nullptr
-                       ? staged + i * a.mw
-                       : a.bits + (static_cast<long long>(entry) * a.n + i) *
-                                      a.mw,
-                   nullptr, a.mval};
-  const float* m = a.mask != nullptr ? a.mask : a.bank;
-  return MaskRow{nullptr, m + (static_cast<long long>(entry) * a.n + i) * a.n,
-                 0.f};
-}
-
-// the window's bit rows into shared memory (n * mw words), when it has any
-__device__ __forceinline__ const uint32_t* stage_bits(const Attn& a,
-                                                      int entry,
-                                                      uint32_t* dst) {
-  if (entry < 0 || a.bits == nullptr) return nullptr;
-  const uint32_t* src =
-      a.bits + static_cast<long long>(entry) * a.n * a.mw;
-  for (int e = threadIdx.x; e < a.n * a.mw; e += blockDim.x)
-    cp_async4(dst + e, src + e);
-  return dst;
-}
-
-// The relative-position bias of one query row at key column cb[j]. Table
-// mode rebuilds rpb[h, i, j] = table[(yi - yj + ws - 1)(2ws - 1) + xi - xj
-// + ws - 1, h] from the table staged in shared memory as tab[L][hb]:
-// tab[(rb(i) - cb(j)) * hb + hl]; dense mode reads rpb[h, i, j] (cb(j) =
-// j) from device memory.
-struct BiasRow {
-  const float* p;
-  int stride;
-  __device__ __forceinline__ float operator()(int cbj) const {
-    return p[cbj * stride];
-  }
-};
-
-// Table mode at window 16 (HAT), one head a block: for row i = r0 + g +
-// 8 r (r0 a multiple of 16, so yi = r0 / 16, xi = g + 8 r) and key j = j0 +
-// 8 nt + 2 t + e, table index = base(i, t, j0) - (31 (nt / 2) + 8 (nt % 2)
-// + e): one shared load with a constant offset a logit.
-struct BiasRow16 {
-  const float* p;
-  template <int NT8, int E>
-  __device__ __forceinline__ float at() const {
-    return p[-(31 * (NT8 >> 1) + 8 * (NT8 & 1) + E)];
-  }
-};
-
-__device__ __forceinline__ BiasRow16 bias_row16(const float* tab, int r0,
-                                                int r, int g, int t,
-                                                int j0) {
-  return BiasRow16{tab + (r0 / 16 + 15 - j0 / 16) * 31 + 15 + g + 8 * r -
-                   2 * t};
-}
-
-__device__ __forceinline__ BiasRow bias_row(const Attn& a, const float* tab,
-                                            int hb, int hl, int h, int i) {
-  if (i >= a.n) i = 0;  // a padding query row: any row (never stored)
-  if (a.table != nullptr) {
-    const int w2 = 2 * a.ws - 1;
-    const int rb = (i / a.ws + a.ws - 1) * w2 + i % a.ws + a.ws - 1;
-    return BiasRow{tab + rb * hb + hl, -hb};
-  }
-  return BiasRow{a.rpb + (static_cast<long long>(h) * a.n + i) * a.n, 1};
-}
-
-// cb[j] for the block's np key columns (0 past N: those logits are -inf)
-__device__ __forceinline__ void bias_cols(const Attn& a, int* cb, int np) {
-  for (int j = threadIdx.x; j < np; j += blockDim.x)
-    cb[j] = j >= a.n ? 0
-            : a.table != nullptr ? (j / a.ws) * (2 * a.ws - 1) + j % a.ws
-                                 : j;
-}
-
-// the table's columns of heads h0 .. h0 + hb - 1 as tab[L][hb]
-__device__ __forceinline__ void stage_table(const Attn& a, float* tab, int h0,
-                                            int hb) {
-  if (a.table == nullptr) return;
-  const int w2 = 2 * a.ws - 1, len = w2 * w2 * hb;
-  for (int e = threadIdx.x; e < len; e += blockDim.x)
-    tab[e] = a.table[(e / hb) * a.heads + h0 + e % hb];
-}
-
-__device__ __forceinline__ int table_len(const Attn& a) {
-  return a.table != nullptr ? (2 * a.ws - 1) * (2 * a.ws - 1) : 0;
-}
-
-// 2^x for the fast softmax: the MUFU instruction alone, subnormal results
-// flushed to 0 (exp2f's subnormal handling cost 6% of K2; a p below 2^-126
-// of its row's sum is 0 in either form once normalized and rounded)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Softmax of the rows a thread holds, in place: cnt values a thread, the
-// row spread over the lanes whose ids differ in the bits of `lanes` (xor
-// shuffles). Fast: base-2 logits, clamp instead of max subtraction,
-// reciprocal normalization; exact: max-subtracted, divided.
-template <int CNT>
-__device__ __forceinline__ void row_softmax(float* v, bool fast, int lanes) {
-  float s = 0.f;
-  if (fast) {
-#pragma unroll
-    for (int k = 0; k < CNT; ++k) {
-      v[k] = fast_exp2(fminf(v[k], kExp2Clamp));
-      s += v[k];
-    }
-    for (int o = 1; o <= lanes; o <<= 1)
-      s += __shfl_xor_sync(0xffffffffu, s, o);
-    const float inv = 1.f / s;
-#pragma unroll
-    for (int k = 0; k < CNT; ++k) v[k] *= inv;
-  } else {
-    float m = v[0];
-#pragma unroll
-    for (int k = 1; k < CNT; ++k) m = fmaxf(m, v[k]);
-    for (int o = 1; o <= lanes; o <<= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-#pragma unroll
-    for (int k = 0; k < CNT; ++k) {
-      v[k] = expf(v[k] - m);
-      s += v[k];
-    }
-    for (int o = 1; o <= lanes; o <<= 1)
-      s += __shfl_xor_sync(0xffffffffu, s, o);
-#pragma unroll
-    for (int k = 0; k < CNT; ++k) v[k] /= s;
-  }
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// q's A fragments of rows r0 + g and r0 + g + 8, masked past column hd
-template <int KD>
-__device__ __forceinline__ void q_frags(uint32_t (&qa)[KD][4],
-                                        const __nv_bfloat16* Q, int ld,
-                                        int hd, int r0, int g, int t) {
-  const __nv_bfloat16* q0 = Q + (r0 + g) * ld;
-  const __nv_bfloat16* q1 = q0 + 8 * ld;
-#pragma unroll
-  for (int kd = 0; kd < KD; ++kd) {
-    const int c = 16 * kd + 2 * t;
-    qa[kd][0] = c < hd ? ld32(q0 + c) : 0u;
-    qa[kd][1] = c < hd ? ld32(q1 + c) : 0u;
-    qa[kd][2] = c + 8 < hd ? ld32(q0 + c + 8) : 0u;
-    qa[kd][3] = c + 8 < hd ? ld32(q1 + c + 8) : 0u;
-  }
-}
-
-// S (NT n8 tiles of keys j0 ..) = q k^T, and the logits ((q.k) * scale +
-// bias) + mask (x log2 e in fast mode; -inf past N) of rows g and g + 8
-// mw[r][k]: word k (keys j0 + 32 k ..) of row r's mask bits (bits form),
-// or the dense rows m0.d, m1.d; neither where the window has no mask
-template <int I, int NT>
-struct Unroll {
-  template <typename F>
-  __device__ __forceinline__ static void run(F&& f) {
-    f(std::integral_constant<int, I>{});
-    Unroll<I + 1, NT>::run(f);
-  }
-};
-template <int NT>
-struct Unroll<NT, NT> {
-  template <typename F>
-  __device__ __forceinline__ static void run(F&&) {}
-};
-
-// W16: the bias comes from the window-16 rows w0, w1 (BiasRow16) rather
-// than from b0, b1 and cb
-template <int NT, int KD, bool W16 = false>
-__device__ __forceinline__ void logits(
-    float (&s)[NT][4], const uint32_t (&qa)[KD][4],
-    const __nv_bfloat16* K, int ld, int hd, int n, int j0, const BiasRow& b0,
-    const BiasRow& b1, const MaskRow& m0, const MaskRow& m1,
-    const uint32_t (&mw)[2][NT / 4], const int* cb, float scale, float ls,
-    int g, int t, const BiasRow16& w0 = BiasRow16{nullptr},
-    const BiasRow16& w1 = BiasRow16{nullptr}) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    if (j0 + 8 * nt >= n) continue;
-    const __nv_bfloat16* kr = K + (j0 + 8 * nt + g) * ld;
-#pragma unroll
-    for (int kd = 0; kd < KD; ++kd) {
-      const int c = 16 * kd + 2 * t;
-      mma_bf16(s[nt], qa[kd], c < hd ? ld32(kr + c) : 0u,
-               c + 8 < hd ? ld32(kr + c + 8) : 0u);
-    }
-  }
-  Unroll<0, NT>::run([&](auto ntc) {
-    constexpr int nt = decltype(ntc)::value;
-    const int jw = j0 + 8 * nt;  // the first key of the tile
-    const uint32_t mb0 = mw[0][nt >> 2] >> (8 * (nt & 3) + 2 * t);
-    const uint32_t mb1 = mw[1][nt >> 2] >> (8 * (nt & 3) + 2 * t);
-    Unroll<0, 2>::run([&](auto ec) {
-      constexpr int e = decltype(ec)::value;
-      const int j = jw + 2 * t + e;
-      float v0 = -INFINITY, v1 = -INFINITY;
-      if (j < n) {
-        float c0, c1;
-        if constexpr (W16) {
-          c0 = w0.template at<nt, e>();
-          c1 = w1.template at<nt, e>();
-        } else {
-          const int cj = cb[j];
-          c0 = b0(cj);
-          c1 = b1(cj);
-        }
-        float k0 = 0.f, k1 = 0.f;
-        if (m0.w != nullptr) {
-          k0 = (mb0 >> e) & 1u ? m0.val : 0.f;
-          k1 = (mb1 >> e) & 1u ? m1.val : 0.f;
-        } else if (m0.d != nullptr) {
-          k0 = m0.d[j];
-          k1 = m1.d[j];
-        }
-        v0 = ((s[nt][e] * scale + c0) + k0) * ls;
-        v1 = ((s[nt][2 + e] * scale + c1) + k1) * ls;
-      }
-      s[nt][e] = v0;
-      s[nt][2 + e] = v1;
-    });
-  });
-}
-
-// O (+)= p v for the 16 keys at row j of V; p's A fragment from S tiles
-// 2 kk and 2 kk + 1. v through ldmatrix.trans where its rows are 16-byte
-// aligned (TRANS), else pairwise.
-template <int KD, bool TRANS>
-__device__ __forceinline__ void pv_step(float (&acc)[2 * KD][4],
-                                        const uint32_t (&pa)[4],
-                                        const __nv_bfloat16* V, int ld, int j,
-                                        int lane) {
-  if constexpr (TRANS) {
-    const __nv_bfloat16* vr =
-        V + (j + (lane & 7) + 8 * ((lane >> 3) & 1)) * ld + 8 * (lane >> 4);
-#pragma unroll
-    for (int nd2 = 0; nd2 < KD; ++nd2) {
-      uint32_t r[4];
-      ldmatrix_x4_trans(r, vr + 16 * nd2);
-      mma_bf16(acc[2 * nd2], pa, r[0], r[1]);
-      mma_bf16(acc[2 * nd2 + 1], pa, r[2], r[3]);
-    }
-  } else {
-    const int g = lane >> 2, t = lane & 3;
-    const __nv_bfloat16* vr = V + (j + 2 * t) * ld;
-#pragma unroll
-    for (int nd = 0; nd < 2 * KD; ++nd) {
-      const int c = 8 * nd + g;
-      mma_bf16(acc[nd], pa, pack_bf16(vr[c], vr[ld + c]),
-               pack_bf16(vr[8 * ld + c], vr[9 * ld + c]));
-    }
-  }
-}
-
-template <int KD>
-__device__ __forceinline__ void store_rows(const float (&acc)[2 * KD][4],
-                                           __nv_bfloat16* o, int C, int hd,
-                                           int n, int r0, int g, int t) {
-#pragma unroll
-  for (int nd = 0; nd < 2 * KD; ++nd) {
-    const int c = 8 * nd + 2 * t;
-    if (c >= hd) continue;
-    if (r0 + g < n)
-      *reinterpret_cast<uint32_t*>(o + (r0 + g) * C + c) =
-          pack_bf16(acc[nd][0], acc[nd][1]);
-    if (r0 + g + 8 < n)
-      *reinterpret_cast<uint32_t*>(o + (r0 + g + 8) * C + c) =
-          pack_bf16(acc[nd][2], acc[nd][3]);
-  }
-}
-
-// bf16, N <= 64: one warp's 16 query rows r0 .. of one head in one pass:
-// the whole 16 x 64 logits block in registers, the softmax on the
-// accumulators, p rounded to bf16 straight into PV's A fragments (S's
-// accumulator layout is PV's A layout).
-template <int KD>
-__device__ __forceinline__ void attn_rows64(
-    const __nv_bfloat16* Q, const __nv_bfloat16* K, const __nv_bfloat16* V,
-    int ld, int hd, int n, int r0, const BiasRow& b0, const BiasRow& b1,
-    const MaskRow& m0, const MaskRow& m1, const uint32_t (&mw)[2][2],
-    const int* cb, float scale, bool fast, __nv_bfloat16* o, int C,
-    int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  uint32_t qa[KD][4];
-  q_frags<KD>(qa, Q, ld, hd, r0, g, t);
-  float s[8][4];
-  logits<8, KD>(s, qa, K, ld, hd, n, 0, b0, b1, m0, m1, mw, cb, scale,
-                fast ? kLog2e : 1.f, g, t);
-  float r0v[16], r1v[16];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    r0v[2 * nt] = s[nt][0];
-    r0v[2 * nt + 1] = s[nt][1];
-    r1v[2 * nt] = s[nt][2];
-    r1v[2 * nt + 1] = s[nt][3];
-  }
-  row_softmax<16>(r0v, fast, 2);
-  row_softmax<16>(r1v, fast, 2);
-  float acc[2 * KD][4];
-#pragma unroll
-  for (int nd = 0; nd < 2 * KD; ++nd)
-    acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    if (16 * kk >= n) continue;
-    const uint32_t pa[4] = {pack_bf16(r0v[4 * kk], r0v[4 * kk + 1]),
-                            pack_bf16(r1v[4 * kk], r1v[4 * kk + 1]),
-                            pack_bf16(r0v[4 * kk + 2], r0v[4 * kk + 3]),
-                            pack_bf16(r1v[4 * kk + 2], r1v[4 * kk + 3])};
-    pv_step<KD, false>(acc, pa, V, ld, 16 * kk, lane);
-  }
-  store_rows<KD>(acc, o, C, hd, n, r0, g, t);
-}
-
-__device__ __forceinline__ void pair_sync(int id) {
-  asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
-}
-
-// bf16, N > 64: 16 query rows r0 .. of one head shared by a warp pair, in
-// one pass: the warp of key half kh takes keys kh NP/2 .. +NP/2 (16 x NP/2
-// logits, NP/4 registers a thread), and the two exchange through shared
-// memory (xs, 16 x 2 floats a statistic; xo, the PV partials) under a
-// named barrier: the row sums (exact mode: the row maxima, then the sums),
-// after which each normalizes its own p in float32, rounds it to bf16
-// into PV's A fragments and multiplies by its half of v; warp kh 1 hands
-// its float32 partial O to warp kh 0, which adds it and stores the rows.
-// Both warps sum the two halves' statistics as a + b and b + a: the same
-// value, so p is the same as one warp's would be.
-template <int NP, int KD, bool W16>
-__device__ __forceinline__ void attn_rows_pair(
-    const __nv_bfloat16* Q, const __nv_bfloat16* K, const __nv_bfloat16* V,
-    int ld, int hd, int n, int r0, int kh, const BiasRow& b0,
-    const BiasRow& b1, const MaskRow& m0, const MaskRow& m1, const int* cb,
-    float scale, bool fast, __nv_bfloat16* o, int C, int lane, float* xs,
-    float* xo, int bar) {
-  constexpr int NT = NP / 16;  // n8 tiles in a half
-  const int g = lane >> 2, t = lane & 3, j0 = kh * (NP / 2);
-  uint32_t qa[KD][4];
-  q_frags<KD>(qa, Q, ld, hd, r0, g, t);
-  uint32_t mw[2][NT / 4];
-#pragma unroll
-  for (int k = 0; k < NT / 4; ++k) {
-    mw[0][k] = m0.w != nullptr ? m0.w[(j0 >> 5) + k] : 0u;
-    mw[1][k] = m1.w != nullptr ? m1.w[(j0 >> 5) + k] : 0u;
-  }
-  float s[NT][4];
-  if constexpr (W16)
-    logits<NT, KD, true>(s, qa, K, ld, hd, n, j0, b0, b1, m0, m1, mw, cb,
-                         scale, fast ? kLog2e : 1.f, g, t,
-                         bias_row16(b0.p, r0, 0, g, t, j0),
-                         bias_row16(b0.p, r0, 1, g, t, j0));
-  else
-    logits<NT, KD>(s, qa, K, ld, hd, n, j0, b0, b1, m0, m1, mw, cb, scale,
-                   fast ? kLog2e : 1.f, g, t);
-  // this half's row statistic, over the quad, then with the other half
-  auto exchange = [&](float (&v)[2], bool is_max, float* slot) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int x = 1; x <= 2; x <<= 1) {
-        const float w = __shfl_xor_sync(0xffffffffu, v[r], x);
-        v[r] = is_max ? fmaxf(v[r], w) : v[r] + w;
-      }
-    if (t == 0) {
-      slot[kh * 16 + g] = v[0];
-      slot[kh * 16 + g + 8] = v[1];
-    }
-    pair_sync(bar);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float w = slot[(1 - kh) * 16 + g + 8 * r];
-      v[r] = is_max ? fmaxf(v[r], w) : v[r] + w;
-    }
-  };
-  float l[2] = {0.f, 0.f};
-  if (fast) {
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = fast_exp2(fminf(s[nt][e], kExp2Clamp));
-        l[e >> 1] += s[nt][e];
-      }
-    exchange(l, false, xs);
-    const float inv[2] = {1.f / l[0], 1.f / l[1]};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] *= inv[e >> 1];
-  } else {
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-    exchange(mx, true, xs);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = expf(s[nt][e] - mx[e >> 1]);
-        l[e >> 1] += s[nt][e];
-      }
-    exchange(l, false, xs + 32);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] /= l[e >> 1];
-  }
-  float acc[2 * KD][4];
-#pragma unroll
-  for (int nd = 0; nd < 2 * KD; ++nd)
-    acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    if (j0 + 16 * kk >= n) continue;
-    const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-    pv_step<KD, true>(acc, pa, V, ld, j0 + 16 * kk, lane);
-  }
-  if (kh == 1) {
-#pragma unroll
-    for (int nd = 0; nd < 2 * KD; ++nd)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) xo[(nd * 4 + e) * 32 + lane] = acc[nd][e];
-  }
-  pair_sync(bar);
-  if (kh == 0) {
-#pragma unroll
-    for (int nd = 0; nd < 2 * KD; ++nd)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nd][e] += xo[(nd * 4 + e) * 32 + lane];
-    store_rows<KD>(acc, o, C, hd, n, r0, g, t);
-  }
-}
-
-// bf16 kernel, KD (head width padded to 16 KD) a template argument, so S
-// and the output accumulators are register arrays; 8 warps a block.
-//   - N <= 64 (NP 64): one block per window. The window's N rows of 3C
-//     are one contiguous run in device memory: one cp.async sweep of 16-,
-//     8- or 4-byte copies (the widest the run's address and length allow)
-//     stages q, k and v of every head at once; warp w takes query rows
-//     16 (w % 4) .. +15 of heads w / 4, w / 4 + 2, ..., one pass each
-//     (attn_rows64), its rows' mask words read once for all of them. v's
-//     pairs are read element-wise (a head slice need not be 16-byte
-//     aligned).
-//   - N > 64 (NP 128, 256): one block per (window, head) stages the head's
-//     q, k, v once for all 8 warps (cp.async: 8-byte copies of the aligned
-//     run holding a slice where the rows allow, else 4-byte copies) into
-//     tiles of pitch 16 KD + 8, and the
-//     window's mask bits; warps w and w + 4 take row blocks w % 4,
-//     w % 4 + 4, ..., each one half of the keys (attn_rows_pair); v
-//     through ldmatrix.trans.
-// Rows past N of v are zero (p is 0 there, but 0 x garbage could be NaN).
-template <int NP, int KD, bool W16 = false>
-__global__ void __launch_bounds__(256, 2)
-    window_attention_mma_kernel(const Attn a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  using bf = __nv_bfloat16;
-  constexpr int NTH = 256;
-  const int C = a.C, c3 = 3 * C, n = a.n, hd = C / a.heads;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2;
-  const bf* qkv = static_cast<const bf*>(a.qkv);
-  bf* out = static_cast<bf*>(a.out);
-  long long win;
-  int h0, hb, ld;
-  int sh[3] = {0, 0, 0};  // q's and k's first element in their tile rows
-  bf* Qs;
-  float* tab;
-  if constexpr (NP == 64) {
-    win = blockIdx.x;
-    h0 = 0;
-    hb = a.heads;
-    ld = c3;
-    Qs = reinterpret_cast<bf*>(smem);
-    tab = reinterpret_cast<float*>(smem + align16(64 * c3 * 2 + 64));
-    const char* src = reinterpret_cast<const char*>(qkv + win * n * c3);
-    char* dst = reinterpret_cast<char*>(Qs);
-    const int bytes = n * c3 * 2;
-    const int al = static_cast<int>(reinterpret_cast<uintptr_t>(src)) | bytes;
-    const int w = al & 15 ? (al & 7 ? 4 : 8) : 16;
-    for (int o = tid * w; o < bytes; o += NTH * w)
-      cp_async_w(dst + o, src + o, w);
-    for (int o = bytes + tid * 4; o < 64 * c3 * 2; o += NTH * 4)
-      *reinterpret_cast<uint32_t*>(dst + o) = 0u;
-  } else {
-    win = blockIdx.x / a.heads;
-    h0 = static_cast<int>(blockIdx.x % a.heads);
-    hb = 1;
-    ld = 16 * KD + 8;
-    Qs = reinterpret_cast<bf*>(smem);
-    tab = reinterpret_cast<float*>(Qs + 3 * NP * ld);
-    // per section (q, k, v): 8-byte copies of the 8-byte-aligned run that
-    // holds the head's slice where the rows are 8-byte aligned (q's and
-    // k's data may then start sh = 2 elements into their tile rows; v's
-    // rows stay 16-byte aligned for ldmatrix, so v takes this only from an
-    // aligned start), else 4-byte copies of the slice; a run never reads
-    // past the tensor (v of the last head stays exact)
-    const bf* src = qkv + win * n * c3 + h0 * hd;
-    const bool rows8 =
-        ((reinterpret_cast<uintptr_t>(qkv) | (6 * C)) & 7) == 0;
-#pragma unroll
-    for (int which = 0; which < 3; ++which) {
-      const bf* s0 = src + which * C;
-      const int lead = static_cast<int>(reinterpret_cast<uintptr_t>(s0) & 7);
-      const int bytes = lead + 2 * hd, n8 = (bytes + 7) / 8;
-      const bool tail = which == 2 && h0 == a.heads - 1 && n8 * 8 > bytes;
-      const bool wide = rows8 && !tail && (which < 2 || lead == 0);
-      sh[which] = wide ? lead / 2 : 0;
-      bf* dst = Qs + which * NP * ld;
-      if (wide) {
-        const char* s8 = reinterpret_cast<const char*>(s0) - lead;
-        for (int e = tid; e < n * n8; e += NTH) {
-          const int i = e / n8, sg = e - i * n8;
-          cp_async8z(reinterpret_cast<char*>(dst + i * ld) + 8 * sg,
-                     s8 + static_cast<long long>(i) * c3 * 2 + 8 * sg, 8);
-        }
-      } else {
-        const int n4 = hd / 2;
-        for (int e = tid; e < n * n4; e += NTH) {
-          const int i = e / n4, sg = e - i * n4;
-          cp_async4(dst + i * ld + 2 * sg,
-                    s0 + static_cast<long long>(i) * c3 + 2 * sg);
-        }
-      }
-    }
-    uint32_t* vz = reinterpret_cast<uint32_t*>(Qs + (2 * NP + n) * ld);
-    for (int e = tid; e < (NP - n) * ld / 2; e += NTH) vz[e] = 0u;
-  }
-  int* cb = reinterpret_cast<int*>(tab + table_len(a) * hb);
-  const int entry = mask_entry(a, win);
-  const uint32_t* mb =
-      NP == 64 ? nullptr : stage_bits(a, entry, reinterpret_cast<uint32_t*>(
-                                                    cb + NP));
-  stage_table(a, tab, h0, hb);
-  bias_cols(a, cb, NP);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const long long base = win * n;
-  if constexpr (NP == 64) {
-    const int r0 = 16 * (warp & 3);
-    if (r0 >= n) return;
-    // the two rows' mask, read once for every head: the bit words, or the
-    // dense rows copied into a register-resident form
-    const MaskRow m0 = mask_row(a, entry, nullptr, r0 + g);
-    const MaskRow m1 = mask_row(a, entry, nullptr, r0 + g + 8);
-    uint32_t mw[2][2] = {{0u, 0u}, {0u, 0u}};
-    if (m0.w != nullptr)
-#pragma unroll
-      for (int k = 0; k < 2; ++k)
-        if (k < a.mw) {
-          mw[0][k] = m0.w[k];
-          mw[1][k] = m1.w[k];
-        }
-    for (int h = warp >> 2; h < a.heads; h += 2)
-      attn_rows64<KD>(Qs + h * hd, Qs + C + h * hd, Qs + 2 * C + h * hd, ld,
-                      hd, n, r0, bias_row(a, tab, hb, h, h, r0 + g),
-                      bias_row(a, tab, hb, h, h, r0 + g + 8), m0, m1, mw, cb,
-                      a.scale, a.fast, out + base * C + h * hd, C, lane);
-  } else {
-    // warps w and w + 4 share row blocks w % 4, w % 4 + 4, ...
-    const int pair = warp & 3, kh = warp >> 2;
-    float* xs = reinterpret_cast<float*>(
-        reinterpret_cast<uint32_t*>(cb + NP) + n * a.mw) + pair * (64 + 256 * KD);
-    for (int r0 = 16 * pair; r0 < n; r0 += 64)
-      attn_rows_pair<NP, KD, W16>(
-          Qs + sh[0], Qs + NP * ld + sh[1], Qs + 2 * NP * ld, ld, hd, n, r0,
-          kh,
-          W16 ? BiasRow{tab, 0} : bias_row(a, tab, hb, 0, h0, r0 + g),
-          W16 ? BiasRow{tab, 0} : bias_row(a, tab, hb, 0, h0, r0 + g + 8),
-          mask_row(a, entry, mb, r0 + g), mask_row(a, entry, mb, r0 + g + 8),
-          cb, a.scale, a.fast, out + base * C + h0 * hd, C, lane, xs,
-          xs + 64, 1 + pair);
-  }
-}
-
-size_t attention_mma_smem(int np, int kd, int C, int heads, int L, int n,
-                          int mw) {
-  if (np == 64)
-    return align16(static_cast<size_t>(64) * 3 * C * 2 + 64) +
-           (static_cast<size_t>(L) * heads + 64) * 4;
-  return static_cast<size_t>(3) * np * (16 * kd + 8) * 2 +
-         (static_cast<size_t>(L) + np + static_cast<size_t>(n) * mw +
-          4 * (64 + 256 * static_cast<size_t>(kd))) *
-             4;
-}
-
-// float32 kernel (exact arithmetic: FP32 FMA, no TF32). One block of 256
-// threads per (window, head); the head's k and v staged once (cp.async,
-// 16/8/4 bytes as the slice allows), q and the softmax in chunks of 64
-// query rows. Per chunk:
-//   - S = q k^T tiled in registers: thread (rg, cg) = (tid / 16, tid % 16)
-//     holds rows 4 rg .. +3 and keys cg + 16 m (m < NP / 16); per 4 columns
-//     of the head it reads 4 q and NP / 16 k float4s (conflict-free: the
-//     16 lanes of a row group read 16 consecutive key rows);
-//   - the softmax over the 16 lanes of a row group (xor shuffles);
-//   - p^T written to shared memory, then O = p v tiled as rows 4 rg .. +3
-//     and columns DPT cg .. +DPT-1 (one float4 of p and DPT v per key).
-template <int NP, int DPT>
-__global__ void __launch_bounds__(256)
-    window_attention_f32_kernel(const Attn a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int LDQ = 16 * DPT + 4, LDP = 64 + 4;
-  const int C = a.C, c3 = 3 * C, n = a.n, hd = C / a.heads;
-  const int hd4 = (hd + 3) & ~3;
-  const long long win = blockIdx.x / a.heads;
-  const int h = static_cast<int>(blockIdx.x % a.heads);
-  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
-  float* Qs = reinterpret_cast<float*>(smem);  // [64][LDQ]
-  float* Ks = Qs + 64 * LDQ;                   // [NP][LDQ]
-  float* Vs = Ks + NP * LDQ;                   // [NP][LDQ]
-  float* Pt = Vs + NP * LDQ;                   // [NP][LDP]: p^T
-  float* tab = Pt + NP * LDP;
-  int* cb = reinterpret_cast<int*>(tab + table_len(a));
-  const int entry = mask_entry(a, win);
-  const uint32_t* mb =
-      stage_bits(a, entry, reinterpret_cast<uint32_t*>(cb + NP));
-  const float* src = static_cast<const float*>(a.qkv) + win * n * c3 + h * hd;
-  const int al = static_cast<int>(reinterpret_cast<uintptr_t>(src)) |
-                 (4 * C) | (4 * hd);
-  const int w = al & 15 ? (al & 7 ? 4 : 8) : 16;
-  const int segs = 4 * hd / w, we = w / 4;
-  for (int e = tid; e < n * 2 * segs; e += 256) {
-    const int i = e / (2 * segs), r = e - i * 2 * segs;
-    const int which = r / segs, sg = r - which * segs;
-    cp_async_w((which ? Vs : Ks) + i * LDQ + sg * we,
-               src + static_cast<long long>(i) * c3 + (which + 1) * C +
-                   sg * we,
-               w);
-  }
-  // k's columns hd .. hd4 - 1 enter the products: zero; v's rows past N
-  // meet p = 0: zero
-  for (int e = tid; e < NP * (hd4 - hd); e += 256)
-    Ks[(e / (hd4 - hd)) * LDQ + hd + e % (hd4 - hd)] = 0.f;
-  for (int e = tid; e < (NP - n) * LDQ; e += 256) Vs[n * LDQ + e] = 0.f;
-  stage_table(a, tab, h, 1);
-  bias_cols(a, cb, NP);
-  cp_async_commit();
-
-  const float ls = a.fast ? kLog2e : 1.f;
-  float* out = static_cast<float*>(a.out) + win * n * C + h * hd;
-  for (int q0 = 0; q0 < n; q0 += 64) {
-    const int nq = min(64, n - q0);
-    __syncthreads();  // the previous chunk's q and p^T reads are done
-    for (int e = tid; e < nq * segs; e += 256) {
-      const int i = e / segs, sg = e - i * segs;
-      cp_async_w(Qs + i * LDQ + sg * we,
-                 src + static_cast<long long>(q0 + i) * c3 + sg * we, w);
-    }
-    for (int e = tid; e < nq * (hd4 - hd); e += 256)
-      Qs[(e / (hd4 - hd)) * LDQ + hd + e % (hd4 - hd)] = 0.f;
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-
-    float s[4][NP / 16];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int m = 0; m < NP / 16; ++m) s[r][m] = 0.f;
-    for (int d = 0; d < hd4; d += 4) {
-      float4 qv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        qv[r] = *reinterpret_cast<const float4*>(Qs + (4 * rg + r) * LDQ + d);
-#pragma unroll
-      for (int m = 0; m < NP / 16; ++m) {
-        const float4 kv =
-            *reinterpret_cast<const float4*>(Ks + (cg + 16 * m) * LDQ + d);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          float v = s[r][m];
-          v = fmaf(qv[r].x, kv.x, v);
-          v = fmaf(qv[r].y, kv.y, v);
-          v = fmaf(qv[r].z, kv.z, v);
-          s[r][m] = fmaf(qv[r].w, kv.w, v);
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = q0 + 4 * rg + r;
-      const BiasRow br = bias_row(a, tab, 1, 0, h, i);
-      const MaskRow mr = mask_row(a, entry, mb, i);
-#pragma unroll
-      for (int m = 0; m < NP / 16; ++m) {
-        const int j = cg + 16 * m;
-        float k = 0.f;
-        if (mr.w != nullptr)
-          k = (mr.w[m >> 1] >> (cg + 16 * (m & 1))) & 1u ? mr.val : 0.f;
-        else if (mr.d != nullptr)
-          k = mr.d[min(j, n - 1)];
-        s[r][m] = j < n ? ((s[r][m] * a.scale + br(cb[j])) + k) * ls
-                        : -INFINITY;
-      }
-      row_softmax<NP / 16>(s[r], a.fast, 8);
-    }
-#pragma unroll
-    for (int m = 0; m < NP / 16; ++m)
-      *reinterpret_cast<float4*>(Pt + (cg + 16 * m) * LDP + 4 * rg) =
-          make_float4(s[0][m], s[1][m], s[2][m], s[3][m]);
-    __syncthreads();
-
-    float o[4][DPT];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < DPT; ++c) o[r][c] = 0.f;
-    const float* vc = Vs + cg * DPT;
-#pragma unroll 4
-    for (int j = 0; j < n; ++j) {
-      const float4 pv = *reinterpret_cast<const float4*>(Pt + j * LDP + 4 * rg);
-      const float p4[4] = {pv.x, pv.y, pv.z, pv.w};
-      float vv[DPT];
-      if constexpr (DPT == 4) {
-        const float4 x = *reinterpret_cast<const float4*>(vc + j * LDQ);
-        vv[0] = x.x;
-        vv[1] = x.y;
-        vv[2] = x.z;
-        vv[3] = x.w;
-      } else if constexpr (DPT == 2) {
-        const float2 x = *reinterpret_cast<const float2*>(vc + j * LDQ);
-        vv[0] = x.x;
-        vv[1] = x.y;
-      } else {
-        vv[0] = vc[j * LDQ];
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < DPT; ++c) o[r][c] = fmaf(p4[r], vv[c], o[r][c]);
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = q0 + 4 * rg + r;
-      if (i >= n) continue;
-#pragma unroll
-      for (int c = 0; c < DPT; ++c)
-        if (cg * DPT + c < hd) out[i * C + cg * DPT + c] = o[r][c];
-    }
-  }
-}
-
-size_t attention_f32_smem(int np, int dpt, int L, int n, int mw) {
-  const size_t ldq = 16 * dpt + 4;
-  return ((64 + 2 * static_cast<size_t>(np)) * ldq +
-          static_cast<size_t>(np) * 68 + L + np +
-          static_cast<size_t>(n) * mw) *
-         4;
-}
-
 }  // namespace
 
 // bf16: Wt is the packed form of ops/swin_block.py:kernel_matrix for a
@@ -1988,93 +1159,6 @@ extern "C" int gemm_tile_tf32(const void* A, const void* Bp, void* D, int K,
   case n:           \
     return launch(gemm_tile_tf32_kernel<n>);
     IRK_TF32_WIDTHS(IRK_CASE)
-#undef IRK_CASE
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-// K2. rpb: the dense (heads, N, N) bias, or nullptr when `table` (the
-// ((2ws-1)^2, heads) relative-position table, N = ws^2) is given; mask:
-// nullptr or the (nmask, N, N) full mask (window w takes mask[w % nmask]);
-// bank: nullptr or the (2, 2, N, N) edge bank, bit k of bank_zero set
-// where bank entry k (= 2 is_last_row + is_last_col) is all zero; bits:
-// nullptr, or the bit form of the bank or mask (entries x N x mw words, mw
-// = Np / 32 for N padded to Np = 64, 128 or 256; bit j of a row set where
-// the entry is mval, every other value 0), which the kernel then reads
-// instead. N <= 256, head width <= 64 (even in bf16). scale multiplies the
-// float32 q.k product before the bias is added (1 where q is pre-scaled;
-// x * 1.0f is exact).
-extern "C" int window_attention(const void* qkv, int dt, const void* rpb,
-                                const void* table, int ws, const void* bank,
-                                int bank_zero, const void* mask, int nmask,
-                                const void* bits, float mval, void* out,
-                                int nwin, int n, int C, int heads, int nwy,
-                                int nwx, int fast, float scale,
-                                void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n < 1 || n > MAXN || heads < 1 || C % heads || C / heads > 64 ||
-      (table != nullptr && ws * ws != n) || (table == nullptr && !rpb))
-    return cudaErrorInvalidValue;
-  const int hd = C / heads;
-  const int np = n <= 64 ? 64 : n <= 128 ? 128 : 256;
-  const int mw = np / 32;
-  const Attn a{qkv, static_cast<const float*>(rpb),
-               static_cast<const float*>(table),
-               static_cast<const float*>(bank),
-               static_cast<const float*>(mask),
-               static_cast<const uint32_t*>(bits), out, nmask, n, C, heads,
-               nwy, nwx, ws, fast, bank_zero, mw, scale, mval};
-  const int L = table != nullptr ? (2 * ws - 1) * (2 * ws - 1) : 0;
-  auto launch = [&](auto kernel, unsigned blocks, size_t smem) {
-    if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    kernel<<<blocks, 256, smem, s>>>(a);
-    return static_cast<int>(cudaGetLastError());
-  };
-  const unsigned per_head = static_cast<unsigned>(nwin) * heads;
-  if (dt == kBF16) {
-    if (hd % 2) return cudaErrorInvalidValue;
-    const int kd = hd <= 16 ? 1 : hd <= 32 ? 2 : 4;
-    const size_t smem = attention_mma_smem(np, kd, C, heads, L, n, mw);
-    if (table != nullptr && ws == 16) {  // HAT's window: constant offsets
-      switch (kd) {
-        case 1:
-          return launch(window_attention_mma_kernel<256, 1, true>, per_head,
-                        smem);
-        case 2:
-          return launch(window_attention_mma_kernel<256, 2, true>, per_head,
-                        smem);
-        default:
-          return launch(window_attention_mma_kernel<256, 4, true>, per_head,
-                        smem);
-      }
-    }
-    switch (np * 10 + kd) {
-#define IRK_CASE(NP, KD)                                                  \
-  case NP * 10 + KD:                                                      \
-    return launch(window_attention_mma_kernel<NP, KD>,                    \
-                  NP == 64 ? static_cast<unsigned>(nwin) : per_head, smem);
-      IRK_CASE(64, 1) IRK_CASE(64, 2) IRK_CASE(64, 4)
-      IRK_CASE(128, 1) IRK_CASE(128, 2) IRK_CASE(128, 4)
-      IRK_CASE(256, 1) IRK_CASE(256, 2) IRK_CASE(256, 4)
-#undef IRK_CASE
-      default:
-        return cudaErrorInvalidValue;
-    }
-  }
-  const int dpt = hd <= 16 ? 1 : hd <= 32 ? 2 : 4;
-  const size_t smem = attention_f32_smem(np, dpt, L, n, mw);
-  switch (np * 10 + dpt) {
-#define IRK_CASE(NP, DPT)                                                  \
-  case NP * 10 + DPT:                                                      \
-    return launch(window_attention_f32_kernel<NP, DPT>, per_head, smem);
-    IRK_CASE(64, 1) IRK_CASE(64, 2) IRK_CASE(64, 4)
-    IRK_CASE(128, 1) IRK_CASE(128, 2) IRK_CASE(128, 4)
-    IRK_CASE(256, 1) IRK_CASE(256, 2) IRK_CASE(256, 4)
 #undef IRK_CASE
     default:
       return cudaErrorInvalidValue;

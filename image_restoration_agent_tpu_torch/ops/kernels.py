@@ -25,11 +25,14 @@ from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("swin_block", "conv3x3", "restormer_fused", "roll2d",
-           "conv3x3_pair", "swin_pair")
+SOURCES = ("swin_block", "window_attention", "conv3x3", "restormer_fused",
+           "roll2d", "conv3x3_pair", "swin_pair")
+# ptxas compiles a source's kernels on as many threads as there are cores
+# (--split-compile=0): the longest source, csrc/swin_block.cu, builds alone
+# in 73 s instead of 118, its ptxas 20 s instead of 66 (profile_build.py)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              "-lineinfo"]
+              "-Xptxas", "--split-compile=0", "-lineinfo"]
 
 # the N widths K1's and K3's bf16 kernels are instantiated for
 # (csrc/sm90_gemm.cuh: IRK_GEMM_WIDTHS); a slice runs at the first >= it
@@ -202,6 +205,23 @@ def load(name: str) -> ctypes.CDLL:
                 _finish(name, *job)
             _libs[name] = ctypes.CDLL(str(_lib_path(name)))
         return _libs[name]
+
+
+def function(name: str, symbol: str, argtypes: list):
+    """The C function ``symbol`` of ``csrc/<name>.cu``'s library, its
+    prototype (``argtypes``, an int return) set at its first use: a
+    wrapper's launch then does no ctypes set-up of its own."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    return fn
+
+
+def stream(t) -> int:
+    """The raw handle of the current CUDA stream on ``t``'s device (no
+    ``torch.cuda.Stream`` object made)."""
+    return _torch()._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def sm_count(device) -> int:

@@ -11,7 +11,12 @@ HAT's tile batch, 5x256x256x180 bf16, 0.24 GB: 0.070 ms at 3.35 TB/s).
 Every thread moves one 16-byte unit (8 bf16) of a pixel row: a row of W*C
 elements is rotated by shift*C elements, which at ws 16 and C 180 is a
 whole number of 16-byte units, so loads and stores stay 16 bytes wide and
-coalesced; narrower units are taken where the sizes do not allow 16.
+coalesced; narrower units are taken where the sizes do not allow 16. At
+HAT's small float32 canvases (its training and 96 px forms, 3.5-8.9 us of
+bytes) the kernel takes a few microseconds on the card and a call's time
+is the host's: the wrapper does no ctypes set-up per call
+(``kernels.function``) and reads the stream's raw handle
+(``kernels.stream``).
 
 The plain version is ``torch.roll``.
 """
@@ -50,6 +55,11 @@ def _unit(*sizes: int) -> int:
     return 1
 
 
+_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+         ctypes.c_void_p]
+
+
 def _roll2d_cuda(x: torch.Tensor, shift: int) -> torch.Tensor:
     b, h, w, c = x.shape
     x = x.contiguous()
@@ -57,17 +67,14 @@ def _roll2d_cuda(x: torch.Tensor, shift: int) -> torch.Tensor:
     es = x.element_size()
     row_bytes = w * c * es
     shift_bytes = (shift % w) * c * es
-    unit = _unit(row_bytes, shift_bytes, x.data_ptr(), out.data_ptr())
+    xp, op = x.data_ptr(), out.data_ptr()
+    unit = _unit(row_bytes, shift_bytes, xp, op)
     if unit < 2:
         raise ValueError(f"roll2d kernel: {x.dtype} rows of {row_bytes} "
                          f"bytes are not 2-byte aligned")
-    fn = kernels.load("roll2d").roll2d
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    err = fn(x.data_ptr(), out.data_ptr(), b * h, h, row_bytes, shift_bytes,
-             shift % h, unit, torch.cuda.current_stream(x.device).cuda_stream)
+    err = kernels.function("roll2d", "roll2d", _ARGS)(
+        xp, op, b * h, h, row_bytes, shift_bytes, shift % h, unit,
+        kernels.stream(x))
     kernels.check(err, "roll2d")
     roll2d.launches += 1
     return out

@@ -38,8 +38,8 @@ is folded into the q weights on every path (the stacked TPU body scaled the
 logits instead), and in fast mode log2(e) multiplies the float32 logits
 rather than being folded into the bf16 q weights as on the TPU.
 
-The block's CUDA path is two hand-written kernels in
-``csrc/swin_block.cu``:
+The block's CUDA path is two hand-written kernels, K1 in
+``csrc/swin_block.cu`` and K2 in ``csrc/window_attention.cu``:
 
 - K1 ``token_linear``: a GEMM over tokens with a fused prologue (LayerNorm
   with float32 two-pass statistics; a gather that reads token ``t`` of
@@ -69,8 +69,12 @@ The block's CUDA path is two hand-written kernels in
   as PV's A fragments); at N <= 64 one block per window stages every
   head's q, k, v from the window's contiguous rows at once, at N > 64 one
   block per (window, head), a warp pair splitting each row block's keys.
-  In f32 one block per (window, head), both products tiled in registers
-  on FP32 FMA. The bias is the dense (heads, N, N) ``rpb``, or rebuilt in
+  In f32 the same warp-pair form runs both products in split TF32 on
+  ``mma.sync`` m16n8k8 (q, k, p and v split into TF32 parts in registers,
+  ``xl yh + xh yl + xh yh`` summed in float32, the softmax in float32), one
+  block per (window, head), its 64-row query chunks split across blocks
+  where the windows are too few to fill the card (:func:`attention_parts`).
+  The bias is the dense (heads, N, N) ``rpb``, or rebuilt in
   shared memory from the ((2ws-1)^2, heads) table where the block has one
   (:attr:`SwinBlockParams.rpb_table`); the mask is the strip kernel's
   (2, 2, N, N) edge bank or the wmsa kernels' full (nW, N, N) mask, read
@@ -89,8 +93,7 @@ bf16, so memory bounds it (0.12 ms on the H100).
 What bounds it on the H100: one block at the serving shape (552x1920,
 C 180, 6 heads) is 6.0e11 FLOP against 0.76 GB of bf16 input and output,
 so the tensor-core rate bounds it (about 0.6 ms in bf16; in f32 its K1
-products run three TF32 passes, 3 x FLOP at 495 TFLOP/s, and K2 the FP32
-pipes). This form still writes the qkv, attention, x1 and
+and K2 products run three TF32 passes, 3 x FLOP at 495 TFLOP/s). This form still writes the qkv, attention, x1 and
 hidden intermediates to device memory (about 7 GB of traffic per block in
 bf16); keeping the block on chip is later work.
 
@@ -817,6 +820,27 @@ def mask_bits(m: torch.Tensor):
     return _cached(m, "_irk_bits", make)
 
 
+def attention_parts(blocks: int, n: int, sms: int) -> int:
+    """Blocks the float32 K2 gives each (window, head): its 64-row query
+    chunks (``ceil(n / 64)``) split ``parts`` ways, the fewest (a divisor
+    of the chunk count) that make at least 4 blocks an SM of the
+    ``blocks`` (window, head) pairs (two resident an SM, two waves): HAT's
+    training form, 32 windows x 6 heads at N 256, takes 4; the serving
+    batches and every N <= 64 one."""
+    chunks = -(-n // 64)
+    for parts in range(1, chunks + 1):
+        if chunks % parts == 0 and blocks * parts >= 4 * sms:
+            return parts
+    return chunks
+
+
+_ATTN_ARGS = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
+              + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                 ctypes.c_int, ctypes.c_void_p, ctypes.c_float,
+                 ctypes.c_void_p] + [ctypes.c_int] * 7
+              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
 def _window_attention_cuda(qkv, rpb, bank, num_heads, nwy, nwx, fast,
                            mask, scale, table):
     t, c3 = qkv.shape
@@ -844,21 +868,19 @@ def _window_attention_cuda(qkv, rpb, bank, num_heads, nwy, nwx, fast,
     _check_f32(bank, (2, 2, n, n), "bank")
     _check_f32(mask, (nw, n, n), "mask")
     out = torch.empty((t, c), dtype=qkv.dtype, device=qkv.device)
-    fn = kernels.load("swin_block").window_attention
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2 \
-        + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-           ctypes.c_int, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p] \
-        + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    fn = kernels.function("window_attention", "window_attention",
+                          _ATTN_ARGS)
     dense = bank if bank is not None else mask
     bits = None if dense is None else mask_bits(dense)
+    parts = 1 if qkv.dtype == torch.bfloat16 else attention_parts(
+        t // n * num_heads, n, kernels.sm_count(qkv.device))
     err = fn(_ptr(qkv), _DT[qkv.dtype],
              None if table is not None else _ptr(rpb), _ptr(table), ws,
              _ptr(bank), 0 if bank is None else bank_zero_flags(bank),
              _ptr(mask), nw, None if bits is None else _ptr(bits[0]),
              0.0 if bits is None else bits[1], _ptr(out), t // n, n, c,
-             num_heads, nwy, nwx, int(fast), float(scale),
-             torch.cuda.current_stream(qkv.device).cuda_stream)
+             num_heads, nwy, nwx, int(fast), float(scale), parts,
+             kernels.stream(qkv))
     kernels.check(err, "window_attention")
     window_attention.launches += 1
     return out
@@ -903,16 +925,19 @@ def window_attention(qkv, rpb, bank, *, num_heads, nwy, nwx, fast,
         table: None, or the ((2ws-1)^2, heads) float32 table ``rpb`` was
             made from by the relative-position index (``ops/window_attention
             .py:relative_position_bias``): the kernel then stages the table
-            and rebuilds ``rpb`` from it (``csrc/swin_block.cu``: bias_row)
+            and rebuilds ``rpb`` from it (``csrc/window_attention.cu``:
+            bias_row)
             instead of reading the dense form. The same values, so the plain
             version ignores it.
 
-    On a CUDA tensor one launch of ``csrc/swin_block.cu``'s K2 (design
+    On a CUDA tensor one launch of K2, ``csrc/window_attention.cu`` (design
     there): in bf16 ``mma.sync`` tensor-core products with each warp's 16
     x N logits, softmax and ``p`` in registers, one block per window at N
     <= 64 (every head from one staging of the window's rows) or per
-    (window, head) above; in f32 FP32-FMA products tiled in registers, one
-    block per (window, head). Bank entries that are all zero are skipped
+    (window, head) above; in f32 split-TF32 ``mma.sync`` products (three
+    TF32 passes each, float32 accuracy) in the same warp-pair form, one
+    block per (window, head) or per part of its query rows
+    (:func:`attention_parts`). Bank entries that are all zero are skipped
     (:func:`bank_zero_flags`). Under autograd the backward is
     :func:`window_attention_plain`'s VJP (``ops/autograd.py``) in ``qkv``
     and ``rpb``; the bank, mask and table are constants.

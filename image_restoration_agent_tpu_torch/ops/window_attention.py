@@ -60,13 +60,21 @@ def shift_attention_mask(h: int, w: int, ws: int, shift: int
     return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=64)
+def _index_on(ws: int, device: torch.device) -> torch.Tensor:
+    """:func:`relative_position_index` flattened, as int64 on ``device``:
+    made once, so a forward that gathers its bias every call (training)
+    copies no index to the card."""
+    return torch.from_numpy(relative_position_index(ws).reshape(-1).astype(
+        np.int64)).to(device)
+
+
 def relative_position_bias(table: torch.Tensor, ws: int) -> torch.Tensor:
     """Gather the ``((2ws-1)^2, heads)`` table into the ``(heads, N, N)``
     bias."""
     n = ws * ws
-    idx = torch.from_numpy(relative_position_index(ws).reshape(-1).astype(
-        np.int64)).to(table.device)
-    return table[idx].reshape(n, n, -1).permute(2, 0, 1)
+    return table[_index_on(ws, table.device)].reshape(n, n, -1).permute(
+        2, 0, 1)
 
 
 def window_attention(qkv: torch.Tensor, num_heads: int,

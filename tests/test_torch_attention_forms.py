@@ -22,8 +22,8 @@ torch.set_num_threads(1)
 
 
 def _kernel_index(ws):
-    """K2's table-mode rule (csrc/swin_block.cu bias_row, bias_cols): key
-    j of query i reads table row rb(i) - cb(j), rb(i) = (yi + ws - 1)(2ws
+    """K2's table-mode rule (csrc/window_attention.cu bias_row,
+    bias_cols): key j of query i reads table row rb(i) - cb(j), rb(i) = (yi + ws - 1)(2ws
     - 1) + xi + ws - 1, cb(j) = yj (2ws - 1) + xj, for tokens i = yi ws +
     xi; at window 16 the same index with cb(j) split into constants
     (BiasRow16)."""
@@ -37,8 +37,8 @@ def _kernel_index(ws):
 @pytest.mark.parametrize("ws", [7, 8, 16])
 @pytest.mark.parametrize("heads", [3, 6])
 def test_table_rule_rebuilds_dense_bias(ws, heads):
-    """table[rb(i) - cb(j)] (csrc/swin_block.cu bias_row / bias_cols) is
-    the dense (heads, N, N) bias of SwinIR's and HAT's window attention
+    """table[rb(i) - cb(j)] (csrc/window_attention.cu bias_row /
+    bias_cols) is the dense (heads, N, N) bias of SwinIR's and HAT's window attention
     (both gather by the JAX package's relative_position_index), and the
     port's relative_position_bias, bit for bit."""
     rng = np.random.default_rng(ws * 10 + heads)

@@ -139,6 +139,23 @@ def test_roll2d_matches_roll2d_pallas(ws, sign, dtype):
         troll.roll2d(_t(x), shift + 1, ws=ws)
 
 
+# HAT's 144 px f32 canvas (exploration's one-box tree) and its training
+# canvas, 8 x 32 x 32 at C 180 (the x4 model's LR crop of 128)
+@pytest.mark.parametrize("shape", [(1, 144, 144, 180), (8, 32, 32, 180)])
+@pytest.mark.parametrize("sign", [1, -1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_roll2d_matches_roll2d_pallas_at_hat_canvases(shape, sign, dtype):
+    """K6's plain version bit-equal to roll2d_pallas at HAT's small f32
+    canvases (its 96 px tree and its training crop), window 16, shift +-8,
+    both dtypes."""
+    x = _rng(2).standard_normal(shape).astype(np.float32)
+    want = jpa.roll2d_pallas(jnp.asarray(x).astype(dtype), sign * 8, ws=16,
+                             interpret=True)
+    got = troll.roll2d_plain(_t(x).to(getattr(torch, dtype)), sign * 8, 16)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
 @pytest.mark.parametrize("ws", [8, 16])
 @pytest.mark.parametrize("masked", [False, True])
 def test_window_attention_full_mask_matches_wmsa_pallas(ws, masked):
@@ -463,6 +480,7 @@ def test_engine_hat_2k_plan_matches_jax(monkeypatch, bucket, canvas, tiles,
 
 
 @pytest.mark.slow
+@torch.no_grad()
 def test_hat_sr_x4_real_geometry_matches_jax_f32():
     """hat_sr_x4 at full geometry (embed 180, 6 RHAG x 6 HAB, window 16)
     on a 64x64 canvas in f32, the port's CPU path against the JAX model's

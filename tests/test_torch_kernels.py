@@ -622,9 +622,53 @@ def test_window_attention_wide_and_mask_modes(cuda, ws, c, heads, kind,
         tsb.window_attention_plain(qkv32, rpb, bank, **kw), dtype)
 
 
+# the float32 K2's forms: N 256 split over 4 blocks a (window, head) (16
+# windows x 6 heads) and whole (the table's window-16 form), N 100 (two
+# query chunks), N 64 with the bank, N 49, head width 12 in the logit-scale
+# mode (DehazeFormer) and 64 (the widest)
+@pytest.mark.parametrize("ws,c,heads,nwin,kind,scale", [
+    (16, 180, 6, 16, "bank", 1.0), (16, 180, 6, 128, "none", 1.0),
+    (10, 40, 2, 8, "mask", 1.0), (8, 180, 6, 24, "bank", 1.0),
+    (7, 180, 6, 8, "mask", 1.0), (8, 24, 2, 32, "none", 12 ** -0.5),
+    (8, 128, 2, 8, "mask", 1.0)])
+def test_window_attention_f32_split_tf32_against_float64(
+        cuda, ws, c, heads, nwin, kind, scale):
+    """The float32 K2 (split TF32 on the tensor cores) against the same
+    attention in float64 from the same float32 operands: within the f32
+    rule (1e-4 x max|ref|), and two launches bit-equal."""
+    gen = torch.Generator().manual_seed(9)
+    n = ws * ws
+    nwx = 2 if kind == "mask" else nwin // 2
+    h, w = nwin // nwx * ws, nwx * ws
+    qkv = _randn(gen, nwin * n, 3 * c).to(cuda)
+    table = _randn(gen, (2 * ws - 1) ** 2, heads, scale=0.5).to(cuda)
+    rpb = twa.relative_position_bias(table, ws).contiguous()
+    kw = dict(num_heads=heads, nwy=h // ws, nwx=nwx, fast=False,
+              **_mask_kw(kind, ws, h, w, cuda))
+    bank, mask = kw.pop("bank"), kw["mask"]
+    got = tsb.window_attention(qkv, rpb, bank, **kw, scale=scale,
+                               table=table)
+    again = tsb.window_attention(qkv, rpb, bank, **kw, scale=scale,
+                                 table=table)
+    assert torch.equal(got, again)
+    q, k, v = (qkv.double().reshape(nwin, n, 3, heads, c // heads)
+               .permute(2, 0, 3, 1, 4))
+    s = (q @ k.transpose(-1, -2)) * scale + rpb.double()
+    per_win = (tsb._bank_per_window(bank, h // ws, nwx) if bank is not None
+               else mask)
+    if per_win is not None:
+        s = s + per_win.double().repeat(nwin // per_win.shape[0], 1, 1)[
+            :, None]
+    ref = (torch.softmax(s, -1) @ v).permute(0, 2, 1, 3).reshape(-1, c)
+    err = float((got.double() - ref).abs().max())
+    assert err <= 1e-4 * float(ref.abs().max()), err
+
+
 @pytest.mark.parametrize("shape,ws", [((2, 32, 48, 180), 16),
                                       ((1, 16, 24, 3), 8),
-                                      ((3, 8, 40, 5), 4)])
+                                      ((3, 8, 40, 5), 4),
+                                      ((1, 144, 144, 180), 16),
+                                      ((8, 32, 32, 180), 16)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_roll2d_kernel_equals_torch_roll(cuda, shape, ws, dtype):
     """K6 against torch.roll, bit for bit, both signs (16-, 8-, 4- and
