@@ -52,7 +52,9 @@ Phases, each printing one JSON line:
 8. restormer_path: ``Engine(device="cuda")`` serving 1280x720 with
    Restormer in bf16 (whole image, 768x1280 canvas; one warm-up request,
    three timed): 8 K3, 44 K4 and 44 K5 launches per request, and a
-   ``torch.profiler`` split of one more;
+   ``torch.profiler`` split of one more; then the same request in float32
+   through an Engine as ``cli.py`` builds it (its launches are the
+   ``restormer_f32`` path's);
 9. restormer_fast_vs_exact: bf16 through the kernels against f32 exact on
    a 64x1024 probe (every level on the fused route), PSNR >= the plain
    bf16-vs-f32 control - 2 dB;
@@ -324,13 +326,18 @@ Phases, each printing one JSON line:
 Every phase but the training ones (56-65) runs under ``torch.no_grad()``,
 as a served forward does.
 
-Float32 K3, K1 and K2 run split TF32 on the tensor cores (three TF32
-products a k step, two where K3's or K1's weights are bf16-rounded or the
-rows bf16); every other float32 kernel runs FP32 FMA. Each float32 kernel
-row prints its ``f32_route`` (``split-tf32 xP``, ``fma``, or both for a
-composite such as ``gdfn_block``), and its bound takes that route: P x
-FLOP / 495 TFLOP/s for the split-TF32 launches' FLOP, FLOP / 67 TFLOP/s for
-the rest, bytes / 3.35 TB/s, the largest. A row of one float32 K3, K1 or K2
+Float32 K3, K1, K2, K4 and K5 run their products in split TF32 on the
+tensor cores (three TF32 products a k step, two where K3's or K1's weights
+are bf16-rounded or the rows bf16); K4's and K5's depthwise taps, K4's
+gate and K5's plain epilogue, and every other float32 kernel, run FP32
+FMA. Each float32 kernel row prints its ``f32_route`` (``split-tf32 xP``,
+``fma``, or both, ``split-tf32 x3 + fma``, for K4, K5 and composites such
+as ``swin_attn_block``), and its bound takes that route: P x FLOP / 495
+TFLOP/s for the split-TF32 launches' FLOP (K4: 6 C hid a pixel; K5: 6 C^2
++ 2 C C_h), FLOP / 67 TFLOP/s for the rest, bytes / 3.35 TB/s, the
+largest. Every K4 and K5 row passes only if ``repeatable`` (two launches
+give the same bits) and prints its launch ``plan`` and its kernel's
+``ptxas`` registers and spills. A row of one float32 K3, K1 or K2
 launch also prints a float64 control (``f64_max_abs_err`` of the kernel and
 ``plain_f64_max_abs_err`` of the float32 plain version against a float64
 conv, matmul or attention on the card, over the top 32 output rows, the
@@ -371,8 +378,9 @@ import numpy as np
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # H100 SXM, dense
 PEAK_TF32 = 495e12  # the split-TF32 route's passes run at the TF32 rate
 PEAK_BYTES = 3.35e12
-# the kernels whose float32 path is split TF32 on the tensor cores (every
-# other float32 kernel runs FP32 FMA); "wmsa" is K2 alone
+# the single-launch kernels whose float32 rows take the float64 control
+# (K4's and K5's products are split TF32 too, their taps FP32 FMA); "wmsa"
+# is K2 alone
 SPLIT_TF32 = ("conv3x3", "token_linear", "window_attention", "wmsa")
 SRC = "image_restoration_agent_tpu_torch/csrc/"
 TPU = "image_restoration_agent_tpu/ops/"
@@ -531,8 +539,8 @@ def bound(flops: float, nbytes: float, dtype: str, tf32_flops: float = 0.0,
 
 @contextlib.contextmanager
 def split_launches(calls: list):
-    """Record the float32 K3, K1 and K2 launches made inside the block:
-    each one's wrapper, FLOP and split-TF32 passes; the first one's
+    """Record the float32 K3, K1, K2, K4 and K5 launches made inside the
+    block: each one's wrapper, split-TF32 FLOP and passes; the first one's
     arguments and output too while it is the only one (the single-kernel
     rows' float64 control and repeat)."""
     import importlib
@@ -545,11 +553,24 @@ def split_launches(calls: list):
         "image_restoration_agent_tpu_torch.ops.conv3x3")
     tsb = importlib.import_module(
         "image_restoration_agent_tpu_torch.ops.swin_block")
+    trf = importlib.import_module(
+        "image_restoration_agent_tpu_torch.ops.restormer_fused")
     saved = (tconv._conv3x3_cuda, tsb._token_linear_cuda,
-             tsb._window_attention_cuda)
+             tsb._window_attention_cuda, trf._gdfn_cuda, trf._mdta_cuda)
 
     def record(name, fn, args, out):
-        if name == "window_attention":
+        if name in ("gdfn_block", "mdta_front"):
+            x, k = args[:2]
+            if x.dtype != torch.float32:
+                return
+            p, c = x.numel() // x.shape[-1], x.shape[-1]
+            # K4: project_in 4 C hid and project_out 2 hid C a pixel; K5:
+            # the qkv 1x1 6 C^2 and the gram 2 C C_h (the taps are FMA)
+            flops = 6 * p * c * k.params[5].shape[0] \
+                if name == "gdfn_block" \
+                else p * (6 * c * c + 2 * c * c // k.num_heads)
+            passes = 3
+        elif name == "window_attention":
             qkv, rpb = args[:2]
             if qkv.dtype != torch.float32:
                 return
@@ -585,11 +606,14 @@ def split_launches(calls: list):
     tconv._conv3x3_cuda = wrap("conv3x3", saved[0])
     tsb._token_linear_cuda = wrap("token_linear", saved[1])
     tsb._window_attention_cuda = wrap("window_attention", saved[2])
+    trf._gdfn_cuda = wrap("gdfn_block", saved[3])
+    trf._mdta_cuda = wrap("mdta_front", saved[4])
     try:
         yield calls
     finally:
         (tconv._conv3x3_cuda, tsb._token_linear_cuda,
-         tsb._window_attention_cuda) = saved
+         tsb._window_attention_cuda, trf._gdfn_cuda,
+         trf._mdta_cuda) = saved
 
 
 def _attn64(call: dict):
@@ -717,6 +741,14 @@ def split_route(name: str, calls: list, flops: float) -> dict:
     return info
 
 
+def split_route_held(row: dict) -> bool:
+    """A float32 K4 or K5 row ran its products in split TF32 (its taps on
+    FP32 FMA): no float32 launch of theirs reaches an FMA product kernel
+    or the plain version."""
+    return row["name"] not in ("gdfn_block", "mdta_front") or \
+        row.get("f32_route") == "split-tf32 x3 + fma"
+
+
 def range_psnr(a, ref) -> float:
     """PSNR normalized by the reference's dynamic range."""
     a = np.asarray(a, np.float64)
@@ -773,6 +805,7 @@ def check_case(cs: dict, dtype) -> dict:
     del got, want, d
     if dtype == torch.float32:
         row.update(split_route(cs["name"], calls, cs["flops"]))
+        row["pass"] = row["pass"] and split_route_held(row)
     for key, fn in cs.get("extra_ms", {}).items():
         row[key] = cuda_ms(fn, cs["reps"])
     row.update(cs.get("extra", {}))
@@ -1100,23 +1133,40 @@ def conv_case(randn, dtype, path: str, variant: str, cin: int, cout: int,
 
 
 def _k5_plan(dtype, c: int, heads: int, ptxas: list[str]) -> dict:
-    """K5's launch plan at a shape (tile, threads, shared bytes, and in bf16
-    the gram tiles and slices) and its kernel's ptxas lines."""
+    """K5's launch plan at a shape (tile, its halo over its pixels,
+    threads, shared bytes, the gram tiles and slices) and its kernel's
+    ptxas lines."""
     import torch
 
     from image_restoration_agent_tpu_torch.ops.restormer_fused import (
-        _plan, mdta_plan)
+        mdta_plan)
 
-    if dtype == torch.float32:
-        th, tw, smem = _plan(1, dtype, c, heads)
-        plan, kern = dict(tile=[th, tw], threads=256, smem=smem), \
-            "mdta_front_kernel"
-    else:
-        p = mdta_plan(c, heads)
-        plan, kern = dict(tile=[p.th, p.tw], threads=p.threads,
-                          smem=p.smem, gram_tiles=p.tiles,
-                          gram_tile_mma=[p.mw, p.nw8], slices=p.slices), \
-            f"mdta_mma_kernel<{p.mw},{p.nw8},{p.threads}>"
+    p = mdta_plan(c, heads, dtype)
+    kern = "mdta_tf32_kernel" if dtype == torch.float32 \
+        else "mdta_mma_kernel"
+    kern = f"{kern}<{p.mw},{p.nw8},{p.threads}>"
+    plan = dict(tile=[p.th, p.tw], halo=(p.th + 2) * (p.tw + 2)
+                / (p.th * p.tw), threads=p.threads, smem=p.smem,
+                gram_tiles=p.tiles, gram_tile_mma=[p.mw, p.nw8],
+                slices=p.slices)
+    return {"plan": plan, "ptxas": [ln for ln in ptxas
+                                    if ln.split(":")[0] == kern]}
+
+
+def _k4_plan(dtype, c: int, ptxas: list[str]) -> dict:
+    """K4's launch plan at a shape (tile, its halo over its pixels, threads,
+    warps across the columns, shared bytes) and its kernel's ptxas
+    lines."""
+    import torch
+
+    from image_restoration_agent_tpu_torch.ops.restormer_fused import (
+        gdfn_plan)
+
+    p = gdfn_plan(c, dtype)
+    kern = "gdfn_tf32_kernel" if dtype == torch.float32 \
+        else f"gdfn_mma_kernel<{p.mt},{p.ntw}>"
+    plan = dict(tile=[p.th, p.tw], halo=(p.th + 2) * (p.tw + 2)
+                / (p.th * p.tw), threads=p.threads, wn=p.wn, smem=p.smem)
     return {"plan": plan, "ptxas": [ln for ln in ptxas
                                     if ln.split(":")[0] == kern]}
 
@@ -1169,15 +1219,20 @@ def restormer_block_cases(shapes, dtype, randn, gen, path: str,
             var = f"{lvl} {size} C{c} ln={ln_kind}" + (
                 " bias" if bias else "")
             gk = gdfn_weights(*g, dtype)
+            y1 = gdfn_block(x, gk, fast=fast)
+            y2 = gdfn_block(x, gk, fast=fast)
             cases.append(dict(
                 name="gdfn_block", variant=var, path=path,
                 kernel=lambda x=x, gk=gk: gdfn_block(x, gk, fast=fast),
                 plain=lambda x=x, g=g: gdfn_block_plain(x, *g, fast=fast),
                 ref32=lambda x32=x32, g=g: gdfn_block_plain(
                     x32, *g, fast=fast),
+                extra={"repeatable": bool(torch.equal(y1, y2)),
+                       **_k4_plan(dtype, c, ptxas)},
                 library=None, reps=5,
                 flops=p * (6 * c * hid + 36 * hid),
                 nbytes=2 * p * c * es + 3 * c * hid * es))
+            del y1, y2
             if ln_kind == "none":
                 continue
             mk = mdta_weights(*m[:7], m[7], heads, dtype)
@@ -1225,13 +1280,15 @@ def restormer_kernel_checks(quick: bool, seed: int = 3) -> list[dict]:
         if quick else list(RESTORMER_SHAPES)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        # the main path's blocks, and at level 2 the other forms
-        cases = restormer_block_cases(shapes, dtype, randn, gen, "restormer",
+        # the main path's blocks, and at level 2 the other forms; the
+        # float32 rows' launches are the float32 request's
+        path = "restormer_f32" if dtype == torch.float32 else "restormer"
+        cases = restormer_block_cases(shapes, dtype, randn, gen, path,
                                       forms_at=1)
         for cname, cin, cout, h, w in RESTORMER_CONVS:
             if quick:
                 h, w = 16, 128
-            cases.append(conv_case(randn, dtype, "restormer",
+            cases.append(conv_case(randn, dtype, path,
                                    f"restormer {cname} {h}x{w}", cin, cout,
                                    h, w, bias=False))
         rows += [check_case(cs, dtype) for cs in cases]
@@ -1631,27 +1688,43 @@ def restormer_golden() -> dict:
 
 
 def restormer_path(state, card: str, requests: int = 3) -> dict:
-    """Engine(device="cuda") serving 1280x720 with Restormer in bf16: the
-    whole-image route on a 768x1280 canvas."""
+    """Engine(device="cuda") serving 1280x720 with Restormer in bf16, then
+    the same request in float32 through an Engine as ``cli.py`` builds it
+    (``Engine(device="cuda")``: float32, shape bucket 128): the
+    whole-image route on a 768x1280 canvas, 44 K4 and 44 K5 a request in
+    both."""
+    import torch
+
     img = np.random.default_rng(1).random((720, 1280, 3), dtype=np.float32)
-    _, warm, warm_s, secs, results, counts, profile, _ = serve(
-        "restormer", state, img, requests, shape_bucket=128)
     per_req = {"conv3x3": 8, "gdfn_block": 44, "mdta_front": 44}
-    others = {k: v for k, v in counts.items() if k not in per_req}
-    ok = all(r.image.shape == (720, 1280, 3) and r.nonfinite == 0
-             for r in results + [warm])
-    ok = ok and all(counts[k] == v * requests for k, v in per_req.items())
-    ok = ok and not any(others.values())
-    best = min(secs)
-    return {"phase": "restormer_path", "model": "restormer", "dtype":
-            "bfloat16", "input": [720, 1280, 3], "canvas": [768, 1280],
-            "output": list(results[-1].image.shape),
-            "warmup_seconds": warm_s, "seconds": secs,
-            "mp_per_s": 1280 * 720 / 1e6 / best,
-            "launches": {k: counts[k] for k in per_req},
-            "other_launches": others,
-            "expected_per_request": per_req, "profile": profile,
-            "card": card, "pass": bool(ok)}
+    row = {"phase": "restormer_path", "model": "restormer", "input":
+           [720, 1280, 3], "canvas": [768, 1280],
+           "expected_per_request": per_req, "card": card, "pass": True}
+    for dtype in (torch.bfloat16, torch.float32):
+        _, warm, warm_s, secs, results, counts, profile, _ = serve(
+            "restormer", state, img, requests, shape_bucket=128,
+            dtype=dtype)
+        others = {k: v for k, v in counts.items() if k not in per_req}
+        ok = all(r.image.shape == (720, 1280, 3) and r.nonfinite == 0
+                 for r in results + [warm])
+        ok = ok and all(counts[k] == v * requests
+                        for k, v in per_req.items())
+        ok = ok and not any(others.values())
+        run = {"dtype": str(dtype).split(".")[-1],
+               "output": list(results[-1].image.shape),
+               "warmup_seconds": warm_s, "seconds": secs,
+               "mp_per_s": 1280 * 720 / 1e6 / min(secs),
+               "launches": {k: counts[k] for k in per_req},
+               "other_launches": others, "profile": profile,
+               "pass": bool(ok)}
+        if dtype == torch.bfloat16:
+            row.update(run)
+        else:
+            row["float32"] = run
+        row["pass"] = row["pass"] and bool(ok)
+        del warm, results
+        torch.cuda.empty_cache()
+    return row
 
 
 def restormer_fast_vs_exact(state) -> dict:
@@ -1775,16 +1848,16 @@ def reset_launch_counts() -> None:
 
 
 def serve(name: str, state: dict, img, requests: int,
-          shape_bucket: int = 8, top: int = 12) -> tuple:
-    """``Engine(device="cuda")`` in bf16 serving ``img`` with ``name``: one
-    warm-up request, then ``requests`` timed ones with every launch count
-    set to 0 just before them and read just after, then one profiled
-    request."""
+          shape_bucket: int = 8, top: int = 12, dtype=None) -> tuple:
+    """``Engine(device="cuda")`` in ``dtype`` (default bf16) serving ``img``
+    with ``name``: one warm-up request, then ``requests`` timed ones with
+    every launch count set to 0 just before them and read just after, then
+    one profiled request."""
     import torch
 
     from image_restoration_agent_tpu_torch.engine import Engine
 
-    eng = Engine(device="cuda", param_dtype=torch.bfloat16,
+    eng = Engine(device="cuda", param_dtype=dtype or torch.bfloat16,
                  shape_bucket=shape_bucket)
     eng.set_weights(name, state)
     t0 = time.perf_counter()
@@ -5939,9 +6012,10 @@ def train_case(name: str, variant: str, make, flops: float, nbytes: float,
                grad_tolerance=1e-5, leaves=len(leaves),
                grad_of="front" if grad_fns else "output")
     row.update(split_route(name, calls, flops))
+    row["pass"] = split_route_held(row)
     if name == "roll2d":  # a copy: bit for bit torch.roll's
         row["bit_equal"] = bool(torch.equal(out_k, out_p))
-    row["pass"] = (err <= tol and gerr <= 1e-5 and finite
+    row["pass"] = (row["pass"] and err <= tol and gerr <= 1e-5 and finite
                    and row.get("repeatable", True)
                    and row.get("bit_equal", True))
     with torch.no_grad():
@@ -6920,7 +6994,8 @@ def main() -> int:
     # each path's launch counts, read just after the path ran (with
     # --quick, the kernel checks' own)
     counts = launch_counts()
-    launches = {p: counts for p in ("swinir", "restormer", "hat", "denoise",
+    launches = {p: counts for p in ("swinir", "restormer", "restormer_f32",
+                                    "hat", "denoise",
                                     "dehaze", "nafnet", "fbcnn", "agent",
                                     "default_agent", "ridcp", "serve",
                                     "diffbir", "retrieval", "eval_suite",
@@ -6999,6 +7074,8 @@ def main() -> int:
         launches.update({
             "swinir": served["launches"] if served else {},
             "restormer": served_r["launches"] if served_r else {},
+            "restormer_f32": served_r["float32"]["launches"]
+            if served_r and "float32" in served_r else {},
             "hat": served_h["launches"] if served_h else {},
             "denoise": served_d["launches"] if served_d else {},
             "dehaze": served_z["launches"] if served_z else {}})

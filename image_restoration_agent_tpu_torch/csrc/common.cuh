@@ -169,4 +169,57 @@ __device__ __forceinline__ int pmod(int a, int m) {
   return r < 0 ? r + m : r;
 }
 
+// ---------------------------------------------------------------------------
+// Split TF32 on mma.sync m16n8k8: the float32 products of K2
+// (window_attention.cu), K4 and K5 (restormer_fused.cu)
+
+// d += a b, TF32 in, float32 sum (mma.sync m16n8k8). With g = lane / 4 and
+// t = lane % 4, A (16 x 8, row-major) is a0 = (row g, k t), a1 = (g+8, t),
+// a2 = (g, t+4), a3 = (g+8, t+4); B (8 x 8) is b0 = (k t, column g), b1 =
+// (k t+4, column g); D is as mma_bf16's (rows g, g+8; columns 2t, 2t+1).
+// Not volatile: a pure function of its operands, which the compiler may
+// interleave with other chains.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo in TF32 parts, with integer and float32 ops only: hi = x
+// rounded to TF32 (nearest, ties away from zero, the low 13 bits clear),
+// as cvt.rna.tf32.f32 rounds, and lo = x - hi (exact in float32), passed
+// whole: the tensor cores read its top 19 bits. (cvt.rna.tf32.f32 runs on
+// the conversion unit: four splits a product there set K2's pace.)
+__device__ __forceinline__ void split1(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// an A fragment (a0 .. a3) split into TF32 parts
+__device__ __forceinline__ void split_a(float a0, float a1, float a2,
+                                        float a3, uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+  split1(a0, hi[0], lo[0]);
+  split1(a1, hi[1], lo[1]);
+  split1(a2, hi[2], lo[2]);
+  split1(a3, hi[3], lo[3]);
+}
+
+// d += a b in split TF32, the three products in a fixed order: al bh, ah bl,
+// ah bh (b = bh + bl split here)
+__device__ __forceinline__ void mma_split(float (&d)[4],
+                                          const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4], float b0,
+                                          float b1) {
+  uint32_t h0, h1, l0, l1;
+  split1(b0, h0, l0);
+  split1(b1, h1, l1);
+  mma_tf32(d, al, h0, h1);
+  mma_tf32(d, ah, l0, l1);
+  mma_tf32(d, ah, h0, h1);
+}
+
 }  // namespace irk

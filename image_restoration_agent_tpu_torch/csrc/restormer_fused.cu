@@ -5,8 +5,8 @@
 // H100 and what is left for later.
 //
 // A block owns a TH x TW tile of output pixels. It stages LN(x) (or x) over
-// the tile and its 1-pixel halo in shared memory once, rounded to the input
-// dtype. The hidden channels then go in chunks of HC: the weights are
+// the tile and its 1-pixel halo in shared memory once, in the input dtype.
+// The hidden channels then go in chunks of HC: the weights are
 // chunk-interleaved once per weight (ops/restormer_fused.py gdfn_weights /
 // mdta_weights), so one product gives a chunk of every group (x1 and x2,
 // or q, k and v) over the halo; its halo pixels outside the canvas are
@@ -15,21 +15,23 @@
 // - K4: the GELU gate (rounded to the input dtype) and a partial
 //   project_out; the epilogue adds the bias and the residual in float32 and
 //   casts once;
-// - K5: v is written; q and k (rounded) are kept for the tile, their float32
-//   sums of squares are summed per channel in a fixed order, and after the
-//   last chunk the tile's per-head gram q^T k is added to the block's.
+// - K5: v is written; q and k (in the input dtype) are kept for the tile,
+//   their float32 sums of squares are summed per channel in a fixed order,
+//   and after the last chunk the tile's per-head gram q^T k is added to
+//   the block's.
 // A K5 block takes a fixed run of tiles of one sample and writes one
 // partial; a second kernel sums the partials in block order (no atomics:
 // the same bits every run).
 //
-// In bfloat16 both kernels run their products on the tensor cores
-// (mma.sync m16n8k16) from pixel-major staging, on a tile chosen per C
-// (ops/restormer_fused.py: gdfn_plan, mdta_plan): K4 (gdfn_mma_kernel)
-// keeps project_out's accumulators in registers across the chunks, K5
-// (mdta_mma_kernel) the per-head gram's across the block's run of tiles.
-// In float32 both run their products on FP32 FMA, 4x4 outputs per thread,
-// with channel-major staging and the float32 project_out tile or gram in
-// shared memory (gdfn_kernel, mdta_front_kernel).
+// Both kernels run their products on the tensor cores from pixel-major
+// staging, on a tile chosen per C and dtype (ops/restormer_fused.py:
+// gdfn_plan, mdta_plan): in bfloat16 on mma.sync m16n8k16
+// (gdfn_mma_kernel, mdta_mma_kernel), in float32 in split TF32 on mma.sync
+// m16n8k8 (gdfn_tf32_kernel, mdta_tf32_kernel: x = xh + xl split in
+// registers, w = wh + wl from a form made once per weight, xl wh + xh wl
+// + xh wh summed in float32). K4 keeps project_out's accumulators in
+// registers across the chunks, K5 the per-head gram's across the block's
+// run of tiles. The depthwise taps and the GELU gate run FP32 FMA.
 //
 // Plain C interface for ctypes; each entry returns cudaGetLastError().
 
@@ -41,40 +43,7 @@ using namespace irk;
 namespace {
 
 constexpr int HC = 32;  // hidden channels per chunk (ops/restormer_fused.py)
-constexpr int NT = 256;  // threads per block
-constexpr int NW = NT / 32;
 
-__host__ __device__ constexpr int round4(int v) { return (v + 3) / 4 * 4; }
-__host__ __device__ constexpr size_t align16(size_t v) {
-  return (v + 15) / 16 * 16;
-}
-
-template <typename T>
-__device__ __forceinline__ float rnd(float v);
-template <>
-__device__ __forceinline__ float rnd<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// four consecutive elements as floats (16-byte / 8-byte aligned)
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
 // four bf16 values (low half first) as floats
 __device__ __forceinline__ float4 unpack4(const uint2 r) {
   const float2 a =
@@ -82,57 +51,6 @@ __device__ __forceinline__ float4 unpack4(const uint2 r) {
   const float2 b =
       __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
   return make_float4(a.x, a.y, b.x, b.y);
-}
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
-  return unpack4(*reinterpret_cast<const uint2*>(p));
-}
-
-__device__ __forceinline__ void fma4(float (&acc)[4][4], const float (&a)[4],
-                                     const float4 b) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    acc[i][0] = fmaf(a[i], b.x, acc[i][0]);
-    acc[i][1] = fmaf(a[i], b.y, acc[i][1]);
-    acc[i][2] = fmaf(a[i], b.z, acc[i][2]);
-    acc[i][3] = fmaf(a[i], b.w, acc[i][3]);
-  }
-}
-
-// out(m, n) = sum_k A(k, m) B(k, n) in 4x4 tiles spread over the block's
-// threads; A(k, m) = a[k * lda + m] when AK (k-major) else a[m * lda + k];
-// B(k, n) = b[k * ldb + n]. M and N are multiples of 4; epi(m0, n0, acc)
-// takes each finished tile.
-template <bool AK, typename TA, typename TB, typename Epi>
-__device__ __forceinline__ void mm4(const TA* __restrict__ a, int lda,
-                                    const TB* __restrict__ b, int ldb, int M,
-                                    int N, int K, Epi epi) {
-  const int nt = N >> 2, tiles = (M >> 2) * nt;
-  for (int t = threadIdx.x; t < tiles; t += NT) {
-    const int m0 = (t / nt) << 2, n0 = (t % nt) << 2;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    const TA* ap = AK ? a + m0 : a + m0 * lda;
-    const TB* bp = b + n0;
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      float av[4];
-      if constexpr (AK) {
-        const float4 v = ld4(ap + k * lda);
-        av[0] = v.x;
-        av[1] = v.y;
-        av[2] = v.z;
-        av[3] = v.w;
-      } else {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = to_f(ap[i * lda + k]);
-      }
-      fma4(acc, av, ld4(bp + static_cast<long long>(k) * ldb));
-    }
-    epi(m0, n0, acc);
-  }
 }
 
 // n / d for 0 <= n < 2^31 by a multiply and a shift, the divisor's magic
@@ -159,31 +77,16 @@ struct FastDiv {
 // Tile geometry: halo pixel m = hy * (TW + 2) + hx sits at canvas pixel
 // (y0 + hy - 1, x0 + hx - 1).
 struct Tile {
-  int TH, TW, hw2, hp, hpp, tp, H, W, y0, x0;
+  int TH, TW, hw2, hp, tp, H, W, y0, x0;
   long long b;
   __device__ Tile(int th, int tw, int h, int w, long long bb, int yy,
                   int xx)
-      : TH(th), TW(tw), hw2(tw + 2), hp((th + 2) * (tw + 2)),
-        hpp(round4((th + 2) * (tw + 2))), tp(th * tw), H(h), W(w), y0(yy),
-        x0(xx), b(bb) {}
-  __device__ bool halo_in(int m) const {
-    const int gy = y0 + m / hw2 - 1, gx = x0 + m % hw2 - 1;
-    return m < hp && gy >= 0 && gy < H && gx >= 0 && gx < W;
-  }
-  __device__ long long halo_src(int m) const {
-    return (b * H + y0 + m / hw2 - 1) * W + x0 + m % hw2 - 1;
-  }
-  __device__ bool out_in(int p) const {
-    return y0 + p / TW < H && x0 + p % TW < W;
-  }
-  __device__ long long out_pix(int p) const {
-    return (b * H + y0 + p / TW) * W + x0 + p % TW;
-  }
+      : TH(th), TW(tw), hw2(tw + 2), hp((th + 2) * (tw + 2)), tp(th * tw),
+        H(h), W(w), y0(yy), x0(xx), b(bb) {}
 };
 
-// The tensor-core kernels' tile: the divisions by TW + 2 and TW as
-// multiply-shifts with dividers made once per kernel (the float32 kernels'
-// tiles are small and keep Tile: the dividers cost them registers)
+// The kernels' tile: the divisions by TW + 2 and TW as multiply-shifts
+// with dividers made once per kernel
 struct FastTile : Tile {
   FastDiv f2, fw;
   __device__ FastTile(int th, int tw, int h, int w, long long bb, int yy,
@@ -208,176 +111,10 @@ struct FastTile : Tile {
   }
 };
 
-// LN(x) (ln_mode 2: WithBias, 1: BiasFree, 0: none) over the halo into
-// xs[c * hpp + m], rounded to T, 0 outside the canvas. A warp per pixel:
-// float32 two-pass statistics, eps 1e-5.
-template <typename T>
-__device__ void stage_ln(const T* __restrict__ x,
-                         const float* __restrict__ ln_w,
-                         const float* __restrict__ ln_b, int ln_mode, T* xs,
-                         const Tile& t, int C) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int m = warp; m < t.hpp; m += NW) {
-    if (!t.halo_in(m)) {
-      for (int c = lane; c < C; c += 32) xs[c * t.hpp + m] = from_f<T>(0.f);
-      continue;
-    }
-    const T* px = x + t.halo_src(m) * C;
-    float mu = 0.f, rs = 1.f;
-    if (ln_mode != 0) {
-      float s = 0.f;
-      for (int c = lane; c < C; c += 32) s += to_f(px[c]);
-      mu = warp_sum(s) / C;
-      float v = 0.f;
-      for (int c = lane; c < C; c += 32) {
-        const float d = to_f(px[c]) - mu;
-        v += d * d;
-      }
-      rs = rsqrtf(warp_sum(v) / C + 1e-5f);
-    }
-    for (int c = lane; c < C; c += 32) {
-      const float v = to_f(px[c]);
-      float y = v;
-      if (ln_mode == 2)
-        y = (v - mu) * rs * ln_w[c] + ln_b[c];
-      else if (ln_mode == 1)
-        y = v * rs * ln_w[c];
-      xs[c * t.hpp + m] = from_f<T>(y);
-    }
-  }
-}
-
-// The chunk's 1x1 over the halo: u[m * ldu + n] = round(xs^T w + bias), 0
-// outside the canvas; w and bias start at the chunk's first column.
-template <typename T>
-__device__ __forceinline__ void one_by_one(const T* xs, const T* w, int ldw,
-                                           const float* bias, float* u,
-                                           int ldu, const Tile& t, int C) {
-  mm4<true>(xs, t.hpp, w, ldw, t.hpp, ldu, C,
-            [&](int m0, int n0, float (&a)[4][4]) {
-#pragma unroll
-              for (int i = 0; i < 4; ++i) {
-                const int m = m0 + i;
-                const bool in = t.halo_in(m);
-                float r[4];
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                  const float v = a[i][j] + (bias ? bias[n0 + j] : 0.f);
-                  r[j] = in ? rnd<T>(v) : 0.f;
-                }
-                *reinterpret_cast<float4*>(u + m * ldu + n0) =
-                    make_float4(r[0], r[1], r[2], r[3]);
-              }
-            });
-}
-
-// Nine taps of column j of u for four outputs (r, q..q+3), float32, summed
-// in the TPU kernel's order (dy, then dx), bias after.
-__device__ __forceinline__ void dw4(const float* u, int ldu, int hw2, int r,
-                                    int q, int j, const float (&w)[9],
-                                    float bias, float (&d)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) d[i] = 0.f;
-#pragma unroll
-  for (int dy = 0; dy < 3; ++dy) {
-    const float* row = u + ((r + dy) * hw2 + q) * ldu + j;
-    float a[6];
-#pragma unroll
-    for (int s = 0; s < 6; ++s) a[s] = row[s * ldu];
-#pragma unroll
-    for (int dx = 0; dx < 3; ++dx)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) d[i] = fmaf(a[i + dx], w[dy * 3 + dx], d[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) d[i] += bias;
-}
-
 __device__ __forceinline__ void load_taps(const float* w_dw, int ldw,
                                           int col, float (&w)[9]) {
 #pragma unroll
   for (int s = 0; s < 9; ++s) w[s] = w_dw[s * ldw + col];
-}
-
-// ---------------------------------------------------------------------------
-// K4: x + project_out(gelu(dw(1x1_a(LN x))) * dw(1x1_b(LN x)))
-
-template <typename T>
-__global__ void __launch_bounds__(NT) gdfn_kernel(
-    const T* __restrict__ x, const float* __restrict__ ln_w,
-    const float* __restrict__ ln_b, const T* __restrict__ w_in,
-    const float* __restrict__ b_in, const float* __restrict__ w_dw,
-    const float* __restrict__ b_dw, const T* __restrict__ w_out,
-    const float* __restrict__ b_out, T* __restrict__ out, int H, int W,
-    int C, int NCH, int ln_mode, int fast, int TH, int TW) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ntx = (W + TW - 1) / TW, nty = (H + TH - 1) / TH;
-  const int tx = blockIdx.x % ntx, ty = (blockIdx.x / ntx) % nty;
-  const Tile t(TH, TW, H, W, blockIdx.x / (ntx * nty), ty * TH, tx * TW);
-  const int cp = round4(C), ldw = NCH * 2 * HC, gl = HC + 1;
-  T* xs = reinterpret_cast<T*>(smem);                      // [C][hpp]
-  float* u = reinterpret_cast<float*>(
-      smem + align16(sizeof(T) * C * t.hpp));               // [hpp][2HC]
-  float* g = u + t.hpp * 2 * HC;                            // [tp][HC+1]
-  float* acc = g + round4(t.tp * gl);                       // [tp][cp]
-
-  stage_ln(x, ln_w, ln_b, ln_mode, xs, t, C);
-  for (int e = threadIdx.x; e < t.tp * cp; e += NT) acc[e] = 0.f;
-
-  const int j = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int qs = TW / 4, segs = TH * qs;
-  for (int ci = 0; ci < NCH; ++ci) {
-    const int col0 = ci * 2 * HC;
-    __syncthreads();
-    one_by_one(xs, w_in + col0, ldw, b_in ? b_in + col0 : nullptr, u,
-               2 * HC, t, C);
-    __syncthreads();
-    float w1[9], w2[9];
-    load_taps(w_dw, ldw, col0 + j, w1);
-    load_taps(w_dw, ldw, col0 + HC + j, w2);
-    const float c1 = b_dw ? b_dw[col0 + j] : 0.f;
-    const float c2 = b_dw ? b_dw[col0 + HC + j] : 0.f;
-    for (int s = warp; s < segs; s += NW) {
-      const int r = s / qs, q = (s % qs) * 4;
-      float d1[4], d2[4];
-      dw4(u, 2 * HC, t.hw2, r, q, j, w1, c1, d1);
-      dw4(u, 2 * HC, t.hw2, r, q, HC + j, w2, c2, d2);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float v = d1[i];
-        const float ge =
-            fast ? 0.5f * v *
-                       (1.f + tanhf(0.7978845608028654f *
-                                    (v + 0.044715f * v * v * v)))
-                 : 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-        g[(r * TW + q + i) * gl + j] = rnd<T>(ge * d2[i]);
-      }
-    }
-    __syncthreads();
-    mm4<false>(g, gl, w_out + static_cast<long long>(ci) * HC * cp, cp,
-               t.tp, cp, HC, [&](int m0, int n0, float (&a)[4][4]) {
-#pragma unroll
-                 for (int i = 0; i < 4; ++i) {
-                   float4* p =
-                       reinterpret_cast<float4*>(acc + (m0 + i) * cp + n0);
-                   float4 v = *p;
-                   v.x += a[i][0];
-                   v.y += a[i][1];
-                   v.z += a[i][2];
-                   v.w += a[i][3];
-                   *p = v;
-                 }
-               });
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < t.tp * C; e += NT) {
-    const int p = e / C, n = e - p * C;
-    if (!t.out_in(p)) continue;
-    const long long o = t.out_pix(p) * C + n;
-    float v = acc[p * cp + n];
-    if (b_out) v += b_out[n];
-    out[o] = from_f<T>(v + to_f(x[o]));
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -571,9 +308,17 @@ __device__ __forceinline__ void store_halo_u(bf* us, int ldu, int col0,
 
 // the nine taps of a channel pair (weights wa, wb, biases ca, cb) for two
 // output rows of four pixels: base is u at halo row r, pixel q, the pair's
-// column; halo rows r .. r + 3 feed output rows r (taps dy) and r + 1
-// (taps dy - 1), each summed in the order dy, dx, bias after
-__device__ __forceinline__ void taps_2x4(const bf* base, int hw2, int ldu,
+// column (bf16 or float32); halo rows r .. r + 3 feed output rows r (taps
+// dy) and r + 1 (taps dy - 1), each summed in the order dy, dx, bias after
+__device__ __forceinline__ float2 pair_f(const bf* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 pair_f(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+template <typename T>
+__device__ __forceinline__ void taps_2x4(const T* base, int hw2, int ldu,
                                          const float (&wa)[9],
                                          const float (&wb)[9], float ca,
                                          float cb, float2 (&d)[2][4]) {
@@ -583,12 +328,10 @@ __device__ __forceinline__ void taps_2x4(const bf* base, int hw2, int ldu,
     for (int i = 0; i < 4; ++i) d[o][i] = make_float2(0.f, 0.f);
 #pragma unroll
   for (int dy = 0; dy < 4; ++dy) {
-    const bf* row = base + dy * hw2 * ldu;
+    const T* row = base + dy * hw2 * ldu;
     float2 av[6];
 #pragma unroll
-    for (int k = 0; k < 6; ++k)
-      av[k] = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(row + k * ldu));
+    for (int k = 0; k < 6; ++k) av[k] = pair_f(row + k * ldu);
 #pragma unroll
     for (int dx = 0; dx < 3; ++dx)
 #pragma unroll
@@ -821,114 +564,6 @@ size_t gdfn_mma_smem(int C, int TH, int TW) {
 
 // ---------------------------------------------------------------------------
 // K5: MDTA's front: v, and per block the per-head gram and sums of squares
-
-template <typename T>
-__global__ void __launch_bounds__(NT) mdta_front_kernel(
-    const T* __restrict__ x, const float* __restrict__ ln_w,
-    const float* __restrict__ ln_b, const T* __restrict__ w_qkv,
-    const float* __restrict__ b_qkv, const float* __restrict__ w_dw,
-    const float* __restrict__ b_dw, T* __restrict__ v_out,
-    float* __restrict__ part, int H, int W, int C, int NCH, int heads,
-    int ln_mode, int TH, int TW, int NB) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ntx = (W + TW - 1) / TW, nty = (H + TH - 1) / TH;
-  const int ntiles = ntx * nty;
-  const long long b = blockIdx.x / NB;
-  const int ib = blockIdx.x % NB;
-  const int t0 = static_cast<int>(static_cast<long long>(ntiles) * ib / NB);
-  const int t1 =
-      static_cast<int>(static_cast<long long>(ntiles) * (ib + 1) / NB);
-  const int cq = NCH * HC, ch = C / heads, gs = heads * ch * ch;
-  const int ldw = NCH * 3 * HC, hpp = round4((TH + 2) * (TW + 2));
-  const int tp = TH * TW;
-  T* xs = reinterpret_cast<T*>(smem);                       // [C][hpp]
-  unsigned char* p1 = smem + align16(sizeof(T) * C * hpp);
-  float* u = reinterpret_cast<float*>(p1);                  // [hpp][3HC]
-  T* qs = reinterpret_cast<T*>(p1 + sizeof(float) * hpp * 3 * HC);  // [tp][cq]
-  T* ks = qs + align16(sizeof(T) * tp * cq) / sizeof(T);             // [tp][cq]
-  float* gm = reinterpret_cast<float*>(
-      reinterpret_cast<unsigned char*>(ks) + align16(sizeof(T) * tp * cq));
-  float* ssq = gm + gs;                                     // [2][cq]
-  float* red = ssq + 2 * cq;                                // [2][NW][HC]
-
-  for (int e = threadIdx.x; e < gs + 2 * cq; e += NT) gm[e] = 0.f;
-
-  const int j = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nq = TW / 4, segs = TH * nq;
-  for (int tile = t0; tile < t1; ++tile) {
-    const Tile t(TH, TW, H, W, b, (tile / ntx) * TH, (tile % ntx) * TW);
-    __syncthreads();
-    stage_ln(x, ln_w, ln_b, ln_mode, xs, t, C);
-    for (int ci = 0; ci < NCH; ++ci) {
-      const int col0 = ci * 3 * HC, cj = ci * HC + j;
-      __syncthreads();
-      one_by_one(xs, w_qkv + col0, ldw, b_qkv ? b_qkv + col0 : nullptr, u,
-                 3 * HC, t, C);
-      __syncthreads();
-      float sums[2] = {0.f, 0.f};
-#pragma unroll
-      for (int grp = 0; grp < 3; ++grp) {
-        float w[9];
-        load_taps(w_dw, ldw, col0 + grp * HC + j, w);
-        const float bias = b_dw ? b_dw[col0 + grp * HC + j] : 0.f;
-        for (int s = warp; s < segs; s += NW) {
-          const int r = s / nq, q = (s % nq) * 4;
-          float d[4];
-          dw4(u, 3 * HC, t.hw2, r, q, grp * HC + j, w, bias, d);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int p = r * TW + q + i;
-            const bool in = t.out_in(p);
-            if (grp == 2) {
-              if (in && cj < C) v_out[t.out_pix(p) * C + cj] = from_f<T>(d[i]);
-            } else {
-              const float v = in ? d[i] : 0.f;
-              (grp == 0 ? qs : ks)[p * cq + cj] = from_f<T>(v);
-              sums[grp] += v * v;
-            }
-          }
-        }
-      }
-      red[warp * HC + j] = sums[0];
-      red[(NW + warp) * HC + j] = sums[1];
-      __syncthreads();
-      if (threadIdx.x < 2 * HC) {
-        const int which = threadIdx.x / HC, jj = threadIdx.x % HC;
-        float s = 0.f;
-        for (int w = 0; w < NW; ++w) s += red[(which * NW + w) * HC + jj];
-        ssq[which * cq + ci * HC + jj] += s;
-      }
-    }
-    __syncthreads();
-    // this tile's share of the per-head gram: gm[h][c][d] += q_h^T k_h
-    const int nt = ch >> 2, per = nt * nt;
-    for (int e = threadIdx.x; e < heads * per; e += NT) {
-      const int hh = e / per, m0 = ((e % per) / nt) << 2,
-                n0 = ((e % per) % nt) << 2;
-      const T* ap = qs + hh * ch + m0;
-      const T* bp = ks + hh * ch + n0;
-      float acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jx = 0; jx < 4; ++jx) acc[i][jx] = 0.f;
-#pragma unroll 4
-      for (int p = 0; p < tp; ++p) {
-        const float4 av = ld4(ap + p * cq);
-        const float a4[4] = {av.x, av.y, av.z, av.w};
-        fma4(acc, a4, ld4(bp + p * cq));
-      }
-      float* gp = gm + hh * ch * ch;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jx = 0; jx < 4; ++jx) gp[(m0 + i) * ch + n0 + jx] += acc[i][jx];
-    }
-  }
-  __syncthreads();
-  float* dst = part + static_cast<long long>(blockIdx.x) * (gs + 2 * cq);
-  for (int e = threadIdx.x; e < gs + 2 * cq; e += NT) dst[e] = gm[e];
-}
 
 // gram[b] and ssq[b]: the per-block partials of sample b summed in block
 // order
@@ -1306,58 +941,679 @@ __global__ void __launch_bounds__(128) gram_tile_kernel(
   }
 }
 
-// shared bytes of each kernel at a tile
-size_t gdfn_smem(int es, int C, int TH, int TW) {
-  const int hpp = round4((TH + 2) * (TW + 2)), tp = TH * TW;
-  return align16(static_cast<size_t>(es) * C * hpp) +
-         sizeof(float) * (static_cast<size_t>(hpp) * 2 * HC +
-                          round4(tp * (HC + 1)) +
-                          static_cast<size_t>(tp) * round4(C));
+// ---------------------------------------------------------------------------
+// The float32 kernels' shared pieces (K4 and K5 in float32): the bf16
+// kernels' staging, 1x1 tasks and taps in float32, every product in split
+// TF32 on mma.sync m16n8k8 (common.cuh: split_a, mma_tf32).
+//
+// x is staged over the halo pixel-major in float32: xs [hpr][ldx], ldx = C
+// rounded up to 8, + 4 (ldx / 4 odd: the 16-byte rows an ldmatrix reads
+// hit every bank once). A 16 x 8 A fragment of float32 rows comes by one
+// ldmatrix.x4 (its b16 matrices' 32-bit words are the tf32 fragment's
+// elements: lane l gives row frag_row(l) at k 4 frag_khalf(l)) and is split
+// in registers (split_a: xh = rna(x) by integer ops, xl = x - xh, read by
+// the tensor cores as its top 19 bits). B comes from a packed form made
+// once per weight (ops/restormer_fused.py: tf32_frag_pack): per k8 step
+// and n8 tile, lane 4g + t holds wh(k t, n g), wh(k t+4, n g), wl(k t, n
+// g), wl(k t+4, n g) with wh = rna(w), wl = w - wh: one 16-byte load. Each
+// k step adds xl wh, xh wl, xh wh in that order (mma_split_b). Nothing is
+// rounded between the cast points: the 1x1 outputs, the taps, the gate, q
+// and k stay float32.
+
+// a global -> shared copy's width for rows of row_bytes from x: 16, or 8 /
+// 4 where x or a row is not so aligned
+__device__ __forceinline__ int copy_width(const void* x, int row_bytes) {
+  const int a = static_cast<int>(reinterpret_cast<uintptr_t>(x)) | row_bytes;
+  return a & 15 ? (a & 7 ? 4 : 8) : 16;
 }
 
-size_t mdta_smem(int es, int C, int heads, int TH, int TW) {
-  const int hpp = round4((TH + 2) * (TW + 2)), tp = TH * TW;
-  const int cq = (C + HC - 1) / HC * HC, ch = C / heads;
-  return align16(static_cast<size_t>(es) * C * hpp) +
-         sizeof(float) * hpp * 3 * HC +
-         2 * align16(static_cast<size_t>(es) * tp * cq) +
-         sizeof(float) * (static_cast<size_t>(heads) * ch * ch + 2 * cq +
-                          2 * NW * HC);
+// how x's float32 rows are copied: w-byte pieces, segs a row, and the
+// padded row's c8 / 4 quads to zero
+struct HaloCopyF {
+  int w, segs, q4;
+  FastDiv fs, fq;
+  __device__ HaloCopyF(const float* x, int C)
+      : w(copy_width(x, 4 * C)), segs(4 * C / w), q4(((C + 7) & ~7) / 4),
+        fs(segs), fq(q4) {}
+};
+
+// issue the copies of x's halo rows into xs (cp.async, one committed
+// group) and zero what lies outside the canvas or past C
+__device__ __forceinline__ void stage_halo_f32(const float* __restrict__ x,
+                                               float* xs, const FastTile& t,
+                                               int C, int ldx, int hpr,
+                                               const HaloCopyF& hc) {
+  const int we = hc.w / 4;
+  for (int e = threadIdx.x; e < hpr * hc.segs; e += blockDim.x) {
+    const int m = hc.fs.div(e), sg = e - m * hc.segs;
+    if (t.halo_in(m))
+      cp_async_w(xs + m * ldx + sg * we, x + t.halo_src(m) * C + sg * we,
+                 hc.w);
+  }
+  cp_async_commit();
+  for (int e = threadIdx.x; e < hpr * hc.q4; e += blockDim.x) {
+    const int m = hc.fq.div(e), c = 4 * (e - m * hc.q4);
+    if (!t.halo_in(m) || c >= C)
+      *reinterpret_cast<uint4*>(xs + m * ldx + c) = make_uint4(0u, 0u, 0u, 0u);
+  }
 }
 
-size_t smem_of(int kernel, int es, int C, int heads, int TH, int TW) {
-  return kernel == 0 ? gdfn_smem(es, C, TH, TW)
-                     : mdta_smem(es, C, heads, TH, TW);
+// ln_in_place on a float32 halo: LP lanes a pixel, at most 6 float4 quads
+// a lane read once into registers, float32 two-pass statistics, eps 1e-5,
+// one write (C <= 768)
+__device__ void ln_in_place_f32(float* xs, const float* ln_w,
+                                const float* ln_b, int ln_mode,
+                                const FastTile& t, int C, int ldx, int hpr) {
+  constexpr int QMAX = 6;
+  const int nq = C / 4;
+  int lp = 1;
+  while (lp * QMAX < nq) lp <<= 1;
+  const int sub = threadIdx.x & (lp - 1), ppb = blockDim.x / lp;
+  // every lane runs every pass: the statistics are summed by shuffles
+  for (int m0 = 0; m0 < hpr; m0 += ppb) {
+    const int m = m0 + threadIdx.x / lp;
+    const bool ok = m < hpr && t.halo_in(m);
+    float* row = xs + (ok ? m : 0) * ldx;
+    float4 v[QMAX];
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < QMAX; ++k) {
+      const int q = sub + lp * k;
+      v[k] = ok && q < nq ? *reinterpret_cast<const float4*>(row + 4 * q)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+      s += (v[k].x + v[k].y) + (v[k].z + v[k].w);
+    }
+    for (int o = 1; o < lp; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    const float mu = s / C;
+    float v2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < QMAX; ++k) {
+      if (sub + lp * k >= nq) continue;
+      const float d0 = v[k].x - mu, d1 = v[k].y - mu, d2 = v[k].z - mu,
+                  d3 = v[k].w - mu;
+      v2 += (d0 * d0 + d1 * d1) + (d2 * d2 + d3 * d3);
+    }
+    for (int o = 1; o < lp; o <<= 1)
+      v2 += __shfl_xor_sync(0xffffffffu, v2, o);
+    const float rs = rsqrtf(v2 / C + 1e-5f);
+    if (!ok) continue;
+#pragma unroll
+    for (int k = 0; k < QMAX; ++k) {
+      const int q = sub + lp * k;
+      if (q >= nq) continue;
+      const float4 f = v[k];
+      const float4 w4 = reinterpret_cast<const float4*>(ln_w)[q];
+      const float4 b4 = ln_mode == 2 ? reinterpret_cast<const float4*>(ln_b)[q]
+                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 y;
+      y.x = ln_mode == 2 ? (f.x - mu) * rs * w4.x + b4.x : f.x * rs * w4.x;
+      y.y = ln_mode == 2 ? (f.y - mu) * rs * w4.y + b4.y : f.y * rs * w4.y;
+      y.z = ln_mode == 2 ? (f.z - mu) * rs * w4.z + b4.z : f.z * rs * w4.z;
+      y.w = ln_mode == 2 ? (f.w - mu) * rs * w4.w + b4.w : f.w * rs * w4.w;
+      *reinterpret_cast<float4*>(row + 4 * q) = y;
+    }
+  }
 }
 
-constexpr int kTiles[4][2] = {{8, 16}, {8, 8}, {4, 8}, {4, 4}};
-constexpr size_t kTwoPerSM = 113 * 1024;  // two blocks fit an SM's 228 KB
+// d += a b in split TF32, b's parts from the packed form (bh(k t), bh(k
+// t+4), bl(k t), bl(k t+4)): al bh, ah bl, ah bh in that order
+__device__ __forceinline__ void mma_split_b(float (&d)[4],
+                                            const uint32_t (&ah)[4],
+                                            const uint32_t (&al)[4],
+                                            const uint4 b) {
+  mma_tf32(d, al, b.x, b.y);
+  mma_tf32(d, ah, b.z, b.w);
+  mma_tf32(d, ah, b.x, b.y);
+}
+
+// an A fragment of a 16 x 8 float32 block by ldmatrix (row frag_row(lane),
+// k 4 frag_khalf(lane) at p), split into TF32 parts
+__device__ __forceinline__ void load_split_a(const float* p,
+                                             uint32_t (&ah)[4],
+                                             uint32_t (&al)[4]) {
+  uint32_t a[4];
+  ldmatrix_x4(a, p);
+  split_a(__uint_as_float(a[0]), __uint_as_float(a[1]),
+          __uint_as_float(a[2]), __uint_as_float(a[3]), ah, al);
+}
+
+// d = QT consecutive m16 tiles of halo rows (nt <= QT in use; A from arow +
+// 16 i lda, this lane's row and k half) times NJ consecutive n8 tiles of a
+// packed split weight (wb: this lane's fragment of k step 0's first tile,
+// kstride the n8 tiles a k step): each B fragment feeds the QT tiles, each
+// A fragment the NJ tiles
+template <int QT, int NJ>
+__device__ __forceinline__ void mma_rows_tf32(float (&d)[QT][NJ][4],
+                                              const float* arow, int lda,
+                                              int nt, int ks_n,
+                                              const uint4* wb, int kstride) {
+#pragma unroll
+  for (int i = 0; i < QT; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      d[i][j][0] = d[i][j][1] = d[i][j][2] = d[i][j][3] = 0.f;
+  // the next k step's fragments are in flight while this one's run
+  uint4 bv[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) bv[j] = __ldg(wb + j * 32);
+  for (int ks = 0; ks < ks_n; ++ks) {
+    uint4 bn[NJ];
+    if (ks + 1 < ks_n) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        bn[j] = __ldg(wb + ((ks + 1) * kstride + j) * 32);
+    }
+#pragma unroll
+    for (int i = 0; i < QT; ++i) {
+      if (i >= nt) break;
+      uint32_t ah[4], al[4];
+      load_split_a(arow + 16 * i * lda + 8 * ks, ah, al);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) mma_split_b(d[i][j], ah, al, bv[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) bv[j] = bn[j];
+  }
+}
+
+// a 16 x 8 NJ product of halo m16 tile mt into the float32 u tile at
+// columns col0 ..: + bias (from the chunk's first column, or none), 0 at
+// pixels outside the canvas
+template <int NJ>
+__device__ __forceinline__ void store_halo_f32(float* us, int ldu, int col0,
+                                               const float* __restrict__ bias,
+                                               const float (&d)[NJ][4],
+                                               const FastTile& t, int mt,
+                                               int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+  bool keep[2], in[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int m = 16 * mt + g + 8 * r;
+    keep[r] = m < t.hp;
+    in[r] = t.halo_in(m);
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int col = col0 + 8 * j + 2 * t4;
+    const float2 bi = bias != nullptr
+                          ? *reinterpret_cast<const float2*>(bias + col)
+                          : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (!keep[r]) continue;
+      *reinterpret_cast<float2*>(us + (16 * mt + g + 8 * r) * ldu + col) =
+          in[r] ? make_float2(d[j][2 * r] + bi.x, d[j][2 * r + 1] + bi.y)
+                : make_float2(0.f, 0.f);
+    }
+  }
+}
+
+// A chunk's 1x1 over the halo (nmt m16 tiles of xs, the chunk's ngrp n8
+// tiles of the packed weight wc) into us, as tasks of QT m16 tiles x NJ n8
+// tiles over the block's warps: more m16 tiles a task reuse each B
+// fragment more, fewer n8 tiles a task spread few m16 tiles over every
+// warp (ops/restormer_fused.py: TF32_TASKS)
+template <int QT, int NJ>
+__device__ __forceinline__ void one_by_one_tf32(
+    float* us, int ldu, const float* xs, int ldx, int nmt, int ngrp,
+    int ks_n, const uint4* wc, const float* bias, const FastTile& t,
+    int warp, int nw, int lane) {
+  const int nmq = (nmt + QT - 1) / QT, nng = ngrp / NJ;
+  const float* arow =
+      xs + frag_row(lane) * ldx + 4 * frag_khalf(lane);
+  for (int task = warp; task < nmq * nng; task += nw) {
+    const int mq = task / nng, ng = task - mq * nng, mt0 = QT * mq;
+    const int nt = min(QT, nmt - mt0);
+    float d[QT][NJ][4];
+    mma_rows_tf32<QT, NJ>(d, arow + 16 * mt0 * ldx, ldx, nt, ks_n,
+                          wc + ng * NJ * 32 + lane, ngrp);
+#pragma unroll
+    for (int i = 0; i < QT; ++i)
+      if (i < nt)
+        store_halo_f32<NJ>(us, ldu, 8 * NJ * ng, bias, d[i], t, mt0 + i,
+                           lane);
+  }
+}
+
+// one_by_one_tf32 at the task shape code ts: 0 (2, 4), 1 (2, 2), 2 (1, 2)
+// (QT, NJ)
+__device__ __forceinline__ void one_by_one_tf32_at(
+    int ts, float* us, int ldu, const float* xs, int ldx, int nmt, int ngrp,
+    int ks_n, const uint4* wc, const float* bias, const FastTile& t,
+    int warp, int nw, int lane) {
+  if (ts == 0)
+    one_by_one_tf32<2, 4>(us, ldu, xs, ldx, nmt, ngrp, ks_n, wc, bias, t,
+                          warp, nw, lane);
+  else if (ts == 1)
+    one_by_one_tf32<2, 2>(us, ldu, xs, ldx, nmt, ngrp, ks_n, wc, bias, t,
+                          warp, nw, lane);
+  else
+    one_by_one_tf32<1, 2>(us, ldu, xs, ldx, nmt, ngrp, ks_n, wc, bias, t,
+                          warp, nw, lane);
+}
+
+// ---------------------------------------------------------------------------
+// K4, float32: gdfn_mma_kernel's structure, both 1x1 products in split
+// TF32 (mma.sync m16n8k8), the taps and the gate FP32 FMA.
+//
+// A block of NTH = 32 nw threads owns a TH x TW output tile (tp = 32 WM
+// pixels, WM = nw / WN): xs [hpr][ldx] LN(x) over the halo
+// (stage_halo_f32, ln_in_place_f32); per hidden chunk of HC, project_in
+// as one_by_one_tf32 tasks (task shape TS) into us [hp][2 HC + 8] (float2
+// fragment stores and the taps' row reads conflict-free), the taps and
+// the erf (or tanh) gate, not rounded, into gs [tp][HC + 4]; project_out:
+// warp w owns m16 rows 2 (w % WM), + 1 and n8 columns 3 (w / WM) .. of the
+// (tp, 24 WN >= C) output. A chunk's four k steps accumulate in a second
+// register set that is then added to the running sum in float32 (the
+// tensor cores' adds drift about an ulp of the partial sum each: hid 1021
+// at C 384 is 128 k steps), 2 x 24 floats a thread. Two barriers a chunk:
+// project_out of chunk i and project_in of chunk i + 1 run in one phase
+// (the taps of chunk i have read us, and gs is written again only after
+// the next barrier). The epilogue adds b_out and the residual in float32.
+constexpr int LDU4 = 2 * HC + 8;
+constexpr int LDG4 = HC + 4;
+
+__global__ void __launch_bounds__(512, 1) gdfn_tf32_kernel(
+    const float* __restrict__ x, const float* __restrict__ ln_w,
+    const float* __restrict__ ln_b, const uint4* __restrict__ w_in,
+    const float* __restrict__ b_in, const float* __restrict__ w_dw,
+    const float* __restrict__ b_dw, const uint4* __restrict__ w_out,
+    const float* __restrict__ b_out, float* __restrict__ out, int H, int W,
+    int C, int NCH, int ln_mode, int fast, int TH, int TW, int WN, int TS) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int ntx = (W + TW - 1) / TW, nty = (H + TH - 1) / TH;
+  const int tx = blockIdx.x % ntx, ty = (blockIdx.x / ntx) % nty;
+  const FastTile t(TH, TW, H, W, blockIdx.x / (ntx * nty), ty * TH, tx * TW,
+                   FastDiv(TW + 2), FastDiv(TW));
+  const int c8 = (C + 7) & ~7, ldx = c8 + 4, hpr = (t.hp + 15) & ~15;
+  float* xs = reinterpret_cast<float*>(smem);
+  float* us = xs + hpr * ldx;
+  float* gs = us + t.hp * LDU4;
+
+  stage_halo_f32(x, xs, t, C, ldx, hpr, HaloCopyF(x, C));
+  cp_async_wait<0>();
+  __syncthreads();
+  if (ln_mode != 0) ln_in_place_f32(xs, ln_w, ln_b, ln_mode, t, C, ldx, hpr);
+
+  const int wm = warp % (nw / WN), wn = warp / (nw / WN);
+  const int ks_in = c8 / 8, nto = 3 * WN;
+  float acc[2][3][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+  const int fr = frag_row(lane), fk = 4 * frag_khalf(lane);
+  const int qs = TW / 4, segs2 = TH / 2 * qs;
+  const FastDiv fqs(qs);
+  // project_in of chunk ci: bias, ring zeroed, into us
+  auto project_in = [&](int ci) {
+    one_by_one_tf32_at(
+        TS, us, LDU4, xs, ldx, hpr / 16, 8, ks_in,
+        w_in + static_cast<long long>(ci) * ks_in * 8 * 32,
+        b_in != nullptr ? b_in + ci * 2 * HC : nullptr, t, warp, nw, lane);
+  };
+
+  __syncthreads();  // xs normalized
+  project_in(0);
+  for (int ci = 0; ci < NCH; ++ci) {
+    __syncthreads();  // us holds chunk ci's project_in
+    // the taps and the gate as gdfn_mma_kernel's, in float32
+    {
+      const int half = lane >> 4, cp = 2 * (lane & 15);
+      const int col = ci * 2 * HC + half * HC + cp;
+      float wa[9], wb[9];
+      load_taps(w_dw, NCH * 2 * HC, col, wa);
+      load_taps(w_dw, NCH * 2 * HC, col + 1, wb);
+      const float ca = b_dw ? b_dw[col] : 0.f;
+      const float cb = b_dw ? b_dw[col + 1] : 0.f;
+      for (int s = warp; s < segs2; s += nw) {
+        const int sr = fqs.div(s), r = 2 * sr, q = (s - sr * qs) * 4;
+        float2 d[2][4];
+        taps_2x4(us + (r * t.hw2 + q) * LDU4 + half * HC + cp, t.hw2, LDU4,
+                 wa, wb, ca, cb, d);
+        float2 got[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 snd = half ? d[0][i] : d[1][i];
+          got[i].x = __shfl_xor_sync(0xffffffffu, snd.x, 16);
+          got[i].y = __shfl_xor_sync(0xffffffffu, snd.y, 16);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 x1 = half ? got[i] : d[0][i];
+          const float2 x2 = half ? d[1][i] : got[i];
+          float gv[2];
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            const float v = k ? x1.y : x1.x;
+            const float ge =
+                fast ? 0.5f * v *
+                           (1.f + tanhf(0.7978845608028654f *
+                                        (v + 0.044715f * v * v * v)))
+                     : 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+            gv[k] = ge * (k ? x2.y : x2.x);
+          }
+          *reinterpret_cast<float2*>(gs + ((r + half) * TW + q + i) * LDG4 +
+                                     cp) = make_float2(gv[0], gv[1]);
+        }
+      }
+    }
+    __syncthreads();  // gs complete; us free
+    // project_out: the chunk's partial, then added in float32
+    const uint4* wo = w_out + static_cast<long long>(ci) * 4 * nto * 32;
+    float pa[2][3][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        pa[i][j][0] = pa[i][j][1] = pa[i][j][2] = pa[i][j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        load_split_a(gs + (32 * wm + 16 * i + fr) * LDG4 + 8 * ks + fk,
+                     ah[i], al[i]);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const uint4 b = __ldg(wo + (ks * nto + 3 * wn + j) * 32 + lane);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) mma_split_b(pa[i][j], ah[i], al[i], b);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += pa[i][j][e];
+    if (ci + 1 < NCH) project_in(ci + 1);
+  }
+
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const int col = 8 * (3 * wn + j) + 2 * t4;
+    if (col >= C) continue;
+    const float2 bo = b_out != nullptr
+                          ? *reinterpret_cast<const float2*>(b_out + col)
+                          : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int p = 32 * wm + 16 * i + g + 8 * r;
+        if (p >= t.tp || !t.out_in(p)) continue;
+        const long long o = t.out_pix(p) * C + col;
+        const float2 xr = *reinterpret_cast<const float2*>(x + o);
+        *reinterpret_cast<float2*>(out + o) =
+            make_float2((acc[i][j][2 * r] + bo.x) + xr.x,
+                        (acc[i][j][2 * r + 1] + bo.y) + xr.y);
+      }
+  }
+}
+
+size_t gdfn_tf32_smem(int C, int TH, int TW) {
+  const size_t hp = static_cast<size_t>(TH + 2) * (TW + 2);
+  const size_t hpr = (hp + 15) / 16 * 16, c8 = (C + 7) / 8 * 8;
+  return 4 * (hpr * (c8 + 4) + hp * LDU4 +
+              static_cast<size_t>(TH) * TW * LDG4);
+}
+
+// ---------------------------------------------------------------------------
+// K5, float32: mdta_mma_kernel's structure, the qkv 1x1 and the per-head
+// gram in split TF32 (mma.sync m16n8k8), the taps FP32 FMA, q, k and v
+// float32.
+//
+// The qkv 1x1 runs as (m16 tile, q, k or v) tasks into us [hp][3 HC + 8];
+// the taps write v to device memory and q and k into qs, ks [tp][ldq]
+// (mdta_ldq: ldq % 32 is 8 or 24, so the gram's element-wise fragment
+// loads hit every bank once). The gram's A = q_h^T and B = k_h come
+// element by element from those pixel-major tiles (no ldmatrix.trans for
+// 32-bit elements), split in registers. Warp w owns the gram tile of
+// mdta_mma_kernel; its accumulators stay in registers across tiles and
+// are added to the block's partial in device memory (in float32, each
+// element by one lane, no atomics) every kGramFlushPx pixels and after
+// the last tile: the tensor cores' adds drift about an ulp of the running
+// sum each, and a block sums thousands of pixels.
+constexpr int LDU5 = 3 * HC + 8;
+constexpr int kGramFlushPx = 256;
+
+// acc += q_h^T k_h over 8 pixels from row p0 of qs and ks (pixel-major,
+// row stride ldq, head h at column h chp), split TF32: A (16 channels x 8
+// pixels) is a0 = q[p0 + t][c + g], a1 = (c + g + 8), a2 = (p0 + t + 4),
+// a3 = both; B (8 pixels x 8 channels) is b0 = k[p0 + t][c + g], b1 =
+// k[p0 + t + 4][c + g]
+template <int MW, int NW8>
+__device__ __forceinline__ void gram_step_tf32(float (&acc)[MW][NW8][4],
+                                               const float* qs,
+                                               const float* ks, int ldq,
+                                               int p0, const GramTile& g,
+                                               int chp, int lane) {
+  const int c0 = g.h * chp, gq = lane >> 2, tq = lane & 3;
+  const float* qrow = qs + (p0 + tq) * ldq + c0 + gq;
+  uint32_t ah[MW][4], al[MW][4];
+#pragma unroll
+  for (int i = 0; i < MW; ++i)
+    if (i < g.mw) {
+      const float* q = qrow + 16 * (g.mi0 + i);
+      split_a(q[0], q[8], q[4 * ldq], q[4 * ldq + 8], ah[i], al[i]);
+    }
+  const float* krow = ks + (p0 + tq) * ldq + c0 + 8 * g.nj0 + gq;
+#pragma unroll
+  for (int j = 0; j < NW8; ++j) {
+    if (j >= g.nw) continue;
+    uint4 b;
+    split1(krow[8 * j], b.x, b.z);
+    split1(krow[8 * j + 4 * ldq], b.y, b.w);
+#pragma unroll
+    for (int i = 0; i < MW; ++i)
+      if (i < g.mw) mma_split_b(acc[i][j], ah[i], al[i], b);
+  }
+}
+
+// a gram tile added into gram (heads, ch, ch) float32 (written where
+// first), entries past ch dropped, the accumulators zeroed
+template <int MW, int NW8>
+__device__ __forceinline__ void gram_add(float* __restrict__ gram,
+                                         float (&acc)[MW][NW8][4],
+                                         const GramTile& g, int ch, int lane,
+                                         bool first) {
+  float* dst = gram + static_cast<long long>(g.h) * ch * ch;
+  // every earlier sum read before any store: the loads are in flight
+  // together (a store between them would order them)
+  float old[MW][NW8][4];
+#pragma unroll
+  for (int i = 0; i < MW; ++i)
+#pragma unroll
+    for (int j = 0; j < NW8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = 16 * (g.mi0 + i) + (lane >> 2) + 8 * (e >> 1);
+        const int n = 8 * (g.nj0 + j) + 2 * (lane & 3) + (e & 1);
+        old[i][j][e] = !first && i < g.mw && j < g.nw && m < ch && n < ch
+                           ? dst[m * ch + n]
+                           : 0.f;
+      }
+#pragma unroll
+  for (int i = 0; i < MW; ++i)
+#pragma unroll
+    for (int j = 0; j < NW8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = 16 * (g.mi0 + i) + (lane >> 2) + 8 * (e >> 1);
+        const int n = 8 * (g.nj0 + j) + 2 * (lane & 3) + (e & 1);
+        if (i < g.mw && j < g.nw && m < ch && n < ch)
+          dst[m * ch + n] = first ? acc[i][j][e] : old[i][j][e] + acc[i][j][e];
+        acc[i][j][e] = 0.f;
+      }
+}
+
+template <int MW, int NW8, int NTH>
+__global__ void __launch_bounds__(NTH, 1) mdta_tf32_kernel(
+    const float* __restrict__ x, const float* __restrict__ ln_w,
+    const float* __restrict__ ln_b, const uint4* __restrict__ w_qkv,
+    const float* __restrict__ b_qkv, const float* __restrict__ w_dw,
+    const float* __restrict__ b_dw, float* __restrict__ v_out,
+    float* __restrict__ part, int H, int W, int C, int NCH, int heads,
+    int ln_mode, int TH, int TW, int NB, int GS, int TS) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int ntx = (W + TW - 1) / TW, nty = (H + TH - 1) / TH;
+  const int ntiles = ntx * nty;
+  const int gsl = blockIdx.x % GS, bi = blockIdx.x / GS;
+  const long long b = bi / NB;
+  const int ib = bi % NB;
+  const int t0 = static_cast<int>(static_cast<long long>(ntiles) * ib / NB);
+  const int t1 =
+      static_cast<int>(static_cast<long long>(ntiles) * (ib + 1) / NB);
+  const int cq = NCH * HC, ch = C / heads, chp = (ch + 15) & ~15;
+  const int c8 = (C + 7) & ~7, ldx = c8 + 4, ldq = mdta_ldq(C, heads);
+  const int hp = (TH + 2) * (TW + 2), hpr = (hp + 15) & ~15, tp = TH * TW;
+  float* ssq = reinterpret_cast<float*>(smem);  // [2][cq]
+  float* red = ssq + 2 * cq;                    // [NW][2][HC]
+  float* lnw = red + nw * 2 * HC;               // [2][C]: LN's weights
+  float* xs = lnw + 2 * C;
+  float* us = xs + hpr * ldx;
+  float* qs = us + hp * LDU5;
+  float* ks = qs + tp * ldq;
+
+  for (int e = threadIdx.x; e < 2 * cq; e += blockDim.x) ssq[e] = 0.f;
+  for (int e = threadIdx.x; e < C && ln_mode != 0; e += blockDim.x) {
+    lnw[e] = ln_w[e];
+    lnw[C + e] = ln_mode == 2 ? ln_b[e] : 0.f;
+  }
+  // the columns no chunk writes (past a head's width) stay 0
+  for (int e = threadIdx.x; e < tp * ldq; e += blockDim.x) qs[e] = ks[e] = 0.f;
+
+  const int wi = gsl * nw + warp;
+  const bool gram_on = wi < gram_tiles(heads, ch, MW, NW8);
+  const GramTile gt = gram_tile_of(gram_on ? wi : 0, ch, MW, NW8);
+  float acc[MW][NW8][4];
+  zero_acc(acc);
+  const int gsz = heads * ch * ch;
+  float* dst = part + static_cast<long long>(bi) * (gsz + 2 * cq);
+  const int flush = max(1, kGramFlushPx / tp);
+
+  const int ks_in = c8 / 8, nq = TW / 4, segs2 = TH / 2 * nq;
+  const int half = lane >> 4, cp = 2 * (lane & 15), hw = 2 * warp + half;
+  const FastDiv f2(TW + 2), fw(TW), fseg(segs2), fnq(nq);
+  const HaloCopyF hc(x, C);
+  auto tile_at = [&](int tile) {
+    return FastTile(TH, TW, H, W, b, (tile / ntx) * TH, (tile % ntx) * TW,
+                    f2, fw);
+  };
+  auto fold_ssq = [&](int c) {
+    if (threadIdx.x < 8 * HC) {
+      const int o = threadIdx.x >> 2, part = threadIdx.x & 3;
+      const int which = o / HC, j = o % HC;
+      float s = 0.f;
+      for (int w2 = part; w2 < nw; w2 += 4) s += red[(w2 * 2 + which) * HC + j];
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      if (part == 0) ssq[which * cq + c * HC + j] += s;
+    }
+  };
+
+  if (t0 < t1) stage_halo_f32(x, xs, tile_at(t0), C, ldx, hpr, hc);
+  for (int tile = t0; tile < t1; ++tile) {
+    const FastTile t = tile_at(tile);
+    cp_async_wait<0>();
+    __syncthreads();
+    if (ln_mode != 0)
+      ln_in_place_f32(xs, lnw, lnw + C, ln_mode, t, C, ldx, hpr);
+    for (int ci = 0; ci < NCH; ++ci) {
+      __syncthreads();  // xs staged / the previous chunk's taps read us
+      if (ci > 0) fold_ssq(ci - 1);
+      const uint4* wc = w_qkv + static_cast<long long>(ci) * ks_in * 12 * 32;
+      const float* bc = b_qkv != nullptr ? b_qkv + ci * 3 * HC : nullptr;
+      one_by_one_tf32_at(TS, us, LDU5, xs, ldx, hpr / 16, 12, ks_in, wc,
+                         bc, t, warp, nw, lane);
+      __syncthreads();
+      if (ci == NCH - 1 && tile + 1 < t1)
+        stage_halo_f32(x, xs, tile_at(tile + 1), C, ldx, hpr, hc);
+      // the taps as mdta_mma_kernel's, q, k and v float32
+      const int c = ci * HC + cp;
+      const bool c_in = c < C;
+      const int col = (c / ch) * chp + c % ch;
+      float sq[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+      float wa[9], wb[9], ca = 0.f, cb = 0.f;
+      int cur = -1;
+      for (int u = hw; u < 3 * segs2; u += 2 * nw) {
+        const int grp = fseg.div(u), seg = u - grp * segs2;
+        if (grp != cur) {
+          const int wcol = ci * 3 * HC + grp * HC + cp;
+          load_taps(w_dw, NCH * 3 * HC, wcol, wa);
+          load_taps(w_dw, NCH * 3 * HC, wcol + 1, wb);
+          ca = b_dw ? b_dw[wcol] : 0.f;
+          cb = b_dw ? b_dw[wcol + 1] : 0.f;
+          cur = grp;
+        }
+        const int sr = fnq.div(seg), r = 2 * sr, q = 4 * (seg - sr * nq);
+        float2 d[2][4];
+        taps_2x4(us + (r * t.hw2 + q) * LDU5 + grp * HC + cp, t.hw2, LDU5, wa,
+                 wb, ca, cb, d);
+        const int gy = t.y0 + r, gx = t.x0 + q;
+#pragma unroll
+        for (int o = 0; o < 2; ++o)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int p = (r + o) * TW + q + i;
+            const bool in = gy + o < H && gx + i < W;
+            if (grp == 2) {
+              if (in && c_in && gsl == 0)
+                *reinterpret_cast<float2*>(
+                    v_out + ((b * H + gy + o) * W + gx + i) * C + c) =
+                    d[o][i];
+            } else if (c_in) {
+              const float2 vv = in ? d[o][i] : make_float2(0.f, 0.f);
+              *reinterpret_cast<float2*>((grp ? ks : qs) + p * ldq + col) =
+                  vv;
+              sq[grp][0] = fmaf(vv.x, vv.x, sq[grp][0]);
+              sq[grp][1] = fmaf(vv.y, vv.y, sq[grp][1]);
+            }
+          }
+      }
+#pragma unroll
+      for (int g2 = 0; g2 < 2; ++g2) {
+        sq[g2][0] += __shfl_xor_sync(0xffffffffu, sq[g2][0], 16);
+        sq[g2][1] += __shfl_xor_sync(0xffffffffu, sq[g2][1], 16);
+        if (half == 0)
+          *reinterpret_cast<float2*>(red + (warp * 2 + g2) * HC + cp) =
+              make_float2(sq[g2][0], sq[g2][1]);
+      }
+    }
+    __syncthreads();  // qs, ks and the sums complete
+    fold_ssq(NCH - 1);
+    if (gram_on) {
+      for (int kk = 0; kk < tp / 8; ++kk)
+        gram_step_tf32(acc, qs, ks, ldq, 8 * kk, gt, chp, lane);
+      const int done = tile - t0 + 1;
+      if (done % flush == 0 || tile + 1 == t1)
+        gram_add(dst, acc, gt, ch, lane, done <= flush);
+    }
+  }
+
+  __syncthreads();  // the last chunk's sums folded
+  if (gsl == 0)
+    for (int e = threadIdx.x; e < 2 * cq; e += blockDim.x)
+      dst[gsz + e] = ssq[e];
+}
+
+// shared bytes of mdta_tf32_kernel: as mdta_mma_smem's, in float32
+size_t mdta_tf32_smem(int C, int heads, int TH, int TW, int nw) {
+  const size_t cq = (C + HC - 1) / HC * HC, c8 = (C + 7) / 8 * 8;
+  const size_t hp = static_cast<size_t>(TH + 2) * (TW + 2);
+  const size_t hpr = (hp + 15) / 16 * 16, tp = static_cast<size_t>(TH) * TW;
+  return 4 * (2 * cq + static_cast<size_t>(nw) * 2 * HC + 2 * C +
+              hpr * (c8 + 4) + hp * LDU5 + 2 * tp * mdta_ldq(C, heads));
+}
+
 constexpr size_t kMaxSmem = 227 * 1024;
-
-template <typename T>
-int launch_gdfn(const void* x, const void* ln_w, const void* ln_b,
-                const void* w_in, const void* b_in, const void* w_dw,
-                const void* b_dw, const void* w_out, const void* b_out,
-                void* out, int B, int H, int W, int C, int NCH, int ln_mode,
-                int fast, int TH, int TW, int smem, void* stream) {
-  if (TW % 4 || C % 4 ||
-      static_cast<size_t>(smem) != gdfn_smem(sizeof(T), C, TH, TW))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e = cudaFuncSetAttribute(
-      gdfn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long long nblk = static_cast<long long>(B) * ((H + TH - 1) / TH) *
-                         ((W + TW - 1) / TW);
-  gdfn_kernel<T><<<static_cast<unsigned>(nblk), NT, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const float*>(ln_w),
-      static_cast<const float*>(ln_b), static_cast<const T*>(w_in),
-      static_cast<const float*>(b_in), static_cast<const float*>(w_dw),
-      static_cast<const float*>(b_dw), static_cast<const T*>(w_out),
-      static_cast<const float*>(b_out), static_cast<T*>(out), H, W, C, NCH,
-      ln_mode, fast, TH, TW);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // gram[b] and ssq[b] from the partials (mdta_reduce_kernel)
 int launch_mdta_reduce(const void* part, void* gram, void* ssq, int B,
@@ -1372,64 +1628,42 @@ int launch_mdta_reduce(const void* part, void* gram, void* ssq, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_mdta(const void* x, const void* ln_w, const void* ln_b,
-                const void* w_qkv, const void* b_qkv, const void* w_dw,
-                const void* b_dw, void* v, void* part, void* gram, void* ssq,
-                int B, int H, int W, int C, int NCH, int heads, int ln_mode,
-                int TH, int TW, int smem, int NB, void* stream) {
-  if (TW % 4 || C % heads || (C / heads) % 4 || NB < 1 ||
-      static_cast<size_t>(smem) != mdta_smem(sizeof(T), C, heads, TH, TW))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaFuncSetAttribute(
-      mdta_front_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  mdta_front_kernel<T><<<static_cast<unsigned>(B * NB), NT, smem, st>>>(
-      static_cast<const T*>(x), static_cast<const float*>(ln_w),
-      static_cast<const float*>(ln_b), static_cast<const T*>(w_qkv),
-      static_cast<const float*>(b_qkv), static_cast<const float*>(w_dw),
-      static_cast<const float*>(b_dw), static_cast<T*>(v),
-      static_cast<float*>(part), H, W, C, NCH, heads, ln_mode, TH, TW, NB);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return launch_mdta_reduce(part, gram, ssq, B, NB, C, NCH, heads, st);
-}
-
 }  // namespace
 
-// The tile a kernel (0: gdfn, 1: mdta) takes for C: the first of kTiles
-// whose shared memory lets two blocks share an SM, else the first that
-// fits at all. out = {TH, TW, shared bytes}; returns 1 if none fits.
-extern "C" int restormer_plan(int kernel, int dt, int C, int heads,
-                              int* out) {
-  const int es = dt == kBF16 ? 2 : 4;
-  const size_t limits[2] = {kTwoPerSM, kMaxSmem};
-  for (const size_t limit : limits) {
-    for (const auto& tile : kTiles) {
-      const size_t s = smem_of(kernel, es, C, heads, tile[0], tile[1]);
-      if (s <= limit) {
-        out[0] = tile[0];
-        out[1] = tile[1];
-        out[2] = static_cast<int>(s);
-        return 0;
-      }
-    }
-  }
-  return 1;
-}
-
+// K4 in float32: w_in and w_out are the packed split-TF32 forms
+// (ops/restormer_fused.py: gdfn_weights); the plan (gdfn_plan) is a TH x TW
+// tile of 32 * (threads / 32 / wn) pixels, wn warps across the 24 wn >= C
+// output columns, project_in's task shape ts (one_by_one_tf32_at) and
+// `smem` bytes.
 extern "C" int gdfn_block_f32(const void* x, const void* ln_w,
                               const void* ln_b, const void* w_in,
                               const void* b_in, const void* w_dw,
                               const void* b_dw, const void* w_out,
                               const void* b_out, void* out, int B, int H,
                               int W, int C, int NCH, int ln_mode, int fast,
-                              int TH, int TW, int smem, void* stream) {
-  return launch_gdfn<float>(x, ln_w, ln_b, w_in, b_in, w_dw, b_dw, w_out,
-                            b_out, out, B, H, W, C, NCH, ln_mode, fast, TH,
-                            TW, smem, stream);
+                              int TH, int TW, int threads, int wn, int ts,
+                              int smem, void* stream) {
+  const int nw = threads / 32;
+  if (TW % 4 || TH % 2 || C % 4 || C > 768 || threads != 512 || wn < 1 ||
+      ts < 0 || ts > 2 ||
+      nw % wn || TH * TW != 32 * (nw / wn) || 24 * wn < C ||
+      static_cast<size_t>(smem) != gdfn_tf32_smem(C, TH, TW) ||
+      static_cast<size_t>(smem) > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = cudaFuncSetAttribute(
+      gdfn_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long nblk = static_cast<long long>(B) * ((H + TH - 1) / TH) *
+                         ((W + TW - 1) / TW);
+  gdfn_tf32_kernel<<<static_cast<unsigned>(nblk), threads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(ln_w),
+      static_cast<const float*>(ln_b), static_cast<const uint4*>(w_in),
+      static_cast<const float*>(b_in), static_cast<const float*>(w_dw),
+      static_cast<const float*>(b_dw), static_cast<const uint4*>(w_out),
+      static_cast<const float*>(b_out), static_cast<float*>(out), H, W, C,
+      NCH, ln_mode, fast, TH, TW, wn, ts);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K4 in bf16: w_in and w_out are the packed fragment forms
@@ -1474,16 +1708,53 @@ extern "C" int gdfn_block_bf16(const void* x, const void* ln_w,
                  : launch(gdfn_mma_kernel<1, 12>);
 }
 
+// K5 in float32: w_qkv is the packed split-TF32 form (ops/restormer_fused.py:
+// mdta_weights); the plan (mdta_plan) as mdta_front_bf16's, and the qkv
+// 1x1's task shape ts (one_by_one_tf32_at).
 extern "C" int mdta_front_f32(const void* x, const void* ln_w,
                               const void* ln_b, const void* w_qkv,
                               const void* b_qkv, const void* w_dw,
                               const void* b_dw, void* v, void* part,
                               void* gram, void* ssq, int B, int H, int W,
                               int C, int NCH, int heads, int ln_mode, int TH,
-                              int TW, int smem, int NB, void* stream) {
-  return launch_mdta<float>(x, ln_w, ln_b, w_qkv, b_qkv, w_dw, b_dw, v, part,
-                            gram, ssq, B, H, W, C, NCH, heads, ln_mode, TH,
-                            TW, smem, NB, stream);
+                              int TW, int threads, int mw, int nw8, int GS,
+                              int ts, int smem, int NB, void* stream) {
+  const int nw = threads / 32;
+  if (C % 4 || C > 768 || C % heads || (C / heads) % 4 || NCH * HC < C ||
+      TW % 4 || TH % 2 || (TH * TW) % 8 || GS < 1 || NB < 1 || ts < 0 ||
+      ts > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int wt = gram_tiles(heads, C / heads, mw, nw8);
+  if (GS * nw < wt || (GS - 1) * nw >= wt ||
+      static_cast<size_t>(smem) != mdta_tf32_smem(C, heads, TH, TW, nw) ||
+      static_cast<size_t>(smem) > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto launch = [&](auto kernel) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<static_cast<unsigned>(B * NB * GS), threads, smem, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(ln_w),
+        static_cast<const float*>(ln_b), static_cast<const uint4*>(w_qkv),
+        static_cast<const float*>(b_qkv), static_cast<const float*>(w_dw),
+        static_cast<const float*>(b_dw), static_cast<float*>(v),
+        static_cast<float*>(part), H, W, C, NCH, heads, ln_mode, TH, TW, NB,
+        GS, ts);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return launch_mdta_reduce(part, gram, ssq, B, NB, C, NCH, heads, st);
+  };
+  switch (mw * 10 + nw8) {
+#define IRK_GRAM_CASE(m, n, t)                                           \
+  case m * 10 + n:                                                       \
+    return threads == t ? launch(mdta_tf32_kernel<m, n, t>)              \
+                        : static_cast<int>(cudaErrorInvalidValue);
+    IRK_GRAM_SHAPES(IRK_GRAM_CASE)
+#undef IRK_GRAM_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // K5 in bf16: w_qkv is the packed fragment form (ops/restormer_fused.py:

@@ -64,8 +64,16 @@ The CUDA kernels are ``csrc/restormer_fused.cu``:
   dropped). The tile is chosen per (C, heads) (:func:`mdta_plan`): 16x16 up
   to C 48, 12x16 at C 96, 8x16 at C 192, 8x8 at C 384, the largest whose
   shared memory fits now that the gram has left it.
-- K4 and K5 in f32 run their products on FP32 FMA (4x4 outputs per
-  thread) with a float32 ``project_out`` tile or gram in shared memory.
+- K4 and K5 in f32 keep that structure in float32 and run every product
+  in split TF32 on ``mma.sync`` m16n8k8: the activations split in
+  registers (xh = rna(x) by integer ops, xl = x - xh), the weights from a
+  form made once per weight (:func:`tf32_frag_pack`: wh = rna(w), wl = w -
+  wh), xl wh + xh wl + xh wh summed in float32. The tensor cores' adds
+  drift about an ulp of the running sum each, so K4 adds each chunk's
+  ``project_out`` partial into its accumulators in float32 and K5 adds its
+  gram accumulators into the block's partial every 256 pixels. Float32
+  staging takes twice bf16's shared memory, so the tiles are smaller
+  (:func:`gdfn_plan`, :func:`mdta_plan`).
 - MDTA's cross-block sums: each block takes a fixed run of tiles of one
   sample and keeps its sums; a second launch sums the per-block partials
   in block order. No atomics, so the result is the same bit for bit from
@@ -89,7 +97,8 @@ from .autograd import kernel_function
 CHUNK = 32          # hidden channels per chunk (csrc/restormer_fused.cu: HC)
 _VMEM_BUDGET = 96 * 1024 * 1024
 _MAX_CHUNK = 768
-_DT = {torch.float32: 0, torch.bfloat16: 1}
+# the C entry points' suffix by dtype
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 # ---------------------------------------------------------------------------
@@ -203,28 +212,8 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-_plans: dict[tuple, tuple[int, int, int]] = {}
-
-
-def _plan(kind: int, dtype: torch.dtype, c: int, heads: int
-          ) -> tuple[int, int, int]:
-    """(tile rows, tile cols, shared bytes) the kernel takes for C."""
-    key = (kind, dtype, c, heads)
-    if key not in _plans:
-        lib = kernels.load("restormer_fused")
-        fn = lib.restormer_plan
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
-        out = (ctypes.c_int * 3)()
-        if fn(kind, _DT[dtype], c, heads, out) != 0:
-            raise ValueError(f"no tile of the restormer kernel {kind} fits "
-                             f"shared memory at C={c}, heads={heads}")
-        _plans[key] = (out[0], out[1], out[2])
-    return _plans[key]
-
-
 def _check_x(x: torch.Tensor, c: int, what: str) -> torch.Tensor:
-    if x.dtype not in _DT:
+    if x.dtype not in _SUFFIX:
         raise TypeError(f"{what} kernel takes float32 or bfloat16, not "
                         f"{x.dtype}")
     if x.ndim != 4 or x.shape[-1] != c:
@@ -249,11 +238,12 @@ def _check_on(x: torch.Tensor, tensors, dtype, what: str) -> None:
 
 
 class GdfnPlan(NamedTuple):
-    """K4's bf16 launch plan for one C: a ``th`` x ``tw`` output tile per
-    block of ``threads`` threads; project_out's (th*tw, C) output as warp
-    tiles of ``mt`` m16 rows x ``ntw`` n8 columns, ``wn`` warps across the
-    ``cols`` = 8*ntw*wn >= C columns; ``smem`` bytes of shared memory
-    (``csrc/restormer_fused.cu``: gdfn_mma_smem)."""
+    """K4's launch plan for one C and dtype: a ``th`` x ``tw`` output tile
+    per block of ``threads`` threads; project_out's (th*tw, C) output as
+    warp tiles of ``mt`` m16 rows x ``ntw`` n8 columns, ``wn`` warps across
+    the ``cols`` = 8*ntw*wn >= C columns; ``smem`` bytes of shared memory
+    (``csrc/restormer_fused.cu``: gdfn_mma_smem, gdfn_tf32_smem); in
+    float32 ``ts``, project_in's task shape (:data:`TF32_TASKS`)."""
 
     th: int
     tw: int
@@ -263,24 +253,66 @@ class GdfnPlan(NamedTuple):
     wn: int
     cols: int
     smem: int
+    ts: int = 0
 
 
 # (largest C, th, tw, threads, mt, ntw, wn): each keeps project_out's
 # accumulators at 48 floats a thread (th*tw*cols = 48 * threads)
 _GDFN_PLANS = ((48, 16, 32, 512, 2, 6, 1), (96, 16, 16, 512, 2, 6, 2),
                (192, 8, 16, 512, 1, 12, 2), (384, 8, 8, 512, 1, 12, 4))
+# the float32 kernel's: two m16 row tiles x 3 n8 tiles a warp, the
+# running sum and a chunk's partial 2 x 24 floats a thread; float32
+# staging halves the tile (halo 1.27x the outputs at 16x16, 1.41x at 8x16,
+# 1.56x at 8x8, 1.88x at 4x8)
+_GDFN_TF32_PLANS = ((48, 16, 16, 512, 2, 3, 2), (96, 8, 16, 512, 2, 3, 4),
+                    (192, 8, 8, 512, 2, 3, 8), (384, 4, 8, 512, 2, 3, 16))
+# the float32 kernels' 1x1 task shapes, (m16 tiles, n8 tiles) a task, by
+# their code (csrc/restormer_fused.cu: one_by_one_tf32_at), the most reuse
+# of each fragment first
+TF32_TASKS = ((2, 4), (2, 2), (1, 2))
 
 
-def gdfn_plan(c: int) -> GdfnPlan:
-    """The bf16 K4 plan for C (the first of :data:`_GDFN_PLANS` whose
-    columns hold C)."""
-    for cmax, th, tw, threads, mt, ntw, wn in _GDFN_PLANS:
+def tf32_task_shape(nmt: int, ngrp: int, nw: int) -> int:
+    """The task shape code of a float32 1x1 over ``nmt`` m16 tiles and
+    ``ngrp`` n8 tiles on ``nw`` warps: the first of (2, 4) and (2, 2) whose
+    tasks keep at least two thirds of the warps busy, else (1, 2). The
+    products run at the mma.sync TF32 rate and the fragments' bytes, not
+    at one warp's work: at the 720p request's shapes the tasks reusing each
+    fragment most were the fastest wherever they filled the warps, and
+    (1, 2) the slowest wherever there were enough m16 tiles for more
+    (profile_k5.py sweeps on an H100)."""
+    for code in (0, 1):
+        qt, nj = TF32_TASKS[code]
+        if 3 * -(-nmt // qt) * (ngrp // nj) >= 2 * nw:
+            return code
+    return 2
+
+
+def gdfn_smem(c: int, th: int, tw: int, dtype: torch.dtype) -> int:
+    """Shared bytes of K4 at a tile: the halo (bf16 rows of C rounded up
+    to 16, + 8; float32 rows of C rounded up to 8, + 4), the 1x1 output
+    over the halo and the gate tile."""
+    hp = (th + 2) * (tw + 2)
+    hpr = -(-hp // 16) * 16
+    if dtype == torch.float32:
+        return 4 * (hpr * (-(-c // 8) * 8 + 4) + hp * (2 * CHUNK + 8)
+                    + th * tw * (CHUNK + 4))
+    return 2 * (hpr * (-(-c // 16) * 16 + 8) + hp * (2 * CHUNK + 8)
+                + th * tw * (CHUNK + 8))
+
+
+def gdfn_plan(c: int, dtype: torch.dtype = torch.bfloat16) -> GdfnPlan:
+    """The K4 plan for C and dtype (the first of :data:`_GDFN_PLANS`, or
+    in float32 :data:`_GDFN_TF32_PLANS`, whose columns hold C)."""
+    plans = _GDFN_TF32_PLANS if dtype == torch.float32 else _GDFN_PLANS
+    for cmax, th, tw, threads, mt, ntw, wn in plans:
         if c <= cmax:
-            hp = (th + 2) * (tw + 2)
-            smem = 2 * ((-(-hp // 16) * 16) * (-(-c // 16) * 16 + 8)
-                        + hp * (2 * CHUNK + 8) + th * tw * (CHUNK + 8))
-            return GdfnPlan(th, tw, threads, mt, ntw, wn, 8 * ntw * wn, smem)
-    raise ValueError(f"gdfn_block's bf16 kernel takes C <= 384, not {c}")
+            ts = tf32_task_shape(-(-(th + 2) * (tw + 2) // 16), 8,
+                                 threads // 32)
+            return GdfnPlan(th, tw, threads, mt, ntw, wn, 8 * ntw * wn,
+                            gdfn_smem(c, th, tw, dtype),
+                            ts if dtype == torch.float32 else 0)
+    raise ValueError(f"gdfn_block's kernel takes C <= 384, not {c}")
 
 
 def frag_pack(w: torch.Tensor, kp: int, np_: int | None = None
@@ -297,6 +329,30 @@ def frag_pack(w: torch.Tensor, kp: int, np_: int | None = None
     return w.permute(0, 4, 5, 2, 1, 3).reshape(kp // 16, np_ // 8, 32, 4)
 
 
+def tf32_frag_pack(w: torch.Tensor, kp: int, np_: int | None = None
+                   ) -> torch.Tensor:
+    """(..., K, N) float32 -> the split-TF32 B fragments of ``mma.sync``
+    m16n8k8 (``csrc/restormer_fused.cu``: mma_split_b), (..., kp/8, np_/8,
+    32, 4): K zero-padded to ``kp`` and N to ``np_`` (multiples of 8), each
+    8 x 8 block as 32 lanes of 4 values, lane 4g + t holding wh[t, g],
+    wh[t+4, g], wl[t, g], wl[t+4, g] with wh = rna(w)
+    (:func:`kernels.tf32_round`, as :func:`kernels.tf32_split`) and wl = w
+    - wh, so that wh + wl == w: one 16-byte load a lane. No device sync
+    (a training step remakes the forms)."""
+    *lead, k, n = w.shape
+    np_ = n if np_ is None else np_
+    w = F.pad(w.float(), (0, np_ - n, 0, kp - k))
+    wh = kernels.tf32_round(w)
+    nl = len(lead)
+
+    def frag(t):
+        t = t.reshape(*lead, kp // 8, 2, 4, np_ // 8, 8)
+        t = t.permute(*range(nl), nl, nl + 3, nl + 4, nl + 2, nl + 1)
+        return t.reshape(*lead, kp // 8, np_ // 8, 32, 2)
+
+    return torch.cat([frag(wh), frag(w - wh)], dim=-1)
+
+
 class GdfnWeights(NamedTuple):
     """One GDFN's weights: ``params`` as given (the plain version's
     operands) and their kernel form for ``dtype``, made once per weight by
@@ -304,11 +360,13 @@ class GdfnWeights(NamedTuple):
     depthwise weights and biases chunk-interleaved (x1 and x2 chunk ``i``
     side by side, the ragged hidden width zero-padded to a multiple of
     :data:`CHUNK`), w_out zero-padded to (nch*CHUNK, C rounded up to 4);
-    LN, depthwise weights and every bias in float32. In bf16 also the
-    tensor-core kernel's forms: ``w_in_f`` (nch, C16/16, 8, 32, 4), chunk
+    LN, depthwise weights and every bias in float32; and the tensor-core
+    kernel's forms: in bf16 ``w_in_f`` (nch, C16/16, 8, 32, 4), chunk
     ``i``'s 64 interleaved columns as :func:`frag_pack` fragments (C16 = C
     rounded up to 16), and ``w_out_f`` (nch, 2, NP/8, 32, 4), chunk ``i``'s
-    32 rows of w_out over the plan's NP >= C columns; None in f32."""
+    32 rows of w_out over the plan's NP >= C columns; in f32 the same as
+    :func:`tf32_frag_pack`'s split fragments, (nch, C8/8, 8, 32, 4) and
+    (nch, 4, NP/8, 32, 4) (C8 = C rounded up to 8)."""
 
     params: tuple
     dtype: torch.dtype
@@ -322,8 +380,8 @@ class GdfnWeights(NamedTuple):
     b_dw: torch.Tensor | None
     w_out: torch.Tensor
     b_out: torch.Tensor | None
-    w_in_f: torch.Tensor | None = None
-    w_out_f: torch.Tensor | None = None
+    w_in_f: torch.Tensor
+    w_out_f: torch.Tensor
 
 
 def gdfn_weights(ln, w_in, b_in, w_dw, b_dw, w_out, b_out,
@@ -336,16 +394,21 @@ def gdfn_weights(ln, w_in, b_in, w_dw, b_dw, w_out, b_out,
     wo = w_out.detach().to(dtype)
     wo = F.pad(wo, (0, -c % 4, 0, nch * CHUNK - hid)).contiguous()
     wi = _interleave(w_in.detach().to(dtype), 2)
-    w_in_f = w_out_f = None
-    if dtype == torch.bfloat16:
-        plan = gdfn_plan(c)
+    plan = gdfn_plan(c, dtype)
+    if dtype == torch.float32:  # every chunk in one pass
+        w_in_f = tf32_frag_pack(wi.reshape(c, nch, 2 * CHUNK).transpose(0, 1),
+                                -(-c // 8) * 8)
+        w_out_f = tf32_frag_pack(wo[:, :c].reshape(nch, CHUNK, c), CHUNK,
+                                 plan.cols)
+    else:
         c16 = -(-c // 16) * 16
         w_in_f = torch.stack([frag_pack(wi[:, 2 * CHUNK * i:
                                            2 * CHUNK * (i + 1)], c16)
-                              for i in range(nch)]).contiguous()
+                              for i in range(nch)])
         w_out_f = torch.stack([frag_pack(wo[CHUNK * i:CHUNK * (i + 1), :c],
                                          CHUNK, plan.cols)
-                               for i in range(nch)]).contiguous()
+                               for i in range(nch)])
+    w_in_f, w_out_f = w_in_f.contiguous(), w_out_f.contiguous()
     return GdfnWeights(
         params=(ln, w_in, b_in, w_dw, b_dw, w_out, b_out), dtype=dtype,
         c=c, nch=nch,
@@ -382,35 +445,27 @@ def gdfn_block_plain(x, ln, w_in, b_in, w_dw, b_dw, w_out, b_out, *,
     return (y + x.float()).to(dt)
 
 
+# the C functions' prototypes (set once, kernels.function): the pointers,
+# then B, H, W, C, NCH, ln_mode, fast and the plan (both dtypes)
+_GDFN_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+
+
 def _gdfn_cuda(x: torch.Tensor, k: GdfnWeights, fast: bool) -> torch.Tensor:
     x = _check_x(x, k.c, "gdfn_block")
-    _check_on(x, (k.w_in, k.w_dw, k.w_out, k.ln_w), k.dtype, "gdfn_block")
+    _check_on(x, (k.w_in_f, k.w_dw, k.w_out_f, k.ln_w), k.dtype,
+              "gdfn_block")
     bsz, h, w, c = x.shape
     out = torch.empty_like(x)
-    lib = kernels.load("restormer_fused")
-    if x.dtype == torch.float32:
-        th, tw, smem = _plan(0, x.dtype, c, 1)
-        fn = lib.gdfn_block_f32
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 \
-            + [ctypes.c_void_p]
-        err = fn(_ptr(x), _ptr(k.ln_w), _ptr(k.ln_b), _ptr(k.w_in),
-                 _ptr(k.b_in), _ptr(k.w_dw), _ptr(k.b_dw), _ptr(k.w_out),
-                 _ptr(k.b_out), _ptr(out), bsz, h, w, c, k.nch,
-                 _ln_mode(k.params[0]), int(fast), th, tw, smem,
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    else:
-        p = gdfn_plan(c)
-        fn = lib.gdfn_block_bf16
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 13 \
-            + [ctypes.c_void_p]
-        err = fn(_ptr(x), _ptr(k.ln_w), _ptr(k.ln_b), _ptr(k.w_in_f),
-                 _ptr(k.b_in), _ptr(k.w_dw), _ptr(k.b_dw), _ptr(k.w_out_f),
-                 _ptr(k.b_out), _ptr(out), bsz, h, w, c, k.nch,
-                 _ln_mode(k.params[0]), int(fast), p.th, p.tw, p.threads,
-                 p.mt, p.wn, p.smem,
-                 torch.cuda.current_stream(x.device).cuda_stream)
+    p = gdfn_plan(c, x.dtype)
+    plan = (p.th, p.tw, p.threads, p.wn, p.ts, p.smem) \
+        if x.dtype == torch.float32 \
+        else (p.th, p.tw, p.threads, p.mt, p.wn, p.smem)
+    fn = kernels.function("restormer_fused",
+                          f"gdfn_block_{_SUFFIX[x.dtype]}", _GDFN_ARGS)
+    err = fn(_ptr(x), _ptr(k.ln_w), _ptr(k.ln_b), _ptr(k.w_in_f),
+             _ptr(k.b_in), _ptr(k.w_dw), _ptr(k.b_dw), _ptr(k.w_out_f),
+             _ptr(k.b_out), _ptr(out), bsz, h, w, c, k.nch,
+             _ln_mode(k.params[0]), int(fast), *plan, kernels.stream(x))
     kernels.check(err, "gdfn_block")
     gdfn_block.launches += 1
     return out
@@ -466,10 +521,11 @@ class MdtaWeights(NamedTuple):
     w_qkv in ``dtype`` and the depthwise weights and biases in float32,
     chunk-interleaved (q, k and v chunk ``i`` side by side, each zero-padded
     to a multiple of :data:`CHUNK` channels); the epilogue's temperature,
-    projection (C_in, C_out) and bias in float32. In bf16 also the
-    tensor-core kernel's ``w_qkv_f`` (nch, C16/16, 12, 32, 4): chunk ``i``'s
-    96 interleaved columns as :func:`frag_pack` fragments (C16 = C rounded
-    up to 16); None in f32."""
+    projection (C_in, C_out) and bias in float32; and the tensor-core
+    kernel's ``w_qkv_f``, chunk ``i``'s 96 interleaved columns: in bf16
+    (nch, C16/16, 12, 32, 4) :func:`frag_pack` fragments (C16 = C rounded
+    up to 16), in f32 (nch, C8/8, 12, 32, 4) :func:`tf32_frag_pack`'s split
+    fragments (C8 = C rounded up to 8)."""
 
     params: tuple
     dtype: torch.dtype
@@ -485,7 +541,7 @@ class MdtaWeights(NamedTuple):
     temperature: torch.Tensor
     w_proj: torch.Tensor
     b_proj: torch.Tensor | None
-    w_qkv_f: torch.Tensor | None = None
+    w_qkv_f: torch.Tensor
 
 
 def mdta_weights(ln, w_qkv, b_qkv, w_dw, b_dw, w_proj, b_proj, temperature,
@@ -495,12 +551,15 @@ def mdta_weights(ln, w_qkv, b_qkv, w_dw, b_dw, w_proj, b_proj, temperature,
     c = w_qkv.shape[0]
     nch = -(-c // CHUNK)
     wq = _interleave(w_qkv.detach().to(dtype), 3)
-    w_qkv_f = None
-    if dtype == torch.bfloat16:
+    if dtype == torch.float32:  # every chunk in one pass
+        w_qkv_f = tf32_frag_pack(
+            wq.reshape(c, nch, 3 * CHUNK).transpose(0, 1), -(-c // 8) * 8)
+    else:
         c16 = -(-c // 16) * 16
         w_qkv_f = torch.stack([frag_pack(wq[:, 3 * CHUNK * i:
                                             3 * CHUNK * (i + 1)], c16)
-                               for i in range(nch)]).contiguous()
+                               for i in range(nch)])
+    w_qkv_f = w_qkv_f.contiguous()
     return MdtaWeights(
         params=(ln, w_qkv, b_qkv, w_dw, b_dw), dtype=dtype, c=c,
         nch=nch, num_heads=num_heads,
@@ -542,12 +601,14 @@ def mdta_front_plain(x, ln, w_qkv, b_qkv, w_dw, b_dw, num_heads: int):
 
 
 class MdtaPlan(NamedTuple):
-    """K5's bf16 launch plan for one (C, heads): a ``th`` x ``tw`` output
-    tile per block of ``threads`` threads; the per-head gram as ``tiles``
-    gram tiles of ``mw`` x ``nw8`` (m16, n8) mma tiles of one head, a warp
-    each; where the gram tiles outnumber the warps, ``slices`` blocks share
-    a run of tiles, each holding a slice of the gram tiles; ``smem`` bytes
-    of shared memory (``csrc/restormer_fused.cu``: mdta_mma_smem)."""
+    """K5's launch plan for one (C, heads) and dtype: a ``th`` x ``tw``
+    output tile per block of ``threads`` threads; the per-head gram as
+    ``tiles`` gram tiles of ``mw`` x ``nw8`` (m16, n8) mma tiles of one
+    head, a warp each; where the gram tiles outnumber the warps, ``slices``
+    blocks share a run of tiles, each holding a slice of the gram tiles;
+    ``smem`` bytes of shared memory (``csrc/restormer_fused.cu``:
+    mdta_mma_smem, mdta_tf32_smem); in float32 ``ts``, the qkv 1x1's task
+    shape (:data:`TF32_TASKS`)."""
 
     th: int
     tw: int
@@ -557,11 +618,16 @@ class MdtaPlan(NamedTuple):
     tiles: int
     slices: int
     smem: int
+    ts: int = 0
 
 
 # output tiles, largest first: the plan takes the first whose shared
 # memory fits (halo 1.27x the outputs at 16x16, 1.31x at 12x16)
 _MDTA_TILES = ((16, 16), (12, 16), (8, 16), (8, 8), (4, 8), (4, 4))
+# the float32 kernel's (its gram's k step is 8 pixels): float32 staging
+# halves them (8x16 at C 48, 8x8 at C 96, 6x8 at C 192, 4x4 at C 384)
+_MDTA_TF32_TILES = ((16, 16), (12, 16), (8, 16), (8, 8), (6, 8), (4, 8),
+                    (4, 4))
 # the gram tiles (m16 x n8 mma tiles) and block sizes the kernel is
 # instantiated for (csrc/restormer_fused.cu: IRK_GRAM_SHAPES), fewest
 # accumulators first: 384 threads keep 168 registers a thread (no spills),
@@ -575,13 +641,19 @@ def mdta_ldq(c: int, heads: int) -> int:
     return heads * (-(-(c // heads) // 16) * 16) + 8
 
 
-def mdta_smem(c: int, heads: int, th: int, tw: int, nw: int) -> int:
-    """Shared bytes of K5's bf16 kernel (``mdta_mma_smem``)."""
+def mdta_smem(c: int, heads: int, th: int, tw: int, nw: int,
+              dtype: torch.dtype = torch.bfloat16) -> int:
+    """Shared bytes of K5's kernel (``mdta_mma_smem``,
+    ``mdta_tf32_smem``): the float32 sums and LN weights, then the halo,
+    the qkv 1x1 output and the q and k tiles in ``dtype``."""
     cq = -(-c // CHUNK) * CHUNK
     hp = (th + 2) * (tw + 2)
-    return 4 * (2 * cq + nw * 2 * CHUNK + 2 * c) + 2 * (
-        -(-hp // 16) * 16 * (-(-c // 16) * 16 + 8) + hp * (3 * CHUNK + 8)
-        + 2 * th * tw * mdta_ldq(c, heads))
+    hpr = -(-hp // 16) * 16
+    small = 4 * (2 * cq + nw * 2 * CHUNK + 2 * c)
+    tiles = hp * (3 * CHUNK + 8) + 2 * th * tw * mdta_ldq(c, heads)
+    if dtype == torch.float32:
+        return small + 4 * (hpr * (-(-c // 8) * 8 + 4) + tiles)
+    return small + 2 * (hpr * (-(-c // 16) * 16 + 8) + tiles)
 
 
 def gram_shape(c: int, heads: int) -> tuple[int, int, int, int]:
@@ -595,35 +667,46 @@ def gram_shape(c: int, heads: int) -> tuple[int, int, int, int]:
     return mw, nw8, threads, tiles
 
 
-def mdta_plan(c: int, heads: int) -> MdtaPlan:
-    """The bf16 K5 plan for (C, heads): the gram tile of
-    :func:`gram_shape`; the largest of :data:`_MDTA_TILES` whose shared
-    memory fits."""
+def mdta_plan(c: int, heads: int,
+              dtype: torch.dtype = torch.bfloat16) -> MdtaPlan:
+    """The K5 plan for (C, heads) and dtype: the gram tile of
+    :func:`gram_shape`; the largest of :data:`_MDTA_TILES` (float32:
+    :data:`_MDTA_TF32_TILES`) whose shared memory fits."""
     if c % 4 or c % heads or (c // heads) % 4:
-        raise ValueError(f"mdta_front's bf16 kernel takes C and C/heads "
+        raise ValueError(f"mdta_front's kernel takes C and C/heads "
                          f"multiples of 4, not {c}/{heads}")
     mw, nw8, threads, tiles = gram_shape(c, heads)
     nw = threads // 32
-    for th, tw in _MDTA_TILES:
-        smem = mdta_smem(c, heads, th, tw, nw)
+    for th, tw in (_MDTA_TF32_TILES if dtype == torch.float32
+                   else _MDTA_TILES):
+        smem = mdta_smem(c, heads, th, tw, nw, dtype)
         if smem <= kernels.SMEM_LIMIT:
+            ts = tf32_task_shape(-(-(th + 2) * (tw + 2) // 16), 12, nw) \
+                if dtype == torch.float32 else 0
             return MdtaPlan(th, tw, threads, mw, nw8, tiles,
-                            -(-tiles // nw), smem)
-    raise ValueError(f"no tile of mdta_front's bf16 kernel fits shared "
+                            -(-tiles // nw), smem, ts)
+    raise ValueError(f"no tile of mdta_front's kernel fits shared "
                      f"memory at C={c}, heads={heads}")
 
 
 def mdta_blocks(bsz: int, ntiles: int, slices: int, sms: int) -> int:
-    """K5's bf16 blocks a sample (times ``slices``): one block an SM
+    """K5's blocks a sample (times ``slices``): one block an SM
     (its shared memory), each a run of ``ceil(ntiles / nb)`` or one fewer
     tiles, the fewest blocks that keep the longest run."""
     nb = max(1, min(ntiles, sms // (bsz * slices)))
     return -(-ntiles // -(-ntiles // nb))
 
 
+# the pointers, then B, H, W, C, NCH, heads, ln_mode and the plan (float32
+# with the task shape)
+_MDTA_ARGS = {dt: [ctypes.c_void_p] * 11 + [ctypes.c_int] * n
+              + [ctypes.c_void_p]
+              for dt, n in ((torch.float32, 16), (torch.bfloat16, 15))}
+
+
 def _mdta_cuda(x: torch.Tensor, k: MdtaWeights):
     x = _check_x(x, k.c, "mdta_front")
-    _check_on(x, (k.w_qkv, k.w_dw, k.ln_w), k.dtype, "mdta_front")
+    _check_on(x, (k.w_qkv_f, k.w_dw, k.ln_w), k.dtype, "mdta_front")
     bsz, h, w, c = x.shape
     heads = k.num_heads
     ch = c // heads
@@ -635,38 +718,20 @@ def _mdta_cuda(x: torch.Tensor, k: MdtaWeights):
     gram = torch.empty((bsz, heads, ch, ch), dtype=torch.float32,
                        device=x.device)
     ssq = torch.empty((bsz, 2, c), dtype=torch.float32, device=x.device)
-    lib = kernels.load("restormer_fused")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    if x.dtype == torch.float32:
-        th, tw, smem = _plan(1, x.dtype, c, heads)
-        ntiles = -(-h // th) * -(-w // tw)
-        per_sm = max(1, min(8, (228 * 1024) // (smem + 1024)))
-        nb = max(1, min(ntiles, kernels.sm_count(x.device) * per_sm // bsz))
-        part = torch.empty((bsz * nb, heads * ch * ch + 2 * cq),
-                           dtype=torch.float32, device=x.device)
-        fn = lib.mdta_front_f32
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 \
-            + [ctypes.c_void_p]
-        err = fn(_ptr(x), _ptr(k.ln_w), _ptr(k.ln_b), _ptr(k.w_qkv),
-                 _ptr(k.b_qkv), _ptr(k.w_dw), _ptr(k.b_dw), _ptr(v),
-                 _ptr(part), _ptr(gram), _ptr(ssq), bsz, h, w, c, k.nch,
-                 heads, _ln_mode(k.params[0]), th, tw, smem, nb, stream)
-    else:
-        p = mdta_plan(c, heads)
-        ntiles = -(-h // p.th) * -(-w // p.tw)
-        nb = mdta_blocks(bsz, ntiles, p.slices, kernels.sm_count(x.device))
-        part = torch.empty((bsz * nb, heads * ch * ch + 2 * cq),
-                           dtype=torch.float32, device=x.device)
-        fn = lib.mdta_front_bf16
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 15 \
-            + [ctypes.c_void_p]
-        err = fn(_ptr(x), _ptr(k.ln_w), _ptr(k.ln_b), _ptr(k.w_qkv_f),
-                 _ptr(k.b_qkv), _ptr(k.w_dw), _ptr(k.b_dw), _ptr(v),
-                 _ptr(part), _ptr(gram), _ptr(ssq), bsz, h, w, c, k.nch,
-                 heads, _ln_mode(k.params[0]), p.th, p.tw, p.threads, p.mw,
-                 p.nw8, p.slices, p.smem, nb, stream)
+    p = mdta_plan(c, heads, x.dtype)
+    ntiles = -(-h // p.th) * -(-w // p.tw)
+    nb = mdta_blocks(bsz, ntiles, p.slices, kernels.sm_count(x.device))
+    part = torch.empty((bsz * nb, heads * ch * ch + 2 * cq),
+                       dtype=torch.float32, device=x.device)
+    fn = kernels.function("restormer_fused",
+                          f"mdta_front_{_SUFFIX[x.dtype]}",
+                          _MDTA_ARGS[x.dtype])
+    ts = (p.ts,) if x.dtype == torch.float32 else ()
+    err = fn(_ptr(x), _ptr(k.ln_w), _ptr(k.ln_b), _ptr(k.w_qkv_f),
+             _ptr(k.b_qkv), _ptr(k.w_dw), _ptr(k.b_dw), _ptr(v), _ptr(part),
+             _ptr(gram), _ptr(ssq), bsz, h, w, c, k.nch, heads,
+             _ln_mode(k.params[0]), p.th, p.tw, p.threads, p.mw, p.nw8,
+             p.slices, *ts, p.smem, nb, kernels.stream(x))
     kernels.check(err, "mdta_front")
     mdta_front.launches += 1
     return v, gram, ssq
@@ -710,6 +775,9 @@ def gram_tile_plain(q: torch.Tensor, k: torch.Tensor, heads: int
                         k.float().reshape(p, heads, ch))
 
 
+_GRAM_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
 def gram_tile(q: torch.Tensor, k: torch.Tensor, heads: int) -> torch.Tensor:
     """K5's gram step alone (``csrc/restormer_fused.cu``: gram_tile_kernel,
     A = q_h^T and B = k_h by ldmatrix.trans, at the gram tile
@@ -729,12 +797,9 @@ def gram_tile(q: torch.Tensor, k: torch.Tensor, heads: int) -> torch.Tensor:
     q, k = q.contiguous(), k.contiguous()
     out = torch.empty((heads, ch, ch), dtype=torch.float32, device=q.device)
     mw, nw8, _, _ = gram_shape(c, heads)
-    fn = kernels.load("restormer_fused").mdta_gram_tile
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
+    fn = kernels.function("restormer_fused", "mdta_gram_tile", _GRAM_ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), out.data_ptr(), p, c, heads, mw,
-             nw8, torch.cuda.current_stream(q.device).cuda_stream)
+             nw8, kernels.stream(q))
     kernels.check(err, "gram_tile")
     return out
 

@@ -2,12 +2,17 @@
 block shapes (``chip_smoke.RESTORMER_SHAPES``).
 
     python3 profile_k5.py            # K5 and K4 ms, plan, errors vs plain
+    python3 profile_k5.py --dtype float32   # the same in float32
     python3 profile_k5.py --ablate   # K5 with one phase compiled out
+    python3 profile_k5.py --ablate --kernel k4f   # float32 K4 (k5f: K5)
+    python3 profile_k5.py --request  # the float32 720p Restormer request
 
 The first mode times K5 alone and K4 at the same shapes (CUDA events,
 warmed up) and prints, for v, the gram and the sums of squares, the RMS and
 largest error against ``mdta_front_plain`` beside the bf16 rounding control
-(plain bf16 against plain f32). The second builds copies of
+(plain bf16 against plain f32); in float32 the largest error over the
+plain version's largest magnitude (the f32 rule: at most 1e-4), K4's too,
+and the float32 kernels' ptxas lines. The second builds copies of
 ``csrc/restormer_fused.cu`` with one phase of the bf16 kernel compiled out
 (string substitutions, in a temporary directory), prints each copy's
 registers and spills, and times the wrapper with each copy loaded, in two
@@ -21,6 +26,11 @@ without an activation; the SwinIR-M band, ``dc1`` 0 and +4):
 
     python3 profile_k5.py --kernel k8            # ms, the two-launch rival
     python3 profile_k5.py --kernel k7 --ablate   # one phase out at a time
+
+``--request`` serves the 1280x720 Restormer request in float32 through
+``Engine(device="cuda")`` as ``cli.py`` builds it (``chip_smoke.py``'s
+``restormer_path`` image and weights): one warm-up, three timed requests,
+their K4 and K5 launches.
 
 ``--root DIR`` imports the port from another checkout (for example a
 ``git archive`` of an earlier commit, unpacked in a gitignored directory),
@@ -169,8 +179,48 @@ K7_VARIANTS.update({
                  "    for (int e = tid; e < 0; e += Q_NT) {")],
 })
 
+# the float32 K4 (gdfn_tf32_kernel): project_in's products, the taps, the
+# erf gate, project_out's products, the halo's staging, LN
+K4F_VARIANTS = {
+    "base": [],
+    "no_in": [("    one_by_one_tf32_at(\n        TS, us, LDU4,", "    if (false) "
+               "one_by_one_tf32_at(\n        TS, us, LDU4,")],
+    "no_taps": [("        taps_2x4(us + (r * t.hw2 + q) * LDU4 + half * HC + "
+                 "cp, t.hw2, LDU4,\n                 wa, wb, ca, cb, d);",
+                 _ZERO_D2)],
+    "no_gate": [("                     : 0.5f * v * (1.f + erff(v * "
+                 "0.70710678118654752f));", "                     : v;")],
+    "no_out": [("        for (int i = 0; i < 2; ++i) mma_split_b(pa[i][j], "
+                "ah[i], al[i], b);", "        for (int i = 0; i < 2 && ks < 0; "
+                "++i) mma_split_b(pa[i][j], ah[i], al[i], b);")],
+    "no_stage": [("  stage_halo_f32(x, xs, t, C, ldx, hpr, HaloCopyF(x, C));",
+                  "  cp_async_commit();")],
+    "no_ln": [("  if (ln_mode != 0) ln_in_place_f32(xs, ln_w, ln_b, ln_mode, "
+               "t, C, ldx, hpr);", "")],
+}
+# the float32 K5 (mdta_tf32_kernel): the qkv products, the taps, the gram,
+# the halo's staging, LN
+K5F_VARIANTS = {
+    "base": [],
+    "no_qkv": [("      one_by_one_tf32_at(TS, us, LDU5, xs,", "      if (false) "
+                "one_by_one_tf32_at(TS, us, LDU5, xs,")],
+    "no_taps": [("        taps_2x4(us + (r * t.hw2 + q) * LDU5 + grp * HC + cp, "
+                 "t.hw2, LDU5, wa,\n                 wb, ca, cb, d);",
+                 _ZERO_D2)],
+    "no_gram": [("        gram_step_tf32(acc, qs, ks, ldq, 8 * kk, gt, chp, "
+                 "lane);", "        {}")],
+    "no_stage": [("  if (t0 < t1) stage_halo_f32(x, xs, tile_at(t0), C, ldx, "
+                  "hpr, hc);", "  cp_async_commit();"),
+                 ("        stage_halo_f32(x, xs, tile_at(tile + 1), C, ldx, "
+                  "hpr, hc);", "        cp_async_commit();")],
+    "no_ln": [("      ln_in_place_f32(xs, lnw, lnw + C, ln_mode, t, C, ldx, "
+               "hpr);", "      {}")],
+}
+
 # per kernel: (source, variants, the ptxas lines to print)
 KERNELS = {"k5": ("restormer_fused", "K5_VARIANTS", "mdta_mma"),
+           "k4f": ("restormer_fused", "K4F_VARIANTS", "gdfn_tf32"),
+           "k5f": ("restormer_fused", "K5F_VARIANTS", "mdta_tf32"),
            "k7": ("conv3x3_pair", "K7_VARIANTS", "conv3x3_pair"),
            "k8": ("swin_pair", "K8_VARIANTS", "swin_pair")}
 
@@ -271,9 +321,11 @@ def lab_times(kernel: str, reps: int = 5) -> None:
         torch.cuda.empty_cache()
 
 
-def _cases(torch, with_plain: bool):
+def _cases(torch, with_plain: bool, dtype=None):
     """(level, x32, x, front params, MdtaWeights) at the five shapes:
-    WithBias LN, no biases (the main path's blocks), seed 3."""
+    WithBias LN, no biases (the main path's blocks), seed 3; x and the
+    form in ``dtype`` (default bf16)."""
+    dtype = dtype or torch.bfloat16
     gen = torch.Generator().manual_seed(3)
     dev = torch.device("cuda")
 
@@ -287,15 +339,46 @@ def _cases(torch, with_plain: bool):
              randn(9, 3 * c, scale=1 / 3), None)
         mk = trf.mdta_weights(*m, randn(c, c, scale=c ** -0.5), None,
                               0.5 + torch.rand(heads, generator=gen).to(dev),
-                              heads, torch.bfloat16)
-        yield lvl, heads, (x32 if with_plain else None), \
-            x32.to(torch.bfloat16), m, mk
+                              heads, dtype)
+        yield lvl, heads, (x32 if with_plain else None), x32.to(dtype), m, mk
 
 
-def times(reps: int = 20) -> None:
+def _k4_cases(torch, dtype):
+    """(level, x, GdfnWeights) at the five shapes: WithBias LN, no biases,
+    seed 4."""
+    gen = torch.Generator().manual_seed(4)
+
+    def randn(*s, scale=1.0):
+        return (torch.randn(*s, generator=gen) * scale).cuda()
+
+    for lvl, (b, h, w, c), _ in chip_smoke.RESTORMER_SHAPES:
+        hid = int(2.66 * c)
+        g = ((1 + randn(c, scale=0.1), randn(c, scale=0.1)),
+             randn(c, 2 * hid, scale=c ** -0.5), None,
+             randn(9, 2 * hid, scale=1 / 3), None,
+             randn(hid, c, scale=hid ** -0.5), None)
+        yield lvl, randn(b, h, w, c).to(dtype), trf.gdfn_weights(*g, dtype)
+
+
+def _plan_of(fn, *args):
+    """A plan as a dict, or None where this checkout's planner does not
+    take these arguments (an earlier commit under --root)."""
+    try:
+        return fn(*args)._asdict()
+    except TypeError:
+        return None
+
+
+def times(reps: int = 20, dtype_name: str = "bfloat16") -> None:
     import torch
     card = chip_smoke.nvidia_smi_line()
-    for lvl, heads, x32, x, m, mk in _cases(torch, True):
+    dtype = getattr(torch, dtype_name)
+    if dtype == torch.float32:
+        lines = chip_smoke.ptxas_lines(kernels.build_log("restormer_fused"))
+        print(json.dumps(dict(card=card, ptxas=[
+            ln for ln in lines if "tf32" in ln or "f32" in ln.split(":")[0]
+        ])), flush=True)
+    for lvl, heads, x32, x, m, mk in _cases(torch, True, dtype):
         c = x.shape[-1]
         got = trf.mdta_front(x, mk)
         again = trf.mdta_front(x, mk)
@@ -308,7 +391,9 @@ def times(reps: int = 20) -> None:
             errs[name] = dict(rms=float(d.square().mean().sqrt()),
                               control_rms=float(dc.square().mean().sqrt()),
                               max=float(d.abs().max()),
-                              control_max=float(dc.abs().max()))
+                              control_max=float(dc.abs().max()),
+                              rel_max=float(d.abs().max()
+                                            / b.float().abs().max()))
         k5 = chip_smoke.cuda_ms(lambda: trf.mdta_front(x, mk), reps)
         hid = int(2.66 * c)
         gen = torch.Generator().manual_seed(4)
@@ -316,16 +401,53 @@ def times(reps: int = 20) -> None:
              .cuda(), None, (torch.randn(9, 2 * hid, generator=gen) / 3)
              .cuda(), None, (torch.randn(hid, c, generator=gen)
                              * hid ** -0.5).cuda(), None)
-        gk = trf.gdfn_weights(*g, torch.bfloat16)
-        k4 = chip_smoke.cuda_ms(lambda: trf.gdfn_block(x, gk, fast=True),
+        fast = dtype == torch.bfloat16
+        gk = trf.gdfn_weights(*g, dtype)
+        y = trf.gdfn_block(x, gk, fast=fast)
+        y_want = trf.gdfn_block_plain(x, *g, fast=fast).float()
+        k4_err = float((y.float() - y_want).abs().max()
+                       / y_want.abs().max())
+        k4_repeat = torch.equal(y, trf.gdfn_block(x, gk, fast=fast))
+        k4 = chip_smoke.cuda_ms(lambda: trf.gdfn_block(x, gk, fast=fast),
                                 reps)
         print(json.dumps(dict(
-            card=card, shape=lvl, k5_ms=k5, k4_ms=k4,
-            plan=trf.mdta_plan(c, heads)._asdict(),
+            card=card, dtype=dtype_name, shape=lvl, k5_ms=k5, k4_ms=k4,
+            plan=_plan_of(trf.mdta_plan, c, heads, dtype),
+            k4_plan=_plan_of(trf.gdfn_plan, c, dtype),
             repeatable=all(torch.equal(a, b) for a, b in zip(got, again)),
+            k4_repeatable=k4_repeat, k4_rel_max=k4_err,
             errors=errs)), flush=True)
+        del y, y_want
         del got, again, want, ref
         torch.cuda.empty_cache()
+
+
+def f32_request(requests: int = 3) -> None:
+    """The float32 720p Restormer request (``--request``)."""
+    import time
+
+    import numpy as np
+    import torch
+
+    engine = importlib.import_module(f"{PKG}.engine")
+    img = np.random.default_rng(1).random((720, 1280, 3), dtype=np.float32)
+    eng = engine.Engine(device="cuda")
+    eng.set_weights("restormer", chip_smoke.model_state("restormer"))
+    eng.restore_array(img, "restormer")
+    torch.cuda.synchronize()
+    n0 = trf.gdfn_block.launches, trf.mdta_front.launches
+    secs = []
+    for _ in range(requests):
+        t0 = time.perf_counter()
+        res = eng.restore_array(img, "restormer")
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    print(json.dumps(dict(
+        card=chip_smoke.nvidia_smi_line(), dtype="float32", seconds=secs,
+        mp_per_s=1280 * 720 / 1e6 / min(secs),
+        k4=trf.gdfn_block.launches - n0[0],
+        k5=trf.mdta_front.launches - n0[1],
+        finite=bool(np.isfinite(res.image).all()))), flush=True)
 
 
 def _build(tmp: Path, kernel: str) -> dict:
@@ -371,6 +493,14 @@ def ablate(kernel: str, reps: int = 10) -> None:
         if kernel == "k5":
             cases = [(lvl, lambda x=x, mk=mk: trf.mdta_front(x, mk))
                      for lvl, _, _, x, _, mk in _cases(torch, False)]
+        elif kernel == "k5f":
+            cases = [(lvl, lambda x=x, mk=mk: trf.mdta_front(x, mk))
+                     for lvl, _, _, x, _, mk in _cases(torch, False,
+                                                       torch.float32)]
+        elif kernel == "k4f":
+            cases = [(lvl, lambda x=x, gk=gk: trf.gdfn_block(x, gk,
+                                                             fast=False))
+                     for lvl, x, gk in _k4_cases(torch, torch.float32)]
         else:
             cases = [(name, fn) for name, fn, *_ in _lab_cases(torch, kernel)]
             reps = min(reps, 5)
@@ -394,6 +524,10 @@ def main() -> int:
                     help="time copies of the kernel with one phase out")
     ap.add_argument("--kernel", choices=sorted(KERNELS), default="k5")
     ap.add_argument("--root", help="import the port from this checkout")
+    ap.add_argument("--request", action="store_true",
+                    help="time the float32 720p Restormer request")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16", help="K4's and K5's dtype (k5)")
     args = ap.parse_args()
     if args.root:
         sys.path.insert(0, str(Path(args.root).resolve()))
@@ -408,10 +542,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     with torch.no_grad():
-        if args.ablate:
+        if args.request:
+            f32_request()
+        elif args.ablate:
             ablate(args.kernel)
         elif args.kernel == "k5":
-            times()
+            times(dtype_name=args.dtype)
         else:
             lab_times(args.kernel)
     return 0

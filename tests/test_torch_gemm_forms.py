@@ -1,7 +1,7 @@
 """The bf16 weight forms and launch plans of K1 (token_linear), K3
 (conv3x3), K4 (gdfn_block), K5 (mdta_front), K7 (conv3x3_pair) and K8
-(swin_pair_block), and the float32 split-TF32 forms and plans of K1 and K3,
-on the CPU: the packed forms hold exactly the weights they were made from,
+(swin_pair_block), and the float32 split-TF32 forms and plans of K1, K3, K4
+and K5, on the CPU: the packed forms hold exactly the weights they were made from,
 zero elsewhere; the plain paths give the same result on the packed form as
 on the raw weights; and every served shape's launch plan fits in a block's
 shared memory and covers each output element once (K5: each output pixel
@@ -258,9 +258,9 @@ def test_gdfn_forms_hold_the_weights(c, hid):
     # zero everywhere else: no nonzero beyond the weights' own
     assert (w_in != 0).sum() == (wi != 0).sum()
     assert (w_out != 0).sum() == (g[5].to(torch.bfloat16) != 0).sum()
-    # f32 keeps no packed form
+    # f32 keeps the split-TF32 forms (test_gdfn_f32_form_splits_the_weights)
     k32 = trf.gdfn_weights(*g, torch.float32)
-    assert k32.w_in_f is None and k32.w_out_f is None
+    assert k32.w_in_f.dtype == k32.w_out_f.dtype == torch.float32
 
 
 @pytest.mark.parametrize("c,hid", [(48, 127), (24, 63)])
@@ -366,7 +366,7 @@ def test_mdta_form_holds_the_weights(c, heads):
     assert (whole != 0).sum() == (w16 != 0).sum()
     k32 = trf.mdta_weights(*m, _rand(rng, c, c), None, torch.ones(heads),
                            heads, torch.float32)
-    assert k32.w_qkv_f is None
+    assert k32.w_qkv_f.dtype == torch.float32  # the split-TF32 form
 
 
 @pytest.mark.parametrize("c,heads", K5_WIDTHS)
@@ -454,6 +454,147 @@ def test_mdta_plans_are_the_designed_ones():
     assert (p.mw, p.nw8, p.threads, p.tiles, p.slices) == (3, 3, 512, 18, 2)
     with pytest.raises(ValueError):
         trf.mdta_plan(96, 5)
+
+
+def _tf32_unpack(f):
+    """(2, kp, np): wh and wl of a restormer_fused.tf32_frag_pack form (lane
+    4g + t of k step ks, n8 tile nt holds wh[8ks + t], wh[8ks + t + 4],
+    wl[8ks + t], wl[8ks + t + 4] of column 8nt + g)."""
+    ks, nt = f.shape[:2]
+    w = f.reshape(ks, nt, 8, 4, 2, 2).permute(4, 0, 5, 3, 1, 2)
+    return w.reshape(2, 8 * ks, 8 * nt)
+
+
+def _assert_split(parts, w):
+    """wh is w rounded to TF32 (tf32_round) and wh + wl is w bit for bit."""
+    wh, wl = parts
+    assert torch.equal(wh, tkern.tf32_round(w))
+    assert torch.equal(wh + wl, w)
+
+
+@pytest.mark.parametrize("c,hid", K4_WIDTHS)
+def test_gdfn_f32_form_splits_the_weights(c, hid):
+    """K4's float32 forms: w_in_f (nch, C8/8, 8, 32, 4) holds each chunk's
+    64 interleaved columns of w_in, w_out_f (nch, 4, NP/8, 32, 4) each
+    chunk's 32 rows of w_out over the plan's NP columns, both split as wh =
+    rna(w) and wl = w - wh, zero-padded (C8 = C rounded up to 8)."""
+    rng = np.random.default_rng(c + 3)
+    g = _gdfn_params(rng, c, hid, bias=True)
+    k = trf.gdfn_weights(*g, torch.float32)
+    plan = trf.gdfn_plan(c, torch.float32)
+    nch, c8 = -(-hid // 32), -(-c // 8) * 8
+    assert k.w_in_f.shape == (nch, c8 // 8, 8, 32, 4)
+    assert k.w_out_f.shape == (nch, 4, plan.cols // 8, 32, 4)
+    for f in (k.w_in_f, k.w_out_f):
+        assert f.is_contiguous() and f.dtype == torch.float32
+    w_in = torch.nn.functional.pad(trf._interleave(g[1], 2),
+                                   (0, 0, 0, c8 - c))
+    _assert_split(torch.cat([_tf32_unpack(f) for f in k.w_in_f], 2), w_in)
+    w_out = torch.nn.functional.pad(g[5], (0, plan.cols - c,
+                                           0, nch * 32 - hid))
+    _assert_split(torch.cat([_tf32_unpack(f) for f in k.w_out_f], 1), w_out)
+
+
+@pytest.mark.parametrize("c,heads", K5_WIDTHS)
+def test_mdta_f32_form_splits_the_weights(c, heads):
+    """K5's float32 form: w_qkv_f (nch, C8/8, 12, 32, 4) holds each chunk's
+    96 interleaved q, k and v columns, split as wh = rna(w) and wl = w -
+    wh, zero-padded."""
+    rng = np.random.default_rng(c * 3 + heads)
+    m = _mdta_params(rng, c, heads, bias=True)
+    k = trf.mdta_weights(*m, _rand(rng, c, c), None, torch.ones(heads),
+                         heads, torch.float32)
+    nch, c8 = -(-c // 32), -(-c // 8) * 8
+    assert k.w_qkv_f.shape == (nch, c8 // 8, 12, 32, 4)
+    assert k.w_qkv_f.is_contiguous() and k.w_qkv_f.dtype == torch.float32
+    w = torch.nn.functional.pad(trf._interleave(m[1], 3), (0, 0, 0, c8 - c))
+    _assert_split(torch.cat([_tf32_unpack(f) for f in k.w_qkv_f], 2), w)
+
+
+@pytest.mark.parametrize("shape", [s for _, s, _ in chip_smoke.RESTORMER_SHAPES]
+                         + [s for s, _ in AGENT_BLOCKS]
+                         + [(2, 24, 40, 48), (2, 19, 36, 96), (2, 8, 20, 384),
+                            (2, 16, 128, 24), (8, 128, 128, 48)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_gdfn_f32_plan_fits_and_covers(shape):
+    """K4's float32 plan: shared memory within a block's 227 KB; the tiles
+    cover the canvas once; project_out's warp tiles (warp w: m16 rows 2 (w
+    % WM), + 1, n8 columns 3 (w // WM) ..) cover the tile's pixels x the
+    plan's columns once, with 2 x 24 accumulators a thread (the running sum
+    and a chunk's partial); the task shape is one the kernel takes."""
+    b, h, w, c = shape
+    p = trf.gdfn_plan(c, torch.float32)
+    assert p.smem <= tkern.SMEM_LIMIT and p.threads == 512
+    hp = (p.th + 2) * (p.tw + 2)
+    assert p.smem == 4 * (-(-hp // 16) * 16 * (-(-c // 8) * 8 + 4)
+                          + hp * (2 * trf.CHUNK + 8)
+                          + p.th * p.tw * (trf.CHUNK + 4))
+    assert p.tw % 4 == 0 and p.th % 2 == 0 and (p.mt, p.ntw) == (2, 3)
+    assert c <= p.cols == 8 * p.ntw * p.wn
+    assert 0 <= p.ts < len(trf.TF32_TASKS)
+    nw = p.threads // 32
+    wm = nw // p.wn
+    assert nw % p.wn == 0 and p.th * p.tw == 32 * wm
+    seen = np.zeros((p.th * p.tw, p.cols // 8), np.int64)
+    for warp in range(nw):
+        r0, n0 = 32 * (warp % wm), p.ntw * (warp // wm)
+        seen[r0:r0 + 32, n0:n0 + p.ntw] += 1
+    assert (seen == 1).all()
+    cover = np.zeros((h, w), np.int64)
+    for ty in range(-(-h // p.th)):
+        for tx in range(-(-w // p.tw)):
+            cover[ty * p.th:(ty + 1) * p.th, tx * p.tw:(tx + 1) * p.tw] += 1
+    assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("shape,heads", K5_PLAN_SHAPES
+                         + [((8, 128, 128, 48), 1), ((1, 8, 24, 128), 1)],
+                         ids=lambda v: "x".join(map(str, v))
+                         if isinstance(v, tuple) else str(v))
+def test_mdta_f32_plan_fits_and_covers(shape, heads):
+    """K5's float32 plan: shared memory within a block's 227 KB (the bytes
+    mdta_tf32_smem counts); tiles of a multiple of 8 pixels (the gram's k
+    step); the blocks' runs of tiles cover the canvas once; the warps' gram
+    tiles cover every per-head gram element once."""
+    b, h, w, c = shape
+    p = trf.mdta_plan(c, heads, torch.float32)
+    nw, ch = p.threads // 32, c // heads
+    assert p.smem <= tkern.SMEM_LIMIT
+    assert p.smem == trf.mdta_smem(c, heads, p.th, p.tw, nw, torch.float32)
+    assert p.tw % 4 == 0 and p.th % 2 == 0 and (p.th * p.tw) % 8 == 0
+    assert (p.mw, p.nw8, p.threads) in trf.GRAM_SHAPES
+    ntx, nty = -(-w // p.tw), -(-h // p.th)
+    nb = trf.mdta_blocks(b, ntx * nty, p.slices, 132)
+    cover = np.zeros((h, w), np.int64)
+    for ib in range(nb):
+        for tile in range(ntx * nty * ib // nb, ntx * nty * (ib + 1) // nb):
+            ty, tx = divmod(tile, ntx)
+            cover[ty * p.th:(ty + 1) * p.th, tx * p.tw:(tx + 1) * p.tw] += 1
+    assert (cover == 1).all()
+    assert p.slices == -(-p.tiles // nw) and (p.slices - 1) * nw < p.tiles
+    gram = np.zeros((heads, -(-ch // 16) * 16, -(-ch // 16) * 16), np.int64)
+    for wi in range(min(p.tiles, p.slices * nw)):
+        hh, mi0, nj0, mw, nwe = _gram_tile_of(wi, ch, p.mw, p.nw8)
+        gram[hh, 16 * mi0:16 * (mi0 + mw), 8 * nj0:8 * (nj0 + nwe)] += 1
+    assert (gram == 1).all()
+
+
+def test_f32_plans_are_the_designed_ones():
+    """Float32 staging halves the tiles: K4 16x16 up to C 48, 8x16 at C 96,
+    8x8 at C 192, 4x8 at C 384; K5 8x16 at level 1, 8x8 at level 2 and
+    the C 96 one-head decoder, 6x8 at level 3, 4x4 at level 4, with bf16's
+    gram tiles and block sizes."""
+    assert [(p.th, p.tw, p.wn) for p in (
+        trf.gdfn_plan(c, torch.float32) for c in (24, 48, 96, 192, 384))] \
+        == [(16, 16, 2), (16, 16, 2), (8, 16, 4), (8, 8, 8), (4, 8, 16)]
+    got = [(p.th, p.tw, p.threads, p.mw, p.nw8, p.slices)
+           for p in (trf.mdta_plan(c, hd, torch.float32)
+                     for c, hd in K5_WIDTHS)]
+    assert got == [(8, 16, 384, 1, 2, 1), (8, 8, 384, 1, 3, 1),
+                   (6, 8, 384, 3, 2, 1), (4, 4, 512, 3, 3, 1),
+                   (8, 8, 384, 3, 2, 1), (12, 16, 384, 1, 2, 1)]
+    with pytest.raises(ValueError):
+        trf.gdfn_plan(392, torch.float32)
 
 
 def test_gram_tile_plain_is_the_per_head_gram():

@@ -1,7 +1,8 @@
-"""The split-TF32 product of the float32 K3 (conv3x3) and K1 (token_linear)
-kernels, emulated on the CPU with bit masks, against the JAX package's
-float32 results: ``conv3x3_pallas`` in interpret mode (as its own tests run
-it) and ``jnp.dot``.
+"""The split-TF32 product of the float32 K3 (conv3x3), K1 (token_linear),
+K4 (gdfn_block) and K5 (mdta_front) kernels, emulated on the CPU with bit
+masks, against the JAX package's float32 results: ``conv3x3_pallas``,
+``gdfn_block_pallas`` and ``mdta_block_pallas`` in interpret mode (as their
+own tests run them) and ``jnp.dot``.
 
 The kernels split a float32 activation x in registers into xh = rna(x) (TF32:
 10 mantissa bits, nearest, ties away from zero) and xl = rna(x - xh), take
@@ -14,7 +15,17 @@ kernels' order. It must stay within the f32 rule the card is held to (max
 error <= 1e-4 x max|ref|) at K up to 9 x 512, with LayerNorm-in, the folded
 roll, the residual and both LeakyReLU slopes, and on bf16-rounded weights
 (no wl: two products). Plain TF32 (xh wh alone) is the control the split
-must beat."""
+must beat.
+
+K4 and K5 split the activations by integer ops (``common.cuh: split1``):
+xl = x - xh is passed whole and read by the tensor cores as its top 19 bits
+(``trunc``, not ``rna``). Their blocks are emulated whole in the kernels'
+order: LN, the 1x1 in split TF32 with its bias, the ring outside the canvas
+zero, the depthwise taps in float32; K4's erf gate and ``project_out`` a
+chunk of 32 hidden channels at a time, each chunk's partial added in
+float32 (hid 63: a ragged chunk), then the bias and the residual; K5's
+per-head gram in split TF32 over runs of 256 pixels added in float32, the
+sums of squares of the float32 q and k, and the port's plain epilogue."""
 
 import importlib
 
@@ -25,10 +36,14 @@ import torch
 import torch.nn.functional as F
 
 from image_restoration_agent_tpu.ops.conv3x3 import conv3x3_pallas
+from image_restoration_agent_tpu.ops.restormer_fused import (
+    gdfn_block_pallas, mdta_block_pallas)
 
 tkern = importlib.import_module("image_restoration_agent_tpu_torch.ops.kernels")
 tconv = importlib.import_module("image_restoration_agent_tpu_torch.ops.conv3x3")
 tsb = importlib.import_module("image_restoration_agent_tpu_torch.ops.swin_block")
+trf = importlib.import_module(
+    "image_restoration_agent_tpu_torch.ops.restormer_fused")
 
 torch.set_num_threads(1)
 
@@ -47,15 +62,16 @@ def trunc(x: torch.Tensor) -> torch.Tensor:
     return (x.contiguous().view(torch.int32) & -8192).view(torch.float32)
 
 
-def split_product(a: torch.Tensor, w: torch.Tensor,
-                  split: bool = True) -> torch.Tensor:
+def split_product(a: torch.Tensor, w: torch.Tensor, split: bool = True,
+                  a_trunc: bool = False) -> torch.Tensor:
     """(M, K) @ (K, N) as the float32 kernels compute it (split=False:
-    plain TF32, xh wh alone)."""
+    plain TF32, xh wh alone; a_trunc: xl read as trunc(x - xh), K4's and
+    K5's integer split)."""
     ah = rna(a)
     wh = rna(w)
     if not split:
         return (ah.double() @ wh.double()).float()
-    al = rna(a - ah)
+    al = trunc(a - ah) if a_trunc else rna(a - ah)
     wl = trunc(w - wh)
     acc = (al.double() @ wh.double()).float()
     if bool((wl != 0).any()):
@@ -195,3 +211,151 @@ def test_emulation_masks_are_the_ports():
     assert torch.equal(wh + wl, w) and torch.equal(wl, w - rna(w))
     assert tkern.tf32_split(w.to(torch.bfloat16).float())[0].equal(
         w.to(torch.bfloat16).float())
+
+
+# K4 and K5: the blocks at the JAX package's fused-block test shape (the
+# port's tests/test_torch_restormer.py): C 24, hid 63 (a ragged chunk)
+_RB, _RH, _RW, _RC = 1, 16, 128, 24
+_RHID = int(_RC * 2.66)
+
+
+def _ln_f32(x, ln):
+    """The fused blocks' LayerNorm (float32 two-pass, eps 1e-5): None,
+    (scale,) BiasFree (mean kept), (scale, bias)."""
+    if ln is None:
+        return x
+    mu = x.mean(-1, keepdim=True)
+    rs = torch.rsqrt((x - mu).square().mean(-1, keepdim=True) + 1e-5)
+    return x * rs * ln[0] if len(ln) == 1 else (x - mu) * rs * ln[0] + ln[1]
+
+
+def _one_by_one_taps(x, ln, w, b, w_dw, b_dw, split):
+    """LN, the 1x1 in split TF32 (+ bias), the depthwise taps on its output
+    with the ring outside the canvas zero (+ bias), float32."""
+    bsz, h, wd, c = x.shape
+    u = split_product(_ln_f32(x, ln).reshape(-1, c), w, split, a_trunc=True)
+    if b is not None:
+        u = u + b
+    f = u.shape[-1]
+    d = F.conv2d(u.reshape(bsz, h, wd, f).permute(0, 3, 1, 2),
+                 w_dw.t().reshape(f, 1, 3, 3), padding=1,
+                 groups=f).permute(0, 2, 3, 1)
+    return d if b_dw is None else d + b_dw
+
+
+def gdfn_emulated(x, ln, w_in, b_in, w_dw, b_dw, w_out, b_out, split=True):
+    """K4's float32 kernel: project_out a chunk of 32 hidden channels at a
+    time, each chunk's partial added in float32."""
+    hid = w_out.shape[0]
+    d = _one_by_one_taps(x, ln, w_in, b_in, w_dw, b_dw, split)
+    x1, x2 = d[..., :hid], d[..., hid:]
+    gate = (0.5 * x1 * (1 + torch.erf(x1 * 2 ** -0.5)) * x2).reshape(-1, hid)
+    acc = torch.zeros(gate.shape[0], x.shape[-1])
+    for i in range(0, hid, trf.CHUNK):
+        acc = acc + split_product(gate[:, i:i + trf.CHUNK],
+                                  w_out[i:i + trf.CHUNK], split, a_trunc=True)
+    if b_out is not None:
+        acc = acc + b_out
+    return acc.reshape(x.shape) + x
+
+
+def mdta_emulated(x, ln, w_qkv, b_qkv, w_dw, b_dw, w_proj, b_proj, temp,
+                  heads, split=True):
+    """K5's float32 kernel and the plain epilogue: the gram over runs of
+    256 pixels, each run's q_h^T k_h in split TF32 added in float32."""
+    bsz, h, wd, c = x.shape
+    ch = c // heads
+    d = _one_by_one_taps(x, ln, w_qkv, b_qkv, w_dw, b_dw, split)
+    q, k, v = d[..., :c], d[..., c:2 * c], d[..., 2 * c:]
+    qf, kf = q.reshape(bsz, -1, heads, ch), k.reshape(bsz, -1, heads, ch)
+    gram = torch.zeros(bsz, heads, ch, ch)
+    for p0 in range(0, qf.shape[1], 256):
+        for hh in range(heads):
+            for bb in range(bsz):
+                gram[bb, hh] += split_product(
+                    qf[bb, p0:p0 + 256, hh].t(), kf[bb, p0:p0 + 256, hh],
+                    split, a_trunc=True)
+    ssq = torch.stack([q.square().sum(dim=(1, 2)),
+                       k.square().sum(dim=(1, 2))], dim=1)
+    return trf.mdta_epilogue(x, v, gram, ssq, temp, w_proj, b_proj, heads)
+
+
+def _fused_inputs(seed, ln_kind, bias, n_in, n_out):
+    rng = np.random.default_rng(seed)
+    c = _RC
+    x = _np(rng, _RB, _RH, _RW, c)
+    ln = {"none": None, "biasfree": (1 + _np(rng, c, scale=0.1),),
+          "withbias": (1 + _np(rng, c, scale=0.1),
+                       _np(rng, c, scale=0.1))}[ln_kind]
+    b = (lambda n: _np(rng, n, scale=0.1)) if bias else (lambda n: None)
+    w = (_np(rng, c, n_in, scale=c ** -0.5), b(n_in),
+         _np(rng, 9, n_in, scale=1 / 3), b(n_in),
+         _np(rng, n_out, c, scale=n_out ** -0.5), b(c))
+    return x, ln, w
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+def _errors(want, emulate):
+    """The split emulation's and plain TF32's largest errors against the
+    JAX result, and its largest magnitude."""
+    scale = float(np.abs(want).max())
+    e_split = float(np.abs(emulate(True).numpy() - want).max())
+    e_plain = float(np.abs(emulate(False).numpy() - want).max())
+    return e_split, e_plain, scale
+
+
+_FUSED_FORMS = [("none", False), ("biasfree", False), ("withbias", False),
+                ("none", True), ("biasfree", True), ("withbias", True)]
+
+
+@pytest.mark.parametrize("ln_kind,bias", _FUSED_FORMS)
+def test_gdfn_split_matches_pallas(ln_kind, bias):
+    """K4's float32 block emulated against gdfn_block_pallas (f32, erf
+    GELU, interpret mode): within the f32 rule, and plain TF32 well
+    outside the split's error."""
+    x, ln, (wi, bi, wd, bd, wo, bo) = _fused_inputs(
+        30 + 2 * _FUSED_FORMS.index((ln_kind, bias)), ln_kind, bias,
+        2 * _RHID, _RHID)
+    want = np.asarray(gdfn_block_pallas(
+        jnp.asarray(x), None if ln is None else tuple(map(jnp.asarray, ln)),
+        jnp.asarray(wi).reshape(1, 1, _RC, 2 * _RHID), _j(bi),
+        jnp.asarray(wd).reshape(3, 3, 1, 2 * _RHID), _j(bd),
+        jnp.asarray(wo).reshape(1, 1, _RHID, _RC), _j(bo),
+        fastmath=False, interpret=True))
+    tl = None if ln is None else tuple(map(_t, ln))
+    e_split, e_plain, scale = _errors(want, lambda split: gdfn_emulated(
+        _t(x), tl, _t(wi), _t(bi), _t(wd), _t(bd), _t(wo), _t(bo), split))
+    assert e_split <= 1e-4 * scale, (e_split, scale)
+    assert e_split * 10 < e_plain, (e_split, e_plain)
+
+
+@pytest.mark.parametrize("ln_kind,bias", _FUSED_FORMS)
+@pytest.mark.parametrize("heads", [1, 2])
+def test_mdta_split_matches_pallas(heads, ln_kind, bias):
+    """K5's float32 front emulated, with the port's epilogue, against
+    mdta_block_pallas (f32, interpret mode): within the f32 rule, and plain
+    TF32 well outside the split's error."""
+    x, ln, (wq, bq, wd, bd, wp, bp) = _fused_inputs(
+        50 + 2 * _FUSED_FORMS.index((ln_kind, bias)) + heads, ln_kind, bias,
+        3 * _RC, _RC)
+    temp = (np.random.default_rng(heads).random(heads) + 0.5).astype(
+        np.float32)
+    want = np.asarray(mdta_block_pallas(
+        jnp.asarray(x), None if ln is None else tuple(map(jnp.asarray, ln)),
+        jnp.asarray(wq).reshape(1, 1, _RC, 3 * _RC), _j(bq),
+        jnp.asarray(wd).reshape(3, 3, 1, 3 * _RC), _j(bd),
+        jnp.asarray(wp).reshape(1, 1, _RC, _RC), _j(bp), jnp.asarray(temp),
+        num_heads=heads, interpret=True))
+    tl = None if ln is None else tuple(map(_t, ln))
+    e_split, e_plain, scale = _errors(want, lambda split: mdta_emulated(
+        _t(x), tl, _t(wq), _t(bq), _t(wd), _t(bd), _t(wp), _t(bp),
+        _t(temp), heads, split))
+    assert e_split <= 1e-4 * scale, (e_split, scale)
+    assert e_split * 10 < e_plain, (e_split, e_plain)
