@@ -92,6 +92,11 @@ Phases, each printing one JSON line:
     magnitude;
 18. dehazeformer_bf16_vs_f32: bf16 against f32 on the card on the same
     image, PSNR >= the plain bf16-vs-f32 control (the CPU path) - 2 dB;
+    jpeg_batch_path (after it, numbered with it): BASELINE #4 as
+    ``bench.py:370-441`` defines it, eight 256x256 JPEGs (quality 40) each
+    decoded by the port's ``decode_image`` inside the timed loop, then
+    ``swinir_lightweight_sr_x4`` whole-image, in bf16 and in float32: best
+    of three seconds, MP/s, the decode's share, K1 / K2 / K3 launches;
 19. lab_kernels (with the kernel checks, also under ``--quick`` at small
     shapes): K7 ``conv3x3_pair`` at the x4 head's second stage of one band
     (1104x3840, 64 -> 256 -> 12) and its ring strip (24x3840; also with
@@ -189,8 +194,9 @@ Phases, each printing one JSON line:
     loopback port over default_agent_path's engine and the unmodified
     ``build_default_executor``: /health (device ``cuda``, the card's name,
     the native codec), three /process requests on the agent golden input
-    (JSON, multipart, JSON), each with its /download; the same plan and
-    subtask results, byte-equal downloads, no ``tool_errors`` in any
+    (JSON, multipart, JSON) each with its /download, then its JPEG upload
+    and /download; the first three's plan and subtask results equal, the
+    JPEG's served, byte-equal downloads, no ``tool_errors`` in any
     request's graph state, every call form checked by zoo_kernels, p50
     seconds and launches; then /evaluate_degradation and /compare_quality
     on ``make_eval_server`` with the classifier on the card;
@@ -326,13 +332,15 @@ Phases, each printing one JSON line:
 Every phase but the training ones (56-65) runs under ``torch.no_grad()``,
 as a served forward does.
 
-Float32 K3, K1, K2, K4 and K5 run their products in split TF32 on the
-tensor cores (three TF32 products a k step, two where K3's or K1's weights
-are bf16-rounded or the rows bf16); K4's and K5's depthwise taps, K4's
-gate and K5's plain epilogue, and every other float32 kernel, run FP32
-FMA. Each float32 kernel row prints its ``f32_route`` (``split-tf32 xP``,
-``fma``, or both, ``split-tf32 x3 + fma``, for K4, K5 and composites such
-as ``swin_attn_block``), and its bound takes that route: P x FLOP / 495
+Float32 K3, K1, K2, K4, K5, K7 and K8 run their products in split TF32 on
+the tensor cores (three TF32 products a k step, two where K3's or K1's
+weights are bf16-rounded or the rows bf16); K4's and K5's depthwise taps,
+K4's gate and K5's plain epilogue, and K6's copy, run FP32. A float32 K7
+or K8 row passes only if its route is ``split-tf32 x3`` and it is
+``repeatable``. Each float32 kernel row prints its ``f32_route``
+(``split-tf32 xP``, ``fma``, or both, ``split-tf32 x3 + fma``, for K4, K5
+and composites such as ``swin_attn_block``), and its bound takes that
+route: P x FLOP / 495
 TFLOP/s for the split-TF32 launches' FLOP (K4: 6 C hid a pixel; K5: 6 C^2
 + 2 C C_h), FLOP / 67 TFLOP/s for the rest, bytes / 3.35 TB/s, the
 largest. Every K4 and K5 row passes only if ``repeatable`` (two launches
@@ -382,6 +390,9 @@ PEAK_BYTES = 3.35e12
 # (K4's and K5's products are split TF32 too, their taps FP32 FMA); "wmsa"
 # is K2 alone
 SPLIT_TF32 = ("conv3x3", "token_linear", "window_attention", "wmsa")
+# the lab's kernels, every float32 product split TF32 (since PR 21): their
+# rows take the repeat, not the float64 control
+SPLIT_TF32_LAB = ("conv3x3_pair", "swin_pair_block")
 SRC = "image_restoration_agent_tpu_torch/csrc/"
 TPU = "image_restoration_agent_tpu/ops/"
 REPLACES = {
@@ -539,10 +550,10 @@ def bound(flops: float, nbytes: float, dtype: str, tf32_flops: float = 0.0,
 
 @contextlib.contextmanager
 def split_launches(calls: list):
-    """Record the float32 K3, K1, K2, K4 and K5 launches made inside the
-    block: each one's wrapper, split-TF32 FLOP and passes; the first one's
-    arguments and output too while it is the only one (the single-kernel
-    rows' float64 control and repeat)."""
+    """Record the float32 K3, K1, K2, K4, K5, K7 and K8 launches made
+    inside the block: each one's wrapper, split-TF32 FLOP and passes; the
+    first one's arguments and output too while it is the only one (the
+    single-kernel rows' float64 control and repeat)."""
     import importlib
 
     import torch
@@ -556,10 +567,26 @@ def split_launches(calls: list):
     trf = importlib.import_module(
         "image_restoration_agent_tpu_torch.ops.restormer_fused")
     saved = (tconv._conv3x3_cuda, tsb._token_linear_cuda,
-             tsb._window_attention_cuda, trf._gdfn_cuda, trf._mdta_cuda)
+             tsb._window_attention_cuda, trf._gdfn_cuda, trf._mdta_cuda,
+             tconv._conv3x3_pair_cuda, tsb._swin_pair_cuda)
 
     def record(name, fn, args, out):
-        if name in ("gdfn_block", "mdta_front"):
+        if name in SPLIT_TF32_LAB:
+            x = args[0]
+            if x.dtype != torch.float32:
+                return
+            if name == "conv3x3_pair":  # both convs' products
+                k = args[1]
+                flops = 2 * x.numel() // k.cin * 9 * (
+                    k.cin * k.cmid + k.cmid * k.cout)
+            else:  # the two blocks' products and attention
+                pa, ws = args[1], args[5]
+                t, c, hid = x.numel() // x.shape[-1], x.shape[-1], \
+                    pa.b1.shape[0]
+                flops = 2 * (8 * t * c * c + 4 * t * c * hid
+                             + 4 * t * ws * ws * c)
+            passes = 3
+        elif name in ("gdfn_block", "mdta_front"):
             x, k = args[:2]
             if x.dtype != torch.float32:
                 return
@@ -608,12 +635,14 @@ def split_launches(calls: list):
     tsb._window_attention_cuda = wrap("window_attention", saved[2])
     trf._gdfn_cuda = wrap("gdfn_block", saved[3])
     trf._mdta_cuda = wrap("mdta_front", saved[4])
+    tconv._conv3x3_pair_cuda = wrap("conv3x3_pair", saved[5])
+    tsb._swin_pair_cuda = wrap("swin_pair_block", saved[6])
     try:
         yield calls
     finally:
         (tconv._conv3x3_cuda, tsb._token_linear_cuda,
-         tsb._window_attention_cuda, trf._gdfn_cuda,
-         trf._mdta_cuda) = saved
+         tsb._window_attention_cuda, trf._gdfn_cuda, trf._mdta_cuda,
+         tconv._conv3x3_pair_cuda, tsb._swin_pair_cuda) = saved
 
 
 def _attn64(call: dict):
@@ -719,7 +748,7 @@ def split_route(name: str, calls: list, flops: float) -> dict:
     float64 control (the kernel's and the plain f32 version's max error
     against a float64 product on the card, printed, not gated) and
     ``repeatable`` (a second launch on the same operands gives the same
-    bits)."""
+    bits); a K7 or K8 launch the repeat alone."""
     import torch
 
     tf32 = sum(c["flops"] for c in calls)
@@ -727,24 +756,32 @@ def split_route(name: str, calls: list, flops: float) -> dict:
     route = "fma" if not calls else f"split-tf32 x{passes}" \
         if tf32 >= flops else f"split-tf32 x{passes} + fma"
     info = dict(f32_route=route, tf32_flops=tf32, tf32_passes=passes)
-    if name in SPLIT_TF32 and len(calls) == 1 and calls[0]["out"] is not None:
+    if name in SPLIT_TF32 + SPLIT_TF32_LAB and len(calls) == 1 \
+            and calls[0]["out"] is not None:
         c = calls[0]
         with torch.no_grad():
-            got, plain, ref = _ref64(c)
-            info["f64_max_abs_err"] = float((got.double() - ref).abs().max())
-            info["plain_f64_max_abs_err"] = float(
-                (plain.double() - ref).abs().max())
+            if name in SPLIT_TF32:
+                got, plain, ref = _ref64(c)
+                info["f64_max_abs_err"] = float(
+                    (got.double() - ref).abs().max())
+                info["plain_f64_max_abs_err"] = float(
+                    (plain.double() - ref).abs().max())
+                del got, plain, ref
             again = c["fn"](*c["args"])
             info["repeatable"] = bool(torch.equal(again, c["out"]))
-        del got, plain, ref, again
+        del again
     calls.clear()
     return info
 
 
 def split_route_held(row: dict) -> bool:
     """A float32 K4 or K5 row ran its products in split TF32 (its taps on
-    FP32 FMA): no float32 launch of theirs reaches an FMA product kernel
-    or the plain version."""
+    FP32 FMA), a K7 or K8 row every product (and repeated bit for bit): no
+    float32 launch of theirs reaches an FMA product kernel or the plain
+    version."""
+    if row["name"] in SPLIT_TF32_LAB:
+        return row.get("f32_route") == "split-tf32 x3" \
+            and row.get("repeatable") is True
     return row["name"] not in ("gdfn_block", "mdta_front") or \
         row.get("f32_route") == "split-tf32 x3 + fma"
 
@@ -3787,6 +3824,88 @@ def _http(url: str, body: bytes | None = None, ctype: str = "") -> tuple:
         return e.code, e.read()
 
 
+def jpeg_batch_path(card: str, reps: int = 3) -> dict:
+    """BASELINE #4 as ``bench.py:370-441`` defines it, on the port: eight
+    256x256 JPEGs (quality 40, encoded by OpenCV from uniform noise drawn
+    from ``default_rng(0)``), each decoded by the port's ``decode_image``
+    inside the timed loop, then ``swinir_lightweight_sr_x4``
+    (``build_model(name, seed=0)``) through ``tiled_apply(tile=None)`` on
+    the card; best of ``reps`` after a warm-up, in bfloat16 (the bench's
+    dtype) and in float32 (what ``Engine`` serves by default). Prints the
+    seconds, MP/s over the input megapixels, the decode's share of the
+    best run and the K1, K2 and K3 launches of one pass; fails if an image
+    does not decode to 256x256x3, an output is not 1024x1024x3 and finite,
+    or a pass launches no K1, K2 or K3."""
+    import cv2
+    import torch
+
+    from image_restoration_agent_tpu_torch.core.io import (decode_image,
+                                                           to_float)
+    from image_restoration_agent_tpu_torch.core.tiling import tiled_apply
+    from image_restoration_agent_tpu_torch.models import (build_model,
+                                                          get_spec)
+
+    n_imgs, size = 8, 256
+    rng = np.random.default_rng(0)
+    blobs = []
+    for _ in range(n_imgs):
+        arr = (rng.random((size, size, 3)) * 255).astype(np.uint8)
+        ok, buf = cv2.imencode(".jpg", np.ascontiguousarray(arr[..., ::-1]),
+                               [cv2.IMWRITE_JPEG_QUALITY, 40])
+        blobs.append(buf.tobytes())
+    name = "swinir_lightweight_sr_x4"
+    spec = get_spec(name)
+    used = ("token_linear", "window_attention", "conv3x3")
+    out, ok = {"phase": "jpeg_batch_path", "model": name,
+               "images": [n_imgs, size, size, 3], "jpeg_quality": 40,
+               "jpeg_bytes": [len(b) for b in blobs]}, True
+    for dtype in (torch.bfloat16, torch.float32):
+        model = build_model(name, seed=0, dtype=dtype)
+
+        def fwd(batch, model=model, dtype=dtype):
+            return model(batch.to(dtype)).float()
+
+        def pipeline():
+            outs, dec = [], 0.0
+            for blob in blobs:
+                t0 = time.perf_counter()
+                img = decode_image(blob)
+                dec += time.perf_counter() - t0
+                x = torch.from_numpy(to_float(img)).cuda()
+                outs.append(tiled_apply(fwd, x, tile=None, scale=spec.scale,
+                                        pad_multiple=spec.pad_multiple,
+                                        pad_kind=spec.pad_kind))
+            torch.cuda.synchronize()
+            return outs, dec
+
+        pipeline()  # warm-up
+        reset_launch_counts()
+        outs, _ = pipeline()
+        counts = launch_counts()
+        secs, decs = [], []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            _, dec = pipeline()
+            secs.append(time.perf_counter() - t0)
+            decs.append(dec)
+        best = int(np.argmin(secs))
+        good = all(o.shape == (4 * size, 4 * size, 3)
+                   and bool(torch.isfinite(o).all()) for o in outs) \
+            and all(decode_image(b).shape == (size, size, 3) for b in blobs) \
+            and all(counts[k] > 0 for k in used)
+        ok = ok and good
+        out[str(dtype).split(".")[-1]] = {
+            "seconds": secs, "best_s": secs[best],
+            "mp_per_s": n_imgs * size * size / 1e6 / secs[best],
+            "decode_s": decs[best], "decode_share": decs[best] / secs[best],
+            "launches": {k: counts[k] for k in used},
+            "other_launches": {k: v for k, v in counts.items()
+                               if k not in used and v}, "pass": good}
+        del model, outs
+    out["launches"] = out["float32"]["launches"]
+    return {**out, "card": card, "pass": bool(ok)}
+
+
 def serve_path(card: str) -> dict:
     """The port's HTTP API on the card: ``make_server`` on a loopback port
     in a thread, over an engine set up as default_agent_path's (Restormer
@@ -3795,8 +3914,10 @@ def serve_path(card: str) -> dict:
     /health (device ``cuda`` and the card's name), then three /process
     requests on the agent golden input (a JSON image_path in the work
     root, a multipart upload, JSON again), each followed by its
-    /download. Fails on a status other than 200, plans or subtask results
-    that differ between the requests, downloaded bytes that differ from
+    /download, then the input as a JPEG upload (quality 95, 4:4:4) and its
+    /download. Fails on a status other than 200, a JPEG upload not served,
+    plans or subtask results that differ between the first three
+    requests, downloaded bytes that differ from
     ``final_output/<task_id>.png``, any ``tool_errors`` in a request's
     graph state, a plan box outside default_agent_path's (whose call forms
     zoo_kernels checked) or an unchecked call form. Then two requests to
@@ -3841,6 +3962,17 @@ def serve_path(card: str) -> dict:
                   f'name="file"; filename="noisy.png"\r\n'
                   "Content-Type: image/png\r\n\r\n").encode() \
             + inp.read_bytes() + f"\r\n--{boundary}--\r\n".encode()
+        import cv2
+        # 4:4:4, so that the classifier sees the PNG's degradations (at
+        # 4:2:0 it reads the chroma blur as defocus)
+        ok_j, jpg = cv2.imencode(".jpg", np.ascontiguousarray(
+            np.clip(np.round(img * 255), 0, 255).astype(np.uint8)[..., ::-1]),
+            [cv2.IMWRITE_JPEG_QUALITY, 95, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+             cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444])
+        jupload = (f"--{boundary}\r\nContent-Disposition: form-data; "
+                   f'name="file"; filename="noisy.jpg"\r\n'
+                   "Content-Type: image/jpeg\r\n\r\n").encode() \
+            + jpg.tobytes() + f"\r\n--{boundary}--\r\n".encode()
         requests = [
             ("json", json.dumps({"image_path": str(inp)}).encode(),
              "application/json"),
@@ -3873,6 +4005,20 @@ def serve_path(card: str) -> dict:
                     downloads.append(final.exists()
                                      and png == final.read_bytes())
                 counts = launch_counts()
+            # the JPEG upload, after the counted requests: served and
+            # downloaded as they are (its plan may differ from the PNG's:
+            # other bytes, another classifier reading)
+            t0 = time.perf_counter()
+            code, raw = _http(f"{base}/process", jupload,
+                              f"multipart/form-data; boundary={boundary}")
+            jsecs = time.perf_counter() - t0
+            codes.append(code)
+            jout = json.loads(raw)
+            code, png = _http(f"{base}/download/{jout.get('task_id')}")
+            codes.append(code)
+            final = app.work_root / "final_output" / \
+                f"{jout.get('task_id')}.png"
+            downloads.append(final.exists() and png == final.read_bytes())
             ev = make_eval_server(host="127.0.0.1", port=0, device="cuda")
             threading.Thread(target=ev.serve_forever, daemon=True).start()
             ebase = f"http://127.0.0.1:{ev.server_address[1]}"
@@ -3899,6 +4045,8 @@ def serve_path(card: str) -> dict:
         plans = [o.get("initial_plan") for o in outs]
         results = [o.get("subtask_success") for o in outs]
         boxes = {s for p in plans for s, _ in (p or [])}
+        jpeg_ok = ok_j and jout.get("status") == "success" \
+            and bool(jout.get("initial_plan"))
         used = ("conv3x3", "gdfn_block", "mdta_front", "wmsa_block",
                 "mlp_block")
         launches = {k: counts[k] for k in used}
@@ -3909,7 +4057,7 @@ def serve_path(card: str) -> dict:
                        for t in tools if t.invocations}
         ok = (all(c == 200 for c in codes) and all(downloads)
               and all(p == plans[0] for p in plans) and plans[0]
-              and all(r == results[0] for r in results)
+              and all(r == results[0] for r in results) and jpeg_ok
               and not errors and boxes <= set(DEFAULT_PLAN)
               and not unchecked and all(v > 0 for v in launches.values())
               and health.get("device") == "cuda"
@@ -3924,6 +4072,11 @@ def serve_path(card: str) -> dict:
                 "health": health, "statuses": codes,
                 "downloads_equal": downloads, "plan": plans[0],
                 "subtask_success": results[0],
+                "jpeg_upload": {"bytes": len(jpg),
+                                "plan": jout.get("initial_plan"),
+                                "subtask_success":
+                                    jout.get("subtask_success"),
+                                "seconds": jsecs},
                 "executed": [st.get("executed") for st in graph.states],
                 "tool_calls": sum(invocations.values()),
                 "invocations": invocations,
@@ -7035,6 +7188,9 @@ def main() -> int:
         served_z = phase("dehazeformer_path", dehazeformer_path, state, card)
         phase("dehazeformer_exact", dehazeformer_exact, state)
         phase("dehazeformer_bf16_vs_f32", dehazeformer_bf16_vs_f32, state)
+        torch.cuda.empty_cache()
+        served_j = phase("jpeg_batch_path", jpeg_batch_path, card)
+        launches["jpeg_batch"] = served_j["launches"] if served_j else {}
         torch.cuda.empty_cache()
         launches.update({p: r["launches"] if r else {}
                          for p, r in agent_phases(phase, card).items()})

@@ -1,12 +1,11 @@
-"""Threaded image-decode pool over the native codec (counterpart of
+"""Threaded image-decode pool (counterpart of
 ``image_restoration_agent_tpu/core/decode_pool.py``).
 
-Decode work fans out over a thread pool: the native PNG codec
-(:mod:`core.io_native`) is a ctypes call, so the GIL is released for the
-whole inflate + unfilter and threads overlap. Where the native library is
-absent, or does not take the bytes, the port's own codec
-(:func:`core.io.decode_image`) decodes them, where the JAX package falls
-back to PIL.
+Decode work fans out over a thread pool through
+:func:`core.io.decode_image`: the native PNG codec (:mod:`core.io_native`,
+a ctypes call) and OpenCV release the GIL for the whole decode, so threads
+overlap. It takes what the JAX package's pool takes (PNG, JPEG, BMP, WebP,
+...), OpenCV standing where the JAX package falls back to PIL.
 
 Used by the API server to validate multipart uploads.
 """
@@ -27,21 +26,13 @@ class DecodePool:
         self._pool = ThreadPoolExecutor(max_workers=workers,
                                         thread_name_prefix="decode")
 
-    @staticmethod
-    def _decode_bytes(blob: bytes) -> np.ndarray:
-        from . import io_native
-        out = io_native.decode_png(blob)
-        if out is None:
-            out = decode_image(blob)
-        return out
-
     def decode(self, blob: bytes) -> np.ndarray:
         """Synchronous decode of one blob (uint8 HWC)."""
-        return self._decode_bytes(blob)
+        return decode_image(blob)
 
     def decode_many(self, blobs: Iterable[bytes],
                     as_float: bool = False) -> list[np.ndarray]:
-        outs = list(self._pool.map(self._decode_bytes, blobs))
+        outs = list(self._pool.map(decode_image, blobs))
         return [to_float(o) for o in outs] if as_float else outs
 
     def load_many(self, paths: Iterable[str | Path],
@@ -51,7 +42,7 @@ class DecodePool:
 
     def submit(self, blob: bytes):
         """Async decode; returns a Future."""
-        return self._pool.submit(self._decode_bytes, blob)
+        return self._pool.submit(decode_image, blob)
 
 
 _default: Optional[DecodePool] = None

@@ -1,12 +1,17 @@
 """Host-side image decode/encode (counterpart of
 ``image_restoration_agent_tpu/core/io.py``).
 
-PNG is decoded and encoded here with the standard library's ``zlib`` and
-numpy, following the algorithm of ``native/png_codec.cpp``: gather the
-IDAT payload, inflate it, then undo each row's filter (None, Sub, Up,
-Average, Paeth). Encoding writes filter 0 rows and deflates them. No
-imaging library is needed, so the card's machine (which has none) reads
-and writes the same files as the JAX package.
+:func:`decode_image` takes every image the JAX package's takes and returns
+its array. A PNG goes to the native codec (:mod:`core.io_native`) first, as
+in the JAX package, then to the port's own codec: the standard library's
+``zlib`` and numpy, following ``native/png_codec.cpp`` (gather the IDAT
+payload, inflate it, undo each row's filter: None, Sub, Up, Average,
+Paeth), for the 8-bit non-interlaced PNGs it takes. Everything else (JPEG,
+BMP, WebP, 16-bit and interlaced PNG) goes to OpenCV, where the JAX package
+goes to PIL: the card's machine has OpenCV and no imaging library.
+:func:`save_image` picks the format from the extension, as PIL does for
+the JAX package: PNG through the port's encoder, JPEG (PIL's defaults:
+quality 75, 4:2:0), BMP and WebP through OpenCV.
 """
 
 from __future__ import annotations
@@ -122,9 +127,13 @@ def encode_png(img: np.ndarray) -> bytes:
             + _chunk(b"IEND", b""))
 
 
-def decode_image(data: bytes) -> np.ndarray:
-    """Decode PNG bytes to an RGB uint8 (H, W, 3) array."""
-    out = decode_png(data)
+def _cv2():
+    import cv2  # the port's image library (data/degrade.py needs it too)
+    return cv2
+
+
+def _rgb(out: np.ndarray) -> np.ndarray:
+    """(H, W, C) uint8 as RGB: grey repeated, alpha dropped."""
     if out.shape[-1] == 1:
         out = np.repeat(out, 3, axis=-1)
     elif out.shape[-1] == 4:
@@ -134,19 +143,100 @@ def decode_image(data: bytes) -> np.ndarray:
     return np.ascontiguousarray(out)
 
 
+def _decode_cv2(data: bytes) -> np.ndarray | None:
+    """OpenCV's decode as PIL's ``convert("RGB")`` gives it, or None. PIL
+    applies no EXIF rotation, so neither does this; it clamps 16-bit grey
+    to 255 where OpenCV takes the high byte (every other 16-bit PNG: the
+    high byte in both)."""
+    cv2 = _cv2()
+    buf = np.frombuffer(data, np.uint8)
+    grey16 = data[:8] == _SIG and data[12:16] == b"IHDR" \
+        and data[24] == 16 and data[25] == 0
+    try:
+        out = cv2.imdecode(buf, cv2.IMREAD_UNCHANGED if grey16 else
+                           cv2.IMREAD_COLOR | cv2.IMREAD_IGNORE_ORIENTATION)
+    except cv2.error:  # empty bytes
+        return None
+    if out is None:
+        return None
+    if grey16:
+        if out.ndim != 2:
+            return None
+        return _rgb(np.minimum(out, 255).astype(np.uint8)[..., None])
+    return np.ascontiguousarray(out[..., ::-1])
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """Decode encoded image bytes (PNG, JPEG, BMP, WebP, ...) to an RGB
+    uint8 (H, W, 3) array: the native PNG codec where it is built, the
+    port's PNG codec for the PNGs it takes, else OpenCV. ValueError for
+    bytes that none decodes."""
+    if data[:8] == _SIG:
+        from . import io_native
+        out = io_native.decode_png(data)
+        if out is not None:
+            return _rgb(out)
+        try:
+            return _rgb(decode_png(data))
+        except ValueError:  # 16-bit, interlaced: OpenCV's
+            pass
+    out = _decode_cv2(data)
+    if out is None:
+        raise ValueError(
+            "not a decodable image (tried "
+            + ("the native and zlib PNG codecs, then " if data[:8] == _SIG
+               else "") + "OpenCV)")
+    return out
+
+
 def load_image(path: str | Path) -> np.ndarray:
-    """Load a PNG file as RGB uint8 (H, W, 3)."""
+    """Load an image file as RGB uint8 (H, W, 3)."""
     with open(path, "rb") as f:
         return decode_image(f.read())
 
 
+def _cv2_encoder(ext: str) -> tuple[str, list] | None:
+    """OpenCV's encoder and PIL's default settings for an extension that
+    is not PNG, or None."""
+    cv2 = _cv2()
+    if ext in (".jpg", ".jpeg"):
+        params = [cv2.IMWRITE_JPEG_QUALITY, 75]
+        if hasattr(cv2, "IMWRITE_JPEG_SAMPLING_FACTOR"):
+            params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                       cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420]
+        return ".jpg", params
+    if ext == ".bmp":
+        return ".bmp", []
+    if ext == ".webp":  # lossy, quality 80
+        return ".webp", [cv2.IMWRITE_WEBP_QUALITY, 80]
+    return None
+
+
 def save_image(img: np.ndarray, path: str | Path) -> None:
-    """Save an image (uint8, or float in [0,1]) as PNG."""
+    """Save an image (uint8, or float in [0,1]) in the format its
+    extension names, as PIL picks it for the JAX package: ``.png`` through
+    :func:`encode_png`; ``.jpg`` / ``.jpeg`` (PIL's defaults: quality 75,
+    4:2:0), ``.bmp`` and ``.webp`` through OpenCV. ValueError for any
+    other extension (PIL raises for one it does not know)."""
     arr = np.asarray(img)
     if arr.dtype != np.uint8:
         arr = to_uint8(arr)
+    ext = Path(path).suffix.lower()
+    if ext == ".png":
+        data = encode_png(arr)
+    else:
+        enc = _cv2_encoder(ext)
+        if enc is None:
+            raise ValueError(f"save_image writes .png, .jpg, .jpeg, .bmp "
+                             f"and .webp, not {ext!r} ({path})")
+        if arr.ndim == 3 and arr.shape[-1] in (3, 4):  # RGB(A) -> BGR(A)
+            arr = arr[..., [2, 1, 0, 3][:arr.shape[-1]]]
+        ok, buf = _cv2().imencode(enc[0], np.ascontiguousarray(arr), enc[1])
+        if not ok:
+            raise ValueError(f"OpenCV could not encode {path}")
+        data = buf.tobytes()
     Path(path).parent.mkdir(parents=True, exist_ok=True)
-    Path(path).write_bytes(encode_png(arr))
+    Path(path).write_bytes(data)
 
 
 def to_float(img: np.ndarray) -> np.ndarray:

@@ -6,8 +6,8 @@
 //
 // What bounds it on the H100: at the x4 head's second stage (1104x3840,
 // 64 -> 256 -> 12) the pair is 1.48e12 FLOP against 0.64 GB of bf16 input
-// and output, so the tensor cores bound it (1.5 ms in bf16; 22 ms on the
-// FP32 pipes in f32). Two K3 launches write the 2.17 GB intermediate u
+// and output, so the tensor cores bound it (1.5 ms in bf16; 9.0 ms in f32 at
+// three TF32 passes). Two K3 launches write the 2.17 GB intermediate u
 // and read it back, and pad Cout 12 to 64. Here u never reaches device
 // memory.
 //
@@ -36,10 +36,40 @@
 //     stages of the chunk's 64 columns, then w2's rows of the chunk.
 //   - The epilogue stores y from the conv2 accumulators: + b2, the cast.
 // The recomputed ring costs (8 x 64) / (6 x 62) = 1.38 of conv1's work.
-// f32 (conv3x3_pair_kernel): a block owns an 8 x 30 output tile, stages its
-// 12 x 34 input tile once and walks Cmid in chunks of 16 on FP32 FMA (no
-// TF32), u for each chunk on the 10 x 32 ring-extended tile in shared
-// memory.
+// float32 (conv3x3_pair_tf32_kernel, Hopper): split TF32 on wgmma
+// m64nNk8 (sm90_gemm.cuh: wgmma_split), every product xl wh + xh wl + xh
+// wh summed in float32, as K3's float32 kernel (conv3x3.cu:
+// conv3x3_tf32_kernel) computes a conv.
+//   - Tile: a block owns 6 x 30 output pixels (one tile, no persistent
+//     loop); u is computed on the 8 x 32 ring (256 pixels: two m64 tiles a
+//     warpgroup), the input staged on 10 x 34 pixels. In float32 neither
+//     the bf16 tile's halo (169 KB) nor its u (135 KB) fits beside a ring,
+//     so the halo streams 8 input channels a stage and is read again from
+//     L2 for every Cmid chunk (8 x 34 x 10 x 64 x 4 bytes a tile and chunk).
+//     The ring costs 256 / 180 = 1.42 of the output's conv1 work.
+//   - Stages: per 64-channel Cmid chunk, Cin / 8 conv1 stages (the halo's 8
+//     channels by 16-byte cp.async, zero off the canvas and past Cin; both
+//     w1 parts, 9 taps x 8 x 64, by one bulk copy) and NO / 8 conv2 stages
+//     (64 / NO 8-channel chunks of both w2 parts), each 36 KB of weights, in
+//     a ring of three 47 KB slots (K3's pipeline: stage j + 2 is issued
+//     while stage j's products run).
+//   - Products: for each tap ldmatrix.x4 gathers each lane's pixel (any
+//     pixel of the halo or of u, halves swizzled so the rows hit every bank
+//     once), the fragment is split into TF32 hi and lo by integer ops
+//     (common.cuh: split1), and three wgmma per tap take the weights by
+//     descriptor: conv1 m64n64k8 on both u tiles, conv2 m64nNOk8 on the
+//     output's three m64 tiles (two and one a warpgroup).
+//   - Sums: each wait group's products (27 wgmma) start from zero and add
+//     into a second set of float32 registers (the tensor cores' adds drift
+//     by about an ulp of the partial each): conv1 per 8 input channels,
+//     conv2 per conv2 stage, across all of Cmid.
+//   - u = act(conv1 + b1), zero off the canvas, into shared memory (64 KB,
+//     8-channel groups), never to device memory; y = conv2 + b2 from the
+//     registers.
+// What bounds it (float32): 3 x 1.48e12 TF32 FLOP at the head shape, 9.0 ms
+// at 495 TFLOP/s, against 1.29 GB of input and output (0.39 ms); the ring's
+// 1.42 and K3's wait-per-group pattern (the tensor pipe drains while the
+// next fragments load) hold it further from that.
 //
 // Plain C interface for ctypes; each entry returns cudaGetLastError().
 
@@ -50,25 +80,6 @@ using namespace irk;
 
 namespace {
 
-constexpr int TH = 8;          // output rows per block
-constexpr int TW = 30;         // output columns per block
-constexpr int UH = TH + 2;     // u rows
-constexpr int UW = TW + 2;     // u columns computed
-constexpr int UWS = UW + 2;    // u columns stored: the last two stay zero
-constexpr int IH = TH + 4;     // input rows
-constexpr int IW = TW + 4;     // input columns
-constexpr int NT = 256;
-constexpr int MCF = 16;        // Cmid channels per chunk
-
-__device__ __forceinline__ float act_fn(float v, int act) {
-  return act == 1 ? (v >= 0.f ? v : 0.01f * v) : v;
-}
-
-struct PairLayout {
-  size_t in, w1, u, w2, scr, total;
-  int ldi, ldw1, ldu, ldw2;
-};
-
 // the offset of a region of `bytes` at `o`, which moves past it (128-byte
 // aligned regions)
 __host__ __device__ inline size_t take(size_t& o, size_t bytes) {
@@ -77,140 +88,271 @@ __host__ __device__ inline size_t take(size_t& o, size_t bytes) {
   return at;
 }
 
-__host__ __device__ inline PairLayout f32_layout(int cin, int cout) {
-  PairLayout l;
-  l.ldi = cin + 1;
-  l.ldw1 = MCF;
-  l.ldu = MCF + 1;
-  l.ldw2 = cout;
-  size_t o = 0;
-  l.in = take(o, static_cast<size_t>(IH * IW) * l.ldi * 4);
-  l.w1 = take(o, static_cast<size_t>(9 * cin) * MCF * 4);
-  l.u = take(o, static_cast<size_t>(UH * UWS) * l.ldu * 4);
-  l.w2 = take(o, static_cast<size_t>(9 * MCF) * cout * 4);
-  l.scr = o;
-  l.total = o;
-  return l;
+// ---------------------------------------------------------------------------
+// float32 on Hopper (conv3x3_pair_tf32_kernel): see the note at the top.
+
+constexpr int T_NT = 256;               // two warpgroups
+constexpr int T_TH = 6, T_TW = 30;      // output tile
+constexpr int T_UW = T_TW + 2;          // u tile: 8 x 32 pixels, 4 x m64
+constexpr int T_UPIX = (T_TH + 2) * T_UW;
+constexpr int T_HW = T_TW + 4;          // input halo: 10 x 34 pixels
+constexpr int T_HPIX = (T_TH + 4) * T_HW;
+constexpr int T_OUT = T_TH * T_TW;      // 180 output pixels: 3 x m64
+constexpr int T_MC = 64;                // Cmid channels a chunk (conv1's N)
+constexpr int T_KC = 8;                 // channels a k8 step
+constexpr int T_HALO = T_HPIX * T_KC * 4;          // one halo stage
+constexpr int T_WST = 2 * 9 * T_KC * T_MC * 4;     // one weight stage
+constexpr int T_SLOT = T_HALO + T_WST;
+constexpr int T_STAGES = 3;
+constexpr int T_UG = T_UPIX * T_KC * 4;            // u: one 8-channel group
+constexpr int T_U = (T_MC / T_KC) * T_UG;
+constexpr int T_SRC = (T_HPIX * 8 + 127) / 128 * 128;
+constexpr int T_FIXED = 128 + T_SRC;    // barriers, the halo's sources
+constexpr int T_SMEM = T_FIXED + T_U + T_STAGES * T_SLOT;
+static_assert(T_UPIX == 4 * 64 && T_OUT <= 3 * 64, "tile");
+static_assert(T_HALO % 128 == 0 && T_SLOT % 128 == 0 && T_U % 128 == 0,
+              "alignment");
+
+// byte offset of channel half `h` (4 floats) of pixel p in an 8-channel
+// staged layout: the two halves swapped where (p >> 2) & 1, so the 8 rows
+// of an ldmatrix hit every bank once
+__device__ __forceinline__ uint32_t t_at(int p, int h) {
+  return static_cast<uint32_t>(p * 32 + ((h ^ ((p >> 2) & 1)) << 4));
 }
 
-// block -> (batch, tile row origin, tile column origin)
-__device__ __forceinline__ void tile_of(int H, int W, long long& b, int& y0,
-                                        int& x0) {
-  const int nty = (H + TH - 1) / TH, ntx = (W + TW - 1) / TW;
-  long long bid = blockIdx.x;
-  x0 = static_cast<int>(bid % ntx) * TW;
-  bid /= ntx;
-  y0 = static_cast<int>(bid % nty) * TH;
-  b = bid / nty;
+// a fragment of float32 bit patterns split into TF32 parts by integer ops
+// (common.cuh: split1): hi rounded to TF32, lo = x - hi passed whole
+__device__ __forceinline__ void split_frag(const uint32_t (&raw)[4],
+                                           uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split1(__uint_as_float(raw[i]), hi[i], lo[i]);
 }
 
-constexpr int NPF = UH * UW / (NT / MCF);  // u pixels per thread (f32): 20
-
-__global__ void __launch_bounds__(NT) conv3x3_pair_kernel(
+// NO: Cout padded to 8, 16 or 32 (conv2's N); a conv2 stage holds 64 / NO
+// 8-channel chunks of w2, so both weights' stages are T_WST bytes
+template <int NO>
+__global__ void __launch_bounds__(T_NT, 1) conv3x3_pair_tf32_kernel(
     const float* __restrict__ x, const float* __restrict__ w1,
     const float* __restrict__ b1, const float* __restrict__ w2,
     const float* __restrict__ b2, float* __restrict__ out, int H, int W,
-    int cin, int cmid, int cout, int act) {
+    int cin, int nci, int nmc, int cout, int act, int vec) {
+  constexpr int K2C = 64 / NO;          // 8-channel chunks a conv2 stage
+  constexpr int N2 = 8 / K2C;           // conv2 stages a Cmid chunk
+  constexpr int WTAP1 = T_KC * T_MC * 4;
+  constexpr int WTAP2 = T_KC * NO * 4;
   extern __shared__ __align__(128) unsigned char smem[];
-  const PairLayout L = f32_layout(cin, cout);
-  float* In = reinterpret_cast<float*>(smem + L.in);
-  float* W1s = reinterpret_cast<float*>(smem + L.w1);
-  float* U = reinterpret_cast<float*>(smem + L.u);
-  float* W2s = reinterpret_cast<float*>(smem + L.w2);
-  const int tid = threadIdx.x;
-  long long b;
-  int y0, x0;
-  tile_of(H, W, b, y0, x0);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  long long* src_s = reinterpret_cast<long long*>(smem + 128);
+  unsigned char* U = smem + T_FIXED;
+  unsigned char* ring = U + T_U;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wg = warp / 4, wq = warp % 4, g = lane >> 2, t = lane & 3;
+  const int ntx = (W + T_TW - 1) / T_TW, nty = (H + T_TH - 1) / T_TH;
+  long long bid = blockIdx.x;
+  const int x0 = static_cast<int>(bid % ntx) * T_TW;
+  bid /= ntx;
+  const int y0 = static_cast<int>(bid % nty) * T_TH;
+  const long long b = bid / nty;
+  const int spc = nci + N2, nst = nmc * spc;
 
-  for (int e = tid; e < IH * IW * cin; e += NT) {
-    const int p = e / cin, c = e % cin;
-    const int y = y0 - 2 + p / IW, xx = x0 - 2 + p % IW;
-    const bool in = y >= 0 && y < H && xx >= 0 && xx < W;
-    In[p * L.ldi + c] = in ? x[((b * H + y) * W + xx) * cin + c] : 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < T_STAGES; ++s) mbar_init(&bars[s], 1);
+    fence_barrier_init();
   }
-  for (int e = tid; e < UH * 2 * MCF; e += NT) {
-    const int r = e / (2 * MCF), c = UW + (e / MCF) % 2, k = e % MCF;
-    U[(r * UWS + c) * L.ldu + k] = 0.f;
+  // halo pixel (r, p) is (y0 - 2 + r, x0 - 2 + p), -1 off the canvas
+  for (int e = tid; e < T_HPIX; e += T_NT) {
+    const int y = y0 - 2 + e / T_HW, xx = x0 - 2 + e % T_HW;
+    src_s[e] = y >= 0 && y < H && xx >= 0 && xx < W ? (b * H + y) * W + xx
+                                                     : -1;
   }
+  __syncthreads();
 
-  // conv1 mapping: channel m of the chunk, pixels pg, pg + 16, ...
-  const int m = tid % MCF, pg = tid / MCF;
-  int ioff[NPF];
-#pragma unroll
-  for (int i = 0; i < NPF; ++i) {
-    const int p = pg + (NT / MCF) * i;
-    ioff[i] = ((p / UW) * IW + p % UW) * L.ldi;
-  }
-  // conv2 mapping: output channel co, output row r, every column
-  const int co = tid % 32, r = tid / 32;
-  float oacc[TW];
-#pragma unroll
-  for (int c = 0; c < TW; ++c) oacc[c] = 0.f;
-
-  for (int mc0 = 0; mc0 < cmid; mc0 += MCF) {
-    __syncthreads();
-    for (int e = tid; e < 9 * cin * MCF; e += NT) {
-      const int row = e / MCF, mm = e % MCF;
-      W1s[e] = mc0 + mm < cmid
-                   ? w1[static_cast<long long>(row) * cmid + mc0 + mm]
-                   : 0.f;
-    }
-    for (int e = tid; e < 9 * MCF * cout; e += NT) {
-      const int row = e / cout, c = e % cout;
-      const int tap = row / MCF, k = row % MCF;
-      W2s[e] = mc0 + k < cmid
-                   ? w2[(static_cast<long long>(tap) * cmid + mc0 + k) * cout +
-                        c]
-                   : 0.f;
-    }
-    __syncthreads();
-
-    float acc[NPF];
-#pragma unroll
-    for (int i = 0; i < NPF; ++i) acc[i] = 0.f;
-    for (int tap = 0; tap < 9; ++tap) {
-      const int toff = ((tap / 3) * IW + tap % 3) * L.ldi;
-      const float* wr = W1s + tap * cin * MCF + m;
-      for (int k = 0; k < cin; ++k) {
-        const float wv = wr[k * MCF];
-#pragma unroll
-        for (int i = 0; i < NPF; ++i)
-          acc[i] = fmaf(In[ioff[i] + toff + k], wv, acc[i]);
+  // stage j of the tile: Cmid chunk j / spc; i = j % spc < nci: conv1's
+  // input channels 8 i .. (the halo's and w1's), else conv2's chunks of w2
+  auto load_w = [&](int j) {  // thread 0
+    const int m = j / spc, i = j % spc, st = j % T_STAGES;
+    const float* src =
+        i < nci ? w1 + static_cast<long long>(m * nci + i) * (T_WST / 4)
+                : w2 + static_cast<long long>(8 * m + (i - nci) * K2C) *
+                           (2 * 9 * T_KC * NO);
+    mbar_arrive_expect_tx(&bars[st], T_WST);
+    bulk_g2s(ring + st * T_SLOT + T_HALO, src, T_WST, &bars[st]);
+  };
+  auto stage_halo = [&](int j) {
+    const int i = j % spc;
+    if (i >= nci) return;
+    unsigned char* hs = ring + (j % T_STAGES) * T_SLOT;
+    for (int e = tid; e < 2 * T_HPIX; e += T_NT) {
+      const int pe = e >> 1, h = e & 1, ch = T_KC * i + 4 * h;
+      unsigned char* dst = hs + t_at(pe, h);
+      const long long s = src_s[pe];
+      if (vec) {
+        const bool in = s >= 0 && ch < cin;
+        cp_async16z(dst, in ? x + s * cin + ch : x, in ? 16 : 0);
+        continue;
       }
-    }
-    const bool live = mc0 + m < cmid;
-    const float bias = live ? b1[mc0 + m] : 0.f;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      if (s >= 0)
 #pragma unroll
-    for (int i = 0; i < NPF; ++i) {
-      const int p = pg + (NT / MCF) * i;
-      const int ur = p / UW, uc = p % UW;
-      const int y = y0 - 1 + ur, xx = x0 - 1 + uc;
-      float v = act_fn(acc[i] + bias, act);
-      if (!live || y < 0 || y >= H || xx < 0 || xx >= W) v = 0.f;
-      U[(ur * UWS + uc) * L.ldu + m] = v;
+        for (int k = 0; k < 4; ++k)
+          if (ch + k < cin) v[k] = x[s * cin + ch + k];
+      *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
     }
-    __syncthreads();
+  };
+  for (int j = 0; j < T_STAGES - 1; ++j) {
+    if (j < nst) {
+      if (tid == 0) load_w(j);
+      stage_halo(j);
+    }
+    cp_async_commit();
+  }
 
-    if (co < cout) {
-      for (int tap = 0; tap < 9; ++tap) {
-        const int dy = tap / 3, dx = tap % 3;
-        for (int k = 0; k < MCF; ++k) {
-          const float wv = W2s[(tap * MCF + k) * cout + co];
-          const float* up = U + ((r + dy) * UWS + dx) * L.ldu + k;
+  // this lane's ldmatrix rows: u pixel p = 64 (2 wg + i) + 16 wq +
+  // frag_row (u row p / 32, column p % 32) for conv1; output pixel q =
+  // 64 (2 wg + i) + 16 wq + frag_row (row q / 30, column q % 30; past 180
+  // pixel 0, dropped) for conv2
+  const int fr = 16 * wq + frag_row(lane), kh = frag_khalf(lane);
+  int ubase[2], obase[2];
 #pragma unroll
-          for (int c = 0; c < TW; ++c)
-            oacc[c] = fmaf(up[c * L.ldu], wv, oacc[c]);
+  for (int i = 0; i < 2; ++i) {
+    const int p = 64 * (2 * wg + i) + fr;
+    ubase[i] = (p / T_UW) * T_HW + p % T_UW;
+    const int q = p < T_OUT ? p : 0;
+    obase[i] = (q / T_TW) * T_UW + q % T_TW;
+  }
+  const int nout = wg == 0 ? 2 : 1;  // output m64 tiles of this warpgroup
+
+  // Two-level sums, as K3's: each wait group's products accumulate from
+  // zero in the wgmma registers and add into tot with one float32 add.
+  float tot1[2][T_MC / 2], tot2[2][NO / 2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int k = 0; k < T_MC / 2; ++k) tot1[i][k] = 0.f;
+#pragma unroll
+    for (int k = 0; k < NO / 2; ++k) tot2[i][k] = 0.f;
+  }
+  uint32_t hi[9][4], lo[9][4];
+  for (int j = 0; j < nst; ++j) {
+    const int st = j % T_STAGES, m = j / spc, i = j % spc;
+    cp_async_wait_upto(T_STAGES - 2);
+    __syncthreads();  // stage j's halo visible; stage j - 1's slot free
+    const int jn = j + T_STAGES - 1;
+    if (jn < nst) {
+      if (tid == 0) load_w(jn);
+      stage_halo(jn);
+    }
+    cp_async_commit();
+    mbar_wait(&bars[st], (j / T_STAGES) & 1);
+    const unsigned char* hs = ring + st * T_SLOT;
+    const unsigned char* wsg = hs + T_HALO;
+    if (i < nci) {
+      // conv1: u (+)= this stage's 8 input channels, 9 taps, both u tiles
+#pragma unroll
+      for (int ui = 0; ui < 2; ++ui) {
+        float acc[T_MC / 2];
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          const int pe = ubase[ui] + (tap / 3) * T_HW + tap % 3;
+          uint32_t raw[4];
+          ldmatrix_x4(raw, hs + t_at(pe, kh));
+          split_frag(raw, hi[tap], lo[tap]);
         }
+        wgmma_fence();
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap)
+          wgmma_split<T_MC>(acc, hi[tap], lo[tap],
+                            b_desc(wsg + tap * WTAP1, T_MC * 16),
+                            b_desc(wsg + (9 + tap) * WTAP1, T_MC * 16), true,
+                            true, tap > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(hi);
+        fence_regs(lo);
+#pragma unroll
+        for (int k = 0; k < T_MC / 2; ++k) tot1[ui][k] += acc[k];
+      }
+      if (i == nci - 1) {
+        // u = act(conv1 + b1), 0 off the canvas, into U; conv2 of the
+        // previous chunk is done with it (every thread passed this stage's
+        // barrier), and the next stage's barrier publishes it
+#pragma unroll
+        for (int ui = 0; ui < 2; ++ui)
+#pragma unroll
+          for (int jj = 0; jj < T_MC / 8; ++jj)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int p = 64 * (2 * wg + ui) + 16 * wq + g + 8 * h;
+              const int y = y0 - 1 + p / T_UW, xx = x0 - 1 + p % T_UW;
+              const bool on = y >= 0 && y < H && xx >= 0 && xx < W;
+              const float2 bb = ldg2(b1 + m * T_MC + 8 * jj + 2 * t);
+              float v0 = tot1[ui][4 * jj + 2 * h] + bb.x;
+              float v1 = tot1[ui][4 * jj + 2 * h + 1] + bb.y;
+              if (act == 1) {
+                v0 = v0 >= 0.f ? v0 : 0.01f * v0;
+                v1 = v1 >= 0.f ? v1 : 0.01f * v1;
+              }
+              *reinterpret_cast<float2*>(U + jj * T_UG + t_at(p, t >> 1) +
+                                         (t & 1) * 8) =
+                  on ? make_float2(v0, v1) : make_float2(0.f, 0.f);
+              tot1[ui][4 * jj + 2 * h] = tot1[ui][4 * jj + 2 * h + 1] = 0.f;
+            }
+      }
+    } else {
+      // conv2: y (+)= this stage's K2C chunks of u, 9 taps each
+#pragma unroll
+      for (int oi = 0; oi < 2; ++oi) {
+        if (oi >= nout) continue;
+        float acc[NO / 2];
+#pragma unroll 1
+        for (int kk = 0; kk < K2C; ++kk) {
+          const unsigned char* ug = U + ((i - nci) * K2C + kk) * T_UG;
+#pragma unroll
+          for (int tap = 0; tap < 9; ++tap) {
+            const int pu = obase[oi] + (tap / 3) * T_UW + tap % 3;
+            uint32_t raw[4];
+            ldmatrix_x4(raw, ug + t_at(pu, kh));
+            split_frag(raw, hi[tap], lo[tap]);
+          }
+          wgmma_fence();
+#pragma unroll
+          for (int tap = 0; tap < 9; ++tap)
+            wgmma_split<NO>(acc, hi[tap], lo[tap],
+                            b_desc(wsg + (18 * kk + tap) * WTAP2, NO * 16),
+                            b_desc(wsg + (18 * kk + 9 + tap) * WTAP2,
+                                   NO * 16),
+                            true, true, kk > 0 || tap > 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(acc);
+          fence_regs(hi);
+          fence_regs(lo);
+        }
+#pragma unroll
+        for (int k = 0; k < NO / 2; ++k) tot2[oi][k] += acc[k];
       }
     }
   }
 
-  const int oy = y0 + r;
-  if (co < cout && oy < H) {
+  // y = conv2 + b2: output pixels past 180, rows past H, columns past W
+  // and channels past Cout are dropped
 #pragma unroll
-    for (int c = 0; c < TW; ++c) {
-      const int ox = x0 + c;
-      if (ox < W) out[((b * H + oy) * W + ox) * cout + co] = oacc[c] + b2[co];
+  for (int oi = 0; oi < 2; ++oi) {
+    if (oi >= nout) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = 64 * (2 * wg + oi) + 16 * wq + g + 8 * h;
+      const int y = y0 + q / T_TW, xx = x0 + q % T_TW;
+      if (q >= T_OUT || y >= H || xx >= W) continue;
+      float* o = out + ((b * H + y) * W + xx) * cout;
+#pragma unroll
+      for (int jj = 0; jj < NO / 8; ++jj) {
+        const int co = 8 * jj + 2 * t;
+        if (co < cout) o[co] = tot2[oi][4 * jj + 2 * h] + b2[co];
+        if (co + 1 < cout) o[co + 1] = tot2[oi][4 * jj + 2 * h + 1] + b2[co + 1];
+      }
     }
   }
 }
@@ -502,26 +644,41 @@ __global__ void __launch_bounds__(128) pair_conv_tile_kernel(
 
 }  // namespace
 
-// f32: the weights HWIO, unpadded.
+// float32: w1, w2 the split-TF32 forms of ops/conv3x3.py:
+// conv3x3_pair_weights (K3's float32 order, both parts: w1 in slices of 64
+// columns, Cin padded to 8; w2 one slice of coutp columns, Cmid padded to
+// 64), b1 and b2 padded to cmidp and coutp; coutp one of 8, 16, 32; vec: Cin
+// % 4 == 0 and x 16-byte aligned (the halo by 16-byte cp.async)
 extern "C" int conv3x3_pair(const void* x, const void* w1, const void* b1,
                             const void* w2, const void* b2, void* out, int B,
-                            int H, int W, int cin, int cmid, int cout,
-                            int act, void* stream) {
-  if (cin > 64 || cout > 32) return cudaErrorInvalidValue;
-  const long long nblk = static_cast<long long>(B) * ((H + TH - 1) / TH) *
-                         ((W + TW - 1) / TW);
-  const size_t smem = f32_layout(cin, cout).total;
-  const cudaError_t e = cudaFuncSetAttribute(
-      conv3x3_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  conv3x3_pair_kernel<<<static_cast<unsigned>(nblk), NT, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w1),
-      static_cast<const float*>(b1), static_cast<const float*>(w2),
-      static_cast<const float*>(b2), static_cast<float*>(out), H, W, cin,
-      cmid, cout, act);
-  return static_cast<int>(cudaGetLastError());
+                            int H, int W, int cin, int cmidp, int cout,
+                            int coutp, int act, int vec, void* stream) {
+  if (cin < 1 || cin > 64 || cmidp % T_MC || cmidp < T_MC || cout > coutp)
+    return cudaErrorInvalidValue;
+  const long long nblk = static_cast<long long>(B) *
+                         ((H + T_TH - 1) / T_TH) * ((W + T_TW - 1) / T_TW);
+  auto launch = [&](auto kernel) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T_SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<static_cast<unsigned>(nblk), T_NT, T_SMEM,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w1),
+        static_cast<const float*>(b1), static_cast<const float*>(w2),
+        static_cast<const float*>(b2), static_cast<float*>(out), H, W, cin,
+        (cin + T_KC - 1) / T_KC, cmidp / T_MC, cout, act, vec);
+    return static_cast<int>(cudaGetLastError());
+  };
+  switch (coutp) {
+    case 8:
+      return launch(conv3x3_pair_tf32_kernel<8>);
+    case 16:
+      return launch(conv3x3_pair_tf32_kernel<16>);
+    case 32:
+      return launch(conv3x3_pair_tf32_kernel<32>);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // bf16: w1, w2 the packed forms of ops/conv3x3.py:conv3x3_pair_weights

@@ -26,7 +26,7 @@
 //
 // What bounds it: at the SwinIR-M band (552x1920, C 180) the pair is
 // 1.20e12 FLOP of its own work against 0.76 GB of input and output: the
-// tensor cores (1.2 ms bf16; 17.9 ms on the FP32 pipes in f32).
+// tensor cores (1.2 ms bf16; 7.25 ms in f32 at three TF32 passes).
 //
 // bf16 (swin_pair_mma_kernel, Hopper): persistent blocks (one an SM), each
 // walking B windows; two warpgroups, 255 registers a thread.
@@ -72,13 +72,41 @@
 //   - Shared memory (C 180): B's tile, the LN output, the second gather
 //     buffer, q / the attention output, k and v / the hidden activation
 //     (4 x 25.6 + 50.2 KB) and the ring (72 KB): one block an SM.
-// f32 (swin_pair_kernel<float>): one block per output window, every
-// product on FP32 FMA, the weights head-major (ops/swin_block.py:
-// _pair_form).
+// float32 (swin_pair_tf32_kernel, Hopper): split TF32 on mma.sync m16n8k8,
+// every product xl wh + xh wl + xh wh summed in float32; one block (eight
+// warps) a B window, the bf16 kernel's order of phases.
+//   - In float32 the bf16 plan's activations alone (X, Y, the gather
+//     buffer, q, k and v of every head, the hidden activation: 300 KB at C
+//     180) exceed the card, so the schedule changes: k and v are built a
+//     head group at a time (the most heads whose k | v fit; 3 at C 180)
+//     and each group's attention runs before the next; fc1's hidden
+//     activation comes a chunk of nq columns at a time, each chunk's fc2
+//     partial added onto x1 in float32 (K4's project_out pattern); A's
+//     windows are gathered into the LN buffer in turn, no second buffer.
+//     Four regions of 64 rows (X, Y; q / the attention output / fc1's
+//     chunk; a group's k | v / x1): 196.6 KB at C 180, one block an SM.
+//   - Products (gemm64): a warp takes a run of three 8-column n-tiles of
+//     all 64 rows (12 m16n8k8 tiles, 36 mma a k8 step); A's fragments by
+//     ldmatrix.x4 from the float32 rows (16-byte rows of 4 floats: the
+//     b16 matrices' words are the TF32 fragment), split in registers by
+//     integer ops (common.cuh: split1); the weights arrive split from the
+//     form (ops/swin_block.py:swin_pair_f32_weights), packed so that a
+//     lane's {wh, wl} fragment of a k8 step is one 16-byte load, read from
+//     L2 (the block's weights, 3.6 MB at C 180, stay there) one k8 step
+//     ahead. No weight staging: shared memory holds the activations.
+//   - Attention (attn_tf32): one warp a (16 queries, head) task as the bf16
+//     kernel's, on mma.sync m16n8k8 TF32 (K2's float32 products): q and p
+//     split in registers, k and v split as they are read from shared
+//     memory, p passed from the logits' layout to PV's A fragments by
+//     shuffles, float32 exp2 and the reciprocal normalization.
+//   - x1 (proj + bias + residual) stays in shared memory in float32, as
+//     the FMA kernel kept it; LN2 reads it, fc2's chunks add onto it.
+// What bounds it (float32): 3 x 1.20e12 TF32 FLOP at the band, 7.25 ms at
+// 495 TFLOP/s; A's k and v for four windows a B window (1.35x the pair's
+// own work) and mma.sync's TF32 rate (PR 20: about a quarter of wgmma's
+// peak on K4) hold it further from that.
 //
 // Plain C interface for ctypes; each entry returns cudaGetLastError().
-
-#include <type_traits>
 
 #include "common.cuh"
 #include "sm90_gemm.cuh"
@@ -87,351 +115,12 @@ using namespace irk;
 
 namespace {
 
-constexpr int NT = 256;
-constexpr int NWARP = NT / 32;
 constexpr float LOG2E = 1.4426950408889634f;
-
-// one block's weights (ops/swin_block.py:_pair_form order)
-struct BlockW {
-  const float* ln1_g;
-  const float* ln1_b;
-  const void* wqkv;   // (kp, heads * 3 * hdp), head-major
-  const float* bqkv;  // (heads * 3 * hdp)
-  const void* wproj;  // (heads * hdp, ldproj)
-  const float* bproj;
-  const float* rpb;   // (heads, N, N)
-  const float* ln2_g;
-  const float* ln2_b;
-  const void* w1;     // (kp, ldw1)
-  const float* b1;    // (hid)
-  const void* w2;     // (hidp, ldw2)
-  const float* b2;
-};
-
-struct Geo {
-  int B, H, W, C, heads, hd, hdp, kp, hid, hidp, ldqkv, ldproj, ldw1, ldw2,
-      cn, ws, n, np, dc1;
-};
-
-struct Lay {
-  size_t xb, ao, y, yq, qkv, s, p, x1, hc, scr, src, total;
-  int ldc, ldo, ldq, lds, ldp, ldx, ldh, hcw;
-};
 
 __host__ __device__ inline size_t take(size_t& o, size_t bytes) {
   const size_t at = o;
   o = (o + bytes + 127) / 128 * 128;
   return at;
-}
-
-__host__ __device__ inline size_t umax(size_t a, size_t b) {
-  return a > b ? a : b;
-}
-
-// Shared memory. Three phases reuse one region: LN1 / qkv / attention
-// (y, yq, qkv, s, p) and proj / MLP (x1, hc); LN2's output takes the
-// attention output's place.
-__host__ __device__ inline Lay layout(bool bf, const Geo& g) {
-  Lay l;
-  const int es = bf ? 2 : 4;
-  const int pad = bf ? 8 : 4;
-  l.ldc = g.kp + pad;
-  l.ldo = g.heads * g.hdp + pad;
-  l.ldq = 3 * g.hdp + (bf ? 8 : 1);
-  l.lds = g.np + 4;
-  l.ldp = g.np + 8;
-  l.ldx = g.C + 4;
-  l.hcw = bf ? 128 : 64;
-  l.ldh = l.hcw + pad;
-  size_t o = 0;
-  l.src = take(o, 64 * sizeof(long long));
-  l.xb = take(o, static_cast<size_t>(g.np) * l.ldc * es);
-  l.ao = take(o, static_cast<size_t>(g.np) *
-                     (l.ldo > l.ldc ? l.ldo : l.ldc) * es);
-  l.scr = take(o, bf ? NWARP * 256 * 4 : 0);
-  const size_t u = o;
-  size_t a = u;
-  l.y = take(a, static_cast<size_t>(g.np) * l.ldc * es);
-  l.yq = take(a, 16 * static_cast<size_t>(l.ldc) * es);
-  l.qkv = take(a, static_cast<size_t>(g.np) * l.ldq * es);
-  l.s = take(a, static_cast<size_t>(g.np) * l.lds * 4);
-  l.p = take(a, bf ? static_cast<size_t>(g.np) * l.ldp * 2 : 0);
-  size_t b = u;
-  l.x1 = take(b, static_cast<size_t>(g.np) * l.ldx * 4);
-  l.hc = take(b, static_cast<size_t>(g.np) * l.ldh * es);
-  l.total = umax(a, b);
-  return l;
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-
-__device__ __forceinline__ float gelu_tanh(float v) {
-  return 0.5f * v * (1.f + tanhf(0.7978845608f * (v + 0.044715f * v * v * v)));
-}
-
-// C[M x N] = A[M x K] . B, B (k, n) at Bm[k * ldb + n] (row-major) or
-// Bm[n * ldb + k] (BCOL); epi(r, c, value) for every element, each called
-// by one thread: FP32 FMA, 4 rows a thread, M a multiple of 4. The caller
-// syncs.
-template <bool BCOL, typename Epi>
-__device__ void tiles(const float* A, int lda, int M, int K, const float* Bm,
-                      int ldb, int N, float* /*scr*/, Epi epi) {
-  for (int it = threadIdx.x; it < (M / 4) * N; it += NT) {
-    const int c = it % N, r0 = (it / N) * 4;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int k = 0; k < K; ++k) {
-      const float w = BCOL ? Bm[c * ldb + k] : Bm[static_cast<long long>(k) *
-                                                      ldb + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i] = fmaf(A[(r0 + i) * lda + k], w,
-                                                acc[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) epi(r0 + i, c, acc[i]);
-  }
-}
-
-// LayerNorm (float32 two-pass statistics, eps 1e-5) of `rows` rows, one
-// warp per row, read through rd(r, k); rows past `valid` and columns past
-// C up to kp are zero. The caller syncs.
-template <typename T, typename Rd>
-__device__ void ln_rows(int rows, int valid, int C, int kp, Rd rd,
-                        const float* g, const float* bt, T* Y, int ldc) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < rows; r += NWARP) {
-    T* yr = Y + r * ldc;
-    if (r >= valid) {  // uniform across the warp
-      for (int k = lane; k < kp; k += 32) yr[k] = from_f<T>(0.f);
-      continue;
-    }
-    float s = 0.f;
-    for (int k = lane; k < C; k += 32) s += rd(r, k);
-    const float mu = warp_sum(s) / C;
-    float v = 0.f;
-    for (int k = lane; k < C; k += 32) {
-      const float d = rd(r, k) - mu;
-      v += d * d;
-    }
-    const float rs = rsqrtf(warp_sum(v) / C + 1e-5f);
-    for (int k = lane; k < kp; k += 32)
-      yr[k] = from_f<T>(k < C ? (rd(r, k) - mu) * rs * g[k] + bt[k] : 0.f);
-  }
-}
-
-template <typename T>
-struct Smem {
-  T *xb, *ao, *y, *yq, *qkv, *p, *hc;
-  float *s, *x1, *scr;
-  long long* src;
-  Lay L;
-};
-
-// Window attention of one block over its `mq` query rows (Yq, or Y when
-// the queries are all tokens) and np key rows (Y), head by head, into AO.
-// Query row i is token tq(i) of the window; rows past `valid` get p = 0.
-template <typename T, typename Tq>
-__device__ void attention(const Smem<T>& m, const Geo& g, const BlockW& w,
-                          const T* Q, int mq, int valid, Tq tq,
-                          const float* bank) {
-  const Lay& L = m.L;
-  const T* wqkv = static_cast<const T*>(w.wqkv);
-  constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int h = 0; h < g.heads; ++h) {
-    const int c0 = h * 3 * g.hdp;
-    tiles<false>(Q, L.ldc, mq, g.kp, wqkv + c0, g.ldqkv, g.hdp, m.scr,
-                 [&](int r, int c, float v) {
-                   m.qkv[r * L.ldq + c] = from_f<T>(v + w.bqkv[c0 + c]);
-                 });
-    tiles<false>(m.y, L.ldc, g.np, g.kp, wqkv + c0 + g.hdp, g.ldqkv,
-                 2 * g.hdp, m.scr, [&](int r, int c, float v) {
-                   m.qkv[r * L.ldq + g.hdp + c] =
-                       from_f<T>(v + w.bqkv[c0 + g.hdp + c]);
-                 });
-    __syncthreads();
-    // S = q k^T (float32)
-    tiles<true>(m.qkv, L.ldq, mq, BF ? g.hdp : g.hd, m.qkv + g.hdp, L.ldq,
-                g.np, m.scr,
-                [&](int r, int c, float v) { m.s[r * L.lds + c] = v; });
-    __syncthreads();
-    const float* rb = w.rpb + static_cast<long long>(h) * g.n * g.n;
-    for (int i = warp; i < mq; i += NWARP) {
-      const bool row = i < valid;  // uniform across the warp
-      const int t = row ? tq(i) : 0;
-      float e[2];
-      float sum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int j = lane + 32 * jj;
-        e[jj] = 0.f;
-        if (row && j < g.n) {
-          float bias = rb[t * g.n + j];
-          if (bank != nullptr) bias += bank[t * g.n + j];
-          e[jj] = exp2f(fminf((m.s[i * L.lds + j] + bias) * LOG2E, 86.56f));
-        }
-        sum += e[jj];
-      }
-      sum = warp_sum(sum);
-      const float inv = row ? 1.f / sum : 0.f;
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int j = lane + 32 * jj;
-        if (j >= g.np) continue;
-        if constexpr (BF)
-          m.p[i * L.ldp + j] = __float2bfloat16_rn(e[jj] * inv);
-        else
-          m.s[i * L.lds + j] = e[jj] * inv;
-      }
-    }
-    __syncthreads();
-    // O = p v into the head's columns of AO
-    const T* pm;
-    int ldp;
-    if constexpr (BF) {
-      pm = m.p;
-      ldp = L.ldp;
-    } else {
-      pm = m.s;
-      ldp = L.lds;
-    }
-    tiles<false>(pm, ldp, mq, g.np, m.qkv + 2 * g.hdp, L.ldq,
-                 BF ? g.hdp : g.hd, m.scr, [&](int r, int c, float v) {
-                   m.ao[r * L.ldo + h * g.hdp + c] = from_f<T>(v);
-                 });
-    __syncthreads();
-  }
-}
-
-// proj + residual -> x1 (float32), LN2, then the MLP summed into x1 over
-// hidden chunks. res(r, c) is the residual; rows past `valid` are dropped.
-template <typename T, typename Res>
-__device__ void proj_mlp(const Smem<T>& m, const Geo& g, const BlockW& w,
-                         int mrows, int valid, Res res) {
-  const Lay& L = m.L;
-  tiles<false>(m.ao, L.ldo, mrows, g.heads * g.hdp,
-               static_cast<const T*>(w.wproj), g.ldproj, g.cn, m.scr,
-               [&](int r, int c, float v) {
-                 if (r < valid && c < g.C)
-                   m.x1[r * L.ldx + c] = v + w.bproj[c] + res(r, c);
-               });
-  __syncthreads();
-  T* y2 = m.ao;
-  ln_rows<T>(mrows, valid, g.C, g.kp,
-             [&](int r, int k) { return m.x1[r * L.ldx + k]; }, w.ln2_g,
-             w.ln2_b, y2, L.ldc);
-  __syncthreads();
-  const T* w1 = static_cast<const T*>(w.w1);
-  const T* w2 = static_cast<const T*>(w.w2);
-  for (int h0 = 0; h0 < g.hidp; h0 += L.hcw) {
-    const int nh = min(L.hcw, g.hidp - h0);
-    tiles<false>(y2, L.ldc, mrows, g.kp, w1 + h0, g.ldw1, nh, m.scr,
-                 [&](int r, int c, float v) {
-                   const float b = h0 + c < g.hid ? w.b1[h0 + c] : 0.f;
-                   m.hc[r * L.ldh + c] = from_f<T>(gelu_tanh(v + b));
-                 });
-    __syncthreads();
-    tiles<false>(m.hc, L.ldh, mrows, nh,
-                 w2 + static_cast<long long>(h0) * g.ldw2, g.ldw2, g.cn,
-                 m.scr, [&](int r, int c, float v) {
-                   if (r < valid && c < g.C) m.x1[r * L.ldx + c] += v;
-                 });
-    __syncthreads();
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT) swin_pair_kernel(
-    const T* __restrict__ x, T* __restrict__ out, BlockW wa, BlockW wb,
-    const float* __restrict__ bank, Geo g) {
-  constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Smem<T> m;
-  m.L = layout(BF, g);
-  const Lay& L = m.L;
-  m.src = reinterpret_cast<long long*>(smem + L.src);
-  m.xb = reinterpret_cast<T*>(smem + L.xb);
-  m.ao = reinterpret_cast<T*>(smem + L.ao);
-  m.y = reinterpret_cast<T*>(smem + L.y);
-  m.yq = reinterpret_cast<T*>(smem + L.yq);
-  m.qkv = reinterpret_cast<T*>(smem + L.qkv);
-  m.s = reinterpret_cast<float*>(smem + L.s);
-  m.p = reinterpret_cast<T*>(smem + L.p);
-  m.x1 = reinterpret_cast<float*>(smem + L.x1);
-  m.hc = reinterpret_cast<T*>(smem + L.hc);
-  m.scr = reinterpret_cast<float*>(smem + L.scr) + (threadIdx.x / 32) * 256;
-
-  const int tid = threadIdx.x;
-  const int ws = g.ws, s = ws / 2, n = g.n, nq = s * s;
-  const int nwx = g.W / ws, nwy = g.H / ws;
-  long long bid = blockIdx.x;
-  const int wx = static_cast<int>(bid % nwx);
-  bid /= nwx;
-  const int wy = static_cast<int>(bid % nwy);
-  const long long b = bid / nwy;
-
-  // block A on the four windows whose quarters make B's window
-  for (int q = 0; q < 4; ++q) {
-    const int qy = q / 2, qx = q % 2;
-    const int ay = (wy + qy) % nwy, ax = (wx + qx) % nwx;
-    // A's token t reads x[(i - dc1) mod H, (j - dc1) mod W]
-    for (int t = tid; t < n; t += NT) {
-      const int i = ay * ws + t / ws, j = ax * ws + t % ws;
-      m.src[t] = (b * g.H + pmod(i - g.dc1, g.H)) * g.W + pmod(j - g.dc1,
-                                                               g.W);
-    }
-    __syncthreads();
-    ln_rows<T>(g.np, n, g.C, g.kp,
-               [&](int r, int k) { return to_f(x[m.src[r] * g.C + k]); },
-               wa.ln1_g, wa.ln1_b, m.y, L.ldc);
-    __syncthreads();
-    // the quarter of A's window inside B's window: local rows and columns
-    // (1 - qy) * s.. and (1 - qx) * s..
-    auto tq = [&](int r) {
-      return ((1 - qy) * s + r / s) * ws + (1 - qx) * s + r % s;
-    };
-    for (int e = tid; e < 16 * g.kp; e += NT) {
-      const int r = e / g.kp, k = e % g.kp;
-      m.yq[r * L.ldc + k] = r < nq ? m.y[tq(r) * L.ldc + k] : from_f<T>(0.f);
-    }
-    __syncthreads();
-    attention(m, g, wa, m.yq, 16, nq, tq, nullptr);
-    proj_mlp(m, g, wa, 16, nq, [&](int r, int c) {
-      return to_f(x[m.src[tq(r)] * g.C + c]);
-    });
-    // A's output, cast to the canvas dtype, at its place in B's window
-    for (int e = tid; e < nq * g.C; e += NT) {
-      const int r = e / g.C, c = e % g.C;
-      const int bt = (qy * s + r / s) * ws + qx * s + r % s;
-      m.xb[bt * L.ldc + c] = from_f<T>(m.x1[r * L.ldx + c] + wa.b2[c]);
-    }
-    __syncthreads();
-  }
-
-  // block B on its window, the bank by the window's place in the output
-  // frame
-  const float* bk =
-      bank == nullptr
-          ? nullptr
-          : bank + ((wy == nwy - 1) * 2 + (wx == nwx - 1)) *
-                       static_cast<long long>(n) * n;
-  ln_rows<T>(g.np, n, g.C, g.kp,
-             [&](int r, int k) { return to_f(m.xb[r * L.ldc + k]); },
-             wb.ln1_g, wb.ln1_b, m.y, L.ldc);
-  __syncthreads();
-  attention(m, g, wb, m.y, g.np, n, [](int r) { return r; }, bk);
-  proj_mlp(m, g, wb, g.np, n,
-           [&](int r, int c) { return to_f(m.xb[r * L.ldc + c]); });
-  for (int e = tid; e < n * g.C; e += NT) {
-    const int r = e / g.C, c = e % g.C;
-    const long long o =
-        (b * g.H + wy * ws + r / ws) * g.W + wx * ws + r % ws;
-    out[o * g.C + c] = from_f<T>(m.x1[r * L.ldx + c] + wb.b2[c]);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1177,51 +866,486 @@ __global__ void __launch_bounds__(P_NT, 1) swin_pair_mma_kernel(
   }
 }
 
-BlockW block_w(const void* const* p) {
-  BlockW w;
-  w.ln1_g = static_cast<const float*>(p[0]);
-  w.ln1_b = static_cast<const float*>(p[1]);
-  w.wqkv = p[2];
-  w.bqkv = static_cast<const float*>(p[3]);
-  w.wproj = p[4];
-  w.bproj = static_cast<const float*>(p[5]);
-  w.rpb = static_cast<const float*>(p[6]);
-  w.ln2_g = static_cast<const float*>(p[7]);
-  w.ln2_b = static_cast<const float*>(p[8]);
-  w.w1 = p[9];
-  w.b1 = static_cast<const float*>(p[10]);
-  w.w2 = p[11];
-  w.b2 = static_cast<const float*>(p[12]);
+// ---------------------------------------------------------------------------
+// float32 on Hopper (swin_pair_tf32_kernel): see the note at the top of the
+// file.
+
+constexpr int F_NT = 256;  // eight warps, one block an SM
+
+// one block's float32 weights (ops/swin_block.py:swin_pair_f32_weights), in
+// the order of the pointer array: each (K, N) weight split into TF32 parts
+// and packed as mma.sync B fragments (uint4 {wh(k t), wh(k t + 4), wl(k
+// t), wl(k t + 4)} of column 8 j + g, lane g * 4 + t, for n-tile j and k8
+// step kk at ((j * K / 8) + kk) * 32 + lane)
+struct PairWF {
+  const uint4 *wq, *wkv, *wproj, *w1, *w2;
+  const float *bq, *bkv, *bproj, *b1, *b2, *ln1, *ln2, *rpb;
+};
+
+struct FGeo {
+  int B, H, W, C, heads, hdp, ws, dc1, nwy, nwx, n;
+  int kp;   // C padded to 8: LN rows, proj's and fc2's columns
+  int nq;   // heads x hdp: q; the attention output; proj's K
+  int grp;  // heads a k / v group (2 grp hdp columns of R)
+  int hc;   // fc1's columns a chunk (= nq): fc2's K a chunk
+  int hidp; // hid padded to hc
+  int ldx, ldq, ldr;  // pitches (floats) of X and Y, Q and H, R
+  int vec;  // C % 4 == 0 and x 16-byte aligned: rows by 16-byte cp.async
+  int bank_zero;
+};
+
+PairWF pair_wf(const void* const* p) {
+  PairWF w;
+  w.wq = static_cast<const uint4*>(p[0]);
+  w.wkv = static_cast<const uint4*>(p[1]);
+  w.wproj = static_cast<const uint4*>(p[2]);
+  w.w1 = static_cast<const uint4*>(p[3]);
+  w.w2 = static_cast<const uint4*>(p[4]);
+  w.bq = static_cast<const float*>(p[5]);
+  w.bkv = static_cast<const float*>(p[6]);
+  w.bproj = static_cast<const float*>(p[7]);
+  w.b1 = static_cast<const float*>(p[8]);
+  w.b2 = static_cast<const float*>(p[9]);
+  w.ln1 = static_cast<const float*>(p[10]);
+  w.ln2 = static_cast<const float*>(p[11]);
+  w.rpb = static_cast<const float*>(p[12]);
   return w;
+}
+
+// shared memory (floats): X (B's window, then A's output), Y (LN rows, A's
+// windows gathered), Q (q, the attention output; fc1's chunk H), R (a
+// head group's k | v; x1)
+__host__ __device__ inline size_t pair_f32_smem(const FGeo& g) {
+  return 64 * 4 * static_cast<size_t>(2 * g.ldx + g.ldq + g.ldr);
+}
+
+// C (64 x N) = A (64 x K, float32 row-major in shared memory, pitch lda, a
+// multiple of 4 and odd in 16-byte units: the ldmatrix rows hit every bank
+// once) . the packed weight Wp's n-tiles [nt0, nt1) and k8 steps [k08, k08
+// + K / 8) (kst8: Wp's k8 steps an n-tile), in split TF32 on mma.sync
+// m16n8k8: a warp a run of three n-tiles, all four 16-row blocks, A's
+// fragments by ldmatrix and split in registers, the weights' fragments
+// from L2 one k8 step ahead; epi(r, c, v0, v1) for columns c, c + 1 of row
+// r. The caller syncs.
+template <typename Epi>
+__device__ __forceinline__ void gemm64(const float* A, int lda, int K,
+                                       const uint4* __restrict__ Wp, int kst8,
+                                       int k08, int nt0, int nt1, Epi epi) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3, k8 = K / 8;
+  const float* arow = A + frag_row(lane) * lda + 4 * frag_khalf(lane);
+#pragma unroll 1
+  for (int j0 = nt0 + 3 * warp; j0 < nt1; j0 += 3 * (F_NT / 32)) {
+    const int nj = nt1 - j0 < 3 ? nt1 - j0 : 3;
+    const uint4* wp[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      wp[j] = Wp + (static_cast<long long>(j < nj ? j0 + j : j0) * kst8 +
+                    k08) * 32 + lane;
+    float acc[4][3][4];
+#pragma unroll
+    for (int rb = 0; rb < 4; ++rb)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        acc[rb][j][0] = acc[rb][j][1] = acc[rb][j][2] = acc[rb][j][3] = 0.f;
+    uint4 bn[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) bn[j] = __ldg(wp[j]);
+#pragma unroll 1
+    for (int kk = 0; kk < k8; ++kk) {
+      uint4 bw[3];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        bw[j] = bn[j];
+        if (kk + 1 < k8) bn[j] = __ldg(wp[j] + (kk + 1) * 32);
+      }
+      uint32_t ah[4][4], al[4][4];
+#pragma unroll
+      for (int rb = 0; rb < 4; ++rb) {
+        uint32_t raw[4];
+        ldmatrix_x4(raw, arow + 16 * rb * lda + 8 * kk);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          split1(__uint_as_float(raw[i]), ah[rb][i], al[rb][i]);
+      }
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        if (j >= nj) continue;
+#pragma unroll
+        for (int rb = 0; rb < 4; ++rb) {
+          mma_tf32(acc[rb][j], al[rb], bw[j].x, bw[j].y);
+          mma_tf32(acc[rb][j], ah[rb], bw[j].z, bw[j].w);
+          mma_tf32(acc[rb][j], ah[rb], bw[j].x, bw[j].y);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      if (j >= nj) continue;
+#pragma unroll
+      for (int rb = 0; rb < 4; ++rb)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          epi(16 * rb + g + 8 * h, 8 * (j0 + j) + 2 * t, acc[rb][j][2 * h],
+              acc[rb][j][2 * h + 1]);
+    }
+  }
+}
+
+// rows r < n of the canvas (src(r): C floats of a pixel) into dst (pitch
+// ld) by cp.async (16 bytes where vec, else 4), a warp a row; rows past n
+// zero. The caller waits and syncs.
+template <typename Src>
+__device__ __forceinline__ void gather_f32(float* dst, int ld, int n, int C,
+                                           int vec, Src src) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll 1
+  for (int r = warp; r < 64; r += F_NT / 32) {
+    float* dp = dst + r * ld;
+    if (r >= n) {
+      for (int c = lane; c < C; c += 32) dp[c] = 0.f;
+      continue;
+    }
+    const float* sp = src(r);
+    if (vec)
+      for (int c = 4 * lane; c < C; c += 128) cp_async16(dp + c, sp + c);
+    else
+      for (int c = lane; c < C; c += 32) cp_async4(dp + c, sp + c);
+  }
+  cp_async_commit();
+}
+
+// LayerNorm (float32 two-pass statistics, eps 1e-5) of 64 rows src(r) (C
+// floats, nullptr: a zero row) into Y (pitch ld, columns C .. kp zero), a
+// warp a row; src(r) may be Y's own row r. The caller syncs.
+template <typename Src>
+__device__ __forceinline__ void ln_f32(Src src, int C, int kp,
+                                       const float* __restrict__ lnp,
+                                       float* Y, int ld) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll 1
+  for (int r = warp; r < 64; r += F_NT / 32) {
+    const float* p = src(r);
+    float* yr = Y + r * ld;
+    if (p == nullptr) {  // uniform across the warp
+      for (int k = lane; k < kp; k += 32) yr[k] = 0.f;
+      continue;
+    }
+    float s = 0.f;
+    for (int k = lane; k < C; k += 32) s += p[k];
+    const float mu = warp_sum(s) / C;
+    float v = 0.f;
+    for (int k = lane; k < C; k += 32) {
+      const float d = p[k] - mu;
+      v += d * d;
+    }
+    const float rs = rsqrtf(warp_sum(v) / C + 1e-5f);
+    __syncwarp();  // every lane has read the row before any lane writes it
+    for (int k = lane; k < kp; k += 32)
+      yr[k] = k < C ? (p[k] - mu) * rs * lnp[k] + lnp[C + k] : 0.f;
+  }
+}
+
+// One warp's attention task in float32: 16 query rows of one head (query
+// i of the task in row qrow[i] of Q, -1 where it has none; bias row
+// brow[i] of the head's rpb), against the n keys and values of R (k at
+// column kc, v at vc of each token row): split TF32 on mma.sync m16n8k8,
+// q and p split in registers, k and v split as they are read; (q.k + rpb
+// (+ mask)) * log2 e, exp2(min(l, 86.56)), a reciprocal normalization; p
+// passed from the logits' layout to PV's A fragments by shuffles. The
+// output overwrites the task's q in Q (each task reads its q before it
+// writes).
+__device__ __forceinline__ void attn_tf32(float* Q, int ldq, int qc,
+                                          const int (&qrow)[2],
+                                          const int (&brow)[2],
+                                          const float* R, int ldr, int kc,
+                                          int vc, int hdp, int n,
+                                          const float* __restrict__ rpb,
+                                          const float* __restrict__ mask) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const float* q0 = Q + (qrow[0] < 0 ? 0 : qrow[0]) * ldq + qc;
+  const float* q1 = Q + (qrow[1] < 0 ? 0 : qrow[1]) * ldq + qc;
+  float s[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll 1
+  for (int kd = 0; kd < hdp; kd += 8) {
+    uint32_t ah[4], al[4];
+    split_a(q0[kd + t], q1[kd + t], q0[kd + t + 4], q1[kd + t + 4], ah, al);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      if (8 * nt >= n) continue;
+      const float* kr = R + (8 * nt + g) * ldr + kc + kd;
+      mma_split(s[nt], ah, al, kr[t], kr[t + 4]);
+    }
+  }
+  const float* b0 = rpb + brow[0] * n;
+  const float* b1 = rpb + brow[1] * n;
+  const float* m0 = mask != nullptr ? mask + brow[0] * n : nullptr;
+  const float* m1 = mask != nullptr ? mask + brow[1] * n : nullptr;
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int j = 8 * nt + 2 * t;
+    float2 c0 = make_float2(0.f, 0.f), c1 = c0;
+    if (j < n) {  // n even: j + 1 < n too
+      float2 p0 = ldg2(b0 + j), p1 = ldg2(b1 + j);
+      if (m0 != nullptr) {
+        const float2 k0 = ldg2(m0 + j), k1 = ldg2(m1 + j);
+        p0.x += k0.x, p0.y += k0.y, p1.x += k1.x, p1.y += k1.y;
+      }
+      c0 = make_float2(exp2f(fminf((s[nt][0] + p0.x) * LOG2E, P_CLAMP)),
+                       exp2f(fminf((s[nt][1] + p0.y) * LOG2E, P_CLAMP)));
+      c1 = make_float2(exp2f(fminf((s[nt][2] + p1.x) * LOG2E, P_CLAMP)),
+                       exp2f(fminf((s[nt][3] + p1.y) * LOG2E, P_CLAMP)));
+    }
+    s[nt][0] = c0.x, s[nt][1] = c0.y, s[nt][2] = c1.x, s[nt][3] = c1.y;
+    s0 += c0.x + c0.y;
+    s1 += c1.x + c1.y;
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+  }
+  const float i0 = 1.f / s0, i1 = 1.f / s1;
+  // p (row g, column 8 kk + t) sits in lane (g, t / 2), element t % 2 of
+  // the logits' n-tile kk; column 8 kk + t + 4 in lane (g, 2 + t / 2)
+  const int la = (lane & ~3) | (t >> 1), lb = la + 2;
+  const bool odd = t & 1;
+  float o[8][4];
+#pragma unroll
+  for (int nd = 0; nd < 8; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    if (8 * kk >= n) continue;
+    float e[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      e[i] = __shfl_sync(0xffffffffu, s[kk][i], la);
+      e[4 + i] = __shfl_sync(0xffffffffu, s[kk][i], lb);
+    }
+    uint32_t ah[4], al[4];
+    split_a((odd ? e[1] : e[0]) * i0, (odd ? e[3] : e[2]) * i1,
+            (odd ? e[5] : e[4]) * i0, (odd ? e[7] : e[6]) * i1, ah, al);
+    const float* vr0 = R + (8 * kk + t) * ldr + vc + g;
+    const float* vr1 = vr0 + 4 * ldr;
+#pragma unroll
+    for (int nd = 0; nd < 8; ++nd)
+      if (8 * nd < hdp) mma_split(o[nd], ah, al, vr0[8 * nd], vr1[8 * nd]);
+  }
+  __syncwarp();  // every lane's q is read before any lane writes
+#pragma unroll
+  for (int nd = 0; nd < 8; ++nd) {
+    if (8 * nd >= hdp) continue;
+    const int c = qc + 8 * nd + 2 * t;
+    if (qrow[0] >= 0)
+      *reinterpret_cast<float2*>(Q + qrow[0] * ldq + c) =
+          make_float2(o[nd][0], o[nd][1]);
+    if (qrow[1] >= 0)
+      *reinterpret_cast<float2*>(Q + qrow[1] * ldq + c) =
+          make_float2(o[nd][2], o[nd][3]);
+  }
+}
+
+__device__ __forceinline__ float gelu_tanh(float v) {
+  return 0.5f * v * (1.f + tanhf(0.7978845608f * (v + 0.044715f * v * v * v)));
+}
+
+__global__ void __launch_bounds__(F_NT, 1) swin_pair_tf32_kernel(
+    const float* __restrict__ x, float* __restrict__ out, PairWF wa,
+    PairWF wb, const float* __restrict__ bank, FGeo g) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* X = reinterpret_cast<float*>(smem);
+  float* Y = X + 64 * g.ldx;
+  float* Q = Y + 64 * g.ldx;
+  float* R = Q + 64 * g.ldq;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ws = g.ws, s = ws / 2, n = g.n, C = g.C, hdp = g.hdp;
+  long long bid = blockIdx.x;
+  const int wx = static_cast<int>(bid % g.nwx);
+  bid /= g.nwx;
+  const int wy = static_cast<int>(bid % g.nwy);
+  const long long b = bid / g.nwy;
+  const int gw = 2 * g.grp * hdp;  // R's columns a head group
+  const int ngrp = g.heads / g.grp;
+
+  // B's window token (by, bx) is pixel (wy ws + s + by, wx ws + s + bx) of
+  // block A's frame, which reads x[(i - dc1) mod H, (j - dc1) mod W]
+  gather_f32(X, g.ldx, n, C, g.vec, [&](int r) {
+    const int i = pmod(wy * ws + s + r / ws - g.dc1, g.H);
+    const int j = pmod(wx * ws + s + r % ws - g.dc1, g.W);
+    return x + ((b * g.H + i) * g.W + j) * C;
+  });
+  cp_async_wait<0>();
+  __syncthreads();
+  const int sel = (wy == g.nwy - 1) * 2 + (wx == g.nwx - 1);
+  const float* mk = bank != nullptr && !((g.bank_zero >> sel) & 1)
+                        ? bank + static_cast<long long>(sel) * n * n
+                        : nullptr;
+#pragma unroll 1
+  for (int blk = 0; blk < 2; ++blk) {
+    const PairWF& w = blk ? wb : wa;
+    // LN1 and q of the window's tokens in X (block A: B's window, every
+    // quarter at once)
+    ln_f32([&](int r) { return r < n ? X + r * g.ldx : nullptr; }, C, g.kp,
+           w.ln1, Y, g.ldx);
+    __syncthreads();
+    gemm64(Y, g.ldx, g.kp, w.wq, g.kp / 8, 0, 0, g.nq / 8,
+           [&](int r, int c, float v0, float v1) {
+             const float2 bb = ldg2(w.bq + c);
+             *reinterpret_cast<float2*>(Q + r * g.ldq + c) =
+                 make_float2(v0 + bb.x, v1 + bb.y);
+           });
+    __syncthreads();
+    // k and v: A's on each of its four windows (gathered into Y, LN1 in
+    // place), B's on the LN rows of its own; a head group at a time, then
+    // that group's attention tasks: A's, a head each of the quarter's
+    // queries; B's, (16-row block, head)
+#pragma unroll 1
+    for (int qd = 0; qd < (blk ? 1 : 4); ++qd) {
+      const int qy = qd / 2, qx = qd % 2;
+      if (blk == 0) {
+        const int ay = (wy + qy) % g.nwy, ax = (wx + qx) % g.nwx;
+        gather_f32(Y, g.ldx, n, C, g.vec, [&](int t) {
+          const int i = pmod(ay * ws + t / ws - g.dc1, g.H);
+          const int j = pmod(ax * ws + t % ws - g.dc1, g.W);
+          return x + ((b * g.H + i) * g.W + j) * C;
+        });
+        cp_async_wait<0>();
+        __syncthreads();
+        ln_f32([&](int t) { return t < n ? Y + t * g.ldx : nullptr; }, C,
+               g.kp, w.ln1, Y, g.ldx);
+        __syncthreads();
+      }
+#pragma unroll 1
+      for (int gi = 0; gi < ngrp; ++gi) {
+        gemm64(Y, g.ldx, g.kp, w.wkv, g.kp / 8, 0, gi * gw / 8,
+               (gi + 1) * gw / 8, [&](int r, int c, float v0, float v1) {
+                 const float2 bb = ldg2(w.bkv + c);
+                 *reinterpret_cast<float2*>(R + r * g.ldr + c - gi * gw) =
+                     make_float2(v0 + bb.x, v1 + bb.y);
+               });
+        __syncthreads();
+        const int nrb = blk ? (n + 15) / 16 : 1;
+#pragma unroll 1
+        for (int task = warp; task < nrb * g.grp; task += F_NT / 32) {
+          const int rb = task / g.grp, hl = task % g.grp;
+          const int h = gi * g.grp + hl;
+          int qrow[2], brow[2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int i = 16 * rb + (lane >> 2) + 8 * u;
+            if (blk) {
+              qrow[u] = i < n ? i : -1;
+              brow[u] = i < n ? i : 0;
+            } else {
+              // query i of the quarter: B token (qy s + i / s, qx s + i %
+              // s), at ((by + s) mod ws, (bx + s) mod ws) of the A window
+              const int by = qy * s + i / s, bx = qx * s + i % s;
+              const bool on = i < s * s;
+              qrow[u] = on ? by * ws + bx : -1;
+              brow[u] = on ? ((by + s) % ws) * ws + (bx + s) % ws : 0;
+            }
+          }
+          attn_tf32(Q, g.ldq, h * hdp, qrow, brow, R, g.ldr, hl * hdp,
+                    g.grp * hdp + hl * hdp, hdp, n,
+                    w.rpb + static_cast<long long>(h) * n * n,
+                    blk ? mk : nullptr);
+        }
+        __syncthreads();
+      }
+    }
+    // proj + bias + residual into x1 (R), LN2 into Y, then the MLP a
+    // chunk of hc hidden channels at a time: fc1 + tanh-GELU into H (Q's
+    // place), fc2's partial added onto x1 in float32
+    float* x1 = R;
+    float* Hc = Q;
+    gemm64(Q, g.ldq, g.nq, w.wproj, g.nq / 8, 0, 0, g.kp / 8,
+           [&](int r, int c, float v0, float v1) {
+             float2 v = make_float2(0.f, 0.f);
+             if (c < C) {  // C even: c + 1 < C too
+               const float2 bb = ldg2(w.bproj + c);
+               const float2 res =
+                   *reinterpret_cast<const float2*>(X + r * g.ldx + c);
+               v = make_float2(v0 + bb.x + res.x, v1 + bb.y + res.y);
+             }
+             *reinterpret_cast<float2*>(x1 + r * g.ldr + c) = v;
+           });
+    __syncthreads();
+    ln_f32([&](int r) { return r < n ? x1 + r * g.ldr : nullptr; }, C, g.kp,
+           w.ln2, Y, g.ldx);
+    __syncthreads();
+#pragma unroll 1
+    for (int h0 = 0; h0 < g.hidp; h0 += g.hc) {
+      gemm64(Y, g.ldx, g.kp, w.w1, g.kp / 8, 0, h0 / 8, (h0 + g.hc) / 8,
+             [&](int r, int c, float v0, float v1) {
+               const float2 bb = ldg2(w.b1 + c);
+               *reinterpret_cast<float2*>(Hc + r * g.ldq + c - h0) =
+                   make_float2(gelu_tanh(v0 + bb.x), gelu_tanh(v1 + bb.y));
+             });
+      __syncthreads();
+      gemm64(Hc, g.ldq, g.hc, w.w2, g.hidp / 8, h0 / 8, 0, g.kp / 8,
+             [&](int r, int c, float v0, float v1) {
+               if (c >= C) return;
+               float2* p = reinterpret_cast<float2*>(x1 + r * g.ldr + c);
+               const float2 a = *p;
+               *p = make_float2(a.x + v0, a.y + v1);
+             });
+      __syncthreads();
+    }
+    // A's output is B's input tile (X); B's goes to the output frame
+    for (int e = tid; e < n * (C / 2); e += F_NT) {
+      const int r = e / (C / 2), c = 2 * (e % (C / 2));
+      const float2 a = *reinterpret_cast<const float2*>(x1 + r * g.ldr + c);
+      const float2 bb = ldg2(w.b2 + c);
+      const float2 v = make_float2(a.x + bb.x, a.y + bb.y);
+      if (blk == 0) {
+        *reinterpret_cast<float2*>(X + r * g.ldx + c) = v;
+      } else {
+        const long long o =
+            (b * g.H + wy * ws + r / ws) * g.W + wx * ws + r % ws;
+        *reinterpret_cast<float2*>(out + o * C + c) = v;
+      }
+    }
+    __syncthreads();
+  }
 }
 
 }  // namespace
 
-// f32: pa, pb: 13 device pointers each (ops/swin_block.py:_pair_form).
-// bank: nullptr or the (2, 2, N, N) float32 edge bank. N = ws^2 <= 64, ws
-// even, an even window count per row (the wrapper checks); the shared
-// memory a block needs must fit the card's 227 KB.
+// float32: pa, pb: 13 device pointers each (ops/swin_block.py:
+// swin_pair_f32_weights); bank as the bf16 entry's; hdp (a multiple of 8,
+// at most 64), kp, nq, grp, hc, hidp the form's widths (pair_f32_dims). N
+// = ws^2 <= 64, ws even, C even, an even window count per row (the wrapper
+// checks); the shared memory a block needs must fit the card's 227 KB.
 extern "C" int swin_pair(const void* x, void* out, const void* const* pa,
-                         const void* const* pb,
-                         const void* bank, int B, int H, int W, int C,
-                         int heads, int hdp, int kp, int hid, int hidp,
-                         int ldqkv, int ldproj, int ldw1, int ldw2, int cn,
-                         int ws, int dc1, void* stream) {
-  Geo g{B, H, W, C, heads, C / heads, hdp, kp, hid, hidp, ldqkv, ldproj,
-        ldw1, ldw2, cn, ws, ws * ws, (ws * ws + 15) / 16 * 16, dc1};
-  if (g.n > 64 || ws % 2 || C % heads) return cudaErrorInvalidValue;
-  const size_t smem = layout(false, g).total;
+                         const void* const* pb, const void* bank,
+                         int bank_zero, int B, int H, int W, int C,
+                         int heads, int hdp, int ws, int dc1, int kp, int nq,
+                         int grp, int hc, int hidp, int vec, void* stream) {
+  FGeo g;
+  g.B = B, g.H = H, g.W = W, g.C = C, g.heads = heads, g.hdp = hdp;
+  g.ws = ws, g.dc1 = dc1, g.nwy = H / ws, g.nwx = W / ws, g.n = ws * ws;
+  g.kp = kp, g.nq = nq, g.grp = grp, g.hc = hc, g.hidp = hidp;
+  g.ldx = kp + 4, g.ldq = nq + 4;
+  g.ldr = (2 * grp * hdp > kp ? 2 * grp * hdp : kp) + 4;
+  g.vec = vec, g.bank_zero = bank_zero;
+  if (g.n > 64 || ws % 2 || C % 2 || C > kp || kp % 8 || hdp % 8 ||
+      hdp > 64 || nq != heads * hdp || grp < 1 || heads % grp || hc > nq ||
+      hc % 8 || hidp % hc)
+    return cudaErrorInvalidValue;
+  const size_t smem = pair_f32_smem(g);
   if (smem > 232448) return cudaErrorInvalidValue;
   const cudaError_t e = cudaFuncSetAttribute(
-      swin_pair_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      swin_pair_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  swin_pair_kernel<float><<<static_cast<unsigned>(
-                                static_cast<long long>(B) * (H / ws) *
-                                (W / ws)),
-                            NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), block_w(pa),
-      block_w(pb), static_cast<const float*>(bank), g);
+  swin_pair_tf32_kernel<<<static_cast<unsigned>(static_cast<long long>(B) *
+                                                g.nwy * g.nwx),
+                          F_NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(out), pair_wf(pa),
+      pair_wf(pb), static_cast<const float*>(bank), g);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -41,11 +41,14 @@ TPU row-strip MXU kernel). The CUDA kernel is ``csrc/conv3x3.cu`` (K3):
 convs, the intermediate ``u`` kept on chip) with K7,
 ``csrc/conv3x3_pair.cu``: a block stages one input tile with a 2-pixel
 halo, computes ``u`` chunk by chunk on the tile plus a 1-pixel ring into
-shared memory, and sums each chunk's conv2 into float32 accumulators. In
-bf16 both convs run on ``wgmma`` (persistent blocks, 6 x 62 output tiles,
-the halo and ``u`` read in place by descriptor at every tap, the weights
-streamed through shared memory by bulk copies from the packed form of
-:func:`conv3x3_pair_weights`); see the source for what bounds it. No served
+shared memory, and sums each chunk's conv2 into float32 accumulators.
+Both convs run on ``wgmma``, the weights streamed through shared memory by
+bulk copies from the packed form of :func:`conv3x3_pair_weights`: in bf16
+persistent blocks walk 6 x 62 output tiles, the halo and ``u`` read in
+place by descriptor at every tap; in float32 split TF32 as K3's float32
+kernel (a block a 6 x 30 tile, the halo streamed 8 input channels a stage,
+the activations split in registers, both weight parts from the form); see
+the source for what bounds it. No served
 path runs it: the x4 head keeps the JAX package's two-conv form
 (``lab/head_pair.py`` runs both).
 """
@@ -418,8 +421,8 @@ conv3x3.launches = 0
 # ---------------------------------------------------------------------------
 # conv3x3_pair: two chained SAME convs in one launch (K7)
 
-# the card's limits (the whole input tile in shared memory) and K7's bf16
-# tile: 6 x 62 outputs, u on 8 x 64, the input on 10 x 66
+# the card's limits (both kernels' staging) and K7's bf16 tile: 6 x 62
+# outputs, u on 8 x 64, the input on 10 x 66
 PAIR_MAX_CIN = 64
 PAIR_MAX_COUT = 32
 PAIR_ROWS, PAIR_COLS = 6, 62
@@ -451,11 +454,15 @@ def conv3x3_pair_plain(x, w1, b1, w2, b2, *, act_mid=None):
 
 class Conv3x3PairWeights(NamedTuple):
     """K7's weight form (:func:`conv3x3_pair_weights`), made once per
-    weight. In float32 both HWIO weights as they are; in bfloat16 both in
-    K3's packed order (:func:`_pack_taps`): ``w1`` (Cmid/64, Cin/16, 9, 2,
-    8, 8, 8), Cin padded to 16 and Cmid to 64, the kernel's 64-channel
-    chunks of u as slices; ``w2`` (1, Cmid/16, 9, 2, Cout/8, 8, 8), Cout
-    padded to 8. The biases float32, zero-padded to the padded widths."""
+    weight, in K3's packed order (:func:`_pack_taps`), the kernel's
+    64-channel chunks of u as ``w1``'s slices. In bfloat16 ``w1`` (Cmid/64,
+    Cin/16, 9, 2, 8, 8, 8), Cin padded to 16 and Cmid to 64; ``w2`` (1,
+    Cmid/16, 9, 2, Cout/8, 8, 8), Cout padded to 8. In float32 the
+    split-TF32 form with both parts, ``wh = tf32_round(w)`` and ``wl = w -
+    wh`` (``wh + wl == w`` bit for bit), as K3's float32 form: ``w1``
+    (Cmid/64, Cin/8, 2, 9, 2, 8, 8, 4), Cin padded to 8; ``w2`` (1, Cmid/8,
+    2, 9, 2, Cout/8, 8, 4), Cmid padded to 64 and Cout to 8, 16 or 32. The
+    biases float32, zero-padded to the padded widths."""
 
     w1: torch.Tensor
     b1: torch.Tensor
@@ -470,28 +477,55 @@ class Conv3x3PairWeights(NamedTuple):
                             torch.Tensor]:
         """(w1, b1, w2, b2) as the (3, 3, Cin, Cmid) and (3, 3, Cmid,
         Cout) weights and their biases this form holds."""
-        w1, w2 = (w if w.dim() == 4 else _unpack_taps(w)
-                  for w in (self.w1, self.w2))
+        w1, w2 = (_unpack_taps(w[:, :, 0] + w[:, :, 1] if w.dim() == 8
+                               else w) for w in (self.w1, self.w2))
         return (w1[:, :, :self.cin, :self.cmid], self.b1[:self.cmid],
                 w2[:, :, :self.cmid, :self.cout], self.b2[:self.cout])
 
 
-# K7's bf16 chunk of Cmid (csrc/conv3x3_pair.cu: Q_MC)
+# K7's chunk of Cmid (csrc/conv3x3_pair.cu: Q_MC, T_MC)
 PAIR_CHUNK = 64
+# the float32 kernel's tile (csrc/conv3x3_pair.cu: T_TH, T_TW) and its
+# conv2 widths: Cout padded to one of these
+PAIR_F32_ROWS, PAIR_F32_COLS = 6, 30
+PAIR_F32_COUT = (8, 16, 32)
+
+
+def pair_f32_coutp(cout: int) -> int:
+    """Cout padded to the float32 K7's conv2 width."""
+    return next(n for n in PAIR_F32_COUT if n >= cout)
+
+
+def _pair_split(w: torch.Tensor, nsl: int, ns: int) -> torch.Tensor:
+    """Both split-TF32 parts of a float32 weight in K3's float32 packed
+    order, stacked as dim 2 (the kernel always runs three products)."""
+    wh = kernels.tf32_round(w.float().contiguous())
+    return torch.stack([_pack_taps(p, nsl, ns, CONV_F32_KC)
+                        for p in (wh, w.float() - wh)], dim=2)
 
 
 def conv3x3_pair_weights(w1, b1, w2, b2, dtype) -> Conv3x3PairWeights:
     cin, cmid, cout = w1.shape[2], w1.shape[3], w2.shape[3]
     k1, k2 = w1.detach().to(dtype), w2.detach().to(dtype)
-    pm = po = 0
+    pm = -cmid % PAIR_CHUNK
     if dtype == torch.bfloat16:
-        pm, po = -cmid % PAIR_CHUNK, -cout % 8
+        po = -cout % 8
         k1 = _pack_taps(k1, (cmid + pm) // PAIR_CHUNK, PAIR_CHUNK)
         k2 = _pack_taps(F.pad(k2, (0, 0, 0, pm)), 1, cout + po)
+    else:
+        po = pair_f32_coutp(cout) - cout
+        k1 = _pair_split(k1, (cmid + pm) // PAIR_CHUNK, PAIR_CHUNK)
+        k2 = _pair_split(F.pad(k2, (0, 0, 0, pm)), 1, cout + po)
     return Conv3x3PairWeights(
         k1.contiguous(), F.pad(b1.detach().float(), (0, pm)).contiguous(),
         k2.contiguous(), F.pad(b2.detach().float(), (0, po)).contiguous(),
         cin, cmid, cout)
+
+
+_PAIR_BF16_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 \
+    + [ctypes.c_void_p]
+_PAIR_F32_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 \
+    + [ctypes.c_void_p]
 
 
 def _conv3x3_pair_cuda(x, k: Conv3x3PairWeights, act_mid):
@@ -515,28 +549,27 @@ def _conv3x3_pair_cuda(x, k: Conv3x3PairWeights, act_mid):
                          f"(got Cmid {k.cmid})")
     x = x.contiguous()
     out = torch.empty((bsz, h, wd, k.cout), dtype=x.dtype, device=x.device)
-    lib = kernels.load("conv3x3_pair")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    cmidp = k.w1.shape[0] * PAIR_CHUNK
     if x.dtype == torch.bfloat16:
-        cinp, cmidp = k.w1.shape[1] * 16, k.w1.shape[0] * PAIR_CHUNK
-        coutp = k.w2.shape[4] * 8
+        cinp, coutp = k.w1.shape[1] * 16, k.w2.shape[4] * 8
         tiles = bsz * -(-h // PAIR_ROWS) * -(-wd // PAIR_COLS)
-        fn = lib.conv3x3_pair_bf16
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 \
-            + [ctypes.c_void_p]
+        fn = kernels.function("conv3x3_pair", "conv3x3_pair_bf16",
+                              _PAIR_BF16_ARGS)
         err = fn(x.data_ptr(), k.w1.data_ptr(), k.b1.data_ptr(),
                  k.w2.data_ptr(), k.b2.data_ptr(), out.data_ptr(), bsz, h, wd,
                  cin, cinp, cmidp, k.cout, coutp, _ACTS[act_mid],
-                 min(tiles, kernels.sm_count(x.device)), stream)
+                 min(tiles, kernels.sm_count(x.device)), kernels.stream(x))
     else:
-        fn = lib.conv3x3_pair
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
-            + [ctypes.c_void_p]
+        if k.w1.dim() != 8 or k.w2.dim() != 8:
+            raise ValueError("conv3x3_pair weights are not the float32 "
+                             "split-TF32 form")
+        fn = kernels.function("conv3x3_pair", "conv3x3_pair",
+                              _PAIR_F32_ARGS)
         err = fn(x.data_ptr(), k.w1.data_ptr(), k.b1.data_ptr(),
                  k.w2.data_ptr(), k.b2.data_ptr(), out.data_ptr(), bsz, h, wd,
-                 cin, k.cmid, k.cout, _ACTS[act_mid], stream)
+                 cin, cmidp, k.cout, k.w2.shape[5] * 8, _ACTS[act_mid],
+                 int(cin % 4 == 0 and x.data_ptr() % 16 == 0),
+                 kernels.stream(x))
     kernels.check(err, "conv3x3_pair")
     conv3x3_pair.launches += 1
     return out
@@ -562,12 +595,11 @@ def pair_conv_tile(a: torch.Tensor, w: torch.Tensor, dx: int) -> torch.Tensor:
     a = a.contiguous()
     wp = _core_matrices(w.to(torch.bfloat16), 1, n).contiguous()
     out = torch.empty((64, n), dtype=torch.float32, device=a.device)
-    fn = kernels.load("conv3x3_pair").pair_conv_tile
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
+    fn = kernels.function("conv3x3_pair", "pair_conv_tile",
+                          [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                          + [ctypes.c_void_p])
     err = fn(a.data_ptr(), wp.data_ptr(), out.data_ptr(), k, n, dx,
-             torch.cuda.current_stream(a.device).cuda_stream)
+             kernels.stream(a))
     kernels.check(err, "pair_conv_tile")
     return out
 

@@ -105,7 +105,11 @@ FLOP than the pair's own work), A's q, proj and MLP on B's 64 tokens at
 once, then block B. In bf16 every product is a 64-row ``wgmma`` with the
 weights streamed through shared memory by bulk copies from the packed
 form of :func:`swin_pair_weights` (persistent blocks, the ring refilled
-by thread 0); the attention runs on ``mma.sync``. No served path runs it
+by thread 0); the attention runs on ``mma.sync``. In float32 every
+product runs split TF32 on ``mma.sync`` m16n8k8, the weights split once
+into the fragment-packed form of :func:`swin_pair_f32_weights`, k and v a
+head group at a time and fc1's hidden activation a chunk at a time so that
+the float32 activations fit shared memory. No served path runs it
 (``lab/lab_r5.py`` does).
 
 ``pad_width_for_strips`` and ``strip_chunk_width`` are kept only so that
@@ -1332,24 +1336,152 @@ def swin_pair_block_plain(x, pa: SwinBlockParams, pb: SwinBlockParams,
                             mask_bank=mask_bank, fast=True)
 
 
-def _pair_form(p: SwinBlockParams, num_heads: int):
-    """K8's float32 pointers for one block, and its widths: the qkv weight
-    and bias head-major (per head [q | k | v] columns) and proj's rows to
-    match; the MLP weights row-major."""
+def pair_f32_dims(c: int, num_heads: int, hid: int) -> dict:
+    """The padded widths of K8's float32 form and its shared-memory plan
+    (csrc/swin_pair.cu: FGeo, pair_f32_smem): ``hdp`` (the head width to
+    8), ``kp`` (C to 8: the LN rows, proj's and fc2's columns), ``nq``
+    (heads x hdp), ``hc`` (fc1's columns a chunk, = nq: the chunk takes
+    q's place), ``hidp`` (hid to hc), ``grp`` (heads a k / v group: the
+    most that divide the heads and fit) and ``smem`` (bytes: four regions
+    of 64 float32 rows, X and Y at kp + 4, Q at nq + 4, a group's k | v or
+    x1 at max(2 grp hdp, kp) + 4). ValueError where one head's k | v does
+    not fit the card."""
+    hdp = -(-(c // num_heads) // 8) * 8
+    kp, nq = -(-c // 8) * 8, num_heads * hdp
+
+    def smem(grp):
+        return 256 * (2 * (kp + 4) + nq + 4 + max(2 * grp * hdp, kp) + 4)
+
+    fits = [g for g in range(num_heads, 0, -1)
+            if num_heads % g == 0 and smem(g) <= kernels.SMEM_LIMIT]
+    if not fits or hdp > 64:
+        raise ValueError(f"float32 swin_pair_block: C {c} with {num_heads} "
+                         f"heads does not fit one block's shared memory")
+    return dict(hdp=hdp, kp=kp, nq=nq, hc=nq, hidp=-(-hid // nq) * nq,
+                grp=fits[0], smem=smem(fits[0]))
+
+
+def _frag_pack(w: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """A (K, N) float32 weight, zero-padded to (k, n), split into its TF32
+    parts ``wh = tf32_round(w)`` and ``wl = w - wh`` and packed as
+    mma.sync m16n8k8 B fragments: (n/8, k/8, 32 lanes, 4), lane g * 4 + t
+    of n-tile j and k8 step kk holding {wh, wh, wl, wl} at (k 8 kk + t, 8 kk
+    + t + 4; column 8 j + g)."""
+    w = F.pad(w.float(), (0, n - w.shape[1], 0, k - w.shape[0])).contiguous()
+    wh = kernels.tf32_round(w)
+    parts = [q.reshape(k // 8, 2, 4, n // 8, 8).permute(3, 0, 4, 2, 1)
+             for q in (wh, w - wh)]
+    return torch.stack(parts, dim=4).reshape(n // 8, k // 8, 32,
+                                             4).contiguous()
+
+
+def _frag_unpack(wp: torch.Tensor) -> torch.Tensor:
+    """The padded (k, n) ``wh + wl`` of a :func:`_frag_pack` form."""
+    n8, k8 = wp.shape[:2]
+    q = wp.reshape(n8, k8, 8, 4, 2, 2).permute(4, 1, 5, 3, 0, 2)
+    return (q[0] + q[1]).reshape(k8 * 8, n8 * 8)
+
+
+class SwinPairF32Form(NamedTuple):
+    """K8's float32 form of one block (:func:`swin_pair_f32_weights`), made
+    once per weight: each product's (K, N) weight zero-padded to the
+    widths of :func:`pair_f32_dims` and packed split by
+    :func:`_frag_pack`: ``wq`` (kp, nq) head-major (per head ``hdp``
+    columns), ``wkv`` (kp, 2 nq) a head group at a time (k of the group's
+    heads, then their v), ``wproj`` (nq, kp) with its rows head-major to
+    match, ``w1`` (kp, hidp), ``w2`` (hidp, kp). The biases float32 padded
+    to the products' columns (``bkv`` in ``wkv``'s order), ``ln1`` and
+    ``ln2`` the (2, C) LayerNorm scale and shift, the (heads, N, N)
+    relative-position bias ``rpb``. The q columns carry the attention
+    scale, as in :class:`SwinBlockParams`."""
+
+    wq: torch.Tensor
+    wkv: torch.Tensor
+    wproj: torch.Tensor
+    w1: torch.Tensor
+    w2: torch.Tensor
+    bq: torch.Tensor
+    bkv: torch.Tensor
+    bproj: torch.Tensor
+    b1: torch.Tensor
+    b2: torch.Tensor
+    ln1: torch.Tensor
+    ln2: torch.Tensor
+    rpb: torch.Tensor
+    c: int
+    heads: int
+    hid: int
+
+    @property
+    def dims(self) -> dict:
+        return pair_f32_dims(self.c, self.heads, self.hid)
+
+    def unpack(self) -> dict:
+        """The block's (K, N) float32 matrices (``wqkv`` (C, 3C) with [q |
+        k | v] columns, ``wproj``, ``w1``, ``w2``) and biases this form
+        holds, and ``pads``: every padded entry, which must be zero."""
+        d = self.dims
+        c, h, hdp, grp, hid = self.c, self.heads, d["hdp"], d["grp"], \
+            self.hid
+        hd = c // h
+        wq = _frag_unpack(self.wq).reshape(-1, h, hdp)
+        # (kp, groups, k | v, grp, hdp) -> (kp, 2, heads, hdp)
+        wkv = _frag_unpack(self.wkv).reshape(-1, h // grp, 2, grp, hdp)
+        wkv = wkv.transpose(1, 2).reshape(-1, 2, h, hdp)
+        bkv = self.bkv.reshape(h // grp, 2, grp, hdp).transpose(0, 1)
+        bkv = bkv.reshape(2, h, hdp)
+        wp = _frag_unpack(self.wproj).reshape(h, hdp, -1)
+        w1, w2 = _frag_unpack(self.w1), _frag_unpack(self.w2)
+        qkv = torch.cat([wq[:c, None, :, :hd], wkv[:c, :, :, :hd]], dim=1)
+        bqkv = torch.cat([self.bq.reshape(1, h, hdp), bkv])[..., :hd]
+        pads = torch.cat([
+            wq[c:].flatten(), wq[..., hd:].flatten(), wkv[c:].flatten(),
+            wkv[..., hd:].flatten(), wp[:, hd:].flatten(),
+            wp[..., c:].flatten(), w1[c:].flatten(), w1[:, hid:].flatten(),
+            w2[hid:].flatten(), w2[:, c:].flatten(),
+            self.bq.reshape(h, hdp)[:, hd:].flatten(),
+            bkv[..., hd:].flatten(), self.bproj[c:], self.b1[hid:],
+            self.b2[c:]])
+        return dict(wqkv=qkv.reshape(c, 3 * c), bqkv=bqkv.reshape(3 * c),
+                    wproj=wp[:, :hd, :c].reshape(c, c), bproj=self.bproj[:c],
+                    w1=w1[:c, :hid], b1=self.b1[:hid], w2=w2[:hid, :c],
+                    b2=self.b2[:c], pads=pads)
+
+
+def swin_pair_f32_weights(p: SwinBlockParams,
+                          num_heads: int) -> SwinPairF32Form:
+    """K8's float32 form of one block's weights (:class:`SwinPairF32Form`),
+    from its float32 :class:`SwinBlockParams`: the same values moved,
+    zero-padded and split (``wh + wl`` is the weight bit for bit)."""
     c = p.ln1_w.shape[0]
-    hd = c // num_heads
-    wq = _dense(p.wqkv, c, 3 * c).reshape(c, 3, num_heads, hd)
     hid = p.b1.shape[0]
-    tensors = (p.ln1_w, p.ln1_b,
-               wq.permute(0, 2, 1, 3).reshape(c, -1).contiguous(),
-               p.bqkv.reshape(3, num_heads, hd).permute(1, 0, 2)
-               .reshape(-1).contiguous(),
-               _dense(p.wproj, c, c).contiguous(), p.bproj, p.rpb, p.ln2_w,
-               p.ln2_b, _dense(p.w1, c, hid).contiguous(), p.b1,
-               _dense(p.w2, hid, c).contiguous(), p.b2)
-    dims = dict(hdp=hd, kp=c, hid=hid, hidp=hid, ldqkv=3 * c, ldproj=c,
-                ldw1=hid, ldw2=c, cn=c)
-    return tensors, dims
+    h, hd = num_heads, c // num_heads
+    d = pair_f32_dims(c, h, hid)
+    hdp, grp, kp, nq = d["hdp"], d["grp"], d["kp"], d["nq"]
+    wqkv = _dense(p.wqkv, c, 3 * c).reshape(c, 3, h, hd)
+    wqkv = F.pad(wqkv, (0, hdp - hd))  # (c, 3, h, hdp)
+    bqkv = F.pad(p.bqkv.float().reshape(3, h, hd), (0, hdp - hd))
+    # k and v a head group at a time: (c, groups, k | v, grp, hdp)
+    wkv = wqkv[:, 1:].reshape(c, 2, h // grp, grp, hdp).transpose(1, 2)
+    bkv = bqkv[1:].reshape(2, h // grp, grp, hdp).transpose(0, 1)
+    wproj = F.pad(_dense(p.wproj, c, c).reshape(h, hd, c),
+                  (0, 0, 0, hdp - hd)).reshape(nq, c)
+
+    def vec(v, n):
+        return F.pad(v.float(), (0, n - v.shape[0])).contiguous()
+
+    return SwinPairF32Form(
+        wq=_frag_pack(wqkv[:, 0].reshape(c, nq), kp, nq),
+        wkv=_frag_pack(wkv.reshape(c, 2 * nq), kp, 2 * nq),
+        wproj=_frag_pack(wproj, nq, kp),
+        w1=_frag_pack(_dense(p.w1, c, hid), kp, d["hidp"]),
+        w2=_frag_pack(_dense(p.w2, hid, c), d["hidp"], kp),
+        bq=bqkv[0].reshape(-1).contiguous(),
+        bkv=bkv.reshape(-1).contiguous(),
+        bproj=vec(p.bproj, kp), b1=vec(p.b1, d["hidp"]), b2=vec(p.b2, kp),
+        ln1=torch.stack([p.ln1_w, p.ln1_b]).float().contiguous(),
+        ln2=torch.stack([p.ln2_w, p.ln2_b]).float().contiguous(),
+        rpb=p.rpb.float().contiguous(), c=c, heads=h, hid=hid)
 
 
 # The bf16 kernel's instantiations (csrc/swin_pair.cu: IRK_PAIR_SHAPES):
@@ -1504,6 +1636,11 @@ def _pair_cached(p: SwinBlockParams, num_heads: int, make):
     return val
 
 
+_PAIR_PTRS = ctypes.c_void_p * 13
+_PAIR_ARGS = [ctypes.c_void_p, ctypes.c_void_p, _PAIR_PTRS, _PAIR_PTRS,
+              ctypes.c_void_p]
+
+
 def _swin_pair_cuda(x, pa, pb, mask_bank, num_heads, ws, dc1):
     b, h, w, c = x.shape
     if ws % 2 or ws * ws > 64:
@@ -1517,54 +1654,42 @@ def _swin_pair_cuda(x, pa, pb, mask_bank, num_heads, ws, dc1):
     _check_f32(mask_bank, (2, 2, ws * ws, ws * ws), "mask_bank")
     x = x.contiguous()
     out = torch.empty_like(x)
-    lib = kernels.load("swin_pair")
-    ptrs = ctypes.c_void_p * 13
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    if x.dtype == torch.bfloat16:
-        fa, fb = (_pair_cached(p, num_heads, swin_pair_weights)
-                  for p in (pa, pb))
-        d = fa.dims
+    bf = x.dtype == torch.bfloat16
+    fa, fb = (_pair_cached(p, num_heads, swin_pair_weights if bf
+                           else swin_pair_f32_weights) for p in (pa, pb))
+    d = fa.dims
+    if fb.dims != d:
+        raise ValueError("the pair's blocks differ in their widths")
+    if bf:
         shape = (d["nq"] // 2, d["nc"] // 2, d["nh"] // 4, d["hdp"] // 16)
-        if fb.dims != d or c > 256 or shape not in PAIR_SHAPES:
+        if c > 256 or shape not in PAIR_SHAPES:
             raise ValueError(
                 f"bf16 swin_pair_block is built for (C, heads) (180, 6), "
                 f"(48, 2), (60, 6) (csrc/swin_pair.cu: IRK_PAIR_SHAPES), "
                 f"not ({c}, {num_heads}) with hidden {fa.hid}, {fb.hid}")
-        ta, tb = fa[:13], fb[:13]
-    else:
-        (ta, da), (tb, db) = (_pair_cached(p, num_heads, _pair_form)
-                              for p in (pa, pb))
-        if da != db:
-            raise ValueError("the pair's blocks differ in their widths")
+    ta, tb = fa[:13], fb[:13]
     for t in ta + tb:
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("swin_pair_block operands on different devices")
-    if x.dtype == torch.bfloat16:
+    zero = bank_zero_flags(mask_bank) if mask_bank is not None else 0
+    head = (x.data_ptr(), out.data_ptr(),
+            _PAIR_PTRS(*(t.data_ptr() for t in ta)),
+            _PAIR_PTRS(*(t.data_ptr() for t in tb)), _ptr(mask_bank), zero,
+            b, h, w, c, num_heads, d["hdp"], ws, dc1)
+    if bf:
         nwin = b * (h // ws) * (w // ws)
-        fn = lib.swin_pair_bf16
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ptrs, ptrs,
-                       ctypes.c_void_p] + [ctypes.c_int] * 15 \
-            + [ctypes.c_void_p]
-        err = fn(x.data_ptr(), out.data_ptr(),
-                 ptrs(*(t.data_ptr() for t in ta)),
-                 ptrs(*(t.data_ptr() for t in tb)), _ptr(mask_bank),
-                 bank_zero_flags(mask_bank) if mask_bank is not None else 0,
-                 b, h, w, c, num_heads, d["hdp"], ws, dc1, d["kp"], d["kq"],
-                 d["nq"], d["nc"], d["nh"],
-                 min(nwin, kernels.sm_count(x.device)), stream)
+        fn = kernels.function("swin_pair", "swin_pair_bf16",
+                              _PAIR_ARGS + [ctypes.c_int] * 15
+                              + [ctypes.c_void_p])
+        err = fn(*head, d["kp"], d["kq"], d["nq"], d["nc"], d["nh"],
+                 min(nwin, kernels.sm_count(x.device)), kernels.stream(x))
     else:
-        fn = lib.swin_pair
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ptrs, ptrs,
-                       ctypes.c_void_p] + [ctypes.c_int] * 16 \
-            + [ctypes.c_void_p]
-        err = fn(x.data_ptr(), out.data_ptr(),
-                 ptrs(*(t.data_ptr() for t in ta)),
-                 ptrs(*(t.data_ptr() for t in tb)), _ptr(mask_bank), b, h, w,
-                 c, num_heads, da["hdp"], da["kp"], da["hid"], da["hidp"],
-                 da["ldqkv"], da["ldproj"], da["ldw1"], da["ldw2"], da["cn"],
-                 ws, dc1, stream)
+        fn = kernels.function("swin_pair", "swin_pair",
+                              _PAIR_ARGS + [ctypes.c_int] * 15
+                              + [ctypes.c_void_p])
+        err = fn(*head, d["kp"], d["nq"], d["grp"], d["hc"], d["hidp"],
+                 int(c % 4 == 0 and x.data_ptr() % 16 == 0),
+                 kernels.stream(x))
     kernels.check(err, "swin_pair_block")
     swin_pair_block.launches += 1
     return out
@@ -1590,12 +1715,11 @@ def pair_gemm_tile(a: torch.Tensor, w: torch.Tensor, n0: int,
     a = a.contiguous()
     wp = _core_matrices(w.to(torch.bfloat16), 1, n).contiguous()
     out = torch.empty((64, nw), dtype=torch.float32, device=a.device)
-    fn = kernels.load("swin_pair").pair_gemm_tile
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
+    fn = kernels.function("swin_pair", "pair_gemm_tile",
+                          [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                          + [ctypes.c_void_p])
     err = fn(a.data_ptr(), wp.data_ptr(), out.data_ptr(), k, n, n0, nw,
-             torch.cuda.current_stream(a.device).cuda_stream)
+             kernels.stream(a))
     kernels.check(err, "pair_gemm_tile")
     return out
 
@@ -1615,10 +1739,11 @@ def swin_pair_block(x, pa: SwinBlockParams, pb: SwinBlockParams, mask_bank,
     ``dc1`` not 0 or +ws//2, or H, W not multiples of ``ws``.
 
     A CUDA tensor runs one K8 launch (``csrc/swin_pair.cu``; N <= 64, ws
-    even; in bf16 the (C, heads) of ``PAIR_SHAPES``) or raises; a CPU
+    even, C even; in bf16 the (C, heads) of ``PAIR_SHAPES``, in float32
+    any (C, heads) whose plan fits, :func:`pair_f32_dims`) or raises; a CPU
     tensor runs :func:`swin_pair_block_plain`. The kernel's weight forms
-    (:func:`swin_pair_weights` in bf16, :func:`_pair_form` in f32) are made
-    at a block's first launch and kept on its qkv weight.
+    (:func:`swin_pair_weights` in bf16, :func:`swin_pair_f32_weights` in
+    f32) are made at a block's first launch and kept on its qkv weight.
     """
     forbid_grad("swin_pair_block", x, pa, pb, mask_bank)
     _check_pair(x, num_heads, ws, dc1)

@@ -21,11 +21,13 @@ matches the source is skipped with a message. Needs one card and nvcc; each
 line names the card and its power limit first.
 
 The lab kernels K7 (``conv3x3_pair``) and K8 (``swin_pair_block``) take the
-same two modes, bf16 at the lab path's shapes (``chip_smoke.HEAD_SHAPES``
-without an activation; the SwinIR-M band, ``dc1`` 0 and +4):
+same two modes at the lab path's shapes (``chip_smoke.HEAD_SHAPES`` without
+an activation; the SwinIR-M band, ``dc1`` 0 and +4), in bf16 (k7, k8) or
+float32 (k7f, k8f: the split-TF32 kernels):
 
     python3 profile_k5.py --kernel k8            # ms, the two-launch rival
     python3 profile_k5.py --kernel k7 --ablate   # one phase out at a time
+    python3 profile_k5.py --kernel k8f --ablate  # float32 K8, the same
 
 ``--request`` serves the 1280x720 Restormer request in float32 through
 ``Engine(device="cuda")`` as ``cli.py`` builds it (``chip_smoke.py``'s
@@ -217,28 +219,77 @@ K5F_VARIANTS = {
                "hpr);", "      {}")],
 }
 
+# the float32 K7 (conv3x3_pair_tf32_kernel): conv1's products, conv2's,
+# the halo's staging, the activations' split
+K7F_VARIANTS = {
+    "base": [],
+    "no_conv1": [("          wgmma_split<T_MC>(acc, hi[tap], lo[tap],",
+                  "          if (false) wgmma_split<T_MC>(acc, hi[tap], "
+                  "lo[tap],")],
+    "no_conv2": [("            wgmma_split<NO>(acc, hi[tap], lo[tap],",
+                  "            if (false) wgmma_split<NO>(acc, hi[tap], "
+                  "lo[tap],")],
+    "no_halo": [("    if (i >= nci) return;\n    unsigned char* hs",
+                 "    return;\n    unsigned char* hs")],
+    "no_split": [("  for (int i = 0; i < 4; ++i) split1(__uint_as_float(raw[i]), "
+                  "hi[i], lo[i]);", "  for (int i = 0; i < 4; ++i) hi[i] = "
+                  "lo[i] = raw[i];")],
+}
+# the float32 K8 (swin_pair_tf32_kernel): every product pass's mma (their
+# loads and splits stay), the attention tasks, A's k / v passes on its four
+# windows, the MLP's passes, the A windows' gathers, the LayerNorms
+K8F_VARIANTS = {
+    "base": [],
+    "no_gemm_mma": [("          mma_tf32(acc[rb][j], al[rb], bw[j].x, bw[j].y);"
+                     "\n          mma_tf32(acc[rb][j], ah[rb], bw[j].z, "
+                     "bw[j].w);\n          mma_tf32(acc[rb][j], ah[rb], "
+                     "bw[j].x, bw[j].y);", "          acc[rb][j][0] += "
+                     "__uint_as_float(al[rb][0] ^ ah[rb][1] ^ bw[j].x);")],
+    "no_attn": [("          attn_tf32(Q, g.ldq, h * hdp, qrow, brow, R, "
+                 "g.ldr, hl * hdp,", "          if (false) attn_tf32(Q, "
+                 "g.ldq, h * hdp, qrow, brow, R, g.ldr, hl * hdp,")],
+    "no_a_kv": [("        gemm64(Y, g.ldx, g.kp, w.wkv, g.kp / 8, 0, gi * gw / 8,",
+                 "        if (blk) gemm64(Y, g.ldx, g.kp, w.wkv, g.kp / 8, 0, "
+                 "gi * gw / 8,")],
+    "no_mlp": [("      gemm64(Y, g.ldx, g.kp, w.w1, g.kp / 8, 0, h0 / 8,",
+                "      if (false) gemm64(Y, g.ldx, g.kp, w.w1, g.kp / 8, 0, "
+                "h0 / 8,"),
+               ("      gemm64(Hc, g.ldq, g.hc, w.w2, g.hidp / 8, h0 / 8, 0,",
+                "      if (false) gemm64(Hc, g.ldq, g.hc, w.w2, g.hidp / 8, "
+                "h0 / 8, 0,")],
+    "no_a_gather": [("        gather_f32(Y, g.ldx, n, C, g.vec, [&](int t) {",
+                     "        if (false) gather_f32(Y, g.ldx, n, C, g.vec, "
+                     "[&](int t) {")],
+    "no_ln": [("    const float* p = src(r);\n    float* yr = Y + r * ld;\n"
+               "    if (p == nullptr) {", "    const float* p = src(r);\n"
+               "    float* yr = Y + r * ld;\n    if (true) {")],
+}
+
 # per kernel: (source, variants, the ptxas lines to print)
 KERNELS = {"k5": ("restormer_fused", "K5_VARIANTS", "mdta_mma"),
            "k4f": ("restormer_fused", "K4F_VARIANTS", "gdfn_tf32"),
            "k5f": ("restormer_fused", "K5F_VARIANTS", "mdta_tf32"),
            "k7": ("conv3x3_pair", "K7_VARIANTS", "conv3x3_pair"),
-           "k8": ("swin_pair", "K8_VARIANTS", "swin_pair")}
+           "k8": ("swin_pair", "K8_VARIANTS", "swin_pair"),
+           "k7f": ("conv3x3_pair", "K7F_VARIANTS", "conv3x3_pair_tf32"),
+           "k8f": ("swin_pair", "K8F_VARIANTS", "swin_pair_tf32")}
 
 
 def _lab_cases(torch, kernel: str):
     """(name, kernel call, plain call, f32 plain call, two-launch rival) at
-    the lab path's bf16 shapes, chip_smoke's weight distributions."""
+    the lab path's shapes, chip_smoke's weight distributions, in bf16 (k7,
+    k8) or float32 (k7f, k8f)."""
     conv = importlib.import_module(f"{PKG}.ops.conv3x3")
     sb = importlib.import_module(f"{PKG}.ops.swin_block")
     wa_ = importlib.import_module(f"{PKG}.ops.window_attention")
     gen = torch.Generator().manual_seed(19)
     dev = torch.device("cuda")
-    bf = torch.bfloat16
+    bf = torch.float32 if kernel.endswith("f") else torch.bfloat16
 
     def randn(*s, scale=1.0):
         return (torch.randn(*s, generator=gen) * scale).to(dev)
 
-    if kernel == "k7":
+    if kernel.startswith("k7"):
         cin, cmid, cout = 64, 256, 12
         w1 = randn(3, 3, cin, cmid, scale=(9 * cin) ** -0.5)
         b1 = randn(cmid, scale=0.1)
@@ -296,9 +347,10 @@ def _lab_cases(torch, kernel: str):
 
 
 def lab_times(kernel: str, reps: int = 5) -> None:
-    """K7 or K8 in bf16: ms, the two-launch rival's ms, repeatable bits,
-    and the RMS and largest error against the plain version beside the
-    bf16 rounding control."""
+    """K7 or K8: ms, the two-launch rival's ms, repeatable bits, and the
+    RMS and largest error against the plain version beside the bf16
+    rounding control (in float32 the control is 0, and ``max_rel`` the
+    largest error over the plain version's largest magnitude)."""
     import torch
     card = chip_smoke.nvidia_smi_line()
     kernels.load(KERNELS[kernel][0])
@@ -315,7 +367,8 @@ def lab_times(kernel: str, reps: int = 5) -> None:
                    repeatable=bool(torch.equal(got, again)),
                    rms=float(d.square().mean().sqrt()),
                    control_rms=float(dc.square().mean().sqrt()),
-                   max=float(d.abs().max()), control_max=float(dc.abs().max()))
+                   max=float(d.abs().max()), control_max=float(dc.abs().max()),
+                   max_rel=float(d.abs().max() / want.abs().max()))
         print(json.dumps(row), flush=True)
         del got, again, want, r32, d, dc
         torch.cuda.empty_cache()

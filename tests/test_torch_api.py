@@ -143,6 +143,27 @@ def test_corrupt_upload_rejected(server):
     assert set((srv.app.work_root / "uploads").iterdir()) == before
 
 
+def test_jpeg_upload_is_served(server, input_png):
+    """A JPEG upload of the input is accepted at the door, kept as it was
+    sent, and served: a 200 with a plan, and /download returns the final
+    PNG byte for byte."""
+    import cv2
+
+    srv, base = server
+    img = tio.load_image(input_png)
+    jpg = cv2.imencode(".jpg", np.ascontiguousarray(img[..., ::-1]),
+                       [cv2.IMWRITE_JPEG_QUALITY, 95])[1].tobytes()
+    code, out = _post(f"{base}/process", *_multipart("up.jpg", jpg))
+    assert code == 200 and out["status"] == "success", out
+    assert out["initial_plan"]
+    kept = [p for p in (srv.app.work_root / "uploads").iterdir()
+            if p.name.endswith("_up.jpg")]
+    assert len(kept) == 1 and kept[0].read_bytes() == jpg
+    code, png = _get(f"{base}/download/{out['task_id']}")
+    assert code == 200 and png == Path(out["output_path"]).read_bytes()
+    assert png[:8] == b"\x89PNG\r\n\x1a\n"
+
+
 def test_process_json_multipart_and_download(server, input_png):
     """JSON image_path, then the same bytes uploaded: both succeed with the
     same plan, and /download returns the final PNG byte for byte."""

@@ -678,6 +678,148 @@ def test_swin_pair_form_unpacks_to_the_weights(c, heads):
     assert torch.equal(f.rpb, p.rpb)
 
 
+# ---------------------------------------------------------------------------
+# K7 and K8: the float32 split-TF32 forms and plans
+
+
+@pytest.mark.parametrize("cin,cmid,cout", [(64, 256, 12), (5, 7, 4),
+                                           (32, 48, 32), (16, 130, 20),
+                                           (64, 256, 3)])
+def test_conv3x3_pair_f32_form_splits_its_weights(cin, cmid, cout):
+    """K7's float32 form: both weights in K3's float32 packed order, Cin to
+    8, Cmid to 64, Cout to 8, 16 or 32, with two parts, wh = rna_tf32(w)
+    and wl = w - wh (wh + wl == w bit for bit), every padded entry zero."""
+    rng = np.random.default_rng(cin * cmid + cout)
+    w1, b1 = _rand(rng, 3, 3, cin, cmid), _rand(rng, cmid)
+    w2, b2 = _rand(rng, 3, 3, cmid, cout), _rand(rng, cout)
+    k = tconv.conv3x3_pair_weights(w1, b1, w2, b2, torch.float32)
+    cmp, cip = -(-cmid // 64) * 64, -(-cin // 8) * 8
+    cop = tconv.pair_f32_coutp(cout)
+    assert k.w1.shape == (cmp // 64, cip // 8, 2, 9, 2, 8, 8, 4)
+    assert k.w2.shape == (1, cmp // 8, 2, 9, 2, cop // 8, 8, 4)
+    for form, raw in ((k.w1, w1), (k.w2, w2)):
+        wh, wl = (tconv._unpack_taps(form[:, :, i]) for i in range(2))
+        assert torch.equal(wh, tkern.tf32_round(wh))
+        full = wh + wl
+        assert torch.equal(full[:, :, :raw.shape[2], :raw.shape[3]], raw)
+        assert torch.equal(wh[:, :, :raw.shape[2], :raw.shape[3]],
+                           tkern.tf32_round(raw))
+        full[:, :, :raw.shape[2], :raw.shape[3]] = 0
+        assert not full.any()
+    a1, c1, a2, c2 = k.hwio
+    assert torch.equal(a1, w1) and torch.equal(a2, w2)
+    assert torch.equal(c1, b1) and torch.equal(c2, b2)
+    assert k.b1[cmid:].abs().sum() == 0 and k.b2[cout:].abs().sum() == 0
+
+
+@pytest.mark.parametrize("b,h,w", [(1, 1104, 3840), (1, 24, 3840),
+                                   (2, 16, 200), (2, 24, 128)])
+def test_conv3x3_pair_f32_plan_fits_and_covers_the_canvas(b, h, w):
+    """K7's float32 launch at the lab's head shapes (the x4 head's second
+    stage and its ring strip) and the card tests' ragged ones, by the
+    kernel's own sizes and block decode (csrc/conv3x3_pair.cu: T_SMEM, the
+    tile of blockIdx.x, columns fastest): the block's shared memory fits
+    the card, and the 6 x 30 tiles cover every output pixel exactly once."""
+    th, tw = tconv.PAIR_F32_ROWS, tconv.PAIR_F32_COLS
+    halo = (th + 4) * (tw + 4)
+    # barriers and the halo's sources, u (8 groups of the 8 x 32 ring's
+    # 8-channel rows), three slots (a halo stage, 36 KB of weights)
+    smem = (128 + -(-halo * 8 // 128) * 128 + 8 * (th + 2) * (tw + 2) * 32
+            + 3 * (halo * 32 + 2 * 9 * 8 * tconv.PAIR_CHUNK * 4))
+    assert smem == 211712 <= tkern.SMEM_LIMIT
+    nty, ntx = -(-h // th), -(-w // tw)
+    hits = torch.zeros(b, h, w, dtype=torch.int32)
+    for bid in range(b * nty * ntx):
+        y0, x0 = bid // ntx % nty * th, bid % ntx * tw
+        hits[bid // (ntx * nty), y0:y0 + th, x0:x0 + tw] += 1
+    assert bool((hits == 1).all())
+
+
+def _pair_block_params(rng, c, heads, dtype, ws=8, hid=None):
+    hid = hid or 2 * c
+    w = dict(norm1_w=_rand(rng, c), norm1_b=_rand(rng, c),
+             qkv_w=_rand(rng, 3 * c, c), qkv_b=_rand(rng, 3 * c),
+             proj_w=_rand(rng, c, c), proj_b=_rand(rng, c),
+             rpb_table=_rand(rng, (2 * ws - 1) ** 2, heads),
+             norm2_w=_rand(rng, c), norm2_b=_rand(rng, c),
+             fc1_w=_rand(rng, hid, c), fc1_b=_rand(rng, hid),
+             fc2_w=_rand(rng, c, hid), fc2_b=_rand(rng, c))
+    return tsb.prepare_swin_params(**w, num_heads=heads, ws=ws, dtype=dtype)
+
+
+@pytest.mark.parametrize("c,heads", [(180, 6), (48, 2), (60, 6)])
+def test_swin_pair_f32_form_splits_and_unpacks_to_the_weights(c, heads):
+    """K8's float32 form (swin_pair_f32_weights) at every (C, heads) of
+    PAIR_SHAPES: each product's weight packed as mma.sync fragments of its
+    two TF32 parts (wh = rna_tf32(w), wh + wl == w bit for bit), unpacked
+    exactly the block's matrices and biases (the scale in q), every padded
+    entry zero."""
+    rng = np.random.default_rng(c * heads)
+    p = _pair_block_params(rng, c, heads, torch.float32)
+    f = tsb.swin_pair_f32_weights(p, heads)
+    for packed in f[:5]:
+        assert packed.dim() == 4 and packed.shape[2:] == (32, 4)
+        wh = tsb._frag_unpack(torch.stack(
+            [packed[..., 0], packed[..., 1], torch.zeros_like(
+                packed[..., 0]), torch.zeros_like(packed[..., 0])], -1))
+        assert torch.equal(wh, tkern.tf32_round(wh))
+        assert torch.equal(wh, tkern.tf32_round(tsb._frag_unpack(packed)))
+    u = f.unpack()
+    hid = 2 * c
+    assert torch.equal(u["wqkv"], tsb._dense(p.wqkv, c, 3 * c))
+    assert torch.equal(u["bqkv"], p.bqkv)
+    assert torch.equal(u["wproj"], tsb._dense(p.wproj, c, c))
+    assert torch.equal(u["bproj"], p.bproj)
+    assert torch.equal(u["w1"], tsb._dense(p.w1, c, hid))
+    assert torch.equal(u["b1"], p.b1)
+    assert torch.equal(u["w2"], tsb._dense(p.w2, hid, c))
+    assert torch.equal(u["b2"], p.b2)
+    assert u["pads"].abs().sum() == 0
+    assert torch.equal(f.ln2, torch.stack([p.ln2_w, p.ln2_b]))
+    assert torch.equal(f.rpb, p.rpb)
+
+
+@pytest.mark.parametrize("c,heads", [(180, 6), (48, 2), (60, 6), (96, 4),
+                                     (192, 6)])
+def test_swin_pair_f32_plan_fits_the_card(c, heads):
+    """K8's float32 plan (pair_f32_dims) at PAIR_SHAPES' (C, heads) and two
+    more: the head group is the most heads whose k | v fit beside X, Y and
+    q, the block's shared memory fits the card (one block an SM), and
+    fc1's chunk takes q's place. C 180 (SwinIR-M's band, 69 x 240 windows:
+    one block each) takes groups of 3 heads."""
+    d = tsb.pair_f32_dims(c, heads, 2 * c)
+    assert d["smem"] <= tkern.SMEM_LIMIT
+    assert heads % d["grp"] == 0 and d["hc"] == d["nq"]
+    assert d["hidp"] % d["hc"] == 0 and d["hidp"] >= 2 * c
+    assert d["kp"] % 8 == 0 and d["hdp"] % 8 == 0
+    for g in range(d["grp"] + 1, heads + 1):  # no larger group fits
+        if heads % g == 0:
+            assert 256 * (2 * (d["kp"] + 4) + d["nq"] + 4 + max(
+                2 * g * d["hdp"], d["kp"]) + 4) > tkern.SMEM_LIMIT
+    if (c, heads) == (180, 6):
+        assert d["grp"] == 3 and d["smem"] == 196608
+
+
+@pytest.mark.parametrize("c,heads", [(256, 8), (240, 2)])
+def test_swin_pair_f32_plan_refuses_what_cannot_fit(c, heads):
+    """Four float32 regions of 64 rows at C 256 (the widest bf16 K8 takes)
+    or one head's k | v at C 240 with 2 heads exceed the card's 227 KB:
+    the plan raises, and so does the wrapper before any launch."""
+    with pytest.raises(ValueError, match="does not fit"):
+        tsb.pair_f32_dims(c, heads, 2 * c)
+
+
+def test_swin_pair_f32_form_is_made_once_per_weight():
+    """The float32 form, like the bf16 one, is kept on the block's qkv
+    weight and remade after an in-place edit."""
+    p = _pair_block_params(np.random.default_rng(4), 48, 2, torch.float32)
+    f = tsb._pair_cached(p, 2, tsb.swin_pair_f32_weights)
+    assert tsb._pair_cached(p, 2, tsb.swin_pair_f32_weights) is f
+    p.b2.add_(1.0)
+    g = tsb._pair_cached(p, 2, tsb.swin_pair_f32_weights)
+    assert g is not f and torch.equal(g.b2[:48], p.b2)
+
+
 def test_swin_pair_form_is_made_once_per_weight():
     """The form is kept on the block's qkv weight and remade after an
     in-place edit of any of its tensors."""

@@ -262,20 +262,30 @@ def test_swin_pair_block_is_two_swin_blocks_and_checks_its_input():
 
 def test_pair_form_is_the_block_head_major():
     """K8's head-major weight forms hold the block's values, per head: the
-    f32 form's [q | k | v] columns and proj's rows; the bf16 form's
-    (swin_pair_weights) q of each head, then k and v of every head, each
-    zero-padded to 16 columns, and proj's rows to match."""
+    f32 form's (swin_pair_f32_weights) q of each head, then k and v a head
+    group at a time, each zero-padded to 8 columns, and proj's rows to
+    match; the bf16 form's (swin_pair_weights) q of each head, then k and
+    v of every head, each zero-padded to 16 columns, and proj's rows to
+    match."""
     rng = np.random.default_rng(6)
     wts = _block_weights(rng)
     hd = C // HEADS
     p = _port_params(wts, torch.float32)
-    ts, d = tsb._pair_form(p, HEADS)
-    assert d["hdp"] == hd
+    f = tsb.swin_pair_f32_weights(p, HEADS)
+    d = f.dims
+    hdp, grp = d["hdp"], d["grp"]
+    assert hdp == 8 and HEADS % grp == 0
     dense = tsb._dense(p.wqkv, C, 3 * C).reshape(C, 3, HEADS, hd)
-    assert torch.equal(ts[2].reshape(C, HEADS, 3, hd),
-                       dense.permute(0, 2, 1, 3))
-    assert torch.equal(ts[4], tsb._dense(p.wproj, C, C))
-    assert ts[11].shape[0] == ts[9].shape[1]
+    wq = tsb._frag_unpack(f.wq).reshape(-1, HEADS, hdp)
+    assert torch.equal(wq[:C, :, :hd], dense[:, 0])
+    wkv = tsb._frag_unpack(f.wkv).reshape(-1, HEADS // grp, 2, grp, hdp)
+    assert torch.equal(wkv[:C, ..., :hd], dense[:, 1:].reshape(
+        C, 2, HEADS // grp, grp, hd).transpose(1, 2))
+    assert not wkv[..., hd:].any() and not wkv[C:].any()
+    wp = tsb._frag_unpack(f.wproj).reshape(HEADS, hdp, -1)
+    assert torch.equal(wp[:, :hd, :C], tsb._dense(p.wproj, C, C)
+                       .reshape(HEADS, hd, C))
+    assert not wp[:, hd:].any()
     p = _port_params(wts, torch.bfloat16)
     f = tsb.swin_pair_weights(p, HEADS)
     d = f.dims

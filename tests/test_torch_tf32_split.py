@@ -25,7 +25,19 @@ zero, the depthwise taps in float32; K4's erf gate and ``project_out`` a
 chunk of 32 hidden channels at a time, each chunk's partial added in
 float32 (hid 63: a ragged chunk), then the bias and the residual; K5's
 per-head gram in split TF32 over runs of 256 pixels added in float32, the
-sums of squares of the float32 q and k, and the port's plain epilogue."""
+sums of squares of the float32 q and k, and the port's plain epilogue.
+
+K7 (conv3x3_pair) and K8 (swin_pair_block) split their activations the
+same way, and are emulated whole in their kernels' order against
+``conv3x3_pair_pallas`` and ``swin_pair_strip_pallas`` in interpret mode:
+K7's conv1 a 64-channel Cmid chunk at a time, each 8-input-channel stage's
+partial added in float32, conv2's partials a stage of 64 / NO 8-channel
+chunks (NO: Cout padded to 8, 16 or 32) added in float32 across Cmid; K8's
+blocks with every product (q, k, v, q k^T, p v, proj, fc1, fc2) split, k,
+v and p split as the attention reads them, the fast numerics (base-2
+logits clamped at 86.56, a reciprocal normalization, tanh-GELU), and fc2 a
+chunk of nq hidden channels at a time, each partial added onto x1 in
+float32."""
 
 import importlib
 
@@ -35,7 +47,12 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from image_restoration_agent_tpu.ops.conv3x3 import conv3x3_pallas
+from image_restoration_agent_tpu.ops.conv3x3 import (conv3x3_pair_pallas,
+                                                     conv3x3_pallas)
+from image_restoration_agent_tpu.ops.pallas_attention import (
+    swin_pair_strip_pallas)
+from image_restoration_agent_tpu.ops.window_attention import (
+    relative_position_index, shift_attention_mask)
 from image_restoration_agent_tpu.ops.restormer_fused import (
     gdfn_block_pallas, mdta_block_pallas)
 
@@ -357,5 +374,181 @@ def test_mdta_split_matches_pallas(heads, ln_kind, bias):
     e_split, e_plain, scale = _errors(want, lambda split: mdta_emulated(
         _t(x), tl, _t(wq), _t(bq), _t(wd), _t(bd), _t(wp), _t(bp),
         _t(temp), heads, split))
+    assert e_split <= 1e-4 * scale, (e_split, scale)
+    assert e_split * 10 < e_plain, (e_split, e_plain)
+
+
+# ---------------------------------------------------------------------------
+# K7 and K8 (the lab kernels)
+
+
+def _taps(z):
+    """(B, H, W, C) -> (pixels, 9, C): each pixel's 3 x 3 SAME window."""
+    bsz, h, wd, c = z.shape
+    zp = F.pad(z, (0, 0, 1, 1, 1, 1))
+    return torch.stack([zp[:, dy:dy + h, dx:dx + wd] for dy in range(3)
+                        for dx in range(3)], dim=3).reshape(-1, 9, c)
+
+
+def conv_pair_emulated(x, w1, b1, w2, b2, act=None, split=True):
+    """K7's float32 kernel (csrc/conv3x3_pair.cu: conv3x3_pair_tf32_kernel):
+    conv1 a 64-channel Cmid chunk at a time, each 8-input-channel stage's
+    9-tap partial added in float32; u = act(u + b1) with zero padding
+    around the canvas; conv2's partials a stage of 64 / NO 8-channel Cmid
+    chunks, added in float32 across Cmid; then + b2."""
+    bsz, h, wd, cin = x.shape
+    cmid, cout = w1.shape[3], w2.shape[3]
+    cx = _taps(x)
+    u = torch.zeros(cx.shape[0], cmid)
+    for m0 in range(0, cmid, tconv.PAIR_CHUNK):
+        m1 = min(m0 + tconv.PAIR_CHUNK, cmid)
+        for c0 in range(0, cin, 8):
+            kc = min(8, cin - c0)
+            u[:, m0:m1] = u[:, m0:m1] + split_product(
+                cx[:, :, c0:c0 + kc].reshape(-1, 9 * kc),
+                w1[:, :, c0:c0 + kc, m0:m1].reshape(9 * kc, m1 - m0), split,
+                a_trunc=True)
+    u = u + b1
+    if act is not None:
+        u = F.leaky_relu(u, _SLOPES[act])
+    cu = _taps(u.reshape(bsz, h, wd, cmid))
+    stage = 8 * (64 // tconv.pair_f32_coutp(cout))
+    y = torch.zeros(cu.shape[0], cout)
+    for c0 in range(0, cmid, stage):
+        kc = min(stage, cmid - c0)
+        y = y + split_product(cu[:, :, c0:c0 + kc].reshape(-1, 9 * kc),
+                              w2[:, :, c0:c0 + kc].reshape(9 * kc, cout),
+                              split, a_trunc=True)
+    return (y + b2).reshape(bsz, h, wd, cout)
+
+
+# (cin, cmid, cout): the head's widths cut down (Cout 12: NO 16), a ragged
+# Cmid chunk (80 = 64 + 16) and a ragged Cin stage (5), Cout 32 and 3
+_PAIR_CASES = {"head": (16, 64, 12), "ragged": (5, 80, 3),
+               "cout32": (24, 48, 32)}
+
+
+@pytest.mark.parametrize("act", [None, "lrelu"])
+@pytest.mark.parametrize("name", sorted(_PAIR_CASES))
+def test_conv3x3_pair_split_matches_pallas(name, act):
+    """K7's float32 kernel emulated against conv3x3_pair_pallas (f32,
+    interpret mode) at (2, 8, 128): within the f32 rule, and plain TF32
+    well outside the split's error; its weight form holds both parts."""
+    cin, cmid, cout = _PAIR_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)) + (act is None))
+    x = _np(rng, 2, 8, 128, cin)
+    w1 = _np(rng, 3, 3, cin, cmid, scale=(9 * cin) ** -0.5)
+    b1 = _np(rng, cmid, scale=0.1)
+    w2 = _np(rng, 3, 3, cmid, cout, scale=(9 * cmid) ** -0.5)
+    b2 = _np(rng, cout, scale=0.1)
+    want = np.asarray(conv3x3_pair_pallas(
+        *map(jnp.asarray, (x, w1, b1, w2, b2)), act_mid=act, interpret=True))
+    t = torch.from_numpy
+    e_split, e_plain, scale = _errors(want, lambda split: conv_pair_emulated(
+        t(x), t(w1), t(b1), t(w2), t(b2), act, split))
+    assert e_split <= 1e-4 * scale, (e_split, scale)
+    assert e_split * 10 < e_plain, (e_split, e_plain)
+    form = tconv.conv3x3_pair_weights(t(w1), t(b1), t(w2), t(b2),
+                                      torch.float32)
+    assert form.w1.shape[2] == form.w2.shape[2] == 2
+    assert all(torch.equal(a, t(b)) for a, b in zip(form.hwio,
+                                                    (w1, b1, w2, b2)))
+
+
+_PWS = 4
+_PN = _PWS * _PWS
+
+
+def _block_ref(rng, c, heads):
+    """Reference-layout (torch nn.Linear) weights of one block, hidden 2C,
+    and their JAX strip 13-tuple."""
+    def mat(o, i):
+        return _np(rng, o, i, scale=i ** -0.5)
+
+    w = dict(norm1_w=1 + _np(rng, c, scale=0.1), norm1_b=_np(rng, c,
+                                                               scale=0.1),
+             qkv_w=mat(3 * c, c), qkv_b=_np(rng, 3 * c, scale=0.1),
+             proj_w=mat(c, c), proj_b=_np(rng, c, scale=0.1),
+             rpb_table=_np(rng, (2 * _PWS - 1) ** 2, heads, scale=0.5),
+             norm2_w=1 + _np(rng, c, scale=0.1), norm2_b=_np(rng, c,
+                                                               scale=0.1),
+             fc1_w=mat(2 * c, c), fc1_b=_np(rng, 2 * c, scale=0.1),
+             fc2_w=mat(c, 2 * c), fc2_b=_np(rng, c, scale=0.1))
+    rpb = w["rpb_table"][relative_position_index(_PWS).reshape(-1)]
+    rpb = rpb.reshape(_PN, _PN, heads).transpose(2, 0, 1)
+    strip = (w["norm1_w"], w["norm1_b"], w["qkv_w"].T, w["qkv_b"],
+             w["proj_w"].T, w["proj_b"], rpb, w["norm2_w"], w["norm2_b"],
+             w["fc1_w"].T, w["fc1_b"], w["fc2_w"].T, w["fc2_b"])
+    return w, tuple(jnp.asarray(a) for a in strip)
+
+
+def swin_block_emulated(x, p, heads, dc, bank, hc, split=True):
+    """One block of K8's float32 kernel on the whole canvas (each window's
+    rows as the kernel computes them): LN1, q, k, v, q k^T, p v, proj, fc1
+    and fc2 in split TF32; fc2 a chunk of ``hc`` hidden channels at a time,
+    each partial added onto x1 in float32; the output in the rolled frame."""
+    b, h, w, c = x.shape
+    ws, hd = _PWS, c // heads
+
+    def prod(a, m):
+        return split_product(a, m, split, a_trunc=True)
+
+    def ln(v, g, bt):
+        mu = v.mean(-1, keepdim=True)
+        var = (v - mu).square().mean(-1, keepdim=True)
+        return (v - mu) * torch.rsqrt(var + 1e-5) * g + bt
+
+    xr = torch.roll(x, (dc, dc), dims=(1, 2)) if dc else x
+    xw = tsb.window_partition(xr, ws).reshape(-1, c)
+    qkv = prod(ln(xw, p.ln1_w, p.ln1_b), tsb._dense(p.wqkv, c, 3 * c)) \
+        + p.bqkv
+    q, k, v = qkv.reshape(-1, _PN, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    s = prod(q, k.transpose(-1, -2)) + p.rpb
+    if bank is not None:
+        s = s + tsb._bank_per_window(bank, h // ws, w // ws).repeat(
+            b, 1, 1)[:, None]
+    e = torch.exp2(torch.clamp(s * tsb.LOG2E, max=tsb.EXP2_CLAMP))
+    o = prod(e * (1.0 / e.sum(-1, keepdim=True)), v)
+    o = o.permute(0, 2, 1, 3).reshape(-1, c)
+    x1 = prod(o, tsb._dense(p.wproj, c, c)) + p.bproj + xw
+    y2 = ln(x1, p.ln2_w, p.ln2_b)
+    hid = p.b1.shape[0]
+    w1, w2 = tsb._dense(p.w1, c, hid), tsb._dense(p.w2, hid, c)
+    for h0 in range(0, hid, hc):
+        hdn = prod(y2, w1[:, h0:h0 + hc]) + p.b1[h0:h0 + hc]
+        hdn = 0.5 * hdn * (1.0 + torch.tanh(
+            0.7978845608 * (hdn + 0.044715 * hdn * hdn * hdn)))
+        x1 = x1 + prod(hdn, w2[h0:h0 + hc])
+    o = (x1 + p.b2).reshape(b, h // ws, w // ws, ws, ws, c)
+    return o.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
+
+
+@pytest.mark.parametrize("dc1", [0, _PWS // 2])
+@pytest.mark.parametrize("c,heads,hw", [(8, 2, (16, 16)), (12, 2, (16, 32))])
+def test_swin_pair_split_matches_pallas(c, heads, hw, dc1):
+    """K8's float32 kernel emulated (block A through roll(x, dc1), block B
+    at -ws/2 with the mask bank) against swin_pair_strip_pallas (f32,
+    interpret mode): within the f32 rule, and plain TF32 well outside the
+    split's error. C 12 takes two fc2 chunks (hid 24, chunk nq 16)."""
+    rng = np.random.default_rng(c * 10 + dc1)
+    x = _np(rng, 1, *hw, c)
+    (wa, ja), (wb, jb) = (_block_ref(rng, c, heads) for _ in range(2))
+    bank = shift_attention_mask(2 * _PWS, 2 * _PWS, _PWS, _PWS // 2)
+    bank = bank.reshape(2, 2, _PN, _PN).astype(np.float32)
+    want = np.asarray(swin_pair_strip_pallas(
+        jnp.asarray(x), ja, jb, jnp.asarray(bank), num_heads=heads, ws=_PWS,
+        dc1=dc1, interpret=True))
+    pa, pb = (tsb.prepare_swin_params(
+        **{k: torch.from_numpy(v) for k, v in w.items()}, num_heads=heads,
+        ws=_PWS, dtype=torch.float32) for w in (wa, wb))
+    hc = tsb.pair_f32_dims(c, heads, 2 * c)["hc"]
+    tb = torch.from_numpy(bank)
+
+    def emulate(split):
+        a = swin_block_emulated(torch.from_numpy(x), pa, heads, dc1, None,
+                                hc, split)
+        return swin_block_emulated(a, pb, heads, -_PWS // 2, tb, hc, split)
+
+    e_split, e_plain, scale = _errors(want, emulate)
     assert e_split <= 1e-4 * scale, (e_split, scale)
     assert e_split * 10 < e_plain, (e_split, e_plain)
